@@ -1,0 +1,38 @@
+// Shared helpers of the DIA kernels (dia_spmv.cu, dia_spmm.cu).
+//
+// Storage types and their accumulators, as in the Pallas kernels
+// (spmv_tpu/ops/pallas_kernels.py:225-229): float and double accumulate
+// in their own type, bfloat16 storage accumulates in float.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace spmv_tpu_torch {
+
+// Codes the Python wrappers pass for the storage type.
+enum DtypeCode : int { kFloat32 = 0, kFloat64 = 1, kBFloat16 = 2 };
+
+template <typename Acc, typename T>
+__device__ __forceinline__ Acc to_acc(T v) {
+  return static_cast<Acc>(v);
+}
+template <>
+__device__ __forceinline__ float to_acc<float, __nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T, typename Acc>
+__device__ __forceinline__ T from_acc(Acc v) {
+  return static_cast<T>(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16, float>(
+    float v) {
+  return __float2bfloat16(v);
+}
+
+}  // namespace spmv_tpu_torch

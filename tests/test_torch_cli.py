@@ -1,0 +1,173 @@
+"""The port's CLI against the JAX package's, on a tiny matrix.
+
+Each ported mode prints a document with the JAX CLI's top-level keys
+for the same flags; every unported mode exits 1 with "not yet ported";
+importing the port and running its CPU profile path never loads JAX
+(checked in a subprocess, since this test process already imported
+JAX); and the kernel build fails loudly, naming the command, when nvcc
+is missing or fails.
+"""
+
+import io
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from spmv_tpu.cli import main as jax_main
+from spmv_tpu_torch.cli import main
+from spmv_tpu_torch.ops import _build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MTX = """%%MatrixMarket matrix coordinate real general
+4 4 8
+1 1 4.0
+1 2 -1.0
+2 1 -1.0
+2 2 4.0
+2 3 -1.0
+3 2 -1.0
+3 3 4.0
+4 4 1.0
+"""
+
+
+@pytest.fixture(autouse=True)
+def _fp64():
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(old)
+
+
+@pytest.fixture
+def matrix_file(tmp_path):
+    p = tmp_path / "small.mtx"
+    p.write_text(MTX)
+    return str(p)
+
+
+def _run(fn, argv):
+    out = io.StringIO()
+    rc = fn(argv, out=out)
+    return rc, out.getvalue()
+
+
+MODES = {
+    "profile": ["--spmv-format", "dia", "--profile", "2"],
+    "spmm": ["--spmv-format", "dia", "--profile", "2", "--spmm", "3"],
+    "cg": ["--spmv-format", "dia", "--cg", "50", "--cg-tol", "1e-10"],
+    "cg_jacobi": ["--spmv-format", "dia", "--cg", "50", "--cg-tol",
+                  "1e-10", "--precondition", "jacobi"],
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES) + ["triad", "list_devices"])
+def test_report_keys_match_jax_cli(mode, matrix_file):
+    if mode == "triad":
+        argv = ["--triad", "1000", "--profile", "2"]
+    elif mode == "list_devices":
+        argv = ["--list-devices"]
+    else:
+        argv = ["--matrix", matrix_file] + MODES[mode]
+    rc, text = _run(main, argv)
+    assert rc == 0
+    doc = json.loads(text)
+    jrc, jtext = _run(jax_main, argv)
+    assert jrc == 0
+    want = json.loads(jtext)
+    if mode == "list_devices":
+        # the port names torch and nvcc where JAX names its own version
+        assert set(doc) - {"torch_version", "nvcc_version"} == \
+            set(want) - {"jax_version"}
+        assert doc["machine_models"][0]["hbm_gbps"] > 0
+        return
+    assert set(doc) == set(want)
+    for sub in ("cg", "achieved", "roofline", "device"):
+        if sub in want:
+            assert set(doc[sub]) == set(want[sub]), sub
+    if mode.startswith("cg"):
+        assert doc["cg"]["iterations"] == want["cg"]["iterations"]
+        assert doc["cg"]["solution_rms_error_vs_ones"] < 1e-8
+        assert doc["cg"]["device"] == "cpu"
+    else:
+        assert doc["op"] == want["op"]
+        assert doc["device"]["platform"] == "cpu"
+        assert doc["achieved"]["gflop_per_s"] > 0
+        assert doc["kernel"] == want["kernel"]
+
+
+@pytest.mark.parametrize("argv", [
+    [],                                               # simulation mode
+    ["--spmv-format", "csr", "--profile", "2"],
+    ["--spmv-format", "dia", "--cg", "10", "--nrhs", "2"],
+    ["--spmv-format", "dia", "--cg", "10", "--solver", "bicgstab"],
+    ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0"],
+    ["--spmv-format", "dia", "--eigs", "2"],
+    ["--spmv-format", "dia", "--scaling", "2"],
+    ["--spmv-format", "dia", "--profile", "2", "--traffic-split"],
+    ["--spmv-format", "dia", "--profile", "2", "--jax-profile", "d"],
+    ["--spmv-format", "dia", "--profile", "2", "--flush-caches"],
+    ["--spmv-format", "dia", "--profile", "2", "--reorder", "rcm"],
+], ids=lambda a: "_".join(a).replace("-", "") or "simulate")
+def test_unported_modes_exit_1(argv, matrix_file, capsys):
+    rc, text = _run(main, ["--matrix", matrix_file] + argv)
+    assert rc == 1 and text == ""
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_errors_exit_1(matrix_file, capsys):
+    assert _run(main, ["--profile", "2"])[0] == 1          # no matrix
+    assert _run(main, ["--triad", "64", "--cg", "10"])[0] == 1
+    assert _run(main, ["--triad", "64", "--profile", "2",
+                       "--spmm", "2"])[0] == 1
+    assert _run(main, ["--matrix", "/does/not/exist.mtx", "-s", "dia",
+                       "--profile", "2"])[0] == 1
+    assert "spmv-tpu-torch:" in capsys.readouterr().err
+
+
+def test_port_never_imports_jax(matrix_file):
+    code = textwrap.dedent(f"""
+        import io, json, sys
+        import spmv_tpu_torch
+        from spmv_tpu_torch.cli import main
+        out = io.StringIO()
+        rc = main(["--matrix", {matrix_file!r}, "-s", "dia",
+                   "--profile", "2"], out=out)
+        assert rc == 0, rc
+        assert json.loads(out.getvalue())["device"]["platform"] == "cpu"
+        assert "jax" not in sys.modules, "the port imported jax"
+        print("ok")
+    """)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build_library(build_dir=tmp_path / "build")
+
+
+def test_failed_compile_names_command_and_stderr(tmp_path, monkeypatch):
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(_build.KernelBuildError) as e:
+        _build.build_library(build_dir=tmp_path / "build")
+    msg = str(e.value)
+    assert "exit code 3" in msg and "no sm_90a here" in msg
+    assert str(fake) in msg and "sm_90a" in msg
+    assert not list((tmp_path / "build").glob("*.so"))
