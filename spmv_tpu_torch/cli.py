@@ -7,6 +7,8 @@ the modes ported so far, printing the same JSON documents:
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --profile 5 --spmm 4
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --cg 2000 \
         [--cg-tol 1e-6] [--precondition none|jacobi] [--recompute-residual K]
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --profile 10
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --cg 2000
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
@@ -14,10 +16,11 @@ Every other mode or flag prints ``spmv-tpu-torch: ... not yet ported``
 and exits 1.  The device is the first CUDA device when one is present,
 else the CPU (for the tests).
 
-``--cg`` on a CUDA device runs the kernel loop with K1's fused p.Ap dot
-(``dia_conjugate_gradient``'s default, as in the JAX CLI), so both CLIs
-run the same algorithm.  On an H100 the unfused loop (a separate
-``torch.dot``) measured faster; ``python -m
+``--cg`` on a WELL-CW matrix runs the generic (P)CG over ``spmv``, as
+the JAX CLI does.  On a DIA matrix and a CUDA device it runs the kernel
+loop with K1's fused p.Ap dot (``dia_conjugate_gradient``'s default, as
+in the JAX CLI), so both CLIs run the same algorithm.  On an H100 the
+unfused loop (a separate ``torch.dot``) measured faster; ``python -m
 spmv_tpu_torch.profile.cg_breakdown`` times both, and PERF.md keeps the
 numbers until a kernel change or a measured choice settles which runs.
 """
@@ -69,8 +72,11 @@ def _check_ported(args) -> None:
             _not_ported(flag)
     if args.cg <= 0 and args.profile <= 0:
         _not_ported("simulation mode (--profile 0)")
-    if args.triad <= 0 and args.matrix and args.spmv_format != "dia":
+    if args.triad <= 0 and args.matrix and \
+            args.spmv_format not in ("dia", "wellcw"):
         _not_ported(f"--spmv-format {args.spmv_format}")
+    if args.spmm > 0 and args.spmv_format == "wellcw":
+        _not_ported("--spmm on wellcw (kernels K4)")
 
 
 def _make_kernel(args, device, dtype):
@@ -82,8 +88,8 @@ def _make_kernel(args, device, dtype):
     if not args.matrix:
         raise SpmvError("either --matrix or --triad N is required "
                         "(see --help)")
-    return make_kernel("dia", matrix_path=args.matrix, device=device,
-                       dtype=dtype)
+    return make_kernel(args.spmv_format, matrix_path=args.matrix,
+                       device=device, dtype=dtype)
 
 
 def _list_devices(out) -> None:
@@ -188,8 +194,12 @@ def _solve_cg(args, out, device, dtype) -> None:
     import numpy as np
 
     from spmv_tpu.utils.jsonio import dump_json
-    from spmv_tpu_torch.models.device import DeviceDia
-    from spmv_tpu_torch.ops import dia_conjugate_gradient, spmv
+    from spmv_tpu_torch.ops import (
+        dia_conjugate_gradient,
+        jacobi_preconditioner,
+        preconditioned_conjugate_gradient,
+        spmv,
+    )
     from spmv_tpu_torch.ops.solvers import extract_diagonal
     from spmv_tpu_torch.profile import device_info
 
@@ -202,15 +212,29 @@ def _solve_cg(args, out, device, dtype) -> None:
         raise SpmvError("--cg requires a square matrix")
     if args.recompute_residual < 0:
         raise SpmvError("--recompute-residual must be >= 0")
-    A = DeviceDia.from_host(m, dtype=dtype, device=device)
+    A = kernel.device_matrix()
     b = spmv(A, torch.ones(m.num_columns, dtype=dtype, device=device))
-    diag = (extract_diagonal(m) if args.precondition == "jacobi"
-            else None)
+    diag = None
+    if args.precondition == "jacobi":
+        # the host WELL-CW format keeps no diagonal: read it from the
+        # Matrix Market entries the kernel was built from
+        diag = extract_diagonal(m if kernel.name == "dia" else kernel._mm)
 
-    def solve(max_iterations):
-        return dia_conjugate_gradient(
-            A, b, tol=args.cg_tol, max_iterations=max_iterations,
-            jacobi_diag=diag, recompute_every=args.recompute_residual)
+    if kernel.name == "dia":
+        def solve(max_iterations):
+            return dia_conjugate_gradient(
+                A, b, tol=args.cg_tol, max_iterations=max_iterations,
+                jacobi_diag=diag, recompute_every=args.recompute_residual)
+    else:
+        precond = None if diag is None else jacobi_preconditioner(
+            torch.as_tensor(diag, dtype=dtype, device=device))
+
+        def solve(max_iterations):
+            # CG when precond is None, as conjugate_gradient runs it
+            return preconditioned_conjugate_gradient(
+                lambda v: spmv(A, v), b, precond, tol=args.cg_tol,
+                max_iterations=max_iterations,
+                recompute_every=args.recompute_residual)
 
     # One untimed iteration first: one-time set-up on the card (library
     # handles, first launches; about 90 ms, measured on an H100) stays out

@@ -1,4 +1,4 @@
-"""Kernels of the port: ``triad`` and ``dia``.
+"""Kernels of the port: ``triad``, ``dia`` and ``wellcw``.
 
 They subclass the shared ``spmv_tpu.kernels`` classes, so loading,
 conversion, the memory reference strings and ``describe`` stay the JAX
@@ -17,15 +17,18 @@ import torch
 from spmv_tpu import kernels as _base
 from spmv_tpu.errors import KernelError
 from spmv_tpu.io.matrix_market import MatrixMarket
+from spmv_tpu.perfmodel.refstring import IDX
 from spmv_tpu_torch.models.device import (
     DeviceDia,
+    DeviceWellCw,
     default_device,
     default_value_dtype,
 )
 from spmv_tpu_torch.ops.dia_kernels import dia_spmm_core, dia_spmv_core
 from spmv_tpu_torch.ops.triad import triad
+from spmv_tpu_torch.ops.wellcw_kernels import wellcw_spmv_core
 
-__all__ = ["TriadKernel", "DiaKernel", "make_kernel"]
+__all__ = ["TriadKernel", "DiaKernel", "WellCwKernel", "make_kernel"]
 
 
 class _PingPong:
@@ -138,6 +141,63 @@ class DiaKernel(_base.DiaKernel):
         return self.bytes_per_run() - vec, vec
 
 
+class WellCwKernel(_base.WellCwKernel):
+    """WELL-CW SpMV through kernels K3a-c and the CSR remainder kernel on
+    CUDA (their plain versions on the CPU).  The SpMM (kernels K4) is not
+    ported yet."""
+
+    def __init__(self, *args, device=None,
+                 dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.device = torch.device(device or default_device())
+        self.dtype = dtype or default_value_dtype()
+
+    def device_matrix(self) -> DeviceWellCw:
+        return DeviceWellCw.from_host(self.matrix, dtype=self.dtype,
+                                      device=self.device)
+
+    def run_fn(self):
+        A = self.device_matrix()
+        x = torch.ones(A.num_columns, dtype=self.dtype, device=self.device)
+        if A.num_rows == A.num_columns:
+            bufs = _PingPong(x)
+
+            def step(v, A):
+                return wellcw_spmv_core(A, v, out=bufs.other(v))
+        else:
+            def step(v, A):
+                return _chain_output(
+                    wellcw_spmv_core(A, v[: A.num_columns]), v)
+
+        return step, (x, A)
+
+    def spmm_fn(self, k: int):
+        raise KernelError(
+            "spmm on wellcw is not yet ported to spmv_tpu_torch (kernels "
+            "K4); see ROADMAP.md")
+
+    @property
+    def value_bytes(self) -> int:
+        return self.dtype.itemsize
+
+    def bytes_per_run(self) -> int:
+        # the shared class's count, at the tensor's value width
+        m = self.matrix
+        vb = self.value_bytes
+        b = sum(lv.value.size * (vb + IDX) for lv in m.levels)
+        for p in m._pools():
+            b += p.value.size * (vb + 2 * IDX)        # + rowmap
+        if m.remainder is not None:
+            b += m.remainder.num_entries * (vb + IDX)
+        return b + (m.num_columns + m.num_rows) * vb
+
+    def traffic_split(self):
+        # the chunks stream; x and y are the chained iterate
+        m = self.matrix
+        vec = (m.num_columns + m.num_rows) * self.value_bytes
+        return self.bytes_per_run() - vec, vec
+
+
 def make_kernel(
     name: str,
     matrix_path: str = None,
@@ -148,13 +208,17 @@ def make_kernel(
     dtype: Optional[torch.dtype] = None,
     **kw,
 ):
-    """Kernel factory: ``triad`` and ``dia``; any other name of the JAX
-    package's factory raises ``KernelError`` (not yet ported)."""
+    """Kernel factory: ``triad``, ``dia`` and ``wellcw``; any other name
+    of the JAX package's factory raises ``KernelError`` (not yet
+    ported)."""
     if name == "triad":
         return TriadKernel(triad_entries, device=device, dtype=dtype)
     if name == "dia":
         return DiaKernel(matrix_path=matrix_path, mm=mm, matrix=matrix,
                          device=device, dtype=dtype, **kw)
+    if name == "wellcw":
+        return WellCwKernel(matrix_path=matrix_path, mm=mm, matrix=matrix,
+                            device=device, dtype=dtype, **kw)
     if name in _base.KERNEL_NAMES:
         raise KernelError(
             f"kernel {name!r} is not yet ported to spmv_tpu_torch; see "

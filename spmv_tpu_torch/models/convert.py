@@ -4,6 +4,9 @@
 as numpy arrays (the caller does the ``np.asarray``, so this module needs
 no JAX) and builds the port's ``DeviceDia`` holding the very same
 values, so that both packages compute on identical inputs.
+``wellcw_from_spmv_tpu`` and ``csr_from_spmv_tpu`` take the JAX
+container itself and read each of its arrays with ``np.asarray`` (which
+needs no JAX import here either).
 """
 
 from __future__ import annotations
@@ -11,9 +14,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_tpu_torch.models.device import DeviceDia
+from spmv_tpu_torch.models.device import (
+    DeviceCsr,
+    DeviceCwLevel,
+    DeviceCwMerged,
+    DeviceCwPool,
+    DeviceDia,
+    DeviceWellCw,
+)
 
-__all__ = ["dia_from_spmv_tpu"]
+__all__ = ["dia_from_spmv_tpu", "csr_from_spmv_tpu", "wellcw_from_spmv_tpu"]
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:
@@ -43,3 +53,55 @@ def dia_from_spmv_tpu(arrays: dict, meta: dict, device=None) -> DeviceDia:
         tuple(int(o) for o in meta["offsets"]),
         _to_torch(np.ascontiguousarray(flat)).to(device),
     )
+
+
+def csr_from_spmv_tpu(Aj, device=None) -> DeviceCsr:
+    """Port a JAX ``DeviceCsr``: its first ``num_rows + 1`` row pointers
+    and the entries they cover.  The padding entries, the overflow row
+    and the expanded row ids are dropped."""
+    n = int(Aj.num_rows)
+    row_ptr = np.asarray(Aj.row_ptr)[: n + 1]
+    stored = int(row_ptr[-1])
+    return DeviceCsr(
+        n, int(Aj.num_columns), int(Aj.num_entries),
+        _to_torch(row_ptr.astype(np.int32)).to(device),
+        _to_torch(np.asarray(Aj.column_index)[:stored]).to(device),
+        _to_torch(np.asarray(Aj.value)[:stored]).to(device))
+
+
+def _cw_pool(p, num_groups, device) -> DeviceCwPool:
+    return DeviceCwPool(
+        p.d, p.chunks_per_step, p.xr4, np.asarray(p.value),
+        np.asarray(p.local_index), np.asarray(p.anchor4),
+        np.asarray(p.rowmap), np.asarray(p.block_of_step), num_groups,
+        None, device, out_rows=p.out_rows)
+
+
+def wellcw_from_spmv_tpu(Aj, device=None) -> DeviceWellCw:
+    """Port a JAX ``DeviceWellCw`` with every array as it is (the
+    stored dtype included); the chunk pointers the CUDA grids need are
+    derived from the same arrays."""
+    ng = int(Aj.num_groups)
+    merged = None
+    if Aj.merged is not None:
+        mg = Aj.merged
+        merged = DeviceCwMerged(
+            mg.d, mg.kl, mg.cap, mg.lvl_per_block, mg.pool_per_block,
+            mg.num_blocks, mg.xr4, np.asarray(mg.value),
+            np.asarray(mg.local_index), np.asarray(mg.anchor4), None,
+            device)
+    levels = [
+        DeviceCwLevel(lv.d, lv.chunks_per_step, lv.xr4,
+                      np.asarray(lv.value), np.asarray(lv.local_index),
+                      np.asarray(lv.anchor4),
+                      np.asarray(lv.group_of_chunk),
+                      np.asarray(lv.block_of_step), ng, None, device)
+        for lv in Aj.levels]
+    return DeviceWellCw(
+        Aj.num_rows, Aj.num_columns, Aj.num_entries, ng,
+        Aj.blocks_per_out, levels=levels,
+        pool=None if Aj.pool is None else _cw_pool(Aj.pool, ng, device),
+        remainder=(None if Aj.remainder is None
+                   else csr_from_spmv_tpu(Aj.remainder, device)),
+        merged=merged,
+        tail_pools=[_cw_pool(p, ng, device) for p in Aj.tail_pools])

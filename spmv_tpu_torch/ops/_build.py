@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The kernels in ``spmv_tpu_torch/csrc`` have a plain C interface and are
-compiled with ``nvcc`` into one shared library for Hopper (``sm_90a``),
-then loaded with ``ctypes``; no PyTorch header is compiled, which keeps
-the build to seconds.  The library is built at first use into
+compiled with ``nvcc`` for Hopper (``sm_90a``), one process per source,
+all started together, then linked into one shared library and loaded
+with ``ctypes``; no PyTorch header is compiled, which keeps the build to
+seconds.  The library is built at first use into
 ``spmv_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
 the sources and flags, under a file lock so concurrent processes build
 it once.  A missing ``nvcc`` or a failed compile raises
@@ -30,11 +31,11 @@ __all__ = ["KernelBuildError", "build_library", "find_nvcc",
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("dia_spmv.cu", "dia_spmm.cu")
-HEADERS = ("dia_common.cuh",)
+SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "csr_spmv.cu")
+HEADERS = ("dia_common.cuh", "cw_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",     # registers / spills of each kernel in the log
 )
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -60,8 +61,8 @@ def find_nvcc() -> str:
     raise KernelBuildError(
         "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
         f"{DEFAULT_CUDA_HOME}/bin); the CUDA kernels are built with: "
-        + " ".join(("nvcc",) + NVCC_FLAGS + ("-o", "<lib>.so")
-                   + SOURCES))
+        + " ".join(("nvcc",) + NVCC_FLAGS + ("-c", "<source>.cu"))
+        + ", then nvcc -shared -o <lib>.so <objects>")
 
 
 def nvcc_version() -> str:
@@ -97,21 +98,54 @@ def build_library(build_dir: Path = None) -> tuple:
         if lib.exists():
             return lib, ""
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC_DIR / s) for s in SOURCES)]
+        nvcc = find_nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o")
+                for src in SOURCES]
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               timeout=600, check=False)
-        except (OSError, subprocess.SubprocessError) as e:
-            raise KernelBuildError(
-                f"could not run: {' '.join(cmd)}: {e}") from e
-        if r.returncode != 0:
+            log = _run_all([
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / src)]
+                for src, obj in zip(SOURCES, objs)])
+            log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(tmp), *map(str, objs)]])
+        except KernelBuildError:
             tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed with exit code {r.returncode}: "
-                f"{' '.join(cmd)}\n{r.stderr}{r.stdout}")
+            raise
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, lib)
-        return lib, r.stderr + r.stdout
+        return lib, log
+
+
+def _run_all(cmds) -> str:
+    """Run the commands side by side; raise ``KernelBuildError`` naming
+    the first that failed, after all have ended.  Returns their output."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    except OSError as e:
+        for _, p in procs:
+            p.kill()
+            p.wait()
+        raise KernelBuildError(f"could not run: {' '.join(cmd)}: {e}") from e
+    log, failed = "", None
+    for cmd, p in procs:
+        try:
+            out, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        log += err + out
+        if p.returncode != 0 and failed is None:
+            failed = (cmd, p.returncode, err + out)
+    if failed is not None:
+        cmd, rc, text = failed
+        raise KernelBuildError(
+            f"nvcc failed with exit code {rc}: {' '.join(cmd)}\n{text}")
+    return log
 
 
 _PTR = ctypes.c_void_p
@@ -132,6 +166,21 @@ def load_library() -> ctypes.CDLL:
         _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _I32, _PTR, _PTR,
         _I32, _PTR]
     lib.dia_spmm_launch.restype = _I32
+    lib.wellcw_level_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32, _I64, _I64, _I64, _PTR,
+        _PTR, _I32, _PTR]
+    lib.wellcw_level_launch.restype = _I32
+    lib.wellcw_pool_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64, _I64,
+        _I64, _PTR, _PTR, _I32, _PTR]
+    lib.wellcw_pool_launch.restype = _I32
+    lib.wellcw_merged_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I64, _I64, _I64,
+        _PTR, _PTR, _I32, _PTR]
+    lib.wellcw_merged_launch.restype = _I32
+    lib.csr_spmv_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I32, _PTR]
+    lib.csr_spmv_launch.restype = _I32
     lib.spmv_tpu_torch_error_string.argtypes = [_I32]
     lib.spmv_tpu_torch_error_string.restype = ctypes.c_char_p
     return lib

@@ -15,11 +15,11 @@ value read); the simple design, one thread per row with coalesced
 diagonal and shifted-x reads, is explained at the top of each ``.cu``
 file.
 
-Launch discipline: the kernel runs on ``torch.cuda.current_stream()``
-without synchronising, outputs and dot partials come from
-``torch.empty`` here, device / dtype / shape / contiguity are checked
-before the launch, and the C function's ``cudaGetLastError()`` is
-checked after it.  ``dia_spmv_core.launches`` and
+Launch discipline (``ops/_launch.py``): the kernel runs on
+``torch.cuda.current_stream()`` without synchronising, outputs and dot
+partials come from ``torch.empty`` here, device / dtype / shape /
+contiguity are checked before the launch, and the C function's
+``cudaGetLastError()`` is checked after it.  ``dia_spmv_core.launches`` and
 ``dia_spmm_core.launches`` count successful launches.
 
 Not ported: the Pallas ``in_place`` aliasing and its window schedule
@@ -35,50 +35,23 @@ from __future__ import annotations
 import torch
 
 from spmv_tpu.errors import KernelError
+from spmv_tpu_torch.ops._launch import (
+    check_no_alias,
+    check_vector,
+    on_cuda,
+    raise_on,
+    stream_of,
+)
 from spmv_tpu_torch.ops.spmv import (
     accumulate_dtype,
     dia_spmm_reference,
     dia_spmv_reference,
 )
 
-__all__ = ["dia_spmv_core", "dia_spmv", "dia_spmm_core", "dia_spmm", "spmv",
-           "spmm"]
+__all__ = ["dia_spmv_core", "dia_spmv", "dia_spmm_core", "dia_spmm"]
 
 THREADS_PER_BLOCK = 256
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-
-
-def _on_cuda(A, *tensors) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises for any
-    other device or a mix of devices."""
-    devs = {t.device for t in (A.data,) + tensors}
-    if len(devs) != 1:
-        raise KernelError(
-            f"matrix and vectors lie on different devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise KernelError(f"no DIA kernel for device {dev}")
-
-
-def _check_vector(name, t, shape, dtype):
-    if tuple(t.shape) != shape:
-        raise KernelError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if t.dtype != dtype:
-        raise KernelError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise KernelError(f"{name} must be contiguous")
-
-
-def _check_no_alias(x, out):
-    xs, xe = x.data_ptr(), x.data_ptr() + x.numel() * x.element_size()
-    os_, oe = out.data_ptr(), out.data_ptr() + out.numel() * out.element_size()
-    if xs < oe and os_ < xe:
-        raise KernelError(
-            "out must not overlap the input vector (the kernels have no "
-            "in-place variant; alternate between two buffers)")
 
 
 def _check_matrix(A):
@@ -89,12 +62,6 @@ def _check_matrix(A):
     if A.offsets_dev.dtype != torch.int32 or \
             A.offsets_dev.device != A.data.device:
         raise KernelError("DIA offsets_dev must be int32 on the data's device")
-
-
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        msg = lib.spmv_tpu_torch_error_string(rc).decode()
-        raise KernelError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
 def dia_spmv_core(A, x: torch.Tensor, with_dot: bool = False,
@@ -110,11 +77,11 @@ def dia_spmv_core(A, x: torch.Tensor, with_dot: bool = False,
     """
     _check_matrix(A)
     dt = A.data.dtype
-    _check_vector("x", x, (A.num_columns,), dt)
+    check_vector("x", x, (A.num_columns,), dt)
     if out is not None:
-        _check_vector("out", out, (A.num_rows,), dt)
-        _check_no_alias(x, out)
-    cuda = _on_cuda(A, x, *(() if out is None else (out,)))
+        check_vector("out", out, (A.num_rows,), dt)
+        check_no_alias(x, out)
+    cuda = on_cuda("DIA", A.data, x, *(() if out is None else (out,)))
     if not cuda:
         res = dia_spmv_reference(A, x, with_dot=with_dot)
         y = res[0] if with_dot else res
@@ -137,8 +104,8 @@ def dia_spmv_core(A, x: torch.Tensor, with_dot: bool = False,
             x.data_ptr(), y.data_ptr(),
             partials.data_ptr() if with_dot else None,
             THREADS_PER_BLOCK,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(lib, rc, "dia_spmv")
+            stream_of(x))
+        raise_on(lib, rc, "dia_spmv")
         dia_spmv_core.launches += 1
     if with_dot:
         return y, partials.sum()
@@ -161,11 +128,11 @@ def dia_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None):
     if X.dim() != 2:
         raise KernelError(f"X must be (num_columns, k); got {tuple(X.shape)}")
     k = X.shape[1]
-    _check_vector("X", X, (A.num_columns, k), dt)
+    check_vector("X", X, (A.num_columns, k), dt)
     if out is not None:
-        _check_vector("out", out, (A.num_rows, k), dt)
-        _check_no_alias(X, out)
-    cuda = _on_cuda(A, X, *(() if out is None else (out,)))
+        check_vector("out", out, (A.num_rows, k), dt)
+        check_no_alias(X, out)
+    cuda = on_cuda("DIA", A.data, X, *(() if out is None else (out,)))
     if not cuda:
         Y = dia_spmm_reference(A, X)
         return out.copy_(Y) if out is not None else Y
@@ -181,8 +148,8 @@ def dia_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None):
             _DTYPE_CODE[dt], X.device.index, A.data.data_ptr(),
             A.offsets_dev.data_ptr(), A.num_diagonals, n, A.num_columns,
             k, X.data_ptr(), Y.data_ptr(), THREADS_PER_BLOCK,
-            torch.cuda.current_stream(X.device).cuda_stream)
-        _raise_on(lib, rc, "dia_spmm")
+            stream_of(X))
+        raise_on(lib, rc, "dia_spmm")
         dia_spmm_core.launches += 1
     return Y
 
@@ -194,7 +161,3 @@ def dia_spmm(A, X: torch.Tensor) -> torch.Tensor:
     """One-shot Y = A @ X: X is cast to the storage dtype first."""
     return dia_spmm_core(A, X.to(A.data.dtype).contiguous())
 
-
-# the public one-shot entry points, named as in ``spmv_tpu.ops``
-spmv = dia_spmv
-spmm = dia_spmm

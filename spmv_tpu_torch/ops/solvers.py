@@ -1,4 +1,5 @@
-"""Conjugate gradient on the DIA operator.
+"""Conjugate gradient: generic (P)CG over any matvec, and the DIA
+kernel loop.
 
 The counterpart of the CG part of ``spmv_tpu/ops/solvers.py``.  The
 iteration runs eagerly in a Python loop; the stopping rule is the JAX
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.ops.dia_kernels import dia_spmv_core
-from spmv_tpu_torch.ops.dia_kernels import spmv
+from spmv_tpu_torch.ops.dispatch import spmv
 
 __all__ = [
     "CgResult",

@@ -105,6 +105,7 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 @pytest.mark.parametrize("argv", [
     [],                                               # simulation mode
     ["--spmv-format", "csr", "--profile", "2"],
+    ["--spmv-format", "wellcw", "--profile", "2", "--spmm", "2"],
     ["--spmv-format", "dia", "--cg", "10", "--nrhs", "2"],
     ["--spmv-format", "dia", "--cg", "10", "--solver", "bicgstab"],
     ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0"],
@@ -119,6 +120,58 @@ def test_unported_modes_exit_1(argv, matrix_file, capsys):
     rc, text = _run(main, ["--matrix", matrix_file] + argv)
     assert rc == 1 and text == ""
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def poisson_file(tmp_path_factory):
+    from spmv_tpu.io import write_matrix_market
+    from spmv_tpu.io.generate import poisson2d
+
+    p = tmp_path_factory.mktemp("wellcw") / "poisson16.mtx"
+    write_matrix_market(poisson2d(16, 16), str(p))
+    return str(p)
+
+
+WELLCW_MODES = {
+    "profile": ["--spmv-format", "wellcw", "--profile", "2"],
+    "cg": ["--spmv-format", "wellcw", "--cg", "300", "--cg-tol", "1e-10"],
+}
+
+
+@pytest.mark.parametrize("mode", list(WELLCW_MODES))
+def test_wellcw_report_matches_jax_cli(mode, poisson_file):
+    argv = ["--matrix", poisson_file] + WELLCW_MODES[mode]
+    rc, text = _run(main, argv)
+    assert rc == 0
+    doc = json.loads(text)
+    jrc, jtext = _run(jax_main, argv)
+    assert jrc == 0
+    want = json.loads(jtext)
+    assert set(doc) == set(want)
+    for sub in ("cg", "achieved", "roofline", "device"):
+        if sub in want:
+            assert set(doc[sub]) == set(want[sub]), sub
+    assert doc["kernel"] == want["kernel"]
+    if mode == "cg":
+        assert doc["cg"]["iterations"] == want["cg"]["iterations"]
+        assert doc["cg"]["solution_rms_error_vs_ones"] < 1e-8
+    else:
+        assert doc["op"] == want["op"]
+        assert doc["device"]["platform"] == "cpu"
+
+
+def test_wellcw_jacobi_cg_runs_the_dia_iteration(poisson_file):
+    """Jacobi PCG on a WELL-CW matrix takes the DIA path's iteration
+    count on the same matrix (the JAX CLI has no WELL-CW diagonal)."""
+    args = ["--matrix", poisson_file, "--cg", "300", "--cg-tol", "1e-10",
+            "--precondition", "jacobi"]
+    docs = {}
+    for fmt in ("wellcw", "dia"):
+        rc, text = _run(main, args + ["--spmv-format", fmt])
+        assert rc == 0
+        docs[fmt] = json.loads(text)["cg"]
+    assert docs["wellcw"]["iterations"] == docs["dia"]["iterations"] > 0
+    assert docs["wellcw"]["solution_rms_error_vs_ones"] < 1e-8
 
 
 def test_cli_errors_exit_1(matrix_file, capsys):
@@ -136,11 +189,14 @@ def test_port_never_imports_jax(matrix_file):
         import io, json, sys
         import spmv_tpu_torch
         from spmv_tpu_torch.cli import main
-        out = io.StringIO()
-        rc = main(["--matrix", {matrix_file!r}, "-s", "dia",
-                   "--profile", "2"], out=out)
-        assert rc == 0, rc
-        assert json.loads(out.getvalue())["device"]["platform"] == "cpu"
+        for argv in (["-s", "dia", "--profile", "2"],
+                     ["-s", "wellcw", "--profile", "2"],
+                     ["-s", "wellcw", "--cg", "20"]):
+            out = io.StringIO()
+            rc = main(["--matrix", {matrix_file!r}] + argv, out=out)
+            assert rc == 0, (argv, rc)
+            doc = json.loads(out.getvalue())
+            assert (doc.get("device") or doc["cg"]) is not None
         assert "jax" not in sys.modules, "the port imported jax"
         print("ok")
     """)

@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain versions.
+"""Kernels K1, K2, K3a-c and the CSR kernel on the card against their
+plain versions.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -10,21 +11,40 @@ kernel fuses multiply-add where the plain version rounds twice);
 bfloat16 storage 1e-2 (both accumulate in float32 and round y once, so
 they differ by at most one bfloat16 step); the fused dot 1e-10 in
 float64 and 1e-4 in float32, relative to sum |x_i y_i| (the scale of
-the rounding error of any summation order).
+the rounding error of any summation order).  The WELL-CW and CSR
+kernels (float64 and float32 only) are also launched twice on the same
+input, and the two outputs must be bitwise equal.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from spmv_tpu.io.generate import from_coo_arrays, poisson2d
-from spmv_tpu.models import DiaMatrix
-from spmv_tpu_torch.models import DeviceDia
+from spmv_tpu.io.generate import (
+    banded_random,
+    from_coo_arrays,
+    poisson2d,
+    random_sparse,
+)
+from spmv_tpu.models import DiaMatrix, WellCwMatrix
+from spmv_tpu_torch.models import DeviceDia, DeviceWellCw
 from spmv_tpu_torch.ops import (
+    csr_spmv_core,
+    csr_spmv_reference,
+    cw_level_reference,
+    cw_merged_reference,
+    cw_pool_reference,
     dia_spmm_core,
     dia_spmm_reference,
     dia_spmv_core,
     dia_spmv_reference,
+    wellcw_level_core,
+    wellcw_merged_core,
+    wellcw_pool_core,
+    wellcw_spmv_core,
+    wellcw_spmv_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -94,3 +114,71 @@ def test_k2_matches_plain(k, dtype, cuda):
     torch.cuda.synchronize()
     assert dia_spmm_core.launches == before + 1
     assert _rel(Y, dia_spmm_reference(A, X)) <= TOL[dtype]
+
+
+# name -> (matrix, host packing options, device options)
+WELLCW_CASES = {
+    "merged": (lambda: banded_random(16384, 512, 6, seed=20), {}, {}),
+    "fallback": (lambda: banded_random(4096, 128, 8, seed=1), {}, {}),
+    "forced_fallback": (lambda: banded_random(16384, 512, 6, seed=20), {},
+                        {"chunks_per_step": 32}),
+    "remainder": (lambda: random_sparse(256, 256, 12, seed=7),
+                  {"levels": [(2, 1, 0.0)], "pool_cap": 0}, {}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _wellcw_host(case):
+    make, host_kw, _ = WELLCW_CASES[case]
+    return WellCwMatrix.from_matrix_market(make(), **host_kw)
+
+
+def _parts(A):
+    """(wrapper, part, plain version) of every kernel launch of A."""
+    out = []
+    if A.merged is not None:
+        out.append((wellcw_merged_core, A.merged, cw_merged_reference))
+    out += [(wellcw_level_core, lv, cw_level_reference) for lv in A.levels]
+    pools = ([A.pool] if A.pool is not None else []) + list(A.tail_pools)
+    out += [(wellcw_pool_core, p, cw_pool_reference) for p in pools]
+    if A.remainder is not None:
+        out.append((lambda R, x, n: csr_spmv_core(R, x), A.remainder,
+                    lambda R, x, n: csr_spmv_reference(R, x)))
+    return out
+
+
+def _rel_err(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() /
+                 max(float(want.abs().max()), 1e-300))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", list(WELLCW_CASES))
+def test_wellcw_kernels_match_plain(case, dtype, cuda):
+    w = _wellcw_host(case)
+    A = DeviceWellCw.from_host(w, dtype=dtype, device=cuda,
+                               **WELLCW_CASES[case][2])
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    n = A.num_rows
+    counters = (wellcw_merged_core, wellcw_level_core, wellcw_pool_core,
+                csr_spmv_core)
+    before = [c.launches for c in counters]
+    for wrapper, part, plain in _parts(A):
+        y1 = wrapper(part, x, n)
+        y2 = wrapper(part, x, n)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2), wrapper
+        assert _rel_err(y1, plain(part, x, n)) <= TOL[dtype], wrapper
+    y = wellcw_spmv_core(A, x)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    expect = [3 * (A.merged is not None),
+              3 * len(A.levels),
+              3 * ((A.pool is not None) + len(A.tail_pools)),
+              3 * (A.remainder is not None)]
+    assert launched == expect
+    assert _rel_err(y, wellcw_spmv_reference(A, x)) <= TOL[dtype]
+    want = torch.from_numpy(w.spmv(x.double().cpu().numpy()))
+    assert _rel_err(y.cpu(), want) <= TOL[dtype]
