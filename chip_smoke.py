@@ -24,32 +24,61 @@ Phases (each prints readable lines; any failure exits non-zero):
    matrix with chunks_per_step=32 (forced fallback) and random_sparse(256,
    256, 12) packed with one shallow level (a real CSR remainder): each
    launched twice (bitwise equal), against its plain version, and the
-   whole product against the fp64 host product in float32.
+   whole product against the fp64 host product in float32.  Then the
+   WELL-CW SpMM kernels K4a (merged), K4b (level), K4c (pool) and the CSR
+   SpMM on the same four matrices in float64 and float32 at k = 3 and
+   k = 8: each launched twice (bitwise equal), against its plain version,
+   and column by column against the SpMV kernel (K3a-c, CSR) on that
+   column, saying whether the columns are bitwise equal to it.  Last, at
+   the batched-CG leg's shape (phase 9), poisson2d(1024, 1024) in
+   float32: K1 / K2 (k = 4) and the WELL-CW SpMM kernels at k = 4; and
+   at the shapes of the CLI's --nrhs 3 runs (phases 4 and 6, whose B is
+   built by the SpMM under test): K2 on poisson2d(1024, 1024) and the
+   WELL-CW SpMM kernels on poisson2d(256, 256), float32, k = 3.
 4. DIA main path through the CLI, in process, on a Matrix Market file of
-   poisson2d(1024, 1024): profile, SpMM profile, CG, Jacobi CG, triad.
-   The DIA launch counts are zeroed just before this phase.
+   poisson2d(1024, 1024): profile, SpMM profile, CG, Jacobi CG, batched
+   CG (--nrhs 3: K2), triad.  The DIA launch counts are zeroed just
+   before this phase.
 5. DIA full-size profile: poisson2d(4096, 4096) through
    kernels.make_kernel -> time_kernel -> profiling_report in float32 and
    bfloat16 storage, the fp64 host checksum gate, and the plain
    versions timed at the same size.  The DIA launch counts are read
    after it.
-6. WELL-CW path through the CLI (the WELL-CW launch counts are zeroed
-   just before): --profile 3 on banded_random(65536, 512, 8) (merged
-   grid and tails: K3c, K3b) and on banded_random(4096, 128, 8)
-   (fallback: K3a, K3b), --cg 2000 on poisson2d(256, 256) (K3c).
-7. WELL-CW full-size profile, the JAX bench's leg on the port:
+6. WELL-CW path through the CLI (the WELL-CW launch counts, K3 and K4,
+   are zeroed just before): --profile 3 and --profile 3 --spmm 4 on
+   banded_random(65536, 512, 8) (merged grid and tails: K3c/K4a,
+   K3b/K4c) and on banded_random(4096, 128, 8) (fallback: K3a/K4b,
+   K3b/K4c), --cg 2000 (K3c) and --cg 2000 --nrhs 3 (K4a) on
+   poisson2d(256, 256).
+7. WELL-CW full-size SpMV profile, the JAX bench's leg on the port:
    banded_random(1048576, 2048, 8) in float32 (merged grid, a 128-group
    tail pool and a CSR remainder: K3c, K3b, CSR) through
    kernels.make_kernel -> time_kernel -> profiling_report: the fp64
    host checksum gate, seconds per SpMV against the plain version, and
    the fraction of the triad roofline with the bench's byte count, and a
    torch.profiler table of 50 chained SpMVs (device time per kernel,
-   busy share).  The WELL-CW launch counts are read after it.
-8. WELL-CW kernels alone at full size (not counted): K3c, K3b and CSR
-   on the same matrix, K3a on its fallback layout (chunks_per_step=64):
-   bitwise repeat, max error against the plain version, device ms (50
-   launches in a CUDA graph, the L2 flushed before each) and ms a call
-   through the wrapper, against plain ms.
+   busy share).
+8. WELL-CW full-size SpMM, the bench's k = 8 leg on the same matrix
+   (K4a, K4c, CSR SpMM) through make_kernel(...).spmm_fn(8): the fp64
+   host checksum gate, seconds per chained SpMM against the plain
+   version, the fraction of the triad roofline with the CLI's byte
+   count, the per-nnz cost against the SpMV of phase 7, and a
+   torch.profiler table of 20 chained SpMMs.
+9. Batched CG, the bench's solver leg: poisson2d(1024, 1024) in float32,
+   k = 4, on DIA (K2) and on WELL-CW (K4a): us per iteration of batched
+   against single-RHS CG (fixed iteration counts, the slope between two
+   lengths; host clock, the median and range of 11 interleaved rounds,
+   and the kernels' device time from torch.profiler), the throughput
+   against k sequential solves (k t1 / tk), and a solve to tolerance of
+   B = A ((j + 1) ones), B from the fp64 host product, whose columns
+   must match (j + 1) * ones.  The WELL-CW launch counts are read after
+   it.
+10. WELL-CW kernels alone at full size (not counted): K3c, K3b and CSR,
+   and K4a, K4c and the CSR SpMM at k = 8, on the same matrix; K3a and
+   K4b on its fallback layout (chunks_per_step=64): bitwise repeat, max
+   error against the plain version, device ms (50 launches in a CUDA
+   graph, the L2 flushed before each) and ms a call through the
+   wrapper, against plain ms.
 
 The second-to-last lines are the kernels' JSON summary and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no
@@ -81,11 +110,19 @@ SMALL_GRID = 512
 CLI_GRID = 1024
 FULL_GRID = 4096
 SPMM_K = 4
+CLI_NRHS = 3                  # right-hand sides of the CLI's --nrhs runs
 CW_FULL_ROWS = 1 << 20        # bench.py's WELL-CW leg on the TPU
 CW_FULL_HALF_BW = 2048
 CW_CLI_ROWS = 1 << 16
 CW_CG_GRID = 256
 PROFILE_CHAIN = 50            # chained SpMVs in the traced window
+CW_SPMM_K = 8                 # bench.py's WELL-CW SpMM leg
+SPMM_CHAIN = 20               # chained SpMMs in the traced window
+COMPARE_KS = (3, 8)           # right-hand sides of the K4 comparisons
+CG_GRID = 1024                # bench.py's solver leg (batched CG)
+CG_K = 4
+CG_ITERS = (50, 250)          # fixed-length solves for the slope
+CG_ROUNDS = 11                # rounds of those solves, for the spread
 
 
 def _fail(msg: str) -> None:
@@ -237,9 +274,10 @@ def _rect_dia():
         from_coo_arrays(4, 5, rows, cols, vals))
 
 
-def _compare(name, dia, dtype, device):
-    """K1 (plain and fused dot) and K2 against the plain versions on the
-    same CUDA tensors; float32 also against the fp64 host product.
+def _compare(name, dia, dtype, device, k=SPMM_K):
+    """K1 (plain and fused dot) and K2 (``k`` columns) against the plain
+    versions on the same CUDA tensors; float32 also against the fp64 host
+    product.
     Returns the max abs errors of K1 and K2 against the plain versions."""
     import torch
 
@@ -257,7 +295,7 @@ def _compare(name, dia, dtype, device):
     wide = torch.float64 if dtype == torch.float64 else torch.float32
     x = torch.randn(A.num_columns, generator=g, device=device,
                     dtype=wide).to(dtype)
-    X = torch.randn(A.num_columns, SPMM_K, generator=g, device=device,
+    X = torch.randn(A.num_columns, k, generator=g, device=device,
                     dtype=wide).to(dtype)
 
     y = dia_spmv_core(A, x)
@@ -268,7 +306,7 @@ def _compare(name, dia, dtype, device):
     tol = {"float64": TOL_F64, "float32": TOL_F32,
            "bfloat16": TOL_BF16}[dtn]
     e1, e2 = _rel(y, y_plain), _rel(Y, Y_plain)
-    line = f"[3 compare] {name} {dtn}: K1 {e1:.3e}, K2(k={SPMM_K}) {e2:.3e}"
+    line = f"[3 compare] {name} {dtn}: K1 {e1:.3e}, K2(k={k}) {e2:.3e}"
     if e1 > tol or e2 > tol:
         _fail(f"{line} > {tol}")
     if dtype == torch.float32:
@@ -321,41 +359,34 @@ def phase_compare(device, full):
     return errs
 
 
-def _cw_parts(A):
+def _cw_parts(A, spmm: bool = False):
     """(kernel name, kernel call, plain call) of each launch that
-    ``wellcw_spmv_core`` makes for A; each call takes x (and an optional
-    out buffer for the kernel)."""
-    from spmv_tpu_torch.ops import (
-        csr_spmv_core,
-        csr_spmv_reference,
-        cw_level_reference,
-        cw_merged_reference,
-        cw_pool_reference,
-        wellcw_level_core,
-        wellcw_merged_core,
-        wellcw_pool_core,
-    )
+    ``wellcw_spmv_core`` (``wellcw_spmm_core`` with ``spmm``) makes for
+    A; each call takes x or X (and an optional out buffer for the
+    kernel)."""
+    from spmv_tpu_torch import ops
 
     n = A.num_rows
+    sfx = "_spmm" if spmm else ""
 
-    def part(name, core, plain, p):
-        return (name, lambda x, out=None: core(p, x, n, out=out),
+    def part(kind, plain, p):
+        core = getattr(ops, f"wellcw_{kind}{sfx}_core")
+        return (f"wellcw_{kind}{sfx}",
+                lambda x, out=None: core(p, x, n, out=out),
                 lambda x: plain(p, x, n))
 
     parts = []
     if A.merged is not None:
-        parts.append(part("wellcw_merged", wellcw_merged_core,
-                          cw_merged_reference, A.merged))
-    parts += [part("wellcw_level", wellcw_level_core, cw_level_reference,
-                   lv) for lv in A.levels]
+        parts.append(part("merged", ops.cw_merged_reference, A.merged))
+    parts += [part("level", ops.cw_level_reference, lv) for lv in A.levels]
     pools = ([A.pool] if A.pool is not None else []) + list(A.tail_pools)
-    parts += [part("wellcw_pool", wellcw_pool_core, cw_pool_reference, p)
-              for p in pools]
+    parts += [part("pool", ops.cw_pool_reference, p) for p in pools]
     if A.remainder is not None:
         R = A.remainder
-        parts.append(("csr_spmv",
-                      lambda x, out=None: csr_spmv_core(R, x, out=out),
-                      lambda x: csr_spmv_reference(R, x)))
+        core = ops.csr_spmm_core if spmm else ops.csr_spmv_core
+        parts.append(("csr_spmm" if spmm else "csr_spmv",
+                      lambda x, out=None: core(R, x, out=out),
+                      lambda x: ops.csr_spmv_reference(R, x)))
     return parts
 
 
@@ -399,11 +430,67 @@ def _compare_cw(name, w, dev_kw, dtype, device):
     _say(line + " (each kernel twice, bitwise equal)")
 
 
-def phase_compare_wellcw(device):
+def _compare_cw_spmm(name, w, dev_kw, dtype, k, device, bitwise):
+    """Each K4 / CSR SpMM kernel launch of the product, twice (bitwise
+    equal), against its plain version and, column by column, against the
+    SpMV kernel on that column; the whole product against the plain
+    composition and, in float32, the fp64 host product.  ``bitwise``
+    records per kernel whether every column equalled the SpMV kernel's
+    bit for bit."""
     import torch
 
-    from spmv_tpu.io.generate import banded_random, random_sparse
-    from spmv_tpu.models import WellCwMatrix
+    from spmv_tpu_torch.models import DeviceWellCw
+    from spmv_tpu_torch.ops import wellcw_spmm_core, wellcw_spmv_reference
+
+    dtn = str(dtype).replace("torch.", "")
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+    A = DeviceWellCw.from_host(w, dtype=dtype, device=device, **dev_kw)
+    g = torch.Generator(device=device).manual_seed(0)
+    X = torch.randn(A.num_columns, k, generator=g, device=device,
+                    dtype=dtype)
+    errs = []
+    for (kname, run, plain), (_, run1, _) in zip(_cw_parts(A, spmm=True),
+                                                 _cw_parts(A)):
+        Y1, Y2 = run(X), run(X)
+        cols = torch.stack([run1(X[:, j].contiguous()) for j in range(k)],
+                           dim=1)
+        _sync(device)
+        if not torch.equal(Y1, Y2):
+            _fail(f"{kname} on {name} {dtn} k={k}: two launches differ")
+        e, ec = _rel(Y1, plain(X)), _rel(Y1, cols)
+        same = torch.equal(Y1, cols)
+        bitwise[kname] = bitwise.get(kname, True) and same
+        errs.append(f"{kname} {e:.3e} (vs SpMV kernel {ec:.3e}"
+                    f"{', bitwise' if same else ''})")
+        if e > tol or ec > tol:
+            _fail(f"{kname} on {name} {dtn} k={k}: rel err {e} / {ec} "
+                  f"> {tol}")
+    Y = wellcw_spmm_core(A, X)
+    _sync(device)
+    e = _rel(Y, wellcw_spmv_reference(A, X))
+    line = (f"[3 compare] {name} {dtn} k={k}: " + ", ".join(errs)
+            + f"; whole {e:.3e}")
+    if e > tol:
+        _fail(f"{line} > {tol}")
+    if dtype == torch.float32:
+        host = torch.from_numpy(w.spmm(X.double().cpu().numpy()))
+        eh = _rel(Y.cpu(), host)
+        line += f", vs fp64 host {eh:.3e}"
+        if eh > TOL_F32_HOST:
+            _fail(f"{line} > {TOL_F32_HOST}")
+    _say(line + " (each kernel twice, bitwise equal)")
+
+
+def phase_compare_wellcw(device, cg_mats):
+    """The WELL-CW SpMV kernels, then the SpMM kernels, on four matrices,
+    then K2 and the K4 kernels at the batched-CG leg's shape (``cg_mats``,
+    k = CG_K, float32) and at the CLI's --nrhs shapes (k = CLI_NRHS);
+    returns per SpMM kernel whether its columns equalled the SpMV
+    kernel's bit for bit in every case."""
+    import torch
+
+    from spmv_tpu.io.generate import banded_random, poisson2d, random_sparse
+    from spmv_tpu.models import DiaMatrix, WellCwMatrix
 
     merged = WellCwMatrix.from_matrix_market(
         banded_random(16384, 512, 6, seed=20))
@@ -420,7 +507,30 @@ def phase_compare_wellcw(device):
     for name, w, dev_kw in cases:
         for dtype in (torch.float64, torch.float32):
             _compare_cw(name, w, dev_kw, dtype, device)
+    bitwise = {}
+    for name, w, dev_kw in cases:
+        for dtype in (torch.float64, torch.float32):
+            for k in COMPARE_KS:
+                _compare_cw_spmm(name, w, dev_kw, dtype, k, device, bitwise)
+    name = f"poisson2d({CG_GRID},{CG_GRID})"
+    _compare(name, cg_mats["dia"], torch.float32, device)
+    _compare_cw_spmm(name, cg_mats["wellcw"], {}, torch.float32, CG_K,
+                     device, bitwise)
+    # the CLI's --nrhs runs (phases 4 and 6) solve for a B built by the
+    # SpMM under test, so their rms gate cannot see a wrong SpMM: hold it
+    # here at their shapes
+    name = f"poisson2d({CLI_GRID},{CLI_GRID})"
+    _compare(name, DiaMatrix.from_matrix_market(
+        poisson2d(CLI_GRID, CLI_GRID)), torch.float32, device, k=CLI_NRHS)
+    name = f"poisson2d({CW_CG_GRID},{CW_CG_GRID})"
+    _compare_cw_spmm(name, WellCwMatrix.from_matrix_market(
+        poisson2d(CW_CG_GRID, CW_CG_GRID)), {}, torch.float32, CLI_NRHS,
+        device, bitwise)
+    _say("[3 compare] SpMM columns bitwise equal to the SpMV kernel's in "
+         "every case: " + ", ".join(f"{n} {'yes' if b else 'no'}"
+                                    for n, b in bitwise.items()))
     _sync(device)
+    return bitwise
 
 
 # ---------------------------------------------------------------- phase 4
@@ -443,7 +553,20 @@ def _run_cli(tag, runs):
                 _fail(f"CLI {name}: {w.__name__} was not launched")
         launched = "".join(f", {w.__name__} launches +{w.launches - b}"
                            for w, b in zip(wrappers, before))
-        if "cg" in doc:
+        if "cg" in doc and "nrhs" in doc["cg"]:
+            cg = doc["cg"]
+            errs = cg["solution_rms_error_vs_ones"]
+            _say(f"[{tag}] {name}: nrhs {cg['nrhs']}, iterations "
+                 f"{cg['iterations']}, residuals "
+                 f"{[f'{r:.3e}' for r in cg['residual_norms']]}, rms "
+                 f"errors vs (j+1)*ones {[f'{e:.3e}' for e in errs]}, "
+                 f"{cg['seconds']:.4f} s "
+                 f"({cg['seconds'] / max(max(cg['iterations']), 1) * 1e6:.1f}"
+                 f" us/iteration){launched}")
+            if len(errs) != cg["nrhs"] or not all(
+                    np.isfinite(e) and e <= CG_RMS_ERR for e in errs):
+                _fail(f"CLI {name}: rms errors {errs} > {CG_RMS_ERR}")
+        elif "cg" in doc:
             cg = doc["cg"]
             err = cg["solution_rms_error_vs_ones"]
             _say(f"[{tag}] {name}: {cg['iterations']} iterations, "
@@ -487,6 +610,8 @@ def phase_cli(device):
             ("cg_jacobi", mat + ["--cg", "2000", "--cg-tol", "1e-5",
                                  "--precondition", "jacobi"],
              (dia_spmv_core,)),
+            ("cg_nrhs", mat + ["--cg", "2000", "--cg-tol", "1e-5",
+                               "--nrhs", str(CLI_NRHS)], (dia_spmm_core,)),
             ("triad", ["--triad", "100000000", "--profile", "5"], ()),
         ])
     _sync(device)
@@ -566,8 +691,11 @@ def phase_cli_wellcw(device):
     from spmv_tpu.io.generate import banded_random, poisson2d
     from spmv_tpu_torch.ops import (
         wellcw_level_core,
+        wellcw_level_spmm_core,
         wellcw_merged_core,
+        wellcw_merged_spmm_core,
         wellcw_pool_core,
+        wellcw_pool_spmm_core,
     )
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -596,6 +724,15 @@ def phase_cli_wellcw(device):
              (wellcw_level_core, wellcw_pool_core)),
             (f"cg {mats['poisson'][1]}", argv("poisson", "--cg", "2000"),
              (wellcw_merged_core,)),
+            (f"spmm k=4 {mats['banded'][1]}",
+             argv("banded", "--profile", "3", "--spmm", "4"),
+             (wellcw_merged_spmm_core, wellcw_pool_spmm_core)),
+            (f"spmm k=4 {mats['fallback'][1]}",
+             argv("fallback", "--profile", "3", "--spmm", "4"),
+             (wellcw_level_spmm_core, wellcw_pool_spmm_core)),
+            (f"cg nrhs={CLI_NRHS} {mats['poisson'][1]}",
+             argv("poisson", "--cg", "2000", "--nrhs", str(CLI_NRHS)),
+             (wellcw_merged_spmm_core,)),
         ])
     _sync(device)
 
@@ -698,51 +835,291 @@ def phase_profile_wellcw(device, cw, smi_line):
 
 
 # ---------------------------------------------------------------- phase 8
+def phase_profile_wellcw_spmm(device, cw, smi_line, t_spmv):
+    """The bench's WELL-CW SpMM leg (bench.py:433-468) at k = 8 through
+    ``make_kernel("wellcw").spmm_fn``; ``t_spmv`` is phase 7's seconds
+    per SpMV."""
+    import torch
+
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.ops import wellcw_spmv_reference
+    from spmv_tpu_torch.perfmodel import measured_machine
+    from spmv_tpu_torch.profile import (
+        profile_kernel_fn,
+        profiling_report,
+        time_kernel,
+    )
+
+    k = CW_SPMM_K
+    machine = measured_machine(device)
+    kernel = make_kernel("wellcw", matrix=cw, device=device,
+                         dtype=torch.float32)
+    kernel.init()
+    step, args = kernel.spmm_fn(k)
+    A = args[1]
+    # bench.py's gate: |A X| summed in f32 on the card against the fp64
+    # host product, through the profiled step
+    X = np.random.default_rng(0).standard_normal(
+        (cw.num_columns, k)).astype(np.float32)
+    Y = step(torch.from_numpy(X).to(device), A)
+    got = float(Y.abs().sum(dtype=torch.float32))
+    want = float(np.abs(cw.spmm(X.astype(np.float64))).sum())
+    rel = abs(got - want) / want
+    _say(f"[8 wellcw spmm] k={k}: checksum rel err {rel:.3e} (gate "
+         f"{CHECKSUM_RTOL})")
+    if not rel <= CHECKSUM_RTOL:
+        _fail(f"wellcw spmm checksum gate: {rel} > {CHECKSUM_RTOL}")
+    timing = time_kernel(step, args, k_small=4, k_large=40, runs=6)
+    runs = profile_kernel_fn(step, args, runs=5)
+    # the CLI's --spmm count (spmv_tpu_torch/cli.py _profile): one matrix
+    # stream, the x / y volume k times
+    m = kernel.matrix
+    flops = k * kernel.flops_per_run()
+    nbytes = kernel.bytes_per_run() + (k - 1) * (
+        m.num_columns + m.num_rows) * kernel.value_bytes
+    doc = profiling_report(kernel, runs, timing.seconds_per_iteration, 5,
+                           True, machine=machine, device=device,
+                           op_info={"kind": "spmm", "k": k},
+                           flops_per_run=flops, bytes_per_run=nbytes)
+    t = doc["device_seconds_per_iteration"]
+    if not (np.isfinite(t) and t > 0) or doc["device"]["platform"] != "gpu":
+        _fail(f"wellcw spmm: bad timing {t} on {doc['device']}")
+    frac = doc["achieved"]["fraction_of_roofline"]
+    t_plain = time_kernel(lambda V, A: wellcw_spmv_reference(A, V),
+                          (args[0], A), k_small=1, k_large=3,
+                          runs=2).seconds_per_iteration
+    per_nnz = (t / k) / t_spmv
+    _say(f"[8 wellcw spmm] SpMM k={k} {t * 1e3:.4f} ms "
+         f"({cw.num_entries * k / t / 1e9:.2f} effective Gnnz/s), plain "
+         f"{t_plain * 1e3:.4f} ms; CLI byte count {nbytes} B, roofline "
+         f"{nbytes / (machine.hbm_gbps * 1e9) * 1e3:.4f} ms at "
+         f"{machine.hbm_gbps:.1f} GB/s triad: fraction {frac:.4f}; per nnz "
+         f"against the SpMV {per_nnz:.4f} ((t / {k}) / {t_spmv * 1e3:.4f}"
+         f" ms), on {smi_line}")
+    from spmv_tpu_torch.profile.cg_breakdown import traced
+
+    def chain():
+        V = args[0]
+        for _ in range(SPMM_CHAIN):
+            V = step(V, A)
+
+    chain()
+    wall, dev, table = traced(chain, device)
+    _say(f"[8 wellcw spmm] torch.profiler, {SPMM_CHAIN} chained SpMMs: "
+         f"device {dev / SPMM_CHAIN * 1e6:.2f} us per SpMM, wall "
+         f"{wall / SPMM_CHAIN * 1e6:.2f} us, busy share {dev / wall:.3f}")
+    for line in table.splitlines():
+        _say(f"[8 wellcw spmm]   {line}")
+    del kernel, step, args, A, Y
+    _sync(device)
+    return {"k": k, "ms": t * 1e3, "plain_ms": t_plain * 1e3,
+            "roofline_fraction": frac, "checksum_rel_err": rel,
+            "per_nnz_vs_spmv": per_nnz, "device_busy_share": dev / wall}
+
+
+# ---------------------------------------------------------------- phase 9
+def _spread(xs) -> dict:
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs))}
+
+
+def _solve_slopes(solves, device) -> dict:
+    """Host seconds per iteration of each ``solves[name](n)``: in each of
+    CG_ROUNDS rounds every solve runs at both lengths of CG_ITERS, one
+    after the other, so that the solves of a round see the same state of
+    the machine; the round's slope is the difference of the two times
+    over the difference of the lengths (host clock around work that ends
+    in a synchronise).  Returns name -> one slope per round."""
+    import torch
+
+    def timed(solve, n):
+        t0 = time.perf_counter()
+        solve(n)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    for solve in solves.values():
+        for n in CG_ITERS:
+            timed(solve, n)
+    span = CG_ITERS[1] - CG_ITERS[0]
+    slopes = {name: [] for name in solves}
+    for _ in range(CG_ROUNDS):
+        for name, solve in solves.items():
+            short = timed(solve, CG_ITERS[0])
+            slopes[name].append((timed(solve, CG_ITERS[1]) - short) / span)
+    return slopes
+
+
+def _device_slope(solve, device) -> float:
+    """Device seconds per iteration of ``solve(n)``: the summed device
+    time of the kernels torch.profiler traced in the solve of CG_ITERS[1]
+    iterations, less that of CG_ITERS[0], over the difference."""
+    from spmv_tpu_torch.profile.cg_breakdown import traced
+
+    dev = [traced(lambda: solve(n), device)[1] for n in CG_ITERS]
+    return (dev[1] - dev[0]) / (CG_ITERS[1] - CG_ITERS[0])
+
+
+def phase_batched_cg(device, mats, smi_line):
+    """bench.py's solver leg (bench.py:694-712) on the port: batched CG
+    (k = CG_K) against single-RHS CG at poisson2d(CG_GRID²), float32, on
+    DIA (K1 / K2) and WELL-CW (K3 / K4), both at tol 0 for fixed
+    iteration counts; then a solve to tol 1e-5 of B = A ((j + 1) ones),
+    B from the fp64 host product."""
+    import torch
+
+    from spmv_tpu_torch.models import DeviceDia, DeviceWellCw
+    from spmv_tpu_torch.ops import (
+        batched_conjugate_gradient,
+        conjugate_gradient,
+        dia_batched_conjugate_gradient,
+        dia_conjugate_gradient,
+        spmm,
+        spmv,
+    )
+
+    f32 = torch.float32
+    n = mats["dia"].num_rows
+    g = torch.Generator(device=device).manual_seed(3)
+    b = torch.randn(n, generator=g, device=device, dtype=f32)
+    B = torch.randn(n, CG_K, generator=g, device=device, dtype=f32)
+    out = {}
+    for fmt, host in mats.items():
+        if fmt == "dia":
+            A = DeviceDia.from_host(host, dtype=f32, device=device)
+
+            def single(it, rhs=b):
+                return dia_conjugate_gradient(A, rhs, tol=0.0,
+                                              max_iterations=it)
+
+            def batched(it, rhs=B, tol=0.0):
+                return dia_batched_conjugate_gradient(
+                    A, rhs, tol=tol, max_iterations=it)
+        else:
+            A = DeviceWellCw.from_host(host, dtype=f32, device=device)
+
+            def single(it, rhs=b):
+                return conjugate_gradient(lambda v: spmv(A, v), rhs,
+                                          tol=0.0, max_iterations=it)
+
+            def batched(it, rhs=B, tol=0.0):
+                return batched_conjugate_gradient(
+                    lambda V: spmm(A, V), rhs, tol=tol, max_iterations=it)
+        slopes = _solve_slopes({"single": single, "batched": batched},
+                               device)
+        thr = [CG_K * t1 / tk
+               for t1, tk in zip(slopes["single"], slopes["batched"])]
+        d1, dk = _device_slope(single, device), _device_slope(batched, device)
+        t1, tk, th = (_spread(slopes["single"]), _spread(slopes["batched"]),
+                      _spread(thr))
+        # B from the fp64 host product, so that a wrong SpMM fails the
+        # rms gate instead of solving its own operator
+        X_true = np.ones((n, CG_K)) * np.arange(1, CG_K + 1)
+        rhs = torch.from_numpy(np.stack(
+            [host.spmv(X_true[:, j]) for j in range(CG_K)], axis=1))
+        res = batched(3000, rhs=rhs.to(device, f32).contiguous(), tol=1e-5)
+        X = res.x.double().cpu().numpy()
+        errs = [float(np.linalg.norm(X[:, j] - (j + 1)) / np.sqrt(n)
+                      / (j + 1)) for j in range(CG_K)]
+        its = [int(i) for i in res.iterations.cpu()]
+
+        def us(st):
+            return (f"{st['median'] * 1e6:.1f} [{st['min'] * 1e6:.1f}, "
+                    f"{st['max'] * 1e6:.1f}]")
+
+        _say(f"[9 batched cg] {fmt} poisson2d({CG_GRID}^2) float32, host "
+             f"clock, median [min, max] of {CG_ROUNDS} rounds: single "
+             f"{us(t1)} us/iteration, batched k={CG_K} {us(tk)} "
+             f"us/iteration, throughput vs sequential {th['median']:.3f} "
+             f"[{th['min']:.3f}, {th['max']:.3f}]; device (torch.profiler "
+             f"kernel time): single {d1 * 1e6:.2f} us/iteration, batched "
+             f"{dk * 1e6:.2f} us/iteration, throughput vs sequential "
+             f"{CG_K * d1 / dk:.3f}; tol 1e-5 solve: iterations {its}, rms "
+             f"errors vs (j+1)*ones {[f'{e:.3e}' for e in errs]}, on "
+             f"{smi_line}")
+        if not all(np.isfinite(e) and e <= CG_RMS_ERR for e in errs):
+            _fail(f"batched cg {fmt}: rms errors {errs} > {CG_RMS_ERR}")
+        if not (t1["median"] > 0 and tk["median"] > 0 and d1 > 0 and dk > 0):
+            _fail(f"batched cg {fmt}: bad timing {t1}, {tk}, {d1}, {dk}")
+        out[fmt] = {"single_us_per_iteration":
+                    {key: v * 1e6 for key, v in t1.items()},
+                    "batched_us_per_iteration":
+                    {key: v * 1e6 for key, v in tk.items()},
+                    "throughput_vs_sequential": th,
+                    "rounds": CG_ROUNDS,
+                    "device_single_us_per_iteration": d1 * 1e6,
+                    "device_batched_us_per_iteration": dk * 1e6,
+                    "device_throughput_vs_sequential": CG_K * d1 / dk,
+                    "iterations": its, "rms_errors": errs}
+        del A
+        _sync(device)
+    return out
+
+
+# --------------------------------------------------------------- phase 10
 def phase_kernels_wellcw(device, cw, smi_line):
     """Each WELL-CW / CSR kernel alone at the full-size matrix: K3c, K3b
-    and CSR on its merged layout, K3a on its fallback layout."""
+    and CSR, and K4a, K4c and the CSR SpMM at k = CW_SPMM_K, on its
+    merged layout; K3a and K4b on its fallback layout."""
     import torch
 
     from spmv_tpu_torch.models import DeviceWellCw
+    from spmv_tpu_torch.ops.wellcw_kernels import column_block
 
     f32 = torch.float32
-    x = torch.randn(cw.num_columns, device=device, dtype=f32,
-                    generator=torch.Generator(device=device).manual_seed(1))
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(cw.num_columns, device=device, dtype=f32, generator=g)
+    X = torch.randn(cw.num_columns, CW_SPMM_K, device=device, dtype=f32,
+                    generator=g)
     # 64 MiB written between launches evicts the 50 MB L2
     scratch = torch.empty(16 << 20, dtype=f32, device=device)
     found = {}
     for dev_kw in ({}, {"chunks_per_step": 64}):
         A = DeviceWellCw.from_host(cw, dtype=f32, device=device, **dev_kw)
-        for kname, run, plain in _cw_parts(A):
-            if kname in found or (dev_kw and kname != "wellcw_level"):
-                continue
-            out = torch.empty(A.num_rows, dtype=f32, device=device)
-            y1, y2 = run(x), run(x)
-            _sync(device)
-            if not torch.equal(y1, y2):
-                _fail(f"{kname} at full size: two launches differ")
-            want = plain(x)
-            err = float((y1.double() - want.double()).abs().max())
-            rel = _rel(y1, want)
-            if rel > TOL_F32:
-                _fail(f"{kname} at full size: rel err {rel} > {TOL_F32}")
-            ms = _cold_graph_ms(lambda: run(x, out=out),
-                                lambda: scratch.fill_(0.0), 50)
-            eager_ms = _time_launches(lambda: run(x, out=out), 50)
-            plain_ms = _time_launches(lambda: plain(x), 3)
-            found[kname] = {"max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, "eager_ms": eager_ms}
-            _say(f"[8 wellcw kernels] {kname}"
-                 f"{' (chunks_per_step=64)' if dev_kw else ''}: "
-                 f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
-                 f"{eager_ms:.4f} "
-                 f"ms a call through the wrapper, plain {plain_ms:.4f} ms, "
-                 f"max abs err {err:.3e} (rel {rel:.3e}), bitwise "
-                 f"repeatable, on {smi_line}")
+        for spmm in (False, True):
+            v = X if spmm else x
+            for kname, run, plain in _cw_parts(A, spmm=spmm):
+                if kname in found or (dev_kw and "level" not in kname):
+                    continue
+                out = torch.empty((A.num_rows,) + tuple(v.shape[1:]),
+                                  dtype=f32, device=device)
+                y1, y2 = run(v), run(v)
+                _sync(device)
+                if not torch.equal(y1, y2):
+                    _fail(f"{kname} at full size: two launches differ")
+                want = plain(v)
+                err = float((y1.double() - want.double()).abs().max())
+                rel = _rel(y1, want)
+                if rel > TOL_F32:
+                    _fail(f"{kname} at full size: rel err {rel} > "
+                          f"{TOL_F32}")
+                ms = _cold_graph_ms(lambda: run(v, out=out),
+                                    lambda: scratch.fill_(0.0), 50)
+                eager_ms = _time_launches(lambda: run(v, out=out), 50)
+                plain_ms = _time_launches(lambda: plain(v), 3)
+                found[kname] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "eager_ms": eager_ms}
+                what = ""
+                if spmm:
+                    kind = kname.split("_")[1]
+                    rows = 128 if "pool" in kname else 64
+                    if kind in ("merged", "level", "pool"):
+                        kb = column_block(kind, f32, CW_SPMM_K, rows=rows)
+                        found[kname]["columns_per_block"] = kb
+                        what = f", {kb} columns a block"
+                    what = f" k={CW_SPMM_K}{what}"
+                _say(f"[10 wellcw kernels] {kname}{what}"
+                     f"{' (chunks_per_step=64)' if dev_kw else ''}: "
+                     f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
+                     f"{eager_ms:.4f} ms a call through the wrapper, plain "
+                     f"{plain_ms:.4f} ms, max abs err {err:.3e} (rel "
+                     f"{rel:.3e}), bitwise repeatable, on {smi_line}")
         del A
         _sync(device)
-    missing = {"wellcw_merged", "wellcw_level", "wellcw_pool",
-               "csr_spmv"} - set(found)
+    missing = {"wellcw_merged", "wellcw_level", "wellcw_pool", "csr_spmv",
+               "wellcw_merged_spmm", "wellcw_level_spmm",
+               "wellcw_pool_spmm", "csr_spmm"} - set(found)
     if missing:
         _fail(f"full-size matrix did not reach {sorted(missing)}")
     return found
@@ -757,12 +1134,16 @@ def main() -> int:
     from spmv_tpu.io.generate import banded_random, poisson2d
     from spmv_tpu.models import DiaMatrix, WellCwMatrix
     from spmv_tpu_torch.ops import (
+        csr_spmm_core,
         csr_spmv_core,
         dia_spmm_core,
         dia_spmv_core,
         wellcw_level_core,
+        wellcw_level_spmm_core,
         wellcw_merged_core,
+        wellcw_merged_spmm_core,
         wellcw_pool_core,
+        wellcw_pool_spmm_core,
     )
 
     phase_build()
@@ -773,8 +1154,15 @@ def main() -> int:
          f"{full.num_diagonals} diagonals, built in "
          f"{time.perf_counter() - t0:.1f} s")
     errs = phase_compare(device, full)
-
-    phase_compare_wellcw(device)
+    t0 = time.perf_counter()
+    cg_mm = poisson2d(CG_GRID, CG_GRID)
+    cg_mats = {"dia": DiaMatrix.from_matrix_market(cg_mm),
+               "wellcw": WellCwMatrix.from_matrix_market(cg_mm)}
+    _say(f"[3 compare] host poisson2d({CG_GRID},{CG_GRID}): "
+         f"{cg_mm.num_rows} rows, {cg_mm.num_entries} entries, DIA and "
+         f"WELL-CW built in {time.perf_counter() - t0:.1f} s")
+    del cg_mm
+    bitwise = phase_compare_wellcw(device, cg_mats)
 
     # the DIA path's run: its counts start from zero here
     dia_spmv_core.launches = 0
@@ -785,11 +1173,16 @@ def main() -> int:
                 "dia_spmm": dia_spmm_core.launches}
     del full
 
-    # the WELL-CW path's run: its counts start from zero here
+    # the WELL-CW path's run (SpMV, SpMM, batched CG): its counts start
+    # from zero here
     cw_wrappers = {"wellcw_merged": wellcw_merged_core,
                    "wellcw_level": wellcw_level_core,
                    "wellcw_pool": wellcw_pool_core,
-                   "csr_spmv": csr_spmv_core}
+                   "csr_spmv": csr_spmv_core,
+                   "wellcw_merged_spmm": wellcw_merged_spmm_core,
+                   "wellcw_level_spmm": wellcw_level_spmm_core,
+                   "wellcw_pool_spmm": wellcw_pool_spmm_core,
+                   "csr_spmm": csr_spmm_core}
     for w in cw_wrappers.values():
         w.launches = 0
     phase_cli_wellcw(device)
@@ -801,8 +1194,11 @@ def main() -> int:
          f"{CW_FULL_HALF_BW}, 8): {cw.num_entries} entries, packed in "
          f"{time.perf_counter() - t0:.1f} s")
     cw_times = phase_profile_wellcw(device, cw, smi_line)
+    spmm_times = phase_profile_wellcw_spmm(device, cw, smi_line,
+                                           cw_times["ms"] * 1e-3)
+    cg_times = phase_batched_cg(device, cg_mats, smi_line)
     launches.update({k: w.launches for k, w in cw_wrappers.items()})
-    _say("[7 wellcw profile] launches on the WELL-CW path: "
+    _say("[9 batched cg] launches on the WELL-CW path: "
          + ", ".join(f"{k} {launches[k]}" for k in cw_wrappers))
     for name, n in launches.items():
         if n <= 0:
@@ -812,15 +1208,27 @@ def main() -> int:
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
                 "float32")
+    mm_shape = f"{cw_shape}, k={CW_SPMM_K}"
+    cw_csr = ("XLA `_csr_padded` (spmv_tpu/ops/spmv.py:42), not a TPU "
+              "kernel")
+    mm_csr = ("XLA `spmm` on DeviceCsr (spmv_tpu/ops/spmv.py:266), not a "
+              "TPU kernel")
     cw_rows = {
-        "wellcw_merged": ("spmv_tpu/ops/pallas_kernels.py:1568",
+        "wellcw_merged": ("wellcw_spmv.cu", "pallas_kernels.py:1568",
                           f"{cw_shape}, merged grid"),
-        "wellcw_level": ("spmv_tpu/ops/pallas_kernels.py:1374",
+        "wellcw_level": ("wellcw_spmv.cu", "pallas_kernels.py:1374",
                          f"{cw_shape}, fallback level (chunks_per_step=64)"),
-        "wellcw_pool": ("spmv_tpu/ops/pallas_kernels.py:1484",
+        "wellcw_pool": ("wellcw_spmv.cu", "pallas_kernels.py:1484",
                         f"{cw_shape}, 128-group tail pool"),
-        "csr_spmv": ("XLA `_csr_padded` (spmv_tpu/ops/spmv.py:42), not a "
-                     "TPU kernel", f"{cw_shape}, CSR remainder"),
+        "csr_spmv": ("csr_spmv.cu", cw_csr, f"{cw_shape}, CSR remainder"),
+        "wellcw_merged_spmm": ("wellcw_spmm.cu", "pallas_kernels.py:1653",
+                               f"{mm_shape}, merged grid"),
+        "wellcw_level_spmm": ("wellcw_spmm.cu", "pallas_kernels.py:1875",
+                              f"{mm_shape}, fallback level "
+                              "(chunks_per_step=64)"),
+        "wellcw_pool_spmm": ("wellcw_spmm.cu", "pallas_kernels.py:1920",
+                             f"{mm_shape}, 128-group tail pool"),
+        "csr_spmm": ("csr_spmm.cu", mm_csr, f"{mm_shape}, CSR remainder"),
     }
     summary = {"kernels": [
         {
@@ -856,15 +1264,20 @@ def main() -> int:
         {
             "name": name,
             "route": "cuda",
-            "source": ("spmv_tpu_torch/csrc/csr_spmv.cu" if name == "csr_spmv"
-                       else "spmv_tpu_torch/csrc/wellcw_spmv.cu"),
-            "replaces": replaces,
+            "source": f"spmv_tpu_torch/csrc/{source}",
+            "replaces": (replaces if replaces.startswith("XLA")
+                         else f"spmv_tpu/ops/{replaces}"),
             "launches": launches[name],
             **cw_kernels[name],
+            **({"columns_bitwise_equal_to_spmv_kernel": bitwise[name]}
+               if name in bitwise else {}),
             "shape": shape,
         }
-        for name, (replaces, shape) in cw_rows.items()
-    ], "wellcw_spmv": {**cw_times, "shape": cw_shape}}
+        for name, (source, replaces, shape) in cw_rows.items()
+    ], "wellcw_spmv": {**cw_times, "shape": cw_shape},
+        "wellcw_spmm": {**spmm_times, "shape": mm_shape},
+        "batched_cg": {**cg_times, "k": CG_K,
+                       "shape": f"poisson2d({CG_GRID},{CG_GRID}) float32"}}
     print(json.dumps(summary), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

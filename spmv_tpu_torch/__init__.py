@@ -1,12 +1,15 @@
 """spmv_tpu_torch — the PyTorch and CUDA port of spmv_tpu.
 
-The port runs the DIA stencil path on an NVIDIA Hopper card (sm_90a):
+The port runs the DIA stencil path and the WELL-CW scattered-matrix
+path on an NVIDIA Hopper card (sm_90a):
 
-- ``spmv_tpu_torch.models``    ``DeviceDia``, the device container, and
-                               the converter from a JAX ``DeviceDia``.
-- ``spmv_tpu_torch.ops``       DIA SpMV / SpMM (plain PyTorch versions
-                               and hand-written CUDA kernels), the
-                               triad, and the DIA conjugate gradient.
+- ``spmv_tpu_torch.models``    ``DeviceDia``, ``DeviceWellCw`` and
+                               ``DeviceCsr``, the device containers, and
+                               the converters from the JAX containers.
+- ``spmv_tpu_torch.ops``       DIA, WELL-CW and CSR SpMV / SpMM (plain
+                               PyTorch versions and hand-written CUDA
+                               kernels), the triad, and conjugate
+                               gradient (single and multi-RHS).
 - ``spmv_tpu_torch.perfmodel`` The card's machine model, its bandwidth
                                measured by the triad.
 - ``spmv_tpu_torch.profile``   Chained-step timing and the profiling

@@ -8,7 +8,10 @@ the modes ported so far, printing the same JSON documents:
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --cg 2000 \
         [--cg-tol 1e-6] [--precondition none|jacobi] [--recompute-residual K]
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --profile 10
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --profile 5 --spmm 8
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --cg 2000
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format {dia,wellcw} \
+        --cg 2000 --nrhs 4 [--precondition none|jacobi]
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
@@ -23,6 +26,11 @@ in the JAX CLI), so both CLIs run the same algorithm.  On an H100 the
 unfused loop (a separate ``torch.dot``) measured faster; ``python -m
 spmv_tpu_torch.profile.cg_breakdown`` times both, and PERF.md keeps the
 numbers until a kernel change or a measured choice settles which runs.
+
+``--cg N --nrhs K`` (K > 1) runs batched multi-RHS CG, one SpMM per
+iteration (K2 on DIA, K4a-c and the CSR SpMM on WELL-CW), on B = A X
+with column j of X equal to (j + 1) * ones, and reports each column's
+iterations, residual and error, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -63,7 +71,6 @@ def _check_ported(args) -> None:
         ("--jax-profile", args.jax_profile is not None),
         ("--flush-caches", args.flush_caches),
         ("--reorder", args.reorder != "none"),
-        ("--nrhs", args.nrhs != 1),
         ("--solver " + args.solver, args.solver != "cg"),
         ("--precondition " + args.precondition,
          args.precondition not in ("none", "jacobi")),
@@ -75,8 +82,6 @@ def _check_ported(args) -> None:
     if args.triad <= 0 and args.matrix and \
             args.spmv_format not in ("dia", "wellcw"):
         _not_ported(f"--spmv-format {args.spmv_format}")
-    if args.spmm > 0 and args.spmv_format == "wellcw":
-        _not_ported("--spmm on wellcw (kernels K4)")
 
 
 def _make_kernel(args, device, dtype):
@@ -213,12 +218,15 @@ def _solve_cg(args, out, device, dtype) -> None:
     if args.recompute_residual < 0:
         raise SpmvError("--recompute-residual must be >= 0")
     A = kernel.device_matrix()
-    b = spmv(A, torch.ones(m.num_columns, dtype=dtype, device=device))
     diag = None
     if args.precondition == "jacobi":
         # the host WELL-CW format keeps no diagonal: read it from the
         # Matrix Market entries the kernel was built from
         diag = extract_diagonal(m if kernel.name == "dia" else kernel._mm)
+    if args.nrhs > 1:
+        _solve_cg_batched(args, out, device, dtype, kernel, A, diag)
+        return
+    b = spmv(A, torch.ones(m.num_columns, dtype=dtype, device=device))
 
     if kernel.name == "dia":
         def solve(max_iterations):
@@ -259,6 +267,80 @@ def _solve_cg(args, out, device, dtype) -> None:
             "residual_norm": residual,
             "solution_rms_error_vs_ones": float(
                 np.linalg.norm(x - 1.0) / np.sqrt(m.num_rows)),
+            "seconds": seconds,
+            "device": device_info(device)["platform"],
+        },
+    }, out)
+
+
+def _solve_cg_batched(args, out, device, dtype, kernel, A, diag) -> None:
+    """--cg N --nrhs K: batched multi-RHS CG (one SpMM per iteration),
+    per-column convergence in the report; after the JAX CLI's
+    ``_solve_cg_batched``."""
+    import numpy as np
+
+    from spmv_tpu.utils.jsonio import dump_json
+    from spmv_tpu_torch.ops import (
+        batched_conjugate_gradient,
+        dia_batched_conjugate_gradient,
+        jacobi_preconditioner,
+        spmm,
+    )
+    from spmv_tpu_torch.profile import device_info
+
+    if args.solver != "cg":
+        raise SpmvError("--nrhs applies to --solver cg only")
+    if args.precondition not in ("none", "jacobi"):
+        raise SpmvError(
+            "--nrhs supports --precondition none or jacobi (column-"
+            "wise applies); use single-RHS solves for ic0/ilu0/amg")
+    k = args.nrhs
+    m = kernel.matrix
+    # per-column scaled all-ones solutions: each column's B = A @
+    # ((j+1) * ones), so the rms-error gate checks every column
+    scale = torch.arange(1, k + 1, dtype=dtype, device=device)
+    X_true = torch.ones((m.num_columns, k), dtype=dtype,
+                        device=device) * scale
+    B = spmm(A, X_true)
+
+    if kernel.name == "dia":
+        def solve(max_iterations):
+            return dia_batched_conjugate_gradient(
+                A, B, tol=args.cg_tol, max_iterations=max_iterations,
+                jacobi_diag=diag, recompute_every=args.recompute_residual)
+    else:
+        precond = None if diag is None else jacobi_preconditioner(
+            torch.as_tensor(diag, dtype=dtype, device=device)[:, None])
+
+        def solve(max_iterations):
+            return batched_conjugate_gradient(
+                lambda V: spmm(A, V), B, preconditioner=precond,
+                tol=args.cg_tol, max_iterations=max_iterations,
+                recompute_every=args.recompute_residual)
+
+    # one untimed iteration first, as in _solve_cg
+    solve(1)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    res = solve(args.cg)
+    residuals = res.residual_norm.double().cpu().numpy()   # synchronises
+    seconds = time.perf_counter() - t0
+    X = res.x.double().cpu().numpy()
+    Xt = X_true.double().cpu().numpy()
+    errs = [float(np.linalg.norm(X[:, j] - Xt[:, j])
+                  / np.sqrt(m.num_rows) / (j + 1)) for j in range(k)]
+    dump_json({
+        "kernel": kernel.describe(),
+        "cg": {
+            "solver": "cg",
+            "nrhs": k,
+            "max_iterations": args.cg,
+            "tolerance": args.cg_tol,
+            "preconditioner": args.precondition,
+            "iterations": [int(i) for i in res.iterations.cpu()],
+            "residual_norms": [float(v) for v in residuals],
+            "solution_rms_error_vs_ones": errs,
             "seconds": seconds,
             "device": device_info(device)["platform"],
         },

@@ -4,8 +4,9 @@ They subclass the shared ``spmv_tpu.kernels`` classes, so loading,
 conversion, the memory reference strings and ``describe`` stay the JAX
 package's; what changes is the device step (``run_fn`` / ``spmm_fn``)
 and the byte accounting, whose value width comes from the tensor dtype
-here (the shared classes ask JAX whether x64 is on).  Every other kernel
-name raises: it is not ported yet.
+here (the shared classes ask JAX whether x64 is on).  ``dia`` and
+``wellcw`` have both steps (SpMV and SpMM).  Every other kernel name
+raises: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ from spmv_tpu_torch.models.device import (
 )
 from spmv_tpu_torch.ops.dia_kernels import dia_spmm_core, dia_spmv_core
 from spmv_tpu_torch.ops.triad import triad
-from spmv_tpu_torch.ops.wellcw_kernels import wellcw_spmv_core
+from spmv_tpu_torch.ops.wellcw_kernels import (
+    wellcw_spmm_core,
+    wellcw_spmv_core,
+)
 
 __all__ = ["TriadKernel", "DiaKernel", "WellCwKernel", "make_kernel"]
 
@@ -142,9 +146,8 @@ class DiaKernel(_base.DiaKernel):
 
 
 class WellCwKernel(_base.WellCwKernel):
-    """WELL-CW SpMV through kernels K3a-c and the CSR remainder kernel on
-    CUDA (their plain versions on the CPU).  The SpMM (kernels K4) is not
-    ported yet."""
+    """WELL-CW SpMV / SpMM through kernels K3a-c / K4a-c and the CSR
+    remainder kernels on CUDA (their plain versions on the CPU)."""
 
     def __init__(self, *args, device=None,
                  dtype: Optional[torch.dtype] = None, **kw):
@@ -172,9 +175,22 @@ class WellCwKernel(_base.WellCwKernel):
         return step, (x, A)
 
     def spmm_fn(self, k: int):
-        raise KernelError(
-            "spmm on wellcw is not yet ported to spmv_tpu_torch (kernels "
-            "K4); see ROADMAP.md")
+        if k <= 0:
+            raise KernelError("spmm: k must be positive")
+        A = self.device_matrix()
+        X = torch.ones((A.num_columns, k), dtype=self.dtype,
+                       device=self.device)
+        if A.num_rows == A.num_columns:
+            bufs = _PingPong(X)
+
+            def step(V, A):
+                return wellcw_spmm_core(A, V, out=bufs.other(V))
+        else:
+            def step(V, A):
+                return _chain_output(
+                    wellcw_spmm_core(A, V[: A.num_columns]), V)
+
+        return step, (X, A)
 
     @property
     def value_bytes(self) -> int:

@@ -1,7 +1,13 @@
-"""Compute layer of the port: DIA, WELL-CW and CSR SpMV, DIA SpMM (plain
-versions and CUDA kernel wrappers), the triad, and conjugate gradient."""
+"""Compute layer of the port: DIA, WELL-CW and CSR SpMV and SpMM (plain
+versions and CUDA kernel wrappers), the triad, and conjugate gradient
+(single and batched multi-RHS)."""
 
-from spmv_tpu_torch.ops.csr_kernels import csr_spmv, csr_spmv_core
+from spmv_tpu_torch.ops.csr_kernels import (
+    csr_spmm,
+    csr_spmm_core,
+    csr_spmv,
+    csr_spmv_core,
+)
 from spmv_tpu_torch.ops.dia_kernels import (
     dia_spmm,
     dia_spmm_core,
@@ -9,8 +15,11 @@ from spmv_tpu_torch.ops.dia_kernels import (
     dia_spmv_core,
 )
 from spmv_tpu_torch.ops.solvers import (
+    BatchedCgResult,
     CgResult,
+    batched_conjugate_gradient,
     conjugate_gradient,
+    dia_batched_conjugate_gradient,
     dia_conjugate_gradient,
     extract_diagonal,
     jacobi_preconditioner,
@@ -27,8 +36,13 @@ from spmv_tpu_torch.ops.spmv import (
 )
 from spmv_tpu_torch.ops.wellcw_kernels import (
     wellcw_level_core,
+    wellcw_level_spmm_core,
     wellcw_merged_core,
+    wellcw_merged_spmm_core,
     wellcw_pool_core,
+    wellcw_pool_spmm_core,
+    wellcw_spmm,
+    wellcw_spmm_core,
     wellcw_spmv,
     wellcw_spmv_core,
 )
@@ -51,6 +65,11 @@ __all__ = [
     "wellcw_merged_core",
     "wellcw_level_core",
     "wellcw_pool_core",
+    "wellcw_spmm",
+    "wellcw_spmm_core",
+    "wellcw_merged_spmm_core",
+    "wellcw_level_spmm_core",
+    "wellcw_pool_spmm_core",
     "wellcw_spmv_reference",
     "cw_merged_reference",
     "cw_level_reference",
@@ -58,9 +77,14 @@ __all__ = [
     "csr_spmv",
     "csr_spmv_core",
     "csr_spmv_reference",
+    "csr_spmm",
+    "csr_spmm_core",
     "triad",
     "CgResult",
+    "BatchedCgResult",
     "conjugate_gradient",
+    "batched_conjugate_gradient",
+    "dia_batched_conjugate_gradient",
     "preconditioned_conjugate_gradient",
     "dia_conjugate_gradient",
     "jacobi_preconditioner",

@@ -31,7 +31,8 @@ __all__ = ["KernelBuildError", "build_library", "find_nvcc",
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "csr_spmv.cu")
+SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
+           "csr_spmv.cu", "csr_spmm.cu")
 HEADERS = ("dia_common.cuh", "cw_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -181,6 +182,22 @@ def load_library() -> ctypes.CDLL:
     lib.csr_spmv_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I32, _PTR]
     lib.csr_spmv_launch.restype = _I32
+    lib.wellcw_level_spmm_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32, _I64, _I64, _I64, _I32,
+        _I32, _PTR, _PTR, _I32, _PTR]
+    lib.wellcw_level_spmm_launch.restype = _I32
+    lib.wellcw_pool_spmm_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64, _I64,
+        _I64, _I32, _I32, _PTR, _PTR, _I32, _PTR]
+    lib.wellcw_pool_spmm_launch.restype = _I32
+    lib.wellcw_merged_spmm_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I64, _I64, _I64,
+        _I32, _I32, _PTR, _PTR, _I32, _PTR]
+    lib.wellcw_merged_spmm_launch.restype = _I32
+    lib.csr_spmm_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR, _PTR, _I32,
+        _PTR]
+    lib.csr_spmm_launch.restype = _I32
     lib.spmv_tpu_torch_error_string.argtypes = [_I32]
     lib.spmv_tpu_torch_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,14 +1,16 @@
-"""CSR kernel wrapper.
+"""CSR kernel wrappers.
 
-``csr_spmv_core`` (``csrc/csr_spmv.cu``) is not the port of a TPU
-kernel: the JAX package sums CSR in XLA (``_csr_padded``,
-``spmv_tpu/ops/spmv.py:42``).  It is written by hand so that the WELL-CW
-remainder adds in a fixed order on the card (``index_add_`` on CUDA adds
-with atomics, in no fixed order), and for the CSR format's own path.
-It takes its plain version (``csr_spmv_reference``) for CPU tensors,
-launches the kernel for CUDA tensors, and raises for anything else, with
-the launch discipline of ``ops/_launch.py``.  ``csr_spmv_core.launches``
-counts launches.
+``csr_spmv_core`` (``csrc/csr_spmv.cu``) and ``csr_spmm_core``
+(``csrc/csr_spmm.cu``) are not ports of TPU kernels: the JAX package
+sums CSR in XLA (``_csr_padded`` and the ``DeviceCsr`` branch of
+``spmm``, ``spmv_tpu/ops/spmv.py:42, :266-273``).  They are written by
+hand so that the WELL-CW remainder adds in a fixed order on the card
+(``index_add_`` on CUDA adds with atomics, in no fixed order), and for
+the CSR format's own path.  Each takes its plain version
+(``csr_spmv_reference``, which also takes X of shape (m, k)) for CPU
+tensors, launches its kernel for CUDA tensors, and raises for anything
+else, with the launch discipline of ``ops/_launch.py``.  ``.launches``
+on each counts its launches.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from spmv_tpu_torch.ops._launch import (
 )
 from spmv_tpu_torch.ops.spmv import csr_spmv_reference
 
-__all__ = ["csr_spmv_core", "csr_spmv"]
+__all__ = ["csr_spmv_core", "csr_spmv", "csr_spmm_core", "csr_spmm"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -86,3 +88,55 @@ csr_spmv_core.launches = 0
 def csr_spmv(A, x: torch.Tensor) -> torch.Tensor:
     """One-shot y = A @ x: x is cast to the value dtype first."""
     return csr_spmv_core(A, x.to(A.value.dtype).contiguous())
+
+
+def csr_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None,
+                  accumulate: bool = False) -> torch.Tensor:
+    """Y = A @ X for a ``DeviceCsr``: X of shape (num_columns, k) and Y
+    of shape (num_rows, k), row-major, in the value dtype.
+
+    ``out`` (optional, not overlapping X) receives Y; with
+    ``accumulate=True`` it receives ``out + A @ X`` instead.
+    """
+    _check_matrix(A)
+    dt = A.value.dtype
+    if X.dim() != 2:
+        raise KernelError(f"X must be (num_columns, k); got {tuple(X.shape)}")
+    k = X.shape[1]
+    check_vector("X", X, (A.num_columns, k), dt)
+    if out is not None:
+        check_vector("out", out, (A.num_rows, k), dt)
+        check_no_alias(X, out)
+    elif accumulate:
+        raise KernelError("accumulate=True needs an out buffer")
+    tensors = (A.value, A.row_ptr, A.column_index, X) + (
+        () if out is None else (out,))
+    if not on_cuda("CSR", *tensors):
+        Y = csr_spmv_reference(A, X)
+        if out is None:
+            return Y
+        return out.add_(Y) if accumulate else out.copy_(Y)
+
+    from spmv_tpu_torch.ops._build import load_library
+
+    n = A.num_rows
+    Y = out if out is not None else torch.empty((n, k), dtype=dt,
+                                                device=X.device)
+    if n > 0 and k > 0:
+        lib = load_library()
+        rc = lib.csr_spmm_launch(
+            _DTYPE_CODE[dt], X.device.index, A.row_ptr.data_ptr(),
+            A.column_index.data_ptr(), A.value.data_ptr(), n,
+            A.num_columns, k, X.data_ptr(), Y.data_ptr(), int(accumulate),
+            stream_of(X))
+        raise_on(lib, rc, "csr_spmm")
+        csr_spmm_core.launches += 1
+    return Y
+
+
+csr_spmm_core.launches = 0
+
+
+def csr_spmm(A, X: torch.Tensor) -> torch.Tensor:
+    """One-shot Y = A @ X: X is cast to the value dtype first."""
+    return csr_spmm_core(A, X.to(A.value.dtype).contiguous())

@@ -9,9 +9,9 @@ import torch
 
 from spmv_tpu.errors import KernelError
 from spmv_tpu_torch.models.device import DeviceCsr, DeviceDia, DeviceWellCw
-from spmv_tpu_torch.ops.csr_kernels import csr_spmv
+from spmv_tpu_torch.ops.csr_kernels import csr_spmm, csr_spmv
 from spmv_tpu_torch.ops.dia_kernels import dia_spmm, dia_spmv
-from spmv_tpu_torch.ops.wellcw_kernels import wellcw_spmv
+from spmv_tpu_torch.ops.wellcw_kernels import wellcw_spmm, wellcw_spmv
 
 __all__ = ["spmv", "spmm"]
 
@@ -29,12 +29,13 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm(A, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X for a ``DeviceDia`` (K2); the WELL-CW SpMM (K4) and the
-    other formats are not ported yet."""
+    """Y = A @ X for X of shape (num_columns, k): a ``DeviceDia`` (K2),
+    ``DeviceWellCw`` (K4a-c and the CSR SpMM remainder) or
+    ``DeviceCsr``."""
     if isinstance(A, DeviceDia):
         return dia_spmm(A, X)
     if isinstance(A, DeviceWellCw):
-        raise KernelError(
-            "spmm on WELL-CW is not yet ported to spmv_tpu_torch (kernels "
-            "K4); see ROADMAP.md")
+        return wellcw_spmm(A, X)
+    if isinstance(A, DeviceCsr):
+        return csr_spmm(A, X)
     raise KernelError(f"spmm: no port for {type(A).__name__}")

@@ -1,12 +1,12 @@
-"""Conjugate gradient: generic (P)CG over any matvec, and the DIA
-kernel loop.
+"""Conjugate gradient: generic (P)CG over any matvec, the DIA kernel
+loop, and batched multi-RHS CG over any matmat and over K2.
 
 The counterpart of the CG part of ``spmv_tpu/ops/solvers.py``.  The
 iteration runs eagerly in a Python loop; the stopping rule is the JAX
 package's exactly (iterate while ``r.r > tol^2 * max(b.b, 1e-300)`` and
-``k < max_iterations``, compared in the vector dtype), checked with one
-scalar ``.item()`` per iteration, so iteration counts compare one to
-one with the JAX solvers.
+``k < max_iterations``, compared in the vector dtype; per column in the
+batched solver), checked with one host sync per iteration, so iteration
+counts compare one to one with the JAX solvers.
 """
 
 from __future__ import annotations
@@ -16,12 +16,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from spmv_tpu_torch.ops.dia_kernels import dia_spmv_core
+from spmv_tpu_torch.ops.dia_kernels import dia_spmm_core, dia_spmv_core
 from spmv_tpu_torch.ops.dispatch import spmv
 
 __all__ = [
     "CgResult",
+    "BatchedCgResult",
     "conjugate_gradient",
+    "batched_conjugate_gradient",
+    "dia_batched_conjugate_gradient",
     "preconditioned_conjugate_gradient",
     "dia_conjugate_gradient",
     "jacobi_preconditioner",
@@ -35,8 +38,16 @@ class CgResult(NamedTuple):
     iterations: int
 
 
-def _tol2(b: torch.Tensor, tol: float) -> torch.Tensor:
-    b_norm2 = torch.clamp(torch.dot(b, b), min=1e-300)
+class BatchedCgResult(NamedTuple):
+    x: torch.Tensor               # (n, k)
+    residual_norm: torch.Tensor   # (k,), sqrt of each column's final r.r
+    iterations: torch.Tensor      # (k,) int32, each column's own count
+
+
+def _tol2(b: torch.Tensor, tol: float, b_norm2=None) -> torch.Tensor:
+    if b_norm2 is None:
+        b_norm2 = torch.dot(b, b)
+    b_norm2 = torch.clamp(b_norm2, min=1e-300)
     return torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 * b_norm2
 
 
@@ -99,6 +110,108 @@ def preconditioned_conjugate_gradient(
         rz = rz_new
         k += 1
     return CgResult(x=x, residual_norm=torch.sqrt(rr), iterations=k)
+
+
+def _colsum(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-column <v, w> of two (n, k) tensors."""
+    return (v * w).sum(dim=0)
+
+
+def batched_conjugate_gradient(
+    matmat: Callable[[torch.Tensor], torch.Tensor],
+    B: torch.Tensor,
+    preconditioner: Callable[[torch.Tensor], torch.Tensor] = None,
+    tol: float = 1e-8,
+    max_iterations: int = 1000,
+    recompute_every: int = 0,
+) -> BatchedCgResult:
+    """Multi-RHS CG: k independent per-column recurrences sharing one
+    SpMM (``matmat``) per iteration, for B of shape (n, k), from X = 0.
+
+    As the JAX function: each column carries its own alpha and beta and
+    converges on its own relative residual; a converged column freezes
+    (its alpha and beta are forced to 0) while the rest iterate, so the
+    result equals k separate CG runs up to rounding order.
+    ``preconditioner`` (optional) applies an SPD M^-1 column-wise.
+    ``recompute_every=k`` (k > 0) replaces R with B - A X on all
+    columns every k iterations; a frozen column whose true residual is
+    above tolerance reactivates, its search direction restarted.  The
+    loop runs while any column is active and fewer than
+    ``max_iterations`` iterations have run.
+    """
+    _check_recompute(recompute_every)
+    X = torch.zeros_like(B)
+    R = B.clone()
+    Z = preconditioner(R) if preconditioner is not None else R
+    P = Z.clone()
+    rz = _colsum(R, Z)
+    rr = _colsum(R, R) if preconditioner is not None else rz
+    tol2 = _tol2(B, tol, _colsum(B, B))
+    iters = torch.zeros(B.shape[1], dtype=torch.int32, device=B.device)
+    k = 0
+    while k < max_iterations:
+        active = rr > tol2
+        if not bool(active.any()):
+            break
+        AP = matmat(P)
+        pap = _colsum(P, AP)
+        one = torch.ones_like(pap)
+        alpha = torch.where(active, rz / torch.where(active, pap, one), 0.0)
+        X = X + alpha * P
+        R = R - alpha * AP
+        if recompute_every and (k + 1) % recompute_every == 0:
+            R = B - matmat(X)
+        Z = preconditioner(R) if preconditioner is not None else R
+        rz_new = _colsum(R, Z)
+        rr = _colsum(R, R) if preconditioner is not None else rz_new
+        beta = torch.where(active, rz_new / torch.where(active, rz, one),
+                           0.0)
+        P = Z + beta * P
+        rz = rz_new
+        iters += active.to(torch.int32)
+        k += 1
+    return BatchedCgResult(x=X, residual_norm=torch.sqrt(rr),
+                           iterations=iters)
+
+
+def dia_batched_conjugate_gradient(
+    A,
+    B: torch.Tensor,
+    tol: float = 1e-8,
+    max_iterations: int = 1000,
+    jacobi_diag=None,
+    recompute_every: int = 0,
+) -> BatchedCgResult:
+    """Multi-RHS CG specialised to a ``DeviceDia`` operator: one SpMM
+    over all k columns of B (num_rows, k) per iteration, through
+    ``dia_spmm_core`` into one preallocated buffer: K2 on a CUDA tensor,
+    its plain version on a CPU tensor.  The JAX function's padded Pallas
+    layout (``dia_prepare_X`` / ``dia_extract_Y``) is not carried: K2
+    takes (n, k) as it is.  ``jacobi_diag`` (optional, length num_rows)
+    switches to Jacobi-preconditioned CG.
+    """
+    if A.num_rows != A.num_columns:
+        raise ValueError("dia_batched_conjugate_gradient requires a "
+                         "square matrix")
+    if B.dim() != 2:
+        raise ValueError(f"B must be (num_rows, k); got {tuple(B.shape)}")
+    B = B.to(A.data.dtype).contiguous()
+    precond = None
+    if jacobi_diag is not None:
+        inv = _jacobi_inverse(torch.as_tensor(
+            jacobi_diag, dtype=B.dtype, device=B.device))[:, None]
+
+        def precond(R):
+            return R * inv
+    ap = torch.empty_like(B)
+
+    def matmat(V):
+        # A P is used up before the next call overwrites the buffer
+        return dia_spmm_core(A, V, out=ap)
+
+    return batched_conjugate_gradient(
+        matmat, B, preconditioner=precond, tol=tol,
+        max_iterations=max_iterations, recompute_every=recompute_every)
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:

@@ -15,17 +15,24 @@ card ``chip_smoke.py`` holds the kernels against them.
   the Pallas kernel does, and rounds once at the end.
 - ``csr_spmv_reference``, after ``_csr_padded``: each row's products
   summed with ``index_add_``.
-- ``cw_merged_reference`` (K3c), ``cw_level_reference`` (K3a) and
-  ``cw_pool_reference`` (K3b), after ``_wellcw_merged_xla`` and
-  ``_wellcw_gathered``: each returns its part's contribution to y, and
-  ``wellcw_spmv_reference`` (after ``_wellcw_padded``) adds the parts in
-  stream order (merged, levels, pool, tail pools, remainder).  A cell
+- ``cw_merged_reference`` (K3c / K4a), ``cw_level_reference`` (K3a /
+  K4b) and ``cw_pool_reference`` (K3b / K4c), after
+  ``_wellcw_merged_xla`` and ``_wellcw_gathered``: each returns its
+  part's contribution to y, and ``wellcw_spmv_reference`` (after
+  ``_wellcw_padded``) adds the parts in stream order (merged, levels,
+  pool, tail pools, remainder).  A cell
   reads x at column ``(anchor4 * d + w) * 128 + (loc & 127)``, with
   ``w = loc >> 7`` (levels and pools) or ``(loc >> 7) & (8 d - 1)``
   (merged chunks, whose bits 14 and up carry the pool row).  A column
   past the end reads 0, as the Pallas kernels' zero-padded x tables
   do (XLA's ``mode="clip"`` reads the last entry instead; the two
   differ only where that entry is not finite).
+
+The CSR and WELL-CW versions take x of shape (m,) or X of shape (m, k)
+and return (n,) or (n, k): the same code specifies the SpMV kernels
+and their SpMM counterparts (K4a-c and the CSR SpMM), after the
+WELL-CW and ``DeviceCsr`` branches of JAX's ``spmm``.  Column j of the
+SpMM is the SpMV of column j.
 
 The public entry points ``spmv`` and ``spmm`` are in
 ``spmv_tpu_torch.ops.dispatch``: they pick the wrapper by container
@@ -95,75 +102,88 @@ def dia_spmm_reference(A, X: torch.Tensor) -> torch.Tensor:
 
 
 def csr_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a ``DeviceCsr``, in the value dtype."""
+    """y = A @ x for a ``DeviceCsr``, in the value dtype; x (m,) or
+    (m, k)."""
     dev = A.value.device
     xs = x.to(A.value.dtype)
     counts = (A.row_ptr[1:] - A.row_ptr[:-1]).long()
     rows = torch.repeat_interleave(
         torch.arange(A.num_rows, device=dev), counts,
         output_size=A.value.numel())
-    prod = A.value * xs[A.column_index.long()]
-    y = torch.zeros(A.num_rows, dtype=A.value.dtype, device=dev)
+    prod = _cols(A.value, xs) * xs[A.column_index.long()]
+    y = torch.zeros((A.num_rows,) + tuple(xs.shape[1:]),
+                    dtype=A.value.dtype, device=dev)
     return y.index_add_(0, rows, prod)
 
 
+def _cols(value: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``value`` with a trailing column axis when x has one."""
+    return value if x.dim() == 1 else value[..., None]
+
+
 def _cw_products(src, x: torch.Tensor, merged: bool = False):
-    """(chunks, 8, 128) products value * x[column] of a level, pool or
-    merged grid; a column past the end reads 0."""
+    """(chunks, 8, 128[, k]) products value * x[column] of a level, pool
+    or merged grid; a column past the end reads 0."""
     loc = src.local_index.long()
     w = loc >> 7
     if merged:
         w = w & (8 * src.d - 1)
     a4 = src.anchor4.reshape(-1, 1, 1).long()
     col = (a4 * src.d + w) * LANE + (loc & (LANE - 1))
-    xz = torch.cat([x, x.new_zeros(1)])
-    return src.value * xz[col.clamp_(max=x.numel())]
+    m = x.shape[0]
+    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return _cols(src.value, x) * xz[col.clamp_(max=m)]
 
 
 def cw_level_reference(lvl, x: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """K3a's contribution: each chunk's 8 slots summed into its group
-    row."""
+    """K3a's (K4b's) contribution: each chunk's 8 slots summed into its
+    group row."""
     num_groups = lvl.group_ptr.numel() - 1
-    contrib = _cw_products(lvl, x).sum(dim=1)          # (chunks, 128)
-    y = torch.zeros((num_groups, LANE), dtype=contrib.dtype,
-                    device=contrib.device)
+    contrib = _cw_products(lvl, x).sum(dim=1)     # (chunks, 128[, k])
+    y = torch.zeros((num_groups,) + tuple(contrib.shape[1:]),
+                    dtype=contrib.dtype, device=contrib.device)
     y.index_add_(0, lvl.group_of_chunk.reshape(-1).long(), contrib)
-    return y.reshape(-1)[:num_rows]
+    return y.reshape((-1,) + tuple(x.shape[1:]))[:num_rows]
 
 
 def cw_pool_reference(pool, x: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """K3b's contribution: each cell scattered to its ``rowmap`` row."""
-    prod = _cw_products(pool, x).reshape(-1)
+    """K3b's (K4c's) contribution: each cell scattered to its ``rowmap``
+    row."""
+    tail = tuple(x.shape[1:])
+    prod = _cw_products(pool, x).reshape((-1,) + tail)
     lanes = torch.arange(LANE, device=prod.device)
     flat = (pool.rowmap.long() * LANE + lanes).reshape(-1)
     keep = flat < num_rows
-    y = torch.zeros(num_rows, dtype=prod.dtype, device=prod.device)
+    y = torch.zeros((num_rows,) + tail, dtype=prod.dtype,
+                    device=prod.device)
     return y.index_add_(0, flat[keep], prod[keep])
 
 
 def cw_merged_reference(mg, x: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """K3c's contribution: level chunk kk of block b sums into group
-    ``b * 64 + kk // cap``; pool cells scatter to row ``b * 64 +
+    """K3c's (K4a's) contribution: level chunk kk of block b sums into
+    group ``b * 64 + kk // cap``; pool cells scatter to row ``b * 64 +
     (loc >> 14)``."""
     S, kl, lvl_per = mg.num_blocks, mg.kl, mg.lvl_per_block
-    prod = _cw_products(mg, x, merged=True).reshape(S, kl, 8, LANE)
+    tail = tuple(x.shape[1:])
+    prod = _cw_products(mg, x, merged=True).reshape((S, kl, 8, LANE) + tail)
     dev = prod.device
-    y = torch.zeros((S * 64, LANE), dtype=prod.dtype, device=dev)
-    contrib = prod[:, :lvl_per].sum(dim=2).reshape(-1, LANE)
+    y = torch.zeros((S * 64, LANE) + tail, dtype=prod.dtype, device=dev)
+    contrib = prod[:, :lvl_per].sum(dim=2).reshape((-1, LANE) + tail)
     groups = torch.arange(S * lvl_per, device=dev) // mg.cap
     y.index_add_(0, groups, contrib)
+    y = y.reshape((-1,) + tail)
     if mg.pool_per_block:
         ploc = mg.local_index.reshape(S, kl, 8, LANE)[:, lvl_per:].long()
         base = (torch.arange(S, device=dev) * 64).reshape(S, 1, 1, 1)
         lanes = torch.arange(LANE, device=dev)
         flat = ((base + (ploc >> 14)) * LANE + lanes).reshape(-1)
-        y.reshape(-1).index_add_(0, flat, prod[:, lvl_per:].reshape(-1))
-    return y.reshape(-1)[:num_rows]
+        y.index_add_(0, flat, prod[:, lvl_per:].reshape((-1,) + tail))
+    return y[:num_rows]
 
 
 def wellcw_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a ``DeviceWellCw``: the parts added in stream
-    order, in the value dtype."""
+    """y = A @ x for a ``DeviceWellCw``, x (m,) or (m, k): the parts
+    added in stream order, in the value dtype."""
     xf = x.to(A.value_dtype)
     n = A.num_rows
     parts = []

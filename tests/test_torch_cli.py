@@ -105,8 +105,8 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 @pytest.mark.parametrize("argv", [
     [],                                               # simulation mode
     ["--spmv-format", "csr", "--profile", "2"],
-    ["--spmv-format", "wellcw", "--profile", "2", "--spmm", "2"],
-    ["--spmv-format", "dia", "--cg", "10", "--nrhs", "2"],
+    ["--spmv-format", "well", "--profile", "2"],
+    ["--spmv-format", "bsr", "--profile", "2"],
     ["--spmv-format", "dia", "--cg", "10", "--solver", "bicgstab"],
     ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0"],
     ["--spmv-format", "dia", "--eigs", "2"],
@@ -191,7 +191,10 @@ def test_port_never_imports_jax(matrix_file):
         from spmv_tpu_torch.cli import main
         for argv in (["-s", "dia", "--profile", "2"],
                      ["-s", "wellcw", "--profile", "2"],
-                     ["-s", "wellcw", "--cg", "20"]):
+                     ["-s", "wellcw", "--cg", "20"],
+                     ["-s", "wellcw", "--profile", "2", "--spmm", "2"],
+                     ["-s", "wellcw", "--cg", "20", "--nrhs", "2"],
+                     ["-s", "dia", "--cg", "20", "--nrhs", "2"]):
             out = io.StringIO()
             rc = main(["--matrix", {matrix_file!r}] + argv, out=out)
             assert rc == 0, (argv, rc)

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3a-c and the CSR kernel on the card against their
-plain versions.
+"""Kernels K1, K2, K3a-c, K4a-c and the CSR kernels on the card against
+their plain versions.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -13,7 +13,9 @@ they differ by at most one bfloat16 step); the fused dot 1e-10 in
 float64 and 1e-4 in float32, relative to sum |x_i y_i| (the scale of
 the rounding error of any summation order).  The WELL-CW and CSR
 kernels (float64 and float32 only) are also launched twice on the same
-input, and the two outputs must be bitwise equal.
+input, and the two outputs must be bitwise equal; each column of an
+SpMM kernel's output is also held against the SpMV kernel on that
+column.
 """
 
 import functools
@@ -31,6 +33,7 @@ from spmv_tpu.io.generate import (
 from spmv_tpu.models import DiaMatrix, WellCwMatrix
 from spmv_tpu_torch.models import DeviceDia, DeviceWellCw
 from spmv_tpu_torch.ops import (
+    csr_spmm_core,
     csr_spmv_core,
     csr_spmv_reference,
     cw_level_reference,
@@ -41,11 +44,16 @@ from spmv_tpu_torch.ops import (
     dia_spmv_core,
     dia_spmv_reference,
     wellcw_level_core,
+    wellcw_level_spmm_core,
     wellcw_merged_core,
+    wellcw_merged_spmm_core,
     wellcw_pool_core,
+    wellcw_pool_spmm_core,
+    wellcw_spmm_core,
     wellcw_spmv_core,
     wellcw_spmv_reference,
 )
+from spmv_tpu_torch.ops.wellcw_kernels import column_block
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +190,104 @@ def test_wellcw_kernels_match_plain(case, dtype, cuda):
     assert _rel_err(y, wellcw_spmv_reference(A, x)) <= TOL[dtype]
     want = torch.from_numpy(w.spmv(x.double().cpu().numpy()))
     assert _rel_err(y.cpu(), want) <= TOL[dtype]
+
+
+def _spmm_parts(A):
+    """(SpMM wrapper, part, plain version, SpMV wrapper) of every kernel
+    launch of A's SpMM."""
+    out = []
+    if A.merged is not None:
+        out.append((wellcw_merged_spmm_core, A.merged, cw_merged_reference,
+                    wellcw_merged_core))
+    out += [(wellcw_level_spmm_core, lv, cw_level_reference,
+             wellcw_level_core) for lv in A.levels]
+    pools = ([A.pool] if A.pool is not None else []) + list(A.tail_pools)
+    out += [(wellcw_pool_spmm_core, p, cw_pool_reference, wellcw_pool_core)
+            for p in pools]
+    if A.remainder is not None:
+        out.append((lambda R, X, n: csr_spmm_core(R, X), A.remainder,
+                    lambda R, X, n: csr_spmv_reference(R, X),
+                    lambda R, x, n: csr_spmv_core(R, x)))
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", list(WELLCW_CASES))
+def test_wellcw_spmm_kernels_match_plain(case, dtype, k, cuda):
+    w = _wellcw_host(case)
+    A = DeviceWellCw.from_host(w, dtype=dtype, device=cuda,
+                               **WELLCW_CASES[case][2])
+    g = torch.Generator(device=cuda).manual_seed(4)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
+    n = A.num_rows
+    counters = (wellcw_merged_spmm_core, wellcw_level_spmm_core,
+                wellcw_pool_spmm_core, csr_spmm_core)
+    before = [c.launches for c in counters]
+    for wrapper, part, plain, spmv_wrapper in _spmm_parts(A):
+        Y1 = wrapper(part, X, n)
+        Y2 = wrapper(part, X, n)
+        torch.cuda.synchronize()
+        assert Y1.shape == (n, k)
+        assert torch.equal(Y1, Y2), wrapper
+        assert _rel_err(Y1, plain(part, X, n)) <= TOL[dtype], wrapper
+        for j in range(k):
+            y = spmv_wrapper(part, X[:, j].contiguous(), n)
+            assert _rel_err(Y1[:, j], y) <= TOL[dtype], (wrapper, j)
+    Y = wellcw_spmm_core(A, X)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    expect = [3 * (A.merged is not None),
+              3 * len(A.levels),
+              3 * ((A.pool is not None) + len(A.tail_pools)),
+              3 * (A.remainder is not None)]
+    assert launched == expect
+    assert _rel_err(Y, wellcw_spmv_reference(A, X)) <= TOL[dtype]
+    want = torch.from_numpy(w.spmm(X.double().cpu().numpy()))
+    assert _rel_err(Y.cpu(), want) <= TOL[dtype]
+
+
+def test_wellcw_spmm_wide_tail_pool_float64(cuda):
+    """k = 8 in float64 on a 128-group tail pool: 8 columns of its tile
+    would need 256 KB of shared memory, more than a block has, so the
+    kernel takes them one column block at a time."""
+    A = DeviceWellCw.from_host(_wellcw_host("merged"), dtype=torch.float64,
+                               device=cuda)
+    tails = [p for p in A.tail_pools if p.out_rows == 128]
+    assert tails, [p.out_rows for p in A.tail_pools]
+    assert column_block("pool", torch.float64, 8, rows=128) < 8
+    g = torch.Generator(device=cuda).manual_seed(5)
+    X = torch.randn(A.num_columns, 8, generator=g, device=cuda,
+                    dtype=torch.float64)
+    for pool in tails:
+        Y1 = wellcw_pool_spmm_core(pool, X, A.num_rows)
+        Y2 = wellcw_pool_spmm_core(pool, X, A.num_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(Y1, Y2)
+        assert _rel_err(Y1, cw_pool_reference(pool, X, A.num_rows)) <= 1e-12
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_csr_spmm_matches_plain(dtype, k, cuda):
+    from spmv_tpu.models import CsrMatrix
+    from spmv_tpu_torch.models import DeviceCsr
+
+    A = DeviceCsr.from_host(
+        CsrMatrix.from_matrix_market(random_sparse(3000, 2000, 9, seed=8)),
+        dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
+    before = csr_spmm_core.launches
+    Y1, Y2 = csr_spmm_core(A, X), csr_spmm_core(A, X)
+    out = torch.ones(A.num_rows, k, device=cuda, dtype=dtype)
+    csr_spmm_core(A, X, out=out, accumulate=True)
+    torch.cuda.synchronize()
+    assert csr_spmm_core.launches == before + 3
+    assert torch.equal(Y1, Y2)
+    want = csr_spmv_reference(A, X)
+    assert _rel_err(Y1, want) <= TOL[dtype]
+    assert _rel_err(out, want + 1) <= TOL[dtype]
+    for j in range(k):
+        assert _rel_err(Y1[:, j], csr_spmv_core(A, X[:, j].contiguous())) \
+            <= TOL[dtype]

@@ -253,14 +253,21 @@ def test_narrow_dtypes_refused(dtype):
 
 
 def test_dispatch_forward_and_spmm_refusal():
+    """``spmv`` and ``spmm`` dispatch on WELL-CW (``spmm`` was refused
+    before K4 was ported; it now runs the plain SpMM on the CPU)."""
     w, _, At = _both("remainder")
     x = torch.from_numpy(_x(At.num_columns))
     _close(At(x), w.spmv(x.numpy()), 1e-12)
     x32 = x.float()                            # spmv casts it to float64
     _close(spmv(At, x32), w.spmv(x32.double().numpy()), 1e-12)
     _close(At.remainder(x), w.remainder.spmv(x.numpy()), 1e-12)
-    with pytest.raises(KernelError, match="not yet ported"):
-        spmm(At, x[:, None])
+    X = torch.stack([x, 2 * x], dim=1)
+    Y = spmm(At, X.float())                    # spmm casts it to float64
+    assert Y.dtype == torch.float64
+    assert torch.equal(Y, wellcw_spmv_reference(At, X.float().double()))
+    _close(Y[:, 0], w.spmv(x32.double().numpy()), 1e-12)
+    with pytest.raises(KernelError, match="no port"):
+        spmm(object(), X)
 
 
 def test_out_buffer_and_parts_accumulate():
@@ -336,8 +343,13 @@ def test_make_kernel_run_fn_chains(name):
         want = y[: w.num_columns] if y.size >= w.num_columns else \
             np.concatenate([y, want[y.size:]])
     _close(v, want, 1e-12)
-    with pytest.raises(KernelError, match="not yet ported"):
-        k.spmm_fn(2)
+    # and spmm_fn(k) chains the same way (tests/test_torch_wellcw_spmm.py)
+    step, args = k.spmm_fn(2)
+    V = step(args[0], *args[1:])
+    assert V.shape == (w.num_columns, 2)
+    Y = w.spmm(np.ones((w.num_columns, 2)))
+    _close(V[: min(w.num_rows, w.num_columns)],
+           Y[: min(w.num_rows, w.num_columns)], 1e-12)
 
 
 def test_bytes_per_run_matches_jax_kernel_at_x64():
