@@ -35,6 +35,16 @@ Phases (each prints readable lines; any failure exits non-zero):
    at the shapes of the CLI's --nrhs 3 runs (phases 4 and 6, whose B is
    built by the SpMM under test): K2 on poisson2d(1024, 1024) and the
    WELL-CW SpMM kernels on poisson2d(256, 256), float32, k = 3.
+   Then the WELL kernels K5a (whole x) and K5b (segmented) and the
+   spill's CSR kernel in float64 and float32 on the kinds of matrix of
+   the JAX WELL tests: poisson2d(256, 256) whole x and with
+   blocks_per_out 2, a random band with forced segment_rows=4 and two
+   far column clusters with segment_rows=2 (escaping slots spill),
+   segment_rows=8 with blocks_per_out 4, two empty output blocks, a
+   rectangular random_sparse(200, 150, 5) and banded_random(65536, 512,
+   8) with a CSR spill: each launched twice (bitwise equal), against its
+   plain version, the whole product against the plain composition and,
+   in float32, the fp64 host product.
 4. DIA main path through the CLI, in process, on a Matrix Market file of
    poisson2d(1024, 1024): profile, SpMM profile, CG, Jacobi CG, batched
    CG (--nrhs 3: K2), triad.  The DIA launch counts are zeroed just
@@ -78,11 +88,29 @@ Phases (each prints readable lines; any failure exits non-zero):
    K4b on its fallback layout (chunks_per_step=64): bitwise repeat, max
    error against the plain version, device ms (50 launches in a CUDA
    graph, the L2 flushed before each) and ms a call through the
-   wrapper, against plain ms.
+   wrapper, against plain ms, the bound and, for the CSR kernels,
+   torch.sparse.
+11. WELL path through the CLI (the WELL launch counts, K5a, K5b and the
+   spill's CSR kernel, are zeroed just before): --profile 5 and --cg 2000
+   on poisson2d(256, 256) (K5a).
+12. WELL profile: make_kernel("well").run_fn in float32 on
+   poisson2d(1024, 1024) (whole x: K5a) and poisson2d(4096, 4096) (the
+   DIA matrix of phase 5, segmented: K5b), each with its CSR spill: host
+   packing time, the fp64 host checksum gate, seconds per chained SpMV
+   (CUDA events) with the launch counts equal to the chain length, the
+   plain version's time, the fraction of the triad roofline and K1's
+   time on the same matrix.  The WELL launch counts are read after it.
+13. WELL kernels alone at those two sizes (not counted): K5a, K5b and
+   the spill's CSR kernel as in phase 10, each beside the torch.sparse
+   CSR product (cuSPARSE) of the same entries and its bound; then the
+   torch.sparse CSR SpMV of the whole matrix against the chained SpMV.
 
-The second-to-last lines are the kernels' JSON summary and nvidia-smi's
-``name, power.limit``; the last line is the run's result.  Imports no
-JAX: the machine with the card need not have it.
+The second-to-last lines are the kernels' JSON summary (twelve kernels,
+each with its launches on the main path, max error, ms against plain
+ms, bound and library ms) and nvidia-smi's ``name, power.limit``; the
+last line is the run's result.  Imports no JAX and nothing of the JAX
+package: the machine with the card need not have it.  Bounds take the
+data sheet's 3.35 TB/s and 67 TFLOP/s float32 (H100 SXM, 700 W).
 """
 
 from __future__ import annotations
@@ -123,6 +151,11 @@ CG_GRID = 1024                # bench.py's solver leg (batched CG)
 CG_K = 4
 CG_ITERS = (50, 250)          # fixed-length solves for the slope
 CG_ROUNDS = 11                # rounds of those solves, for the spread
+WELL_CLI_GRID = 256           # the WELL CLI phase's poisson2d
+WELL_WHOLE_GRID = 1024        # K5a: x fits whole in float32
+WELL_SEG_GRID = FULL_GRID     # K5b: x past 8 MiB, segmented mode
+HBM_BPS = 3.35e12             # H100 SXM data sheet, at 700 W
+PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 
 
 def _fail(msg: str) -> None:
@@ -206,6 +239,60 @@ def _cold_graph_ms(fn, flush, reps: int) -> float:
     return _graph_replay_ms(both, reps) - _graph_replay_ms(flush, reps)
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(nbytes: int, flops: int, triad_gbps: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the data sheet's memory rate and its operations over the
+    float32 peak (every timed kernel accumulates in float32); beside it,
+    the bytes over the triad rate measured on this card."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_triad_ms": nbytes / (triad_gbps * 1e9) * 1e3,
+            "bytes": nbytes, "flops": flops}
+
+
+def _torch_csr(row_ptr, column_index, value, shape):
+    """A ``torch.sparse_csr_tensor`` with 32-bit indices: the card's own
+    CSR product (cuSPARSE) as a yardstick, which the port never calls."""
+    import torch
+
+    return torch.sparse_csr_tensor(row_ptr.to(torch.int32),
+                                   column_index.to(torch.int32), value,
+                                   size=shape)
+
+
+def _csr_of_coo(rows, cols, vals, shape):
+    import torch
+
+    S = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                size=shape).coalesce()
+    S = S.to_sparse_csr()
+    return _torch_csr(S.crow_indices(), S.col_indices(), S.values(), shape)
+
+
+def _csr_of_mm(mm, device, dtype):
+    """The Matrix Market matrix as a torch CSR on the card."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int64) - 1).to(device)
+
+    return _csr_of_coo(t(mm.rows_1based), t(mm.cols_1based),
+                       torch.from_numpy(np.asarray(mm.values)).to(
+                           device, dtype), (mm.num_rows, mm.num_columns))
+
+
+def _library_ms(S, v, reps: int = 20) -> float:
+    """Milliseconds of ``S @ v`` (cuSPARSE through torch.sparse)."""
+    return _time_launches(lambda: S @ v, reps)
+
+
 def phase_device():
     import torch
 
@@ -248,8 +335,8 @@ def phase_build():
 
 # ---------------------------------------------------------------- phase 3
 def _banded_dia(n: int, offsets, seed: int):
-    from spmv_tpu.io.generate import from_coo_arrays
-    from spmv_tpu.models import DiaMatrix
+    from spmv_tpu_torch.io.generate import from_coo_arrays
+    from spmv_tpu_torch.models import DiaMatrix
 
     rng = np.random.default_rng(seed)
     rows, cols = [], []
@@ -264,8 +351,8 @@ def _banded_dia(n: int, offsets, seed: int):
 
 def _rect_dia():
     # the 4 x 5 matrix of tests/conftest.py TINY_MTX
-    from spmv_tpu.io.generate import from_coo_arrays
-    from spmv_tpu.models import DiaMatrix
+    from spmv_tpu_torch.io.generate import from_coo_arrays
+    from spmv_tpu_torch.models import DiaMatrix
 
     rows = np.array([0, 0, 1, 2, 3, 3, 3])
     cols = np.array([0, 1, 1, 2, 0, 3, 4])
@@ -337,8 +424,8 @@ def _compare(name, dia, dtype, device, k=SPMM_K):
 def phase_compare(device, full):
     import torch
 
-    from spmv_tpu.io.generate import poisson2d
-    from spmv_tpu.models import DiaMatrix
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import DiaMatrix
 
     cases = [
         (f"poisson2d({SMALL_GRID},{SMALL_GRID})",
@@ -360,10 +447,10 @@ def phase_compare(device, full):
 
 
 def _cw_parts(A, spmm: bool = False):
-    """(kernel name, kernel call, plain call) of each launch that
+    """(kernel name, kernel call, plain call, part) of each launch that
     ``wellcw_spmv_core`` (``wellcw_spmm_core`` with ``spmm``) makes for
     A; each call takes x or X (and an optional out buffer for the
-    kernel)."""
+    kernel), and ``part`` is the container the kernel reads."""
     from spmv_tpu_torch import ops
 
     n = A.num_rows
@@ -373,7 +460,7 @@ def _cw_parts(A, spmm: bool = False):
         core = getattr(ops, f"wellcw_{kind}{sfx}_core")
         return (f"wellcw_{kind}{sfx}",
                 lambda x, out=None: core(p, x, n, out=out),
-                lambda x: plain(p, x, n))
+                lambda x: plain(p, x, n), p)
 
     parts = []
     if A.merged is not None:
@@ -386,7 +473,7 @@ def _cw_parts(A, spmm: bool = False):
         core = ops.csr_spmm_core if spmm else ops.csr_spmv_core
         parts.append(("csr_spmm" if spmm else "csr_spmv",
                       lambda x, out=None: core(R, x, out=out),
-                      lambda x: ops.csr_spmv_reference(R, x)))
+                      lambda x: ops.csr_spmv_reference(R, x), R))
     return parts
 
 
@@ -405,7 +492,7 @@ def _compare_cw(name, w, dev_kw, dtype, device):
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(A.num_columns, generator=g, device=device, dtype=dtype)
     errs = []
-    for kname, run, plain in _cw_parts(A):
+    for kname, run, plain, _ in _cw_parts(A):
         y1, y2 = run(x), run(x)
         _sync(device)
         if not torch.equal(y1, y2):
@@ -449,8 +536,8 @@ def _compare_cw_spmm(name, w, dev_kw, dtype, k, device, bitwise):
     X = torch.randn(A.num_columns, k, generator=g, device=device,
                     dtype=dtype)
     errs = []
-    for (kname, run, plain), (_, run1, _) in zip(_cw_parts(A, spmm=True),
-                                                 _cw_parts(A)):
+    for (kname, run, plain, _), (_, run1, _, _) in zip(
+            _cw_parts(A, spmm=True), _cw_parts(A)):
         Y1, Y2 = run(X), run(X)
         cols = torch.stack([run1(X[:, j].contiguous()) for j in range(k)],
                            dim=1)
@@ -489,8 +576,8 @@ def phase_compare_wellcw(device, cg_mats):
     kernel's bit for bit in every case."""
     import torch
 
-    from spmv_tpu.io.generate import banded_random, poisson2d, random_sparse
-    from spmv_tpu.models import DiaMatrix, WellCwMatrix
+    from spmv_tpu_torch.io.generate import banded_random, poisson2d, random_sparse
+    from spmv_tpu_torch.models import DiaMatrix, WellCwMatrix
 
     merged = WellCwMatrix.from_matrix_market(
         banded_random(16384, 512, 6, seed=20))
@@ -590,8 +677,8 @@ def _run_cli(tag, runs):
 def phase_cli(device):
     import torch
 
-    from spmv_tpu.io import write_matrix_market
-    from spmv_tpu.io.generate import poisson2d
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
     from spmv_tpu_torch.ops import dia_spmm_core, dia_spmv_core
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -618,7 +705,7 @@ def phase_cli(device):
 
 
 # ---------------------------------------------------------------- phase 5
-def phase_profile(device, full, smi_line):
+def phase_profile(device, full, full_mm, smi_line):
     import torch
 
     from spmv_tpu_torch.kernels import make_kernel
@@ -634,7 +721,7 @@ def phase_profile(device, full, smi_line):
     _say(f"[5 profile] machine: {machine.name}, triad {machine.hbm_gbps:.1f} "
          f"GB/s measured (data sheet {machine.datasheet_hbm_gbps} GB/s), "
          f"card {smi_line}")
-    times = {}
+    times, extra = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dtn = str(dtype).replace("torch.", "")
         kernel = make_kernel("dia", matrix=full, device=device, dtype=dtype)
@@ -680,15 +767,33 @@ def phase_profile(device, full, smi_line):
         times[("spmm", dtn)] = (t, t_plain)
         _say(f"[5 profile] K2 {dtn} k={SPMM_K}: kernel {t * 1e3:.4f} ms, "
              f"plain {t_plain * 1e3:.4f} ms, on {smi_line}")
+        if dtype == torch.float32:
+            # the yardstick: the card's CSR product of the same matrix,
+            # and each kernel's bound at this shape
+            S = _csr_of_mm(full_mm, device, dtype)
+            x, X = args[0][:, 0].contiguous(), args[0]
+            nnz = full.num_entries
+            for key, v, k in (("spmv", x, 1), ("spmm", X, SPMM_K)):
+                lib = _library_ms(S, v)
+                b = _bound(_nbytes(A.data, A.offsets_dev)
+                           + (A.num_columns + A.num_rows) * k * 4,
+                           2 * nnz * k, machine.hbm_gbps)
+                extra[key] = {"library_ms": lib, **b}
+                _say(f"[5 profile] {'K1' if k == 1 else f'K2 k={k}'} "
+                     f"float32: torch.sparse CSR (cuSPARSE) {lib:.4f} ms; "
+                     f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+                     f"{b['bytes']} B at {HBM_BPS / 1e12} TB/s), "
+                     f"{b['bound_triad_ms']:.4f} ms at the triad rate")
+            del S, x, X
         del kernel, step, args, A
         _sync(device)
-    return times
+    return times, extra
 
 
 # ---------------------------------------------------------------- phase 6
 def phase_cli_wellcw(device):
-    from spmv_tpu.io import write_matrix_market
-    from spmv_tpu.io.generate import banded_random, poisson2d
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import banded_random, poisson2d
     from spmv_tpu_torch.ops import (
         wellcw_level_core,
         wellcw_level_spmm_core,
@@ -751,10 +856,10 @@ def _cw_stream_bytes(A) -> int:
     return b
 
 
-def phase_profile_wellcw(device, cw, smi_line):
+def phase_profile_wellcw(device, cw, cw_mm, smi_line):
     import torch
 
-    from spmv_tpu.perfmodel.tiling import roofline_time
+    from spmv_tpu_torch.perfmodel.tiling import roofline_time
     from spmv_tpu_torch.kernels import make_kernel
     from spmv_tpu_torch.ops import wellcw_spmv_reference
     from spmv_tpu_torch.perfmodel import measured_machine
@@ -827,15 +932,18 @@ def phase_profile_wellcw(device, cw, smi_line):
          f"{wall / PROFILE_CHAIN * 1e6:.2f} us, busy share {dev / wall:.3f}")
     for line in table.splitlines():
         _say(f"[7 wellcw profile]   {line}")
+    lib = _library_ms(_csr_of_mm(cw_mm, device, torch.float32), args[0])
+    _say(f"[7 wellcw profile] torch.sparse CSR (cuSPARSE) of the same "
+         f"matrix: {lib:.4f} ms per SpMV")
     del kernel, step, args, A, y
     _sync(device)
-    return {"ms": t * 1e3, "plain_ms": t_plain * 1e3,
+    return {"ms": t * 1e3, "plain_ms": t_plain * 1e3, "library_ms": lib,
             "roofline_fraction": frac, "checksum_rel_err": rel,
             "device_busy_share": dev / wall}
 
 
 # ---------------------------------------------------------------- phase 8
-def phase_profile_wellcw_spmm(device, cw, smi_line, t_spmv):
+def phase_profile_wellcw_spmm(device, cw, cw_mm, smi_line, t_spmv):
     """The bench's WELL-CW SpMM leg (bench.py:433-468) at k = 8 through
     ``make_kernel("wellcw").spmm_fn``; ``t_spmv`` is phase 7's seconds
     per SpMV."""
@@ -910,9 +1018,13 @@ def phase_profile_wellcw_spmm(device, cw, smi_line, t_spmv):
          f"{wall / SPMM_CHAIN * 1e6:.2f} us, busy share {dev / wall:.3f}")
     for line in table.splitlines():
         _say(f"[8 wellcw spmm]   {line}")
+    lib = _library_ms(_csr_of_mm(cw_mm, device, torch.float32), args[0])
+    _say(f"[8 wellcw spmm] torch.sparse CSR (cuSPARSE) of the same matrix "
+         f"times X (k={k}): {lib:.4f} ms")
     del kernel, step, args, A, Y
     _sync(device)
     return {"k": k, "ms": t * 1e3, "plain_ms": t_plain * 1e3,
+            "library_ms": lib,
             "roofline_fraction": frac, "checksum_rel_err": rel,
             "per_nnz_vs_spmv": per_nnz, "device_busy_share": dev / wall}
 
@@ -1058,7 +1170,7 @@ def phase_batched_cg(device, mats, smi_line):
 
 
 # --------------------------------------------------------------- phase 10
-def phase_kernels_wellcw(device, cw, smi_line):
+def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     """Each WELL-CW / CSR kernel alone at the full-size matrix: K3c, K3b
     and CSR, and K4a, K4c and the CSR SpMM at k = CW_SPMM_K, on its
     merged layout; K3a and K4b on its fallback layout."""
@@ -1079,7 +1191,7 @@ def phase_kernels_wellcw(device, cw, smi_line):
         A = DeviceWellCw.from_host(cw, dtype=f32, device=device, **dev_kw)
         for spmm in (False, True):
             v = X if spmm else x
-            for kname, run, plain in _cw_parts(A, spmm=spmm):
+            for kname, run, plain, part in _cw_parts(A, spmm=spmm):
                 if kname in found or (dev_kw and "level" not in kname):
                     continue
                 out = torch.empty((A.num_rows,) + tuple(v.shape[1:]),
@@ -1098,8 +1210,24 @@ def phase_kernels_wellcw(device, cw, smi_line):
                                     lambda: scratch.fill_(0.0), 50)
                 eager_ms = _time_launches(lambda: run(v, out=out), 50)
                 plain_ms = _time_launches(lambda: plain(v), 3)
+                k = CW_SPMM_K if spmm else 1
+                if kname.startswith("csr"):
+                    # one torch.sparse call computes the same product
+                    S = _torch_csr(part.row_ptr, part.column_index,
+                                   part.value, (A.num_rows, A.num_columns))
+                    lib = _library_ms(S, v)
+                    nnz, rows = part.num_entries, A.num_rows
+                else:
+                    lib = None
+                    nnz = int((part.value != 0).sum())
+                    rows = A.num_rows if not hasattr(part, "rowmap") else \
+                        min(A.num_rows, 128 * int(part.rowmap.unique().numel()))
+                b = _bound(_nbytes(*part.buffers(recurse=False))
+                           + (A.num_columns + rows) * k * 4, 2 * nnz * k,
+                           triad_gbps)
                 found[kname] = {"max_abs_err": err, "ms": ms,
-                                "plain_ms": plain_ms, "eager_ms": eager_ms}
+                                "plain_ms": plain_ms, "eager_ms": eager_ms,
+                                "library_ms": lib, **b}
                 what = ""
                 if spmm:
                     kind = kname.split("_")[1]
@@ -1113,7 +1241,11 @@ def phase_kernels_wellcw(device, cw, smi_line):
                      f"{' (chunks_per_step=64)' if dev_kw else ''}: "
                      f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
                      f"{eager_ms:.4f} ms a call through the wrapper, plain "
-                     f"{plain_ms:.4f} ms, max abs err {err:.3e} (rel "
+                     f"{plain_ms:.4f} ms, "
+                     + ("" if lib is None else
+                        f"torch.sparse CSR {lib:.4f} ms, ")
+                     + f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+                     f"{b['bytes']} B), max abs err {err:.3e} (rel "
                      f"{rel:.3e}), bitwise repeatable, on {smi_line}")
         del A
         _sync(device)
@@ -1125,19 +1257,383 @@ def phase_kernels_wellcw(device, cw, smi_line):
     return found
 
 
+# ------------------------------------------------------- WELL (3, 11-13)
+def _k1_seconds(mm, device) -> float:
+    """K1's seconds per chained float32 SpMV on the matrix (the DIA
+    yardstick of a WELL size that phase 5 does not run)."""
+    import torch
+
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.profile import time_kernel
+
+    kernel = make_kernel("dia", mm=mm, device=device, dtype=torch.float32)
+    kernel.init()
+    step, args = kernel.run_fn()
+    return time_kernel(step, args, k_small=8, k_large=136,
+                       runs=6).seconds_per_iteration
+
+
+def _well_mm(kind, mod, *args):
+    """The JAX WELL tests' hand-made matrices (tests/test_well.py): a
+    near and a far diagonal in one row group (:192), two empty 8-group
+    output blocks (:312), and a random band with unique entries
+    (:163)."""
+    if kind == "two_clusters":
+        r = np.concatenate([np.arange(128)] * 2)
+        c = np.concatenate([np.arange(128), np.arange(128) + 3000])
+        n, m, v = 128, 4000, np.ones(r.size)
+    elif kind == "empty_blocks":
+        r = np.concatenate([np.arange(128), np.arange(2176, 2304)])
+        c, n, m, v = r, 2304, 2304, np.ones(r.size)
+    else:
+        n, bw, per, seed = args
+        rng = np.random.default_rng(seed)
+        rows = np.repeat(np.arange(n), per)
+        cols = np.clip(rows + rng.integers(-bw, bw + 1, rows.size), 0,
+                       n - 1)
+        key = np.unique(rows * n + cols)
+        r, c, m = key // n, key % n, n
+        v = rng.standard_normal(r.size)
+    return mod.MatrixMarket("matrix", "coordinate", "real", "general", n, m,
+                            r.size, r + 1, c + 1, v)
+
+
+def _well_parts(A):
+    """(kernel name, kernel call, plain call) of each launch that
+    ``well_spmv_core`` makes for A: K5a or K5b, then the CSR spill."""
+    from spmv_tpu_torch import ops
+
+    seg = A.segment_of_step is not None
+    core = ops.well_seg_core if seg else ops.well_whole_core
+    parts = [("well_seg" if seg else "well_whole",
+              lambda x, out=None: core(A, x, out=out),
+              lambda x: ops.well_chunks_reference(A, x))]
+    if A.spill is not None:
+        R = A.spill
+        parts.append(("csr_spmv",
+                      lambda x, out=None: ops.csr_spmv_core(R, x, out=out),
+                      lambda x: ops.csr_spmv_reference(R, x)))
+    return parts
+
+
+def _compare_well(name, w, dev_kw, dtype, device):
+    """K5a / K5b and the spill's CSR kernel, each twice (bitwise equal)
+    and against its plain version; the whole product against the plain
+    composition and, in float32, the fp64 host product."""
+    import torch
+
+    from spmv_tpu_torch.models import DeviceWell
+    from spmv_tpu_torch.ops import well_spmv_core, well_spmv_reference
+
+    dtn = str(dtype).replace("torch.", "")
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+    A = DeviceWell.from_host(w, dtype=dtype, device=device, **dev_kw)
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(A.num_columns, generator=g, device=device, dtype=dtype)
+    errs = []
+    for kname, run, plain in _well_parts(A):
+        y1, y2 = run(x), run(x)
+        _sync(device)
+        if not torch.equal(y1, y2):
+            _fail(f"{kname} on {name} {dtn}: two launches differ")
+        e = _rel(y1, plain(x))
+        errs.append(f"{kname} {e:.3e}")
+        if e > tol:
+            _fail(f"{kname} on {name} {dtn}: rel err {e} > {tol}")
+    y = well_spmv_core(A, x)
+    _sync(device)
+    e = _rel(y, well_spmv_reference(A, x))
+    mode = ("whole x" if A.segment_rows is None else
+            f"segment_rows {A.segment_rows}")
+    line = (f"[3 compare] {name} {dtn} ({mode}, blocks_per_out "
+            f"{A.blocks_per_out}, spill "
+            f"{0 if A.spill is None else A.spill.num_entries}): "
+            + ", ".join(errs) + f"; whole {e:.3e}")
+    if e > tol:
+        _fail(f"{line} > {tol}")
+    if dtype == torch.float32:
+        host = torch.from_numpy(w.spmv(x.double().cpu().numpy()))
+        eh = _rel(y.cpu(), host)
+        line += f", vs fp64 host {eh:.3e}"
+        if eh > TOL_F32_HOST:
+            _fail(f"{line} > {TOL_F32_HOST}")
+    _say(line + " (each kernel twice, bitwise equal)")
+    return A.segment_rows is not None
+
+
+def phase_compare_well(device):
+    """K5a and K5b against their plain versions on the JAX WELL tests'
+    kinds of matrix: whole x, forced segments of 4 and 2 rows (escaping
+    slots spill), blocks_per_out 2 and 4, the empty-block matrix, a
+    rectangular matrix and a banded matrix with a CSR spill."""
+    import torch
+
+    from spmv_tpu_torch import io as pio
+    from spmv_tpu_torch.io.generate import (
+        banded_random,
+        poisson2d,
+        random_sparse,
+    )
+    from spmv_tpu_torch.models import WellMatrix
+
+    def well(mm, window_rows):
+        return WellMatrix.from_matrix_market(mm, window_rows=window_rows)
+
+    p = well(poisson2d(WELL_CLI_GRID, WELL_CLI_GRID), 4)
+    cases = [
+        (f"poisson2d({WELL_CLI_GRID},{WELL_CLI_GRID})", p, {}),
+        (f"poisson2d({WELL_CLI_GRID},{WELL_CLI_GRID}) blocks_per_out=2", p,
+         {"blocks_per_out": 2}),
+        ("band(2000,60,5) segment_rows=4",
+         well(_well_mm("band", pio, 2000, 60, 5, 30), 2),
+         {"segment_rows": 4}),
+        ("two clusters segment_rows=2",
+         well(_well_mm("two_clusters", pio), 1), {"segment_rows": 2}),
+        (f"poisson2d({WELL_CLI_GRID},{WELL_CLI_GRID}) segment_rows=8 "
+         "blocks_per_out=4", p, {"segment_rows": 8, "blocks_per_out": 4}),
+        ("empty blocks segment_rows=4",
+         well(_well_mm("empty_blocks", pio), 1), {"segment_rows": 4}),
+        ("random_sparse(200,150,5) rectangular",
+         well(random_sparse(200, 150, 5, seed=6), 2), {}),
+        ("banded_random(65536,512,8) spill",
+         well(banded_random(65536, 512, 8, seed=3), 4), {}),
+    ]
+    seen = set()
+    for name, w, dev_kw in cases:
+        for dtype in (torch.float64, torch.float32):
+            seen.add(_compare_well(name, w, dev_kw, dtype, device))
+    if seen != {False, True}:
+        _fail("the WELL comparisons did not reach both K5a and K5b")
+    _sync(device)
+
+
+def phase_cli_well(device):
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.ops import well_whole_core
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poisson.mtx")
+        write_matrix_market(poisson2d(WELL_CLI_GRID, WELL_CLI_GRID), path)
+        label = f"poisson2d({WELL_CLI_GRID},{WELL_CLI_GRID})"
+        _say(f"[11 well cli] wrote {label}")
+        argv = ["--matrix", path, "--spmv-format", "well"]
+        _run_cli("11 well cli", [
+            (f"profile {label}", argv + ["--profile", "5"],
+             (well_whole_core,)),
+            (f"cg {label}", argv + ["--cg", "2000"], (well_whole_core,)),
+        ])
+    _sync(device)
+
+
+def phase_profile_well(device, mats, smi_line):
+    """make_kernel("well").run_fn at each size of ``mats`` (label ->
+    (host WellMatrix, whether K5b is expected, K1's seconds per SpMV on
+    the same matrix)): the fp64 host checksum gate, seconds per chained
+    SpMV (CUDA events) with the launch count equal to the chain length,
+    the plain version's time and the fraction of the triad roofline.
+    Returns per size its numbers and its DeviceWell."""
+    import torch
+
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.ops import (
+        csr_spmv_core,
+        well_seg_core,
+        well_spmv_reference,
+        well_whole_core,
+    )
+    from spmv_tpu_torch.perfmodel import measured_machine
+    from spmv_tpu_torch.profile import (
+        profile_kernel_fn,
+        profiling_report,
+        time_kernel,
+    )
+
+    machine = measured_machine(device)
+    out = {}
+    for label, (w, segmented, t_k1) in mats.items():
+        kernel = make_kernel("well", matrix=w, device=device,
+                             dtype=torch.float32)
+        kernel.init()
+        t0 = time.perf_counter()
+        step, args = kernel.run_fn()
+        _sync(device)
+        t_dev = time.perf_counter() - t0
+        A = args[1]
+        if (A.segment_of_step is not None) != segmented:
+            _fail(f"well {label}: segmented mode is "
+                  f"{A.segment_of_step is not None}, expected {segmented}")
+        core = well_seg_core if segmented else well_whole_core
+        _say(f"[12 well profile] {label} float32: {A.num_chunks} chunks, "
+             f"segment_rows {A.segment_rows}, blocks_per_out "
+             f"{A.blocks_per_out}, chunks_per_step {A.chunks_per_step}, "
+             f"{A.num_out_blocks} output blocks, spill "
+             f"{0 if A.spill is None else A.spill.num_entries} entries; "
+             f"device packing and copy {t_dev:.1f} s")
+        x = np.random.default_rng(0).standard_normal(
+            w.num_columns).astype(np.float32)
+        y = step(torch.from_numpy(x).to(device), A)
+        got = float(y.abs().sum(dtype=torch.float32))
+        want = float(np.abs(w.spmv(x.astype(np.float64))).sum())
+        rel = abs(got - want) / want
+        _say(f"[12 well profile] {label}: checksum rel err {rel:.3e} (gate "
+             f"{CHECKSUM_RTOL})")
+        if not rel <= CHECKSUM_RTOL:
+            _fail(f"well {label} checksum gate: {rel} > {CHECKSUM_RTOL}")
+        calls = [0]
+
+        def counted(v, A, step=step):
+            calls[0] += 1
+            return step(v, A)
+
+        before = (core.launches, csr_spmv_core.launches)
+        timing = time_kernel(counted, args, k_small=8, k_large=136, runs=6)
+        _sync(device)
+        launched = (core.launches - before[0],
+                    csr_spmv_core.launches - before[1])
+        if launched != (calls[0], calls[0] if A.spill is not None else 0):
+            _fail(f"well {label}: {launched} launches (K5, spill) for "
+                  f"{calls[0]} chained SpMVs")
+        runs = profile_kernel_fn(step, args, runs=5)
+        doc = profiling_report(kernel, runs, timing.seconds_per_iteration,
+                               5, True, machine=machine, device=device)
+        t = doc["device_seconds_per_iteration"]
+        if not (np.isfinite(t) and t > 0) or doc["device"]["platform"] != "gpu":
+            _fail(f"well {label}: bad timing {t} on {doc['device']}")
+        frac = doc["achieved"]["fraction_of_roofline"]
+        t_plain = time_kernel(lambda v, A: well_spmv_reference(A, v),
+                              (args[0], A), k_small=1, k_large=4,
+                              runs=3).seconds_per_iteration
+        _say(f"[12 well profile] {label}: SpMV {t * 1e3:.4f} ms "
+             f"({w.num_entries / t / 1e9:.2f} Gnnz/s; {calls[0]} chained "
+             f"SpMVs launched {core.__name__} {launched[0]} times and the "
+             f"spill kernel {launched[1]} times), plain {t_plain * 1e3:.4f}"
+             f" ms, fraction of the triad roofline {frac:.4f} "
+             f"({kernel.bytes_per_run()} B at {machine.hbm_gbps:.1f} GB/s);"
+             f" K1 (DIA) on the same matrix {t_k1 * 1e3:.4f} ms, on "
+             f"{smi_line}")
+        out[label] = {"A": A, "ms": t * 1e3, "plain_ms": t_plain * 1e3,
+                      "k1_ms": t_k1 * 1e3, "roofline_fraction": frac,
+                      "checksum_rel_err": rel, "chained": calls[0],
+                      "launches": launched}
+        del kernel, step, args, y
+        _sync(device)
+    return out
+
+
+def _well_coo(A, spill: bool):
+    """(rows, cols, values) on the card of the WELL chunks of A, and of
+    its spill with ``spill``."""
+    import torch
+
+    k = A.chunks_per_step
+    ws = A.window_start.transpose(1, 2).reshape(A.num_chunks, 8).long()
+    if A.segment_of_step is not None:
+        ws = ws + A.segment_of_step.long().repeat_interleave(k)[:, None]
+    col = ws[:, :, None] * 128 + A.local_index.long()
+    row = (A.group_of_chunk.reshape(-1).long()[:, None, None] * 128
+           + torch.arange(128, device=col.device)).expand_as(col)
+    keep = A.value != 0
+    rows, cols, vals = [row[keep]], [col[keep]], [A.value[keep]]
+    del col, row, keep
+    if spill and A.spill is not None:
+        R = A.spill
+        rows.append(torch.repeat_interleave(
+            torch.arange(R.num_rows, device=R.value.device),
+            (R.row_ptr[1:] - R.row_ptr[:-1]).long()))
+        cols.append(R.column_index.long())
+        vals.append(R.value)
+    return torch.cat(rows), torch.cat(cols), torch.cat(vals)
+
+
+def phase_kernels_well(device, profiled, smi_line, triad_gbps):
+    """K5a and K5b alone on the DeviceWell of each profiled size, and the
+    spill's CSR kernel there: bitwise repeat, max error against the plain
+    version, device ms (50 launches in a CUDA graph, the L2 flushed
+    before each), ms a call through the wrapper, plain ms, the
+    torch.sparse CSR product of the same entries (cuSPARSE) and the
+    bound.  Not counted: the main path's counts were read before."""
+    import torch
+
+    f32 = torch.float32
+    scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    found = {}
+    for label, res in profiled.items():
+        A = res["A"]
+        g = torch.Generator(device=device).manual_seed(2)
+        x = torch.randn(A.num_columns, generator=g, device=device, dtype=f32)
+        out = torch.empty(A.num_rows, dtype=f32, device=device)
+        for kname, run, plain in _well_parts(A):
+            y1, y2 = run(x), run(x)
+            _sync(device)
+            if not torch.equal(y1, y2):
+                _fail(f"{kname} on {label}: two launches differ")
+            want = plain(x)
+            err = float((y1.double() - want.double()).abs().max())
+            rel = _rel(y1, want)
+            if rel > TOL_F32:
+                _fail(f"{kname} on {label}: rel err {rel} > {TOL_F32}")
+            del y1, y2, want
+            ms = _cold_graph_ms(lambda: run(x, out=out),
+                                lambda: scratch.fill_(0.0), 50)
+            eager_ms = _time_launches(lambda: run(x, out=out), 20)
+            plain_ms = _time_launches(lambda: plain(x), 3)
+            if kname == "csr_spmv":
+                R = A.spill
+                S = _torch_csr(R.row_ptr, R.column_index, R.value,
+                               (R.num_rows, R.num_columns))
+                b = _bound(_nbytes(R.row_ptr, R.column_index, R.value)
+                           + (A.num_columns + A.num_rows) * 4,
+                           2 * R.num_entries, triad_gbps)
+            else:
+                S = _csr_of_coo(*_well_coo(A, spill=False),
+                                (A.num_rows, A.num_columns))
+                b = _bound(_nbytes(A.value, A.local_index, A.window_start,
+                                   A.group_of_chunk, A.segment_of_step,
+                                   A.step_ptr)
+                           + (A.num_columns + A.num_rows) * 4,
+                           2 * int(S.values().numel()), triad_gbps)
+            lib = _library_ms(S, x)
+            del S
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "eager_ms": eager_ms, "library_ms": lib, **b,
+                   "shape": f"{label} float32"}
+            _say(f"[13 well kernels] {kname} on {label}: {ms:.4f} ms on the "
+                 f"device (CUDA graph, L2 flushed), {eager_ms:.4f} ms a "
+                 f"call through the wrapper, plain {plain_ms:.4f} ms, "
+                 f"torch.sparse CSR of the same entries {lib:.4f} ms, bound "
+                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B;"
+                 f" {b['bound_triad_ms']:.4f} ms at the triad rate), max abs"
+                 f" err {err:.3e} (rel {rel:.3e}), bitwise repeatable, on "
+                 f"{smi_line}")
+            found[(kname, label)] = row
+        # the card's CSR SpMV of the whole matrix, the path's yardstick
+        S = _csr_of_coo(*_well_coo(A, spill=True),
+                        (A.num_rows, A.num_columns))
+        res["library_ms"] = _library_ms(S, x)
+        _say(f"[13 well kernels] {label}: torch.sparse CSR SpMV of the whole"
+             f" matrix {res['library_ms']:.4f} ms against the chained WELL "
+             f"SpMV's {res['ms']:.4f} ms")
+        del S, A, res["A"]
+        _sync(device)
+    return found
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     device, smi_line = phase_device()
 
     import torch
 
-    from spmv_tpu.io.generate import banded_random, poisson2d
-    from spmv_tpu.models import DiaMatrix, WellCwMatrix
+    from spmv_tpu_torch.io.generate import banded_random, poisson2d
+    from spmv_tpu_torch.models import DiaMatrix, WellCwMatrix, WellMatrix
     from spmv_tpu_torch.ops import (
         csr_spmm_core,
         csr_spmv_core,
         dia_spmm_core,
         dia_spmv_core,
+        well_seg_core,
+        well_whole_core,
         wellcw_level_core,
         wellcw_level_spmm_core,
         wellcw_merged_core,
@@ -1147,8 +1643,12 @@ def main() -> int:
     )
 
     phase_build()
+    from spmv_tpu_torch.perfmodel import measured_machine
+
+    triad_gbps = measured_machine(device).hbm_gbps
     t0 = time.perf_counter()
-    full = DiaMatrix.from_matrix_market(poisson2d(FULL_GRID, FULL_GRID))
+    full_mm = poisson2d(FULL_GRID, FULL_GRID)
+    full = DiaMatrix.from_matrix_market(full_mm)
     _say(f"[3 compare] host poisson2d({FULL_GRID},{FULL_GRID}): "
          f"{full.num_rows} rows, {full.num_entries} entries, "
          f"{full.num_diagonals} diagonals, built in "
@@ -1163,12 +1663,13 @@ def main() -> int:
          f"WELL-CW built in {time.perf_counter() - t0:.1f} s")
     del cg_mm
     bitwise = phase_compare_wellcw(device, cg_mats)
+    phase_compare_well(device)
 
     # the DIA path's run: its counts start from zero here
     dia_spmv_core.launches = 0
     dia_spmm_core.launches = 0
     phase_cli(device)
-    times = phase_profile(device, full, smi_line)
+    times, dia_extra = phase_profile(device, full, full_mm, smi_line)
     launches = {"dia_spmv": dia_spmv_core.launches,
                 "dia_spmm": dia_spmm_core.launches}
     del full
@@ -1187,14 +1688,14 @@ def main() -> int:
         w.launches = 0
     phase_cli_wellcw(device)
     t0 = time.perf_counter()
-    cw = WellCwMatrix.from_matrix_market(banded_random(
-        CW_FULL_ROWS, half_bandwidth=CW_FULL_HALF_BW, nnz_per_row=8,
-        seed=1))
+    cw_mm = banded_random(CW_FULL_ROWS, half_bandwidth=CW_FULL_HALF_BW,
+                          nnz_per_row=8, seed=1)
+    cw = WellCwMatrix.from_matrix_market(cw_mm)
     _say(f"[7 wellcw profile] host banded_random({CW_FULL_ROWS}, "
          f"{CW_FULL_HALF_BW}, 8): {cw.num_entries} entries, packed in "
          f"{time.perf_counter() - t0:.1f} s")
-    cw_times = phase_profile_wellcw(device, cw, smi_line)
-    spmm_times = phase_profile_wellcw_spmm(device, cw, smi_line,
+    cw_times = phase_profile_wellcw(device, cw, cw_mm, smi_line)
+    spmm_times = phase_profile_wellcw_spmm(device, cw, cw_mm, smi_line,
                                            cw_times["ms"] * 1e-3)
     cg_times = phase_batched_cg(device, cg_mats, smi_line)
     launches.update({k: w.launches for k, w in cw_wrappers.items()})
@@ -1203,7 +1704,44 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             _fail(f"{name} was never launched on the main path")
-    cw_kernels = phase_kernels_wellcw(device, cw, smi_line)
+    cw_kernels = phase_kernels_wellcw(device, cw, smi_line, triad_gbps)
+    del cw, cw_mm
+    _sync(device)
+
+    # the WELL path's run (CLI, then make_kernel("well") at both sizes):
+    # its counts, the spill's CSR kernel's included, start from zero here
+    well_wrappers = {"well_whole": well_whole_core,
+                     "well_seg": well_seg_core,
+                     "csr_spmv": csr_spmv_core}
+    for w in well_wrappers.values():
+        w.launches = 0
+    phase_cli_well(device)
+    well_mats = {}
+    for grid, mm, segmented, t_k1 in (
+            (WELL_WHOLE_GRID, poisson2d(WELL_WHOLE_GRID, WELL_WHOLE_GRID),
+             False, None),
+            (WELL_SEG_GRID, full_mm, True,
+             times[("spmv", "float32")][0])):
+        label = f"poisson2d({grid},{grid})"
+        t0 = time.perf_counter()
+        w = WellMatrix.from_matrix_market(mm, window_rows=4)
+        _say(f"[12 well profile] host {label}: {w.num_entries} entries, "
+             f"{w.num_chunks} chunks, spill {w.num_spilled} entries, WELL "
+             f"packed on the host in {time.perf_counter() - t0:.1f} s")
+        if t_k1 is None:
+            t_k1 = _k1_seconds(mm, device)
+        well_mats[label] = (w, segmented, t_k1)
+        del mm
+    del full_mm
+    profiled = phase_profile_well(device, well_mats, smi_line)
+    well_launches = {k: w.launches for k, w in well_wrappers.items()}
+    _say("[12 well profile] launches on the WELL path: "
+         + ", ".join(f"{k} {n}" for k, n in well_launches.items()))
+    for name, n in well_launches.items():
+        if n <= 0:
+            _fail(f"{name} was never launched on the WELL path")
+    del well_mats
+    well_kernels = phase_kernels_well(device, profiled, smi_line, triad_gbps)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -1243,6 +1781,7 @@ def main() -> int:
             "max_abs_err_bf16": errs[bf16][0],
             "ms_bf16": times[("spmv", "bfloat16")][0] * 1e3,
             "plain_ms_bf16": times[("spmv", "bfloat16")][1] * 1e3,
+            **dia_extra["spmv"],
             "shape": f"poisson2d({FULL_GRID},{FULL_GRID}) float32",
         },
         {
@@ -1257,9 +1796,21 @@ def main() -> int:
             "max_abs_err_bf16": errs[bf16][1],
             "ms_bf16": times[("spmm", "bfloat16")][0] * 1e3,
             "plain_ms_bf16": times[("spmm", "bfloat16")][1] * 1e3,
+            **dia_extra["spmm"],
             "shape": f"poisson2d({FULL_GRID},{FULL_GRID}) float32, "
                      f"k={SPMM_K}",
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "spmv_tpu_torch/csrc/well_spmv.cu",
+            "replaces": f"spmv_tpu/ops/pallas_kernels.py:{line}",
+            "launches": well_launches[name],
+            **well_kernels[(name, f"poisson2d({grid},{grid})")],
+        }
+        for name, line, grid in (("well_whole", 431, WELL_WHOLE_GRID),
+                                 ("well_seg", 557, WELL_SEG_GRID))
     ] + [
         {
             "name": name,
@@ -1277,7 +1828,13 @@ def main() -> int:
     ], "wellcw_spmv": {**cw_times, "shape": cw_shape},
         "wellcw_spmm": {**spmm_times, "shape": mm_shape},
         "batched_cg": {**cg_times, "k": CG_K,
-                       "shape": f"poisson2d({CG_GRID},{CG_GRID}) float32"}}
+                       "shape": f"poisson2d({CG_GRID},{CG_GRID}) float32"},
+        "well_spmv": {
+            "launches_on_the_well_path": well_launches,
+            **{label: {**{k: v for k, v in res.items() if k != "A"},
+                       **({"spill": well_kernels[("csr_spmv", label)]}
+                          if ("csr_spmv", label) in well_kernels else {})}
+               for label, res in profiled.items()}}}
     print(json.dumps(summary), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

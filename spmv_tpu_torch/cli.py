@@ -1,7 +1,8 @@
 """Command-line interface of the port.
 
-Takes the JAX package's flags (``spmv_tpu.cli.build_parser``) and runs
-the modes ported so far, printing the same JSON documents:
+Takes the JAX package's flags (``build_parser`` is the port's copy of
+``spmv_tpu.cli.build_parser``: the same flags, defaults and help) and
+runs the modes ported so far, printing the same JSON documents:
 
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --profile 10
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --profile 5 --spmm 4
@@ -9,21 +10,26 @@ the modes ported so far, printing the same JSON documents:
         [--cg-tol 1e-6] [--precondition none|jacobi] [--recompute-residual K]
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --profile 10
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --profile 5 --spmm 8
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --cg 2000
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format {wellcw,well} --cg 2000
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format well --profile 10
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format {dia,wellcw} \
         --cg 2000 --nrhs 4 [--precondition none|jacobi]
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
 Every other mode or flag prints ``spmv-tpu-torch: ... not yet ported``
-and exits 1.  The device is the first CUDA device when one is present,
-else the CPU (for the tests).
+and exits 1 (on ``well``: ``--spmm`` and ``--nrhs``, which need the WELL
+SpMM kernels K6).  The device is the first CUDA device; without one the
+CLI exits 1, unless ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as
+the tests do).  ``--list-devices`` lists the CPU when there is no card.
 
-``--cg`` on a WELL-CW matrix runs the generic (P)CG over ``spmv``, as
-the JAX CLI does.  On a DIA matrix and a CUDA device it runs the kernel
-loop with K1's fused p.Ap dot (``dia_conjugate_gradient``'s default, as
-in the JAX CLI), so both CLIs run the same algorithm.  On an H100 the
-unfused loop (a separate ``torch.dot``) measured faster; ``python -m
+``--cg`` on a WELL-CW or WELL matrix runs the generic (P)CG over
+``spmv``, as the JAX CLI does (its ``fast_spmv`` runs the Pallas WELL
+kernel; the port's ``spmv`` runs K5a or K5b).  On a DIA matrix and a
+CUDA device it runs the kernel loop with K1's fused p.Ap dot
+(``dia_conjugate_gradient``'s default, as in the JAX CLI), so both CLIs
+run the same algorithm.  On an H100 the unfused loop (a separate
+``torch.dot``) measured faster; ``python -m
 spmv_tpu_torch.profile.cg_breakdown`` times both, and PERF.md keeps the
 numbers until a kernel change or a measured choice settles which runs.
 
@@ -35,21 +41,165 @@ iterations, residual and error, as the JAX CLI does.
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
 import torch
 
-from spmv_tpu.errors import KernelError, SpmvError
+from spmv_tpu_torch.errors import KernelError, SpmvError
 
 __all__ = ["main", "build_parser"]
 
+SPMV_FORMATS = (
+    "auto", "coo", "coo-atomic", "csr", "ell", "hybrid", "dia", "well",
+    "wellcw", "bsr", "xla-csr"
+)
 
-def build_parser():
-    from spmv_tpu.cli import build_parser as _shared
 
-    p = _shared()
-    p.prog = "spmv-tpu-torch"
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="spmv-tpu-torch",
+        description=(
+            "Trace-based TPU memory-model simulation and on-device "
+            "profiling of SpMV kernels (TPU-native rebuild of "
+            "spmv-cache-trace)."
+        ),
+    )
+    from spmv_tpu_torch import __version__
+
+    p.add_argument("--version", action="version",
+                   version=f"%(prog)s {__version__}")
+    p.add_argument("-m", "--matrix", metavar="PATH",
+                   help="Matrix Market file (.mtx, .mtx.gz, .tar.gz)")
+    p.add_argument("-c", "--trace-config", metavar="PATH",
+                   help="JSON machine model (caches, NUMA domains, "
+                        "thread affinities)")
+    p.add_argument("-s", "--spmv-format", choices=SPMV_FORMATS,
+                   default="csr",
+                   help="sparse format / kernel (default csr; 'dia' is "
+                        "the TPU-native diagonal kernel)")
+    p.add_argument("--triad", type=int, metavar="N", default=0,
+                   help="run the STREAM-triad kernel over N elements "
+                        "instead of SpMV")
+    p.add_argument("-p", "--profile", type=int, metavar="N", default=0,
+                   help="run on the device N times and report timing "
+                        "statistics; 0 (default) simulates instead")
+    p.add_argument("--warmup", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="one untimed warmup run (or warmup replay in "
+                        "simulation mode).  Default: on for profile "
+                        "mode with more than one run — run 1 otherwise "
+                        "measures the compile, poisoning the sample "
+                        "statistics (the reference's warmup exists for "
+                        "exactly this, profile-kernel.cpp:262-264) — "
+                        "off elsewhere; --no-warmup forces it off")
+    p.add_argument("--flush-caches", action="store_true",
+                   help="stream a large buffer between profiled runs to "
+                        "evict device-resident state (the TPU analogue "
+                        "of the reference's cache flushing)")
+    p.add_argument("--scaling", type=int, metavar="P", default=0,
+                   help="predict the P-chip sharded-SpMV step for the "
+                        "loaded matrix (halo volume measured from the "
+                        "partition; ICI efficiency is an ASSUMPTION — "
+                        "the report prints it next to the breakeven "
+                        "value below which the weak-scaling claim "
+                        "fails)")
+    p.add_argument("--cg", type=int, metavar="MAXITER", default=0,
+                   help="solve A x = b (b = A @ ones) with conjugate "
+                        "gradient up to MAXITER iterations on the "
+                        "device and report convergence + timing")
+    p.add_argument("--cg-tol", type=float, default=1e-6,
+                   help="CG relative-residual tolerance (default 1e-6)")
+    p.add_argument("--nrhs", type=int, metavar="K", default=1,
+                   help="with --cg and --solver cg: solve K "
+                        "right-hand sides at once (batched multi-RHS "
+                        "CG — one SpMM per iteration; per-column "
+                        "convergence reported)")
+    p.add_argument("--solver",
+                   choices=("cg", "bicgstab", "gmres", "chebyshev"),
+                   default="cg",
+                   help="with --cg: Krylov method (cg for SPD systems, "
+                        "bicgstab/gmres for general matrices, "
+                        "chebyshev for SPD with Lanczos-estimated "
+                        "spectral bounds — its loop needs no inner "
+                        "products, so a sharded run has no "
+                        "per-iteration reduction collective)")
+    p.add_argument("--restart", type=int, default=32,
+                   help="GMRES restart length m (default 32); the "
+                        "Krylov basis costs m x rows values in HBM")
+    p.add_argument("--precondition",
+                   choices=("none", "jacobi", "ic0", "ic0-sweeps",
+                            "ilu0", "ilu0-sweeps", "amg"),
+                   default="none",
+                   help="preconditioner for --cg (jacobi = diagonal "
+                        "scaling; ic0/ilu0 = incomplete factorization "
+                        "with level-scheduled triangular solves; the "
+                        "-sweeps variants substitute the fixed-count "
+                        "Jacobi-iteration approximate solve; amg = "
+                        "smoothed-aggregation multigrid V-cycle with "
+                        "Chebyshev smoothing)")
+    p.add_argument("--recompute-residual", type=int, metavar="K",
+                   default=0,
+                   help="with --cg and --solver cg: replace the "
+                        "recurrence residual with the true residual "
+                        "b - A x every K iterations (costs one extra "
+                        "SpMV per K); keeps the reported residual "
+                        "honest when the f32 recurrence drifts past "
+                        "the attainable accuracy")
+    p.add_argument("--eigs", type=int, metavar="K", default=0,
+                   help="compute the K extreme eigenpairs of the "
+                        "(symmetric) matrix with block LOBPCG and "
+                        "print a JSON report (--which picks the end; "
+                        "--precondition jacobi/amg accelerates)")
+    p.add_argument("--which", choices=("smallest", "largest"),
+                   default="smallest",
+                   help="with --eigs: which end of the spectrum")
+    p.add_argument("--eigs-tol", type=float, default=1e-6,
+                   help="with --eigs: residual tolerance relative to "
+                        "the block's spectral scale")
+    p.add_argument("--eigs-maxiter", type=int, default=200,
+                   help="with --eigs: iteration cap")
+    p.add_argument("--spmm", type=int, metavar="K", default=0,
+                   help="with --profile: time the multi-vector product "
+                        "A @ X for an (n, K) block X instead of SpMV")
+    p.add_argument("--traffic-split", action="store_true",
+                   help="with --profile: also time the stream-only and "
+                        "gather-only kernel variants to separate regular "
+                        "from irregular traffic on-device (the analogue "
+                        "of the reference's spmv_regular_traffic / "
+                        "spmv_irregular_traffic variants)")
+    p.add_argument("--reorder",
+                   choices=("none", "rcm", "gp", "sigma", "color"),
+                   default="none",
+                   help="reorder the matrix before conversion "
+                        "(equivalent to the reference's __RCM/__GP "
+                        "path suffixes, plus the SELL-sigma row sort "
+                        "and greedy multicoloring — the order that "
+                        "collapses ic0/ilu0 triangular-solve levels "
+                        "to the color count)")
+    p.add_argument("--jax-profile", metavar="DIR", default=None,
+                   help="capture a jax.profiler trace (xplane) of the "
+                        "profiled runs into DIR (the analogue of the "
+                        "reference's perf-event capture)")
+    p.add_argument("--list-devices", action="store_true",
+                   help="list attached JAX devices and built-in machine "
+                        "models (the analogue of --list-perf-events)")
+    p.add_argument("--list-profile-events", nargs="?", const="",
+                   metavar="DIR",
+                   help="enumerate the profiler's event/stat namespace "
+                        "(planes, lines, per-event stat names/types, "
+                        "derived report fields) — the full analogue of "
+                        "the reference's --list-perf-events PMU walk. "
+                        "Reads an existing --jax-profile capture DIR, "
+                        "or profiles a tiny run on the default device "
+                        "when DIR is omitted")
+    p.add_argument("--progress-interval", type=float, metavar="SECONDS",
+                   default=5.0,
+                   help="print simulation replay progress to stderr at "
+                        "most once per interval when verbose "
+                        "(0 disables; reference: SIGALRM progress)")
+    p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
@@ -80,8 +230,14 @@ def _check_ported(args) -> None:
     if args.cg <= 0 and args.profile <= 0:
         _not_ported("simulation mode (--profile 0)")
     if args.triad <= 0 and args.matrix and \
-            args.spmv_format not in ("dia", "wellcw"):
+            args.spmv_format not in ("dia", "wellcw", "well"):
         _not_ported(f"--spmv-format {args.spmv_format}")
+    if args.triad <= 0 and args.spmv_format == "well":
+        # the WELL SpMM kernels (K6a / K6b) are the next slice
+        if args.spmm > 0:
+            _not_ported("--spmm on --spmv-format well")
+        if args.cg > 0 and args.nrhs > 1:
+            _not_ported("--nrhs on --spmv-format well")
 
 
 def _make_kernel(args, device, dtype):
@@ -98,7 +254,7 @@ def _make_kernel(args, device, dtype):
 
 
 def _list_devices(out) -> None:
-    from spmv_tpu.utils.jsonio import dump_json
+    from spmv_tpu_torch.utils.jsonio import dump_json
     from spmv_tpu_torch.models.device import default_device
     from spmv_tpu_torch.ops._build import nvcc_version
     from spmv_tpu_torch.perfmodel import measured_machine
@@ -120,7 +276,10 @@ def _list_devices(out) -> None:
         nvcc = nvcc_version()
     except KernelError:
         nvcc = None
-    dev = default_device()
+    try:
+        dev = default_device()
+    except KernelError:
+        dev = torch.device("cpu")       # listing is not running
     dump_json({
         "devices": devices,
         "device_count": len(devices),
@@ -140,7 +299,7 @@ def _list_devices(out) -> None:
 
 
 def _profile(args, out, device, dtype) -> None:
-    from spmv_tpu.utils.jsonio import dump_json
+    from spmv_tpu_torch.utils.jsonio import dump_json
     from spmv_tpu_torch.perfmodel import measured_machine
     from spmv_tpu_torch.profile import (
         profile_kernel_fn,
@@ -177,7 +336,7 @@ def _profile(args, out, device, dtype) -> None:
     chained = time_kernel(step, fargs)
     config = None
     if args.trace_config:
-        from spmv_tpu.perfmodel.trace_config import read_trace_config
+        from spmv_tpu_torch.perfmodel.trace_config import read_trace_config
 
         config = read_trace_config(args.trace_config)
     dump_json(profiling_report(
@@ -198,7 +357,7 @@ def _profile(args, out, device, dtype) -> None:
 def _solve_cg(args, out, device, dtype) -> None:
     import numpy as np
 
-    from spmv_tpu.utils.jsonio import dump_json
+    from spmv_tpu_torch.utils.jsonio import dump_json
     from spmv_tpu_torch.ops import (
         dia_conjugate_gradient,
         jacobi_preconditioner,
@@ -279,7 +438,7 @@ def _solve_cg_batched(args, out, device, dtype, kernel, A, diag) -> None:
     ``_solve_cg_batched``."""
     import numpy as np
 
-    from spmv_tpu.utils.jsonio import dump_json
+    from spmv_tpu_torch.utils.jsonio import dump_json
     from spmv_tpu_torch.ops import (
         batched_conjugate_gradient,
         dia_batched_conjugate_gradient,
@@ -357,11 +516,12 @@ def main(argv=None, out=None) -> int:
             default_value_dtype,
         )
 
-        device = default_device()
-        dtype = default_value_dtype()
         if args.list_devices:
             _list_devices(out)
-        elif args.cg > 0:
+            return 0
+        device = default_device()
+        dtype = default_value_dtype()
+        if args.cg > 0:
             _solve_cg(args, out, device, dtype)
         else:
             _profile(args, out, device, dtype)

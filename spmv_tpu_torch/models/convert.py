@@ -4,8 +4,8 @@
 as numpy arrays (the caller does the ``np.asarray``, so this module needs
 no JAX) and builds the port's ``DeviceDia`` holding the very same
 values, so that both packages compute on identical inputs.
-``wellcw_from_spmv_tpu`` and ``csr_from_spmv_tpu`` take the JAX
-container itself and read each of its arrays with ``np.asarray`` (which
+``wellcw_from_spmv_tpu``, ``well_from_spmv_tpu`` and ``csr_from_spmv_tpu``
+take the JAX container itself and read each of its arrays with ``np.asarray`` (which
 needs no JAX import here either).
 """
 
@@ -20,10 +20,12 @@ from spmv_tpu_torch.models.device import (
     DeviceCwMerged,
     DeviceCwPool,
     DeviceDia,
+    DeviceWell,
     DeviceWellCw,
 )
 
-__all__ = ["dia_from_spmv_tpu", "csr_from_spmv_tpu", "wellcw_from_spmv_tpu"]
+__all__ = ["dia_from_spmv_tpu", "csr_from_spmv_tpu", "wellcw_from_spmv_tpu",
+           "well_from_spmv_tpu"]
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:
@@ -105,3 +107,20 @@ def wellcw_from_spmv_tpu(Aj, device=None) -> DeviceWellCw:
                    else csr_from_spmv_tpu(Aj.remainder, device)),
         merged=merged,
         tail_pools=[_cw_pool(p, ng, device) for p in Aj.tail_pools])
+
+
+def well_from_spmv_tpu(Aj, device=None) -> DeviceWell:
+    """Port a JAX ``DeviceWell`` with every array as it is (the stored
+    dtype included); the spill goes through ``csr_from_spmv_tpu`` and the
+    step pointers the CUDA grid needs are derived from
+    ``block_of_step``."""
+    seg = Aj.segment_of_step
+    return DeviceWell(
+        Aj.num_rows, Aj.num_columns, Aj.num_entries, Aj.window_rows,
+        Aj.num_groups, Aj.chunks_per_step, Aj.blocks_per_out,
+        Aj.segment_rows, np.asarray(Aj.value), np.asarray(Aj.local_index),
+        np.asarray(Aj.window_start), np.asarray(Aj.group_of_chunk),
+        np.asarray(Aj.block_of_step),
+        None if seg is None else np.asarray(seg),
+        None if Aj.spill is None else csr_from_spmv_tpu(Aj.spill, device),
+        device=device)

@@ -1,8 +1,8 @@
-"""Device-side containers: DIA, CSR and WELL-CW.
+"""Device-side containers: DIA, CSR, WELL-CW and WELL.
 
 The counterparts of ``spmv_tpu.models.device``'s ``DeviceDia``,
-``DeviceCsr`` and ``DeviceWellCw`` (with its ``DeviceCwLevel``,
-``DeviceCwPool`` and ``DeviceCwMerged``).
+``DeviceCsr``, ``DeviceWellCw`` (with its ``DeviceCwLevel``,
+``DeviceCwPool`` and ``DeviceCwMerged``) and ``DeviceWell``.
 
 - DIA: the TPU container folds each diagonal into (rows/128, 128) lanes
   and pads rows to a multiple of 1024 for the Pallas kernel's DMA
@@ -12,30 +12,39 @@ The counterparts of ``spmv_tpu.models.device``'s ``DeviceDia``,
 - CSR: the plain unpadded ``row_ptr`` / ``column_index`` / ``value``
   triple.  The TPU container pads entries and rows for its segment sum
   and carries the expanded row ids; the CUDA kernel walks ``row_ptr``.
-- WELL-CW: the very arrays the JAX container holds, packed by the same
-  numpy code (``_pad_cw_steps`` and ``_build_cw_merged`` are copied
-  from ``spmv_tpu/models/device.py``, whose module imports JAX), plus
-  the chunk pointers a CUDA grid needs to find a group's or an output
-  block's chunks, which the TPU's sequential grid did not.
+- WELL-CW and WELL: the very arrays the JAX containers hold, packed by
+  the same numpy code (``_pad_cw_steps``, ``_build_cw_merged`` and
+  ``DeviceWell.from_host`` are copied from ``spmv_tpu/models/device.py``,
+  whose module imports JAX), plus the chunk or step pointers a CUDA grid
+  needs to find a group's or an output block's chunks, which the TPU's
+  sequential grid did not.
+
+``default_device`` is where the port's entry points (the CLI,
+``make_kernel`` and the kernel classes) get their device: the card,
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from spmv_tpu.errors import MatrixError
-from spmv_tpu.models.csr import CsrMatrix
-from spmv_tpu.models.dia import DiaMatrix
+from spmv_tpu_torch.errors import KernelError, MatrixError
+from spmv_tpu_torch.models.csr import CsrMatrix
+from spmv_tpu_torch.models.dia import DiaMatrix
+from spmv_tpu_torch.models.well import WellMatrix
 
 __all__ = ["DeviceDia", "DeviceCsr", "DeviceCwLevel", "DeviceCwPool",
-           "DeviceCwMerged", "DeviceWellCw", "default_device",
-           "default_value_dtype"]
+           "DeviceCwMerged", "DeviceWellCw", "DeviceWell", "default_device",
+           "default_value_dtype", "DEVICE_ENV"]
 
 LANE = 128
 SUBLANE = 8
+# the environment variable through which a caller asks for the CPU
+DEVICE_ENV = "SPMV_TPU_TORCH_DEVICE"
 
 
 def round_up(x: int, m: int) -> int:
@@ -48,9 +57,25 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when one is present, else the CPU.  The CPU
-    serves the tests; once a card is present nothing switches to it."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device the port's entry points run on: the first CUDA device.
+
+    ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU instead (the port's
+    counterpart of the ``JAX_PLATFORMS=cpu`` the JAX package's tests
+    set).  Without it, a machine with no visible CUDA device raises
+    ``KernelError``: nothing carries on on the CPU unasked.
+    """
+    want = os.environ.get(DEVICE_ENV, "").strip().lower()
+    if want == "cpu":
+        return torch.device("cpu")
+    if want not in ("", "cuda"):
+        raise KernelError(
+            f"{DEVICE_ENV}={want!r}: expected 'cpu' or 'cuda'")
+    if not torch.cuda.is_available():
+        raise KernelError(
+            "no CUDA device is visible (torch.cuda.is_available() is "
+            f"False); set {DEVICE_ENV}=cpu, or pass device='cpu', to run "
+            "on the CPU")
+    return torch.device("cuda")
 
 
 def default_value_dtype() -> torch.dtype:
@@ -167,10 +192,10 @@ class DeviceCsr(torch.nn.Module):
         return spmv(self, x)
 
 
-def _check_cw_dtype(dtype: torch.dtype) -> None:
+def _check_value_dtype(dtype: torch.dtype, what: str) -> None:
     if dtype.itemsize < 4 or not dtype.is_floating_point:
         raise MatrixError(
-            "DeviceWellCw requires a >=32-bit value dtype; got "
+            f"{what} requires a >=32-bit value dtype; got "
             f"{str(dtype).replace('torch.', '')}.")
 
 
@@ -339,7 +364,7 @@ class DeviceWellCw(torch.nn.Module):
         the same layout choice, K (chunks per step), B (8-group blocks
         per output block) and arrays."""
         dtype = dtype or default_value_dtype()
-        _check_cw_dtype(dtype)
+        _check_value_dtype(dtype, "DeviceWellCw")
         num_groups = m.num_groups
         has_pool = getattr(m, "pool", None) is not None
         if blocks_per_out is None:
@@ -569,3 +594,280 @@ def _build_cw_merged(m):
                 pool_per_block=pool_per, num_blocks=S, xr4=int(xr4),
                 value=value, local_index=loc,
                 anchor4=a4.reshape(S, 1, kl))
+
+
+class DeviceWell(torch.nn.Module):
+    """WELL (windowed sliced-ELL) on a device; see
+    ``spmv_tpu_torch.models.well`` for the format.
+
+    Buffers, as in the JAX container (kernels K5a and K5b):
+
+    - ``value`` (chunks, 8, 128), the value dtype, and ``local_index``
+      (chunks, 8, 128) int32: slot s of chunk c reads x at column
+      ``(window_start + segment) * 128 + local_index`` for row
+      ``group_of_chunk[c] * 128 + lane``;
+    - ``window_start`` (steps, 8, K) int32, step-major as the TPU staged
+      it: ``window_start[t, s, kk]`` belongs to chunk ``t * K + kk``;
+      relative to the step's segment in segmented mode;
+    - ``group_of_chunk`` (steps, 1, K) int32 and ``block_of_step``
+      (steps,) int32, the output block of each step;
+    - ``segment_of_step`` (steps,) int32, the x row each step's segment
+      starts at, or None in whole-x mode; and
+    - ``step_ptr`` (num_out_blocks + 1,) int32: output block b's steps
+      are ``[step_ptr[b], step_ptr[b + 1])`` (the packer keeps a block's
+      steps together), so one CUDA block per output block finds its run
+      without the TPU's in-order grid.
+
+    ``spill`` is the out-of-window remainder as a ``DeviceCsr`` (or
+    None).  Metadata: ``num_rows``, ``num_columns``, ``num_entries``,
+    ``window_rows``, ``num_chunks``, ``num_groups``, ``chunks_per_step``
+    (K), ``blocks_per_out`` (B: 8-group blocks per output block) and
+    ``segment_rows`` (None in whole-x mode).
+    """
+
+    format_name = "well"
+
+    def __init__(self, num_rows, num_columns, num_entries, window_rows,
+                 num_groups, chunks_per_step, blocks_per_out, segment_rows,
+                 value, local_index, window_start, group_of_chunk,
+                 block_of_step, segment_of_step=None, spill=None,
+                 dtype=None, device=None):
+        super().__init__()
+        self.num_rows = int(num_rows)
+        self.num_columns = int(num_columns)
+        self.num_entries = int(num_entries)
+        self.window_rows = int(window_rows)
+        self.num_chunks = int(value.shape[0])
+        self.num_groups = int(num_groups)
+        self.chunks_per_step = int(chunks_per_step)
+        self.blocks_per_out = int(blocks_per_out)
+        self.segment_rows = (None if segment_rows is None
+                             else int(segment_rows))
+        self.out_rows = SUBLANE * self.blocks_per_out
+        self.num_out_blocks = -(-self.num_groups // self.out_rows)
+        blks = np.asarray(block_of_step).reshape(-1)
+        if (np.diff(blks) < 0).any():
+            raise MatrixError("DeviceWell: block_of_step must be "
+                              "non-decreasing (one run of steps a block)")
+        ptr = np.searchsorted(blks, np.arange(self.num_out_blocks + 1))
+        self.register_buffer("value", _tensor(value, device, dtype))
+        for name, a in (("local_index", local_index),
+                        ("window_start", window_start),
+                        ("group_of_chunk", group_of_chunk),
+                        ("block_of_step", block_of_step),
+                        ("step_ptr", ptr)):
+            self.register_buffer(
+                name, _tensor(np.asarray(a).astype(np.int32), device))
+        self.register_buffer("segment_of_step", None if segment_of_step is None
+                             else _tensor(np.asarray(segment_of_step)
+                                          .astype(np.int32), device))
+        self.register_module("spill", spill)
+
+    @property
+    def value_dtype(self) -> torch.dtype:
+        return self.value.dtype
+
+    @classmethod
+    def from_host(
+        cls, m: WellMatrix, dtype: Optional[torch.dtype] = None,
+        chunks_per_step: int = 8, segment_rows: Optional[int] = None,
+        blocks_per_out: int = 1, device=None,
+    ) -> "DeviceWell":
+        """Device conversion, as ``spmv_tpu``'s ``DeviceWell.from_host``:
+        the same automatic switch to segmented mode, the same spill, step
+        padding and arrays.
+
+        ``segment_rows``: when set, each output block reads x through a
+        segment of that many 128-wide rows, starting at the block's
+        lowest window (on the TPU a sliding VMEM segment; here an offset
+        added to the column); slots whose windows do not fit move to the
+        CSR spill.
+        """
+        dtype = dtype or default_value_dtype()
+        _check_value_dtype(dtype, "DeviceWell")
+        if segment_rows is None:
+            # the TPU's whole-x mode kept x resident in VMEM: the JAX
+            # container switches to segments when it cannot fit, and the
+            # port switches alike so that both hold the same arrays
+            x_bytes = (-(-m.num_columns // LANE) + m.window_rows + 1) \
+                * LANE * dtype.itemsize
+            if x_bytes > 8 * 1024 * 1024:
+                # large-x defaults: wider segments + folded output
+                # blocks amortize the per-grid-step overhead
+                segment_rows = 4096
+                if blocks_per_out == 1 and chunks_per_step == 8:
+                    blocks_per_out = 4
+                    chunks_per_step = 32
+
+        k = max(int(chunks_per_step), 1)
+        b_out = max(int(blocks_per_out), 1)
+        grp = np.asarray(m.group_of_chunk)
+        ws_full = np.asarray(m.window_start).copy()   # (chunks, 8)
+        value_full = np.asarray(m.value).copy()
+        loc_full = np.asarray(m.local_index)
+
+        sp_r, sp_c, sp_v = [], [], []
+        seg_id = None
+        if segment_rows is not None:
+            seg = int(segment_rows)
+            active = (value_full != 0).any(axis=2) | (
+                loc_full != 0
+            ).any(axis=2)                              # (chunks, 8)
+            ws_act = np.where(
+                active, ws_full, np.iinfo(np.int32).max
+            )
+            smin = ws_act.min(axis=1)
+            has = active.any(axis=1)
+            smin = np.where(has, smin, 0)
+            smax = np.where(
+                active, ws_full, np.iinfo(np.int32).min
+            ).max(axis=1)
+            smax = np.where(has, smax, 0)
+            # One segment per 8-group OUTPUT BLOCK (so runs never
+            # fragment and chunks_per_step stays effective), starting
+            # at the block's minimum window row — segment starts need
+            # no alignment, so any block whose windows span at most
+            # seg rows fits entirely.
+            blocks_of = np.asarray(m.group_of_chunk) // (
+                SUBLANE * b_out
+            )
+            nblk = int(blocks_of.max()) + 1 if blocks_of.size else 1
+            blk_min = np.full(nblk, np.iinfo(np.int64).max)
+            np.minimum.at(
+                blk_min, blocks_of,
+                np.where(has, smin, np.iinfo(np.int64).max),
+            )
+            # blocks whose chunks are all inert never updated blk_min
+            blk_min = np.where(
+                blk_min == np.iinfo(np.int64).max, 0, blk_min
+            )
+            # Quantizing starts to a half-segment grid lets adjacent
+            # blocks share a segment.  The lowered start costs up to
+            # qs-1 rows of the window, so the guarantee is: spans <=
+            # seg/2 always fit; wider spans may spill some slots to the
+            # CSR path.
+            qs = max(seg // 2, 1)
+            seg_start = (blk_min[blocks_of] // qs) * qs
+            seg_start = np.where(has, seg_start, 0)
+            # slots whose window still escapes spill INDIVIDUALLY
+            lo_ok = ws_full >= seg_start[:, None]
+            hi_ok = ws_full <= (seg_start + seg)[:, None]
+            bad = active & ~(lo_ok & hi_ok)
+            for c in np.nonzero(bad.any(axis=1))[0]:
+                for sl in np.nonzero(bad[c])[0]:
+                    ln = np.nonzero(value_full[c, sl] != 0)[0]
+                    sp_r.extend((grp[c] * LANE + ln).tolist())
+                    sp_c.extend(
+                        (int(ws_full[c, sl]) * LANE
+                         + loc_full[c, sl, ln]).tolist()
+                    )
+                    sp_v.extend(value_full[c, sl, ln].tolist())
+                    value_full[c, sl] = 0.0
+            ws_full = np.where(
+                active & ~bad,
+                ws_full - seg_start[:, None],
+                0,
+            ).astype(np.int32)
+            ws_full = np.maximum(ws_full, 0)
+            seg_id = seg_start
+
+        spill = None
+        spill_host = m.spill
+        if sp_r:
+            rr, cc, vv = list(sp_r), list(sp_c), list(sp_v)
+            if spill_host is not None:
+                old_rows = np.repeat(
+                    np.arange(spill_host.num_rows, dtype=np.int64),
+                    np.diff(spill_host.row_ptr),
+                )
+                rr.extend(old_rows.tolist())
+                cc.extend(
+                    np.asarray(spill_host.column_index).tolist()
+                )
+                vv.extend(np.asarray(spill_host.value).tolist())
+            order = np.lexsort((cc, rr))
+            r = np.asarray(rr, dtype=np.int64)[order]
+            c = np.asarray(cc, dtype=np.int64)[order]
+            v = np.asarray(vv, dtype=np.float64)[order]
+            lengths = np.bincount(r, minlength=m.num_rows)
+            ptr = np.zeros(m.num_rows + 1, dtype=np.int64)
+            np.cumsum(lengths, out=ptr[1:])
+            spill_host = CsrMatrix(
+                m.num_rows, m.num_columns, int(r.size), 1,
+                ptr, c.astype(np.int32), v,
+            )
+        if spill_host is not None:
+            spill = DeviceCsr.from_host(spill_host, dtype=dtype,
+                                        device=device)
+
+        # Pad each chunk run to a multiple of K with inert chunks so
+        # one grid step never spans two output blocks, and (segmented
+        # mode) never spans two x segments.
+        blocks = grp // (SUBLANE * b_out)
+        run_key = (
+            blocks.astype(np.int64) if seg_id is None
+            else blocks.astype(np.int64) * (int(seg_id.max()) + 2)
+            + seg_id
+        )  # seg_id holds per-chunk segment START rows in segmented mode
+        val_parts, loc_parts, ws_parts, grp_parts = [], [], [], []
+        blk_steps, seg_steps = [], []
+        # run_key has block as the high digit: sorting by it keeps
+        # blocks contiguous AND groups same-segment chunks within one
+        idx = np.argsort(run_key, kind="stable")
+        i = 0
+        while i < idx.size:
+            j = i
+            while j < idx.size and run_key[idx[j]] == run_key[idx[i]]:
+                j += 1
+            sel = idx[i:j]
+            c = sel.size
+            pad = (-c) % k
+            val_parts.append(value_full[sel])
+            loc_parts.append(loc_full[sel])
+            ws_parts.append(ws_full[sel])
+            grp_parts.append(grp[sel])
+            if pad:
+                val_parts.append(np.zeros(
+                    (pad,) + value_full.shape[1:], value_full.dtype
+                ))
+                loc_parts.append(np.zeros(
+                    (pad,) + loc_full.shape[1:], np.int32
+                ))
+                ws_parts.append(np.zeros((pad, SUBLANE), np.int32))
+                # Inert pad chunks carry the run's LAST real group so the
+                # flattened group_of_chunk stays non-decreasing (whole-x
+                # packing), as in the JAX container.
+                grp_parts.append(np.full(
+                    pad, int(grp[sel[-1]]), dtype=np.int32,
+                ))
+            nsteps = (c + pad) // k
+            blk_steps.extend([int(blocks[sel[0]])] * nsteps)
+            if seg_id is not None:
+                seg_steps.extend([int(seg_id[sel[0]])] * nsteps)
+            i = j
+
+        value = np.concatenate(val_parts)
+        local_index = np.concatenate(loc_parts)
+        window_start = np.concatenate(ws_parts)        # (chunks, 8)
+        group_of_chunk = np.concatenate(grp_parts)     # (chunks,)
+        steps = value.shape[0] // k
+        # step-major staging layout: [step, slot, chunk-in-step]
+        window_start = np.ascontiguousarray(
+            window_start.reshape(steps, k, SUBLANE).transpose(0, 2, 1)
+        ).astype(np.int32)
+        group_of_chunk = group_of_chunk.reshape(steps, 1, k)
+
+        return cls(
+            m.num_rows, m.num_columns, m.num_entries, m.window_rows,
+            m.num_groups, k, b_out, segment_rows, value, local_index,
+            window_start, group_of_chunk,
+            np.asarray(blk_steps, dtype=np.int32),
+            None if seg_id is None else np.asarray(seg_steps, np.int32),
+            spill, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x (the plain version on the CPU, kernels K5a / K5b and
+        the CSR kernel on CUDA)."""
+        from spmv_tpu_torch.ops.dispatch import spmv
+
+        return spmv(self, x)

@@ -1,6 +1,6 @@
-"""Compute layer of the port: DIA, WELL-CW and CSR SpMV and SpMM (plain
-versions and CUDA kernel wrappers), the triad, and conjugate gradient
-(single and batched multi-RHS)."""
+"""Compute layer of the port: DIA, WELL-CW and CSR SpMV and SpMM, WELL
+SpMV (plain versions and CUDA kernel wrappers), the triad, and conjugate
+gradient (single and batched multi-RHS)."""
 
 from spmv_tpu_torch.ops.csr_kernels import (
     csr_spmm,
@@ -32,7 +32,15 @@ from spmv_tpu_torch.ops.spmv import (
     cw_pool_reference,
     dia_spmm_reference,
     dia_spmv_reference,
+    well_chunks_reference,
+    well_spmv_reference,
     wellcw_spmv_reference,
+)
+from spmv_tpu_torch.ops.well_kernels import (
+    well_seg_core,
+    well_spmv,
+    well_spmv_core,
+    well_whole_core,
 )
 from spmv_tpu_torch.ops.wellcw_kernels import (
     wellcw_level_core,
@@ -74,6 +82,12 @@ __all__ = [
     "cw_merged_reference",
     "cw_level_reference",
     "cw_pool_reference",
+    "well_spmv",
+    "well_spmv_core",
+    "well_whole_core",
+    "well_seg_core",
+    "well_chunks_reference",
+    "well_spmv_reference",
     "csr_spmv",
     "csr_spmv_core",
     "csr_spmv_reference",

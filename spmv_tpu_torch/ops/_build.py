@@ -23,7 +23,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-from spmv_tpu.errors import KernelError
+from spmv_tpu_torch.errors import KernelError
 
 __all__ = ["KernelBuildError", "build_library", "find_nvcc",
            "load_library", "nvcc_version"]
@@ -32,7 +32,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
-           "csr_spmv.cu", "csr_spmm.cu")
+           "csr_spmv.cu", "csr_spmm.cu", "well_spmv.cu")
 HEADERS = ("dia_common.cuh", "cw_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -198,6 +198,14 @@ def load_library() -> ctypes.CDLL:
         _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR, _PTR, _I32,
         _PTR]
     lib.csr_spmm_launch.restype = _I32
+    lib.well_whole_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64, _I64,
+        _I64, _PTR, _PTR, _PTR]
+    lib.well_whole_launch.restype = _I32
+    lib.well_seg_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64,
+        _I64, _I64, _PTR, _PTR, _PTR]
+    lib.well_seg_launch.restype = _I32
     lib.spmv_tpu_torch_error_string.argtypes = [_I32]
     lib.spmv_tpu_torch_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from spmv_tpu.errors import KernelError
+from spmv_tpu_torch.errors import KernelError
 
 __all__ = ["on_cuda", "check_vector", "check_no_alias", "raise_on",
            "stream_of"]

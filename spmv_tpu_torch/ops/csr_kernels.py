@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from spmv_tpu.errors import KernelError
+from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.ops._launch import (
     check_no_alias,
     check_vector,

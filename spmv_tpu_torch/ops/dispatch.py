@@ -7,10 +7,16 @@ from __future__ import annotations
 
 import torch
 
-from spmv_tpu.errors import KernelError
-from spmv_tpu_torch.models.device import DeviceCsr, DeviceDia, DeviceWellCw
+from spmv_tpu_torch.errors import KernelError
+from spmv_tpu_torch.models.device import (
+    DeviceCsr,
+    DeviceDia,
+    DeviceWell,
+    DeviceWellCw,
+)
 from spmv_tpu_torch.ops.csr_kernels import csr_spmm, csr_spmv
 from spmv_tpu_torch.ops.dia_kernels import dia_spmm, dia_spmv
+from spmv_tpu_torch.ops.well_kernels import well_spmv
 from spmv_tpu_torch.ops.wellcw_kernels import wellcw_spmm, wellcw_spmv
 
 __all__ = ["spmv", "spmm"]
@@ -18,11 +24,14 @@ __all__ = ["spmv", "spmm"]
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a ``DeviceDia`` (K1), ``DeviceWellCw`` (K3a-c and
-    the CSR remainder) or ``DeviceCsr``."""
+    the CSR remainder), ``DeviceWell`` (K5a or K5b and the CSR spill: the
+    JAX package's ``fast_spmv`` for WELL) or ``DeviceCsr``."""
     if isinstance(A, DeviceDia):
         return dia_spmv(A, x)
     if isinstance(A, DeviceWellCw):
         return wellcw_spmv(A, x)
+    if isinstance(A, DeviceWell):
+        return well_spmv(A, x)
     if isinstance(A, DeviceCsr):
         return csr_spmv(A, x)
     raise KernelError(f"spmv: no port for {type(A).__name__}")
@@ -38,4 +47,7 @@ def spmm(A, X: torch.Tensor) -> torch.Tensor:
         return wellcw_spmm(A, X)
     if isinstance(A, DeviceCsr):
         return csr_spmm(A, X)
+    if isinstance(A, DeviceWell):
+        raise KernelError("spmm on DeviceWell is not yet ported to "
+                          "spmv_tpu_torch (kernels K6a/K6b); see ROADMAP.md")
     raise KernelError(f"spmm: no port for {type(A).__name__}")

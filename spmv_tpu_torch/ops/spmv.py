@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels: DIA, CSR and WELL-CW.
+"""Plain PyTorch versions of the port's kernels: DIA, CSR, WELL-CW and
+WELL.
 
 They are the semantic specification of the CUDA kernels in
 ``spmv_tpu_torch/csrc``, written after the JAX package's XLA
@@ -28,6 +29,15 @@ card ``chip_smoke.py`` holds the kernels against them.
   do (XLA's ``mode="clip"`` reads the last entry instead; the two
   differ only where that entry is not finite).
 
+- ``well_chunks_reference`` (K5a / K5b) and ``well_spmv_reference``,
+  after ``_well_padded``: slot s of chunk c gathers x at column
+  ``(window_start + segment) * 128 + local_index`` (segment 0 in whole-x
+  mode), the 8 slots are summed, each chunk adds into its
+  ``group_of_chunk`` rows, and ``well_spmv_reference`` adds the spill
+  through ``csr_spmv_reference``.  A column at or past the end reads 0,
+  as the Pallas kernels' zero-padded x does (XLA clips to the last
+  entry, as for WELL-CW).
+
 The CSR and WELL-CW versions take x of shape (m,) or X of shape (m, k)
 and return (n,) or (n, k): the same code specifies the SpMV kernels
 and their SpMM counterparts (K4a-c and the CSR SpMM), after the
@@ -53,6 +63,8 @@ __all__ = [
     "cw_level_reference",
     "cw_pool_reference",
     "wellcw_spmv_reference",
+    "well_chunks_reference",
+    "well_spmv_reference",
 ]
 
 LANE = 128
@@ -197,4 +209,31 @@ def wellcw_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
     y = parts[0]
     for p in parts[1:]:
         y = y + p
+    return y
+
+
+def well_chunks_reference(A, x: torch.Tensor) -> torch.Tensor:
+    """K5a's (whole x) or K5b's (segmented) product: the WELL chunks of a
+    ``DeviceWell``, without the spill, in the value dtype; x (m,)."""
+    k = A.chunks_per_step
+    ws = A.window_start.transpose(1, 2).reshape(A.num_chunks, 8).long()
+    if A.segment_of_step is not None:
+        ws = ws + A.segment_of_step.long().repeat_interleave(k)[:, None]
+    col = ws[:, :, None] * LANE + A.local_index.long()
+    m = x.shape[0]
+    xz = torch.cat([x, x.new_zeros(1)])
+    contrib = (A.value * xz[col.clamp_(max=m)]).sum(dim=1)  # (chunks, 128)
+    y = torch.zeros((A.num_groups, LANE), dtype=contrib.dtype,
+                    device=contrib.device)
+    y.index_add_(0, A.group_of_chunk.reshape(-1).long(), contrib)
+    return y.reshape(-1)[: A.num_rows]
+
+
+def well_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for a ``DeviceWell``: the chunks, then the spill, in the
+    value dtype."""
+    xf = x.to(A.value_dtype)
+    y = well_chunks_reference(A, xf)
+    if A.spill is not None:
+        y = y + csr_spmv_reference(A.spill, xf)
     return y

@@ -131,8 +131,8 @@ def breakdown(grid: int, iterations: int, device: torch.device,
               trace_dir: str = None, say=print) -> dict:
     """Time and trace CG and a K1 chain on poisson2d(grid, grid) in
     float32; returns the numbers it printed."""
-    from spmv_tpu.io.generate import poisson2d
-    from spmv_tpu.models import DiaMatrix
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import DiaMatrix
     from spmv_tpu_torch.models import DeviceDia
     from spmv_tpu_torch.ops import spmv
 

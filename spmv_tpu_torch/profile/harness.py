@@ -17,7 +17,7 @@ from typing import Callable
 
 import torch
 
-from spmv_tpu.utils.sample import Sample, compute_sample
+from spmv_tpu_torch.utils.sample import Sample, compute_sample
 
 __all__ = ["time_kernel", "profile_kernel_fn", "KernelTiming"]
 

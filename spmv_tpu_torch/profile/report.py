@@ -11,8 +11,8 @@ from typing import Optional
 
 import torch
 
-from spmv_tpu.perfmodel.tiling import roofline_time
-from spmv_tpu.utils.sample import Sample, compute_sample
+from spmv_tpu_torch.perfmodel.tiling import roofline_time
+from spmv_tpu_torch.utils.sample import Sample, compute_sample
 
 __all__ = ["profiling_report", "device_info"]
 

@@ -34,6 +34,8 @@ from spmv_tpu.ops import extract_diagonal, jacobi_preconditioner
 from spmv_tpu.ops import spmm as jspmm
 from spmv_tpu_torch.cli import main
 from spmv_tpu_torch.models import DeviceDia, DeviceWellCw
+from spmv_tpu_torch.models import DiaMatrix as PortDiaMatrix
+from spmv_tpu_torch.models import WellCwMatrix as PortWellCwMatrix
 from spmv_tpu_torch.ops import (
     batched_conjugate_gradient,
     dia_batched_conjugate_gradient,
@@ -54,6 +56,12 @@ def _fp64():
     torch.set_default_dtype(old)
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    # the port's entry points run on the card unless asked for the CPU
+    monkeypatch.setenv("SPMV_TPU_TORCH_DEVICE", "cpu")
+
+
 @pytest.fixture(scope="module")
 def system():
     mm = poisson2d(16, 16)
@@ -63,14 +71,17 @@ def system():
     B = np.stack([dia.spmv(X_true[:, j]) for j in range(3)], axis=1)
     return {"mm": mm, "dia": dia,
             "wellcw": WellCwMatrix.from_matrix_market(mm),
+            # the port's own host matrices, for the port's containers
+            "port": {"dia": PortDiaMatrix.from_matrix_market(mm),
+                     "wellcw": PortWellCwMatrix.from_matrix_market(mm)},
             "X_true": X_true, "B": B, "diag": extract_diagonal(dia)}
 
 
 def _operators(system, fmt):
-    host = system[fmt]
+    host, port = system[fmt], system["port"][fmt]
     if fmt == "dia":
-        return jdev.DeviceDia.from_host(host), DeviceDia.from_host(host)
-    return jdev.DeviceWellCw.from_host(host), DeviceWellCw.from_host(host)
+        return jdev.DeviceDia.from_host(host), DeviceDia.from_host(port)
+    return jdev.DeviceWellCw.from_host(host), DeviceWellCw.from_host(port)
 
 
 def _same_solve(got, want, X_true):

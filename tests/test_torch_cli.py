@@ -2,11 +2,16 @@
 
 Each ported mode prints a document with the JAX CLI's top-level keys
 for the same flags; every unported mode exits 1 with "not yet ported";
-importing the port and running its CPU profile path never loads JAX
-(checked in a subprocess, since this test process already imported
-JAX); and the kernel build fails loudly, naming the command, when nvcc
-is missing or fails.
+importing the port and running its CPU paths never loads JAX nor any
+module of the JAX package (checked in a subprocess, since this test
+process already imported both, and by a scan of the port's imports);
+without a card the entry points refuse to run unless the caller asks for
+the CPU; and the kernel build fails loudly, naming the command, when
+nvcc is missing or fails.
 """
+
+import ast
+import glob
 
 import io
 import json
@@ -20,6 +25,8 @@ import torch
 
 from spmv_tpu.cli import main as jax_main
 from spmv_tpu_torch.cli import main
+from spmv_tpu_torch.errors import KernelError
+from spmv_tpu_torch.models.device import DEVICE_ENV, default_device
 from spmv_tpu_torch.ops import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,6 +50,12 @@ def _fp64():
     torch.set_default_dtype(torch.float64)
     yield
     torch.set_default_dtype(old)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    # the port's entry points run on the card unless asked for the CPU
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
 
 
 @pytest.fixture
@@ -105,7 +118,10 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 @pytest.mark.parametrize("argv", [
     [],                                               # simulation mode
     ["--spmv-format", "csr", "--profile", "2"],
-    ["--spmv-format", "well", "--profile", "2"],
+    # WELL SpMV is ported; its SpMM (kernels K6a / K6b) is not yet
+    pytest.param(["--spmv-format", "well", "--profile", "2", "--spmm", "2"],
+                 id="spmvformat_well_profile_2"),
+    ["--spmv-format", "well", "--cg", "10", "--nrhs", "2"],
     ["--spmv-format", "bsr", "--profile", "2"],
     ["--spmv-format", "dia", "--cg", "10", "--solver", "bicgstab"],
     ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0"],
@@ -194,20 +210,102 @@ def test_port_never_imports_jax(matrix_file):
                      ["-s", "wellcw", "--cg", "20"],
                      ["-s", "wellcw", "--profile", "2", "--spmm", "2"],
                      ["-s", "wellcw", "--cg", "20", "--nrhs", "2"],
-                     ["-s", "dia", "--cg", "20", "--nrhs", "2"]):
+                     ["-s", "dia", "--cg", "20", "--nrhs", "2"],
+                     ["-s", "well", "--profile", "2"],
+                     ["-s", "well", "--cg", "20"]):
             out = io.StringIO()
             rc = main(["--matrix", {matrix_file!r}] + argv, out=out)
             assert rc == 0, (argv, rc)
             doc = json.loads(out.getvalue())
             assert (doc.get("device") or doc["cg"]) is not None
+        import spmv_tpu_torch.kernels, spmv_tpu_torch.profile.report
+        import spmv_tpu_torch.profile.harness
         assert "jax" not in sys.modules, "the port imported jax"
+        shared = sorted(m for m in sys.modules
+                        if m == "spmv_tpu" or m.startswith("spmv_tpu."))
+        assert not shared, shared
         print("ok")
     """)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env[DEVICE_ENV] = "cpu"
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+def _imports_of_the_jax_package(path):
+    """(line, statement) of each import of ``spmv_tpu`` or a module of it
+    in the file, at any depth (inside functions too)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            if name == "spmv_tpu" or name.startswith("spmv_tpu."):
+                found.append((node.lineno, name))
+    return found
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """No module of the port and no line of chip_smoke.py imports
+    ``spmv_tpu``: the port keeps its own copies of what it needs."""
+    files = glob.glob(os.path.join(REPO, "spmv_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    bad = {os.path.relpath(f, REPO): hits for f in files
+           if (hits := _imports_of_the_jax_package(f))}
+    assert not bad, bad
+
+
+def test_import_scan_finds_imports_inside_functions(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import os\nimport spmv_tpu_torch.ops\n"
+                 "def f():\n    from spmv_tpu.io import generate\n"
+                 "    import spmv_tpu.models as m\n")
+    assert _imports_of_the_jax_package(str(p)) == [
+        (4, "spmv_tpu.io"), (5, "spmv_tpu.models")]
+
+
+def test_no_card_and_no_cpu_request_raises(monkeypatch, matrix_file,
+                                           capsys):
+    """Without a visible card the entry points refuse to run unless the
+    caller asks for the CPU; listing devices still works."""
+    monkeypatch.delenv(DEVICE_ENV)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KernelError, match=DEVICE_ENV):
+        default_device()
+    rc, text = _run(main, ["--matrix", matrix_file, "-s", "dia",
+                           "--profile", "2"])
+    assert rc == 1 and text == ""
+    assert f"{DEVICE_ENV}=cpu" in capsys.readouterr().err
+    rc, text = _run(main, ["--list-devices"])
+    assert rc == 0 and json.loads(text)["default_backend"] == "cpu"
+    monkeypatch.setenv(DEVICE_ENV, "gpu")
+    with pytest.raises(KernelError, match="expected 'cpu' or 'cuda'"):
+        default_device()
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    assert default_device() == torch.device("cpu")
+
+
+def test_cli_without_card_exits_nonzero(matrix_file):
+    """``python -m spmv_tpu_torch`` with no visible card and no request
+    for the CPU exits non-zero, naming the variable, and prints no
+    report."""
+    env = {k: v for k, v in os.environ.items() if k != DEVICE_ENV}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, "-m", "spmv_tpu_torch", "--matrix",
+                        matrix_file, "-s", "dia", "--profile", "2"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and r.stdout == ""
+    assert DEVICE_ENV in r.stderr
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

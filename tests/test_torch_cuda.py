@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3a-c, K4a-c and the CSR kernels on the card against
-their plain versions.
+"""Kernels K1, K2, K3a-c, K4a-c, K5a-b and the CSR kernels on the card
+against their plain versions.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -11,7 +11,7 @@ kernel fuses multiply-add where the plain version rounds twice);
 bfloat16 storage 1e-2 (both accumulate in float32 and round y once, so
 they differ by at most one bfloat16 step); the fused dot 1e-10 in
 float64 and 1e-4 in float32, relative to sum |x_i y_i| (the scale of
-the rounding error of any summation order).  The WELL-CW and CSR
+the rounding error of any summation order).  The WELL-CW, WELL and CSR
 kernels (float64 and float32 only) are also launched twice on the same
 input, and the two outputs must be bitwise equal; each column of an
 SpMM kernel's output is also held against the SpMV kernel on that
@@ -24,14 +24,23 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_tpu.io.generate import (
+from spmv_tpu_torch.io.generate import (
     banded_random,
     from_coo_arrays,
     poisson2d,
     random_sparse,
 )
-from spmv_tpu.models import DiaMatrix, WellCwMatrix
-from spmv_tpu_torch.models import DeviceDia, DeviceWellCw
+from spmv_tpu_torch.io.matrix_market import MatrixMarket
+from spmv_tpu_torch.models import (
+    CsrMatrix,
+    DeviceCsr,
+    DeviceDia,
+    DeviceWell,
+    DeviceWellCw,
+    DiaMatrix,
+    WellCwMatrix,
+    WellMatrix,
+)
 from spmv_tpu_torch.ops import (
     csr_spmm_core,
     csr_spmv_core,
@@ -43,6 +52,11 @@ from spmv_tpu_torch.ops import (
     dia_spmm_reference,
     dia_spmv_core,
     dia_spmv_reference,
+    well_chunks_reference,
+    well_seg_core,
+    well_spmv_core,
+    well_spmv_reference,
+    well_whole_core,
     wellcw_level_core,
     wellcw_level_spmm_core,
     wellcw_merged_core,
@@ -270,9 +284,6 @@ def test_wellcw_spmm_wide_tail_pool_float64(cuda):
 @pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
 def test_csr_spmm_matches_plain(dtype, k, cuda):
-    from spmv_tpu.models import CsrMatrix
-    from spmv_tpu_torch.models import DeviceCsr
-
     A = DeviceCsr.from_host(
         CsrMatrix.from_matrix_market(random_sparse(3000, 2000, 9, seed=8)),
         dtype=dtype, device=cuda)
@@ -291,3 +302,98 @@ def test_csr_spmm_matches_plain(dtype, k, cuda):
     for j in range(k):
         assert _rel_err(Y1[:, j], csr_spmv_core(A, X[:, j].contiguous())) \
             <= TOL[dtype]
+
+
+def _two_clusters():
+    # a near and a far diagonal in one row group: with segment_rows=2 the
+    # far slots escape their segment and spill (tests/test_well.py:188)
+    r = np.concatenate([np.arange(128)] * 2)
+    c = np.concatenate([np.arange(128), np.arange(128) + 3000])
+    return MatrixMarket("matrix", "coordinate", "real", "general", 128,
+                        4000, r.size, r + 1, c + 1, np.ones(r.size))
+
+
+def _empty_blocks():
+    # rows 0..127 and 2176..2303 populated: two whole 8-group output
+    # blocks in between have no entries (tests/test_well.py:304)
+    r = np.concatenate([np.arange(128), np.arange(2176, 2304)])
+    return MatrixMarket("matrix", "coordinate", "real", "general", 2304,
+                        2304, r.size, r + 1, r + 1, np.ones(r.size))
+
+
+# name -> (matrix, window_rows, device options)
+WELL_CASES = {
+    "whole": (lambda: poisson2d(40, 40), 2, {}),
+    "whole_blocks_per_out_2": (lambda: poisson2d(40, 40), 2,
+                               {"blocks_per_out": 2}),
+    "whole_chunks_per_step_2": (lambda: poisson2d(40, 40), 2,
+                                {"chunks_per_step": 2}),
+    "banded_16384": (lambda: banded_random(16384, 256, 8, seed=3), 4, {}),
+    "segment_rows_4": (lambda: banded_random(2000, 60, 5, seed=30), 2,
+                       {"segment_rows": 4}),
+    "segment_rows_2_spill": (_two_clusters, 1, {"segment_rows": 2}),
+    "segmented_blocks_per_out_4": (lambda: poisson2d(64, 64), 2,
+                                   {"segment_rows": 8,
+                                    "blocks_per_out": 4}),
+    "empty_blocks": (_empty_blocks, 1, {"segment_rows": 4}),
+    "rectangular": (lambda: random_sparse(200, 150, 5, seed=6), 2, {}),
+    "window_spill": (lambda: random_sparse(300, 300, 6, seed=4), 1, {}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _well_host(case):
+    make, window_rows, _ = WELL_CASES[case]
+    return WellMatrix.from_matrix_market(make(), window_rows=window_rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", list(WELL_CASES))
+def test_well_kernels_match_plain(case, dtype, cuda):
+    w = _well_host(case)
+    A = DeviceWell.from_host(w, dtype=dtype, device=cuda,
+                             **WELL_CASES[case][2])
+    segmented = A.segment_of_step is not None
+    assert segmented == ("segment_rows" in WELL_CASES[case][2])
+    core = well_seg_core if segmented else well_whole_core
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    counters = (well_whole_core, well_seg_core, csr_spmv_core)
+    before = [c.launches for c in counters]
+    y1, y2 = core(A, x), core(A, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    assert _rel_err(y1, well_chunks_reference(A, x)) <= TOL[dtype]
+    y = well_spmv_core(A, x)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == [0 if segmented else 3, 3 if segmented else 0,
+                        int(A.spill is not None)]
+    assert _rel_err(y, well_spmv_reference(A, x)) <= TOL[dtype]
+    want = torch.from_numpy(w.spmv(x.double().cpu().numpy()))
+    assert _rel_err(y.cpu(), want) <= TOL[dtype]
+
+
+def test_well_unvisited_blocks_read_zero(cuda):
+    """An output block that no step visits is written with zeros (the
+    Pallas kernels never write it): a NaN-filled out buffer comes back
+    clean there.  The host packer gives every block a chunk, so the
+    inert chunk of the empty block 1 is taken out by hand."""
+    A0 = DeviceWell.from_host(_well_host("empty_blocks"),
+                              dtype=torch.float32, chunks_per_step=1,
+                              segment_rows=4)
+    keep = (A0.block_of_step != 1).numpy()      # one chunk per step
+    assert not keep.all()
+    A = DeviceWell(
+        A0.num_rows, A0.num_columns, A0.num_entries, A0.window_rows,
+        A0.num_groups, 1, 1, A0.segment_rows, A0.value[keep],
+        A0.local_index[keep], A0.window_start[keep],
+        A0.group_of_chunk[keep], A0.block_of_step[keep],
+        A0.segment_of_step[keep], device=cuda)
+    assert int(A.step_ptr[1]) == int(A.step_ptr[2])
+    x = torch.ones(A.num_columns, device=cuda)
+    out = torch.full((A.num_rows,), float("nan"), device=cuda)
+    well_seg_core(A, x, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, well_chunks_reference(A, x))
+    assert not out.isnan().any()

@@ -14,15 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_tpu.errors import KernelError
 from spmv_tpu.io.generate import from_coo_arrays, poisson2d
 from spmv_tpu.io.matrix_market import parse_matrix_market
-from spmv_tpu.models import DiaMatrix
+from spmv_tpu.models import DiaMatrix as JaxDiaMatrix
 from spmv_tpu.models import device as jdev
 from spmv_tpu.ops import pallas_kernels as jpk
 from spmv_tpu.ops import spmv as jspmv
 from spmv_tpu.ops.spmv import spmm as jspmm
-from spmv_tpu_torch.models import DeviceDia, dia_from_spmv_tpu
+from spmv_tpu_torch.errors import KernelError
+from spmv_tpu_torch.io.generate import poisson2d as port_poisson2d
+from spmv_tpu_torch.models import DeviceDia, DiaMatrix, dia_from_spmv_tpu
 from spmv_tpu_torch.ops import (
     dia_spmm,
     dia_spmm_core,
@@ -41,6 +42,12 @@ def _fp64():
     torch.set_default_dtype(old)
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    # the port's entry points run on the card unless asked for the CPU
+    monkeypatch.setenv("SPMV_TPU_TORCH_DEVICE", "cpu")
+
+
 def _banded(n, offsets, seed):
     """Random n x n matrix on the given diagonals (80% filled)."""
     rng = np.random.default_rng(seed)
@@ -55,7 +62,7 @@ def _banded(n, offsets, seed):
                            rng.standard_normal(rows.size))
 
 
-def _host(case, tiny_text) -> DiaMatrix:
+def _host(case, tiny_text) -> JaxDiaMatrix:
     if case == "poisson":
         mm = poisson2d(13, 17)
     elif case == "large_offsets":
@@ -63,7 +70,7 @@ def _host(case, tiny_text) -> DiaMatrix:
         mm = _banded(600, [-256, -129, -128, -3, 0, 1, 127, 128, 300], 7)
     else:
         mm = parse_matrix_market(tiny_text)         # 4 x 5
-    return DiaMatrix.from_matrix_market(mm)
+    return JaxDiaMatrix.from_matrix_market(mm)
 
 
 def _jax_fields(Aj):
@@ -177,7 +184,7 @@ def _bad_inputs(A):
 def test_wrapper_rejects_bad_inputs(what):
     """The wrapper checks before it runs anything; a device that is
     neither the CPU nor CUDA raises instead of falling back."""
-    dia = DiaMatrix.from_matrix_market(poisson2d(4, 4))
+    dia = DiaMatrix.from_matrix_market(port_poisson2d(4, 4))
     A = DeviceDia.from_host(dia)
     x, out = _bad_inputs(A)[what]
     if what == "meta_device":
@@ -187,7 +194,7 @@ def test_wrapper_rejects_bad_inputs(what):
 
 
 def test_device_dia_forward_and_out_buffer():
-    dia = DiaMatrix.from_matrix_market(poisson2d(5, 7))
+    dia = DiaMatrix.from_matrix_market(port_poisson2d(5, 7))
     A = DeviceDia.from_host(dia)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(35))
     out = torch.empty(35)

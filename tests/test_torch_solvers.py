@@ -19,11 +19,11 @@ import pytest
 import torch
 
 from spmv_tpu.io.generate import poisson2d
-from spmv_tpu.models import DiaMatrix
+from spmv_tpu.models import DiaMatrix as JaxDiaMatrix
 from spmv_tpu.models.device import DeviceDia as JaxDeviceDia
 from spmv_tpu.ops import dia_conjugate_gradient as jax_dia_cg
 from spmv_tpu.ops import extract_diagonal as jax_extract_diagonal
-from spmv_tpu_torch.models import DeviceDia
+from spmv_tpu_torch.models import DeviceDia, DiaMatrix
 from spmv_tpu_torch.ops import dia_conjugate_gradient, extract_diagonal
 
 VARIANTS = {
@@ -43,23 +43,32 @@ def _fp64():
     torch.set_default_dtype(old)
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    # the port's entry points run on the card unless asked for the CPU
+    monkeypatch.setenv("SPMV_TPU_TORCH_DEVICE", "cpu")
+
+
 @pytest.fixture(scope="module")
 def system():
-    host = DiaMatrix.from_matrix_market(poisson2d(16, 16))
+    # the port's host matrix, and the JAX package's for the JAX side
+    mm = poisson2d(16, 16)
+    host = DiaMatrix.from_matrix_market(mm)
     x_true = np.random.default_rng(8).standard_normal(host.num_rows)
-    return host, x_true, host.spmv(x_true)
+    return (host, x_true, host.spmv(x_true),
+            JaxDiaMatrix.from_matrix_market(mm))
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_dia_cg_matches_jax(variant, system):
-    host, x_true, b = system
+    host, x_true, b, jhost = system
     kw = dict(VARIANTS[variant])
     jacobi = kw.pop("jacobi", False)
     diag = extract_diagonal(host) if jacobi else None
     if jacobi:
-        np.testing.assert_array_equal(diag, jax_extract_diagonal(host))
+        np.testing.assert_array_equal(diag, jax_extract_diagonal(jhost))
 
-    Aj = JaxDeviceDia.from_host(host)
+    Aj = JaxDeviceDia.from_host(jhost)
     want = jax.jit(lambda b: jax_dia_cg(
         Aj, b, tol=1e-12, max_iterations=2000, interpret=True,
         jacobi_diag=diag, **kw))(jnp.asarray(b))
@@ -78,7 +87,7 @@ def test_dia_cg_matches_jax(variant, system):
 
 
 def test_dia_cg_guards(system):
-    host, _, b = system
+    host, _, b, _ = system
     A = DeviceDia.from_host(host)
     with pytest.raises(ValueError):
         dia_conjugate_gradient(A, torch.from_numpy(b), recompute_every=-1)

@@ -21,17 +21,21 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_tpu.errors import KernelError, MatrixError
+from spmv_tpu.errors import MatrixError as JaxMatrixError
 from spmv_tpu.io.generate import banded_random, poisson2d, random_sparse
 from spmv_tpu.kernels import WellCwKernel as JaxWellCwKernel
-from spmv_tpu.models import CsrMatrix, WellCwMatrix
+from spmv_tpu.models import CsrMatrix as JaxCsrMatrix
+from spmv_tpu.models import WellCwMatrix as JaxWellCwMatrix
 from spmv_tpu.models import device as jdev
 from spmv_tpu.ops import spmv as jspmv
 from spmv_tpu.ops.pallas_kernels import wellcw_spmv as jwellcw_spmv
+from spmv_tpu_torch.errors import KernelError, MatrixError
 from spmv_tpu_torch.kernels import make_kernel
 from spmv_tpu_torch.models import (
+    CsrMatrix,
     DeviceCsr,
     DeviceWellCw,
+    WellCwMatrix,
     csr_from_spmv_tpu,
     wellcw_from_spmv_tpu,
 )
@@ -79,17 +83,27 @@ def _fp64():
     torch.set_default_dtype(old)
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    # the port's entry points run on the card unless asked for the CPU
+    monkeypatch.setenv("SPMV_TPU_TORCH_DEVICE", "cpu")
+
+
 @functools.lru_cache(maxsize=None)
-def _host(name):
+def _host(name, jax=False):
+    """The port's host matrix of a case, or with ``jax`` the JAX
+    package's (the same packer's copy: equal arrays)."""
     make, host_kw, _ = CASES[name]
-    return WellCwMatrix.from_matrix_market(make(), **host_kw)
+    cls = JaxWellCwMatrix if jax else WellCwMatrix
+    return cls.from_matrix_market(make(), **host_kw)
 
 
 def _both(name, dtype=torch.float64):
     w = _host(name)
     dev_kw = CASES[name][2]
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
-    Aj = jdev.DeviceWellCw.from_host(w, dtype=jdt, **dev_kw)
+    Aj = jdev.DeviceWellCw.from_host(_host(name, jax=True), dtype=jdt,
+                                     **dev_kw)
     At = DeviceWellCw.from_host(w, dtype=dtype, device="cpu", **dev_kw)
     return w, Aj, At
 
@@ -227,7 +241,8 @@ def test_float32_matches_fp64_host(name):
 def test_csr_plain_matches_jax(rows, cols, seed):
     mm = random_sparse(rows, cols, 7, seed=seed)
     m = CsrMatrix.from_matrix_market(mm)
-    Aj = jdev.DeviceCsr.from_host(m, dtype=jnp.float64)
+    Aj = jdev.DeviceCsr.from_host(JaxCsrMatrix.from_matrix_market(mm),
+                                  dtype=jnp.float64)
     A = DeviceCsr.from_host(m)
     assert A.value.dtype == torch.float64
     Ac = csr_from_spmv_tpu(Aj)
@@ -248,8 +263,9 @@ def test_narrow_dtypes_refused(dtype):
     w = _host("rect_wide")
     with pytest.raises(MatrixError, match=">=32-bit"):
         DeviceWellCw.from_host(w, dtype=dtype)
-    with pytest.raises(MatrixError):
-        jdev.DeviceWellCw.from_host(w, dtype=jnp.bfloat16)
+    with pytest.raises(JaxMatrixError):
+        jdev.DeviceWellCw.from_host(_host("rect_wide", jax=True),
+                                    dtype=jnp.bfloat16)
 
 
 def test_dispatch_forward_and_spmm_refusal():

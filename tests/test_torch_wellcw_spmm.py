@@ -25,14 +25,21 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_tpu.errors import KernelError
 from spmv_tpu.io.generate import banded_random, random_sparse
-from spmv_tpu.models import CsrMatrix, WellCwMatrix
+from spmv_tpu.models import CsrMatrix as JaxCsrMatrix
+from spmv_tpu.models import WellCwMatrix as JaxWellCwMatrix
 from spmv_tpu.models import device as jdev
 from spmv_tpu.ops import spmm as jspmm
 from spmv_tpu.ops.pallas_kernels import wellcw_spmm as jwellcw_spmm
+from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.kernels import make_kernel
-from spmv_tpu_torch.models import DeviceCsr, DeviceWellCw, csr_from_spmv_tpu
+from spmv_tpu_torch.models import (
+    CsrMatrix,
+    DeviceCsr,
+    DeviceWellCw,
+    WellCwMatrix,
+    csr_from_spmv_tpu,
+)
 from spmv_tpu_torch.ops import (
     csr_spmm,
     csr_spmm_core,
@@ -74,17 +81,27 @@ def _fp64():
     torch.set_default_dtype(old)
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    # the port's entry points run on the card unless asked for the CPU
+    monkeypatch.setenv("SPMV_TPU_TORCH_DEVICE", "cpu")
+
+
 @functools.lru_cache(maxsize=None)
-def _host(name):
+def _host(name, jax=False):
+    """The port's host matrix of a case, or with ``jax`` the JAX
+    package's (the same packer's copy: equal arrays)."""
     make, host_kw, _ = CASES[name]
-    return WellCwMatrix.from_matrix_market(make(), **host_kw)
+    cls = JaxWellCwMatrix if jax else WellCwMatrix
+    return cls.from_matrix_market(make(), **host_kw)
 
 
 def _both(name, dtype=torch.float64):
     w = _host(name)
     dev_kw = CASES[name][2]
     jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
-    Aj = jdev.DeviceWellCw.from_host(w, dtype=jdt, **dev_kw)
+    Aj = jdev.DeviceWellCw.from_host(_host(name, jax=True), dtype=jdt,
+                                     **dev_kw)
     At = DeviceWellCw.from_host(w, dtype=dtype, device="cpu", **dev_kw)
     return w, Aj, At
 
@@ -165,7 +182,8 @@ def test_spmm_float32_matches_fp64_host(name):
 def test_csr_plain_spmm_matches_jax(rows, cols, seed):
     mm = random_sparse(rows, cols, 7, seed=seed)
     m = CsrMatrix.from_matrix_market(mm)
-    Aj = jdev.DeviceCsr.from_host(m, dtype=jnp.float64)
+    Aj = jdev.DeviceCsr.from_host(JaxCsrMatrix.from_matrix_market(mm),
+                                  dtype=jnp.float64)
     A = DeviceCsr.from_host(m)
     X = _X(cols, 3, seed=seed)
     want = np.asarray(jspmm(Aj, jnp.asarray(X)))
