@@ -44,7 +44,16 @@ Phases (each prints readable lines; any failure exits non-zero):
    rectangular random_sparse(200, 150, 5) and banded_random(65536, 512,
    8) with a CSR spill: each launched twice (bitwise equal), against its
    plain version, the whole product against the plain composition and,
-   in float32, the fp64 host product.
+   in float32, the fp64 host product.  Then the WELL SpMM kernels K6a
+   (whole x) and K6b (segmented) and the spill's CSR SpMM on the same
+   eight matrices at k = 3 and 8, float64 and float32, and at the
+   batched-CG shape (poisson2d(1024, 1024), float32, k = 4): twice
+   (bitwise equal), against the plain version and column by column
+   against K5 / the CSR SpMV on that column.  Last, K7 (the BSR SpMM) on
+   block matrices of block height 8, 32 and 128 with blocks_per_step 8,
+   3 and 1, an empty block row and a 300 x 200 shape, in float64,
+   float32 and bf16 blocks, at k = 1, 3 and 128: twice (bitwise equal),
+   against its plain version and the fp64 host product.
 4. DIA main path through the CLI, in process, on a Matrix Market file of
    poisson2d(1024, 1024): profile, SpMM profile, CG, Jacobi CG, batched
    CG (--nrhs 3: K2), triad.  The DIA launch counts are zeroed just
@@ -104,13 +113,43 @@ Phases (each prints readable lines; any failure exits non-zero):
    the spill's CSR kernel as in phase 10, each beside the torch.sparse
    CSR product (cuSPARSE) of the same entries and its bound; then the
    torch.sparse CSR SpMV of the whole matrix against the chained SpMV.
+14. WELL SpMM path through the CLI (the K6a, K6b and CSR SpMM launch
+   counts are zeroed just before): --profile 5 --spmm 8 and --cg 2000
+   --nrhs 3 on poisson2d(256, 256) (K6a and the spill's CSR SpMM).
+15. WELL SpMM profile: make_kernel("well").spmm_fn(8) in float32 on the
+   host matrices of phase 12, poisson2d(1024, 1024) (K6a) and
+   poisson2d(4096, 4096) (K6b): the fp64 host checksum (the DIA host
+   product of the same matrix), seconds per chained SpMM with the
+   launch counts equal to the chain length, the plain version's time,
+   the fraction of the triad roofline with the CLI's byte count and the
+   per-nnz cost against phase 12's SpMV.
+16. Batched CG on WELL as phase 9 does for DIA and WELL-CW:
+   poisson2d(1024, 1024), float32, k = 4 (K6a).  The WELL SpMM launch
+   counts are read after it.
+17. BSR path through the CLI (K7's count is zeroed just before): -s bsr
+   --profile 5 --spmm 16 and -s bsr --cg 500 on poisson2d(128, 128),
+   and -s auto --profile 3 --spmm 128 on block_random(2048, 2048, 4),
+   whose report must name bsr.
+18. The JAX bench's BSR leg: block_random(131072, 131072, 8, seed=2)
+   through auto_format(workload="spmm"), which must choose bsr, then
+   make_kernel("bsr").spmm_fn(128) with float32 and bf16 blocks: the
+   fp64 host checksum gate (1e-4; 1e-2 for bf16), seconds per chained
+   SpMM, TFLOP/s, the bound, the plain version's ms and one torch.sparse
+   BSR product's (where torch takes the dtype); then the same in float32
+   on block_random(262144, 262144, 2, seed=3), whose 134 MB X is past the
+   80 MB line where the JAX bsr_spmm switches from K7b to K7a.  K7's
+   launches are tallied under the Pallas kernel their X size selects and
+   read after it.
+19. K6a, K6b (at every column-block width that fits) and K7 at the
+   phase 15 and 18 shapes alone (not counted), as in phase 10.
 
-The second-to-last lines are the kernels' JSON summary (twelve kernels,
+The second-to-last lines are the kernels' JSON summary (sixteen kernels,
 each with its launches on the main path, max error, ms against plain
-ms, bound and library ms) and nvidia-smi's ``name, power.limit``; the
-last line is the run's result.  Imports no JAX and nothing of the JAX
+ms, bound and library ms, and summaries of each path) and nvidia-smi's
+``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
-data sheet's 3.35 TB/s and 67 TFLOP/s float32 (H100 SXM, 700 W).
+data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
+(H100 SXM, 700 W).
 """
 
 from __future__ import annotations
@@ -154,8 +193,19 @@ CG_ROUNDS = 11                # rounds of those solves, for the spread
 WELL_CLI_GRID = 256           # the WELL CLI phase's poisson2d
 WELL_WHOLE_GRID = 1024        # K5a: x fits whole in float32
 WELL_SEG_GRID = FULL_GRID     # K5b: x past 8 MiB, segmented mode
+WELL_SPMM_K = 8               # the WELL SpMM legs' right-hand sides
+BSR_K = 128                   # bench.py's BSR leg (bench.py:487-545)
+BSR_ROWS = 1 << 17            # block_random(131072, 131072, 8): X 67 MB
+BSR_FAR_ROWS = 1 << 18        # block_random(262144, 262144, 2): X 134 MB
+BSR_WHOLEX_BYTES = 80 * 1024 * 1024  # the JAX bsr_spmm's K7a / K7b line
+BSR_CLI_GRID = 128            # the BSR CLI phase's poisson2d
+BSR_CLI_BLOCK_ROWS = 2048     # the -s auto run's block_random
+TOL_BSR_BF16 = 1e-5           # K7, bf16 blocks, vs plain: same products, f32 sums
+TOL_BF16_HOST = 3e-2          # bf16 blocks vs the fp64 host (tests/test_bsr.py)
+BF16_CHECKSUM_RTOL = 1e-2     # bench.py's bf16 BSR checksum gate
 HBM_BPS = 3.35e12             # H100 SXM data sheet, at 700 W
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12      # H100 SXM bfloat16, dense tensor cores
 
 
 def _fail(msg: str) -> None:
@@ -244,13 +294,15 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def _bound(nbytes: int, flops: int, triad_gbps: float) -> dict:
+def _bound(nbytes: int, flops: int, triad_gbps: float,
+           peak: float = PEAK_F32_FLOPS) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once)
-    over the data sheet's memory rate and its operations over the
-    float32 peak (every timed kernel accumulates in float32); beside it,
-    the bytes over the triad rate measured on this card."""
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_F32_FLOPS
+    over the data sheet's memory rate and its operations over the peak
+    rate for its inputs' type (float32 unless ``peak`` says otherwise:
+    the bfloat16 BSR blocks take the bfloat16 peak); beside it, the
+    bytes over the triad rate measured on this card."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_triad_ms": nbytes / (triad_gbps * 1e9) * 1e3,
@@ -623,9 +675,11 @@ def phase_compare_wellcw(device, cg_mats):
 # ---------------------------------------------------------------- phase 4
 def _run_cli(tag, runs):
     """Run the port's CLI in process; each run is (name, argv, wrappers
-    that must launch).  Checks GPU timing, or CG convergence."""
+    that must launch).  Checks GPU timing, or CG convergence.  Returns
+    the reports."""
     from spmv_tpu_torch.cli import main
 
+    docs = []
     for name, argv, wrappers in runs:
         before = [w.launches for w in wrappers]
         buf = io.StringIO()
@@ -672,6 +726,8 @@ def _run_cli(tag, runs):
                  f"{secs:.1f} s wall{launched}")
             if doc["device"]["platform"] != "gpu" or not t > 0:
                 _fail(f"CLI {name}: not a GPU timing: {doc['device']}")
+        docs.append(doc)
+    return docs
 
 
 def phase_cli(device):
@@ -1073,15 +1129,16 @@ def _device_slope(solve, device) -> float:
     return (dev[1] - dev[0]) / (CG_ITERS[1] - CG_ITERS[0])
 
 
-def phase_batched_cg(device, mats, smi_line):
+def phase_batched_cg(device, mats, smi_line, tag="9 batched cg"):
     """bench.py's solver leg (bench.py:694-712) on the port: batched CG
     (k = CG_K) against single-RHS CG at poisson2d(CG_GRID²), float32, on
-    DIA (K1 / K2) and WELL-CW (K3 / K4), both at tol 0 for fixed
-    iteration counts; then a solve to tol 1e-5 of B = A ((j + 1) ones),
-    B from the fp64 host product."""
+    each format of ``mats``: DIA (K1 / K2), WELL-CW (K3 / K4) or WELL
+    (K5 / K6 and the spill), all at tol 0 for fixed iteration counts;
+    then a solve to tol 1e-5 of B = A ((j + 1) ones), B from the fp64
+    host product."""
     import torch
 
-    from spmv_tpu_torch.models import DeviceDia, DeviceWellCw
+    from spmv_tpu_torch.models import DeviceDia, DeviceWell, DeviceWellCw
     from spmv_tpu_torch.ops import (
         batched_conjugate_gradient,
         conjugate_gradient,
@@ -1092,7 +1149,7 @@ def phase_batched_cg(device, mats, smi_line):
     )
 
     f32 = torch.float32
-    n = mats["dia"].num_rows
+    n = next(iter(mats.values())).num_rows
     g = torch.Generator(device=device).manual_seed(3)
     b = torch.randn(n, generator=g, device=device, dtype=f32)
     B = torch.randn(n, CG_K, generator=g, device=device, dtype=f32)
@@ -1109,7 +1166,8 @@ def phase_batched_cg(device, mats, smi_line):
                 return dia_batched_conjugate_gradient(
                     A, rhs, tol=tol, max_iterations=it)
         else:
-            A = DeviceWellCw.from_host(host, dtype=f32, device=device)
+            cls = DeviceWellCw if fmt == "wellcw" else DeviceWell
+            A = cls.from_host(host, dtype=f32, device=device)
 
             def single(it, rhs=b):
                 return conjugate_gradient(lambda v: spmv(A, v), rhs,
@@ -1140,7 +1198,7 @@ def phase_batched_cg(device, mats, smi_line):
             return (f"{st['median'] * 1e6:.1f} [{st['min'] * 1e6:.1f}, "
                     f"{st['max'] * 1e6:.1f}]")
 
-        _say(f"[9 batched cg] {fmt} poisson2d({CG_GRID}^2) float32, host "
+        _say(f"[{tag}] {fmt} poisson2d({CG_GRID}^2) float32, host "
              f"clock, median [min, max] of {CG_ROUNDS} rounds: single "
              f"{us(t1)} us/iteration, batched k={CG_K} {us(tk)} "
              f"us/iteration, throughput vs sequential {th['median']:.3f} "
@@ -1258,15 +1316,16 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
 
 
 # ------------------------------------------------------- WELL (3, 11-13)
-def _k1_seconds(mm, device) -> float:
-    """K1's seconds per chained float32 SpMV on the matrix (the DIA
-    yardstick of a WELL size that phase 5 does not run)."""
+def _k1_seconds(dia, device) -> float:
+    """K1's seconds per chained float32 SpMV on the host DIA matrix (the
+    DIA yardstick of a WELL size that phase 5 does not run)."""
     import torch
 
     from spmv_tpu_torch.kernels import make_kernel
     from spmv_tpu_torch.profile import time_kernel
 
-    kernel = make_kernel("dia", mm=mm, device=device, dtype=torch.float32)
+    kernel = make_kernel("dia", matrix=dia, device=device,
+                         dtype=torch.float32)
     kernel.init()
     step, args = kernel.run_fn()
     return time_kernel(step, args, k_small=8, k_large=136,
@@ -1361,11 +1420,15 @@ def _compare_well(name, w, dev_kw, dtype, device):
     return A.segment_rows is not None
 
 
-def phase_compare_well(device):
+def phase_compare_well(device, cg_well):
     """K5a and K5b against their plain versions on the JAX WELL tests'
     kinds of matrix: whole x, forced segments of 4 and 2 rows (escaping
     slots spill), blocks_per_out 2 and 4, the empty-block matrix, a
-    rectangular matrix and a banded matrix with a CSR spill."""
+    rectangular matrix and a banded matrix with a CSR spill; then K6a and
+    K6b (and the spill's CSR SpMM) on the same matrices at k = 3 and 8,
+    and at the batched-CG leg's shape (``cg_well``, k = CG_K, float32).
+    Returns per SpMM kernel whether its columns equalled the SpMV
+    kernel's bit for bit in every case."""
     import torch
 
     from spmv_tpu_torch import io as pio
@@ -1404,7 +1467,21 @@ def phase_compare_well(device):
             seen.add(_compare_well(name, w, dev_kw, dtype, device))
     if seen != {False, True}:
         _fail("the WELL comparisons did not reach both K5a and K5b")
+    seen, bitwise = set(), {}
+    for name, w, dev_kw in cases:
+        for dtype in (torch.float64, torch.float32):
+            for k in COMPARE_KS:
+                seen.add(_compare_well_spmm(name, w, dev_kw, dtype, k,
+                                            device, bitwise))
+    if seen != {False, True}:
+        _fail("the WELL SpMM comparisons did not reach both K6a and K6b")
+    _compare_well_spmm(f"poisson2d({CG_GRID},{CG_GRID})", cg_well, {},
+                       torch.float32, CG_K, device, bitwise)
+    _say("[3 compare] WELL SpMM columns bitwise equal to the SpMV kernel's "
+         "in every case: " + ", ".join(f"{n} {'yes' if b else 'no'}"
+                                       for n, b in bitwise.items()))
     _sync(device)
+    return bitwise
 
 
 def phase_cli_well(device):
@@ -1619,6 +1696,607 @@ def phase_kernels_well(device, profiled, smi_line, triad_gbps):
     return found
 
 
+# ------------------------------------------------ WELL SpMM (3, 14-16)
+def _well_spmm_parts(A):
+    """(kernel name, kernel call, plain call, SpMV kernel call) of each
+    launch that ``well_spmm_core`` makes for A: K6a or K6b, then the CSR
+    SpMM of the spill.  The kernel call takes X, an optional out buffer
+    and (K6) an optional column-block width, which the wrapper leaves to
+    its shared-memory budget: a width of the sweep launches one level
+    below it."""
+    from spmv_tpu_torch import ops
+    from spmv_tpu_torch.ops.well_kernels import _launch_spmm
+
+    seg = A.segment_of_step is not None
+    core = ops.well_seg_spmm_core if seg else ops.well_whole_spmm_core
+    spmv_core = ops.well_seg_core if seg else ops.well_whole_core
+    name = "well_seg_spmm" if seg else "well_whole_spmm"
+
+    def run(X, out=None, columns=None):
+        if columns is None:
+            return core(A, X, out=out)
+        return _launch_spmm(core, name, A, X, out, seg, columns)
+
+    parts = [(name, run,
+              lambda X: ops.well_chunks_reference(A, X),
+              lambda x: spmv_core(A, x))]
+    if A.spill is not None:
+        R = A.spill
+        parts.append(("csr_spmm",
+                      lambda X, out=None: ops.csr_spmm_core(R, X, out=out),
+                      lambda X: ops.csr_spmv_reference(R, X),
+                      lambda x: ops.csr_spmv_core(R, x)))
+    return parts
+
+
+def _host_spmm(host, X):
+    """The fp64 host product of a host matrix with each column of X."""
+    X = np.asarray(X, np.float64)
+    return np.stack([host.spmv(X[:, j]) for j in range(X.shape[1])], 1)
+
+
+def _compare_well_spmm(name, w, dev_kw, dtype, k, device, bitwise):
+    """K6a / K6b and the spill's CSR SpMM, each twice (bitwise equal),
+    against its plain version and, column by column, against the SpMV
+    kernel (K5, CSR) on that column; the whole SpMM against the plain
+    composition and, in float32, the fp64 host product.  ``bitwise``
+    records per kernel whether every column equalled the SpMV kernel's
+    bit for bit."""
+    import torch
+
+    from spmv_tpu_torch.models import DeviceWell
+    from spmv_tpu_torch.ops import well_spmm_core, well_spmv_reference
+
+    dtn = str(dtype).replace("torch.", "")
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+    A = DeviceWell.from_host(w, dtype=dtype, device=device, **dev_kw)
+    g = torch.Generator(device=device).manual_seed(0)
+    X = torch.randn(A.num_columns, k, generator=g, device=device,
+                    dtype=dtype)
+    errs = []
+    for kname, run, plain, run1 in _well_spmm_parts(A):
+        Y1, Y2 = run(X), run(X)
+        cols = torch.stack([run1(X[:, j].contiguous()) for j in range(k)],
+                           dim=1)
+        _sync(device)
+        if not torch.equal(Y1, Y2):
+            _fail(f"{kname} on {name} {dtn} k={k}: two launches differ")
+        e, ec = _rel(Y1, plain(X)), _rel(Y1, cols)
+        same = torch.equal(Y1, cols)
+        bitwise[kname] = bitwise.get(kname, True) and same
+        errs.append(f"{kname} {e:.3e} (vs SpMV kernel {ec:.3e}"
+                    f"{', bitwise' if same else ''})")
+        if e > tol or ec > tol:
+            _fail(f"{kname} on {name} {dtn} k={k}: rel err {e} / {ec} "
+                  f"> {tol}")
+    Y = well_spmm_core(A, X)
+    _sync(device)
+    e = _rel(Y, well_spmv_reference(A, X))
+    line = (f"[3 compare] {name} {dtn} k={k}: " + ", ".join(errs)
+            + f"; whole {e:.3e}")
+    if e > tol:
+        _fail(f"{line} > {tol}")
+    if dtype == torch.float32:
+        host = torch.from_numpy(_host_spmm(w, X.double().cpu().numpy()))
+        eh = _rel(Y.cpu(), host)
+        line += f", vs fp64 host {eh:.3e}"
+        if eh > TOL_F32_HOST:
+            _fail(f"{line} > {TOL_F32_HOST}")
+    _say(line + " (each kernel twice, bitwise equal)")
+    return A.segment_rows is not None
+
+
+def _bsr_blocklets(bh: int, n: int = 1024):
+    """Dense 8 x 128 blocklets at random (tests/test_bsr.py:172), packed
+    at block height bh."""
+    from spmv_tpu_torch.io.generate import random_sparse
+    from spmv_tpu_torch.models import BsrMatrix
+
+    rng = np.random.default_rng(bh)
+    base = random_sparse(n // 8, n // 128, 2, seed=bh)
+    rows = np.repeat((base.rows_1based - 1) * 8, 8 * 128) \
+        + np.tile(np.repeat(np.arange(8), 128), base.num_entries)
+    cols = np.repeat((base.cols_1based - 1) * 128, 8 * 128) \
+        + np.tile(np.arange(128), 8 * base.num_entries)
+    return BsrMatrix._build(n, n, rows, cols, rng.standard_normal(rows.size),
+                            None, bh)
+
+
+def phase_compare_bsr(device):
+    """K7 against its plain version on block matrices: block heights 8,
+    32 and 128, blocks_per_step 1, 3 and 8, an empty block row and a 300 x
+    200 shape; float64, float32 and bf16 blocks; k = 1, 3 and BSR_K:
+    twice (bitwise equal), and float32 / float64 against the fp64 host
+    product, bf16 within the JAX test's bound of it."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import random_sparse
+    from spmv_tpu_torch.io.matrix_market import MatrixMarket
+    from spmv_tpu_torch.models import BsrMatrix, DeviceBsr
+    from spmv_tpu_torch.ops import bsr_spmm_core, bsr_spmm_reference
+
+    empty = BsrMatrix.from_matrix_market(MatrixMarket(
+        "matrix", "coordinate", "real", "general", 384, 384, 2,
+        np.array([1, 384]), np.array([1, 384]), np.array([2.0, 3.0])))
+    cases = [("bh 8, blocks_per_step 8", _bsr_blocklets(8), 8),
+             ("bh 32, blocks_per_step 3", _bsr_blocklets(32), 3),
+             ("bh 128, blocks_per_step 1", _bsr_blocklets(128), 1),
+             ("empty block row", empty, 8),
+             ("random_sparse(300,200,4)", BsrMatrix.from_matrix_market(
+                 random_sparse(300, 200, 4, seed=3)), 8)]
+    for name, b, kb in cases:
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
+            dtn = str(dtype).replace("torch.", "")
+            A = DeviceBsr.from_host(b, dtype=dtype, blocks_per_step=kb,
+                                    device=device)
+            errs = []
+            for k in (1, 3, BSR_K):
+                g = torch.Generator(device=device).manual_seed(k)
+                X = torch.randn(A.num_columns, k, generator=g,
+                                device=device).to(dtype)
+                Y1, Y2 = bsr_spmm_core(A, X), bsr_spmm_core(A, X)
+                _sync(device)
+                if not torch.equal(Y1, Y2):
+                    _fail(f"bsr_spmm on {name} {dtn} k={k}: two launches "
+                          "differ")
+                tol = {"float64": TOL_F64, "float32": TOL_F32,
+                       "bfloat16": TOL_BSR_BF16}[dtn]
+                e = _rel(Y1, bsr_spmm_reference(A, X))
+                host = torch.from_numpy(b.spmm(X.double().cpu().numpy()))
+                eh = _rel(Y1.cpu(), host)
+                th = TOL_BF16_HOST if dtype == torch.bfloat16 else tol
+                errs.append(f"k={k} {e:.3e} (fp64 host {eh:.3e})")
+                if e > tol or eh > th:
+                    _fail(f"bsr_spmm on {name} {dtn} k={k}: rel err {e} > "
+                          f"{tol} or vs host {eh} > {th}")
+            _say(f"[3 compare] bsr {name} {dtn} (Y "
+                 f"{str(Y1.dtype).replace('torch.', '')}): "
+                 + ", ".join(errs) + " (each twice, bitwise equal)")
+            del A
+    _sync(device)
+
+
+def phase_cli_well_spmm(device):
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.ops import well_whole_spmm_core
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poisson.mtx")
+        write_matrix_market(poisson2d(WELL_CLI_GRID, WELL_CLI_GRID), path)
+        label = f"poisson2d({WELL_CLI_GRID},{WELL_CLI_GRID})"
+        _say(f"[14 well spmm cli] wrote {label}")
+        argv = ["--matrix", path, "--spmv-format", "well"]
+        _run_cli("14 well spmm cli", [
+            (f"spmm k={WELL_SPMM_K} {label}",
+             argv + ["--profile", "5", "--spmm", str(WELL_SPMM_K)],
+             (well_whole_spmm_core,)),
+            (f"cg nrhs={CLI_NRHS} {label}",
+             argv + ["--cg", "2000", "--nrhs", str(CLI_NRHS)],
+             (well_whole_spmm_core,)),
+        ])
+    _sync(device)
+
+
+def phase_profile_well_spmm(device, mats, smi_line):
+    """make_kernel("well").spmm_fn(WELL_SPMM_K) on each host matrix of
+    ``mats`` (label -> (host WellMatrix, whether K6b is expected, its DIA
+    host matrix for the fp64 checksum, the SpMV's seconds of phase 12)):
+    the fp64 host checksum gate, seconds per chained SpMM (CUDA events)
+    with the launch counts equal to the chain length, the plain version's
+    time, the fraction of the triad roofline with the CLI's byte count and
+    the per-nnz cost against the SpMV.  Returns per size its numbers and
+    its DeviceWell."""
+    import torch
+
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.ops import (
+        csr_spmm_core,
+        well_seg_spmm_core,
+        well_spmv_reference,
+        well_whole_spmm_core,
+    )
+    from spmv_tpu_torch.ops.well_kernels import well_column_block
+    from spmv_tpu_torch.perfmodel import measured_machine
+    from spmv_tpu_torch.profile import (
+        profile_kernel_fn,
+        profiling_report,
+        time_kernel,
+    )
+
+    k = WELL_SPMM_K
+    machine = measured_machine(device)
+    out = {}
+    for label, (w, segmented, dia, t_spmv) in mats.items():
+        kernel = make_kernel("well", matrix=w, device=device,
+                             dtype=torch.float32)
+        kernel.init()
+        step, args = kernel.spmm_fn(k)
+        A = args[1]
+        if (A.segment_of_step is not None) != segmented:
+            _fail(f"well spmm {label}: segmented mode is "
+                  f"{A.segment_of_step is not None}, expected {segmented}")
+        core = well_seg_spmm_core if segmented else well_whole_spmm_core
+        kc = well_column_block(torch.float32, k, A.out_rows)
+        X = np.random.default_rng(0).standard_normal(
+            (w.num_columns, k)).astype(np.float32)
+        Y = step(torch.from_numpy(X).to(device), A)
+        got = float(Y.abs().sum(dtype=torch.float32))
+        want = float(np.abs(_host_spmm(dia, X)).sum())
+        rel = abs(got - want) / want
+        _say(f"[15 well spmm] {label} float32 k={k}: {A.num_out_blocks} "
+             f"output blocks of {A.out_rows} groups, {kc} columns a block; "
+             f"checksum rel err {rel:.3e} against the fp64 host product "
+             f"(gate {CHECKSUM_RTOL})")
+        if not rel <= CHECKSUM_RTOL:
+            _fail(f"well spmm {label} checksum gate: {rel} > "
+                  f"{CHECKSUM_RTOL}")
+        calls = [0]
+
+        def counted(V, A, step=step):
+            calls[0] += 1
+            return step(V, A)
+
+        before = (core.launches, csr_spmm_core.launches)
+        timing = time_kernel(counted, args, k_small=4, k_large=40, runs=6)
+        _sync(device)
+        launched = (core.launches - before[0],
+                    csr_spmm_core.launches - before[1])
+        if launched != (calls[0], calls[0] if A.spill is not None else 0):
+            _fail(f"well spmm {label}: {launched} launches (K6, spill) for "
+                  f"{calls[0]} chained SpMMs")
+        runs = profile_kernel_fn(step, args, runs=5)
+        m = kernel.matrix
+        nbytes = kernel.bytes_per_run() + (k - 1) * (
+            m.num_columns + m.num_rows) * kernel.value_bytes
+        doc = profiling_report(kernel, runs, timing.seconds_per_iteration,
+                               5, True, machine=machine, device=device,
+                               op_info={"kind": "spmm", "k": k},
+                               flops_per_run=k * kernel.flops_per_run(),
+                               bytes_per_run=nbytes)
+        t = doc["device_seconds_per_iteration"]
+        if not (np.isfinite(t) and t > 0) or doc["device"]["platform"] != "gpu":
+            _fail(f"well spmm {label}: bad timing {t} on {doc['device']}")
+        frac = doc["achieved"]["fraction_of_roofline"]
+        t_plain = time_kernel(lambda V, A: well_spmv_reference(A, V),
+                              (args[0], A), k_small=1, k_large=3,
+                              runs=2).seconds_per_iteration
+        per_nnz = (t / k) / t_spmv
+        _say(f"[15 well spmm] {label}: SpMM k={k} {t * 1e3:.4f} ms "
+             f"({w.num_entries * k / t / 1e9:.2f} effective Gnnz/s; "
+             f"{calls[0]} chained SpMMs launched {core.__name__} "
+             f"{launched[0]} times and the spill's CSR SpMM {launched[1]} "
+             f"times), plain {t_plain * 1e3:.4f} ms, fraction of the triad "
+             f"roofline {frac:.4f} ({nbytes} B at {machine.hbm_gbps:.1f} "
+             f"GB/s); per nnz against the SpMV {per_nnz:.4f} ((t / {k}) / "
+             f"{t_spmv * 1e3:.4f} ms), on {smi_line}")
+        out[label] = {"A": A, "k": k, "columns_per_block": kc,
+                      "ms": t * 1e3, "plain_ms": t_plain * 1e3,
+                      "roofline_fraction": frac, "checksum_rel_err": rel,
+                      "per_nnz_vs_spmv": per_nnz, "chained": calls[0],
+                      "launches": launched}
+        del kernel, step, args, Y
+        _sync(device)
+    return out
+
+
+# ------------------------------------------------------ BSR (17-18)
+def _bsr_regime(num_columns: int, k: int, itemsize: int) -> str:
+    """Which Pallas kernel the JAX ``bsr_spmm`` would take for k columns
+    of X over num_columns (padded to whole blocks) in blocks of
+    ``itemsize`` bytes: K7b (``bsr_spmm_wholex``) while X fits its 80 MB,
+    K7a (``bsr_spmm``) past it.  One CUDA kernel serves both."""
+    x_bytes = -(-num_columns // 128) * 128 * k * itemsize
+    return "bsr_spmm_wholex" if x_bytes <= BSR_WHOLEX_BYTES else "bsr_spmm"
+
+
+def phase_cli_bsr(device):
+    """-s bsr (--profile with --spmm, and --cg) on a small poisson2d, and
+    -s auto --spmm on a small block_random, whose report must name bsr.
+    Returns the K7 launches by regime: all K7b, which is checked for each
+    run's X in the CLI's value dtype."""
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import block_random, poisson2d
+    from spmv_tpu_torch.models import default_value_dtype
+    from spmv_tpu_torch.ops import bsr_spmm_core
+
+    itemsize = default_value_dtype().itemsize
+    for n, k in ((BSR_CLI_GRID ** 2, 16), (BSR_CLI_GRID ** 2, 1),
+                 (BSR_CLI_BLOCK_ROWS, BSR_K)):
+        if _bsr_regime(n, k, itemsize) != "bsr_spmm_wholex":
+            _fail(f"the BSR CLI's X ({n} x {k}) passes the 80 MB line: its "
+                  "launches would not all be K7b's")
+    before = bsr_spmm_core.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"poisson": os.path.join(tmp, "poisson.mtx"),
+                 "blocks": os.path.join(tmp, "blocks.mtx")}
+        write_matrix_market(poisson2d(BSR_CLI_GRID, BSR_CLI_GRID),
+                            paths["poisson"])
+        write_matrix_market(block_random(BSR_CLI_BLOCK_ROWS,
+                                         BSR_CLI_BLOCK_ROWS, 4, seed=5),
+                            paths["blocks"])
+        p = f"poisson2d({BSR_CLI_GRID},{BSR_CLI_GRID})"
+        b = f"block_random({BSR_CLI_BLOCK_ROWS},{BSR_CLI_BLOCK_ROWS},4)"
+        _say(f"[17 bsr cli] wrote {p} and {b}")
+        docs = _run_cli("17 bsr cli", [
+            (f"bsr spmm k=16 {p}", ["--matrix", paths["poisson"], "-s", "bsr",
+                                    "--profile", "5", "--spmm", "16"],
+             (bsr_spmm_core,)),
+            (f"bsr cg {p}", ["--matrix", paths["poisson"], "-s", "bsr",
+                             "--cg", "500"], (bsr_spmm_core,)),
+            (f"auto spmm k={BSR_K} {b}",
+             ["--matrix", paths["blocks"], "-s", "auto", "--profile", "3",
+              "--spmm", str(BSR_K)], (bsr_spmm_core,)),
+        ])
+    fmt = docs[-1]["kernel"]["matrix_format"]
+    _say(f"[17 bsr cli] -s auto --spmm {BSR_K} chose {fmt}")
+    if fmt != "bsr":
+        _fail(f"-s auto --spmm on {b} chose {fmt}, not bsr")
+    _sync(device)
+    return {"bsr_spmm_wholex": bsr_spmm_core.launches - before}
+
+
+def _bsr_library(A, X):
+    """One ``torch.sparse`` BSR product of A's stored blocks with X (a
+    yardstick the port never calls): (a function of no arguments, None),
+    or (None, why torch refused the dtype or block shape)."""
+    import torch
+
+    try:
+        S = torch.sparse_bsr_tensor(
+            A.row_ptr, A.block_col, A.blocks,
+            size=(A.num_block_rows * A.block_rows, A.num_block_cols * 128))
+        Xp = X.new_zeros((A.num_block_cols * 128, X.shape[1]))
+        Xp[: X.shape[0]] = X
+        S @ Xp
+        _sync(X.device)
+        return (lambda: S @ Xp), None
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def _bsr_leg(tag, host, dtype, device, smi_line, triad_gbps, gate):
+    """make_kernel("bsr", matrix=host).spmm_fn(BSR_K) in ``dtype`` blocks:
+    the fp64 host checksum gate, seconds per chained SpMM (CUDA events)
+    with one launch a step, TFLOP/s, the bound, the plain version's ms and
+    the library's.  Returns its numbers, its DeviceBsr, its X and its
+    launches by regime."""
+    import torch
+
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.ops import bsr_spmm_core, bsr_spmm_reference
+    from spmv_tpu_torch.profile import time_kernel
+
+    k = BSR_K
+    dtn = str(dtype).replace("torch.", "")
+    kernel = make_kernel("bsr", matrix=host, device=device, dtype=dtype)
+    kernel.init()
+    step, args = kernel.spmm_fn(k)
+    A = args[1]
+    regime = _bsr_regime(A.num_columns, k, A.blocks.element_size())
+    X = np.random.default_rng(0).standard_normal(
+        (host.num_columns, k)).astype(np.float32)
+    Xd = torch.from_numpy(X).to(device)
+    before = bsr_spmm_core.launches
+    Y = step(Xd, A)
+    got = float(Y.abs().sum(dtype=torch.float32))
+    want = float(np.abs(host.spmm(X.astype(np.float64))).sum())
+    rel = abs(got - want) / want
+    _say(f"[{tag}] {dtn} blocks (bh {A.block_rows}, {A.num_blocks} stored "
+         f"blocks of which {host.num_blocks} the host's, "
+         f"{A.num_block_rows} block rows), k={k}, X "
+         f"{A.num_block_cols * 128 * k * A.blocks.element_size()} B ({regime}"
+         f" regime): checksum rel err {rel:.3e} (gate {gate})")
+    if not rel <= gate:
+        _fail(f"bsr {dtn} checksum gate: {rel} > {gate}")
+    calls = [1]                  # the checksum's step
+
+    def counted(V, A):
+        calls[0] += 1
+        return step(V, A)
+
+    t = time_kernel(counted, args, k_small=4, k_large=24,
+                    runs=6).seconds_per_iteration
+    _sync(device)
+    launched = bsr_spmm_core.launches - before
+    if launched != calls[0]:
+        _fail(f"bsr {dtn}: {launched} launches for {calls[0]} SpMMs")
+    if not (np.isfinite(t) and t > 0):
+        _fail(f"bsr {dtn}: bad timing {t}")
+    Xb = Xd.to(dtype)
+    plain_ms = _time_launches(lambda: bsr_spmm_reference(A, Xb), 3)
+    lib, why = _bsr_library(A, Xb)
+    lib_ms = None if lib is None else _time_launches(lib, 10)
+    # the bound counts the host's blocks, not the zero blocks that pad
+    # each block row to a multiple of blocks_per_step
+    nb = host.num_blocks
+    flops = 2 * nb * A.block_rows * 128 * k
+    acc = 4 if dtype == torch.bfloat16 else A.blocks.element_size()
+    b = _bound(nb * (A.block_rows * 128 * A.blocks.element_size() + 4)
+               + _nbytes(A.row_ptr, Xb) + A.num_rows * k * acc, flops,
+               triad_gbps,
+               peak=PEAK_BF16_FLOPS if dtype == torch.bfloat16
+               else PEAK_F32_FLOPS)
+    _say(f"[{tag}] {dtn}: SpMM k={k} {t * 1e3:.4f} ms chained "
+         f"({flops / t / 1e12:.2f} TFLOP/s; {calls[0]} SpMMs, the checksum"
+         f"'s included, {launched} launches), bound {b['bound_ms']:.4f} ms "
+         f"({b['bound_by']}: {b['bytes']} B, {flops} flops), plain "
+         f"{plain_ms:.4f} ms, one torch.sparse BSR product "
+         + (f"{lib_ms:.4f} ms" if lib is not None else f"refused ({why})")
+         + f", on {smi_line}")
+    res = {"ms": t * 1e3, "tflops": flops / t / 1e12, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "checksum_rel_err": rel, **b,
+           "chained": calls[0]}
+    if why is not None:
+        res["library_refused"] = why
+    del kernel, step, args, Y, Xb
+    _sync(device)
+    return res, A, Xd, {regime: launched}
+
+
+def phase_bsr_legs(device, smi_line, triad_gbps):
+    """The JAX bench's BSR leg (bench.py:487-545): block_random(131072,
+    131072, 8, seed=2) through the port's auto_format(workload="spmm"),
+    which must pick bsr, then K7 at k = 128 with float32 and bf16 blocks;
+    and K7 past the 80 MB line: block_random(262144, 262144, 2, seed=3),
+    float32.  Returns the numbers, the containers and X for the kernels
+    alone, and the K7 launches by regime."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import block_random
+    from spmv_tpu_torch.models import BsrMatrix, auto_format
+
+    t0 = time.perf_counter()
+    mm = block_random(BSR_ROWS, BSR_ROWS, 8, seed=2)
+    t1 = time.perf_counter()
+    host, why = auto_format(mm, workload="spmm")
+    t2 = time.perf_counter()
+    label = f"block_random({BSR_ROWS},{BSR_ROWS},8)"
+    _say(f"[18 bsr] host {label}: {mm.num_entries} entries, generated in "
+         f"{t1 - t0:.1f} s; auto_format(workload='spmm') chose "
+         f"{why['format']} (fill {why.get('bsr_fill', float('nan')):.3f}, "
+         f"block_rows {why.get('bsr_block_rows')}) in {t2 - t1:.1f} s")
+    if why["format"] != "bsr":
+        _fail(f"auto_format chose {why['format']} for {label}, not bsr")
+    del mm
+    out, launches, keep = {"shape": f"{label}, k={BSR_K}"}, {}, {}
+    for dtype, gate in ((torch.float32, CHECKSUM_RTOL),
+                        (torch.bfloat16, BF16_CHECKSUM_RTOL)):
+        dtn = str(dtype).replace("torch.", "")
+        res, A, X, n = _bsr_leg("18 bsr", host, dtype, device, smi_line,
+                                triad_gbps, gate)
+        out[dtn] = res
+        keep[dtn] = (A, X)
+        for r, c in n.items():
+            launches[r] = launches.get(r, 0) + c
+    out["bf16_speedup_vs_f32"] = out["float32"]["ms"] / out["bfloat16"]["ms"]
+    del host
+    t0 = time.perf_counter()
+    far_label = f"block_random({BSR_FAR_ROWS},{BSR_FAR_ROWS},2)"
+    far = BsrMatrix.from_matrix_market(
+        block_random(BSR_FAR_ROWS, BSR_FAR_ROWS, 2, seed=3),
+        block_rows="auto")
+    _say(f"[18 bsr] host {far_label}: {far.num_entries} entries, BSR at "
+         f"block_rows {far.block_rows} in {time.perf_counter() - t0:.1f} s")
+    res, A, X, n = _bsr_leg("18 bsr far", far, torch.float32, device,
+                            smi_line, triad_gbps, CHECKSUM_RTOL)
+    for r, c in n.items():
+        launches[r] = launches.get(r, 0) + c
+    out["far"] = {**res, "shape": f"{far_label}, k={BSR_K}"}
+    keep["far"] = (A, X)
+    del far
+    _sync(device)
+    return out, keep, launches
+
+
+# ------------------------------------------------------------ phase 19
+def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
+                       triad_gbps):
+    """K6a / K6b on the DeviceWell of each size of phase 15 (k =
+    WELL_SPMM_K, at the budget's column block and at the other widths
+    that fit), and K7 on the bench's BSR leg (float32 and bf16 blocks)
+    and past the 80 MB line: bitwise repeat, max error against the plain
+    version, device ms (a CUDA graph, the L2 flushed before each launch),
+    ms a call through the wrapper, plain ms, one torch.sparse product of
+    the same entries (cuSPARSE) and the bound.  Not counted: the main
+    path's counts were read before."""
+    import torch
+
+    from spmv_tpu_torch.ops import bsr_spmm_core, bsr_spmm_reference
+    from spmv_tpu_torch.ops.well_kernels import SMEM_MAX
+
+    f32 = torch.float32
+    k = WELL_SPMM_K
+    scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    found = {}
+    for label, res in well_profiled.items():
+        A = res["A"]
+        g = torch.Generator(device=device).manual_seed(2)
+        X = torch.randn(A.num_columns, k, generator=g, device=device,
+                        dtype=f32)
+        out = torch.empty(A.num_rows, k, dtype=f32, device=device)
+        kname, run, plain, _ = _well_spmm_parts(A)[0]
+        want = plain(X)
+        plain_ms = _time_launches(lambda: plain(X), 2)
+        S = _csr_of_coo(*_well_coo(A, spill=False),
+                        (A.num_rows, A.num_columns))
+        lib = _library_ms(S, X, reps=10)
+        nnz = int(S.values().numel())
+        del S
+        b = _bound(_nbytes(A.value, A.local_index, A.window_start,
+                           A.group_of_chunk, A.segment_of_step, A.step_ptr)
+                   + (A.num_columns + A.num_rows) * k * 4, 2 * nnz * k,
+                   triad_gbps)
+        default = res["columns_per_block"]
+        by_width = {}
+        for kc in sorted({default, 1, 2, 4, 8}):
+            if A.out_rows * kc * 128 * 4 > SMEM_MAX:
+                continue
+            Y1, Y2 = run(X, columns=kc), run(X, columns=kc)
+            _sync(device)
+            if not torch.equal(Y1, Y2):
+                _fail(f"{kname} on {label} ({kc} columns a block): two "
+                      "launches differ")
+            err = float((Y1.double() - want.double()).abs().max())
+            rel = _rel(Y1, want)
+            if rel > TOL_F32:
+                _fail(f"{kname} on {label}: rel err {rel} > {TOL_F32}")
+            ms = _cold_graph_ms(lambda: run(X, out=out, columns=kc),
+                                lambda: scratch.fill_(0.0), 20)
+            eager_ms = _time_launches(lambda: run(X, out=out, columns=kc), 10)
+            by_width[kc] = {"ms": ms, "eager_ms": eager_ms,
+                            "max_abs_err": err}
+            _say(f"[19 spmm kernels] {kname} on {label} k={k}, {kc} columns"
+                 f" a block{' (the budget default)' if kc == default else ''}"
+                 f": {ms:.4f} ms on the device (CUDA graph, L2 flushed), "
+                 f"{eager_ms:.4f} ms a call through the wrapper, plain "
+                 f"{plain_ms:.4f} ms, torch.sparse CSR of the same entries "
+                 f"{lib:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                 f"({b['bound_by']}, {b['bytes']} B; {b['bound_triad_ms']:.4f}"
+                 f" ms at the triad rate), max abs err {err:.3e} (rel "
+                 f"{rel:.3e}), bitwise repeatable, on {smi_line}")
+            del Y1, Y2
+        found[kname] = {**by_width[default], "plain_ms": plain_ms,
+                        "library_ms": lib, **b,
+                        "columns_per_block": default,
+                        "ms_by_columns_per_block":
+                            {str(c): v["ms"] for c, v in by_width.items()},
+                        "shape": f"{label} float32, k={k}"}
+        del want, out, X, A, res["A"]
+        _sync(device)
+    for key, (A, X) in bsr_keep.items():
+        dtype = A.blocks.dtype
+        kname = _bsr_regime(A.num_columns, X.shape[1],
+                            A.blocks.element_size())
+        Xb = X.to(dtype)
+        Y1, Y2 = bsr_spmm_core(A, Xb), bsr_spmm_core(A, Xb)
+        _sync(device)
+        if not torch.equal(Y1, Y2):
+            _fail(f"bsr_spmm {key}: two launches differ")
+        want = bsr_spmm_reference(A, Xb)
+        err = float((Y1.double() - want.double()).abs().max())
+        rel = _rel(Y1, want)
+        tol = TOL_BSR_BF16 if dtype == torch.bfloat16 else TOL_F32
+        if rel > tol:
+            _fail(f"bsr_spmm {key}: rel err {rel} > {tol}")
+        out = torch.empty_like(Y1)
+        del Y1, Y2, want
+        ms = _cold_graph_ms(lambda: bsr_spmm_core(A, Xb, out=out),
+                            lambda: scratch.fill_(0.0), 10)
+        eager_ms = _time_launches(lambda: bsr_spmm_core(A, Xb, out=out), 5)
+        found[(kname, key)] = {"max_abs_err": err, "ms": ms,
+                               "eager_ms": eager_ms}
+        _say(f"[19 spmm kernels] K7 ({kname} regime) on the "
+             f"{'far' if key == 'far' else 'bench'} matrix, "
+             f"{str(dtype).replace('torch.', '')} blocks, k={X.shape[1]}: "
+             f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
+             f"{eager_ms:.4f} ms a call through the wrapper, max abs err "
+             f"{err:.3e} (rel {rel:.3e}), bitwise repeatable, on {smi_line}")
+        del out, Xb
+        _sync(device)
+    return found
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     device, smi_line = phase_device()
@@ -1628,12 +2306,15 @@ def main() -> int:
     from spmv_tpu_torch.io.generate import banded_random, poisson2d
     from spmv_tpu_torch.models import DiaMatrix, WellCwMatrix, WellMatrix
     from spmv_tpu_torch.ops import (
+        bsr_spmm_core,
         csr_spmm_core,
         csr_spmv_core,
         dia_spmm_core,
         dia_spmv_core,
         well_seg_core,
+        well_seg_spmm_core,
         well_whole_core,
+        well_whole_spmm_core,
         wellcw_level_core,
         wellcw_level_spmm_core,
         wellcw_merged_core,
@@ -1658,12 +2339,14 @@ def main() -> int:
     cg_mm = poisson2d(CG_GRID, CG_GRID)
     cg_mats = {"dia": DiaMatrix.from_matrix_market(cg_mm),
                "wellcw": WellCwMatrix.from_matrix_market(cg_mm)}
+    cg_well = WellMatrix.from_matrix_market(cg_mm, window_rows=4)
     _say(f"[3 compare] host poisson2d({CG_GRID},{CG_GRID}): "
-         f"{cg_mm.num_rows} rows, {cg_mm.num_entries} entries, DIA and "
-         f"WELL-CW built in {time.perf_counter() - t0:.1f} s")
+         f"{cg_mm.num_rows} rows, {cg_mm.num_entries} entries, DIA, "
+         f"WELL-CW and WELL built in {time.perf_counter() - t0:.1f} s")
     del cg_mm
     bitwise = phase_compare_wellcw(device, cg_mats)
-    phase_compare_well(device)
+    well_bitwise = phase_compare_well(device, cg_well)
+    phase_compare_bsr(device)
 
     # the DIA path's run: its counts start from zero here
     dia_spmv_core.launches = 0
@@ -1672,7 +2355,6 @@ def main() -> int:
     times, dia_extra = phase_profile(device, full, full_mm, smi_line)
     launches = {"dia_spmv": dia_spmv_core.launches,
                 "dia_spmm": dia_spmm_core.launches}
-    del full
 
     # the WELL-CW path's run (SpMV, SpMM, batched CG): its counts start
     # from zero here
@@ -1716,22 +2398,22 @@ def main() -> int:
     for w in well_wrappers.values():
         w.launches = 0
     phase_cli_well(device)
-    well_mats = {}
-    for grid, mm, segmented, t_k1 in (
-            (WELL_WHOLE_GRID, poisson2d(WELL_WHOLE_GRID, WELL_WHOLE_GRID),
-             False, None),
-            (WELL_SEG_GRID, full_mm, True,
+    well_mats, dia_of = {}, {}
+    for grid, w, dia, segmented, t_k1 in (
+            (WELL_WHOLE_GRID, cg_well, cg_mats["dia"], False,
+             _k1_seconds(cg_mats["dia"], device)),
+            (WELL_SEG_GRID, None, full, True,
              times[("spmv", "float32")][0])):
         label = f"poisson2d({grid},{grid})"
-        t0 = time.perf_counter()
-        w = WellMatrix.from_matrix_market(mm, window_rows=4)
-        _say(f"[12 well profile] host {label}: {w.num_entries} entries, "
-             f"{w.num_chunks} chunks, spill {w.num_spilled} entries, WELL "
-             f"packed on the host in {time.perf_counter() - t0:.1f} s")
-        if t_k1 is None:
-            t_k1 = _k1_seconds(mm, device)
+        if w is None:
+            t0 = time.perf_counter()
+            w = WellMatrix.from_matrix_market(full_mm, window_rows=4)
+            _say(f"[12 well profile] host {label}: {w.num_entries} "
+                 f"entries, {w.num_chunks} chunks, spill {w.num_spilled} "
+                 f"entries, WELL packed on the host in "
+                 f"{time.perf_counter() - t0:.1f} s")
         well_mats[label] = (w, segmented, t_k1)
-        del mm
+        dia_of[label] = dia
     del full_mm
     profiled = phase_profile_well(device, well_mats, smi_line)
     well_launches = {k: w.launches for k, w in well_wrappers.items()}
@@ -1740,8 +2422,51 @@ def main() -> int:
     for name, n in well_launches.items():
         if n <= 0:
             _fail(f"{name} was never launched on the WELL path")
-    del well_mats
     well_kernels = phase_kernels_well(device, profiled, smi_line, triad_gbps)
+
+    # the WELL SpMM path's run (CLI, make_kernel("well").spmm_fn at both
+    # sizes, batched CG): its counts, the spill's CSR SpMM included,
+    # start from zero here
+    spmm_wrappers = {"well_whole_spmm": well_whole_spmm_core,
+                     "well_seg_spmm": well_seg_spmm_core,
+                     "csr_spmm": csr_spmm_core}
+    for w in spmm_wrappers.values():
+        w.launches = 0
+    phase_cli_well_spmm(device)
+    well_spmm = phase_profile_well_spmm(device, {
+        label: (w, segmented, dia_of[label], profiled[label]["ms"] * 1e-3)
+        for label, (w, segmented, _) in well_mats.items()}, smi_line)
+    well_cg = phase_batched_cg(device, {"well": cg_well}, smi_line,
+                               tag="16 batched cg")["well"]
+    well_spmm_launches = {k: w.launches for k, w in spmm_wrappers.items()}
+    _say("[16 batched cg] launches on the WELL SpMM path: "
+         + ", ".join(f"{k} {n}" for k, n in well_spmm_launches.items()))
+    for name, n in well_spmm_launches.items():
+        if n <= 0:
+            _fail(f"{name} was never launched on the WELL SpMM path")
+    del well_mats, dia_of, full, cg_well
+    _sync(device)
+
+    # the BSR path's run (CLI, the bench's leg in float32 and bf16, the
+    # leg past the 80 MB line): K7's count starts from zero here; each
+    # launch is tallied under the Pallas kernel its X size selects
+    bsr_spmm_core.launches = 0
+    bsr_launches = phase_cli_bsr(device)
+    bsr_times, bsr_keep, leg_launches = phase_bsr_legs(device, smi_line,
+                                                       triad_gbps)
+    for r, n in leg_launches.items():
+        bsr_launches[r] = bsr_launches.get(r, 0) + n
+    if sum(bsr_launches.values()) != bsr_spmm_core.launches:
+        _fail(f"K7 launches {bsr_launches} do not add up to the wrapper's "
+              f"{bsr_spmm_core.launches}")
+    _say("[18 bsr] launches on the BSR path: " + ", ".join(
+        f"{k} {n}" for k, n in bsr_launches.items()))
+    for name in ("bsr_spmm_wholex", "bsr_spmm"):
+        if bsr_launches.get(name, 0) <= 0:
+            _fail(f"{name} was never launched on the BSR path")
+    spmm_kernels = phase_kernels_spmm(device, well_spmm, bsr_keep, smi_line,
+                                      triad_gbps)
+    del bsr_keep
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -1825,6 +2550,46 @@ def main() -> int:
             "shape": shape,
         }
         for name, (source, replaces, shape) in cw_rows.items()
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "spmv_tpu_torch/csrc/well_spmm.cu",
+            "replaces": f"spmv_tpu/ops/pallas_kernels.py:{line}",
+            "launches": well_spmm_launches[name],
+            **spmm_kernels[name],
+            "columns_bitwise_equal_to_spmv_kernel": well_bitwise[name],
+        }
+        for name, line in (("well_whole_spmm", 1079),
+                           ("well_seg_spmm", 1121))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "spmv_tpu_torch/csrc/bsr_spmm.cu",
+            "replaces": f"spmv_tpu/ops/pallas_kernels.py:{line}",
+            "launches": bsr_launches[name],
+            **{key: leg[key] for key in ("plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "bound_triad_ms", "bytes", "flops")},
+            **spmm_kernels[(name, key)],
+            "chained_ms": leg["ms"],
+            "tflops_chained": leg["tflops"],
+            **({"library_refused": leg["library_refused"]}
+               if "library_refused" in leg else {}),
+            **extra,
+            "shape": f"{shape} float32",
+        }
+        for name, line, key, leg, shape, extra in (
+            ("bsr_spmm_wholex", 918, "float32", bsr_times["float32"],
+             bsr_times["shape"], {
+                 f"{f}_bf16": v for f, v in
+                 {**bsr_times["bfloat16"],
+                  **spmm_kernels[("bsr_spmm_wholex", "bfloat16")]}.items()
+                 if f in ("ms", "max_abs_err", "plain_ms", "library_ms",
+                          "bound_ms", "bound_by", "tflops")}),
+            ("bsr_spmm", 896, "far", bsr_times["far"],
+             bsr_times["far"]["shape"], {}))
     ], "wellcw_spmv": {**cw_times, "shape": cw_shape},
         "wellcw_spmm": {**spmm_times, "shape": mm_shape},
         "batched_cg": {**cg_times, "k": CG_K,
@@ -1834,7 +2599,16 @@ def main() -> int:
             **{label: {**{k: v for k, v in res.items() if k != "A"},
                        **({"spill": well_kernels[("csr_spmv", label)]}
                           if ("csr_spmv", label) in well_kernels else {})}
-               for label, res in profiled.items()}}}
+               for label, res in profiled.items()}},
+        "well_spmm": {
+            "launches_on_the_well_spmm_path": well_spmm_launches,
+            **{label: {k: v for k, v in res.items() if k != "A"}
+               for label, res in well_spmm.items()},
+            "batched_cg": {**well_cg, "k": CG_K,
+                           "shape": f"poisson2d({CG_GRID},{CG_GRID}) "
+                                    "float32"}},
+        "bsr_spmm": {"launches_on_the_bsr_path": bsr_launches,
+                     **bsr_times}}
     print(json.dumps(summary), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,22 @@
 """spmv_tpu_torch — the PyTorch and CUDA port of spmv_tpu.
 
-The port runs the DIA stencil path, the WELL-CW scattered-matrix path
-and the WELL banded-matrix path on an NVIDIA Hopper card (sm_90a):
+The port runs the DIA stencil path, the WELL-CW scattered-matrix path,
+the WELL banded-matrix path and the BSR block-matrix SpMM path on an
+NVIDIA Hopper card (sm_90a):
 
 - ``spmv_tpu_torch.io``        Matrix Market ingest and the generators.
 - ``spmv_tpu_torch.models``    The host formats (``CsrMatrix``,
                                ``DiaMatrix``, ``WellCwMatrix``,
-                               ``WellMatrix``), the device containers
+                               ``WellMatrix``, ``BsrMatrix``) and
+                               ``auto_format``, the device containers
                                (``DeviceDia``, ``DeviceWellCw``,
-                               ``DeviceWell``, ``DeviceCsr``), and the
-                               converters from the JAX containers.
-- ``spmv_tpu_torch.ops``       DIA, WELL-CW, WELL and CSR SpMV / SpMM
-                               (plain PyTorch versions and hand-written
-                               CUDA kernels), the triad, and conjugate
-                               gradient (single and multi-RHS).
+                               ``DeviceWell``, ``DeviceBsr``,
+                               ``DeviceCsr``), and the converters from
+                               the JAX containers.
+- ``spmv_tpu_torch.ops``       DIA, WELL-CW, WELL and CSR SpMV / SpMM and
+                               BSR SpMM (plain PyTorch versions and
+                               hand-written CUDA kernels), the triad, and
+                               conjugate gradient (single and multi-RHS).
 - ``spmv_tpu_torch.perfmodel`` The card's machine model, its bandwidth
                                measured by the triad, and the roofline.
 - ``spmv_tpu_torch.profile``   Chained-step timing and the profiling

@@ -5,27 +5,30 @@ Takes the JAX package's flags (``build_parser`` is the port's copy of
 runs the modes ported so far, printing the same JSON documents:
 
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --profile 10
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --profile 5 --spmm 4
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --cg 2000 \
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --profile 5 --spmm 8
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --cg 2000 \
         [--cg-tol 1e-6] [--precondition none|jacobi] [--recompute-residual K]
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --profile 10
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format wellcw --profile 5 --spmm 8
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format {wellcw,well} --cg 2000
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format well --profile 10
-    python -m spmv_tpu_torch --matrix A.mtx --spmv-format {dia,wellcw} \
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT \
         --cg 2000 --nrhs 4 [--precondition none|jacobi]
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
+with FMT one of ``dia``, ``wellcw``, ``well``, ``bsr`` and ``auto``
+(``--profile N`` alone times the SpMV, ``--spmm K`` the SpMM of K
+columns).  ``-s auto`` picks the format as the JAX CLI does
+(``auto_format``, the ``spmm`` workload when ``--spmm`` is given, which
+lets a block-structured matrix pick BSR) and refuses ``--reorder``.
 Every other mode or flag prints ``spmv-tpu-torch: ... not yet ported``
-and exits 1 (on ``well``: ``--spmm`` and ``--nrhs``, which need the WELL
-SpMM kernels K6).  The device is the first CUDA device; without one the
-CLI exits 1, unless ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as
-the tests do).  ``--list-devices`` lists the CPU when there is no card.
+and exits 1.  The device is the first CUDA device; without one the CLI
+exits 1, unless ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as the
+tests do).  ``--list-devices`` lists the CPU when there is no card.
 
-``--cg`` on a WELL-CW or WELL matrix runs the generic (P)CG over
+``--cg`` on a WELL-CW, WELL or BSR matrix runs the generic (P)CG over
 ``spmv``, as the JAX CLI does (its ``fast_spmv`` runs the Pallas WELL
-kernel; the port's ``spmv`` runs K5a or K5b).  On a DIA matrix and a
+kernel; the port's ``spmv`` runs K5a or K5b, and K7 on one column for
+BSR).  Jacobi reads the diagonal from the Matrix Market entries the
+matrix was built from (the JAX CLI's ``extract_diagonal`` has no branch
+for the WELL-CW, WELL and BSR host formats).  On a DIA matrix and a
 CUDA device it runs the kernel loop with K1's fused p.Ap dot
 (``dia_conjugate_gradient``'s default, as in the JAX CLI), so both CLIs
 run the same algorithm.  On an H100 the unfused loop (a separate
@@ -34,9 +37,10 @@ spmv_tpu_torch.profile.cg_breakdown`` times both, and PERF.md keeps the
 numbers until a kernel change or a measured choice settles which runs.
 
 ``--cg N --nrhs K`` (K > 1) runs batched multi-RHS CG, one SpMM per
-iteration (K2 on DIA, K4a-c and the CSR SpMM on WELL-CW), on B = A X
-with column j of X equal to (j + 1) * ones, and reports each column's
-iterations, residual and error, as the JAX CLI does.
+iteration (K2 on DIA, K4a-c and the CSR SpMM on WELL-CW, K6a or K6b and
+the CSR SpMM on WELL, K7 on BSR), on B = A X with column j of X equal to
+(j + 1) * ones, and reports each column's iterations, residual and
+error, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -220,7 +224,8 @@ def _check_ported(args) -> None:
         ("--traffic-split", args.traffic_split),
         ("--jax-profile", args.jax_profile is not None),
         ("--flush-caches", args.flush_caches),
-        ("--reorder", args.reorder != "none"),
+        # -s auto refuses --reorder itself, as the JAX CLI does
+        ("--reorder", args.reorder != "none" and args.spmv_format != "auto"),
         ("--solver " + args.solver, args.solver != "cg"),
         ("--precondition " + args.precondition,
          args.precondition not in ("none", "jacobi")),
@@ -229,28 +234,38 @@ def _check_ported(args) -> None:
             _not_ported(flag)
     if args.cg <= 0 and args.profile <= 0:
         _not_ported("simulation mode (--profile 0)")
-    if args.triad <= 0 and args.matrix and \
-            args.spmv_format not in ("dia", "wellcw", "well"):
+    if args.triad <= 0 and args.matrix and args.spmv_format not in (
+            "dia", "wellcw", "well", "bsr", "auto"):
         _not_ported(f"--spmv-format {args.spmv_format}")
-    if args.triad <= 0 and args.spmv_format == "well":
-        # the WELL SpMM kernels (K6a / K6b) are the next slice
-        if args.spmm > 0:
-            _not_ported("--spmm on --spmv-format well")
-        if args.cg > 0 and args.nrhs > 1:
-            _not_ported("--nrhs on --spmv-format well")
 
 
 def _make_kernel(args, device, dtype):
+    """The kernel of the flags, and with ``-s auto`` the Matrix Market
+    entries its matrix was chosen and converted from (else None)."""
     from spmv_tpu_torch.kernels import make_kernel
 
     if args.triad > 0:
         return make_kernel("triad", triad_entries=args.triad,
-                           device=device, dtype=dtype)
+                           device=device, dtype=dtype), None
     if not args.matrix:
         raise SpmvError("either --matrix or --triad N is required "
                         "(see --help)")
+    if args.spmv_format == "auto":
+        from spmv_tpu_torch.io.matrix_market import load_matrix
+        from spmv_tpu_torch.models import auto_format
+
+        mm = load_matrix(args.matrix, verbose=args.verbose)
+        if args.reorder != "none":
+            raise SpmvError(
+                "-s auto chooses its own reordering; drop --reorder")
+        workload = "spmm" if args.spmm > 0 else "spmv"
+        matrix, rationale = auto_format(mm, workload=workload)
+        if args.verbose:
+            print(f"auto format: {rationale}", file=sys.stderr)
+        return make_kernel(matrix.format_name, matrix=matrix, device=device,
+                           dtype=dtype), mm
     return make_kernel(args.spmv_format, matrix_path=args.matrix,
-                       device=device, dtype=dtype)
+                       device=device, dtype=dtype), None
 
 
 def _list_devices(out) -> None:
@@ -307,7 +322,7 @@ def _profile(args, out, device, dtype) -> None:
         time_kernel,
     )
 
-    kernel = _make_kernel(args, device, dtype)
+    kernel, _ = _make_kernel(args, device, dtype)
     kernel.init(verbose=args.verbose)
     op_info = None
     flops_override = bytes_override = None
@@ -367,7 +382,7 @@ def _solve_cg(args, out, device, dtype) -> None:
     from spmv_tpu_torch.ops.solvers import extract_diagonal
     from spmv_tpu_torch.profile import device_info
 
-    kernel = _make_kernel(args, device, dtype)
+    kernel, mm = _make_kernel(args, device, dtype)
     if kernel.name == "triad":
         raise SpmvError("--cg needs a matrix kernel, not triad")
     kernel.init(verbose=args.verbose)
@@ -379,9 +394,10 @@ def _solve_cg(args, out, device, dtype) -> None:
     A = kernel.device_matrix()
     diag = None
     if args.precondition == "jacobi":
-        # the host WELL-CW format keeps no diagonal: read it from the
-        # Matrix Market entries the kernel was built from
-        diag = extract_diagonal(m if kernel.name == "dia" else kernel._mm)
+        # the host WELL-CW, WELL and BSR formats keep no diagonal: read
+        # it from the Matrix Market entries the matrix was built from
+        diag = extract_diagonal(m if kernel.name == "dia" else
+                                mm if mm is not None else kernel._mm)
     if args.nrhs > 1:
         _solve_cg_batched(args, out, device, dtype, kernel, A, diag)
         return

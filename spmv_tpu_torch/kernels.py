@@ -1,4 +1,5 @@
-"""Kernels of the port: ``triad``, ``dia``, ``wellcw`` and ``well``.
+"""Kernels of the port: ``triad``, ``dia``, ``wellcw``, ``well`` and
+``bsr``.
 
 The counterpart of ``spmv_tpu/kernels.py``.  ``Kernel`` and
 ``_MatrixKernel`` are the port's copies of the JAX package's base classes
@@ -6,9 +7,10 @@ The counterpart of ``spmv_tpu/kernels.py``.  ``Kernel`` and
 simulation mode's memory layouts and reference strings, which come with
 that mode.  Each kernel runs on ``device`` in ``dtype`` (by default the
 card, through ``default_device``, and ``default_value_dtype``); the byte
-counts are the JAX package's at the tensor's value width.  ``dia`` and
-``wellcw`` have an SpMV and an SpMM step, ``well`` an SpMV step.  Every
-other kernel name raises: it is not ported yet.
+counts are the JAX package's at the tensor's value width.  ``dia``,
+``wellcw``, ``well`` and ``bsr`` have an SpMV and an SpMM step (``bsr``'s
+SpMV is its SpMM of one column).  Every other kernel name raises: it is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 
 from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.io.matrix_market import MatrixMarket, load_matrix
+from spmv_tpu_torch.models.bsr import BLOCK, BsrMatrix
 from spmv_tpu_torch.models.device import (
+    DeviceBsr,
     DeviceDia,
     DeviceWell,
     DeviceWellCw,
@@ -29,16 +33,18 @@ from spmv_tpu_torch.models.device import (
 from spmv_tpu_torch.models.dia import DiaMatrix
 from spmv_tpu_torch.models.well import WellMatrix
 from spmv_tpu_torch.models.wellcw import WellCwMatrix
+from spmv_tpu_torch.ops.bsr_kernels import bsr_spmm_core
 from spmv_tpu_torch.ops.dia_kernels import dia_spmm_core, dia_spmv_core
+from spmv_tpu_torch.ops.spmv import accumulate_dtype
 from spmv_tpu_torch.ops.triad import triad
-from spmv_tpu_torch.ops.well_kernels import well_spmv_core
+from spmv_tpu_torch.ops.well_kernels import well_spmm_core, well_spmv_core
 from spmv_tpu_torch.ops.wellcw_kernels import (
     wellcw_spmm_core,
     wellcw_spmv_core,
 )
 
 __all__ = ["Kernel", "TriadKernel", "DiaKernel", "WellCwKernel",
-           "WellKernel", "make_kernel", "KERNEL_NAMES"]
+           "WellKernel", "BsrKernel", "make_kernel", "KERNEL_NAMES"]
 
 IDX = 4     # bytes of a stored int32 index
 
@@ -307,8 +313,9 @@ class WellCwKernel(_MatrixKernel):
 
 
 class WellKernel(_MatrixKernel):
-    """WELL SpMV through kernel K5a (whole x) or K5b (segmented) and the
-    CSR spill kernel on CUDA (their plain versions on the CPU)."""
+    """WELL SpMV / SpMM through kernels K5a / K6a (whole x) or K5b / K6b
+    (segmented) and the CSR spill kernels on CUDA (their plain versions
+    on the CPU)."""
 
     name = "well"
 
@@ -329,6 +336,13 @@ class WellKernel(_MatrixKernel):
         return _chained(well_spmv_core, A, torch.ones(
             A.num_columns, dtype=self.dtype, device=self.device))
 
+    def spmm_fn(self, k: int):
+        if k <= 0:
+            raise KernelError("spmm: k must be positive")
+        A = self.device_matrix()
+        return _chained(well_spmm_core, A, torch.ones(
+            (A.num_columns, k), dtype=self.dtype, device=self.device))
+
     def bytes_per_run(self) -> int:
         m = self.matrix
         vb = self.value_bytes
@@ -346,6 +360,66 @@ class WellKernel(_MatrixKernel):
         return d
 
 
+def _bsr_core(A, v: torch.Tensor, out: torch.Tensor = None):
+    """K7 on x (m,) or X (m, k) in the accumulator type, as a chained
+    step carries it: cast to the blocks' dtype first (a copy only for
+    bfloat16 blocks, whose Y is float32)."""
+    X = v.to(A.blocks.dtype)
+    if v.dim() == 2:
+        return bsr_spmm_core(A, X, out=out)
+    y = bsr_spmm_core(A, X[:, None], out=None if out is None
+                      else out[:, None])
+    return y[:, 0] if out is None else out
+
+
+class BsrKernel(_MatrixKernel):
+    """BSR SpMM (and SpMV, its SpMM of one column) through kernel K7 on
+    CUDA (its plain version on the CPU): dense (block_rows, 128) blocks,
+    so an SpMM amortizes one block read over the whole X panel
+    (``models/bsr.py``).  ``dtype`` is the blocks' type: float32,
+    float64 or bfloat16, whose products accumulate in float32; the
+    chained vectors are in the accumulator type."""
+
+    name = "bsr"
+
+    def __init__(self, *args, block_rows="auto", **kw):
+        super().__init__(*args, **kw)
+        self.block_rows = block_rows
+
+    def _convert(self, mm):
+        return BsrMatrix.from_matrix_market(mm, block_rows=self.block_rows)
+
+    def device_matrix(self) -> DeviceBsr:
+        return DeviceBsr.from_host(self.matrix, dtype=self.dtype,
+                                   device=self.device)
+
+    def run_fn(self):
+        A = self.device_matrix()
+        return _chained(_bsr_core, A, torch.ones(
+            A.num_columns, dtype=accumulate_dtype(self.dtype),
+            device=self.device))
+
+    def spmm_fn(self, k: int):
+        if k <= 0:
+            raise KernelError("spmm: k must be positive")
+        A = self.device_matrix()
+        return _chained(_bsr_core, A, torch.ones(
+            (A.num_columns, k), dtype=accumulate_dtype(self.dtype),
+            device=self.device))
+
+    def bytes_per_run(self) -> int:
+        m = self.matrix
+        vb = self.value_bytes
+        nb = int(m.num_blocks)
+        return (
+            nb * m.block_rows * BLOCK * vb   # stored blocks streamed
+            + nb * IDX                       # block_col
+            + (m.num_block_rows + 1) * IDX   # block_rowptr
+            + m.num_columns * vb             # x read at least once
+            + m.num_rows * vb                # y written
+        )
+
+
 def make_kernel(
     name: str,
     matrix_path: str = None,
@@ -356,12 +430,13 @@ def make_kernel(
     dtype: Optional[torch.dtype] = None,
     **kw,
 ):
-    """Kernel factory: ``triad``, ``dia``, ``wellcw`` and ``well``; any
-    other name of the JAX package's factory raises ``KernelError`` (not
-    yet ported)."""
+    """Kernel factory: ``triad``, ``dia``, ``wellcw``, ``well`` and
+    ``bsr``; any other name of the JAX package's factory raises
+    ``KernelError`` (not yet ported)."""
     if name == "triad":
         return TriadKernel(triad_entries, device=device, dtype=dtype)
-    classes = {"dia": DiaKernel, "wellcw": WellCwKernel, "well": WellKernel}
+    classes = {"dia": DiaKernel, "wellcw": WellCwKernel, "well": WellKernel,
+               "bsr": BsrKernel}
     if name in classes:
         return classes[name](matrix_path=matrix_path, mm=mm, matrix=matrix,
                              device=device, dtype=dtype, **kw)

@@ -4,8 +4,8 @@
 as numpy arrays (the caller does the ``np.asarray``, so this module needs
 no JAX) and builds the port's ``DeviceDia`` holding the very same
 values, so that both packages compute on identical inputs.
-``wellcw_from_spmv_tpu``, ``well_from_spmv_tpu`` and ``csr_from_spmv_tpu``
-take the JAX container itself and read each of its arrays with ``np.asarray`` (which
+``wellcw_from_spmv_tpu``, ``well_from_spmv_tpu``, ``bsr_from_spmv_tpu``
+and ``csr_from_spmv_tpu`` take the JAX container itself and read each of its arrays with ``np.asarray`` (which
 needs no JAX import here either).
 """
 
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.models.device import (
+    DeviceBsr,
     DeviceCsr,
     DeviceCwLevel,
     DeviceCwMerged,
@@ -25,7 +26,7 @@ from spmv_tpu_torch.models.device import (
 )
 
 __all__ = ["dia_from_spmv_tpu", "csr_from_spmv_tpu", "wellcw_from_spmv_tpu",
-           "well_from_spmv_tpu"]
+           "well_from_spmv_tpu", "bsr_from_spmv_tpu"]
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:
@@ -124,3 +125,13 @@ def well_from_spmv_tpu(Aj, device=None) -> DeviceWell:
         None if seg is None else np.asarray(seg),
         None if Aj.spill is None else csr_from_spmv_tpu(Aj.spill, device),
         device=device)
+
+
+def bsr_from_spmv_tpu(Aj, device=None) -> DeviceBsr:
+    """Port a JAX ``DeviceBsr`` with every array as it is (bfloat16
+    blocks included); the block-row pointers the CUDA grid needs are
+    derived from ``block_row``."""
+    return DeviceBsr(
+        Aj.num_rows, Aj.num_columns, Aj.num_entries, Aj.num_block_rows,
+        Aj.blocks_per_step, _to_torch(np.asarray(Aj.blocks)),
+        np.asarray(Aj.block_col), np.asarray(Aj.block_row), device=device)

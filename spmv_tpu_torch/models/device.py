@@ -1,8 +1,9 @@
-"""Device-side containers: DIA, CSR, WELL-CW and WELL.
+"""Device-side containers: DIA, CSR, WELL-CW, WELL and BSR.
 
 The counterparts of ``spmv_tpu.models.device``'s ``DeviceDia``,
 ``DeviceCsr``, ``DeviceWellCw`` (with its ``DeviceCwLevel``,
-``DeviceCwPool`` and ``DeviceCwMerged``) and ``DeviceWell``.
+``DeviceCwPool`` and ``DeviceCwMerged``), ``DeviceWell`` and
+``DeviceBsr``.
 
 - DIA: the TPU container folds each diagonal into (rows/128, 128) lanes
   and pads rows to a multiple of 1024 for the Pallas kernel's DMA
@@ -12,12 +13,13 @@ The counterparts of ``spmv_tpu.models.device``'s ``DeviceDia``,
 - CSR: the plain unpadded ``row_ptr`` / ``column_index`` / ``value``
   triple.  The TPU container pads entries and rows for its segment sum
   and carries the expanded row ids; the CUDA kernel walks ``row_ptr``.
-- WELL-CW and WELL: the very arrays the JAX containers hold, packed by
-  the same numpy code (``_pad_cw_steps``, ``_build_cw_merged`` and
-  ``DeviceWell.from_host`` are copied from ``spmv_tpu/models/device.py``,
-  whose module imports JAX), plus the chunk or step pointers a CUDA grid
-  needs to find a group's or an output block's chunks, which the TPU's
-  sequential grid did not.
+- WELL-CW, WELL and BSR: the very arrays the JAX containers hold, packed
+  by the same numpy code (``_pad_cw_steps``, ``_build_cw_merged``,
+  ``DeviceWell.from_host`` and ``DeviceBsr.from_host`` are copied from
+  ``spmv_tpu/models/device.py``, whose module imports JAX), plus the
+  chunk, step or block pointers a CUDA grid needs to find a group's, an
+  output block's or a block row's run, which the TPU's sequential grid
+  did not.
 
 ``default_device`` is where the port's entry points (the CLI,
 ``make_kernel`` and the kernel classes) get their device: the card,
@@ -33,13 +35,14 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.errors import KernelError, MatrixError
+from spmv_tpu_torch.models.bsr import BLOCK, BsrMatrix
 from spmv_tpu_torch.models.csr import CsrMatrix
 from spmv_tpu_torch.models.dia import DiaMatrix
 from spmv_tpu_torch.models.well import WellMatrix
 
 __all__ = ["DeviceDia", "DeviceCsr", "DeviceCwLevel", "DeviceCwPool",
-           "DeviceCwMerged", "DeviceWellCw", "DeviceWell", "default_device",
-           "default_value_dtype", "DEVICE_ENV"]
+           "DeviceCwMerged", "DeviceWellCw", "DeviceWell", "DeviceBsr",
+           "default_device", "default_value_dtype", "DEVICE_ENV"]
 
 LANE = 128
 SUBLANE = 8
@@ -868,6 +871,97 @@ class DeviceWell(torch.nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x (the plain version on the CPU, kernels K5a / K5b and
         the CSR kernel on CUDA)."""
+        from spmv_tpu_torch.ops.dispatch import spmv
+
+        return spmv(self, x)
+
+
+class DeviceBsr(torch.nn.Module):
+    """BSR on a device: dense (block_rows, 128) blocks (kernels K7a/K7b);
+    see ``spmv_tpu_torch.models.bsr`` for the format.
+
+    Buffers, as in the JAX container:
+
+    - ``blocks`` (num_blocks, block_rows, 128) in float32, float64 or
+      bfloat16: each block row's run padded with zero blocks to a
+      multiple of ``blocks_per_step``;
+    - ``block_col`` (num_blocks,) int32, the block column of each block;
+    - ``block_row`` (num_blocks // blocks_per_step,) int32, the block row
+      of each step (non-decreasing); and
+    - ``row_ptr`` (num_block_rows + 1,) int32: block row r's blocks are
+      ``[row_ptr[r], row_ptr[r + 1])``, so one CUDA block per block row
+      finds its run without the TPU's in-order grid.
+
+    Metadata: ``num_rows``, ``num_columns``, ``num_entries``,
+    ``num_blocks``, ``num_block_rows``, ``num_block_cols``,
+    ``blocks_per_step`` and ``block_rows``.  Unlike WELL-CW and WELL it
+    takes bfloat16 storage: the product accumulates in float32 and
+    returns float32, as ``bsr_spmm`` does.
+    """
+
+    format_name = "bsr"
+
+    def __init__(self, num_rows, num_columns, num_entries, num_block_rows,
+                 blocks_per_step, blocks: torch.Tensor, block_col,
+                 block_row, device=None):
+        super().__init__()
+        if blocks.dtype not in (torch.float32, torch.float64,
+                                torch.bfloat16):
+            raise MatrixError(
+                "DeviceBsr takes float32, float64 or bfloat16 blocks; got "
+                f"{str(blocks.dtype).replace('torch.', '')}.")
+        self.num_rows = int(num_rows)
+        self.num_columns = int(num_columns)
+        self.num_entries = int(num_entries)
+        self.num_blocks = int(blocks.shape[0])
+        self.num_block_rows = int(num_block_rows)
+        self.num_block_cols = -(-self.num_columns // BLOCK)
+        self.blocks_per_step = int(blocks_per_step)
+        self.block_rows = int(blocks.shape[1])
+        step_row = np.asarray(block_row).reshape(-1)
+        if (np.diff(step_row) < 0).any():
+            raise MatrixError("DeviceBsr: block_row must be non-decreasing")
+        ptr = np.searchsorted(step_row, np.arange(self.num_block_rows + 1)) \
+            * self.blocks_per_step
+        self.register_buffer("blocks", blocks.to(device).contiguous())
+        for name, a in (("block_col", block_col), ("block_row", step_row),
+                        ("row_ptr", ptr)):
+            self.register_buffer(
+                name, _tensor(np.asarray(a).astype(np.int32), device))
+
+    @classmethod
+    def from_host(cls, m: BsrMatrix, dtype: Optional[torch.dtype] = None,
+                  blocks_per_step: int = 8, device=None) -> "DeviceBsr":
+        """Device conversion, as ``spmv_tpu``'s ``DeviceBsr.from_host``:
+        each block row's run padded with zero blocks to a multiple of
+        ``blocks_per_step``, and the same arrays."""
+        dtype = dtype or default_value_dtype()
+        kb = max(int(blocks_per_step), 1)
+
+        bh = int(getattr(m, "block_rows", BLOCK))
+        counts = np.diff(m.block_rowptr)
+        pads = (-counts) % kb
+        nb_padded = int((counts + pads).sum())
+        blocks = np.zeros((nb_padded, bh, BLOCK), m.blocks.dtype)
+        bcol = np.zeros(nb_padded, dtype=np.int32)
+        step_row = []
+        pos = 0
+        for br in range(m.num_block_rows):
+            s, e = int(m.block_rowptr[br]), int(m.block_rowptr[br + 1])
+            c = e - s
+            blocks[pos:pos + c] = m.blocks[s:e]
+            bcol[pos:pos + c] = m.block_col[s:e]
+            total = c + int(pads[br])
+            step_row.extend([br] * (total // kb))
+            pos += total
+
+        return cls(m.num_rows, m.num_columns, m.num_entries,
+                   m.num_block_rows, kb,
+                   torch.from_numpy(blocks).to(device=device, dtype=dtype),
+                   bcol, np.asarray(step_row, dtype=np.int32), device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x (the plain version on the CPU, kernel K7 on CUDA)."""
         from spmv_tpu_torch.ops.dispatch import spmv
 
         return spmv(self, x)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the port's kernels: DIA, CSR, WELL-CW and
-WELL.
+"""Plain PyTorch versions of the port's kernels: DIA, CSR, WELL-CW, WELL
+and BSR.
 
 They are the semantic specification of the CUDA kernels in
 ``spmv_tpu_torch/csrc``, written after the JAX package's XLA
@@ -37,12 +37,19 @@ card ``chip_smoke.py`` holds the kernels against them.
   through ``csr_spmv_reference``.  A column at or past the end reads 0,
   as the Pallas kernels' zero-padded x does (XLA clips to the last
   entry, as for WELL-CW).
+- ``bsr_spmm_reference`` (K7a / K7b), after the ``DeviceBsr`` branch of
+  ``spmm``: X zero-padded to ``num_block_cols * 128`` rows, each block's
+  128 X rows gathered, one product per block, the products summed into
+  their block rows with ``index_add_``.  X is first cast to the blocks'
+  dtype (a bf16 block rounds X to bf16); bf16 blocks accumulate in float32
+  and return float32, as ``bsr_spmm`` does; float32 and float64 blocks
+  stay in their own type.
 
-The CSR and WELL-CW versions take x of shape (m,) or X of shape (m, k)
-and return (n,) or (n, k): the same code specifies the SpMV kernels
-and their SpMM counterparts (K4a-c and the CSR SpMM), after the
-WELL-CW and ``DeviceCsr`` branches of JAX's ``spmm``.  Column j of the
-SpMM is the SpMV of column j.
+The CSR, WELL-CW and WELL versions take x of shape (m,) or X of shape
+(m, k) and return (n,) or (n, k): the same code specifies the SpMV
+kernels and their SpMM counterparts (K4a-c, K6a-b and the CSR SpMM),
+after the WELL-CW, WELL and ``DeviceCsr`` branches of JAX's ``spmm``.
+Column j of the SpMM is the SpMV of column j.
 
 The public entry points ``spmv`` and ``spmm`` are in
 ``spmv_tpu_torch.ops.dispatch``: they pick the wrapper by container
@@ -65,6 +72,7 @@ __all__ = [
     "wellcw_spmv_reference",
     "well_chunks_reference",
     "well_spmv_reference",
+    "bsr_spmm_reference",
 ]
 
 LANE = 128
@@ -213,27 +221,46 @@ def wellcw_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
 
 
 def well_chunks_reference(A, x: torch.Tensor) -> torch.Tensor:
-    """K5a's (whole x) or K5b's (segmented) product: the WELL chunks of a
-    ``DeviceWell``, without the spill, in the value dtype; x (m,)."""
+    """K5a's / K6a's (whole x) or K5b's / K6b's (segmented) product: the
+    WELL chunks of a ``DeviceWell``, without the spill, in the value
+    dtype; x (m,) or (m, k)."""
     k = A.chunks_per_step
     ws = A.window_start.transpose(1, 2).reshape(A.num_chunks, 8).long()
     if A.segment_of_step is not None:
         ws = ws + A.segment_of_step.long().repeat_interleave(k)[:, None]
     col = ws[:, :, None] * LANE + A.local_index.long()
     m = x.shape[0]
-    xz = torch.cat([x, x.new_zeros(1)])
-    contrib = (A.value * xz[col.clamp_(max=m)]).sum(dim=1)  # (chunks, 128)
-    y = torch.zeros((A.num_groups, LANE), dtype=contrib.dtype,
+    tail = tuple(x.shape[1:])
+    xz = torch.cat([x, x.new_zeros((1,) + tail)])
+    # (chunks, 128[, k])
+    contrib = (_cols(A.value, x) * xz[col.clamp_(max=m)]).sum(dim=1)
+    y = torch.zeros((A.num_groups, LANE) + tail, dtype=contrib.dtype,
                     device=contrib.device)
     y.index_add_(0, A.group_of_chunk.reshape(-1).long(), contrib)
-    return y.reshape(-1)[: A.num_rows]
+    return y.reshape((-1,) + tail)[: A.num_rows]
 
 
 def well_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a ``DeviceWell``: the chunks, then the spill, in the
-    value dtype."""
+    """y = A @ x (x (m,)) or Y = A @ X (X (m, k)) for a ``DeviceWell``:
+    the chunks, then the spill, in the value dtype."""
     xf = x.to(A.value_dtype)
     y = well_chunks_reference(A, xf)
     if A.spill is not None:
         y = y + csr_spmv_reference(A.spill, xf)
     return y
+
+
+def bsr_spmm_reference(A, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for a ``DeviceBsr``, X of shape (num_columns, k): Y is
+    (num_rows, k) in the accumulator type (float32 for bf16 blocks)."""
+    acc = accumulate_dtype(A.blocks.dtype)
+    k = X.shape[1]
+    xp = X.new_zeros((A.num_block_cols * LANE, k), dtype=A.blocks.dtype)
+    xp[: X.shape[0]] = X.to(A.blocks.dtype)
+    gathered = xp.reshape(A.num_block_cols, LANE, k)[A.block_col.long()]
+    prods = torch.bmm(A.blocks.to(acc), gathered.to(acc))  # (NB, bh, k)
+    block_row = A.block_row.long().repeat_interleave(A.blocks_per_step)
+    y = torch.zeros((A.num_block_rows, A.block_rows, k), dtype=acc,
+                    device=prods.device)
+    y.index_add_(0, block_row, prods)
+    return y.reshape(-1, k)[: A.num_rows]

@@ -1,8 +1,9 @@
 """The port's batched multi-RHS CG against the JAX package's.
 
 The system is poisson2d(16, 16) with B = A X_true for a seeded X_true of
-three columns at different scales, fp64, through ``DeviceWellCw`` and
-``DeviceDia`` (the JAX tests' own system, tests/test_ops.py:221-339).
+three columns at different scales, fp64, through ``DeviceWellCw``,
+``DeviceWell``, ``DeviceBsr`` and ``DeviceDia`` (the JAX tests' own
+system, tests/test_ops.py:221-339).
 JAX runs ``batched_conjugate_gradient`` over its XLA ``spmm`` (or
 ``dia_batched_conjugate_gradient(path="xla")``); the port runs the same
 recurrence on CPU tensors (its plain versions).  Both stop each column
@@ -26,16 +27,18 @@ import torch
 from spmv_tpu.cli import main as jax_main
 from spmv_tpu.io import write_matrix_market
 from spmv_tpu.io.generate import poisson2d
-from spmv_tpu.models import DiaMatrix, WellCwMatrix
+from spmv_tpu.models import BsrMatrix, DiaMatrix, WellCwMatrix, WellMatrix
 from spmv_tpu.models import device as jdev
 from spmv_tpu.ops import batched_conjugate_gradient as jax_batched_cg
 from spmv_tpu.ops import dia_batched_conjugate_gradient as jax_dia_batched
 from spmv_tpu.ops import extract_diagonal, jacobi_preconditioner
 from spmv_tpu.ops import spmm as jspmm
 from spmv_tpu_torch.cli import main
-from spmv_tpu_torch.models import DeviceDia, DeviceWellCw
+from spmv_tpu_torch.models import BsrMatrix as PortBsrMatrix
+from spmv_tpu_torch.models import DeviceBsr, DeviceDia, DeviceWell, DeviceWellCw
 from spmv_tpu_torch.models import DiaMatrix as PortDiaMatrix
 from spmv_tpu_torch.models import WellCwMatrix as PortWellCwMatrix
+from spmv_tpu_torch.models import WellMatrix as PortWellMatrix
 from spmv_tpu_torch.ops import (
     batched_conjugate_gradient,
     dia_batched_conjugate_gradient,
@@ -71,17 +74,26 @@ def system():
     B = np.stack([dia.spmv(X_true[:, j]) for j in range(3)], axis=1)
     return {"mm": mm, "dia": dia,
             "wellcw": WellCwMatrix.from_matrix_market(mm),
+            "well": WellMatrix.from_matrix_market(mm),
+            "bsr": BsrMatrix.from_matrix_market(mm),
             # the port's own host matrices, for the port's containers
             "port": {"dia": PortDiaMatrix.from_matrix_market(mm),
-                     "wellcw": PortWellCwMatrix.from_matrix_market(mm)},
+                     "wellcw": PortWellCwMatrix.from_matrix_market(mm),
+                     "well": PortWellMatrix.from_matrix_market(mm),
+                     "bsr": PortBsrMatrix.from_matrix_market(mm)},
             "X_true": X_true, "B": B, "diag": extract_diagonal(dia)}
 
 
+CONTAINERS = {"dia": (jdev.DeviceDia, DeviceDia),
+              "wellcw": (jdev.DeviceWellCw, DeviceWellCw),
+              "well": (jdev.DeviceWell, DeviceWell),
+              "bsr": (jdev.DeviceBsr, DeviceBsr)}
+
+
 def _operators(system, fmt):
-    host, port = system[fmt], system["port"][fmt]
-    if fmt == "dia":
-        return jdev.DeviceDia.from_host(host), DeviceDia.from_host(port)
-    return jdev.DeviceWellCw.from_host(host), DeviceWellCw.from_host(port)
+    jcls, cls = CONTAINERS[fmt]
+    return (jcls.from_host(system[fmt]),
+            cls.from_host(system["port"][fmt], device="cpu"))
 
 
 def _same_solve(got, want, X_true):
@@ -98,7 +110,7 @@ def _same_solve(got, want, X_true):
 
 
 @pytest.mark.parametrize("variant", ["plain", "jacobi_recompute_10"])
-@pytest.mark.parametrize("fmt", ["wellcw", "dia"])
+@pytest.mark.parametrize("fmt", ["wellcw", "dia", "well", "bsr"])
 def test_batched_cg_matches_jax(fmt, variant, system):
     Aj, At = _operators(system, fmt)
     B, diag = system["B"], system["diag"]
@@ -121,7 +133,7 @@ def test_batched_cg_matches_jax(fmt, variant, system):
     _same_solve(got, want, system["X_true"])
 
 
-@pytest.mark.parametrize("fmt", ["wellcw", "dia"])
+@pytest.mark.parametrize("fmt", ["wellcw", "dia", "well", "bsr"])
 def test_batched_cg_zero_column_takes_no_iteration(fmt, system):
     """A zero right-hand side is never active: 0 iterations, x = 0,
     while the other column converges (tests/test_ops.py:251-270)."""
@@ -188,16 +200,17 @@ def _run(fn, argv):
 
 
 @pytest.mark.parametrize("precond", ["none", "jacobi"])
-@pytest.mark.parametrize("fmt", ["dia", "wellcw"])
+@pytest.mark.parametrize("fmt", ["dia", "wellcw", "well", "bsr"])
 def test_cli_nrhs_matches_jax_cli(fmt, precond, poisson_file):
     argv = ["--matrix", poisson_file, "--cg", "200", "--cg-tol", "1e-10",
             "--nrhs", "3", "--precondition", precond]
     rc, text = _run(main, argv + ["--spmv-format", fmt])
     assert rc == 0
     doc = json.loads(text)
-    # the JAX CLI cannot run Jacobi on WELL-CW (no diagonal there): hold
-    # that case against its DIA run on the same file, the same recurrence
-    jfmt = "dia" if (fmt, precond) == ("wellcw", "jacobi") else fmt
+    # the JAX CLI cannot run Jacobi on WELL-CW, WELL or BSR (no diagonal
+    # there): hold those cases against its DIA run on the same file, the
+    # same recurrence
+    jfmt = "dia" if precond == "jacobi" else fmt
     jrc, jtext = _run(jax_main, argv + ["--spmv-format", jfmt])
     assert jrc == 0
     want = json.loads(jtext)

@@ -118,11 +118,18 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 @pytest.mark.parametrize("argv", [
     [],                                               # simulation mode
     ["--spmv-format", "csr", "--profile", "2"],
-    # WELL SpMV is ported; its SpMM (kernels K6a / K6b) is not yet
-    pytest.param(["--spmv-format", "well", "--profile", "2", "--spmm", "2"],
+    # these ids named WELL and BSR modes, which are ported now; they hold
+    # the reference tool's formats, which are not
+    pytest.param(["--spmv-format", "ell", "--profile", "2"],
                  id="spmvformat_well_profile_2"),
-    ["--spmv-format", "well", "--cg", "10", "--nrhs", "2"],
-    ["--spmv-format", "bsr", "--profile", "2"],
+    pytest.param(["--spmv-format", "hybrid", "--cg", "10", "--nrhs", "2"],
+                 id="spmvformat_well_cg_10_nrhs_2"),
+    pytest.param(["--spmv-format", "coo", "--profile", "2"],
+                 id="spmvformat_bsr_profile_2"),
+    ["--spmv-format", "coo-atomic", "--profile", "2", "--spmm", "2"],
+    ["--spmv-format", "xla-csr", "--cg", "10"],
+    ["--spmv-format", "bsr", "--cg", "10", "--solver", "gmres"],
+    ["--spmv-format", "auto", "--eigs", "2"],
     ["--spmv-format", "dia", "--cg", "10", "--solver", "bicgstab"],
     ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0"],
     ["--spmv-format", "dia", "--eigs", "2"],
@@ -212,7 +219,14 @@ def test_port_never_imports_jax(matrix_file):
                      ["-s", "wellcw", "--cg", "20", "--nrhs", "2"],
                      ["-s", "dia", "--cg", "20", "--nrhs", "2"],
                      ["-s", "well", "--profile", "2"],
-                     ["-s", "well", "--cg", "20"]):
+                     ["-s", "well", "--cg", "20"],
+                     ["-s", "well", "--profile", "2", "--spmm", "2"],
+                     ["-s", "well", "--cg", "20", "--nrhs", "2"],
+                     ["-s", "bsr", "--profile", "2", "--spmm", "2"],
+                     ["-s", "bsr", "--cg", "20", "--nrhs", "2"],
+                     ["-s", "auto", "--profile", "2", "--spmm", "2"],
+                     ["-s", "auto", "--cg", "20", "--precondition",
+                      "jacobi"]):
             out = io.StringIO()
             rc = main(["--matrix", {matrix_file!r}] + argv, out=out)
             assert rc == 0, (argv, rc)

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3a-c, K4a-c, K5a-b and the CSR kernels on the card
-against their plain versions.
+"""Kernels K1, K2, K3a-c, K4a-c, K5a-b, K6a-b, K7 and the CSR kernels on
+the card against their plain versions.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -11,11 +11,13 @@ kernel fuses multiply-add where the plain version rounds twice);
 bfloat16 storage 1e-2 (both accumulate in float32 and round y once, so
 they differ by at most one bfloat16 step); the fused dot 1e-10 in
 float64 and 1e-4 in float32, relative to sum |x_i y_i| (the scale of
-the rounding error of any summation order).  The WELL-CW, WELL and CSR
-kernels (float64 and float32 only) are also launched twice on the same
-input, and the two outputs must be bitwise equal; each column of an
-SpMM kernel's output is also held against the SpMV kernel on that
-column.
+the rounding error of any summation order).  The WELL-CW, WELL, BSR and
+CSR kernels (float64 and float32 only, and bfloat16 blocks for BSR) are
+also launched twice on the same input, and the two outputs must be
+bitwise equal; each column of an SpMM kernel's output is also held
+against the SpMV kernel on that column.  BSR with bfloat16 blocks: both
+the kernel and its plain version multiply the same bfloat16 values and
+sum in float32, so they agree to 1e-5 of the output's scale.
 """
 
 import functools
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.io.generate import (
     banded_random,
     from_coo_arrays,
@@ -32,7 +35,9 @@ from spmv_tpu_torch.io.generate import (
 )
 from spmv_tpu_torch.io.matrix_market import MatrixMarket
 from spmv_tpu_torch.models import (
+    BsrMatrix,
     CsrMatrix,
+    DeviceBsr,
     DeviceCsr,
     DeviceDia,
     DeviceWell,
@@ -42,6 +47,8 @@ from spmv_tpu_torch.models import (
     WellMatrix,
 )
 from spmv_tpu_torch.ops import (
+    bsr_spmm_core,
+    bsr_spmm_reference,
     csr_spmm_core,
     csr_spmv_core,
     csr_spmv_reference,
@@ -54,9 +61,12 @@ from spmv_tpu_torch.ops import (
     dia_spmv_reference,
     well_chunks_reference,
     well_seg_core,
+    well_seg_spmm_core,
+    well_spmm_core,
     well_spmv_core,
     well_spmv_reference,
     well_whole_core,
+    well_whole_spmm_core,
     wellcw_level_core,
     wellcw_level_spmm_core,
     wellcw_merged_core,
@@ -67,6 +77,7 @@ from spmv_tpu_torch.ops import (
     wellcw_spmv_core,
     wellcw_spmv_reference,
 )
+from spmv_tpu_torch.ops.well_kernels import _launch_spmm, well_column_block
 from spmv_tpu_torch.ops.wellcw_kernels import column_block
 
 pytestmark = pytest.mark.cuda
@@ -397,3 +408,123 @@ def test_well_unvisited_blocks_read_zero(cuda):
     torch.cuda.synchronize()
     assert torch.equal(out, well_chunks_reference(A, x))
     assert not out.isnan().any()
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", list(WELL_CASES))
+def test_well_spmm_kernels_match_plain(case, dtype, k, cuda):
+    """K6a / K6b twice (bitwise equal), against the plain version and,
+    column by column, against K5 on that column; the whole SpMM with its
+    spill against the plain composition and the fp64 host product."""
+    w = _well_host(case)
+    A = DeviceWell.from_host(w, dtype=dtype, device=cuda,
+                             **WELL_CASES[case][2])
+    segmented = A.segment_of_step is not None
+    core = well_seg_spmm_core if segmented else well_whole_spmm_core
+    spmv_core = well_seg_core if segmented else well_whole_core
+    g = torch.Generator(device=cuda).manual_seed(8)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
+    counters = (well_whole_spmm_core, well_seg_spmm_core, csr_spmm_core)
+    before = [c.launches for c in counters]
+    Y1, Y2 = core(A, X), core(A, X)
+    torch.cuda.synchronize()
+    assert Y1.shape == (A.num_rows, k)
+    assert torch.equal(Y1, Y2)
+    assert _rel_err(Y1, well_chunks_reference(A, X)) <= TOL[dtype]
+    for j in range(k):
+        assert _rel_err(Y1[:, j], spmv_core(A, X[:, j].contiguous())) \
+            <= TOL[dtype], j
+    Y = well_spmm_core(A, X)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == [0 if segmented else 3, 3 if segmented else 0,
+                        int(A.spill is not None)]
+    assert _rel_err(Y, well_spmv_reference(A, X)) <= TOL[dtype]
+    want = torch.from_numpy(np.stack(
+        [w.spmv(X[:, j].double().cpu().numpy()) for j in range(k)], 1))
+    assert _rel_err(Y.cpu(), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("columns", [1, 2, 5, 7])
+def test_well_spmm_column_blocks_agree(columns, cuda):
+    """Every column-block width gives the same Y, bit for bit (a column's
+    sums do not depend on its block), in float64 on a segmented matrix
+    with blocks_per_out 4, whose default width is 2 (7, the widest, is a
+    224 KB tile); a width whose tile does not fit raises."""
+    A = DeviceWell.from_host(_well_host("segmented_blocks_per_out_4"),
+                             dtype=torch.float64, device=cuda,
+                             **WELL_CASES["segmented_blocks_per_out_4"][2])
+    assert well_column_block(torch.float64, 8, A.out_rows) == 2
+    g = torch.Generator(device=cuda).manual_seed(9)
+    X = torch.randn(A.num_columns, 8, generator=g, device=cuda,
+                    dtype=torch.float64)
+    Y = _launch_spmm(well_seg_spmm_core, "well_seg_spmm", A, X, None, True,
+                     columns)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, well_seg_spmm_core(A, X))
+    with pytest.raises(KernelError, match="invalid argument"):
+        _launch_spmm(well_seg_spmm_core, "well_seg_spmm", A, X, None, True, 8)
+
+
+def _bsr_blocklets(bh, n=1024):
+    # dense 8 x 128 blocklets scattered at random (tests/test_bsr.py:172)
+    rng = np.random.default_rng(bh)
+    base = random_sparse(n // 8, n // 128, 2, seed=bh)
+    rows = np.repeat((base.rows_1based - 1) * 8, 8 * 128) \
+        + np.tile(np.repeat(np.arange(8), 128), base.num_entries)
+    cols = np.repeat((base.cols_1based - 1) * 128, 8 * 128) \
+        + np.tile(np.arange(128), 8 * base.num_entries)
+    return BsrMatrix._build(n, n, rows, cols, rng.standard_normal(rows.size),
+                            None, bh)
+
+
+def _bsr_empty_row():
+    # rows 128..255 empty: the host gives that block row an inert block
+    return BsrMatrix.from_matrix_market(MatrixMarket(
+        "matrix", "coordinate", "real", "general", 384, 384, 2,
+        np.array([1, 384]), np.array([1, 384]), np.array([2.0, 3.0])))
+
+
+# name -> (host matrix, blocks_per_step)
+BSR_CASES = {
+    "bh_8": (lambda: _bsr_blocklets(8), 8),
+    "bh_32": (lambda: _bsr_blocklets(32), 8),
+    "bh_128_kb_3": (lambda: _bsr_blocklets(128), 3),
+    "kb_1": (lambda: BsrMatrix.from_matrix_market(
+        banded_random(2048, 300, 24, seed=5)), 1),
+    "empty_block_row": (_bsr_empty_row, 8),
+    "rect_300x200": (lambda: BsrMatrix.from_matrix_market(
+        random_sparse(300, 200, 4, seed=3)), 8),
+    "poisson": (lambda: BsrMatrix.from_matrix_market(poisson2d(40, 40),
+                                                     block_rows="auto"), 8),
+}
+
+
+@pytest.mark.parametrize("k", [1, 3, 40])
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("case", list(BSR_CASES))
+def test_bsr_kernel_matches_plain(case, dtype, k, cuda):
+    """K7 twice (bitwise equal) against its plain version; float32 and
+    float64 also against the fp64 host product; every column against K7
+    on that column alone."""
+    make, kb = BSR_CASES[case]
+    b = make()
+    A = DeviceBsr.from_host(b, dtype=dtype, blocks_per_step=kb, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda).to(dtype)
+    before = bsr_spmm_core.launches
+    Y1, Y2 = bsr_spmm_core(A, X), bsr_spmm_core(A, X)
+    torch.cuda.synchronize()
+    assert bsr_spmm_core.launches == before + 2
+    assert Y1.dtype == (torch.float32 if dtype == torch.bfloat16 else dtype)
+    assert Y1.shape == (A.num_rows, k)
+    assert torch.equal(Y1, Y2)
+    tol = 1e-5 if dtype == torch.bfloat16 else TOL[dtype]
+    assert _rel_err(Y1, bsr_spmm_reference(A, X)) <= tol
+    for j in (0, k - 1):
+        assert _rel_err(Y1[:, j], bsr_spmm_core(A, X[:, j:j + 1].contiguous()
+                                                )[:, 0]) <= tol
+    if dtype != torch.bfloat16:
+        want = torch.from_numpy(b.spmm(X.double().cpu().numpy()))
+        assert _rel_err(Y1.cpu(), want) <= TOL[dtype]

@@ -17,24 +17,28 @@ import pytest
 
 from spmv_tpu.io import generate as jgen
 from spmv_tpu.io import matrix_market as jmm
+from spmv_tpu.models import BsrMatrix as JBsr
 from spmv_tpu.models import CsrMatrix as JCsr
 from spmv_tpu.models import DiaMatrix as JDia
 from spmv_tpu.models import WellCwMatrix as JWellCw
 from spmv_tpu.models import WellMatrix as JWell
 from spmv_tpu.models import _cw_native as j_cw_native
 from spmv_tpu.models import _well_native as j_well_native
+from spmv_tpu.models import auto_format as j_auto_format
 from spmv_tpu.perfmodel import tiling as jtiling
 from spmv_tpu.perfmodel import trace_config as jtrace
 from spmv_tpu.utils import jsonio as jjsonio
 from spmv_tpu.utils import sample as jsample
 from spmv_tpu_torch.io import generate as pgen
 from spmv_tpu_torch.io import matrix_market as pmm
+from spmv_tpu_torch.models import BsrMatrix as PBsr
 from spmv_tpu_torch.models import CsrMatrix as PCsr
 from spmv_tpu_torch.models import DiaMatrix as PDia
 from spmv_tpu_torch.models import WellCwMatrix as PWellCw
 from spmv_tpu_torch.models import WellMatrix as PWell
 from spmv_tpu_torch.models import _cw_native as p_cw_native
 from spmv_tpu_torch.models import _well_native as p_well_native
+from spmv_tpu_torch.models import auto_format as p_auto_format
 from spmv_tpu_torch.perfmodel import tiling as ptiling
 from spmv_tpu_torch.perfmodel import trace_config as ptrace
 from spmv_tpu_torch.utils import jsonio as pjsonio
@@ -163,6 +167,82 @@ def test_host_formats_match(name, fmt, packer):
         assert p.spill_fraction == j.spill_fraction
         _same_csr(p.spill, j.spill)
     x = np.random.default_rng(2).standard_normal(p.num_columns)
+    np.testing.assert_array_equal(p.spmv(x), j.spmv(x))
+
+
+BSR_FIELDS = ("num_rows", "num_columns", "num_entries", "block_rows",
+              "num_blocks", "num_block_rows", "fill_ratio")
+
+
+def _same_bsr(p, j):
+    for f in BSR_FIELDS:
+        assert getattr(p, f) == getattr(j, f), f
+    _same_arrays(p, j, ("blocks", "block_col", "block_rowptr"))
+
+
+@pytest.mark.parametrize("block_rows", [8, 32, 128, "auto"])
+@pytest.mark.parametrize("name", ["poisson2d", "banded_random",
+                                  "random_sparse"])
+def test_bsr_host_matches(name, block_rows):
+    """``BsrMatrix`` (``models/bsr.py``): the same blocks, block columns
+    and row pointers from Matrix Market entries and from CSR, the same
+    block counts and chosen height, and the same fp64 product."""
+    pm, jm = _gen(pgen, name), _gen(jgen, name)
+    p = PBsr.from_matrix_market(pm, block_rows=block_rows)
+    j = JBsr.from_matrix_market(jm, block_rows=block_rows)
+    _same_bsr(p, j)
+    _same_bsr(PBsr.from_csr(PCsr.from_matrix_market(pm),
+                            block_rows=block_rows),
+              JBsr.from_csr(JCsr.from_matrix_market(jm),
+                            block_rows=block_rows))
+    rows, cols = pm.rows_1based - 1, pm.cols_1based - 1
+    assert PBsr.block_counts(rows, cols, pm.num_columns) == \
+        JBsr.block_counts(rows, cols, pm.num_columns)
+    assert PBsr.choose_block_rows(rows, cols, pm.num_columns) == \
+        JBsr.choose_block_rows(rows, cols, pm.num_columns)
+    X = np.random.default_rng(5).standard_normal((p.num_columns, 3))
+    np.testing.assert_array_equal(p.spmm(X), j.spmm(X))
+    np.testing.assert_array_equal(p @ X[:, 0], j @ X[:, 0])
+
+
+def test_bsr_host_guards_match():
+    """The same refusals: a fill past ``max_fill``, a block height that
+    is not a multiple of 8, padded CSR."""
+    from spmv_tpu.errors import MatrixError as JMatrixError
+    from spmv_tpu_torch.errors import MatrixError as PMatrixError
+
+    for cls, gen, err in ((PBsr, pgen, PMatrixError),
+                          (JBsr, jgen, JMatrixError)):
+        mm = gen.random_sparse(1024, 1024, 2, seed=5)
+        with pytest.raises(err, match="fill ratio"):
+            cls.from_matrix_market(mm, max_fill=8.0)
+        with pytest.raises(err, match="multiple of 8"):
+            cls.from_matrix_market(mm, block_rows=12)
+
+
+# name -> (generator, arguments, workload, the format both pick)
+AUTO_CASES = {
+    "dia": ("poisson2d", (13, 17), {}, "spmv", "dia"),
+    "bsr": ("block_random", (1024, 1024, 2), {"seed": 2}, "spmm", "bsr"),
+    "well": ("block_random", (1024, 1024, 2), {"seed": 2}, "spmv", "well"),
+    "wellcw": ("random_sparse", (2000, 2000, 10), {"seed": 1}, "spmv",
+               "wellcw"),
+}
+
+
+@pytest.mark.parametrize("case", list(AUTO_CASES))
+def test_auto_format_matches(case):
+    """``auto_format`` (``models/select.py``): the same format, the same
+    rationale (every number it used) and the same host matrix."""
+    fn, args, kw, workload, fmt = AUTO_CASES[case]
+    p, p_why = p_auto_format(getattr(pgen, fn)(*args, **kw),
+                             workload=workload)
+    j, j_why = j_auto_format(getattr(jgen, fn)(*args, **kw),
+                             workload=workload)
+    assert p_why["format"] == fmt
+    assert p_why == j_why
+    assert p.format_name == j.format_name
+    x = np.random.default_rng(6).standard_normal(p.num_columns)
     np.testing.assert_array_equal(p.spmv(x), j.spmv(x))
 
 

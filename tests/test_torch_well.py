@@ -298,13 +298,19 @@ def test_narrow_dtypes_refused(dtype):
 
 
 def test_dispatch_forward_and_spmm_refusal():
+    """``forward`` and ``spmv`` run the SpMV; ``spmm`` on ``DeviceWell``
+    (refused until K6 was ported) is the plain SpMM, column by column the
+    SpMV."""
     w, _, At = _both("window_spill")
     x = torch.from_numpy(_x(At.num_columns))
     _close(At(x), w.spmv(x.numpy()), 1e-12)
     x32 = x.float()                            # spmv casts it to float64
     _close(spmv(At, x32), w.spmv(x32.double().numpy()), 1e-12)
-    with pytest.raises(KernelError, match="not yet ported"):
-        spmm(At, torch.stack([x, x], dim=1))
+    X = torch.stack([x, 2 * x], dim=1)
+    Y = spmm(At, X)
+    assert torch.equal(Y, well_spmv_reference(At, X))
+    for j in range(2):
+        _close(Y[:, j], w.spmv(X[:, j].numpy()), 1e-12)
 
 
 def test_out_buffer_and_mode_checks():
