@@ -53,7 +53,15 @@ Phases (each prints readable lines; any failure exits non-zero):
    block matrices of block height 8, 32 and 128 with blocks_per_step 8,
    3 and 1, an empty block row and a 300 x 200 shape, in float64,
    float32 and bf16 blocks, at k = 1, 3 and 128: twice (bitwise equal),
-   against its plain version and the fp64 host product.
+   against its plain version and the fp64 host product.  Then K8 (the
+   fused V-cycle) against fused_vcycle_reference on the hierarchies of
+   poisson2d(16, 128) with smooth_levels 1 and 0, poisson2d(16, 120)
+   (identity padding), poisson2d(64, 16) (an offset the JAX kernel's lane
+   layout refuses), poisson2d(32, 512) (three levels) and poisson2d(48,
+   64) with aggregates of 3 rows, in float64 (1e-12) and float32 (5e-6,
+   relative 2-norm), each launched twice (bitwise equal); the block
+   V-cycle (K1 per level) and the generic V-cycle (the CSR kernel) on
+   the card against their CPU runs, float64.
 4. DIA main path through the CLI, in process, on a Matrix Market file of
    poisson2d(1024, 1024): profile, SpMM profile, CG, Jacobi CG, batched
    CG (--nrhs 3: K2), triad.  The DIA launch counts are zeroed just
@@ -142,10 +150,27 @@ Phases (each prints readable lines; any failure exits non-zero):
    read after it.
 19. K6a, K6b (at every column-block width that fits) and K7 at the
    phase 15 and 18 shapes alone (not counted), as in phase 10.
+20. AMG path through the CLI (the K8, CSR and K1 launch counts are zeroed
+   just before): --cg 200 --precondition amg on poisson2d(256, 256) with
+   -s dia and -s wellcw (the generic V-cycle: the CSR kernel; the
+   operator: K1, K3c): iterations, rms error against ones.
+21. The full-size AMG leg, poisson2d(2048, 2048) in float32: the host
+   setup (fused_block_setup: seven levels, 178.8 MB of DIA data), then PCG
+   to 1e-6 with fused_vcycle_preconditioner (K8) and with
+   block_amg_preconditioner (K1 and torch element-wise ops) on the same
+   hierarchy: iterations (K8's within one of the block V-cycle's), rms
+   error against ones, us per iteration (host clock), K8's launches
+   equal to the applies.  The AMG launch counts are read after it.
+22. K8 alone at that shape (not counted): bitwise repeat, error against
+   the plain version, device ms (a CUDA graph, the L2 flushed before
+   each launch) against its bound and the plain version's ms, and the
+   yardstick, the block V-cycle eager and under one CUDA graph (no single
+   PyTorch call computes a V-cycle, so there is no library ms).
 
-The second-to-last lines are the kernels' JSON summary (sixteen kernels,
-each with its launches on the main path, max error, ms against plain
-ms, bound and library ms, and summaries of each path) and nvidia-smi's
+The second-to-last lines are the kernels' JSON summary (seventeen
+kernels, each with its launches on the main path, max error, ms against
+plain ms, bound and library ms, and summaries of each path, `amg` the
+last) and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
 data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
@@ -206,6 +231,18 @@ BF16_CHECKSUM_RTOL = 1e-2     # bench.py's bf16 BSR checksum gate
 HBM_BPS = 3.35e12             # H100 SXM data sheet, at 700 W
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12      # H100 SXM bfloat16, dense tensor cores
+# K8 (the fused V-cycle): (poisson2d grid, smooth_levels, block) of the
+# phase 3 comparisons: aligned with 1 and 0 smoothed levels, identity
+# padding, an offset past the JAX lane chunk, three levels, aggregates of
+# three rows
+FUSED_CASES = (((16, 128), 1, 4), ((16, 128), 0, 4), ((16, 120), 1, 4),
+               ((64, 16), 1, 4), ((32, 512), 1, 4), ((48, 64), 1, 3))
+TOL_K8_F32 = 5e-6             # tests/test_fused_vcycle.py:65, relative 2-norm
+AMG_CLI_GRID = 256            # the AMG CLI phase's poisson2d
+AMG_FULL_GRID = 2048          # the full-size AMG leg: 178.8 MB of DIA levels
+AMG_TOL = 1e-6
+AMG_MAX_ITERS = 100
+AMG_GRAPH_REPS = 10
 
 
 def _fail(msg: str) -> None:
@@ -2297,6 +2334,297 @@ def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
     return found
 
 
+# ------------------------------------------------------- AMG and K8
+def _fused_case(shape, smooth, block, dtype, device):
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import CsrMatrix
+    from spmv_tpu_torch.ops import fused_block_setup, fused_vcycle_device
+
+    hier = fused_block_setup(CsrMatrix.from_matrix_market(poisson2d(*shape)),
+                             smooth_levels=smooth, block=block)
+    return hier, fused_vcycle_device(hier, dtype=dtype, device=device)
+
+
+def _norm_rel(got, want) -> float:
+    import torch
+
+    got, want = got.double(), want.double()
+    return float(torch.linalg.norm(got - want) /
+                 max(float(torch.linalg.norm(want)), 1e-300))
+
+
+def phase_compare_amg(device):
+    """K8 against fused_vcycle_reference on five hierarchies, float64 and
+    float32, each launched twice (bitwise equal); the block V-cycle (K1
+    per level) and the generic V-cycle (the CSR kernel) on the card
+    against their CPU runs."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import CsrMatrix
+    from spmv_tpu_torch.ops import (
+        amg_preconditioner,
+        fused_vcycle_core,
+        fused_vcycle_reference,
+        smoothed_aggregation_setup,
+    )
+    from spmv_tpu_torch.ops.amg import block_amg_device, block_vcycle
+
+    for shape, smooth, block in FUSED_CASES:
+        for dtype in (torch.float64, torch.float32):
+            hier, fv = _fused_case(shape, smooth, block, dtype, device)
+            g = torch.Generator(device=device).manual_seed(3)
+            b = torch.randn(fv.padded_rows, generator=g, device=device,
+                            dtype=torch.float64).to(dtype)
+            y1, y2 = fused_vcycle_core(fv, b), fused_vcycle_core(fv, b)
+            _sync(device)
+            dtn = str(dtype).replace("torch.", "")
+            name = (f"K8 poisson2d{shape} smooth_levels {smooth} block "
+                    f"{block} {dtn} (levels {list(fv.rows)}, diagonals "
+                    f"{[len(o) for o in fv.offsets]})")
+            if not torch.equal(y1, y2):
+                _fail(f"{name}: two launches differ")
+            err = _norm_rel(y1, fused_vcycle_reference(fv, b))
+            tol = TOL_F64 if dtype == torch.float64 else TOL_K8_F32
+            if not (err <= tol and bool(torch.isfinite(y1).all())):
+                _fail(f"{name}: relative 2-norm error {err} > {tol}")
+            _say(f"[3 compare] {name}: {err:.3e} against the plain version, "
+                 "bitwise repeatable")
+            if dtype == torch.float64 and shape == (32, 512):
+                blocks = {d: block_amg_device(hier, dtype=dtype, device=d)
+                          for d in ("cpu", device)}
+                bc = b.cpu()
+                e = _norm_rel(block_vcycle(blocks[device], b).cpu(),
+                              block_vcycle(blocks["cpu"], bc))
+                if e > TOL_F64:
+                    _fail(f"block V-cycle on the card: {e} > {TOL_F64}")
+                _say(f"[3 compare] block V-cycle (K1 per level) poisson2d"
+                     f"{shape} float64 on the card against its CPU run: "
+                     f"{e:.3e}")
+    m = CsrMatrix.from_matrix_market(poisson2d(48, 48))
+    hier = smoothed_aggregation_setup(m, coarse_size=64)
+    r = torch.from_numpy(np.random.default_rng(4).standard_normal(m.num_rows))
+    want = amg_preconditioner(hierarchy=hier, dtype=torch.float64,
+                              device="cpu")[0](r)
+    got = amg_preconditioner(hierarchy=hier, dtype=torch.float64,
+                             device=device)[0](r.to(device))
+    e = _norm_rel(got.cpu(), want)
+    if e > TOL_F64:
+        _fail(f"generic V-cycle on the card: {e} > {TOL_F64}")
+    _say(f"[3 compare] generic V-cycle (the CSR kernel) poisson2d(48, 48) "
+         f"float64 on the card against its CPU run: {e:.3e}")
+    _sync(device)
+
+
+def phase_cli_amg(device):
+    """--cg 200 --precondition amg on poisson2d(AMG_CLI_GRID²), -s dia and
+    -s wellcw: the generic V-cycle's CSR kernel launches, and K1 or K3c
+    for the operator."""
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.ops import (
+        csr_spmv_core,
+        dia_spmv_core,
+        wellcw_merged_core,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"poisson2d_{AMG_CLI_GRID}.mtx")
+        write_matrix_market(poisson2d(AMG_CLI_GRID, AMG_CLI_GRID), path)
+        docs = _run_cli("20 amg cli", [
+            (f"-s {fmt} --cg 200 --precondition amg",
+             ["--matrix", path, "--spmv-format", fmt, "--cg", "200",
+              "--precondition", "amg"], (csr_spmv_core, op))
+            for fmt, op in (("dia", dia_spmv_core),
+                            ("wellcw", wellcw_merged_core))])
+    out = {}
+    for fmt, doc in zip(("dia", "wellcw"), docs):
+        cg = doc["cg"]
+        f = cg["factorization"]
+        _say(f"[20 amg cli] -s {fmt}: hierarchy {f['level_rows']}, "
+             f"operator complexity {f['operator_complexity']:.3f}")
+        out[fmt] = {k: cg[k] for k in ("iterations", "residual_norm",
+                                       "solution_rms_error_vs_ones",
+                                       "seconds")}
+        out[fmt]["level_rows"] = f["level_rows"]
+    _sync(device)
+    return out
+
+
+def _pcg(A, b, apply, tol, device):
+    """PCG to tol with ``apply`` as M^-1, one untimed iteration first:
+    (the timed solve's result, the applies of both, its seconds)."""
+    from spmv_tpu_torch.ops import preconditioned_conjugate_gradient, spmv
+
+    count = [0]
+
+    def counted(r):
+        count[0] += 1
+        return apply(r)
+
+    preconditioned_conjugate_gradient(lambda v: spmv(A, v), b, counted,
+                                      tol=tol, max_iterations=1)
+    _sync(device)
+    t0 = time.perf_counter()
+    res = preconditioned_conjugate_gradient(lambda v: spmv(A, v), b,
+                                            counted, tol=tol,
+                                            max_iterations=AMG_MAX_ITERS)
+    float(res.residual_norm)                       # synchronises
+    return res, count[0], time.perf_counter() - t0
+
+
+def phase_amg_full(device, smi_line):
+    """The full-size leg, poisson2d(AMG_FULL_GRID²) in float32: the host
+    setup, PCG to AMG_TOL with K8 (fused_vcycle_preconditioner) and with
+    the block V-cycle (block_amg_preconditioner) on the same hierarchy,
+    the operator K1.  K8's launches must equal its applies."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import CsrMatrix, DeviceDia, DiaMatrix
+    from spmv_tpu_torch.ops import (
+        block_amg_preconditioner,
+        fused_block_setup,
+        fused_vcycle_core,
+        fused_vcycle_preconditioner,
+    )
+
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    mm = poisson2d(AMG_FULL_GRID, AMG_FULL_GRID)
+    host = CsrMatrix.from_matrix_market(mm)
+    dia = DiaMatrix.from_matrix_market(mm)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hier = fused_block_setup(host)
+    t_setup = time.perf_counter() - t0
+    del host, mm
+    label = f"poisson2d({AMG_FULL_GRID},{AMG_FULL_GRID})"
+    _say(f"[21 amg] host {label}: built in {t_host:.1f} s; "
+         f"fused_block_setup {t_setup:.1f} s: levels "
+         f"{[lv.n_pad for lv in hier.levels]} + coarse "
+         f"{hier.coarse_inv.shape[0]}, operator complexity "
+         f"{hier.operator_complexity:.3f}")
+    A = DeviceDia.from_host(dia, dtype=f32, device=device)
+    b = A(torch.ones(A.num_columns, dtype=f32, device=device))
+    out = {"shape": f"{label} float32", "host_setup_s": t_setup,
+           "level_rows": [lv.n_pad for lv in hier.levels]
+           + [hier.coarse_inv.shape[0]]}
+    t0 = time.perf_counter()
+    preconds = {
+        "fused": fused_vcycle_preconditioner(hierarchy=hier, dtype=f32,
+                                             device=device),
+        "block": block_amg_preconditioner(hierarchy=hier, dtype=f32,
+                                          device=device),
+    }
+    out["device_setup_s"] = time.perf_counter() - t0
+    out["num_diagonals"] = preconds["fused"][1]["num_diagonals"]
+    out["level_formats"] = preconds["block"][1]["level_formats"]
+    for kind, (apply, _) in preconds.items():
+        before = fused_vcycle_core.launches
+        res, applies, secs = _pcg(A, b, apply, AMG_TOL, device)
+        launched = fused_vcycle_core.launches - before
+        x = res.x.double()
+        rms = float(torch.linalg.norm(x - 1.0) / np.sqrt(x.numel()))
+        it = int(res.iterations)
+        out[kind] = {"iterations": it, "applies": applies,
+                     "residual_norm": float(res.residual_norm),
+                     "solution_rms_error_vs_ones": rms, "seconds": secs,
+                     "us_per_iteration": secs / max(it, 1) * 1e6}
+        _say(f"[21 amg] PCG {kind} V-cycle to {AMG_TOL}: {it} iterations, "
+             f"{applies} applies, residual {float(res.residual_norm):.3e}, "
+             f"rms error vs ones {rms:.3e}, {secs * 1e3:.2f} ms "
+             f"({out[kind]['us_per_iteration']:.1f} us/iteration, host "
+             f"clock), K8 launches +{launched}, on {smi_line}")
+        if not (np.isfinite(rms) and rms <= CG_RMS_ERR
+                and float(res.residual_norm) <= AMG_TOL * float(
+                    torch.linalg.norm(b.double()))):
+            _fail(f"PCG {kind}: did not converge (rms {rms})")
+        if kind == "fused" and launched != applies:
+            _fail(f"K8 launched {launched} times for {applies} applies")
+        if kind == "block" and launched != 0:
+            _fail("the block V-cycle launched K8")
+    if abs(out["fused"]["iterations"] - out["block"]["iterations"]) > 1:
+        _fail(f"K8's PCG took {out['fused']['iterations']} iterations, the "
+              f"block V-cycle's {out['block']['iterations']}")
+    del preconds, A, b, dia
+    _sync(device)
+    return hier, out
+
+
+def phase_kernel_fused(device, hier, smi_line, triad_gbps):
+    """K8 alone at the full-size leg's shape (not counted): bitwise
+    repeat, max error against the plain version, device ms (a CUDA graph
+    of AMG_GRAPH_REPS launches, the L2 flushed before each), ms a call
+    through the wrapper, the plain version's ms, and the yardstick: the
+    port's block_vcycle (K1 per level and torch element-wise ops) eager
+    and under one CUDA graph.  The bound: each input read once and y
+    written once (bytes), and the flops of the matvecs K8 runs."""
+    import torch
+
+    from spmv_tpu_torch.ops import (
+        fused_vcycle_core,
+        fused_vcycle_device,
+        fused_vcycle_reference,
+    )
+    from spmv_tpu_torch.ops.amg import block_amg_device, block_vcycle
+
+    f32 = torch.float32
+    fv = fused_vcycle_device(hier, dtype=f32, device=device)
+    bd = block_amg_device(hier, dtype=f32, device=device)
+    g = torch.Generator(device=device).manual_seed(5)
+    b = torch.randn(fv.padded_rows, generator=g, device=device, dtype=f32)
+    y1, y2 = fused_vcycle_core(fv, b), fused_vcycle_core(fv, b)
+    _sync(device)
+    if not torch.equal(y1, y2):
+        _fail("K8 at full size: two launches differ")
+    want = fused_vcycle_reference(fv, b)
+    err = float((y1.double() - want.double()).abs().max())
+    rel = _norm_rel(y1, want)
+    if rel > TOL_K8_F32:
+        _fail(f"K8 at full size: relative error {rel} > {TOL_K8_F32}")
+    e_block = _norm_rel(block_vcycle(bd, b), want)
+    if e_block > TOL_K8_F32:
+        _fail(f"block V-cycle at full size: {e_block} > {TOL_K8_F32}")
+    del y1, y2, want
+    out = torch.empty_like(b)
+    scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    ms = _cold_graph_ms(lambda: fused_vcycle_core(fv, b, out=out),
+                        lambda: scratch.fill_(0.0), AMG_GRAPH_REPS)
+    eager_ms = _time_launches(lambda: fused_vcycle_core(fv, b, out=out), 10)
+    plain_ms = _time_launches(lambda: fused_vcycle_reference(fv, b), 2)
+    block_eager = _time_launches(lambda: block_vcycle(bd, b), 5)
+    block_graph = _cold_graph_ms(lambda: block_vcycle(bd, b),
+                                 lambda: scratch.fill_(0.0), AMG_GRAPH_REPS)
+    nbytes = (_nbytes(*fv.data, *fv.dinv, fv.coarse, b, out)
+              + sum(a.offsets_dev.numel() * 4 for a in fv.levels))
+    # the matvecs K8 runs (degree 3: 8 at a smoothed level, 6 at a plain
+    # one) and the dense coarse product
+    mvs = sum((8 if s else 6) * 2 * len(o) * n
+              for s, o, n in zip(fv.smoothed, fv.offsets, fv.rows))
+    bound = _bound(nbytes, mvs + 2 * fv.coarse.numel(), triad_gbps)
+    res = {"max_abs_err": err, "max_rel_err_2norm": rel, "ms": ms,
+           "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "bound_triad_ms": bound["bound_triad_ms"],
+           "bytes": bound["bytes"], "flops": bound["flops"],
+           "library_ms": None, "block_vcycle_eager_ms": block_eager,
+           "block_vcycle_graph_ms": block_graph,
+           "block_vcycle_rel_err": e_block,
+           "shape": f"poisson2d({AMG_FULL_GRID},{AMG_FULL_GRID}) float32, "
+                    f"levels {list(fv.rows)} + {fv.coarse.shape[0]}"}
+    _say(f"[22 k8] K8 at {res['shape']}: {ms:.4f} ms on the device (CUDA "
+         f"graph, L2 flushed), {eager_ms:.4f} ms a call through the wrapper, "
+         f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+         f"({bound['bound_by']}, {nbytes} B, {bound['flops']} flop); block "
+         f"V-cycle (K1 + torch) {block_eager:.3f} ms eager, {block_graph:.4f}"
+         f" ms under one CUDA graph (L2 flushed); max abs err {err:.3e} "
+         f"(rel {rel:.3e}), bitwise repeatable, on {smi_line}")
+    del fv, bd, b, out, scratch
+    _sync(device)
+    return res
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     device, smi_line = phase_device()
@@ -2311,6 +2639,7 @@ def main() -> int:
         csr_spmv_core,
         dia_spmm_core,
         dia_spmv_core,
+        fused_vcycle_core,
         well_seg_core,
         well_seg_spmm_core,
         well_whole_core,
@@ -2347,6 +2676,7 @@ def main() -> int:
     bitwise = phase_compare_wellcw(device, cg_mats)
     well_bitwise = phase_compare_well(device, cg_well)
     phase_compare_bsr(device)
+    phase_compare_amg(device)
 
     # the DIA path's run: its counts start from zero here
     dia_spmv_core.launches = 0
@@ -2467,6 +2797,26 @@ def main() -> int:
     spmm_kernels = phase_kernels_spmm(device, well_spmm, bsr_keep, smi_line,
                                       triad_gbps)
     del bsr_keep
+
+    # the AMG path's run (the CLI's generic V-cycle, then PCG at full size
+    # with K8 and with the block V-cycle): its counts start from zero here
+    amg_wrappers = {"fused_vcycle": fused_vcycle_core,
+                    "csr_spmv": csr_spmv_core, "dia_spmv": dia_spmv_core}
+    for w in amg_wrappers.values():
+        w.launches = 0
+    amg_cli = phase_cli_amg(device)
+    amg_hier, amg_full = phase_amg_full(device, smi_line)
+    amg_launches = {k: w.launches for k, w in amg_wrappers.items()}
+    _say("[21 amg] launches on the AMG path: "
+         + ", ".join(f"{k} {n}" for k, n in amg_launches.items()))
+    for name, n in amg_launches.items():
+        if n <= 0:
+            _fail(f"{name} was never launched on the AMG path")
+    if amg_launches["fused_vcycle"] != amg_full["fused"]["applies"]:
+        _fail(f"K8 launches {amg_launches['fused_vcycle']} differ from the "
+              f"preconditioner's {amg_full['fused']['applies']} applies")
+    fused = phase_kernel_fused(device, amg_hier, smi_line, triad_gbps)
+    del amg_hier
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -2590,6 +2940,15 @@ def main() -> int:
                           "bound_ms", "bound_by", "tflops")}),
             ("bsr_spmm", 896, "far", bsr_times["far"],
              bsr_times["far"]["shape"], {}))
+    ] + [
+        {
+            "name": "fused_vcycle",
+            "route": "cuda",
+            "source": "spmv_tpu_torch/csrc/fused_vcycle.cu",
+            "replaces": "spmv_tpu/ops/fused_vcycle.py:297",
+            "launches": amg_launches["fused_vcycle"],
+            **fused,
+        }
     ], "wellcw_spmv": {**cw_times, "shape": cw_shape},
         "wellcw_spmm": {**spmm_times, "shape": mm_shape},
         "batched_cg": {**cg_times, "k": CG_K,
@@ -2608,7 +2967,11 @@ def main() -> int:
                            "shape": f"poisson2d({CG_GRID},{CG_GRID}) "
                                     "float32"}},
         "bsr_spmm": {"launches_on_the_bsr_path": bsr_launches,
-                     **bsr_times}}
+                     **bsr_times},
+        "amg": {"launches_on_the_amg_path": amg_launches,
+                "cli": {**amg_cli, "shape": f"poisson2d({AMG_CLI_GRID},"
+                                            f"{AMG_CLI_GRID}) float32"},
+                **amg_full}}
     print(json.dumps(summary), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

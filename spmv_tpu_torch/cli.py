@@ -7,7 +7,8 @@ runs the modes ported so far, printing the same JSON documents:
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --profile 10
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --profile 5 --spmm 8
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --cg 2000 \
-        [--cg-tol 1e-6] [--precondition none|jacobi] [--recompute-residual K]
+        [--cg-tol 1e-6] [--precondition none|jacobi|amg] \
+        [--recompute-residual K]
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT \
         --cg 2000 --nrhs 4 [--precondition none|jacobi]
     python -m spmv_tpu_torch --triad 100000000 --profile 5
@@ -35,6 +36,14 @@ run the same algorithm.  On an H100 the unfused loop (a separate
 ``torch.dot``) measured faster; ``python -m
 spmv_tpu_torch.profile.cg_breakdown`` times both, and PERF.md keeps the
 numbers until a kernel change or a measured choice settles which runs.
+
+``--cg N --precondition amg`` runs PCG over ``spmv`` with one
+smoothed-aggregation AMG V-cycle as the preconditioner on every format
+(``amg_preconditioner``: A, P and P^T on the CSR kernel), before the
+DIA kernel loop, as the JAX CLI does; the report carries the hierarchy
+under ``"factorization"``.  The hierarchy is built from the Matrix Market
+entries, also with ``-s auto``, where the JAX CLI raises.  ``--nrhs``
+with amg is refused, with the JAX CLI's message.
 
 ``--cg N --nrhs K`` (K > 1) runs batched multi-RHS CG, one SpMM per
 iteration (K2 on DIA, K4a-c and the CSR SpMM on WELL-CW, K6a or K6b and
@@ -228,7 +237,7 @@ def _check_ported(args) -> None:
         ("--reorder", args.reorder != "none" and args.spmv_format != "auto"),
         ("--solver " + args.solver, args.solver != "cg"),
         ("--precondition " + args.precondition,
-         args.precondition not in ("none", "jacobi")),
+         args.precondition not in ("none", "jacobi", "amg")),
     ):
         if on:
             _not_ported(flag)
@@ -403,7 +412,19 @@ def _solve_cg(args, out, device, dtype) -> None:
         return
     b = spmv(A, torch.ones(m.num_columns, dtype=dtype, device=device))
 
-    if kernel.name == "dia":
+    factor_info = None
+    if args.precondition == "amg":
+        # before the DIA kernel loop, as in the JAX CLI: generic PCG
+        # over spmv with the SA-AMG V-cycle, on every format
+        minv, factor_info = _amg_preconditioner_cli(kernel, m, mm, device,
+                                                    dtype)
+
+        def solve(max_iterations):
+            return preconditioned_conjugate_gradient(
+                lambda v: spmv(A, v), b, minv, tol=args.cg_tol,
+                max_iterations=max_iterations,
+                recompute_every=args.recompute_residual)
+    elif kernel.name == "dia":
         def solve(max_iterations):
             return dia_conjugate_gradient(
                 A, b, tol=args.cg_tol, max_iterations=max_iterations,
@@ -431,7 +452,7 @@ def _solve_cg(args, out, device, dtype) -> None:
     residual = float(res.residual_norm)          # synchronises
     seconds = time.perf_counter() - t0
     x = res.x.double().cpu().numpy()
-    dump_json({
+    doc = {
         "kernel": kernel.describe(),
         "cg": {
             "solver": args.solver,
@@ -445,7 +466,29 @@ def _solve_cg(args, out, device, dtype) -> None:
             "seconds": seconds,
             "device": device_info(device)["platform"],
         },
-    }, out)
+    }
+    if factor_info is not None:
+        doc["cg"]["factorization"] = factor_info
+    dump_json(doc, out)
+
+
+def _amg_preconditioner_cli(kernel, m, mm, device, dtype):
+    """The SA-AMG V-cycle apply for --precondition amg, after the JAX
+    CLI's ``_amg_preconditioner_cli``: an unpadded host CSR as it is,
+    else the Matrix Market entries the matrix was built from (the
+    kernel's, or with ``-s auto`` the ones ``_make_kernel`` returned).
+    The JAX CLI falls back to the converted matrix when the kernel kept
+    no entries, and ``_as_host_csr`` has no WELL, WELL-CW or BSR branch,
+    so its ``-s auto`` raises ``TypeError`` where the port reads the
+    entries."""
+    from spmv_tpu_torch.models.csr import CsrMatrix
+    from spmv_tpu_torch.ops.amg import amg_preconditioner
+
+    if isinstance(m, CsrMatrix) and int(m.row_ptr[-1]) == m.num_entries:
+        host = m
+    else:
+        host = mm if mm is not None else kernel._mm
+    return amg_preconditioner(host, dtype=dtype, device=device)
 
 
 def _solve_cg_batched(args, out, device, dtype, kernel, A, diag) -> None:

@@ -33,7 +33,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
            "csr_spmv.cu", "csr_spmm.cu", "well_spmv.cu", "well_spmm.cu",
-           "bsr_spmm.cu")
+           "bsr_spmm.cu", "fused_vcycle.cu")
 HEADERS = ("dia_common.cuh", "cw_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -219,6 +219,9 @@ def load_library() -> ctypes.CDLL:
         _I32, _I32, _PTR, _PTR, _PTR, _I32, _I64, _I64, _I64, _I32, _PTR,
         _PTR, _PTR]
     lib.bsr_spmm_launch.restype = _I32
+    lib.fused_vcycle_launch.argtypes = [
+        _I32, _I32, _I32, _I32, _I64, _PTR, _PTR, _PTR, _PTR, _I32, _PTR]
+    lib.fused_vcycle_launch.restype = _I32
     lib.spmv_tpu_torch_error_string.argtypes = [_I32]
     lib.spmv_tpu_torch_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,5 +1,6 @@
-"""Kernels K1, K2, K3a-c, K4a-c, K5a-b, K6a-b, K7 and the CSR kernels on
-the card against their plain versions.
+"""Kernels K1, K2, K3a-c, K4a-c, K5a-b, K6a-b, K7, K8 and the CSR kernels
+on the card against their plain versions, and the generic and block AMG
+V-cycles on the card against their CPU runs.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -17,7 +18,10 @@ also launched twice on the same input, and the two outputs must be
 bitwise equal; each column of an SpMM kernel's output is also held
 against the SpMV kernel on that column.  BSR with bfloat16 blocks: both
 the kernel and its plain version multiply the same bfloat16 values and
-sum in float32, so they agree to 1e-5 of the output's scale.
+sum in float32, so they agree to 1e-5 of the output's scale.  K8 (the
+fused V-cycle) is held to its plain version by relative 2-norm: 1e-12 in
+float64 and 5e-6 in float32, the JAX fused V-cycle test's bound
+(tests/test_fused_vcycle.py:65).
 """
 
 import functools
@@ -528,3 +532,143 @@ def test_bsr_kernel_matches_plain(case, dtype, k, cuda):
     if dtype != torch.bfloat16:
         want = torch.from_numpy(b.spmm(X.double().cpu().numpy()))
         assert _rel_err(Y1.cpu(), want) <= TOL[dtype]
+
+
+# ---------------------------------------------------------------- AMG, K8
+
+# (grid, smooth_levels, block): aligned with 1 and 0 smoothed levels,
+# identity padding (1,920 rows to 2,048), an offset of 64 rows past the
+# JAX lane chunk (the guard the port drops), a 3-level hierarchy, and
+# aggregates of 3 rows (K8's restriction without the warp shuffle)
+FUSED_CASES = {
+    "p16x128": ((16, 128), 1, 4),
+    "p16x128_plain": ((16, 128), 0, 4),
+    "p16x120": ((16, 120), 1, 4),
+    "p64x16": ((64, 16), 1, 4),
+    "p32x512": ((32, 512), 1, 4),
+    "p48x64_block3": ((48, 64), 1, 3),
+}
+# the JAX fused V-cycle test's bound in float32 (tests/test_fused_vcycle.py:65)
+FUSED_TOL = {torch.float64: 1e-12, torch.float32: 5e-6}
+
+
+def _fused(case, dtype, device):
+    from spmv_tpu_torch.ops import fused_block_setup, fused_vcycle_device
+
+    shape, smooth, block = FUSED_CASES[case]
+    hier = fused_block_setup(CsrMatrix.from_matrix_market(poisson2d(*shape)),
+                             smooth_levels=smooth, block=block)
+    return fused_vcycle_device(hier, dtype=dtype, device=device)
+
+
+def _norm_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+@pytest.mark.parametrize("dtype", list(FUSED_TOL), ids=str)
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_vcycle_matches_plain(case, dtype, cuda):
+    """K8 twice (bitwise equal) against fused_vcycle_reference on the same
+    card tensors: relative 2-norm 1e-12 in float64, 5e-6 in float32."""
+    from spmv_tpu_torch.ops import fused_vcycle_core, fused_vcycle_reference
+
+    fv = _fused(case, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b = torch.randn(fv.padded_rows, generator=g, device=cuda,
+                    dtype=torch.float64).to(dtype)
+    before = fused_vcycle_core.launches
+    y1, y2 = fused_vcycle_core(fv, b), fused_vcycle_core(fv, b)
+    torch.cuda.synchronize()
+    assert fused_vcycle_core.launches == before + 2
+    assert torch.equal(y1, y2)
+    assert torch.isfinite(y1).all()
+    assert _norm_rel(y1, fused_vcycle_reference(fv, b)) <= FUSED_TOL[dtype]
+
+
+def test_fused_vcycle_one_launch_per_apply(cuda):
+    """PCG with the fused preconditioner: K8 launches once per apply."""
+    from spmv_tpu_torch.ops import (
+        fused_vcycle_core,
+        fused_vcycle_preconditioner,
+        preconditioned_conjugate_gradient,
+    )
+
+    mm = poisson2d(32, 64)
+    apply, info = fused_vcycle_preconditioner(
+        CsrMatrix.from_matrix_market(mm), dtype=torch.float64, device=cuda)
+    A = DeviceDia.from_host(DiaMatrix.from_matrix_market(mm),
+                            dtype=torch.float64, device=cuda)
+    applies = [0]
+
+    def counted(r):
+        applies[0] += 1
+        return apply(r)
+
+    before = fused_vcycle_core.launches
+    b = A(torch.ones(mm.num_rows, dtype=torch.float64, device=cuda))
+    res = preconditioned_conjugate_gradient(A, b, counted, tol=1e-10,
+                                            max_iterations=100)
+    assert info["kind"] == "sa-amg-fused"
+    assert 0 < res.iterations < 40
+    assert fused_vcycle_core.launches - before == applies[0] \
+        == res.iterations + 1
+    assert float((res.x - 1).abs().max()) < 1e-7
+
+
+def test_fused_vcycle_refusals(cuda):
+    """bfloat16 and a hierarchy padded between levels are refused."""
+    from spmv_tpu_torch.errors import MatrixError
+    from spmv_tpu_torch.ops import block_aggregation_setup
+
+    with pytest.raises(MatrixError, match="float32 or float64"):
+        _fused("p16x128", torch.bfloat16, cuda)
+    from spmv_tpu_torch.ops import fused_vcycle_device
+
+    hier = block_aggregation_setup(
+        CsrMatrix.from_matrix_market(poisson2d(65, 63)))
+    with pytest.raises(MatrixError, match="fused-aligned"):
+        fused_vcycle_device(hier, device=cuda)
+
+
+def test_generic_vcycle_on_card_matches_cpu(cuda):
+    """The generic V-cycle (A, P, P^T on the CSR kernel) on the card
+    against its CPU run, float64."""
+    from spmv_tpu_torch.ops import amg_preconditioner, smoothed_aggregation_setup
+
+    m = CsrMatrix.from_matrix_market(poisson2d(48, 48))
+    hier = smoothed_aggregation_setup(m, coarse_size=64)
+    r = torch.from_numpy(np.random.default_rng(4).standard_normal(m.num_rows))
+    want = amg_preconditioner(hierarchy=hier, dtype=torch.float64,
+                              device="cpu")[0](r)
+    before = csr_spmv_core.launches
+    got = amg_preconditioner(hierarchy=hier, dtype=torch.float64,
+                             device=cuda)[0](r.to(cuda))
+    torch.cuda.synchronize()
+    assert csr_spmv_core.launches > before
+    assert _norm_rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("max_diagonals", [96, 6])
+def test_block_vcycle_on_card_matches_cpu(max_diagonals, cuda):
+    """The block V-cycle (K1 per level; max_diagonals 6 forces the
+    Galerkin levels onto the CSR kernel) on the card against its CPU run,
+    float64."""
+    from spmv_tpu_torch.ops import block_aggregation_setup
+    from spmv_tpu_torch.ops.amg import block_amg_device, block_vcycle
+
+    m = CsrMatrix.from_matrix_market(poisson2d(40, 36))
+    hier = block_aggregation_setup(m, coarse_size=64)
+    r = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        hier.levels[0].n_pad))
+    devs = {d: block_amg_device(hier, dtype=torch.float64, device=d,
+                                max_diagonals=max_diagonals)
+            for d in ("cpu", cuda)}
+    kinds = [type(lv.a).__name__ for lv in devs[cuda].levels]
+    assert kinds[0] == "DeviceDia"
+    assert ("DeviceCsr" in kinds) == (max_diagonals == 6)
+    before = dia_spmv_core.launches
+    got = block_vcycle(devs[cuda], r.to(cuda))
+    torch.cuda.synchronize()
+    assert dia_spmv_core.launches > before
+    assert _norm_rel(got, block_vcycle(devs["cpu"], r)) <= 1e-12
