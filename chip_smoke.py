@@ -51,9 +51,13 @@ Phases (each prints readable lines; any failure exits non-zero):
    (bitwise equal), against the plain version and column by column
    against K5 / the CSR SpMV on that column.  Last, K7 (the BSR SpMM) on
    block matrices of block height 8, 32 and 128 with blocks_per_step 8,
-   3 and 1, an empty block row and a 300 x 200 shape, in float64,
-   float32 and bf16 blocks, at k = 1, 3 and 128: twice (bitwise equal),
-   against its plain version and the fp64 host product.  Then K8 (the
+   3 and 1, an empty block row, a 300 x 200 shape and ragged 1000 x 900
+   matrices of block height 64 and 128, in float64, float32 and bf16
+   blocks, at k = 1, 3, 8, 128 and 136: each on the path its shape
+   selects (bf16 blocks of 64 or 128 rows with k a multiple of 8 on the
+   tensor cores, the rest on the SIMT path; that path's counter must
+   move), twice (bitwise equal), against its plain version and the fp64
+   host product.  Then K8 (the
    fused V-cycle) against fused_vcycle_reference on the hierarchies of
    poisson2d(16, 128) with smooth_levels 1 and 0, poisson2d(16, 120)
    (identity padding), poisson2d(64, 16) (an offset the JAX kernel's lane
@@ -134,22 +138,27 @@ Phases (each prints readable lines; any failure exits non-zero):
 16. Batched CG on WELL as phase 9 does for DIA and WELL-CW:
    poisson2d(1024, 1024), float32, k = 4 (K6a).  The WELL SpMM launch
    counts are read after it.
-17. BSR path through the CLI (K7's count is zeroed just before): -s bsr
-   --profile 5 --spmm 16 and -s bsr --cg 500 on poisson2d(128, 128),
+17. BSR path through the CLI (K7's counts are zeroed just before): -s
+   bsr --profile 5 --spmm 16 and -s bsr --cg 500 on poisson2d(128, 128),
    and -s auto --profile 3 --spmm 128 on block_random(2048, 2048, 4),
    whose report must name bsr.
 18. The JAX bench's BSR leg: block_random(131072, 131072, 8, seed=2)
    through auto_format(workload="spmm"), which must choose bsr, then
-   make_kernel("bsr").spmm_fn(128) with float32 and bf16 blocks: the
+   make_kernel("bsr").spmm_fn(128) with float32 and bf16 blocks, whose
+   container must store exactly the host's blocks (no zero padding): the
    fp64 host checksum gate (1e-4; 1e-2 for bf16), seconds per chained
-   SpMM, TFLOP/s, the bound, the plain version's ms and one torch.sparse
-   BSR product's (where torch takes the dtype); then the same in float32
+   SpMM (the bf16 step casts X to bf16 each step), TFLOP/s, the bound
+   and the plain version's ms; every bf16 launch must go to the tensor
+   cores, every float32 one to the SIMT path.  Then the same in float32
    on block_random(262144, 262144, 2, seed=3), whose 134 MB X is past the
    80 MB line where the JAX bsr_spmm switches from K7b to K7a.  K7's
    launches are tallied under the Pallas kernel their X size selects and
-   read after it.
+   the path their shape selects, and read after it.
 19. K6a, K6b (at every column-block width that fits) and K7 at the
-   phase 15 and 18 shapes alone (not counted), as in phase 10.
+   phase 15 and 18 shapes alone (not counted), as in phase 10; K7 beside
+   one torch.sparse BSR product of the same blocks, timed the same way
+   (both in a CUDA graph with the L2 flushed, or both eager where torch's
+   product cannot be captured).
 20. AMG path through the CLI (the K8, CSR and K1 launch counts are zeroed
    just before): --cg 200 --precondition amg on poisson2d(256, 256) with
    -s dia and -s wellcw (the generic V-cycle: the CSR kernel; the
@@ -169,8 +178,8 @@ Phases (each prints readable lines; any failure exits non-zero):
 
 The second-to-last lines are the kernels' JSON summary (seventeen
 kernels, each with its launches on the main path, max error, ms against
-plain ms, bound and library ms, and summaries of each path, `amg` the
-last) and nvidia-smi's
+plain ms, bound and library ms; K7's rows also its launches by path;
+and summaries of each path, `amg` the last) and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
 data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
@@ -324,6 +333,16 @@ def _cold_graph_ms(fn, flush, reps: int) -> float:
         fn()
 
     return _graph_replay_ms(both, reps) - _graph_replay_ms(flush, reps)
+
+
+def _cold_eager_ms(fn, flush, reps: int) -> float:
+    """As ``_cold_graph_ms``, for a call that a CUDA graph cannot capture:
+    eager (flush, fn) against eager flush, by CUDA events."""
+    def both():
+        flush()
+        fn()
+
+    return _time_launches(both, reps) - _time_launches(flush, reps)
 
 
 def _nbytes(*tensors) -> int:
@@ -1839,18 +1858,52 @@ def _bsr_blocklets(bh: int, n: int = 1024):
                             None, bh)
 
 
+def _bsr_dense_blocks(bh, num_rows, num_columns, per_row, seed):
+    """Dense (bh, 128) blocks at random, per_row a block row, cut to a
+    ragged (num_rows, num_columns) shape (tests/test_torch_cuda.py)."""
+    from spmv_tpu_torch.models import BsrMatrix
+
+    rng = np.random.default_rng(seed)
+    nbr, nbc = -(-num_rows // bh), -(-num_columns // 128)
+    rows, cols = [], []
+    for br in range(nbr):
+        for bc in rng.choice(nbc, size=min(per_row, nbc), replace=False):
+            r, c = np.meshgrid(br * bh + np.arange(bh), bc * 128
+                               + np.arange(128), indexing="ij")
+            rows.append(r.ravel())
+            cols.append(c.ravel())
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    keep = (rows < num_rows) & (cols < num_columns)
+    return BsrMatrix._build(num_rows, num_columns, rows[keep], cols[keep],
+                            rng.standard_normal(int(keep.sum())), None, bh)
+
+
+def _bsr_path_counts() -> dict:
+    from spmv_tpu_torch.ops import bsr_spmm_core
+
+    return {"tensor_core": bsr_spmm_core.tensor_core_launches,
+            "simt": bsr_spmm_core.simt_launches}
+
+
+def _bsr_path_delta(before: dict) -> dict:
+    return {p: n - before[p] for p, n in _bsr_path_counts().items()}
+
+
 def phase_compare_bsr(device):
     """K7 against its plain version on block matrices: block heights 8,
-    32 and 128, blocks_per_step 1, 3 and 8, an empty block row and a 300 x
-    200 shape; float64, float32 and bf16 blocks; k = 1, 3 and BSR_K:
-    twice (bitwise equal), and float32 / float64 against the fp64 host
-    product, bf16 within the JAX test's bound of it."""
+    32, 64 and 128, blocks_per_step 1, 3 and 8, an empty block row, a 300
+    x 200 shape and ragged bh 64 / 128 matrices (num_rows not a multiple
+    of bh, num_columns not a multiple of 128); float64, float32 and bf16
+    blocks; k = 1, 3, 8, BSR_K and 136: each on the path its shape
+    selects (bf16 at bh 64 / 128 with k a multiple of 8: the tensor
+    cores), twice (bitwise equal), and float32 / float64 against the fp64
+    host product, bf16 within the JAX test's bound of it."""
     import torch
 
     from spmv_tpu_torch.io.generate import random_sparse
     from spmv_tpu_torch.io.matrix_market import MatrixMarket
     from spmv_tpu_torch.models import BsrMatrix, DeviceBsr
-    from spmv_tpu_torch.ops import bsr_spmm_core, bsr_spmm_reference
+    from spmv_tpu_torch.ops import bsr_path, bsr_spmm_core, bsr_spmm_reference
 
     empty = BsrMatrix.from_matrix_market(MatrixMarket(
         "matrix", "coordinate", "real", "general", 384, 384, 2,
@@ -1860,19 +1913,29 @@ def phase_compare_bsr(device):
              ("bh 128, blocks_per_step 1", _bsr_blocklets(128), 1),
              ("empty block row", empty, 8),
              ("random_sparse(300,200,4)", BsrMatrix.from_matrix_market(
-                 random_sparse(300, 200, 4, seed=3)), 8)]
+                 random_sparse(300, 200, 4, seed=3)), 8),
+             ("bh 64, ragged 1000 x 900", _bsr_dense_blocks(
+                 64, 1000, 900, 3, 3), 1),
+             ("bh 128, ragged 1000 x 900", _bsr_dense_blocks(
+                 128, 1000, 900, 3, 4), 1)]
     for name, b, kb in cases:
         for dtype in (torch.float64, torch.float32, torch.bfloat16):
             dtn = str(dtype).replace("torch.", "")
             A = DeviceBsr.from_host(b, dtype=dtype, blocks_per_step=kb,
                                     device=device)
             errs = []
-            for k in (1, 3, BSR_K):
+            for k in (1, 3, 8, BSR_K, 136):
                 g = torch.Generator(device=device).manual_seed(k)
                 X = torch.randn(A.num_columns, k, generator=g,
                                 device=device).to(dtype)
+                path = bsr_path(dtype, A.block_rows, k, X.data_ptr())
+                before = _bsr_path_counts()
                 Y1, Y2 = bsr_spmm_core(A, X), bsr_spmm_core(A, X)
                 _sync(device)
+                moved = _bsr_path_delta(before)
+                if moved[path] != 2:
+                    _fail(f"bsr_spmm on {name} {dtn} k={k}: the {path} path"
+                          f" did not take both launches ({moved})")
                 if not torch.equal(Y1, Y2):
                     _fail(f"bsr_spmm on {name} {dtn} k={k}: two launches "
                           "differ")
@@ -1882,7 +1945,7 @@ def phase_compare_bsr(device):
                 host = torch.from_numpy(b.spmm(X.double().cpu().numpy()))
                 eh = _rel(Y1.cpu(), host)
                 th = TOL_BF16_HOST if dtype == torch.bfloat16 else tol
-                errs.append(f"k={k} {e:.3e} (fp64 host {eh:.3e})")
+                errs.append(f"k={k} {path} {e:.3e} (fp64 host {eh:.3e})")
                 if e > tol or eh > th:
                     _fail(f"bsr_spmm on {name} {dtn} k={k}: rel err {e} > "
                           f"{tol} or vs host {eh} > {th}")
@@ -2030,8 +2093,9 @@ def _bsr_regime(num_columns: int, k: int, itemsize: int) -> str:
 def phase_cli_bsr(device):
     """-s bsr (--profile with --spmm, and --cg) on a small poisson2d, and
     -s auto --spmm on a small block_random, whose report must name bsr.
-    Returns the K7 launches by regime: all K7b, which is checked for each
-    run's X in the CLI's value dtype."""
+    Returns the K7 launches by regime (all K7b, which is checked for each
+    run's X in the CLI's value dtype) and by path (the CLI's float32
+    blocks: all SIMT)."""
     from spmv_tpu_torch.io import write_matrix_market
     from spmv_tpu_torch.io.generate import block_random, poisson2d
     from spmv_tpu_torch.models import default_value_dtype
@@ -2044,6 +2108,7 @@ def phase_cli_bsr(device):
             _fail(f"the BSR CLI's X ({n} x {k}) passes the 80 MB line: its "
                   "launches would not all be K7b's")
     before = bsr_spmm_core.launches
+    before_paths = _bsr_path_counts()
     with tempfile.TemporaryDirectory() as tmp:
         paths = {"poisson": os.path.join(tmp, "poisson.mtx"),
                  "blocks": os.path.join(tmp, "blocks.mtx")}
@@ -2070,7 +2135,9 @@ def phase_cli_bsr(device):
     if fmt != "bsr":
         _fail(f"-s auto --spmm on {b} chose {fmt}, not bsr")
     _sync(device)
-    return {"bsr_spmm_wholex": bsr_spmm_core.launches - before}
+    by_path = _bsr_path_delta(before_paths)
+    _say(f"[17 bsr cli] K7 launches by path: {by_path}")
+    return {"bsr_spmm_wholex": bsr_spmm_core.launches - before}, by_path
 
 
 def _bsr_library(A, X):
@@ -2101,7 +2168,7 @@ def _bsr_leg(tag, host, dtype, device, smi_line, triad_gbps, gate):
     import torch
 
     from spmv_tpu_torch.kernels import make_kernel
-    from spmv_tpu_torch.ops import bsr_spmm_core, bsr_spmm_reference
+    from spmv_tpu_torch.ops import bsr_path, bsr_spmm_core, bsr_spmm_reference
     from spmv_tpu_torch.profile import time_kernel
 
     k = BSR_K
@@ -2114,16 +2181,22 @@ def _bsr_leg(tag, host, dtype, device, smi_line, triad_gbps, gate):
     X = np.random.default_rng(0).standard_normal(
         (host.num_columns, k)).astype(np.float32)
     Xd = torch.from_numpy(X).to(device)
+    path = bsr_path(dtype, A.block_rows, k)   # the step's X, Y are fresh
     before = bsr_spmm_core.launches
+    before_paths = _bsr_path_counts()
     Y = step(Xd, A)
     got = float(Y.abs().sum(dtype=torch.float32))
     want = float(np.abs(host.spmm(X.astype(np.float64))).sum())
     rel = abs(got - want) / want
     _say(f"[{tag}] {dtn} blocks (bh {A.block_rows}, {A.num_blocks} stored "
-         f"blocks of which {host.num_blocks} the host's, "
+         f"blocks, the host's {host.num_blocks}: no zero padding, "
          f"{A.num_block_rows} block rows), k={k}, X "
          f"{A.num_block_cols * 128 * k * A.blocks.element_size()} B ({regime}"
-         f" regime): checksum rel err {rel:.3e} (gate {gate})")
+         f" regime, the {path} path): checksum rel err {rel:.3e} (gate "
+         f"{gate})")
+    if A.num_blocks != host.num_blocks or A.blocks_per_step != 1:
+        _fail(f"bsr {dtn}: make_kernel('bsr') stored {A.num_blocks} blocks "
+              f"for the host's {host.num_blocks}")
     if not rel <= gate:
         _fail(f"bsr {dtn} checksum gate: {rel} > {gate}")
     calls = [1]                  # the checksum's step
@@ -2136,17 +2209,20 @@ def _bsr_leg(tag, host, dtype, device, smi_line, triad_gbps, gate):
                     runs=6).seconds_per_iteration
     _sync(device)
     launched = bsr_spmm_core.launches - before
+    by_path = _bsr_path_delta(before_paths)
     if launched != calls[0]:
         _fail(f"bsr {dtn}: {launched} launches for {calls[0]} SpMMs")
+    if by_path[path] != launched:
+        _fail(f"bsr {dtn}: {by_path} launches by path, not all {launched} "
+              f"on the {path} path")
+    if dtype == torch.bfloat16 and path != "tensor_core":
+        _fail(f"bsr bf16 at bh {A.block_rows}, k={k}: the {path} path, "
+              "not the tensor cores")
     if not (np.isfinite(t) and t > 0):
         _fail(f"bsr {dtn}: bad timing {t}")
     Xb = Xd.to(dtype)
     plain_ms = _time_launches(lambda: bsr_spmm_reference(A, Xb), 3)
-    lib, why = _bsr_library(A, Xb)
-    lib_ms = None if lib is None else _time_launches(lib, 10)
-    # the bound counts the host's blocks, not the zero blocks that pad
-    # each block row to a multiple of blocks_per_step
-    nb = host.num_blocks
+    nb = A.num_blocks
     flops = 2 * nb * A.block_rows * 128 * k
     acc = 4 if dtype == torch.bfloat16 else A.blocks.element_size()
     b = _bound(nb * (A.block_rows * 128 * A.blocks.element_size() + 4)
@@ -2154,18 +2230,16 @@ def _bsr_leg(tag, host, dtype, device, smi_line, triad_gbps, gate):
                triad_gbps,
                peak=PEAK_BF16_FLOPS if dtype == torch.bfloat16
                else PEAK_F32_FLOPS)
-    _say(f"[{tag}] {dtn}: SpMM k={k} {t * 1e3:.4f} ms chained "
+    cast = (" (the chained step casts X from float32 to bf16 each step; "
+            "phase 19 times K7 alone)" if dtype == torch.bfloat16 else "")
+    _say(f"[{tag}] {dtn}: SpMM k={k} {t * 1e3:.4f} ms chained{cast} "
          f"({flops / t / 1e12:.2f} TFLOP/s; {calls[0]} SpMMs, the checksum"
-         f"'s included, {launched} launches), bound {b['bound_ms']:.4f} ms "
-         f"({b['bound_by']}: {b['bytes']} B, {flops} flops), plain "
-         f"{plain_ms:.4f} ms, one torch.sparse BSR product "
-         + (f"{lib_ms:.4f} ms" if lib is not None else f"refused ({why})")
-         + f", on {smi_line}")
+         f"'s included, {launched} launches, {by_path}), bound "
+         f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, {flops} "
+         f"flops), plain {plain_ms:.4f} ms, on {smi_line}")
     res = {"ms": t * 1e3, "tflops": flops / t / 1e12, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "checksum_rel_err": rel, **b,
-           "chained": calls[0]}
-    if why is not None:
-        res["library_refused"] = why
+           "checksum_rel_err": rel, **b, "chained": calls[0], "path": path,
+           "launches_by_path": by_path}
     del kernel, step, args, Y, Xb
     _sync(device)
     return res, A, Xd, {regime: launched}
@@ -2239,7 +2313,7 @@ def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
     path's counts were read before."""
     import torch
 
-    from spmv_tpu_torch.ops import bsr_spmm_core, bsr_spmm_reference
+    from spmv_tpu_torch.ops import bsr_path, bsr_spmm_core, bsr_spmm_reference
     from spmv_tpu_torch.ops.well_kernels import SMEM_MAX
 
     f32 = torch.float32
@@ -2306,8 +2380,12 @@ def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
         kname = _bsr_regime(A.num_columns, X.shape[1],
                             A.blocks.element_size())
         Xb = X.to(dtype)
+        path = bsr_path(dtype, A.block_rows, Xb.shape[1], Xb.data_ptr())
+        before = _bsr_path_counts()
         Y1, Y2 = bsr_spmm_core(A, Xb), bsr_spmm_core(A, Xb)
         _sync(device)
+        if _bsr_path_delta(before)[path] != 2:
+            _fail(f"bsr_spmm {key}: not launched on the {path} path")
         if not torch.equal(Y1, Y2):
             _fail(f"bsr_spmm {key}: two launches differ")
         want = bsr_spmm_reference(A, Xb)
@@ -2318,18 +2396,39 @@ def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
             _fail(f"bsr_spmm {key}: rel err {rel} > {tol}")
         out = torch.empty_like(Y1)
         del Y1, Y2, want
-        ms = _cold_graph_ms(lambda: bsr_spmm_core(A, Xb, out=out),
-                            lambda: scratch.fill_(0.0), 10)
-        eager_ms = _time_launches(lambda: bsr_spmm_core(A, Xb, out=out), 5)
+        lib, why = _bsr_library(A, Xb)
+        flush = lambda: scratch.fill_(0.0)  # noqa: E731
+        k7 = lambda: bsr_spmm_core(A, Xb, out=out)  # noqa: E731
+        ms, lib_ms, timing = _cold_graph_ms(k7, flush, 10), None, "graph"
+        if lib is not None:
+            try:
+                lib_ms = _cold_graph_ms(lib, flush, 10)
+            except RuntimeError as e:
+                # torch's product cannot be captured: both eager
+                _sync(device)
+                why = f"not captured ({str(e).splitlines()[0][:120]})"
+                timing = "eager"
+                ms = _cold_eager_ms(k7, flush, 10)
+                lib_ms = _cold_eager_ms(lib, flush, 10)
+        eager_ms = _time_launches(k7, 5)
         found[(kname, key)] = {"max_abs_err": err, "ms": ms,
-                               "eager_ms": eager_ms}
-        _say(f"[19 spmm kernels] K7 ({kname} regime) on the "
+                               "eager_ms": eager_ms, "library_ms": lib_ms,
+                               "timing": timing, "path": path}
+        if why is not None:
+            found[(kname, key)]["library_note"] = why
+        how = ("a CUDA graph, L2 flushed" if timing == "graph" else
+               "eager, L2 flushed")
+        _say(f"[19 spmm kernels] K7 ({kname} regime, {path} path) on the "
              f"{'far' if key == 'far' else 'bench'} matrix, "
              f"{str(dtype).replace('torch.', '')} blocks, k={X.shape[1]}: "
-             f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
-             f"{eager_ms:.4f} ms a call through the wrapper, max abs err "
-             f"{err:.3e} (rel {rel:.3e}), bitwise repeatable, on {smi_line}")
-        del out, Xb
+             f"{ms:.4f} ms on the device ({how}), one torch.sparse BSR "
+             f"product of the same blocks "
+             + (f"{lib_ms:.4f} ms ({how})" if lib_ms is not None
+                else f"refused ({why})")
+             + f", {eager_ms:.4f} ms a call through the wrapper, max abs "
+             f"err {err:.3e} (rel {rel:.3e}), bitwise repeatable, on "
+             f"{smi_line}")
+        del out, Xb, lib
         _sync(device)
     return found
 
@@ -2626,6 +2725,77 @@ def phase_kernel_fused(device, hier, smi_line, triad_gbps):
 
 
 # ----------------------------------------------------------------- main
+def phase_bsr_path(device, smi_line, triad_gbps):
+    """The BSR path's run (CLI, the bench's leg in float32 and bf16, the
+    leg past the 80 MB line): K7's counts start from zero here; each
+    launch is tallied under the Pallas kernel its X size selects and
+    under the path (tensor cores or SIMT) its shape selects."""
+    from spmv_tpu_torch.ops import bsr_spmm_core
+
+    bsr_spmm_core.launches = 0
+    bsr_spmm_core.tensor_core_launches = 0
+    bsr_spmm_core.simt_launches = 0
+    launches, cli_paths = phase_cli_bsr(device)
+    times, keep, leg_launches = phase_bsr_legs(device, smi_line, triad_gbps)
+    for r, n in leg_launches.items():
+        launches[r] = launches.get(r, 0) + n
+    if sum(launches.values()) != bsr_spmm_core.launches:
+        _fail(f"K7 launches {launches} do not add up to the wrapper's "
+              f"{bsr_spmm_core.launches}")
+    paths = {"bsr_spmm_wholex": {
+        p: cli_paths[p] + sum(times[d]["launches_by_path"][p]
+                              for d in ("float32", "bfloat16"))
+        for p in cli_paths}, "bsr_spmm": times["far"]["launches_by_path"]}
+    if {p: sum(v[p] for v in paths.values()) for p in cli_paths} \
+            != _bsr_path_counts():
+        _fail(f"K7 launches by path {paths} do not add up to the wrapper's "
+              f"{_bsr_path_counts()}")
+    _say("[18 bsr] launches on the BSR path: " + ", ".join(
+        f"{k} {n} ({paths[k]})" for k, n in launches.items()))
+    for name in ("bsr_spmm_wholex", "bsr_spmm"):
+        if launches.get(name, 0) <= 0:
+            _fail(f"{name} was never launched on the BSR path")
+    return {"launches": launches, "paths": paths, "times": times,
+            "keep": keep}
+
+
+def _bsr_rows(run, spmm_kernels) -> list:
+    """The K7 rows of the kernels' JSON line: K7b on the bench's leg
+    (float32 on the SIMT path, bf16 on the tensor cores) and K7a past the
+    80 MB line (float32)."""
+    times = run["times"]
+    keys = ("plain_ms", "bound_ms", "bound_by", "bound_triad_ms", "bytes",
+            "flops")
+    rows = []
+    for name, line, key, leg, shape, extra in (
+            ("bsr_spmm_wholex", 918, "float32", times["float32"],
+             times["shape"], {
+                 f"{f}_bf16": v for f, v in
+                 {**times["bfloat16"],
+                  **spmm_kernels[("bsr_spmm_wholex", "bfloat16")]}.items()
+                 if f in ("ms", "max_abs_err", "plain_ms", "library_ms",
+                          "bound_ms", "bound_by", "tflops", "path",
+                          "timing")} | {
+                 "source_bf16": "spmv_tpu_torch/csrc/bsr_spmm_tc.cu"}),
+            ("bsr_spmm", 896, "far", times["far"], times["far"]["shape"],
+             {})):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "spmv_tpu_torch/csrc/bsr_spmm.cu",
+            "replaces": f"spmv_tpu/ops/pallas_kernels.py:{line}",
+            "launches": run["launches"][name],
+            "launches_by_path": run["paths"][name],
+            **{k: leg[k] for k in keys},
+            **spmm_kernels[(name, key)],
+            "chained_ms": leg["ms"],
+            "tflops_chained": leg["tflops"],
+            **extra,
+            "shape": f"{shape} float32",
+        })
+    return rows
+
+
 def main() -> int:
     device, smi_line = phase_device()
 
@@ -2634,7 +2804,6 @@ def main() -> int:
     from spmv_tpu_torch.io.generate import banded_random, poisson2d
     from spmv_tpu_torch.models import DiaMatrix, WellCwMatrix, WellMatrix
     from spmv_tpu_torch.ops import (
-        bsr_spmm_core,
         csr_spmm_core,
         csr_spmv_core,
         dia_spmm_core,
@@ -2777,26 +2946,9 @@ def main() -> int:
     del well_mats, dia_of, full, cg_well
     _sync(device)
 
-    # the BSR path's run (CLI, the bench's leg in float32 and bf16, the
-    # leg past the 80 MB line): K7's count starts from zero here; each
-    # launch is tallied under the Pallas kernel its X size selects
-    bsr_spmm_core.launches = 0
-    bsr_launches = phase_cli_bsr(device)
-    bsr_times, bsr_keep, leg_launches = phase_bsr_legs(device, smi_line,
-                                                       triad_gbps)
-    for r, n in leg_launches.items():
-        bsr_launches[r] = bsr_launches.get(r, 0) + n
-    if sum(bsr_launches.values()) != bsr_spmm_core.launches:
-        _fail(f"K7 launches {bsr_launches} do not add up to the wrapper's "
-              f"{bsr_spmm_core.launches}")
-    _say("[18 bsr] launches on the BSR path: " + ", ".join(
-        f"{k} {n}" for k, n in bsr_launches.items()))
-    for name in ("bsr_spmm_wholex", "bsr_spmm"):
-        if bsr_launches.get(name, 0) <= 0:
-            _fail(f"{name} was never launched on the BSR path")
-    spmm_kernels = phase_kernels_spmm(device, well_spmm, bsr_keep, smi_line,
-                                      triad_gbps)
-    del bsr_keep
+    bsr_run = phase_bsr_path(device, smi_line, triad_gbps)
+    spmm_kernels = phase_kernels_spmm(device, well_spmm, bsr_run.pop("keep"),
+                                      smi_line, triad_gbps)
 
     # the AMG path's run (the CLI's generic V-cycle, then PCG at full size
     # with K8 and with the block V-cycle): its counts start from zero here
@@ -2912,35 +3064,7 @@ def main() -> int:
         }
         for name, line in (("well_whole_spmm", 1079),
                            ("well_seg_spmm", 1121))
-    ] + [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": "spmv_tpu_torch/csrc/bsr_spmm.cu",
-            "replaces": f"spmv_tpu/ops/pallas_kernels.py:{line}",
-            "launches": bsr_launches[name],
-            **{key: leg[key] for key in ("plain_ms", "library_ms",
-                                         "bound_ms", "bound_by",
-                                         "bound_triad_ms", "bytes", "flops")},
-            **spmm_kernels[(name, key)],
-            "chained_ms": leg["ms"],
-            "tflops_chained": leg["tflops"],
-            **({"library_refused": leg["library_refused"]}
-               if "library_refused" in leg else {}),
-            **extra,
-            "shape": f"{shape} float32",
-        }
-        for name, line, key, leg, shape, extra in (
-            ("bsr_spmm_wholex", 918, "float32", bsr_times["float32"],
-             bsr_times["shape"], {
-                 f"{f}_bf16": v for f, v in
-                 {**bsr_times["bfloat16"],
-                  **spmm_kernels[("bsr_spmm_wholex", "bfloat16")]}.items()
-                 if f in ("ms", "max_abs_err", "plain_ms", "library_ms",
-                          "bound_ms", "bound_by", "tflops")}),
-            ("bsr_spmm", 896, "far", bsr_times["far"],
-             bsr_times["far"]["shape"], {}))
-    ] + [
+    ] + _bsr_rows(bsr_run, spmm_kernels) + [
         {
             "name": "fused_vcycle",
             "route": "cuda",
@@ -2966,8 +3090,9 @@ def main() -> int:
             "batched_cg": {**well_cg, "k": CG_K,
                            "shape": f"poisson2d({CG_GRID},{CG_GRID}) "
                                     "float32"}},
-        "bsr_spmm": {"launches_on_the_bsr_path": bsr_launches,
-                     **bsr_times},
+        "bsr_spmm": {"launches_on_the_bsr_path": bsr_run["launches"],
+                     "launches_by_path": bsr_run["paths"],
+                     **bsr_run["times"]},
         "amg": {"launches_on_the_amg_path": amg_launches,
                 "cli": {**amg_cli, "shape": f"poisson2d({AMG_CLI_GRID},"
                                             f"{AMG_CLI_GRID}) float32"},

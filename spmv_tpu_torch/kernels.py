@@ -390,8 +390,13 @@ class BsrKernel(_MatrixKernel):
         return BsrMatrix.from_matrix_market(mm, block_rows=self.block_rows)
 
     def device_matrix(self) -> DeviceBsr:
+        """The host's blocks and no zero padding (``blocks_per_step=1``):
+        K7 walks ``row_ptr`` and has no use for the TPU's steps.  A stated
+        deviation from the JAX kernel, whose padding blocks point at
+        column block 0: an inf or NaN there gives NaN (0 * inf) in every
+        padded block row on JAX, the finite product here."""
         return DeviceBsr.from_host(self.matrix, dtype=self.dtype,
-                                   device=self.device)
+                                   blocks_per_step=1, device=self.device)
 
     def run_fn(self):
         A = self.device_matrix()

@@ -884,7 +884,8 @@ class DeviceBsr(torch.nn.Module):
 
     - ``blocks`` (num_blocks, block_rows, 128) in float32, float64 or
       bfloat16: each block row's run padded with zero blocks to a
-      multiple of ``blocks_per_step``;
+      multiple of ``blocks_per_step`` (1 on the port's own paths, which
+      store the host's blocks and nothing else: ``BsrKernel``);
     - ``block_col`` (num_blocks,) int32, the block column of each block;
     - ``block_row`` (num_blocks // blocks_per_step,) int32, the block row
       of each step (non-decreasing); and

@@ -33,7 +33,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
            "csr_spmv.cu", "csr_spmm.cu", "well_spmv.cu", "well_spmm.cu",
-           "bsr_spmm.cu", "fused_vcycle.cu")
+           "bsr_spmm.cu", "bsr_spmm_tc.cu", "fused_vcycle.cu")
 HEADERS = ("dia_common.cuh", "cw_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -215,10 +215,14 @@ def load_library() -> ctypes.CDLL:
         _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64,
         _I64, _I64, _I32, _I32, _PTR, _PTR, _PTR]
     lib.well_seg_spmm_launch.restype = _I32
-    lib.bsr_spmm_launch.argtypes = [
+    lib.bsr_simt_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _I32, _I64, _I64, _I64, _I32, _PTR,
         _PTR, _PTR]
-    lib.bsr_spmm_launch.restype = _I32
+    lib.bsr_simt_launch.restype = _I32
+    lib.bsr_tc_launch.argtypes = [
+        _I32, _PTR, _PTR, _PTR, _I32, _I64, _I64, _I64, _I64, _I32, _PTR,
+        _PTR, _PTR]
+    lib.bsr_tc_launch.restype = _I32
     lib.fused_vcycle_launch.argtypes = [
         _I32, _I32, _I32, _I32, _I64, _PTR, _PTR, _PTR, _PTR, _I32, _PTR]
     lib.fused_vcycle_launch.restype = _I32

@@ -14,10 +14,19 @@ and float64 blocks give Y in their own type, bfloat16 blocks accumulate
 in float32 and give float32 Y.  ``bsr_spmv`` is the SpMM of one column,
 as the JAX ``spmv`` on ``DeviceBsr`` is.
 
+K7 has two paths, chosen by ``bsr_path`` from the shape alone, never by
+a failure: bfloat16 blocks of 64 or 128 rows with k a multiple of 8 and
+16-byte aligned X and Y go to the tensor cores (``csrc/bsr_spmm_tc.cu``:
+TMA and ``wgmma``); everything else (float32, float64, the other
+bfloat16 shapes) to the register-tiled SIMT kernel
+(``csrc/bsr_spmm.cu``).  A failed launch or tensor-map encode raises
+``KernelError``.
+
 The wrapper takes its plain version (``bsr_spmm_reference``) for CPU
 tensors, launches its kernel for CUDA tensors, and raises for anything
-else, with the launch discipline of ``ops/_launch.py``; ``.launches``
-counts its launches.
+else, with the launch discipline of ``ops/_launch.py``;
+``bsr_spmm_core.launches`` counts its launches, and
+``.tensor_core_launches`` and ``.simt_launches`` those of each path.
 """
 
 from __future__ import annotations
@@ -34,9 +43,22 @@ from spmv_tpu_torch.ops._launch import (
 )
 from spmv_tpu_torch.ops.spmv import accumulate_dtype, bsr_spmm_reference
 
-__all__ = ["bsr_spmm_core", "bsr_spmm", "bsr_spmv"]
+__all__ = ["bsr_path", "bsr_spmm_core", "bsr_spmm", "bsr_spmv"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+TENSOR_CORE_BLOCK_ROWS = (64, 128)    # a block is one or two wgmma M tiles
+
+
+def bsr_path(dtype: torch.dtype, block_rows: int, k: int, *ptrs: int) -> str:
+    """K7's path for ``block_rows``-row blocks of ``dtype`` times k columns
+    of X: ``"tensor_core"`` for bfloat16 blocks of 64 or 128 rows with k a
+    multiple of 8 and every address in ``ptrs`` (X's and Y's) 16-byte
+    aligned (what a TMA tensor map takes: 16-byte row strides and bases),
+    else ``"simt"``."""
+    if (dtype == torch.bfloat16 and block_rows in TENSOR_CORE_BLOCK_ROWS
+            and k % 8 == 0 and all(p % 16 == 0 for p in ptrs)):
+        return "tensor_core"
+    return "simt"
 
 
 def bsr_spmm_core(A, X: torch.Tensor,
@@ -73,18 +95,33 @@ def bsr_spmm_core(A, X: torch.Tensor,
     Y = out if out is not None else torch.empty(
         (A.num_rows, k), dtype=acc, device=X.device)
     if A.num_rows > 0 and k > 0:
+        if A.blocks.data_ptr() % 16:
+            raise KernelError("BSR blocks must start on a 16-byte boundary")
         lib = load_library()
-        rc = lib.bsr_spmm_launch(
-            _DTYPE_CODE[dt], X.device.index, A.blocks.data_ptr(),
-            A.block_col.data_ptr(), A.row_ptr.data_ptr(), A.block_rows,
-            A.num_block_rows, A.num_rows, A.num_columns, k, X.data_ptr(),
-            Y.data_ptr(), stream_of(X))
-        raise_on(lib, rc, "bsr_spmm")
+        common = (A.blocks.data_ptr(), A.block_col.data_ptr(),
+                  A.row_ptr.data_ptr(), A.block_rows)
+        if bsr_path(dt, A.block_rows, k, X.data_ptr(),
+                    Y.data_ptr()) == "tensor_core":
+            rc = lib.bsr_tc_launch(
+                X.device.index, *common, A.num_blocks, A.num_block_rows,
+                A.num_rows, A.num_columns, k, X.data_ptr(), Y.data_ptr(),
+                stream_of(X))
+            raise_on(lib, rc, "bsr_spmm (tensor cores)")
+            bsr_spmm_core.tensor_core_launches += 1
+        else:
+            rc = lib.bsr_simt_launch(
+                _DTYPE_CODE[dt], X.device.index, *common, A.num_block_rows,
+                A.num_rows, A.num_columns, k, X.data_ptr(), Y.data_ptr(),
+                stream_of(X))
+            raise_on(lib, rc, "bsr_spmm (SIMT)")
+            bsr_spmm_core.simt_launches += 1
         bsr_spmm_core.launches += 1
     return Y
 
 
 bsr_spmm_core.launches = 0
+bsr_spmm_core.tensor_core_launches = 0
+bsr_spmm_core.simt_launches = 0
 
 
 def bsr_spmm(A, X: torch.Tensor) -> torch.Tensor:

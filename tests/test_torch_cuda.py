@@ -17,8 +17,9 @@ CSR kernels (float64 and float32 only, and bfloat16 blocks for BSR) are
 also launched twice on the same input, and the two outputs must be
 bitwise equal; each column of an SpMM kernel's output is also held
 against the SpMV kernel on that column.  BSR with bfloat16 blocks: both
-the kernel and its plain version multiply the same bfloat16 values and
-sum in float32, so they agree to 1e-5 of the output's scale.  K8 (the
+the kernel (on the tensor cores or the SIMT path) and its plain version
+multiply the same bfloat16 values and sum in float32, so they agree to
+1e-5 of the output's scale.  K8 (the
 fused V-cycle) is held to its plain version by relative 2-norm: 1e-12 in
 float64 and 5e-6 in float32, the JAX fused V-cycle test's bound
 (tests/test_fused_vcycle.py:65).
@@ -51,6 +52,7 @@ from spmv_tpu_torch.models import (
     WellMatrix,
 )
 from spmv_tpu_torch.ops import (
+    bsr_path,
     bsr_spmm_core,
     bsr_spmm_reference,
     csr_spmm_core,
@@ -490,7 +492,35 @@ def _bsr_empty_row():
         np.array([1, 384]), np.array([1, 384]), np.array([2.0, 3.0])))
 
 
-# name -> (host matrix, blocks_per_step)
+def _bsr_dense_blocks(bh, num_rows, num_columns, per_row, seed):
+    """Dense (bh, 128) blocks at random, per_row a block row, cut to a
+    ragged (num_rows, num_columns) shape: the last block row and block
+    column are partial (TMA's zero fill, rows past num_rows)."""
+    rng = np.random.default_rng(seed)
+    nbr, nbc = -(-num_rows // bh), -(-num_columns // 128)
+    rows, cols = [], []
+    for br in range(nbr):
+        for bc in rng.choice(nbc, size=min(per_row, nbc), replace=False):
+            r, c = np.meshgrid(br * bh + np.arange(bh), bc * 128
+                               + np.arange(128), indexing="ij")
+            rows.append(r.ravel())
+            cols.append(c.ravel())
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    keep = (rows < num_rows) & (cols < num_columns)
+    rows, cols = rows[keep], cols[keep]
+    return BsrMatrix._build(num_rows, num_columns, rows, cols,
+                            rng.standard_normal(rows.size), None, bh)
+
+
+def _bsr_empty_row_at(bh):
+    # block row 1 empty at block height bh: an inert block from the host
+    n = 3 * bh
+    return BsrMatrix._build(n, 384, np.array([0, n - 1]), np.array([0, 383]),
+                            np.array([2.0, 3.0]), None, bh)
+
+
+# name -> (host matrix, blocks_per_step); bh 64 and 128 with k a multiple
+# of 8 are the tensor-core path's shapes for bf16 blocks
 BSR_CASES = {
     "bh_8": (lambda: _bsr_blocklets(8), 8),
     "bh_32": (lambda: _bsr_blocklets(32), 8),
@@ -502,25 +532,43 @@ BSR_CASES = {
         random_sparse(300, 200, 4, seed=3)), 8),
     "poisson": (lambda: BsrMatrix.from_matrix_market(poisson2d(40, 40),
                                                      block_rows="auto"), 8),
+    "bh_64": (lambda: _bsr_dense_blocks(64, 1024, 1024, 3, 1), 1),
+    "bh_128": (lambda: _bsr_dense_blocks(128, 1024, 1024, 3, 2), 1),
+    "ragged_64": (lambda: _bsr_dense_blocks(64, 1000, 900, 3, 3), 1),
+    "ragged_128": (lambda: _bsr_dense_blocks(128, 1000, 900, 3, 4), 1),
+    "empty_block_row_64": (lambda: _bsr_empty_row_at(64), 1),
+    "empty_block_row_128": (lambda: _bsr_empty_row_at(128), 1),
 }
 
 
-@pytest.mark.parametrize("k", [1, 3, 40])
+def _bsr_expected_path(dtype, bh, k):
+    return ("tensor_core" if dtype == torch.bfloat16 and bh in (64, 128)
+            and k % 8 == 0 else "simt")
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 40, 128, 136, 256])
 @pytest.mark.parametrize("dtype", list(TOL), ids=str)
 @pytest.mark.parametrize("case", list(BSR_CASES))
 def test_bsr_kernel_matches_plain(case, dtype, k, cuda):
-    """K7 twice (bitwise equal) against its plain version; float32 and
-    float64 also against the fp64 host product; every column against K7
-    on that column alone."""
+    """K7 twice (bitwise equal) against its plain version, on the path its
+    shape selects (that path's counter moves, the other's does not);
+    float32 and float64 also against the fp64 host product; the first and
+    last column against K7 on that column alone."""
     make, kb = BSR_CASES[case]
     b = make()
     A = DeviceBsr.from_host(b, dtype=dtype, blocks_per_step=kb, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(10)
     X = torch.randn(A.num_columns, k, generator=g, device=cuda).to(dtype)
-    before = bsr_spmm_core.launches
+    path = _bsr_expected_path(dtype, A.block_rows, k)
+    assert bsr_path(dtype, A.block_rows, k, X.data_ptr()) == path
+    before = (bsr_spmm_core.launches, bsr_spmm_core.tensor_core_launches,
+              bsr_spmm_core.simt_launches)
     Y1, Y2 = bsr_spmm_core(A, X), bsr_spmm_core(A, X)
     torch.cuda.synchronize()
-    assert bsr_spmm_core.launches == before + 2
+    tc = 2 if path == "tensor_core" else 0
+    assert (bsr_spmm_core.launches, bsr_spmm_core.tensor_core_launches,
+            bsr_spmm_core.simt_launches) == (before[0] + 2, before[1] + tc,
+                                             before[2] + 2 - tc)
     assert Y1.dtype == (torch.float32 if dtype == torch.bfloat16 else dtype)
     assert Y1.shape == (A.num_rows, k)
     assert torch.equal(Y1, Y2)
@@ -532,6 +580,27 @@ def test_bsr_kernel_matches_plain(case, dtype, k, cuda):
     if dtype != torch.bfloat16:
         want = torch.from_numpy(b.spmm(X.double().cpu().numpy()))
         assert _rel_err(Y1.cpu(), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("case", ["bh_64", "ragged_128"])
+def test_bsr_misaligned_x_takes_the_simt_path(case, cuda):
+    """bf16 X whose base is not 16-byte aligned cannot be a TMA tensor
+    map: the SIMT path takes it, with the same result as an aligned
+    copy on the tensor cores."""
+    A = DeviceBsr.from_host(BSR_CASES[case][0](), dtype=torch.bfloat16,
+                            blocks_per_step=1, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    flat = torch.randn(A.num_columns * 16 + 1, generator=g,
+                       device=cuda).to(torch.bfloat16)
+    X = flat[1:].view(A.num_columns, 16)
+    assert X.data_ptr() % 16 != 0 and X.is_contiguous()
+    assert bsr_path(torch.bfloat16, A.block_rows, 16, X.data_ptr()) == "simt"
+    before = bsr_spmm_core.simt_launches
+    Y = bsr_spmm_core(A, X)
+    torch.cuda.synchronize()
+    assert bsr_spmm_core.simt_launches == before + 1
+    assert _rel_err(Y, bsr_spmm_reference(A, X)) <= 1e-5
+    assert _rel_err(Y, bsr_spmm_core(A, X.clone())) <= 1e-5
 
 
 # ---------------------------------------------------------------- AMG, K8
