@@ -86,9 +86,11 @@ Phases (each prints readable lines; any failure exits non-zero):
    tail pool and a CSR remainder: K3c, K3b, CSR) through
    kernels.make_kernel -> time_kernel -> profiling_report: the fp64
    host checksum gate, seconds per SpMV against the plain version, and
-   the fraction of the triad roofline with the bench's byte count, and a
+   the fraction of the triad roofline with the bench's byte count, a
    torch.profiler table of 50 chained SpMVs (device time per kernel,
-   busy share).
+   busy share), and the torch.sparse CSR product (cuSPARSE) of the same
+   matrix timed as the kernels are (a CUDA graph, the L2 flushed before
+   each call) and eagerly.
 8. WELL-CW full-size SpMM, the bench's k = 8 leg on the same matrix
    (K4a, K4c, CSR SpMM) through make_kernel(...).spmm_fn(8): the fp64
    host checksum gate, seconds per chained SpMM against the plain
@@ -110,7 +112,8 @@ Phases (each prints readable lines; any failure exits non-zero):
    error against the plain version, device ms (50 launches in a CUDA
    graph, the L2 flushed before each) and ms a call through the
    wrapper, against plain ms, the bound and, for the CSR kernels,
-   torch.sparse.
+   torch.sparse; K3c's and K3b's plans (CTAs a cluster, lanes, ring
+   stages, columns of x a K3c CTA stages).
 11. WELL path through the CLI (the WELL launch counts, K5a, K5b and the
    spill's CSR kernel, are zeroed just before): --profile 5 and --cg 2000
    on poisson2d(256, 256) (K5a).
@@ -123,8 +126,9 @@ Phases (each prints readable lines; any failure exits non-zero):
    time on the same matrix.  The WELL launch counts are read after it.
 13. WELL kernels alone at those two sizes (not counted): K5a, K5b and
    the spill's CSR kernel as in phase 10, each beside the torch.sparse
-   CSR product (cuSPARSE) of the same entries and its bound; then the
-   torch.sparse CSR SpMV of the whole matrix against the chained SpMV.
+   CSR product (cuSPARSE) of the same entries, timed the same way and
+   eagerly, and its bound; then the torch.sparse CSR SpMV of the whole
+   matrix, both ways, against the chained SpMV.
 14. WELL SpMM path through the CLI (the K6a, K6b and CSR SpMM launch
    counts are zeroed just before): --profile 5 --spmm 8 and --cg 2000
    --nrhs 3 on poisson2d(256, 256) (K6a and the spill's CSR SpMM).
@@ -399,6 +403,29 @@ def _csr_of_mm(mm, device, dtype):
 def _library_ms(S, v, reps: int = 20) -> float:
     """Milliseconds of ``S @ v`` (cuSPARSE through torch.sparse)."""
     return _time_launches(lambda: S @ v, reps)
+
+
+def _library_cold(S, v, flush, reps: int = 20) -> dict:
+    """``S @ v`` timed as the kernels are: a CUDA graph with the L2
+    flushed before each call (both eager, ``timing`` "eager", where
+    torch's product cannot be captured), and the eager call beside it."""
+    import torch
+
+    fn = lambda: S @ v  # noqa: E731
+    try:
+        ms, timing = _cold_graph_ms(fn, flush, reps), "graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+        ms, timing = _cold_eager_ms(fn, flush, reps), "eager"
+    return {"library_ms": ms, "library_eager_ms": _library_ms(S, v, reps),
+            "library_timing": timing}
+
+
+def _library_line(lib: dict) -> str:
+    how = ("a CUDA graph, L2 flushed" if lib["library_timing"] == "graph"
+           else "eager, L2 flushed")
+    return (f"{lib['library_ms']:.4f} ms ({how}), "
+            f"{lib['library_eager_ms']:.4f} ms eager")
 
 
 def phase_device():
@@ -1044,12 +1071,15 @@ def phase_profile_wellcw(device, cw, cw_mm, smi_line):
          f"{wall / PROFILE_CHAIN * 1e6:.2f} us, busy share {dev / wall:.3f}")
     for line in table.splitlines():
         _say(f"[7 wellcw profile]   {line}")
-    lib = _library_ms(_csr_of_mm(cw_mm, device, torch.float32), args[0])
+    scratch = torch.empty(16 << 20, dtype=torch.float32, device=device)
+    lib = _library_cold(_csr_of_mm(cw_mm, device, torch.float32), args[0],
+                        lambda: scratch.fill_(0.0))
     _say(f"[7 wellcw profile] torch.sparse CSR (cuSPARSE) of the same "
-         f"matrix: {lib:.4f} ms per SpMV")
-    del kernel, step, args, A, y
+         f"matrix: {_library_line(lib)} per SpMV, against the chained "
+         f"SpMV's {t * 1e3:.4f} ms, on {smi_line}")
+    del kernel, step, args, A, y, scratch
     _sync(device)
-    return {"ms": t * 1e3, "plain_ms": t_plain * 1e3, "library_ms": lib,
+    return {"ms": t * 1e3, "plain_ms": t_plain * 1e3, **lib,
             "roofline_fraction": frac, "checksum_rel_err": rel,
             "device_busy_share": dev / wall}
 
@@ -1291,9 +1321,10 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     import torch
 
     from spmv_tpu_torch.models import DeviceWellCw
-    from spmv_tpu_torch.ops.wellcw_kernels import column_block
+    from spmv_tpu_torch.ops.wellcw_kernels import column_block, launch_plan
 
     f32 = torch.float32
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     g = torch.Generator(device=device).manual_seed(1)
     x = torch.randn(cw.num_columns, device=device, dtype=f32, generator=g)
     X = torch.randn(cw.num_columns, CW_SPMM_K, device=device, dtype=f32,
@@ -1343,6 +1374,13 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                                 "plain_ms": plain_ms, "eager_ms": eager_ms,
                                 "library_ms": lib, **b}
                 what = ""
+                if kname in ("wellcw_merged", "wellcw_pool"):
+                    plan = launch_plan(part, 4, sms)
+                    found[kname].update(plan)
+                    what = (f" ({plan['cluster']} CTAs a cluster, "
+                            f"{plan['lanes']} lanes, {plan['stages']} "
+                            f"stages, {plan['x_window_columns']} columns "
+                            "of x staged)")
                 if spmm:
                     kind = kname.split("_")[1]
                     rows = 128 if "pool" in kname else 64
@@ -1726,15 +1764,16 @@ def phase_kernels_well(device, profiled, smi_line, triad_gbps):
                                    A.step_ptr)
                            + (A.num_columns + A.num_rows) * 4,
                            2 * int(S.values().numel()), triad_gbps)
-            lib = _library_ms(S, x)
+            lib = _library_cold(S, x, lambda: scratch.fill_(0.0))
             del S
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "eager_ms": eager_ms, "library_ms": lib, **b,
+                   "eager_ms": eager_ms, **lib, **b,
                    "shape": f"{label} float32"}
             _say(f"[13 well kernels] {kname} on {label}: {ms:.4f} ms on the "
                  f"device (CUDA graph, L2 flushed), {eager_ms:.4f} ms a "
                  f"call through the wrapper, plain {plain_ms:.4f} ms, "
-                 f"torch.sparse CSR of the same entries {lib:.4f} ms, bound "
+                 f"torch.sparse CSR of the same entries {_library_line(lib)}"
+                 f", bound "
                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B;"
                  f" {b['bound_triad_ms']:.4f} ms at the triad rate), max abs"
                  f" err {err:.3e} (rel {rel:.3e}), bitwise repeatable, on "
@@ -1743,10 +1782,10 @@ def phase_kernels_well(device, profiled, smi_line, triad_gbps):
         # the card's CSR SpMV of the whole matrix, the path's yardstick
         S = _csr_of_coo(*_well_coo(A, spill=True),
                         (A.num_rows, A.num_columns))
-        res["library_ms"] = _library_ms(S, x)
+        res.update(_library_cold(S, x, lambda: scratch.fill_(0.0)))
         _say(f"[13 well kernels] {label}: torch.sparse CSR SpMV of the whole"
-             f" matrix {res['library_ms']:.4f} ms against the chained WELL "
-             f"SpMV's {res['ms']:.4f} ms")
+             f" matrix {_library_line(res)} against the chained WELL SpMV's "
+             f"{res['ms']:.4f} ms")
         del S, A, res["A"]
         _sync(device)
     return found

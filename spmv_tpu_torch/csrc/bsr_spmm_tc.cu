@@ -70,6 +70,8 @@
 
 #include <cstdint>
 
+#include "mbarrier.cuh"
+
 namespace spmv_tpu_torch {
 namespace {
 
@@ -89,67 +91,6 @@ struct TcShape {
   static constexpr int kStageBytes = kABytes + kXBytes;
   static constexpr size_t kSmem = kStages * kStageBytes + kSwizzleSpan;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(
-          smem_addr(bar))
-      : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed.  A
-// wait that outlasts 2^34 clocks (seconds; a healthy one takes
-// microseconds) traps, so a lost transfer fails the launch instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  const long long start = clock64();
-  uint32_t done = 0;
-  for (;;) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ uint64_t l2_evict_first() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ uint64_t l2_evict_last() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
 
 // One box of a 2-D tensor map into shared memory; c0 is the inner
 // (column) coordinate, c1 the row.
@@ -245,7 +186,7 @@ __global__ void __launch_bounds__(TcShape<BH>::kThreads, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], S::kConsumers * 4);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

@@ -298,6 +298,13 @@ class DeviceCwMerged(torch.nn.Module):
     Buffers, as in the JAX container: ``value`` and ``local_index``
     (num_blocks * kl, 8, 128), ``anchor4`` (num_blocks, 1, kl).  The
     chunk positions are static, so a CUDA grid needs no extra index.
+    Derived on the host for K3c, which stages each block's part of x in
+    shared memory:
+
+    - ``x_window`` (num_blocks, 2) int32: block b's cells of nonzero
+      value read columns in [x_window[b, 0], x_window[b, 1]), the first
+      rounded down to a multiple of 4 ([0, 0) for a block with none);
+      ``max_window`` is the widest.
     """
 
     def __init__(self, d, kl, cap, lvl_per_block, pool_per_block,
@@ -316,6 +323,38 @@ class DeviceCwMerged(torch.nn.Module):
                              _tensor(local_index.astype(np.int32), device))
         self.register_buffer("anchor4",
                              _tensor(anchor4.astype(np.int32), device))
+        win = _x_windows(value, local_index, anchor4, self.d,
+                         np.arange(self.num_blocks * self.kl) // self.kl,
+                         self.num_blocks)
+        self.max_window = int((win[:, 1] - win[:, 0]).max(initial=0))
+        self.register_buffer("x_window", _tensor(win, device))
+
+
+def _x_windows(value, local_index, anchor4, d, block_of_chunk, num_blocks):
+    """(num_blocks, 2) int32 [lo, hi): the columns of x that the cells of
+    nonzero value of each block read (merged-grid addressing, w = (loc
+    >> 7) & (8 d - 1)), lo rounded down to a multiple of 4; [0, 0) for a
+    block with none."""
+    step = 4096                # chunks at a time, to bound the host memory
+    value, local_index = np.asarray(value), np.asarray(local_index)
+    a4 = np.asarray(anchor4).reshape(-1).astype(np.int64)
+    big = np.iinfo(np.int64).max
+    cmin = np.full(a4.size, big)
+    cmax = np.full(a4.size, -1)
+    for c in range(0, a4.size, step):
+        loc = local_index[c:c + step].astype(np.int64)
+        col = ((a4[c:c + step, None, None] * d + ((loc >> 7) & (8 * d - 1)))
+               * LANE + (loc & (LANE - 1)))
+        nonzero = value[c:c + step] != 0
+        cmin[c:c + step] = np.where(nonzero, col, big).min(axis=(1, 2))
+        cmax[c:c + step] = np.where(nonzero, col, -1).max(axis=(1, 2))
+    lo = np.full(num_blocks, big)
+    hi = np.full(num_blocks, -1)
+    np.minimum.at(lo, block_of_chunk, cmin)
+    np.maximum.at(hi, block_of_chunk, cmax)
+    empty = hi < 0
+    return np.stack([np.where(empty, 0, lo // 4 * 4),
+                     np.where(empty, 0, hi + 1)], axis=1).astype(np.int32)
 
 
 class DeviceWellCw(torch.nn.Module):

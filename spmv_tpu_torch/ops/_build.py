@@ -34,7 +34,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
            "csr_spmv.cu", "csr_spmm.cu", "well_spmv.cu", "well_spmm.cu",
            "bsr_spmm.cu", "bsr_spmm_tc.cu", "fused_vcycle.cu")
-HEADERS = ("dia_common.cuh", "cw_common.cuh")
+HEADERS = ("dia_common.cuh", "cw_common.cuh", "mbarrier.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -174,11 +174,11 @@ def load_library() -> ctypes.CDLL:
     lib.wellcw_level_launch.restype = _I32
     lib.wellcw_pool_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64, _I64,
-        _I64, _PTR, _PTR, _I32, _PTR]
+        _I64, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR]
     lib.wellcw_pool_launch.restype = _I32
     lib.wellcw_merged_launch.argtypes = [
-        _I32, _I32, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I64, _I64, _I64,
-        _PTR, _PTR, _I32, _PTR]
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I64, _I64,
+        _I64, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR]
     lib.wellcw_merged_launch.restype = _I32
     lib.csr_spmv_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I32, _PTR]

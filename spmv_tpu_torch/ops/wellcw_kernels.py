@@ -18,15 +18,19 @@ SpMM, X of shape (num_columns, k) (``csrc/wellcw_spmm.cu``):
 - K4c ``wellcw_pool_spmm_core`` replaces ``_cw_pool_spmm_kernel``
   (:1920).
 
-The ``.cu`` headers say what bounds the kernels and how the simple
-designs work.  ``wellcw_spmv_core`` and ``wellcw_spmm_core`` compose
-them after ``wellcw_spmv_padded`` / ``wellcw_spmv`` (:1821-1872) and
-``_wellcw_spmm_padded`` / ``wellcw_spmm`` (:2035-2124): merged, levels,
-pool, tail pools, then the CSR remainder (``csr_spmv_core`` /
-``csr_spmm_core``), in stream order into one output of exactly
-``num_rows`` rows.  The first launch writes every row; the later ones
-add.  Nothing is padded, so the JAX ``_padded`` entry points have no
-separate counterpart.
+The ``.cu`` headers say what bounds the kernels and how they work.
+K3b and K3c stream their chunks in bulk copies through a ring in shared
+memory, a cluster of CTAs an output block: ``launch_plan`` gives each
+launch's plan from the shape alone, ``stream_plan`` a pool CTA's lanes,
+the ring's stages and the part of x a K3c CTA stages in shared memory,
+``cluster_size`` the CTAs a cluster.  ``wellcw_spmv_core`` and
+``wellcw_spmm_core`` compose them after ``wellcw_spmv_padded`` /
+``wellcw_spmv`` (:1821-1872) and ``_wellcw_spmm_padded`` /
+``wellcw_spmm`` (:2035-2124): merged, levels, pool, tail pools, then the
+CSR remainder (``csr_spmv_core`` / ``csr_spmm_core``), in stream order
+into one output of exactly ``num_rows`` rows.  The first launch writes
+every row; the later ones add.  Nothing is padded, so the JAX
+``_padded`` entry points have no separate counterpart.
 
 Each part wrapper takes its plain version (``ops/spmv.py``) for CPU
 tensors, launches its kernel for CUDA tensors, and raises for anything
@@ -39,6 +43,8 @@ tables and VMEM plumbing (``_cw_tables``, ``_cw_tables3``,
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -60,12 +66,28 @@ from spmv_tpu_torch.ops.spmv import (
 __all__ = ["wellcw_merged_core", "wellcw_level_core", "wellcw_pool_core",
            "wellcw_spmv_core", "wellcw_spmv", "wellcw_merged_spmm_core",
            "wellcw_level_spmm_core", "wellcw_pool_spmm_core",
-           "wellcw_spmm_core", "wellcw_spmm", "column_block"]
+           "wellcw_spmm_core", "wellcw_spmm", "column_block", "cluster_size",
+           "stream_plan", "launch_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 LANE = 128
 WARP = 32
-POOL_SMEM_LIMIT = 48 * 1024     # bytes of the SpMV pool kernel's tile
+MERGED_ROWS = 64                # groups of a merged output block
+# K3b / K3c (csrc/wellcw_spmv.cu): a CTA keeps about RING_BYTES of its
+# chunk stream in flight, in 2 .. MAX_STAGES stages of one chunk, and a
+# K3c CTA stages up to WINDOW_BYTES of x in shared memory; a CTA keeps to
+# PAIR_BYTES (two CTAs an SM: 228 KB, 1 KB reserved a CTA) where its
+# tile and two stages fit them; BARRIER_BYTES of static shared memory
+# hold the mbarriers
+RING_BYTES = 48 * 1024
+WINDOW_BYTES = 48 * 1024
+PAIR_BYTES = (228 * 1024 - 2 * 1024) // 2
+MAX_STAGES = 8
+BARRIER_BYTES = (2 * MAX_STAGES + 1) * 8
+# the cluster sizes the host picks from (the kernels also take 4): at the
+# bench leg's shapes clusters of 4 ran K3b 1.5x and K3c 1.6x slower than
+# clusters of 2 (they did not fit the card in one wave)
+CLUSTER_SIZES = (1, 2)
 # The SpMM kernels' column blocks (csrc/wellcw_spmm.cu), passed to every
 # launch: a level thread holds kb = min(k, COLUMNS) sums in registers; a
 # pool tile holds rows x kb x 32 accumulators in shared memory, kb as
@@ -92,6 +114,61 @@ def column_block(kind: str, dtype: torch.dtype, k: int,
             f"bytes of shared memory per column, more than the "
             f"{SMEM_MAX} a block can have")
     return max(1, min(k, COLUMNS, TILE_BUDGET[kind] // per_column))
+
+
+def cluster_size(units: int, num_sms: int) -> int:
+    """CTAs a cluster of K3b / K3c: the fewest of CLUSTER_SIZES whose grid
+    of ``units`` clusters (output blocks x lane slices) covers the card's
+    ``num_sms`` SMs; the most where none does."""
+    for c in CLUSTER_SIZES:
+        if units * c >= num_sms:
+            return c
+    return CLUSTER_SIZES[-1]
+
+
+def stream_plan(rows: int, itemsize: int, rowmap: bool,
+                window: int = 0) -> tuple:
+    """(lanes, stages, window) of a K3b (``rowmap``) or K3c CTA: the widest
+    of 128, 64 and 32 lanes whose (rows x lanes) tile and a ring of two
+    stages fit a block's shared memory; within PAIR_BYTES where those fit
+    it, else within the block's whole shared memory, the x ``window``
+    (columns; 0 for K3b) up to WINDOW_BYTES, then as many stages of one
+    chunk's lanes (8 x lanes values, indices and, for pools, rowmap
+    entries) as RING_BYTES asks, at most MAX_STAGES and as many as fit.
+    Raises where not even 32 lanes fit."""
+    for lanes in (LANE, LANE // 2, WARP):
+        tile = rows * lanes * itemsize
+        stage = 8 * lanes * (itemsize + (8 if rowmap else 4))
+        least = BARRIER_BYTES + tile + 2 * stage
+        if least > SMEM_MAX:
+            continue
+        room = (PAIR_BYTES if least <= PAIR_BYTES else SMEM_MAX) - least
+        win = min(window * itemsize, WINDOW_BYTES, room) // itemsize // 4 * 4
+        stages = min(MAX_STAGES, 2 + (room - win * itemsize) // stage,
+                     max(2, -(-RING_BYTES // stage)))
+        return lanes, stages, win
+    raise KernelError(
+        f"wellcw_pool: a {rows}-row tile of {WARP} lanes needs "
+        f"{rows * WARP * itemsize} bytes of shared memory, more than a "
+        f"block can have beside its ring")
+
+
+def launch_plan(part, itemsize: int, num_sms: int) -> dict:
+    """The plan K3b (``part`` a pool) or K3c (the merged grid) launches
+    with on a card of ``num_sms`` SMs: CTAs a cluster, lanes a CTA, ring
+    stages and the columns of x a K3c CTA stages."""
+    pool = hasattr(part, "rowmap")
+    lanes, stages, window = stream_plan(
+        part.out_rows if pool else MERGED_ROWS, itemsize, rowmap=pool,
+        window=0 if pool else part.max_window)
+    return {"cluster": cluster_size(part.num_blocks * (LANE // lanes),
+                                    num_sms),
+            "lanes": lanes, "stages": stages, "x_window_columns": window}
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _prepare(what, part, x, num_rows, rows_covered, out, accumulate,
@@ -142,21 +219,24 @@ def wellcw_merged_core(mg, x: torch.Tensor, num_rows: int,
         raise KernelError("merged grid: kl != 64 * cap + pool_per_block")
     cuda = _prepare("wellcw_merged", mg, x, num_rows,
                     mg.num_blocks * 64 * LANE, out, accumulate,
-                    (mg.local_index, mg.anchor4))
+                    (mg.local_index, mg.anchor4, mg.x_window))
     if not cuda:
         return _finish_plain(cw_merged_reference(mg, x, num_rows), out,
                              accumulate)
 
     from spmv_tpu_torch.ops._build import load_library
 
+    plan = launch_plan(mg, x.element_size(), _num_sms(x.device.index))
     y = _output(out, num_rows, x)
     if num_rows > 0:
         lib = load_library()
         rc = lib.wellcw_merged_launch(
             _DTYPE_CODE[x.dtype], x.device.index, mg.value.data_ptr(),
-            mg.local_index.data_ptr(), mg.anchor4.data_ptr(), mg.d, mg.cap,
-            mg.pool_per_block, mg.num_blocks, num_rows, x.numel(),
-            x.data_ptr(), y.data_ptr(), int(accumulate), stream_of(x))
+            mg.local_index.data_ptr(), mg.anchor4.data_ptr(),
+            mg.x_window.data_ptr(), mg.d, mg.cap, mg.pool_per_block,
+            mg.num_blocks, num_rows, x.numel(), x.data_ptr(), y.data_ptr(),
+            int(accumulate), plan["stages"], plan["x_window_columns"],
+            plan["cluster"], stream_of(x))
         raise_on(lib, rc, "wellcw_merged")
         wellcw_merged_core.launches += 1
     return y
@@ -213,10 +293,7 @@ def wellcw_pool_core(pool, x: torch.Tensor, num_rows: int,
 
     from spmv_tpu_torch.ops._build import load_library
 
-    if pool.out_rows * 32 * x.element_size() > POOL_SMEM_LIMIT:
-        raise KernelError(
-            f"wellcw_pool: out_rows={pool.out_rows} needs more than "
-            f"{POOL_SMEM_LIMIT} bytes of shared memory per block")
+    plan = launch_plan(pool, x.element_size(), _num_sms(x.device.index))
     y = _output(out, num_rows, x)
     if num_rows > 0:
         lib = load_library()
@@ -225,7 +302,8 @@ def wellcw_pool_core(pool, x: torch.Tensor, num_rows: int,
             pool.local_index.data_ptr(), pool.anchor4.data_ptr(),
             pool.rowmap.data_ptr(), pool.block_ptr.data_ptr(), pool.d,
             pool.out_rows, pool.num_blocks, num_rows, x.numel(),
-            x.data_ptr(), y.data_ptr(), int(accumulate), stream_of(x))
+            x.data_ptr(), y.data_ptr(), int(accumulate), plan["lanes"],
+            plan["stages"], plan["cluster"], stream_of(x))
         raise_on(lib, rc, "wellcw_pool")
         wellcw_pool_core.launches += 1
     return y

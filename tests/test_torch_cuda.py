@@ -16,12 +16,14 @@ the rounding error of any summation order).  The WELL-CW, WELL, BSR and
 CSR kernels (float64 and float32 only, and bfloat16 blocks for BSR) are
 also launched twice on the same input, and the two outputs must be
 bitwise equal; each column of an SpMM kernel's output is also held
-against the SpMV kernel on that column.  BSR with bfloat16 blocks: both
-the kernel (on the tensor cores or the SIMT path) and its plain version
-multiply the same bfloat16 values and sum in float32, so they agree to
-1e-5 of the output's scale.  K8 (the
-fused V-cycle) is held to its plain version by relative 2-norm: 1e-12 in
-float64 and 5e-6 in float32, the JAX fused V-cycle test's bound
+against the SpMV kernel on that column.  K3b and K3c also run with each
+cluster size the host can choose, on pools of 0, 1 and more chunks a
+block, on lane slices, and beside an inf in x.  BSR with bfloat16
+blocks: both the kernel (on the tensor cores or the SIMT path) and its
+plain version multiply the same bfloat16 values and sum in float32, so
+they agree to 1e-5 of the output's scale.  K8 (the fused V-cycle) is
+held to its plain version by relative 2-norm: 1e-12 in float64 and 5e-6
+in float32, the JAX fused V-cycle test's bound
 (tests/test_fused_vcycle.py:65).
 """
 
@@ -44,6 +46,8 @@ from spmv_tpu_torch.models import (
     CsrMatrix,
     DeviceBsr,
     DeviceCsr,
+    DeviceCwMerged,
+    DeviceCwPool,
     DeviceDia,
     DeviceWell,
     DeviceWellCw,
@@ -83,6 +87,7 @@ from spmv_tpu_torch.ops import (
     wellcw_spmv_core,
     wellcw_spmv_reference,
 )
+from spmv_tpu_torch.ops import wellcw_kernels
 from spmv_tpu_torch.ops.well_kernels import _launch_spmm, well_column_block
 from spmv_tpu_torch.ops.wellcw_kernels import column_block
 
@@ -296,6 +301,154 @@ def test_wellcw_spmm_wide_tail_pool_float64(cuda):
         torch.cuda.synchronize()
         assert torch.equal(Y1, Y2)
         assert _rel_err(Y1, cw_pool_reference(pool, X, A.num_rows)) <= 1e-12
+
+
+# K3b and K3c stream chunks through a ring, a cluster of C CTAs an output
+# block (csrc/wellcw_spmv.cu).  Synthetic containers give the edges a
+# packed matrix seldom shows; tests/test_torch_wellcw_paths.py holds their
+# plain versions to a dense definition on the CPU.
+def synthetic_pool(out_rows, counts, dtype, device, num_columns, seed=0):
+    """A ``DeviceCwPool`` (d = 1, one chunk a step) of len(counts) output
+    blocks of out_rows groups, block b holding counts[b] chunks: random
+    values, windows over every column block of x (so some columns lie
+    past ``num_columns``) and rows of the block."""
+    rng = np.random.default_rng(seed)
+    blocks = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    chunks = blocks.size
+    windows = -(-num_columns // 128)
+    rowmap = blocks[:, None, None] * out_rows + rng.integers(
+        0, out_rows, size=(chunks, 8, 128))
+    return DeviceCwPool(
+        1, 1, 0, rng.standard_normal((chunks, 8, 128)),
+        rng.integers(0, 8 * 128, size=(chunks, 8, 128)),
+        rng.integers(0, windows, size=(chunks, 1, 1)), rowmap, blocks,
+        len(counts) * out_rows, dtype, device, out_rows=out_rows)
+
+
+def synthetic_merged(num_blocks, cap, pool_per_block, dtype, device,
+                     num_columns, seed=0):
+    """A ``DeviceCwMerged`` (d = 1) of num_blocks blocks of 64 * cap level
+    chunks and pool_per_block pool chunks, whose rows (local_index bits 14
+    and up) lie in the block; windows as in ``synthetic_pool``."""
+    rng = np.random.default_rng(seed)
+    lvl = 64 * cap
+    kl = lvl + pool_per_block
+    loc = rng.integers(0, 8 * 128, size=(num_blocks, kl, 8, 128))
+    loc[:, lvl:] |= rng.integers(0, 64, size=loc[:, lvl:].shape) << 14
+    return DeviceCwMerged(
+        1, kl, cap, lvl, pool_per_block, num_blocks, 0,
+        rng.standard_normal((num_blocks * kl, 8, 128)),
+        loc.reshape(-1, 8, 128),
+        rng.integers(0, -(-num_columns // 128), size=(num_blocks, 1, kl)),
+        dtype, device)
+
+
+def move_past_the_end(part, m, merged):
+    """Point slot 0 of the first chunk at x's last column, m - 1, then
+    move every cell that reads it one column on (local_index ^ 1; m % 128
+    is 125): onto the first column past the end."""
+    assert m % 128 == 125 and part.d == 1
+    part.anchor4.view(-1)[0] = (m - 1) // 128
+    part.local_index[0, 0] = (part.local_index[0, 0] & ~1023) | (m - 1) % 128
+    loc = part.local_index.long()
+    w = loc >> 7
+    if merged:
+        w = w & (8 * part.d - 1)
+    a4 = part.anchor4.reshape(-1, 1, 1).long()
+    hit = (a4 * part.d + w) * 128 + (loc & 127) == m - 1
+    part.local_index[hit] ^= 1
+
+
+def _force_cluster(monkeypatch, c):
+    """Make the wrappers launch clusters of c CTAs, whatever the host
+    would pick."""
+    monkeypatch.setattr(wellcw_kernels, "cluster_size",
+                        lambda units, num_sms: c)
+
+
+def _stream_check(wrapper, part, plain, x, n, dtype):
+    """Two launches bitwise equal, and within TOL of the plain version;
+    returns y."""
+    y1, y2 = wrapper(part, x, n), wrapper(part, x, n)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    assert _rel_err(y1, plain(part, x, n)) <= TOL[dtype]
+    return y1
+
+
+@pytest.mark.parametrize("c", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_stream_kernels_each_cluster_size(dtype, c, cuda,
+                                                 monkeypatch):
+    """K3c and K3b on the merged case (two merged blocks, a 128- and a
+    64-group tail pool) with clusters of 1, 2 and 4 CTAs: every size the
+    kernels take, the host's picks among them."""
+    A = DeviceWellCw.from_host(_wellcw_host("merged"), dtype=dtype,
+                               device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    n = A.num_rows
+    _force_cluster(monkeypatch, c)
+    _stream_check(wellcw_merged_core, A.merged, cw_merged_reference, x, n,
+                  dtype)
+    for pool in A.tail_pools:
+        _stream_check(wellcw_pool_core, pool, cw_pool_reference, x, n, dtype)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_pool_blocks_of_0_1_and_5_chunks(dtype, c, cuda,
+                                                monkeypatch):
+    """Output blocks with no chunk, one chunk and more chunks than a
+    cluster has CTAs; the last block's rows end inside a group."""
+    pool = synthetic_pool(64, (1, 0, 5, 2), dtype, cuda, 4 * 64 * 128 - 3)
+    _force_cluster(monkeypatch, c)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(4 * 64 * 128 - 3, generator=g, device=cuda, dtype=dtype)
+    n = 4 * 64 * 128 - 70
+    y = _stream_check(wellcw_pool_core, pool, cw_pool_reference, x, n, dtype)
+    assert not bool(y[64 * 128:2 * 64 * 128].any())   # the empty block
+    out = torch.ones(n, device=cuda, dtype=dtype)
+    wellcw_pool_core(pool, x, n, out=out, accumulate=True)
+    torch.cuda.synchronize()
+    assert _rel_err(out, y + 1) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,out_rows,lanes", [
+    (torch.float64, 64, 128), (torch.float64, 128, 128),
+    (torch.float64, 256, 64), (torch.float64, 448, 32),
+    (torch.float32, 128, 128), (torch.float32, 512, 64)],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_wellcw_pool_lane_slices(dtype, out_rows, lanes, cuda):
+    """Pools whose (out_rows x 128) tile does not fit a block's shared
+    memory take 64 or 32 lanes a CTA."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert wellcw_kernels.stream_plan(out_rows, itemsize, True)[0] == lanes
+    m = 2 * out_rows * 128
+    pool = synthetic_pool(out_rows, (3, 2), dtype, cuda, m, seed=out_rows)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(m, generator=g, device=cuda, dtype=dtype)
+    _stream_check(wellcw_pool_core, pool, cw_pool_reference, x, m - 5, dtype)
+
+
+@pytest.mark.parametrize("kind", ["merged", "pool"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_stream_past_the_end_next_to_inf(kind, dtype, cuda):
+    """Cells reading the first column past the end read 0, while x's last
+    entry, beside it, is inf (read by no cell): y stays finite."""
+    m = 3 * 64 * 128 - 3
+    if kind == "merged":
+        part = synthetic_merged(3, 2, 3, dtype, cuda, m)
+        wrapper, plain = wellcw_merged_core, cw_merged_reference
+    else:
+        part = synthetic_pool(64, (2, 4, 3), dtype, cuda, m)
+        wrapper, plain = wellcw_pool_core, cw_pool_reference
+    move_past_the_end(part, m, merged=kind == "merged")
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(m, generator=g, device=cuda, dtype=dtype)
+    x[m - 1] = float("inf")
+    y = _stream_check(wrapper, part, plain, x, m, dtype)
+    assert bool(torch.isfinite(y).all())
 
 
 @pytest.mark.parametrize("k", [1, 3, 8])
