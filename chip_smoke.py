@@ -35,21 +35,22 @@ Phases (each prints readable lines; any failure exits non-zero):
    at the shapes of the CLI's --nrhs 3 runs (phases 4 and 6, whose B is
    built by the SpMM under test): K2 on poisson2d(1024, 1024) and the
    WELL-CW SpMM kernels on poisson2d(256, 256), float32, k = 3.
-   Then the WELL kernels K5a (whole x) and K5b (segmented) and the
-   spill's CSR kernel in float64 and float32 on the kinds of matrix of
-   the JAX WELL tests: poisson2d(256, 256) whole x and with
-   blocks_per_out 2, a random band with forced segment_rows=4 and two
-   far column clusters with segment_rows=2 (escaping slots spill),
-   segment_rows=8 with blocks_per_out 4, two empty output blocks, a
-   rectangular random_sparse(200, 150, 5) and banded_random(65536, 512,
-   8) with a CSR spill: each launched twice (bitwise equal), against its
-   plain version, the whole product against the plain composition and,
-   in float32, the fp64 host product.  Then the WELL SpMM kernels K6a
-   (whole x) and K6b (segmented) and the spill's CSR SpMM on the same
-   eight matrices at k = 3 and 8, float64 and float32, and at the
-   batched-CG shape (poisson2d(1024, 1024), float32, k = 4): twice
+   Then the WELL kernels K5a (whole x) and K5b (segmented), each the
+   whole product in one launch (the live slots of the chunks, then the
+   spill), in float64 and float32 on the kinds of matrix of the JAX
+   WELL tests: poisson2d(256, 256) whole x and with blocks_per_out 2, a
+   random band with forced segment_rows=4 and two far column clusters
+   with segment_rows=2 (escaping slots spill), segment_rows=8 with
+   blocks_per_out 4, two empty output blocks, a rectangular
+   random_sparse(200, 150, 5) and banded_random(65536, 512, 8) with a
+   CSR spill: each launched twice (bitwise equal), against its plain
+   version, well_spmv_core making that one launch and no CSR launch,
+   and in float32 against the fp64 host product.  Then the WELL SpMM
+   kernels K6a (whole x) and K6b (segmented) and the spill's CSR SpMM on
+   the same eight matrices at k = 3 and 8, float64 and float32, and at
+   the batched-CG shape (poisson2d(1024, 1024), float32, k = 4): twice
    (bitwise equal), against the plain version and column by column
-   against K5 / the CSR SpMV on that column.  Last, K7 (the BSR SpMM) on
+   against K5 with its spill taken away / the CSR SpMV on that column.  Last, K7 (the BSR SpMM) on
    block matrices of block height 8, 32 and 128 with blocks_per_step 8,
    3 and 1, an empty block row, a 300 x 200 shape and ragged 1000 x 900
    matrices of block height 64 and 128, in float64, float32 and bf16
@@ -111,24 +112,26 @@ Phases (each prints readable lines; any failure exits non-zero):
    K4b on its fallback layout (chunks_per_step=64): bitwise repeat, max
    error against the plain version, device ms (50 launches in a CUDA
    graph, the L2 flushed before each) and ms a call through the
-   wrapper, against plain ms, the bound and, for the CSR kernels,
-   torch.sparse; K3c's and K3b's plans (CTAs a cluster, lanes, ring
-   stages, columns of x a K3c CTA stages).
-11. WELL path through the CLI (the WELL launch counts, K5a, K5b and the
-   spill's CSR kernel, are zeroed just before): --profile 5 and --cg 2000
-   on poisson2d(256, 256) (K5a).
+   wrapper, against plain ms, the bound and the torch.sparse CSR product
+   (cuSPARSE) of the part's own entries, timed the same way and eagerly;
+   K3c's and K3b's plans (CTAs a cluster, lanes, ring stages, columns of
+   x a K3c CTA stages).
+11. WELL path through the CLI (the WELL launch counts, K5a and K5b, are
+   zeroed just before): --profile 5 and --cg 2000 on poisson2d(256,
+   256) (K5a); the CSR kernel must not be launched.
 12. WELL profile: make_kernel("well").run_fn in float32 on
    poisson2d(1024, 1024) (whole x: K5a) and poisson2d(4096, 4096) (the
    DIA matrix of phase 5, segmented: K5b), each with its CSR spill: host
    packing time, the fp64 host checksum gate, seconds per chained SpMV
-   (CUDA events) with the launch counts equal to the chain length, the
-   plain version's time, the fraction of the triad roofline and K1's
-   time on the same matrix.  The WELL launch counts are read after it.
-13. WELL kernels alone at those two sizes (not counted): K5a, K5b and
-   the spill's CSR kernel as in phase 10, each beside the torch.sparse
-   CSR product (cuSPARSE) of the same entries, timed the same way and
-   eagerly, and its bound; then the torch.sparse CSR SpMV of the whole
-   matrix, both ways, against the chained SpMV.
+   (CUDA events) with one K5 launch a SpMV and no CSR launch, the plain
+   version's time, the fraction of the triad roofline and K1's time on
+   the same matrix.  The WELL launch counts are read after it.
+13. K5a and K5b alone at those two sizes (not counted), as in phase 10,
+   beside the torch.sparse CSR product (cuSPARSE) of the same entries,
+   which are the whole matrix's, timed the same way and eagerly, and the
+   bound from the live bytes beside the full container's; what the
+   folded spill costs (K5 with its spill taken away) beside the CSR
+   kernel over the row-compacted spill alone.
 14. WELL SpMM path through the CLI (the K6a, K6b and CSR SpMM launch
    counts are zeroed just before): --profile 5 --spmm 8 and --cg 2000
    --nrhs 3 on poisson2d(256, 256) (K6a and the spill's CSR SpMM).
@@ -140,7 +143,8 @@ Phases (each prints readable lines; any failure exits non-zero):
    the fraction of the triad roofline with the CLI's byte count and the
    per-nnz cost against phase 12's SpMV.
 16. Batched CG on WELL as phase 9 does for DIA and WELL-CW:
-   poisson2d(1024, 1024), float32, k = 4 (K6a).  The WELL SpMM launch
+   poisson2d(1024, 1024), float32, k = 4 (K6a; the single-RHS solves
+   take K5a, one launch a SpMV and no CSR launch).  The WELL SpMM launch
    counts are read after it.
 17. BSR path through the CLI (K7's counts are zeroed just before): -s
    bsr --profile 5 --spmm 16 and -s bsr --cg 500 on poisson2d(128, 128),
@@ -192,6 +196,7 @@ data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -1314,10 +1319,45 @@ def phase_batched_cg(device, mats, smi_line, tag="9 batched cg"):
 
 
 # --------------------------------------------------------------- phase 10
+def _cw_coo(kind, p, num_rows, num_columns):
+    """(rows, cols, values) on the card of the cells of one WELL-CW part
+    (``kind`` merged, level or pool) that hold a nonzero, a row below
+    num_rows and a column below num_columns, decoded as the plain
+    versions read them (``ops/spmv.py``: ``_cw_products`` and
+    ``cw_{level,pool,merged}_reference``)."""
+    import torch
+
+    loc = p.local_index.long()
+    w = loc >> 7
+    if kind == "merged":
+        w = w & (8 * p.d - 1)
+    col = (p.anchor4.reshape(-1, 1, 1).long() * p.d + w) * 128 + (loc & 127)
+    dev = col.device
+    lanes = torch.arange(128, device=dev)
+    if kind == "level":
+        row = p.group_of_chunk.reshape(-1, 1, 1).long() * 128 + lanes
+    elif kind == "pool":
+        row = p.rowmap.long() * 128 + lanes
+    else:
+        S, kl, lvl = p.num_blocks, p.kl, p.lvl_per_block
+        b = torch.arange(S, device=dev).reshape(S, 1, 1, 1)
+        kk = torch.arange(kl, device=dev).reshape(1, kl, 1, 1)
+        level_row = ((b * lvl + kk) // p.cap) * 128 + lanes
+        pool_row = (b * 64 + (loc.reshape(S, kl, 8, 128) >> 14)) * 128 \
+            + lanes
+        row = torch.where(kk < lvl, level_row, pool_row).reshape(col.shape)
+    row = row.expand_as(col)
+    keep = (p.value != 0) & (row < num_rows) & (col < num_columns)
+    return row[keep], col[keep], p.value[keep]
+
+
 def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     """Each WELL-CW / CSR kernel alone at the full-size matrix: K3c, K3b
     and CSR, and K4a, K4c and the CSR SpMM at k = CW_SPMM_K, on its
-    merged layout; K3a and K4b on its fallback layout."""
+    merged layout; K3a and K4b on its fallback layout.  Beside each, the
+    torch.sparse CSR product (cuSPARSE) of that part's own entries,
+    timed as the kernels are (a CUDA graph, the L2 flushed) and
+    eagerly."""
     import torch
 
     from spmv_tpu_torch.models import DeviceWellCw
@@ -1356,23 +1396,30 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                 eager_ms = _time_launches(lambda: run(v, out=out), 50)
                 plain_ms = _time_launches(lambda: plain(v), 3)
                 k = CW_SPMM_K if spmm else 1
+                shape = (A.num_rows, A.num_columns)
+                # one torch.sparse call computes the same product
                 if kname.startswith("csr"):
-                    # one torch.sparse call computes the same product
                     S = _torch_csr(part.row_ptr, part.column_index,
-                                   part.value, (A.num_rows, A.num_columns))
-                    lib = _library_ms(S, v)
+                                   part.value, shape)
                     nnz, rows = part.num_entries, A.num_rows
                 else:
-                    lib = None
+                    S = _csr_of_coo(*_cw_coo(kname.split("_")[1], part,
+                                             *shape), shape)
                     nnz = int((part.value != 0).sum())
                     rows = A.num_rows if not hasattr(part, "rowmap") else \
                         min(A.num_rows, 128 * int(part.rowmap.unique().numel()))
+                lib_rel = _rel(S @ v, want)
+                if lib_rel > TOL_F32:
+                    _fail(f"{kname}: torch.sparse of its entries differs "
+                          f"from the plain version by {lib_rel}")
+                lib = _library_cold(S, v, lambda: scratch.fill_(0.0))
+                del S, want
                 b = _bound(_nbytes(*part.buffers(recurse=False))
                            + (A.num_columns + rows) * k * 4, 2 * nnz * k,
                            triad_gbps)
                 found[kname] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, "eager_ms": eager_ms,
-                                "library_ms": lib, **b}
+                                **lib, **b}
                 what = ""
                 if kname in ("wellcw_merged", "wellcw_pool"):
                     plan = launch_plan(part, 4, sms)
@@ -1393,10 +1440,9 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                      f"{' (chunks_per_step=64)' if dev_kw else ''}: "
                      f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
                      f"{eager_ms:.4f} ms a call through the wrapper, plain "
-                     f"{plain_ms:.4f} ms, "
-                     + ("" if lib is None else
-                        f"torch.sparse CSR {lib:.4f} ms, ")
-                     + f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+                     f"{plain_ms:.4f} ms, torch.sparse CSR of its entries "
+                     f"{_library_line(lib)}, "
+                     f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
                      f"{b['bytes']} B), max abs err {err:.3e} (rel "
                      f"{rel:.3e}), bitwise repeatable, on {smi_line}")
         del A
@@ -1451,66 +1497,84 @@ def _well_mm(kind, mod, *args):
                             r.size, r + 1, c + 1, v)
 
 
-def _well_parts(A):
-    """(kernel name, kernel call, plain call) of each launch that
-    ``well_spmv_core`` makes for A: K5a or K5b, then the CSR spill."""
+def _well_part(A):
+    """(kernel name, kernel call, plain call) of the one launch that
+    ``well_spmv_core`` makes for A: K5a or K5b, the spill folded in."""
     from spmv_tpu_torch import ops
 
     seg = A.segment_of_step is not None
     core = ops.well_seg_core if seg else ops.well_whole_core
-    parts = [("well_seg" if seg else "well_whole",
-              lambda x, out=None: core(A, x, out=out),
-              lambda x: ops.well_chunks_reference(A, x))]
-    if A.spill is not None:
-        R = A.spill
-        parts.append(("csr_spmv",
-                      lambda x, out=None: ops.csr_spmv_core(R, x, out=out),
-                      lambda x: ops.csr_spmv_reference(R, x)))
-    return parts
+    return ("well_seg" if seg else "well_whole",
+            lambda x, out=None: core(A, x, out=out),
+            lambda x: ops.well_spmv_reference(A, x))
+
+
+@contextlib.contextmanager
+def _spill_taken_away(A):
+    """A with its spill (the CSR and the lane-ordered copy) taken away:
+    K5 and its plain version then add the chunks alone (what K6 adds,
+    and what K5 added before the spill was folded in)."""
+    names = ("spill", "spill_ptr", "spill_row", "spill_col", "spill_value")
+    saved = {n: getattr(A, n) for n in names}
+    for n in names:
+        setattr(A, n, None)
+    try:
+        yield A
+    finally:
+        for n, t in saved.items():
+            setattr(A, n, t)
+
+
+def _live_slots(A) -> int:
+    """The slots K5 reads: the set bits of A.slot_mask."""
+    import torch
+
+    bits = 1 << torch.arange(8, device=A.slot_mask.device)
+    return int(((A.slot_mask.long()[:, None] & bits) != 0).sum())
 
 
 def _compare_well(name, w, dev_kw, dtype, device):
-    """K5a / K5b and the spill's CSR kernel, each twice (bitwise equal)
-    and against its plain version; the whole product against the plain
-    composition and, in float32, the fp64 host product."""
+    """K5a / K5b, the spill folded in, twice (bitwise equal) and against
+    its plain version; ``well_spmv_core`` makes that one launch and no
+    other, and in float32 its product is held against the fp64 host
+    product."""
     import torch
 
     from spmv_tpu_torch.models import DeviceWell
-    from spmv_tpu_torch.ops import well_spmv_core, well_spmv_reference
+    from spmv_tpu_torch.ops import csr_spmv_core, well_spmv_core
 
     dtn = str(dtype).replace("torch.", "")
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32
     A = DeviceWell.from_host(w, dtype=dtype, device=device, **dev_kw)
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(A.num_columns, generator=g, device=device, dtype=dtype)
-    errs = []
-    for kname, run, plain in _well_parts(A):
-        y1, y2 = run(x), run(x)
-        _sync(device)
-        if not torch.equal(y1, y2):
-            _fail(f"{kname} on {name} {dtn}: two launches differ")
-        e = _rel(y1, plain(x))
-        errs.append(f"{kname} {e:.3e}")
-        if e > tol:
-            _fail(f"{kname} on {name} {dtn}: rel err {e} > {tol}")
+    kname, run, plain = _well_part(A)
+    y1, y2 = run(x), run(x)
+    _sync(device)
+    if not torch.equal(y1, y2):
+        _fail(f"{kname} on {name} {dtn}: two launches differ")
+    e = _rel(y1, plain(x))
+    if e > tol:
+        _fail(f"{kname} on {name} {dtn}: rel err {e} > {tol}")
+    before = csr_spmv_core.launches
     y = well_spmv_core(A, x)
     _sync(device)
-    e = _rel(y, well_spmv_reference(A, x))
+    if not torch.equal(y, y1) or csr_spmv_core.launches != before:
+        _fail(f"well_spmv_core on {name} {dtn}: not the one K5 launch")
     mode = ("whole x" if A.segment_rows is None else
             f"segment_rows {A.segment_rows}")
     line = (f"[3 compare] {name} {dtn} ({mode}, blocks_per_out "
             f"{A.blocks_per_out}, spill "
-            f"{0 if A.spill is None else A.spill.num_entries}): "
-            + ", ".join(errs) + f"; whole {e:.3e}")
-    if e > tol:
-        _fail(f"{line} > {tol}")
+            f"{0 if A.spill is None else A.spill.num_entries}, live slots "
+            f"{_live_slots(A)} of {8 * A.num_chunks}): {kname} {e:.3e}")
     if dtype == torch.float32:
         host = torch.from_numpy(w.spmv(x.double().cpu().numpy()))
         eh = _rel(y.cpu(), host)
         line += f", vs fp64 host {eh:.3e}"
         if eh > TOL_F32_HOST:
             _fail(f"{line} > {TOL_F32_HOST}")
-    _say(line + " (each kernel twice, bitwise equal)")
+    _say(line + " (twice, bitwise equal; well_spmv_core the same one "
+         "launch)")
     return A.segment_rows is not None
 
 
@@ -1581,8 +1645,9 @@ def phase_compare_well(device, cg_well):
 def phase_cli_well(device):
     from spmv_tpu_torch.io import write_matrix_market
     from spmv_tpu_torch.io.generate import poisson2d
-    from spmv_tpu_torch.ops import well_whole_core
+    from spmv_tpu_torch.ops import csr_spmv_core, well_whole_core
 
+    spill_before = csr_spmv_core.launches
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "poisson.mtx")
         write_matrix_market(poisson2d(WELL_CLI_GRID, WELL_CLI_GRID), path)
@@ -1595,6 +1660,9 @@ def phase_cli_well(device):
             (f"cg {label}", argv + ["--cg", "2000"], (well_whole_core,)),
         ])
     _sync(device)
+    if csr_spmv_core.launches != spill_before:
+        _fail("well cli: the CSR kernel was launched (the spill belongs "
+              "to K5's one launch)")
 
 
 def phase_profile_well(device, mats, smi_line):
@@ -1662,9 +1730,9 @@ def phase_profile_well(device, mats, smi_line):
         _sync(device)
         launched = (core.launches - before[0],
                     csr_spmv_core.launches - before[1])
-        if launched != (calls[0], calls[0] if A.spill is not None else 0):
-            _fail(f"well {label}: {launched} launches (K5, spill) for "
-                  f"{calls[0]} chained SpMVs")
+        if launched != (calls[0], 0):
+            _fail(f"well {label}: {launched} launches (K5, CSR) for "
+                  f"{calls[0]} chained SpMVs: expected one K5 launch each")
         runs = profile_kernel_fn(step, args, runs=5)
         doc = profiling_report(kernel, runs, timing.seconds_per_iteration,
                                5, True, machine=machine, device=device)
@@ -1678,7 +1746,7 @@ def phase_profile_well(device, mats, smi_line):
         _say(f"[12 well profile] {label}: SpMV {t * 1e3:.4f} ms "
              f"({w.num_entries / t / 1e9:.2f} Gnnz/s; {calls[0]} chained "
              f"SpMVs launched {core.__name__} {launched[0]} times and the "
-             f"spill kernel {launched[1]} times), plain {t_plain * 1e3:.4f}"
+             f"CSR kernel {launched[1]} times), plain {t_plain * 1e3:.4f}"
              f" ms, fraction of the triad roofline {frac:.4f} "
              f"({kernel.bytes_per_run()} B at {machine.hbm_gbps:.1f} GB/s);"
              f" K1 (DIA) on the same matrix {t_k1 * 1e3:.4f} ms, on "
@@ -1717,76 +1785,143 @@ def _well_coo(A, spill: bool):
     return torch.cat(rows), torch.cat(cols), torch.cat(vals)
 
 
-def phase_kernels_well(device, profiled, smi_line, triad_gbps):
-    """K5a and K5b alone on the DeviceWell of each profiled size, and the
-    spill's CSR kernel there: bitwise repeat, max error against the plain
-    version, device ms (50 launches in a CUDA graph, the L2 flushed
-    before each), ms a call through the wrapper, plain ms, the
-    torch.sparse CSR product of the same entries (cuSPARSE) and the
-    bound.  Not counted: the main path's counts were read before."""
+def _k5_bytes(A) -> tuple:
+    """(live, full) bytes of K5's product on A, x and y included.  Live:
+    what K5 must read, value + index of each slot whose mask bit is set,
+    a window start per such slot, the mask, a group per chunk with a set
+    bit, the step and segment pointers and the lane-ordered spill.  Full:
+    every chunk array of the container, as K5 was priced before it read
+    only the live slots (the spill then had a launch and a bound of its
+    own)."""
+    live = _live_slots(A)
+    vb = A.value.element_size()
+    vec = (A.num_columns + A.num_rows) * vb
+    live_bytes = (live * 128 * (vb + 4) + live * 4 + A.slot_mask.numel()
+                  + int((A.slot_mask != 0).sum()) * 4
+                  + _nbytes(A.segment_of_step, A.step_ptr, A.spill_ptr,
+                            A.spill_row, A.spill_col, A.spill_value) + vec)
+    full_bytes = _nbytes(A.value, A.local_index, A.window_start,
+                         A.group_of_chunk, A.segment_of_step,
+                         A.step_ptr) + vec
+    return live_bytes, full_bytes
+
+
+def _compacted(R):
+    """The spill ``R`` (a DeviceCsr over every row) cut to its nonempty
+    rows: what a separate launch over a row-compacted spill would walk."""
     import torch
+
+    from spmv_tpu_torch.models import DeviceCsr
+
+    counts = (R.row_ptr[1:] - R.row_ptr[:-1]).long()
+    rows = counts.nonzero().reshape(-1)
+    ptr = torch.zeros(rows.numel() + 1, dtype=torch.long,
+                      device=counts.device)
+    ptr[1:] = counts[rows].cumsum(0)
+    return DeviceCsr(rows.numel(), R.num_columns, R.num_entries, ptr,
+                     R.column_index, R.value)
+
+
+def phase_kernels_well(device, profiled, smi_line, triad_gbps):
+    """K5a and K5b alone on the DeviceWell of each profiled size, the
+    spill folded in: bitwise repeat, max error against the plain version,
+    device ms (50 launches in a CUDA graph, the L2 flushed before each),
+    ms a call through the wrapper, plain ms, the torch.sparse CSR product
+    of the same entries, which are the whole matrix's (cuSPARSE, timed
+    the same way and eagerly), and the bound from the live bytes beside
+    the full container's.  Then what the fold costs: K5 with its spill
+    arrays taken away, and the CSR kernel over the spill cut to its
+    nonempty rows (a separate launch's alternative to the fold), both
+    timed alike.  Not counted: the main path's counts were read
+    before."""
+    import torch
+
+    from spmv_tpu_torch.ops import csr_spmv_core
 
     f32 = torch.float32
     scratch = torch.empty(16 << 20, dtype=f32, device=device)
+
+    def flush():
+        scratch.fill_(0.0)
+
     found = {}
     for label, res in profiled.items():
         A = res["A"]
         g = torch.Generator(device=device).manual_seed(2)
         x = torch.randn(A.num_columns, generator=g, device=device, dtype=f32)
         out = torch.empty(A.num_rows, dtype=f32, device=device)
-        for kname, run, plain in _well_parts(A):
-            y1, y2 = run(x), run(x)
-            _sync(device)
-            if not torch.equal(y1, y2):
-                _fail(f"{kname} on {label}: two launches differ")
-            want = plain(x)
-            err = float((y1.double() - want.double()).abs().max())
-            rel = _rel(y1, want)
-            if rel > TOL_F32:
-                _fail(f"{kname} on {label}: rel err {rel} > {TOL_F32}")
-            del y1, y2, want
-            ms = _cold_graph_ms(lambda: run(x, out=out),
-                                lambda: scratch.fill_(0.0), 50)
-            eager_ms = _time_launches(lambda: run(x, out=out), 20)
-            plain_ms = _time_launches(lambda: plain(x), 3)
-            if kname == "csr_spmv":
-                R = A.spill
-                S = _torch_csr(R.row_ptr, R.column_index, R.value,
-                               (R.num_rows, R.num_columns))
-                b = _bound(_nbytes(R.row_ptr, R.column_index, R.value)
-                           + (A.num_columns + A.num_rows) * 4,
-                           2 * R.num_entries, triad_gbps)
-            else:
-                S = _csr_of_coo(*_well_coo(A, spill=False),
-                                (A.num_rows, A.num_columns))
-                b = _bound(_nbytes(A.value, A.local_index, A.window_start,
-                                   A.group_of_chunk, A.segment_of_step,
-                                   A.step_ptr)
-                           + (A.num_columns + A.num_rows) * 4,
-                           2 * int(S.values().numel()), triad_gbps)
-            lib = _library_cold(S, x, lambda: scratch.fill_(0.0))
-            del S
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "eager_ms": eager_ms, **lib, **b,
-                   "shape": f"{label} float32"}
-            _say(f"[13 well kernels] {kname} on {label}: {ms:.4f} ms on the "
-                 f"device (CUDA graph, L2 flushed), {eager_ms:.4f} ms a "
-                 f"call through the wrapper, plain {plain_ms:.4f} ms, "
-                 f"torch.sparse CSR of the same entries {_library_line(lib)}"
-                 f", bound "
-                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B;"
-                 f" {b['bound_triad_ms']:.4f} ms at the triad rate), max abs"
-                 f" err {err:.3e} (rel {rel:.3e}), bitwise repeatable, on "
-                 f"{smi_line}")
-            found[(kname, label)] = row
-        # the card's CSR SpMV of the whole matrix, the path's yardstick
+        kname, run, plain = _well_part(A)
+        y1, y2 = run(x), run(x)
+        _sync(device)
+        if not torch.equal(y1, y2):
+            _fail(f"{kname} on {label}: two launches differ")
+        want = plain(x)
+        err = float((y1.double() - want.double()).abs().max())
+        rel = _rel(y1, want)
+        if rel > TOL_F32:
+            _fail(f"{kname} on {label}: rel err {rel} > {TOL_F32}")
+        del y1, y2
+        ms = _cold_graph_ms(lambda: run(x, out=out), flush, 50)
+        eager_ms = _time_launches(lambda: run(x, out=out), 20)
+        plain_ms = _time_launches(lambda: plain(x), 3)
         S = _csr_of_coo(*_well_coo(A, spill=True),
                         (A.num_rows, A.num_columns))
-        res.update(_library_cold(S, x, lambda: scratch.fill_(0.0)))
+        lib_rel = _rel(S @ x, want)
+        if lib_rel > TOL_F32:
+            _fail(f"{kname} on {label}: torch.sparse of its entries differs "
+                  f"from the plain version by {lib_rel}")
+        del want
+        nnz = int(S.values().numel())
+        live, full = _k5_bytes(A)
+        b = _bound(live, 2 * nnz, triad_gbps)
+        bf = _bound(full, 2 * nnz, triad_gbps)
+        lib = _library_cold(S, x, flush)
+        del S
+        fold = {}
+        if A.spill is not None:
+            with _spill_taken_away(A):
+                ms_chunks = _cold_graph_ms(lambda: run(x, out=out), flush, 50)
+            Rc = _compacted(A.spill)
+            yc = torch.empty(Rc.num_rows, dtype=f32, device=device)
+            ms_compact = _cold_graph_ms(
+                lambda: csr_spmv_core(Rc, x, out=yc), flush, 50)
+            fold = {"spill_entries": A.spill.num_entries,
+                    "spill_rows": Rc.num_rows,
+                    "ms_without_spill": ms_chunks,
+                    "fold_ms": ms - ms_chunks,
+                    "compacted_spill_ms": ms_compact}
+            del Rc, yc
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "eager_ms": eager_ms, **lib, **b,
+               "bound_full_ms": bf["bound_ms"],
+               "bound_full_triad_ms": bf["bound_triad_ms"],
+               "bytes_full": full, "live_slots": _live_slots(A),
+               "slots": 8 * A.num_chunks, **fold,
+               "shape": f"{label} float32"}
+        _say(f"[13 well kernels] {kname} on {label} (spill folded in): "
+             f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
+             f"{eager_ms:.4f} ms a call through the wrapper, plain "
+             f"{plain_ms:.4f} ms, torch.sparse CSR of the same entries (the "
+             f"whole matrix) {_library_line(lib)}, bound {b['bound_ms']:.4f}"
+             f" ms ({b['bound_by']}, {b['bytes']} B live: "
+             f"{row['live_slots']} of {row['slots']} slots; "
+             f"{b['bound_triad_ms']:.4f} ms at the triad rate), the full "
+             f"container's {bf['bound_ms']:.4f} ms ({full} B; "
+             f"{bf['bound_triad_ms']:.4f} at the triad), max abs err "
+             f"{err:.3e} (rel {rel:.3e}), bitwise repeatable, on {smi_line}")
+        if fold:
+            _say(f"[13 well kernels] {kname} on {label}: the fold of "
+                 f"{fold['spill_entries']} spill entries ({fold['spill_rows']}"
+                 f" rows) costs {fold['fold_ms']:.4f} ms (K5 without them "
+                 f"{fold['ms_without_spill']:.4f} ms); the CSR kernel over "
+                 f"the row-compacted spill alone {fold['compacted_spill_ms']:.4f}"
+                 f" ms, timed alike, on {smi_line}")
+        found[(kname, label)] = row
+        res.update(lib)
         _say(f"[13 well kernels] {label}: torch.sparse CSR SpMV of the whole"
-             f" matrix {_library_line(res)} against the chained WELL SpMV's "
-             f"{res['ms']:.4f} ms")
-        del S, A, res["A"]
+             f" matrix {_library_line(lib)} against the chained WELL SpMV's "
+             f"{res['ms']:.4f} ms and K5's {ms:.4f} ms alone")
+        del A, res["A"]
         _sync(device)
     return found
 
@@ -1795,7 +1930,8 @@ def phase_kernels_well(device, profiled, smi_line, triad_gbps):
 def _well_spmm_parts(A):
     """(kernel name, kernel call, plain call, SpMV kernel call) of each
     launch that ``well_spmm_core`` makes for A: K6a or K6b, then the CSR
-    SpMM of the spill.  The kernel call takes X, an optional out buffer
+    SpMM of the spill; the SpMV kernel of K6 is K5 with its spill taken
+    away.  The kernel call takes X, an optional out buffer
     and (K6) an optional column-block width, which the wrapper leaves to
     its shared-memory budget: a width of the sweep launches one level
     below it."""
@@ -1812,9 +1948,13 @@ def _well_spmm_parts(A):
             return core(A, X, out=out)
         return _launch_spmm(core, name, A, X, out, seg, columns)
 
+    def chunks_spmv(x):
+        with _spill_taken_away(A):
+            return spmv_core(A, x)
+
     parts = [(name, run,
-              lambda X: ops.well_chunks_reference(A, X),
-              lambda x: spmv_core(A, x))]
+              lambda X: ops.well_chunks_reference(A, X, masked=False),
+              chunks_spmv)]
     if A.spill is not None:
         R = A.spill
         parts.append(("csr_spmm",
@@ -1833,7 +1973,7 @@ def _host_spmm(host, X):
 def _compare_well_spmm(name, w, dev_kw, dtype, k, device, bitwise):
     """K6a / K6b and the spill's CSR SpMM, each twice (bitwise equal),
     against its plain version and, column by column, against the SpMV
-    kernel (K5, CSR) on that column; the whole SpMM against the plain
+    kernel (K5 without its spill, CSR) on that column; the whole SpMM against the plain
     composition and, in float32, the fp64 host product.  ``bitwise``
     records per kernel whether every column equalled the SpMV kernel's
     bit for bit."""
@@ -2929,10 +3069,10 @@ def main() -> int:
     _sync(device)
 
     # the WELL path's run (CLI, then make_kernel("well") at both sizes):
-    # its counts, the spill's CSR kernel's included, start from zero here
+    # its counts start from zero here; the spill is K5's, so the CSR
+    # kernel must not move (phases 11 and 12 check it)
     well_wrappers = {"well_whole": well_whole_core,
-                     "well_seg": well_seg_core,
-                     "csr_spmv": csr_spmv_core}
+                     "well_seg": well_seg_core}
     for w in well_wrappers.values():
         w.launches = 0
     phase_cli_well(device)
@@ -2974,8 +3114,13 @@ def main() -> int:
     well_spmm = phase_profile_well_spmm(device, {
         label: (w, segmented, dia_of[label], profiled[label]["ms"] * 1e-3)
         for label, (w, segmented, _) in well_mats.items()}, smi_line)
+    spmv_before = (well_whole_core.launches, csr_spmv_core.launches)
     well_cg = phase_batched_cg(device, {"well": cg_well}, smi_line,
                                tag="16 batched cg")["well"]
+    if (well_whole_core.launches == spmv_before[0]
+            or csr_spmv_core.launches != spmv_before[1]):
+        _fail("batched cg well: the single-RHS solves did not take one K5a "
+              "launch a SpMV and no CSR launch")
     well_spmm_launches = {k: w.launches for k, w in spmm_wrappers.items()}
     _say("[16 batched cg] launches on the WELL SpMM path: "
          + ", ".join(f"{k} {n}" for k, n in well_spmm_launches.items()))
@@ -3118,9 +3263,7 @@ def main() -> int:
                        "shape": f"poisson2d({CG_GRID},{CG_GRID}) float32"},
         "well_spmv": {
             "launches_on_the_well_path": well_launches,
-            **{label: {**{k: v for k, v in res.items() if k != "A"},
-                       **({"spill": well_kernels[("csr_spmv", label)]}
-                          if ("csr_spmv", label) in well_kernels else {})}
+            **{label: {k: v for k, v in res.items() if k != "A"}
                for label, res in profiled.items()}},
         "well_spmm": {
             "launches_on_the_well_spmm_path": well_spmm_launches,

@@ -17,12 +17,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.io.matrix_market import MatrixMarket, load_matrix
 from spmv_tpu_torch.models.bsr import BLOCK, BsrMatrix
 from spmv_tpu_torch.models.device import (
+    LANE,
     DeviceBsr,
     DeviceDia,
     DeviceWell,
@@ -314,8 +316,8 @@ class WellCwKernel(_MatrixKernel):
 
 class WellKernel(_MatrixKernel):
     """WELL SpMV / SpMM through kernels K5a / K6a (whole x) or K5b / K6b
-    (segmented) and the CSR spill kernels on CUDA (their plain versions
-    on the CPU)."""
+    (segmented) on CUDA, the SpMV's spill folded into K5 and the SpMM's
+    added by the CSR SpMM kernel (their plain versions on the CPU)."""
 
     name = "well"
 
@@ -344,9 +346,13 @@ class WellKernel(_MatrixKernel):
             (A.num_columns, k), dtype=self.dtype, device=self.device))
 
     def bytes_per_run(self) -> int:
+        """The bytes K5 moves: value + index of each slot that holds a
+        nonzero (it reads no other; the JAX class counts every slot), the
+        spill and the vectors once."""
         m = self.matrix
         vb = self.value_bytes
-        b = m.value.size * (vb + IDX)
+        live = int((np.asarray(m.value) != 0).any(axis=2).sum())
+        b = live * LANE * (vb + IDX)
         if m.spill is not None:
             b += m.spill.num_entries * (vb + IDX)
         return b + (m.num_columns + m.num_rows) * vb

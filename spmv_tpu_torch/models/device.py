@@ -638,6 +638,39 @@ def _build_cw_merged(m):
                 anchor4=a4.reshape(S, 1, kl))
 
 
+def live_slot_mask(value: torch.Tensor) -> np.ndarray:
+    """(chunks,) uint8 of a (chunks, 8, 128) WELL ``value``: bit s set iff
+    slot s holds a nonzero value."""
+    live = (value != 0).any(dim=2).numpy()           # (chunks, 8)
+    bits = (1 << np.arange(SUBLANE)).astype(np.uint8)
+    return (live * bits).sum(axis=1, dtype=np.uint8)
+
+
+def lane_ordered_spill(spill: "DeviceCsr", out_rows: int,
+                       num_out_blocks: int) -> tuple:
+    """The spill's entries as K5 adds them: ``(ptr, tile_row, column,
+    value)`` with ``ptr`` (num_out_blocks * 128 + 1,) over the (output
+    block, lane) pairs and the entries sorted by (block, lane, tile row,
+    column), all on the CPU.  Row r lies in group ``r // 128``, lane ``r
+    % 128``, output block ``group // out_rows`` and tile row ``group %
+    out_rows``."""
+    row_ptr = spill.row_ptr.cpu().numpy().astype(np.int64)
+    col = spill.column_index.cpu().numpy()
+    rows = np.repeat(np.arange(spill.num_rows, dtype=np.int64),
+                     np.diff(row_ptr))
+    group, lane = rows // LANE, rows % LANE
+    tile_row = group % out_rows
+    key = group // out_rows * LANE + lane
+    order = np.lexsort((col, tile_row, key))
+    ptr = np.zeros(num_out_blocks * LANE + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=num_out_blocks * LANE),
+              out=ptr[1:])
+    return (torch.from_numpy(ptr.astype(np.int32)),
+            torch.from_numpy(tile_row[order].astype(np.int32)),
+            torch.from_numpy(col[order].astype(np.int32)),
+            spill.value.cpu()[torch.from_numpy(order)])
+
+
 class DeviceWell(torch.nn.Module):
     """WELL (windowed sliced-ELL) on a device; see
     ``spmv_tpu_torch.models.well`` for the format.
@@ -665,6 +698,22 @@ class DeviceWell(torch.nn.Module):
     ``window_rows``, ``num_chunks``, ``num_groups``, ``chunks_per_step``
     (K), ``blocks_per_out`` (B: 8-group blocks per output block) and
     ``segment_rows`` (None in whole-x mode).
+
+    Buffers the JAX container has no use for, built on the host by the
+    constructor for K5:
+
+    - ``slot_mask`` (chunks,) uint8: bit s is set iff slot s of the chunk
+      holds a nonzero value (``live_slot_mask``).  A slot the segment
+      spill emptied, and an inert padding chunk, have their bits clear
+      although they may keep a nonzero ``local_index``; K5 reads nothing
+      of a slot whose bit is clear.
+    - The spill in lane order (``lane_ordered_spill``), or None without a
+      spill: ``spill_ptr`` (num_out_blocks * 128 + 1,) int32, so that
+      lane l of output block b owns entries ``[spill_ptr[b * 128 + l],
+      spill_ptr[b * 128 + l + 1])``, and per entry its tile row
+      ``spill_row`` (int32, the group within the output block), its
+      column ``spill_col`` (int32) and ``spill_value``, sorted by
+      (block, lane, tile row, column).
     """
 
     format_name = "well"
@@ -692,7 +741,10 @@ class DeviceWell(torch.nn.Module):
             raise MatrixError("DeviceWell: block_of_step must be "
                               "non-decreasing (one run of steps a block)")
         ptr = np.searchsorted(blks, np.arange(self.num_out_blocks + 1))
-        self.register_buffer("value", _tensor(value, device, dtype))
+        host_value = _tensor(value, "cpu", dtype)
+        self.register_buffer("value", host_value.to(device))
+        self.register_buffer("slot_mask",
+                             _tensor(live_slot_mask(host_value), device))
         for name, a in (("local_index", local_index),
                         ("window_start", window_start),
                         ("group_of_chunk", group_of_chunk),
@@ -704,6 +756,12 @@ class DeviceWell(torch.nn.Module):
                              else _tensor(np.asarray(segment_of_step)
                                           .astype(np.int32), device))
         self.register_module("spill", spill)
+        lane = (None,) * 4 if spill is None else lane_ordered_spill(
+            spill, self.out_rows, self.num_out_blocks)
+        for name, t in zip(("spill_ptr", "spill_row", "spill_col",
+                            "spill_value"), lane):
+            self.register_buffer(
+                name, None if t is None else t.to(spill.value.device))
 
     @property
     def value_dtype(self) -> torch.dtype:
@@ -908,8 +966,8 @@ class DeviceWell(torch.nn.Module):
             spill, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x (the plain version on the CPU, kernels K5a / K5b and
-        the CSR kernel on CUDA)."""
+        """y = A @ x (the plain version on the CPU, kernel K5a or K5b,
+        the spill folded in, on CUDA)."""
         from spmv_tpu_torch.ops.dispatch import spmv
 
         return spmv(self, x)

@@ -1,7 +1,8 @@
 """WELL kernel wrappers: the counterpart of the WELL SpMV and SpMM
 sections of ``spmv_tpu/ops/pallas_kernels.py``.
 
-SpMV (``csrc/well_spmv.cu``):
+SpMV (``csrc/well_spmv.cu``), the whole product in one launch: the
+live slots of the chunks (``slot_mask``), then the spill in lane order:
 
 - K5a ``well_whole_core`` replaces ``_well_kernel`` (pallas_kernels.py:431,
   through ``well_spmv_padded``, :474): a ``DeviceWell`` in whole-x mode;
@@ -15,16 +16,21 @@ SpMM, X of shape (num_columns, k) (``csrc/well_spmm.cu``):
 - K6b ``well_seg_spmm_core`` replaces ``_well_seg_spmm_kernel`` (:1121,
   through ``_well_seg_spmm_call``, :1188).
 
-The ``.cu`` headers say what bounds them and how the simple designs
-work.  ``well_spmv_core`` and ``well_spmm_core`` compose them after
-``well_spmv`` (:682) and ``well_spmm`` (:1337): the chunk kernel of the
-container's mode writes every row, then the CSR spill adds
-(``csr_spmv_core`` / ``csr_spmm_core`` with ``accumulate=True``, which
-leaves empty rows alone).  Nothing is padded, so the ``_padded`` entry
+The ``.cu`` headers say what bounds them and how the designs work.
+``well_spmv_core`` and ``well_spmm_core`` stand for ``well_spmv`` (:682)
+and ``well_spmm`` (:1337): the SpMV is K5 of the container's mode alone;
+in the SpMM the chunk kernel writes every row, then the CSR spill adds
+(``csr_spmm_core`` with ``accumulate=True``, which leaves empty rows
+alone).  Nothing is padded, so the ``_padded`` entry
 points have no separate counterpart; the SpMM kernels take the columns
 in blocks, whose width ``well_column_block`` picks by a shared-memory
 budget.  Not carried over: the TPU's VMEM limits on whole x (8 MB) and
 on the segment (12 MB): the kernels read X directly, so K6a takes any X.
+
+K5 reads no slot whose mask bit is clear, so an inf or NaN in x under
+an all-zero slot, which gives NaN in the JAX kernels and in K6 (0 *
+inf), leaves K5's product finite: a stated deviation (ROADMAP.md, Queue
+3), which ``well_spmv_reference`` specifies.
 
 Each part wrapper takes its plain version (``ops/spmv.py``) for CPU
 tensors, launches its kernel for CUDA tensors, and raises for anything
@@ -44,8 +50,8 @@ from spmv_tpu_torch.ops._launch import (
     raise_on,
     stream_of,
 )
-from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core, csr_spmv_core
-from spmv_tpu_torch.ops.spmv import well_chunks_reference
+from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core
+from spmv_tpu_torch.ops.spmv import well_chunks_reference, well_spmv_reference
 
 __all__ = ["well_whole_core", "well_seg_core", "well_spmv_core",
            "well_spmv", "well_whole_spmm_core", "well_seg_spmm_core",
@@ -87,7 +93,17 @@ def _prepare(what, A, x, out, segmented: bool, ndim: int = 1) -> bool:
         raise KernelError(f"unsupported WELL value dtype {dt}")
     indices = (A.local_index, A.window_start, A.group_of_chunk,
                A.step_ptr) + ((A.segment_of_step,) if segmented else ())
-    for t in (A.value,) + indices:
+    arrays = (A.value,)
+    if ndim == 1:       # K5 also reads the mask and the lane-ordered spill
+        indices += tuple(t for t in (A.spill_ptr, A.spill_row, A.spill_col)
+                         if t is not None)
+        arrays += (A.slot_mask,) + (
+            () if A.spill_value is None else (A.spill_value,))
+        if A.slot_mask.dtype != torch.uint8 or (
+                A.spill_value is not None and A.spill_value.dtype != dt):
+            raise KernelError(f"{what}: slot_mask must be uint8 and "
+                              "spill_value of the value dtype")
+    for t in arrays + indices:
         if not t.is_contiguous():
             raise KernelError(f"{what}: matrix arrays must be contiguous")
     if any(t.dtype != torch.int32 for t in indices):
@@ -104,7 +120,7 @@ def _prepare(what, A, x, out, segmented: bool, ndim: int = 1) -> bool:
     if out is not None:
         check_vector("out", out, (A.num_rows,) + tail, dt)
         check_no_alias(x, out)
-    tensors = (A.value, x) + indices + (() if out is None else (out,))
+    tensors = arrays + (x,) + indices + (() if out is None else (out,))
     return on_cuda("WELL", *tensors)
 
 
@@ -112,17 +128,23 @@ def _launch(wrapper, name, A, x, out, segmented):
     """Launch ``name``'s kernel and count it on ``wrapper``."""
     from spmv_tpu_torch.ops._build import load_library
 
+    if A.value.data_ptr() % 16 or A.local_index.data_ptr() % 16:
+        raise KernelError(f"{name}: value and local_index must start on "
+                          "16-byte boundaries (K5 loads 4 lanes at once)")
     y = out if out is not None else torch.empty(
         A.num_rows, dtype=x.dtype, device=x.device)
     if A.num_rows > 0:
         lib = load_library()
         seg = (A.segment_of_step.data_ptr(),) if segmented else ()
+        spill = tuple(None if t is None else t.data_ptr() for t in (
+            A.spill_ptr, A.spill_row, A.spill_col, A.spill_value))
         rc = getattr(lib, f"{name}_launch")(
             _DTYPE_CODE[x.dtype], x.device.index, A.value.data_ptr(),
             A.local_index.data_ptr(), A.window_start.data_ptr(),
             A.group_of_chunk.data_ptr(), *seg, A.step_ptr.data_ptr(),
-            A.chunks_per_step, A.out_rows, A.num_out_blocks, A.num_rows,
-            A.num_columns, x.data_ptr(), y.data_ptr(), stream_of(x))
+            A.slot_mask.data_ptr(), *spill, A.chunks_per_step, A.out_rows,
+            A.num_out_blocks, A.num_rows, A.num_columns, x.data_ptr(),
+            y.data_ptr(), stream_of(x))
         raise_on(lib, rc, name)
         wrapper.launches += 1
     return y
@@ -130,11 +152,12 @@ def _launch(wrapper, name, A, x, out, segmented):
 
 def well_whole_core(A, x: torch.Tensor,
                     out: torch.Tensor = None) -> torch.Tensor:
-    """K5a: the WELL chunks' product (without the spill) for a whole-x
-    ``DeviceWell``; x of length num_columns and y of length num_rows in
-    the value dtype.  ``out`` (optional, not overlapping x) receives y."""
+    """K5a: y = A @ x, the live slots of the chunks and the spill in one
+    launch, for a whole-x ``DeviceWell``; x of length num_columns and y
+    of length num_rows in the value dtype.  ``out`` (optional, not
+    overlapping x) receives y."""
     if not _prepare("well_whole", A, x, out, segmented=False):
-        y = well_chunks_reference(A, x)
+        y = well_spmv_reference(A, x)
         return y if out is None else out.copy_(y)
     return _launch(well_whole_core, "well_whole", A, x, out,
                    segmented=False)
@@ -145,10 +168,10 @@ well_whole_core.launches = 0
 
 def well_seg_core(A, x: torch.Tensor,
                   out: torch.Tensor = None) -> torch.Tensor:
-    """K5b: the WELL chunks' product for a segmented ``DeviceWell``;
-    arguments as for ``well_whole_core``."""
+    """K5b: y = A @ x for a segmented ``DeviceWell``; arguments as for
+    ``well_whole_core``."""
     if not _prepare("well_seg", A, x, out, segmented=True):
-        y = well_chunks_reference(A, x)
+        y = well_spmv_reference(A, x)
         return y if out is None else out.copy_(y)
     return _launch(well_seg_core, "well_seg", A, x, out, segmented=True)
 
@@ -158,17 +181,14 @@ well_seg_core.launches = 0
 
 def well_spmv_core(A, x: torch.Tensor,
                    out: torch.Tensor = None) -> torch.Tensor:
-    """y = A @ x for a ``DeviceWell``: the chunk kernel of its mode (K5a
-    or K5b) writes y, then the CSR spill adds.  x of length num_columns
-    and y of length num_rows, in the value dtype; ``out`` (optional, not
+    """y = A @ x for a ``DeviceWell``: one launch of the kernel of its
+    mode (K5a or K5b), the spill folded in.  x of length num_columns and
+    y of length num_rows, in the value dtype; ``out`` (optional, not
     overlapping x) receives y."""
     if x.dim() != 1:
         raise KernelError(f"x must be 1-D; got {tuple(x.shape)}")
     core = well_whole_core if A.segment_of_step is None else well_seg_core
-    y = core(A, x, out=out)
-    if A.spill is not None:
-        csr_spmv_core(A.spill, x, out=y, accumulate=True)
-    return y
+    return core(A, x, out=out)
 
 
 def well_spmv(A, x: torch.Tensor) -> torch.Tensor:
@@ -207,7 +227,7 @@ def well_whole_spmm_core(A, X: torch.Tensor,
     row-major, in the value dtype.  ``out`` (optional, not overlapping
     X) receives Y."""
     if not _prepare("well_whole_spmm", A, X, out, segmented=False, ndim=2):
-        Y = well_chunks_reference(A, X)
+        Y = well_chunks_reference(A, X, masked=False)
         return Y if out is None else out.copy_(Y)
     return _launch_spmm(well_whole_spmm_core, "well_whole_spmm", A, X, out,
                         False)
@@ -221,7 +241,7 @@ def well_seg_spmm_core(A, X: torch.Tensor,
     """K6b: the WELL chunks' product for a segmented ``DeviceWell``;
     arguments as for ``well_whole_spmm_core``."""
     if not _prepare("well_seg_spmm", A, X, out, segmented=True, ndim=2):
-        Y = well_chunks_reference(A, X)
+        Y = well_chunks_reference(A, X, masked=False)
         return Y if out is None else out.copy_(Y)
     return _launch_spmm(well_seg_spmm_core, "well_seg_spmm", A, X, out,
                         True)

@@ -1,6 +1,6 @@
-"""Kernels K1, K2, K3a-c, K4a-c, K5a-b, K6a-b, K7, K8 and the CSR kernels
-on the card against their plain versions, and the generic and block AMG
-V-cycles on the card against their CPU runs.
+"""Kernels K1, K2, K3a-c, K4a-c, K5a-b (the spill folded in), K6a-b, K7,
+K8 and the CSR kernels on the card against their plain versions, and the
+generic and block AMG V-cycles on the card against their CPU runs.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -533,22 +533,23 @@ def test_well_kernels_match_plain(case, dtype, cuda):
     y1, y2 = core(A, x), core(A, x)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)
-    assert _rel_err(y1, well_chunks_reference(A, x)) <= TOL[dtype]
+    assert _rel_err(y1, well_spmv_reference(A, x)) <= TOL[dtype]
     y = well_spmv_core(A, x)
     torch.cuda.synchronize()
+    # one launch a product: the spill is folded into K5
     launched = [c.launches - b for c, b in zip(counters, before)]
-    assert launched == [0 if segmented else 3, 3 if segmented else 0,
-                        int(A.spill is not None)]
-    assert _rel_err(y, well_spmv_reference(A, x)) <= TOL[dtype]
+    assert launched == [0 if segmented else 3, 3 if segmented else 0, 0]
+    assert torch.equal(y, y1)
     want = torch.from_numpy(w.spmv(x.double().cpu().numpy()))
     assert _rel_err(y.cpu(), want) <= TOL[dtype]
 
 
 def test_well_unvisited_blocks_read_zero(cuda):
-    """An output block that no step visits is written with zeros (the
-    Pallas kernels never write it): a NaN-filled out buffer comes back
-    clean there.  The host packer gives every block a chunk, so the
-    inert chunk of the empty block 1 is taken out by hand."""
+    """An output block that no step visits (and that has no spill) is
+    written with zeros (the Pallas kernels never write it): a NaN-filled
+    out buffer comes back clean there.  The host packer gives every block
+    a chunk, so the inert chunk of the empty block 1 is taken out by
+    hand."""
     A0 = DeviceWell.from_host(_well_host("empty_blocks"),
                               dtype=torch.float32, chunks_per_step=1,
                               segment_rows=4)
@@ -565,17 +566,99 @@ def test_well_unvisited_blocks_read_zero(cuda):
     out = torch.full((A.num_rows,), float("nan"), device=cuda)
     well_seg_core(A, x, out=out)
     torch.cuda.synchronize()
-    assert torch.equal(out, well_chunks_reference(A, x))
+    assert torch.equal(out, well_spmv_reference(A, x))
     assert not out.isnan().any()
+
+
+def _synthetic_well(dtype, device, segmented):
+    """A hand-made container for K5's edges: output block 0 holds chunks
+    of 0 (a slot the segment spill emptied: zero values, a nonzero local
+    index), 1, 5 (not a prefix) and 8 live slots in groups 0, 3, 3 and
+    7; block 1 has no step but has spill entries, one lane of them 200;
+    block 2 holds an 8-slot chunk and an inert padding chunk.  x holds
+    inf at the one column that only the slots whose bit is clear point
+    at; some live columns lie past the end (they read 0)."""
+    rng = np.random.default_rng(21)
+    n, m, k, inf_col = 24 * 128 - 50, 6000, 2, 5999
+    masks = [0, 1 << 3, 0b10101101, 0xff, 0xff, 0]
+    groups = [0, 3, 3, 7, 16, 16]
+    block_of_step = np.array([0, 0, 2], np.int32)
+    seg = np.array([1, 3, 2]) if segmented else np.zeros(3, np.int64)
+    value = np.zeros((6, 8, 128))
+    loc = np.zeros((6, 8, 128), np.int32)
+    ws = np.zeros((6, 8), np.int64)
+    for c, mask in enumerate(masks):
+        off = seg[c // k]
+        for s in range(8):
+            if mask >> s & 1:
+                ws[c, s] = rng.integers(0, 44)
+                loc[c, s] = rng.integers(0, 512, 128)
+                col = (ws[c, s] + off) * 128 + loc[c, s]
+                loc[c, s][col == inf_col] += 1          # past the end
+                value[c, s] = rng.standard_normal(128)
+            elif c < 4:
+                ws[c, s] = inf_col // 128 - off
+                loc[c, s] = inf_col - (ws[c, s] + off) * 128
+    window_start = ws.reshape(3, k, 8).transpose(0, 2, 1)
+    rows = [5, 130, 1000, 1100, 1500, 2047, 2100, n - 1] + [1425] * 200
+    cols = np.concatenate([rng.integers(0, inf_col, 8),
+                           rng.choice(inf_col, 200, replace=False)])
+    order = np.lexsort((cols, rows))
+    rows, cols = np.asarray(rows)[order], cols[order]
+    ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=ptr[1:])
+    spill = DeviceCsr(n, m, rows.size, torch.from_numpy(ptr),
+                      torch.from_numpy(cols),
+                      torch.from_numpy(rng.standard_normal(rows.size))
+                      .to(dtype)).to(device)
+    A = DeviceWell(n, m, int((value != 0).sum()) + rows.size, 4, 24, k, 1,
+                   64 if segmented else None, value, loc, window_start,
+                   np.asarray(groups).reshape(3, 1, k), block_of_step,
+                   seg if segmented else None, spill, dtype=dtype,
+                   device=device)
+    x = torch.randn(m, generator=torch.Generator().manual_seed(22),
+                    dtype=dtype)
+    x[inf_col] = float("inf")
+    return A, x.to(device)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_well_k5_live_slots_and_folded_spill(dtype, segmented, cuda):
+    """K5 with the spill folded in against its plain version, twice
+    (bitwise equal), on chunks of 0, 1, 5 and 8 live slots, a block that
+    no step visits but whose lanes have spill entries, and a lane with
+    200 of them; the inf under the slots whose bit is clear stays out."""
+    A, x = _synthetic_well(dtype, cuda, segmented)
+    assert A.slot_mask.tolist() == [0, 8, 0b10101101, 255, 255, 0]
+    assert int(A.step_ptr[1]) == int(A.step_ptr[2])
+    lane_counts = (A.spill_ptr[1:] - A.spill_ptr[:-1]).cpu()
+    assert int(lane_counts.max()) == 200
+    assert int(lane_counts[128:256].sum()) > 0          # block 1's lanes
+    core = well_seg_core if segmented else well_whole_core
+    counters = (core, csr_spmv_core)
+    before = [c.launches for c in counters]
+    y1, y2 = core(A, x), core(A, x)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0]
+    assert torch.equal(y1, y2)
+    assert torch.isfinite(y1).all()
+    want = well_spmv_reference(A, x)
+    assert torch.isfinite(want).all()
+    assert _rel_err(y1, want) <= TOL[dtype]
+    # reading every slot (K6's plain version) meets the inf
+    assert not torch.isfinite(
+        well_chunks_reference(A, x, masked=False)).all()
 
 
 @pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
 @pytest.mark.parametrize("case", list(WELL_CASES))
 def test_well_spmm_kernels_match_plain(case, dtype, k, cuda):
-    """K6a / K6b twice (bitwise equal), against the plain version and,
-    column by column, against K5 on that column; the whole SpMM with its
-    spill against the plain composition and the fp64 host product."""
+    """K6a / K6b twice (bitwise equal), against the plain version; the
+    whole SpMM with its spill against the plain composition, the fp64
+    host product and, column by column, K5 (the spill folded in) on that
+    column."""
     w = _well_host(case)
     A = DeviceWell.from_host(w, dtype=dtype, device=cuda,
                              **WELL_CASES[case][2])
@@ -590,16 +673,17 @@ def test_well_spmm_kernels_match_plain(case, dtype, k, cuda):
     torch.cuda.synchronize()
     assert Y1.shape == (A.num_rows, k)
     assert torch.equal(Y1, Y2)
-    assert _rel_err(Y1, well_chunks_reference(A, X)) <= TOL[dtype]
-    for j in range(k):
-        assert _rel_err(Y1[:, j], spmv_core(A, X[:, j].contiguous())) \
-            <= TOL[dtype], j
+    assert _rel_err(Y1, well_chunks_reference(A, X, masked=False)) \
+        <= TOL[dtype]
     Y = well_spmm_core(A, X)
     torch.cuda.synchronize()
     launched = [c.launches - b for c, b in zip(counters, before)]
     assert launched == [0 if segmented else 3, 3 if segmented else 0,
                         int(A.spill is not None)]
     assert _rel_err(Y, well_spmv_reference(A, X)) <= TOL[dtype]
+    for j in range(k):
+        assert _rel_err(Y[:, j], spmv_core(A, X[:, j].contiguous())) \
+            <= TOL[dtype], j
     want = torch.from_numpy(np.stack(
         [w.spmv(X[:, j].double().cpu().numpy()) for j in range(k)], 1))
     assert _rel_err(Y.cpu(), want) <= TOL[dtype]

@@ -97,12 +97,17 @@ def test_dia_cg_guards(system):
 
 def test_cg_breakdown_runs_fixed_iterations():
     """The CG breakdown tool times both dot variants and traces a solve
-    and a K1 chain; on the CPU there is no device time to find."""
+    and a K1 chain; on the CPU there is no device time to find.  Each
+    per-iteration time is a difference of two wall-clock minima on the
+    CPU, whose sign is noise at this size: it is held to be finite, and
+    ``cg_seconds_per_iteration`` raises unless both solves ran their
+    fixed iteration counts."""
     from spmv_tpu_torch.profile.cg_breakdown import breakdown
 
     lines = []
     got = breakdown(8, 3, torch.device("cpu"), say=lines.append)
-    assert got["cg_fused=True"] > 0 and got["cg_fused=False"] > 0
+    assert np.isfinite(got["cg_fused=True"])
+    assert np.isfinite(got["cg_fused=False"])
     for name in ("cg_8", "k1_chain_8"):
         assert got[name]["wall_s"] > 0
         assert got[name]["device_s"] == 0
