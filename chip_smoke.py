@@ -24,7 +24,9 @@ Phases (each prints readable lines; any failure exits non-zero):
    matrix with chunks_per_step=32 (forced fallback) and random_sparse(256,
    256, 12) packed with one shallow level (a real CSR remainder): each
    launched twice (bitwise equal), against its plain version, and the
-   whole product against the fp64 host product in float32.  Then the
+   whole product against the fp64 host product in float32; K3a on both
+   of its paths, the level's int16 indices and its int32 ones, bitwise
+   equal to each other.  Then the
    WELL-CW SpMM kernels K4a (merged), K4b (level), K4c (pool) and the CSR
    SpMM on the same four matrices in float64 and float32 at k = 3 and
    k = 8: each launched twice (bitwise equal), against its plain version,
@@ -112,10 +114,15 @@ Phases (each prints readable lines; any failure exits non-zero):
    K4b on its fallback layout (chunks_per_step=64): bitwise repeat, max
    error against the plain version, device ms (50 launches in a CUDA
    graph, the L2 flushed before each) and ms a call through the
-   wrapper, against plain ms, the bound and the torch.sparse CSR product
-   (cuSPARSE) of the part's own entries, timed the same way and eagerly;
-   K3c's and K3b's plans (CTAs a cluster, lanes, ring stages, columns of
-   x a K3c CTA stages).
+   wrapper, against plain ms, the bound from the bytes the kernel reads
+   (K3a: the int16 index copy in place of the int32 one; K4a: the level
+   chunks and the pool list in place of the pool chunks) beside the
+   full container's, and the torch.sparse CSR product (cuSPARSE) of the
+   part's own entries, timed the same way and eagerly; K3c's and K3b's
+   plans (CTAs a cluster, lanes, ring stages, columns of x a K3c CTA
+   stages), K3a's index width, K4a's grid, path and pool list size;
+   then K3a's and K4a's other paths, each bitwise equal to the main path
+   and timed the same way (K3a: int32 indices; K4a: scalar X loads).
 11. WELL path through the CLI (the WELL launch counts, K5a and K5b, are
    zeroed just before): --profile 5 and --cg 2000 on poisson2d(256,
    256) (K5a); the CSR kernel must not be launched.
@@ -183,6 +190,12 @@ Phases (each prints readable lines; any failure exits non-zero):
    each launch) against its bound and the plain version's ms, and the
    yardstick, the block V-cycle eager and under one CUDA graph (no single
    PyTorch call computes a V-cycle, so there is no library ms).
+
+``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
+alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
+parent commit unpacked with ``git archive``, and for this one, each in
+a process of its own, in the order DIR, this, this, DIR on one card, and
+prints each kernel's device ms from the four runs.
 
 The second-to-last lines are the kernels' JSON summary (seventeen
 kernels, each with its launches on the main path, max error, ms against
@@ -357,6 +370,17 @@ def _cold_eager_ms(fn, flush, reps: int) -> float:
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    """Set ``obj.name`` to value for the block, then restore it."""
+    keep = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, keep)
 
 
 def _bound(nbytes: int, flops: int, triad_gbps: float,
@@ -632,7 +656,7 @@ def _compare_cw(name, w, dev_kw, dtype, device):
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(A.num_columns, generator=g, device=device, dtype=dtype)
     errs = []
-    for kname, run, plain, _ in _cw_parts(A):
+    for kname, run, plain, part in _cw_parts(A):
         y1, y2 = run(x), run(x)
         _sync(device)
         if not torch.equal(y1, y2):
@@ -641,6 +665,15 @@ def _compare_cw(name, w, dev_kw, dtype, device):
         errs.append(f"{kname} {e:.3e}")
         if e > tol:
             _fail(f"{kname} on {name} {dtn}: rel err {e} > {tol}")
+        if kname == "wellcw_level" and part.local_index16 is not None:
+            # K3a's other path: the int32 indices, the same sums
+            with _patched(part, "local_index16", None):
+                y3, y4 = run(x), run(x)
+            _sync(device)
+            if not (torch.equal(y3, y4) and torch.equal(y3, y1)):
+                _fail(f"{kname} int32 path on {name} {dtn}: two launches "
+                      "differ, or differ from the int16 path")
+            errs[-1] += " (int16 index; int32 bitwise equal)"
     y = wellcw_spmv_core(A, x)
     _sync(device)
     e = _rel(y, wellcw_spmv_reference(A, x))
@@ -1351,16 +1384,89 @@ def _cw_coo(kind, p, num_rows, num_columns):
     return row[keep], col[keep], p.value[keep]
 
 
+# buffers that K3a and K4a read in place of the JAX container's arrays
+DERIVED_BUFFERS = ("local_index16", "level_index16", "pool_ptr",
+                   "pool_col", "pool_value")
+
+
+def _part_bytes(kname, part) -> tuple:
+    """(read, full) bytes of a WELL-CW part: what kernel ``kname`` reads
+    on its path, and the container as earlier runs counted it, every
+    buffer but the ones K3a and K4a derive."""
+    full = _nbytes(*(b for name, b in part.named_buffers(recurse=False)
+                     if name not in DERIVED_BUFFERS))
+    if kname == "wellcw_level":
+        index = part.local_index16
+        if index is None:
+            index = part.local_index
+        return _nbytes(part.value, index, part.anchor4,
+                       part.group_ptr), full
+    if kname == "wellcw_merged":
+        return _nbytes(part.value, part.local_index, part.anchor4,
+                       part.x_window), full
+    if kname == "wellcw_merged_spmm":
+        cells = part.level_index16.numel()
+        read = (cells * part.value.element_size() + cells // 1024 * 4
+                + _nbytes(part.level_index16, part.pool_ptr, part.pool_col,
+                          part.pool_value))
+        return read, full
+    return full, full
+
+
+def _merged_spmm_shape(part, plan, k) -> str:
+    """K4a's grid and pool list, as a phase 10 line says them."""
+    threads = part.num_blocks * 64 * 128
+    blocks = -(-k // plan["kb"])
+    pool = ("no pool list" if part.pool_ptr is None else
+            f"pool list of {part.pool_col.numel()} cells "
+            f"({_nbytes(part.pool_col, part.pool_value)} B) and "
+            f"{part.pool_ptr.numel()} pointers "
+            f"({_nbytes(part.pool_ptr)} B)")
+    return (f"grid of {threads // 256} CTAs x {blocks} column blocks, one "
+            f"thread a row ({threads} rows), {plan['kb']} columns a block, "
+            f"int16 level indices, "
+            f"{'16-byte' if plan['vector_x'] else 'scalar'} X loads, "
+            f"{pool}")
+
+
+def _variants(kname, part, v, out, run, y_main, flush):
+    """K3a's other path (the int32 indices) and K4a's (scalar X loads,
+    X and Y one element off a 16-byte boundary) at full size: launched
+    on the same input, bitwise equal to the main path's output, and
+    timed as it is.  Returns {label: ms}."""
+    import torch
+
+    if kname == "wellcw_level":
+        if part.local_index16 is None:
+            return {}
+        label, ctx = "int32 index", _patched(part, "local_index16", None)
+    else:
+        label, ctx = "scalar X loads", contextlib.nullcontext()
+        v = torch.empty(v.numel() + 1, dtype=v.dtype,
+                        device=v.device)[1:].view(v.shape).copy_(v)
+        out = torch.empty(out.numel() + 1, dtype=out.dtype,
+                          device=out.device)[1:].view(out.shape)
+    with ctx:
+        y = run(v)
+        _sync(v.device)
+        if not torch.equal(y, y_main):
+            _fail(f"{kname} ({label}) at full size differs from the main "
+                  "path")
+        return {label: _cold_graph_ms(lambda: run(v, out=out), flush, 50)}
+
+
 def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     """Each WELL-CW / CSR kernel alone at the full-size matrix: K3c, K3b
     and CSR, and K4a, K4c and the CSR SpMM at k = CW_SPMM_K, on its
     merged layout; K3a and K4b on its fallback layout.  Beside each, the
     torch.sparse CSR product (cuSPARSE) of that part's own entries,
-    timed as the kernels are (a CUDA graph, the L2 flushed) and
-    eagerly."""
+    timed as the kernels are (a CUDA graph, the L2 flushed) and eagerly,
+    and its bound from the bytes it reads beside the container's; K3a's
+    and K4a's other paths timed the same way."""
     import torch
 
     from spmv_tpu_torch.models import DeviceWellCw
+    from spmv_tpu_torch.ops import wellcw_kernels as wk
     from spmv_tpu_torch.ops.wellcw_kernels import column_block, launch_plan
 
     f32 = torch.float32
@@ -1371,6 +1477,7 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                     generator=g)
     # 64 MiB written between launches evicts the 50 MB L2
     scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
     found = {}
     for dev_kw in ({}, {"chunks_per_step": 64}):
         A = DeviceWellCw.from_host(cw, dtype=f32, device=device, **dev_kw)
@@ -1391,8 +1498,7 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                 if rel > TOL_F32:
                     _fail(f"{kname} at full size: rel err {rel} > "
                           f"{TOL_F32}")
-                ms = _cold_graph_ms(lambda: run(v, out=out),
-                                    lambda: scratch.fill_(0.0), 50)
+                ms = _cold_graph_ms(lambda: run(v, out=out), flush, 50)
                 eager_ms = _time_launches(lambda: run(v, out=out), 50)
                 plain_ms = _time_launches(lambda: plain(v), 3)
                 k = CW_SPMM_K if spmm else 1
@@ -1412,14 +1518,19 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                 if lib_rel > TOL_F32:
                     _fail(f"{kname}: torch.sparse of its entries differs "
                           f"from the plain version by {lib_rel}")
-                lib = _library_cold(S, v, lambda: scratch.fill_(0.0))
+                lib = _library_cold(S, v, flush)
                 del S, want
-                b = _bound(_nbytes(*part.buffers(recurse=False))
-                           + (A.num_columns + rows) * k * 4, 2 * nnz * k,
-                           triad_gbps)
+                read, full = _part_bytes(kname, part)
+                vec = (A.num_columns + rows) * k * 4
+                b = _bound(read + vec, 2 * nnz * k, triad_gbps)
+                b_full = _bound(full + vec, 2 * nnz * k, triad_gbps)
                 found[kname] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, "eager_ms": eager_ms,
-                                **lib, **b}
+                                **lib, **b,
+                                "bound_full_ms": b_full["bound_ms"],
+                                "bound_full_triad_ms":
+                                    b_full["bound_triad_ms"],
+                                "bytes_full": b_full["bytes"]}
                 what = ""
                 if kname in ("wellcw_merged", "wellcw_pool"):
                     plan = launch_plan(part, 4, sms)
@@ -1428,6 +1539,10 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                             f"{plan['lanes']} lanes, {plan['stages']} "
                             f"stages, {plan['x_window_columns']} columns "
                             "of x staged)")
+                if kname == "wellcw_level":
+                    bits = 16 if part.local_index16 is not None else 32
+                    found[kname]["index_bits"] = bits
+                    what = f" ({bits}-bit indices)"
                 if spmm:
                     kind = kname.split("_")[1]
                     rows = 128 if "pool" in kname else 64
@@ -1435,6 +1550,11 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                         kb = column_block(kind, f32, CW_SPMM_K, rows=rows)
                         found[kname]["columns_per_block"] = kb
                         what = f", {kb} columns a block"
+                    if kname == "wellcw_merged_spmm":
+                        plan = wk.merged_spmm_plan(k, f32, v.data_ptr(),
+                                                   out.data_ptr())
+                        found[kname].update(plan)
+                        what = f" ({_merged_spmm_shape(part, plan, k)})"
                     what = f" k={CW_SPMM_K}{what}"
                 _say(f"[10 wellcw kernels] {kname}{what}"
                      f"{' (chunks_per_step=64)' if dev_kw else ''}: "
@@ -1443,8 +1563,19 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                      f"{plain_ms:.4f} ms, torch.sparse CSR of its entries "
                      f"{_library_line(lib)}, "
                      f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-                     f"{b['bytes']} B), max abs err {err:.3e} (rel "
+                     f"{b['bytes']} B read; full container "
+                     f"{b_full['bound_ms']:.4f} ms, {b_full['bytes']} B), "
+                     f"max abs err {err:.3e} (rel "
                      f"{rel:.3e}), bitwise repeatable, on {smi_line}")
+                if kname in ("wellcw_level", "wellcw_merged_spmm"):
+                    other = _variants(kname, part, v, out, run, y1, flush)
+                    found[kname]["variants_ms"] = other
+                    _say(f"[10 wellcw kernels] {kname} other paths, each "
+                         "bitwise equal to the main path (CUDA graph, L2 "
+                         "flushed): " + ", ".join(
+                             f"{label} {t:.4f} ms"
+                             for label, t in other.items())
+                         + f"; main path {ms:.4f} ms")
         del A
         _sync(device)
     missing = {"wellcw_merged", "wellcw_level", "wellcw_pool", "csr_spmv",
@@ -3289,5 +3420,97 @@ def main() -> int:
     return 0
 
 
+# phase 10 alone, in the checkout it runs from (this one or another
+# commit's): the JSON of its kernels on the last line
+_PHASE10 = """
+import json
+import chip_smoke as c
+from spmv_tpu_torch.io.generate import banded_random
+from spmv_tpu_torch.models import WellCwMatrix
+from spmv_tpu_torch.perfmodel import measured_machine
+device, smi = c.phase_device()
+c.phase_build()
+cw = WellCwMatrix.from_matrix_market(banded_random(
+    c.CW_FULL_ROWS, half_bandwidth=c.CW_FULL_HALF_BW, nnz_per_row=8,
+    seed=1))
+found = c.phase_kernels_wellcw(device, cw, smi,
+                               measured_machine(device).hbm_gbps)
+# the main path's outputs on phase 10's inputs, for a bitwise comparison
+# across checkouts
+import sys
+import torch
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.models import DeviceWellCw
+f32 = torch.float32
+g = torch.Generator(device=device).manual_seed(1)
+x = torch.randn(cw.num_columns, device=device, dtype=f32, generator=g)
+X = torch.randn(cw.num_columns, c.CW_SPMM_K, device=device, dtype=f32,
+                generator=g)
+outs = {}
+for kw in ({}, {"chunks_per_step": 64}):
+    A = DeviceWellCw.from_host(cw, dtype=f32, device=device, **kw)
+    for name, part in (("merged", A.merged), ("level", A.levels[0] if
+                                              A.levels else None)):
+        if part is not None:
+            n = A.num_rows
+            outs[f"wellcw_{name}"] = getattr(
+                ops, f"wellcw_{name}_core")(part, x, n).cpu()
+            outs[f"wellcw_{name}_spmm"] = getattr(
+                ops, f"wellcw_{name}_spmm_core")(part, X, n).cpu()
+    del A
+torch.save(outs, sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
+def wellcw_kernels_beside(other: str) -> int:
+    """Phase 10 of the checkout at ``other`` (another commit's files,
+    e.g. the parent's from ``git archive``) and of this one, each in a
+    process of its own, in the order other, this, this, other, on one
+    card; then each kernel's device ms from the four runs."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs, outs = [], {}
+    tmp = tempfile.mkdtemp(prefix="phase10_", dir=here)
+    for i, (label, root) in enumerate((("other", other), ("this", here),
+                                       ("this", here), ("other", other))):
+        _say(f"[10 beside] phase 10 of {label} ({os.path.abspath(root)})")
+        path = os.path.join(tmp, f"{i}.pt")
+        r = subprocess.run([sys.executable, "-c", _PHASE10, path],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=1200)
+        lines = r.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            _say(f"  [{label}] {line}")
+        if r.returncode != 0 or not lines:
+            _say(r.stderr[-4000:])
+            _fail(f"phase 10 of {root} exited with {r.returncode}")
+        runs.append((label, json.loads(lines[-1])))
+        outs.setdefault(label, torch.load(path))
+        os.remove(path)
+    os.rmdir(tmp)
+    same = {name: torch.equal(y, outs["other"][name])
+            for name, y in outs["this"].items() if name in outs["other"]}
+    _say("[10 beside] main-path outputs on phase 10's inputs bitwise equal "
+         "to the other checkout's: " + ", ".join(
+             f"{name} {'yes' if eq else 'no'}" for name, eq in same.items()))
+    summary = {}
+    for name in runs[1][1]:
+        summary[name] = {f"{label}_{i}": run.get(name, {}).get("ms")
+                         for i, (label, run) in enumerate(runs)}
+        summary[name]["library_ms_this"] = runs[1][1][name]["library_ms"]
+        _say(f"[10 beside] {name}: device ms (CUDA graph, L2 flushed) "
+             + ", ".join(f"{k} {v}" for k, v in summary[name].items()))
+    print(json.dumps({"wellcw_kernels_beside": summary,
+                      "bitwise_equal_to_other": same,
+                      "runs": [{"label": label, "kernels": run}
+                               for label, run in runs]}, default=str),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--wellcw-kernels-beside":
+        sys.exit(wellcw_kernels_beside(sys.argv[2]))
     sys.exit(main())

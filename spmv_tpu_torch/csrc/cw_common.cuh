@@ -1,5 +1,6 @@
 // Shared helpers of the WELL-CW kernels (wellcw_spmv.cu, wellcw_spmm.cu):
-// the chunk gather, for one x vector or a block of X columns.
+// the cell addressing, the x gather and a level chunk's strip of X
+// columns.
 //
 // A chunk is 8 slots x 128 lanes; lane l of a chunk serves row
 // group * 128 + l.  Cell (c, s, l) holds value[(c * 8 + s) * 128 + l]
@@ -38,36 +39,11 @@ __device__ __forceinline__ T cw_x(const T* __restrict__ x,
   return col < num_columns ? __ldg(x + col) : T(0);
 }
 
-// Sum of one chunk's 8 slots in lane `lane`: the chunk's contribution
-// to its group row (a level chunk).
-template <typename T, bool Merged>
-__device__ __forceinline__ T cw_strip(const T* __restrict__ value,
-                                      const int* __restrict__ local_index,
-                                      int anchor4, int d, int64_t chunk,
-                                      int lane, const T* __restrict__ x,
-                                      int64_t num_columns) {
-  const int64_t base = chunk * kCwChunk + lane;
-  int loc[kCwSlots];
-  T val[kCwSlots];
-#pragma unroll
-  for (int s = 0; s < kCwSlots; ++s) {
-    loc[s] = local_index[base + s * kCwLanes];
-    val[s] = value[base + s * kCwLanes];
-  }
-  T strip = T(0);
-#pragma unroll
-  for (int s = 0; s < kCwSlots; ++s) {
-    int w = loc[s] >> 7;
-    if (Merged) w &= 8 * d - 1;
-    strip += val[s] * cw_x(x, num_columns, anchor4, d, w, loc[s]);
-  }
-  return strip;
-}
-
-// The same for columns [c0, c0 + kc) of a row-major X (num_columns, k),
-// kc <= KB: strip[j] is column c0 + j's chunk sum, added slot by slot in
-// the order cw_strip adds them, so each column sums as the SpMV does.
-template <typename T, bool Merged, int KB>
+// Sum of one level chunk's 8 slots in lane `lane`, for columns [c0, c0 +
+// kc) of a row-major X (num_columns, k), kc <= KB: strip[j] is column c0
+// + j's chunk sum, added slot by slot in the order K3a adds them
+// (wellcw_spmv.cu), so each column sums as the SpMV does.
+template <typename T, int KB>
 __device__ __forceinline__ void cw_strip_cols(
     const T* __restrict__ value, const int* __restrict__ local_index,
     int anchor4, int d, int64_t chunk, int lane, const T* __restrict__ X,
@@ -84,9 +60,7 @@ __device__ __forceinline__ void cw_strip_cols(
   for (int j = 0; j < KB; ++j) strip[j] = T(0);
 #pragma unroll
   for (int s = 0; s < kCwSlots; ++s) {
-    int w = loc[s] >> 7;
-    if (Merged) w &= 8 * d - 1;
-    const int64_t col = cw_column(anchor4, d, w, loc[s]);
+    const int64_t col = cw_column(anchor4, d, loc[s] >> 7, loc[s]);
     if (col >= num_columns) continue;        // reads 0: adds nothing
     const T* xr = X + col * k + c0;
 #pragma unroll

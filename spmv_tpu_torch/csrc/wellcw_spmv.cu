@@ -8,18 +8,25 @@
 //                            level + stage-1 pool grid.
 //
 // What bounds them on an H100: bytes.  Each cell streams a value and an
-// int32 index (8 bytes in float32; a pool cell also its int32 rowmap)
-// and gathers one x entry for 2 flops; x (4 MB at 1M columns) stays in
-// the 50 MB L2, so the time is the chunk stream over device-memory
-// bandwidth, as long as enough of it is in flight while the dependent
-// index -> x gathers wait on the L2.
+// index (8 bytes in float32 with an int32 index; a pool cell also its
+// int32 rowmap) and gathers one x entry for 2 flops; x (4 MB at 1M
+// columns) stays in the 50 MB L2, so the time is the chunk stream over
+// device-memory bandwidth, as long as enough of it is in flight while
+// the dependent index -> x gathers wait on the L2.
 //
 // K3a, one thread per (group, lane): the thread walks its group's
-// chunks in order and sums each chunk's 8 slots in registers; a warp's
-// 32 lanes read 128 contiguous bytes of each slot.  x is read straight
-// from memory (no stride-d tables: a gather through the L2 is cheap on
-// Hopper, and the TPU needed the tables only to turn a gather into
-// aligned slices).
+// chunks in order, sums each chunk's 8 slots in slot order into a strip,
+// then the strips in chunk order; a warp's 32 lanes read 128 contiguous
+// bytes of each slot's values, with the streaming cache hint (__ldcs:
+// read once, evict first, so x's lines stay in the L2).  A level's
+// local_index is w * 128 + lane < 1024 d, so for d <= 32 the container
+// keeps an int16 copy and K3a reads that: 6 bytes a float32 cell instead
+// of 8, a quarter less stream, the same columns and sums.  (A warp a
+// chunk with 16-byte loads, K5's design, measured no faster here: the
+// 1-lane walk already keeps enough of the stream in flight.)  x is read
+// straight from memory (no stride-d tables: a gather through the L2 is
+// cheap on Hopper, and the TPU needed the tables only to turn a gather
+// into aligned slices).
 //
 // K3b and K3c, a chunk stream copied in bulk (Hopper):
 // - One output block (64 groups for K3c, out_rows for K3b; a slice of
@@ -98,27 +105,39 @@ __device__ __forceinline__ void store_row(T* __restrict__ y, int64_t row,
 }
 
 // K3a: grid of ceil(num_groups * 128 / blockDim.x) blocks; thread t is
-// (group t / 128, lane t % 128).
-template <typename T>
+// (group t / 128, lane t % 128).  IdxT is int (local_index) or int16_t
+// (its int16 copy).
+template <typename T, typename IdxT>
 __global__ void __launch_bounds__(256)
     cw_level_kernel(const T* __restrict__ value,
-                    const int* __restrict__ local_index,
+                    const IdxT* __restrict__ local_index,
                     const int* __restrict__ anchor4,
                     const int* __restrict__ group_ptr, int d,
                     int64_t num_groups, int64_t num_rows,
                     int64_t num_columns, const T* __restrict__ x,
                     T* __restrict__ y, bool accumulate) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  const int64_t g = t / kCwLanes;
-  const int lane = static_cast<int>(t % kCwLanes);
-  const int64_t row = t;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t g = row / kCwLanes;
+  const int lane = static_cast<int>(row % kCwLanes);
   if (g >= num_groups || row >= num_rows) return;
   T acc = T(0);
   const int end = group_ptr[g + 1];
   for (int c = group_ptr[g]; c < end; ++c) {
-    acc += cw_strip<T, false>(value, local_index, __ldg(anchor4 + c), d, c,
-                              lane, x, num_columns);
+    const int a4 = __ldg(anchor4 + c);
+    const int64_t base = static_cast<int64_t>(c) * kCwChunk + lane;
+    T val[kCwSlots];
+    int loc[kCwSlots];
+#pragma unroll
+    for (int s = 0; s < kCwSlots; ++s) {
+      val[s] = __ldcs(value + base + s * kCwLanes);
+      loc[s] = __ldcs(local_index + base + s * kCwLanes);
+    }
+    T strip = T(0);
+#pragma unroll
+    for (int s = 0; s < kCwSlots; ++s)
+      strip += val[s] * cw_x(x, num_columns, a4, d, loc[s] >> 7, loc[s]);
+    acc += strip;
   }
   store_row(y, row, acc, accumulate);
 }
@@ -508,25 +527,45 @@ __global__ void __launch_bounds__(kCwLanes + kWarp)
   cluster_sync(cl);
 }
 
-template <typename T>
-cudaError_t level(const void* value, const void* local_index,
-                  const void* anchor4, const void* group_ptr, int d,
-                  int64_t num_groups, int64_t num_rows, int64_t num_columns,
-                  const void* x, void* y, bool accumulate,
-                  cudaStream_t stream) {
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, typename IdxT>
+cudaError_t level_index(const void* value, const void* local_index,
+                        const void* anchor4, const void* group_ptr, int d,
+                        int64_t num_groups, int64_t num_rows,
+                        int64_t num_columns, const void* x, void* y,
+                        bool accumulate, cudaStream_t stream) {
   constexpr int threads = 256;
   const int64_t blocks = (num_groups * kCwLanes + threads - 1) / threads;
   if (blocks == 0) return cudaSuccess;
-  cw_level_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(value), static_cast<const int*>(local_index),
-      static_cast<const int*>(anchor4), static_cast<const int*>(group_ptr),
-      d, num_groups, num_rows, num_columns, static_cast<const T*>(x),
-      static_cast<T*>(y), accumulate);
+  cw_level_kernel<T, IdxT>
+      <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+          static_cast<const T*>(value),
+          static_cast<const IdxT*>(local_index),
+          static_cast<const int*>(anchor4),
+          static_cast<const int*>(group_ptr), d, num_groups, num_rows,
+          num_columns, static_cast<const T*>(x), static_cast<T*>(y),
+          accumulate);
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+template <typename T>
+cudaError_t level(const void* value, const void* local_index,
+                  int index_bits, const void* anchor4, const void* group_ptr,
+                  int d, int64_t num_groups, int64_t num_rows,
+                  int64_t num_columns, const void* x, void* y,
+                  bool accumulate, cudaStream_t stream) {
+  if (index_bits == 16)
+    return level_index<T, int16_t>(value, local_index, anchor4, group_ptr,
+                                   d, num_groups, num_rows, num_columns, x,
+                                   y, accumulate, stream);
+  if (index_bits == 32)
+    return level_index<T, int>(value, local_index, anchor4, group_ptr, d,
+                               num_groups, num_rows, num_columns, x, y,
+                               accumulate, stream);
+  return cudaErrorInvalidValue;
 }
 
 // The host's plan must be one the kernels take: a cluster of 1, 2 or 4
@@ -623,13 +662,14 @@ cudaError_t merged(const void* value, const void* local_index,
 
 // Each returns the cudaError_t of the launch (0 on success; invalid
 // value for a plan the kernels do not take).  dtype is kFloat32 or
-// kFloat64 (dia_common.cuh); every index array is int32.  K3b and K3c
-// take the host's plan (ops/wellcw_kernels.py): `lanes` of a pool CTA,
-// the ring's `stages`, K3c's x `window` (elements) and the `cluster`
-// size.
+// kFloat64 (dia_common.cuh); every index array is int32 but K3a's
+// local_index, int16 with index_bits 16.  K3b and K3c take the host's
+// plan (ops/wellcw_kernels.py):
+// `lanes` of a pool CTA, the ring's `stages`, K3c's x `window`
+// (elements) and the `cluster` size.
 
 extern "C" int wellcw_level_launch(int dtype, int device, const void* value,
-                                   const void* local_index,
+                                   const void* local_index, int index_bits,
                                    const void* anchor4,
                                    const void* group_ptr, int d,
                                    long long num_groups, long long num_rows,
@@ -641,13 +681,13 @@ extern "C" int wellcw_level_launch(int dtype, int device, const void* value,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return level<float>(value, local_index, anchor4, group_ptr, d,
-                          num_groups, num_rows, num_columns, x, y,
-                          accumulate != 0, s);
+      return level<float>(value, local_index, index_bits, anchor4,
+                          group_ptr, d, num_groups, num_rows, num_columns, x,
+                          y, accumulate != 0, s);
     case kFloat64:
-      return level<double>(value, local_index, anchor4, group_ptr, d,
-                           num_groups, num_rows, num_columns, x, y,
-                           accumulate != 0, s);
+      return level<double>(value, local_index, index_bits, anchor4,
+                           group_ptr, d, num_groups, num_rows, num_columns,
+                           x, y, accumulate != 0, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -42,7 +42,8 @@ from spmv_tpu_torch.models.well import WellMatrix
 
 __all__ = ["DeviceDia", "DeviceCsr", "DeviceCwLevel", "DeviceCwPool",
            "DeviceCwMerged", "DeviceWellCw", "DeviceWell", "DeviceBsr",
-           "default_device", "default_value_dtype", "DEVICE_ENV"]
+           "default_device", "default_value_dtype", "DEVICE_ENV",
+           "level_index_bits", "merged_pool_list"]
 
 LANE = 128
 SUBLANE = 8
@@ -202,18 +203,35 @@ def _check_value_dtype(dtype: torch.dtype, what: str) -> None:
             f"{str(dtype).replace('torch.', '')}.")
 
 
+def level_index_bits(d: int) -> int:
+    """Bits of the level index K3a reads for a level of window multiple
+    ``d``: a level cell's ``local_index`` is ``w * 128 + lane < 1024 d``,
+    so 16 where that fits an int16 (d <= 32), else 32."""
+    return 16 if LANE * SUBLANE * int(d) <= 1 << 15 else 32
+
+
+def _int16_copy(local_index: np.ndarray, what: str) -> np.ndarray:
+    narrow = local_index.astype(np.int16)
+    if not np.array_equal(narrow, local_index):
+        raise MatrixError(f"{what}: a local_index does not fit int16")
+    return narrow
+
+
 class DeviceCwLevel(torch.nn.Module):
     """One WELL-CW level of the fallback layout (kernel K3a).
 
     Buffers, as in the JAX container: ``value`` (chunks, 8, 128),
     ``local_index`` (chunks, 8, 128) int32, ``anchor4`` and
     ``group_of_chunk`` (steps, 1, K) int32, ``block_of_step`` (steps,)
-    int32; and
+    int32; and, derived on the host for K3a:
 
     - ``group_ptr`` (num_groups + 1,) int32: group g's chunks are
       ``[group_ptr[g], group_ptr[g + 1])`` (``group_of_chunk`` is
       non-decreasing), so one CUDA thread per (group, lane) finds its
-      run without the TPU's in-order grid.
+      run without the TPU's in-order grid;
+    - ``local_index16`` (chunks, 8, 128) int16, ``local_index``'s values
+      where ``level_index_bits(d)`` is 16, else None: K3a reads it in
+      place of ``local_index`` (2 bytes a cell instead of 4).
 
     Metadata: ``d``, ``num_chunks``, ``chunks_per_step`` (K) and ``xr4``
     (the JAX stride-table height, kept for parity; no table is built).
@@ -230,8 +248,12 @@ class DeviceCwLevel(torch.nn.Module):
         grp = np.asarray(group_of_chunk).reshape(-1)
         ptr = np.searchsorted(grp, np.arange(num_groups + 1))
         self.register_buffer("value", _tensor(value, device, dtype))
-        self.register_buffer("local_index",
-                             _tensor(local_index.astype(np.int32), device))
+        local_index = np.asarray(local_index).astype(np.int32)
+        self.register_buffer("local_index", _tensor(local_index, device))
+        self.register_buffer(
+            "local_index16",
+            _tensor(_int16_copy(local_index, "DeviceCwLevel"), device)
+            if level_index_bits(self.d) == 16 else None)
         self.register_buffer("anchor4",
                              _tensor(anchor4.astype(np.int32), device))
         self.register_buffer("group_of_chunk",
@@ -298,13 +320,22 @@ class DeviceCwMerged(torch.nn.Module):
     Buffers, as in the JAX container: ``value`` and ``local_index``
     (num_blocks * kl, 8, 128), ``anchor4`` (num_blocks, 1, kl).  The
     chunk positions are static, so a CUDA grid needs no extra index.
-    Derived on the host for K3c, which stages each block's part of x in
-    shared memory:
+    Derived on the host:
 
-    - ``x_window`` (num_blocks, 2) int32: block b's cells of nonzero
+    - for K3c, which stages each block's part of x in shared memory,
+      ``x_window`` (num_blocks, 2) int32: block b's cells of nonzero
       value read columns in [x_window[b, 0], x_window[b, 1]), the first
       rounded down to a multiple of 4 ([0, 0) for a block with none);
-      ``max_window`` is the widest.
+      ``max_window`` is the widest;
+    - for K4a, one thread a row, the pool list (``merged_pool_list``),
+      or None without pool chunks: ``pool_ptr`` (num_blocks * 128 * 64
+      + 1,) int32 over the (block, lane, tile row) triples, so that row
+      (b * 64 + r) * 128 + l owns entries ``[pool_ptr[i], pool_ptr[i +
+      1])``, i = (b * 128 + l) * 64 + r, and per entry its column
+      ``pool_col`` (int32) and ``pool_value``;
+    - ``level_index16`` (num_blocks * 64 * cap, 8, 128) int16, the level
+      chunks' ``local_index`` (< 1024 d, and a merged grid has d <= 16),
+      which K4a's level part reads in place of ``local_index``.
     """
 
     def __init__(self, d, kl, cap, lvl_per_block, pool_per_block,
@@ -328,6 +359,59 @@ class DeviceCwMerged(torch.nn.Module):
                          self.num_blocks)
         self.max_window = int((win[:, 1] - win[:, 0]).max(initial=0))
         self.register_buffer("x_window", _tensor(win, device))
+        pool = merged_pool_list(value, local_index, anchor4, self.d,
+                                self.kl, self.lvl_per_block,
+                                self.num_blocks)
+        for name, a in zip(("pool_ptr", "pool_col", "pool_value"),
+                           pool or (None,) * 3):
+            self.register_buffer(name, None if a is None else _tensor(
+                a, device, dtype if name == "pool_value" else None))
+        level = np.asarray(local_index).reshape(
+            self.num_blocks, self.kl, SUBLANE, LANE)[:, :self.lvl_per_block]
+        self.register_buffer("level_index16", _tensor(_int16_copy(
+            level.reshape(-1, SUBLANE, LANE), "DeviceCwMerged"), device))
+
+
+def merged_pool_list(value, local_index, anchor4, d: int, kl: int,
+                     lvl_per_block: int,
+                     num_blocks: int) -> Optional[tuple]:
+    """The pool cells of a merged grid as K4a adds them, one run a row:
+    ``(ptr, col, value)`` numpy arrays, or None without pool chunks.
+
+    Every cell of a pool chunk whose tile row (``local_index >> 14``)
+    lies in [0, 64) is kept, values of 0 included; one of row r of block
+    b, in lane l, belongs to row ``(b * 64 + r) * 128 + l`` and reads x
+    at column ``(anchor4 * d + ((loc >> 7) & (8 d - 1))) * 128 + (loc &
+    127)``.  The cells are sorted stably by (block, lane, tile row), so
+    each row keeps the storage order (chunk, then slot) that the Pallas
+    kernel adds them in, and the runs of a warp's 32 rows (32 lanes of
+    one tile row) lie 64 runs apart; ``ptr`` (num_blocks * 8192 + 1,)
+    int32 holds the runs' bounds in that order.  (Sorted by row, so that
+    a warp's runs lie side by side, K4a measured slower.)"""
+    S, P = int(num_blocks), int(kl) - int(lvl_per_block)
+    if P == 0:
+        return None
+    shape = (S, int(kl), SUBLANE, LANE)
+    v = np.asarray(value).reshape(shape)[:, lvl_per_block:]
+    loc = np.asarray(local_index).reshape(shape)[:, lvl_per_block:] \
+        .astype(np.int64)
+    a4 = np.asarray(anchor4).reshape(S, int(kl))[:, lvl_per_block:] \
+        .astype(np.int64)
+    row = loc >> 14
+    col = ((a4[:, :, None, None] * d + ((loc >> 7) & (8 * d - 1))) * LANE
+           + (loc & (LANE - 1)))
+    b = np.arange(S, dtype=np.int64)[:, None, None, None]
+    lane = np.arange(LANE, dtype=np.int64)
+    key = (b * LANE + lane) * 64 + row
+    keep = (row >= 0) & (row < 64)
+    key, col, v = key[keep], col[keep], v[keep]
+    if col.size and col.max() > np.iinfo(np.int32).max:
+        raise MatrixError("merged_pool_list: a column does not fit int32")
+    order = np.argsort(key, kind="stable")
+    ptr = np.zeros(S * 64 * LANE + 1, np.int64)
+    np.cumsum(np.bincount(key, minlength=S * 64 * LANE), out=ptr[1:])
+    return (ptr.astype(np.int32), col[order].astype(np.int32),
+            v[order])
 
 
 def _x_windows(value, local_index, anchor4, d, block_of_chunk, num_blocks):

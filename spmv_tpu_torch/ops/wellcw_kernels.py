@@ -67,7 +67,8 @@ __all__ = ["wellcw_merged_core", "wellcw_level_core", "wellcw_pool_core",
            "wellcw_spmv_core", "wellcw_spmv", "wellcw_merged_spmm_core",
            "wellcw_level_spmm_core", "wellcw_pool_spmm_core",
            "wellcw_spmm_core", "wellcw_spmm", "column_block", "cluster_size",
-           "stream_plan", "launch_plan"]
+           "stream_plan", "launch_plan", "x_vector_loads",
+           "merged_spmm_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 LANE = 128
@@ -89,14 +90,14 @@ BARRIER_BYTES = (2 * MAX_STAGES + 1) * 8
 # clusters of 2 (they did not fit the card in one wave)
 CLUSTER_SIZES = (1, 2)
 # The SpMM kernels' column blocks (csrc/wellcw_spmm.cu), passed to every
-# launch: a level thread holds kb = min(k, COLUMNS) sums in registers; a
-# pool tile holds rows x kb x 32 accumulators in shared memory, kb as
-# wide as the tile's budget allows
-# (K4a: 64 rows, 64 KB; K4c: out_rows, 32 KB, so that several one-warp
-# blocks share an SM), at most COLUMNS (the kernels' widest register
-# block of X values).  A block may use at most SMEM_MAX bytes.
+# launch: a level thread (K4a, K4b) holds kb = min(k, COLUMNS) sums in
+# registers; K4c's pool tile holds out_rows x kb x 32 accumulators in
+# shared memory, kb as wide as its TILE_BUDGET allows (32 KB, so that
+# several one-warp blocks share an SM), at most COLUMNS (the kernels'
+# widest register block of X values).  A block may use at most SMEM_MAX
+# bytes.
 COLUMNS = 8
-TILE_BUDGET = {"merged": 64 * 1024, "pool": 32 * 1024}
+TILE_BUDGET = {"pool": 32 * 1024}
 SMEM_MAX = 232448
 
 
@@ -105,7 +106,7 @@ def column_block(kind: str, dtype: torch.dtype, k: int,
     """Columns per block of an SpMM kernel: ``kind`` is "level",
     "merged" or "pool" (``rows`` is the pool tile's out_rows).  Raises
     where one column's tile cannot fit a block's shared memory."""
-    if kind == "level":
+    if kind in ("level", "merged"):
         return max(1, min(k, COLUMNS))
     per_column = rows * WARP * dtype.itemsize
     if per_column > SMEM_MAX:
@@ -114,6 +115,25 @@ def column_block(kind: str, dtype: torch.dtype, k: int,
             f"bytes of shared memory per column, more than the "
             f"{SMEM_MAX} a block can have")
     return max(1, min(k, COLUMNS, TILE_BUDGET[kind] // per_column))
+
+
+def x_vector_loads(k: int, kb: int, itemsize: int, *pointers: int) -> bool:
+    """Whether K4a reads a cell's X values (and writes Y) 16 bytes at a
+    time: X's rows and every column block are whole 16-byte runs, and
+    each of ``pointers`` (the data pointers of X and Y) is 16-byte
+    aligned."""
+    return ((k * itemsize) % 16 == 0 and (kb * itemsize) % 16 == 0
+            and all(p % 16 == 0 for p in pointers))
+
+
+def merged_spmm_plan(k: int, dtype: torch.dtype, x_ptr: int,
+                     y_ptr: int) -> dict:
+    """The path K4a launches on for X (num_columns, k) and Y of ``dtype``
+    at those data pointers: the columns a block (``kb``) and whether a
+    cell's X values (and Y) move 16 bytes at a time."""
+    kb = column_block("merged", dtype, k)
+    return {"kb": kb, "vector_x": x_vector_loads(k, kb, dtype.itemsize,
+                                                 x_ptr, y_ptr)}
 
 
 def cluster_size(units: int, num_sms: int) -> int:
@@ -249,7 +269,8 @@ def wellcw_level_core(lvl, x: torch.Tensor, num_rows: int,
                       out: torch.Tensor = None,
                       accumulate: bool = False) -> torch.Tensor:
     """K3a: a fallback level's contribution to y; arguments as for
-    ``wellcw_merged_core``."""
+    ``wellcw_merged_core``.  The kernel reads ``local_index16`` where the
+    level has it, else ``local_index``."""
     num_groups = lvl.group_ptr.numel() - 1
     cuda = _prepare("wellcw_level", lvl, x, num_rows, num_groups * LANE,
                     out, accumulate,
@@ -261,15 +282,22 @@ def wellcw_level_core(lvl, x: torch.Tensor, num_rows: int,
 
     from spmv_tpu_torch.ops._build import load_library
 
+    index = lvl.local_index16
+    if index is None:
+        index = lvl.local_index
+    elif index.dtype != torch.int16 or index.shape != lvl.local_index.shape \
+            or not index.is_contiguous() or index.device != x.device:
+        raise KernelError("wellcw_level: local_index16 must be a "
+                          "contiguous int16 copy of local_index")
     y = _output(out, num_rows, x)
     if num_rows > 0:
         lib = load_library()
         rc = lib.wellcw_level_launch(
             _DTYPE_CODE[x.dtype], x.device.index, lvl.value.data_ptr(),
-            lvl.local_index.data_ptr(), lvl.anchor4.data_ptr(),
-            lvl.group_ptr.data_ptr(), lvl.d, num_groups, num_rows,
-            x.numel(), x.data_ptr(), y.data_ptr(), int(accumulate),
-            stream_of(x))
+            index.data_ptr(), 8 * index.element_size(),
+            lvl.anchor4.data_ptr(), lvl.group_ptr.data_ptr(), lvl.d,
+            num_groups, num_rows, x.numel(), x.data_ptr(), y.data_ptr(),
+            int(accumulate), stream_of(x))
         raise_on(lib, rc, "wellcw_level")
         wellcw_level_core.launches += 1
     return y
@@ -360,28 +388,46 @@ def wellcw_merged_spmm_core(mg, X: torch.Tensor, num_rows: int,
                             accumulate: bool = False) -> torch.Tensor:
     """K4a: the merged grid's contribution to Y (num_rows, k), X of shape
     (num_columns, k), row-major, in the value dtype; ``out`` receives
-    it, or ``out + it`` with ``accumulate=True``."""
+    it, or ``out + it`` with ``accumulate=True``.  The kernel takes the
+    path ``merged_spmm_plan`` gives."""
     if mg.kl != 64 * mg.cap + mg.pool_per_block:
         raise KernelError("merged grid: kl != 64 * cap + pool_per_block")
+    if (mg.pool_ptr is None) != (mg.pool_per_block == 0):
+        raise KernelError("merged grid: a pool list is needed exactly "
+                          "where the grid has pool chunks")
+    pool = () if mg.pool_ptr is None else (mg.pool_ptr, mg.pool_col)
     cuda = _prepare("wellcw_merged_spmm", mg, X, num_rows,
                     mg.num_blocks * 64 * LANE, out, accumulate,
-                    (mg.local_index, mg.anchor4), ndim=2)
+                    (mg.local_index, mg.anchor4) + pool, ndim=2)
     if not cuda:
         return _finish_plain(cw_merged_reference(mg, X, num_rows), out,
                              accumulate)
 
     from spmv_tpu_torch.ops._build import load_library
 
+    index = mg.level_index16
+    if (index.dtype != torch.int16 or not index.is_contiguous()
+            or index.numel() != mg.num_blocks * mg.lvl_per_block * 1024
+            or index.device != X.device):
+        raise KernelError("wellcw_merged_spmm: level_index16 must be the "
+                          "level chunks' contiguous int16 indices")
+    if mg.pool_ptr is not None and (mg.pool_value.dtype != X.dtype or
+                                    mg.pool_value.device != X.device):
+        raise KernelError("wellcw_merged_spmm: pool_value must be on X's "
+                          "device in X's dtype")
     k = X.shape[1]
-    kb = column_block("merged", X.dtype, k)
     Y = _output(out, num_rows, X)
+    plan = merged_spmm_plan(k, X.dtype, X.data_ptr(), Y.data_ptr())
     if num_rows > 0 and k > 0:
         lib = load_library()
+        ptr = (lambda t: None if t is None else t.data_ptr())
         rc = lib.wellcw_merged_spmm_launch(
             _DTYPE_CODE[X.dtype], X.device.index, mg.value.data_ptr(),
-            mg.local_index.data_ptr(), mg.anchor4.data_ptr(), mg.d, mg.cap,
-            mg.pool_per_block, mg.num_blocks, num_rows, X.shape[0], k, kb,
-            X.data_ptr(), Y.data_ptr(), int(accumulate), stream_of(X))
+            index.data_ptr(), mg.anchor4.data_ptr(), ptr(mg.pool_ptr),
+            ptr(mg.pool_col), ptr(mg.pool_value), mg.d, mg.cap, mg.kl,
+            mg.num_blocks * 64, num_rows, X.shape[0], k, plan["kb"],
+            int(plan["vector_x"]), X.data_ptr(), Y.data_ptr(),
+            int(accumulate), stream_of(X))
         raise_on(lib, rc, "wellcw_merged_spmm")
         wellcw_merged_spmm_core.launches += 1
     return Y

@@ -46,6 +46,7 @@ from spmv_tpu_torch.models import (
     CsrMatrix,
     DeviceBsr,
     DeviceCsr,
+    DeviceCwLevel,
     DeviceCwMerged,
     DeviceCwPool,
     DeviceDia,
@@ -449,6 +450,160 @@ def test_wellcw_stream_past_the_end_next_to_inf(kind, dtype, cuda):
     x[m - 1] = float("inf")
     y = _stream_check(wrapper, part, plain, x, m, dtype)
     assert bool(torch.isfinite(y).all())
+
+
+def rebuilt_merged(part):
+    """The merged grid rebuilt from its current arrays, so that the pool
+    list and the int16 copy follow an edit of ``local_index``."""
+    return DeviceCwMerged(
+        part.d, part.kl, part.cap, part.lvl_per_block, part.pool_per_block,
+        part.num_blocks, part.xr4, part.value.cpu().numpy(),
+        part.local_index.cpu().numpy(), part.anchor4.cpu().numpy(),
+        part.value.dtype, part.value.device)
+
+
+# K3a reads the level's int16 indices where it has them (d <= 32), else
+# the int32 ones; both paths sum alike.
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", ["fallback", "forced_fallback",
+                                  "remainder"])
+def test_wellcw_level_int16_and_int32_paths(case, dtype, cuda):
+    A = DeviceWellCw.from_host(_wellcw_host(case), dtype=dtype, device=cuda,
+                               **WELLCW_CASES[case][2])
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    n = A.num_rows
+    assert A.levels
+    for lvl in A.levels:
+        assert lvl.local_index16 is not None
+        y16 = _stream_check(wellcw_level_core, lvl, cw_level_reference, x,
+                            n, dtype)
+        out = torch.ones(n, device=cuda, dtype=dtype)
+        wellcw_level_core(lvl, x, n, out=out, accumulate=True)
+        keep = lvl.local_index16
+        lvl.local_index16 = None
+        try:
+            y32 = _stream_check(wellcw_level_core, lvl, cw_level_reference,
+                                x, n, dtype)
+        finally:
+            lvl.local_index16 = keep
+        torch.cuda.synchronize()
+        assert torch.equal(y16, y32)
+        assert torch.equal(out, torch.ones_like(out) + y16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_level_int32_path_at_d64(dtype, cuda):
+    """A synthetic level of window multiple 64: its indices reach 65535,
+    so it has no int16 copy and K3a reads the int32 array."""
+    rng = np.random.default_rng(22)
+    chunks, groups, d = 12, 6, 64
+    m = 4 * d * 1024 - 3                      # some cells read past the end
+    grp = np.repeat(np.arange(groups), 2).reshape(chunks, 1, 1)
+    lvl = DeviceCwLevel(
+        d, 1, 0, rng.standard_normal((chunks, 8, 128)),
+        rng.integers(0, 1024 * d, size=(chunks, 8, 128)),
+        rng.integers(0, 4, size=(chunks, 1, 1)), grp, np.zeros(chunks),
+        groups, dtype, cuda)
+    assert lvl.local_index16 is None
+    x = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+    _stream_check(wellcw_level_core, lvl, cw_level_reference, x,
+                  groups * 128 - 5, dtype)
+
+
+def _misaligned(rows, k, device, dtype, seed):
+    """A contiguous (rows, k) X one element past a 16-byte boundary."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    buf = torch.randn(rows * k + 1, generator=g, device=device, dtype=dtype)
+    X = buf[1:].view(rows, k)
+    assert X.is_contiguous() and X.data_ptr() % 16 != 0
+    return X
+
+
+# K4a, one thread a row: the pool list of 0, 1 and 16 chunks a block, the
+# column blocks of k = 1 .. 17, with and without accumulate, and X in
+# 16-byte loads (aligned rows of 16-byte runs) or one value at a time.
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
+                                                        "misaligned"])
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("pool_per_block", [0, 1, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_merged_spmm_paths(dtype, pool_per_block, k, accumulate,
+                                  aligned, cuda):
+    m = 3 * 64 * 128 - 3
+    mg = synthetic_merged(3, 2, pool_per_block, dtype, cuda, m,
+                          seed=pool_per_block)
+    if aligned:
+        g = torch.Generator(device=cuda).manual_seed(23)
+        X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    else:
+        X = _misaligned(m, k, cuda, dtype, 23)
+    n = m - 70
+    plan = wellcw_kernels.merged_spmm_plan(k, dtype, X.data_ptr(), 0)
+    assert plan["vector_x"] == (aligned and (k * X.element_size()) % 16
+                                == 0)
+    want = cw_merged_reference(mg, X, n)
+    runs = []
+    for _ in range(2):
+        out = None
+        if accumulate:
+            out = torch.full((n, k), 0.5, device=cuda, dtype=dtype)
+        runs.append(wellcw_merged_spmm_core(mg, X, n, out=out,
+                                            accumulate=accumulate))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    if accumulate:
+        want = want + 0.5
+    assert _rel_err(runs[0], want) <= TOL[dtype]
+    for j in (0, k - 1):
+        y = wellcw_merged_core(mg, X[:, j].contiguous(), n)
+        if accumulate:
+            y = y + 0.5
+        assert _rel_err(runs[0][:, j], y) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("k", [4, 8])
+@pytest.mark.parametrize("pool_per_block", [0, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_merged_spmm_vector_and_scalar_x_sum_alike(dtype,
+                                                         pool_per_block, k,
+                                                         cuda):
+    """X in 16-byte loads or one value at a time: the same Y bit for
+    bit."""
+    m = 3 * 64 * 128 - 3
+    mg = synthetic_merged(3, 2, pool_per_block, dtype, cuda, m, seed=24)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    assert wellcw_kernels.merged_spmm_plan(k, dtype, X.data_ptr(),
+                                           0)["vector_x"]
+    want = wellcw_merged_spmm_core(mg, X, m)
+    got = wellcw_merged_spmm_core(mg, _misaligned(m, k, cuda, dtype, 24)
+                                  .copy_(X), m)
+    torch.cuda.synchronize()
+    assert _rel_err(want, cw_merged_reference(mg, X, m)) <= TOL[dtype]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 8, 9])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_merged_spmm_past_the_end_next_to_inf(dtype, k, cuda):
+    """Level and pool cells reading the first column past the end read 0,
+    while X's last row, beside it, is inf (read by no cell): Y stays
+    finite."""
+    m = 3 * 64 * 128 - 3
+    part = synthetic_merged(3, 2, 3, dtype, cuda, m)
+    move_past_the_end(part, m, merged=True)
+    part = rebuilt_merged(part)
+    g = torch.Generator(device=cuda).manual_seed(25)
+    X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    X[m - 1] = float("inf")
+    Y1 = wellcw_merged_spmm_core(part, X, m)
+    Y2 = wellcw_merged_spmm_core(part, X, m)
+    torch.cuda.synchronize()
+    assert torch.equal(Y1, Y2)
+    assert bool(torch.isfinite(Y1).all())
+    assert _rel_err(Y1, cw_merged_reference(part, X, m)) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("k", [1, 3, 8])
