@@ -48,11 +48,13 @@ Phases (each prints readable lines; any failure exits non-zero):
    CSR spill: each launched twice (bitwise equal), against its plain
    version, well_spmv_core making that one launch and no CSR launch,
    and in float32 against the fp64 host product.  Then the WELL SpMM
-   kernels K6a (whole x) and K6b (segmented) and the spill's CSR SpMM on
-   the same eight matrices at k = 3 and 8, float64 and float32, and at
-   the batched-CG shape (poisson2d(1024, 1024), float32, k = 4): twice
-   (bitwise equal), against the plain version and column by column
-   against K5 with its spill taken away / the CSR SpMV on that column.  Last, K7 (the BSR SpMM) on
+   kernels K6a (whole x) and K6b (segmented), each the whole product in
+   one launch (the live slots, then the spill), on the same eight
+   matrices at k = 3 and 8, float64 and float32, and at the batched-CG
+   shape (poisson2d(1024, 1024), float32, k = 4): twice (bitwise equal),
+   against the plain version and column by column against K5 on that
+   column, well_spmm_core making
+   that one launch and no CSR launch.  Last, K7 (the BSR SpMM) on
    block matrices of block height 8, 32 and 128 with blocks_per_step 8,
    3 and 1, an empty block row, a 300 x 200 shape and ragged 1000 x 900
    matrices of block height 64 and 128, in float64, float32 and bf16
@@ -141,18 +143,20 @@ Phases (each prints readable lines; any failure exits non-zero):
    kernel over the row-compacted spill alone.
 14. WELL SpMM path through the CLI (the K6a, K6b and CSR SpMM launch
    counts are zeroed just before): --profile 5 --spmm 8 and --cg 2000
-   --nrhs 3 on poisson2d(256, 256) (K6a and the spill's CSR SpMM).
+   --nrhs 3 on poisson2d(256, 256) (K6a; the CSR SpMM must not be
+   launched).
 15. WELL SpMM profile: make_kernel("well").spmm_fn(8) in float32 on the
    host matrices of phase 12, poisson2d(1024, 1024) (K6a) and
-   poisson2d(4096, 4096) (K6b): the fp64 host checksum (the DIA host
-   product of the same matrix), seconds per chained SpMM with the
-   launch counts equal to the chain length, the plain version's time,
-   the fraction of the triad roofline with the CLI's byte count and the
-   per-nnz cost against phase 12's SpMV.
+   poisson2d(4096, 4096) (K6b): K6's path (column block, column blocks,
+   16-byte X loads), the fp64 host checksum (the DIA
+   host product of the same matrix), seconds per chained SpMM with one
+   K6 launch a SpMM and no CSR launch, the plain version's time, the
+   fraction of the triad roofline with the CLI's byte count (the slots
+   K6 reads) and the per-nnz cost against phase 12's SpMV.
 16. Batched CG on WELL as phase 9 does for DIA and WELL-CW:
    poisson2d(1024, 1024), float32, k = 4 (K6a; the single-RHS solves
    take K5a, one launch a SpMV and no CSR launch).  The WELL SpMM launch
-   counts are read after it.
+   counts are read after it: no CSR SpMM launch on the path.
 17. BSR path through the CLI (K7's counts are zeroed just before): -s
    bsr --profile 5 --spmm 16 and -s bsr --cg 500 on poisson2d(128, 128),
    and -s auto --profile 3 --spmm 128 on block_random(2048, 2048, 4),
@@ -169,11 +173,13 @@ Phases (each prints readable lines; any failure exits non-zero):
    80 MB line where the JAX bsr_spmm switches from K7b to K7a.  K7's
    launches are tallied under the Pallas kernel their X size selects and
    the path their shape selects, and read after it.
-19. K6a, K6b (at every column-block width that fits) and K7 at the
-   phase 15 and 18 shapes alone (not counted), as in phase 10; K7 beside
-   one torch.sparse BSR product of the same blocks, timed the same way
-   (both in a CUDA graph with the L2 flushed, or both eager where torch's
-   product cannot be captured).
+19. K6a, K6b and K7 at the phase 15 and 18 shapes alone (not counted),
+   as in phase 10: K6 on its path (printed) beside the torch.sparse CSR
+   SpMM of the whole matrix, timed
+   the same way and eagerly, its bound from the live bytes beside the
+   full container's; K7 beside one torch.sparse BSR product of the same
+   blocks, timed the same way (both in a CUDA graph with the L2 flushed,
+   or both eager where torch's product cannot be captured).
 20. AMG path through the CLI (the K8, CSR and K1 launch counts are zeroed
    just before): --cg 200 --precondition amg on poisson2d(256, 256) with
    -s dia and -s wellcw (the generic V-cycle: the CSR kernel; the
@@ -195,7 +201,10 @@ Phases (each prints readable lines; any failure exits non-zero):
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
 parent commit unpacked with ``git archive``, and for this one, each in
 a process of its own, in the order DIR, this, this, DIR on one card, and
-prints each kernel's device ms from the four runs.
+prints each kernel's device ms from the four runs and whether the main
+path's outputs are bitwise equal across the checkouts;
+``--well-spmm-kernels-beside DIR`` does the same for phase 19's K6a and
+K6b (with the WELL matrices of phase 12).
 
 The second-to-last lines are the kernels' JSON summary (seventeen
 kernels, each with its launches on the main path, max error, ms against
@@ -2058,41 +2067,20 @@ def phase_kernels_well(device, profiled, smi_line, triad_gbps):
 
 
 # ------------------------------------------------ WELL SpMM (3, 14-16)
-def _well_spmm_parts(A):
-    """(kernel name, kernel call, plain call, SpMV kernel call) of each
-    launch that ``well_spmm_core`` makes for A: K6a or K6b, then the CSR
-    SpMM of the spill; the SpMV kernel of K6 is K5 with its spill taken
-    away.  The kernel call takes X, an optional out buffer
-    and (K6) an optional column-block width, which the wrapper leaves to
-    its shared-memory budget: a width of the sweep launches one level
-    below it."""
+def _well_spmm_part(A):
+    """(kernel name, kernel call, plain call, SpMV kernel call) of the one
+    launch that ``well_spmm_core`` makes for A: K6a or K6b, the spill
+    folded in; its SpMV kernel is K5.  The kernel call takes X and an
+    optional out buffer."""
     from spmv_tpu_torch import ops
-    from spmv_tpu_torch.ops.well_kernels import _launch_spmm
 
     seg = A.segment_of_step is not None
     core = ops.well_seg_spmm_core if seg else ops.well_whole_spmm_core
     spmv_core = ops.well_seg_core if seg else ops.well_whole_core
-    name = "well_seg_spmm" if seg else "well_whole_spmm"
-
-    def run(X, out=None, columns=None):
-        if columns is None:
-            return core(A, X, out=out)
-        return _launch_spmm(core, name, A, X, out, seg, columns)
-
-    def chunks_spmv(x):
-        with _spill_taken_away(A):
-            return spmv_core(A, x)
-
-    parts = [(name, run,
-              lambda X: ops.well_chunks_reference(A, X, masked=False),
-              chunks_spmv)]
-    if A.spill is not None:
-        R = A.spill
-        parts.append(("csr_spmm",
-                      lambda X, out=None: ops.csr_spmm_core(R, X, out=out),
-                      lambda X: ops.csr_spmv_reference(R, X),
-                      lambda x: ops.csr_spmv_core(R, x)))
-    return parts
+    return ("well_seg_spmm" if seg else "well_whole_spmm",
+            lambda X, out=None: core(A, X, out=out),
+            lambda X: ops.well_spmv_reference(A, X),
+            lambda x: spmv_core(A, x))
 
 
 def _host_spmm(host, X):
@@ -2102,16 +2090,16 @@ def _host_spmm(host, X):
 
 
 def _compare_well_spmm(name, w, dev_kw, dtype, k, device, bitwise):
-    """K6a / K6b and the spill's CSR SpMM, each twice (bitwise equal),
-    against its plain version and, column by column, against the SpMV
-    kernel (K5 without its spill, CSR) on that column; the whole SpMM against the plain
-    composition and, in float32, the fp64 host product.  ``bitwise``
-    records per kernel whether every column equalled the SpMV kernel's
+    """K6a / K6b, the spill folded in, twice (bitwise equal), against its
+    plain version and, column by column, against K5 on that column;
+    ``well_spmm_core`` makes that one launch and no CSR launch; in
+    float32 the product is held against the fp64 host product.
+    ``bitwise`` records per kernel whether every column equalled K5's
     bit for bit."""
     import torch
 
     from spmv_tpu_torch.models import DeviceWell
-    from spmv_tpu_torch.ops import well_spmm_core, well_spmv_reference
+    from spmv_tpu_torch.ops import csr_spmm_core, well_spmm_core
 
     dtn = str(dtype).replace("torch.", "")
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32
@@ -2119,36 +2107,34 @@ def _compare_well_spmm(name, w, dev_kw, dtype, k, device, bitwise):
     g = torch.Generator(device=device).manual_seed(0)
     X = torch.randn(A.num_columns, k, generator=g, device=device,
                     dtype=dtype)
-    errs = []
-    for kname, run, plain, run1 in _well_spmm_parts(A):
-        Y1, Y2 = run(X), run(X)
-        cols = torch.stack([run1(X[:, j].contiguous()) for j in range(k)],
-                           dim=1)
-        _sync(device)
-        if not torch.equal(Y1, Y2):
-            _fail(f"{kname} on {name} {dtn} k={k}: two launches differ")
-        e, ec = _rel(Y1, plain(X)), _rel(Y1, cols)
-        same = torch.equal(Y1, cols)
-        bitwise[kname] = bitwise.get(kname, True) and same
-        errs.append(f"{kname} {e:.3e} (vs SpMV kernel {ec:.3e}"
-                    f"{', bitwise' if same else ''})")
-        if e > tol or ec > tol:
-            _fail(f"{kname} on {name} {dtn} k={k}: rel err {e} / {ec} "
-                  f"> {tol}")
+    kname, run, plain, run1 = _well_spmm_part(A)
+    Y1, Y2 = run(X), run(X)
+    cols = torch.stack([run1(X[:, j].contiguous()) for j in range(k)],
+                       dim=1)
+    _sync(device)
+    if not torch.equal(Y1, Y2):
+        _fail(f"{kname} on {name} {dtn} k={k}: two launches differ")
+    e, ec = _rel(Y1, plain(X)), _rel(Y1, cols)
+    same = torch.equal(Y1, cols)
+    bitwise[kname] = bitwise.get(kname, True) and same
+    if e > tol or ec > tol:
+        _fail(f"{kname} on {name} {dtn} k={k}: rel err {e} / {ec} > {tol}")
+    before = csr_spmm_core.launches
     Y = well_spmm_core(A, X)
     _sync(device)
-    e = _rel(Y, well_spmv_reference(A, X))
-    line = (f"[3 compare] {name} {dtn} k={k}: " + ", ".join(errs)
-            + f"; whole {e:.3e}")
-    if e > tol:
-        _fail(f"{line} > {tol}")
+    if not torch.equal(Y, Y1) or csr_spmm_core.launches != before:
+        _fail(f"well_spmm_core on {name} {dtn} k={k}: not the one K6 "
+              "launch")
+    line = (f"[3 compare] {name} {dtn} k={k}: {kname} {e:.3e} (vs K5 "
+            f"{ec:.3e}{', bitwise' if same else ''})")
     if dtype == torch.float32:
         host = torch.from_numpy(_host_spmm(w, X.double().cpu().numpy()))
         eh = _rel(Y.cpu(), host)
         line += f", vs fp64 host {eh:.3e}"
         if eh > TOL_F32_HOST:
             _fail(f"{line} > {TOL_F32_HOST}")
-    _say(line + " (each kernel twice, bitwise equal)")
+    _say(line + " (twice, bitwise equal; well_spmm_core the same one "
+         "launch)")
     return A.segment_rows is not None
 
 
@@ -2269,8 +2255,9 @@ def phase_compare_bsr(device):
 def phase_cli_well_spmm(device):
     from spmv_tpu_torch.io import write_matrix_market
     from spmv_tpu_torch.io.generate import poisson2d
-    from spmv_tpu_torch.ops import well_whole_spmm_core
+    from spmv_tpu_torch.ops import csr_spmm_core, well_whole_spmm_core
 
+    spill_before = csr_spmm_core.launches
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "poisson.mtx")
         write_matrix_market(poisson2d(WELL_CLI_GRID, WELL_CLI_GRID), path)
@@ -2286,6 +2273,9 @@ def phase_cli_well_spmm(device):
              (well_whole_spmm_core,)),
         ])
     _sync(device)
+    if csr_spmm_core.launches != spill_before:
+        _fail("well spmm cli: the CSR SpMM was launched (the spill belongs "
+              "to K6's one launch)")
 
 
 def phase_profile_well_spmm(device, mats, smi_line):
@@ -2293,10 +2283,11 @@ def phase_profile_well_spmm(device, mats, smi_line):
     ``mats`` (label -> (host WellMatrix, whether K6b is expected, its DIA
     host matrix for the fp64 checksum, the SpMV's seconds of phase 12)):
     the fp64 host checksum gate, seconds per chained SpMM (CUDA events)
-    with the launch counts equal to the chain length, the plain version's
-    time, the fraction of the triad roofline with the CLI's byte count and
-    the per-nnz cost against the SpMV.  Returns per size its numbers and
-    its DeviceWell."""
+    with one K6 launch a SpMM and no CSR launch, the plain version's
+    time, the fraction of the triad roofline with the CLI's byte count
+    (``spmm_bytes_per_run``: the slots K6 reads) and the per-nnz cost
+    against the SpMV.  Returns per size its numbers and its
+    DeviceWell."""
     import torch
 
     from spmv_tpu_torch.kernels import make_kernel
@@ -2306,7 +2297,7 @@ def phase_profile_well_spmm(device, mats, smi_line):
         well_spmv_reference,
         well_whole_spmm_core,
     )
-    from spmv_tpu_torch.ops.well_kernels import well_column_block
+    from spmv_tpu_torch.ops.well_kernels import well_spmm_plan
     from spmv_tpu_torch.perfmodel import measured_machine
     from spmv_tpu_torch.profile import (
         profile_kernel_fn,
@@ -2327,15 +2318,16 @@ def phase_profile_well_spmm(device, mats, smi_line):
             _fail(f"well spmm {label}: segmented mode is "
                   f"{A.segment_of_step is not None}, expected {segmented}")
         core = well_seg_spmm_core if segmented else well_whole_spmm_core
-        kc = well_column_block(torch.float32, k, A.out_rows)
         X = np.random.default_rng(0).standard_normal(
             (w.num_columns, k)).astype(np.float32)
-        Y = step(torch.from_numpy(X).to(device), A)
+        Xd = torch.from_numpy(X).to(device)
+        Y = step(Xd, A)
+        plan = well_spmm_plan(k, torch.float32, Xd.data_ptr(), Y.data_ptr())
         got = float(Y.abs().sum(dtype=torch.float32))
         want = float(np.abs(_host_spmm(dia, X)).sum())
         rel = abs(got - want) / want
         _say(f"[15 well spmm] {label} float32 k={k}: {A.num_out_blocks} "
-             f"output blocks of {A.out_rows} groups, {kc} columns a block; "
+             f"output blocks of {A.out_rows} groups, K6 path {plan}; "
              f"checksum rel err {rel:.3e} against the fp64 host product "
              f"(gate {CHECKSUM_RTOL})")
         if not rel <= CHECKSUM_RTOL:
@@ -2352,13 +2344,11 @@ def phase_profile_well_spmm(device, mats, smi_line):
         _sync(device)
         launched = (core.launches - before[0],
                     csr_spmm_core.launches - before[1])
-        if launched != (calls[0], calls[0] if A.spill is not None else 0):
-            _fail(f"well spmm {label}: {launched} launches (K6, spill) for "
+        if launched != (calls[0], 0):
+            _fail(f"well spmm {label}: {launched} launches (K6, CSR) for "
                   f"{calls[0]} chained SpMMs")
         runs = profile_kernel_fn(step, args, runs=5)
-        m = kernel.matrix
-        nbytes = kernel.bytes_per_run() + (k - 1) * (
-            m.num_columns + m.num_rows) * kernel.value_bytes
+        nbytes = kernel.spmm_bytes_per_run(k)
         doc = profiling_report(kernel, runs, timing.seconds_per_iteration,
                                5, True, machine=machine, device=device,
                                op_info={"kind": "spmm", "k": k},
@@ -2375,12 +2365,13 @@ def phase_profile_well_spmm(device, mats, smi_line):
         _say(f"[15 well spmm] {label}: SpMM k={k} {t * 1e3:.4f} ms "
              f"({w.num_entries * k / t / 1e9:.2f} effective Gnnz/s; "
              f"{calls[0]} chained SpMMs launched {core.__name__} "
-             f"{launched[0]} times and the spill's CSR SpMM {launched[1]} "
+             f"{launched[0]} times and the CSR SpMM {launched[1]} "
              f"times), plain {t_plain * 1e3:.4f} ms, fraction of the triad "
              f"roofline {frac:.4f} ({nbytes} B at {machine.hbm_gbps:.1f} "
              f"GB/s); per nnz against the SpMV {per_nnz:.4f} ((t / {k}) / "
              f"{t_spmv * 1e3:.4f} ms), on {smi_line}")
-        out[label] = {"A": A, "k": k, "columns_per_block": kc,
+        out[label] = {"A": A, "k": k, "columns_per_block": plan["kb"],
+                      "path": plan,
                       "ms": t * 1e3, "plain_ms": t_plain * 1e3,
                       "roofline_fraction": frac, "checksum_rel_err": rel,
                       "per_nnz_vs_spmv": per_nnz, "chained": calls[0],
@@ -2611,24 +2602,41 @@ def phase_bsr_legs(device, smi_line, triad_gbps):
 
 
 # ------------------------------------------------------------ phase 19
+def _k6_bytes(A, k: int) -> tuple:
+    """(live, full) bytes of K6's product on A at k columns: K5's
+    (``_k5_bytes``) with X and Y k times.  Live is what K6 must read and
+    write; full prices every chunk array of the container, as K6 was
+    priced before it read only the live slots (its spill then had a
+    launch of its own)."""
+    live, full = _k5_bytes(A)
+    vec = (k - 1) * (A.num_columns + A.num_rows) * A.value.element_size()
+    return live + vec, full + vec
+
+
 def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
                        triad_gbps):
-    """K6a / K6b on the DeviceWell of each size of phase 15 (k =
-    WELL_SPMM_K, at the budget's column block and at the other widths
-    that fit), and K7 on the bench's BSR leg (float32 and bf16 blocks)
-    and past the 80 MB line: bitwise repeat, max error against the plain
+    """K6a / K6b, the spill folded in, on the DeviceWell of each size of
+    phase 15 (k = WELL_SPMM_K), and K7 on the bench's BSR leg (float32
+    and bf16 blocks) and
+    past the 80 MB line: bitwise repeat, max error against the plain
     version, device ms (a CUDA graph, the L2 flushed before each launch),
     ms a call through the wrapper, plain ms, one torch.sparse product of
-    the same entries (cuSPARSE) and the bound.  Not counted: the main
-    path's counts were read before."""
+    the same entries (cuSPARSE; for K6 the whole matrix, timed the same
+    way and eagerly) and the bound (K6: from the live bytes, beside the
+    full container's).  Not counted: the main path's counts were read
+    before."""
     import torch
 
     from spmv_tpu_torch.ops import bsr_path, bsr_spmm_core, bsr_spmm_reference
-    from spmv_tpu_torch.ops.well_kernels import SMEM_MAX
+    from spmv_tpu_torch.ops.well_kernels import well_spmm_plan
 
     f32 = torch.float32
     k = WELL_SPMM_K
     scratch = torch.empty(16 << 20, dtype=f32, device=device)
+
+    def flush():
+        scratch.fill_(0.0)
+
     found = {}
     for label, res in well_profiled.items():
         A = res["A"]
@@ -2636,52 +2644,53 @@ def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
         X = torch.randn(A.num_columns, k, generator=g, device=device,
                         dtype=f32)
         out = torch.empty(A.num_rows, k, dtype=f32, device=device)
-        kname, run, plain, _ = _well_spmm_parts(A)[0]
+        kname, run, plain, _ = _well_spmm_part(A)
         want = plain(X)
         plain_ms = _time_launches(lambda: plain(X), 2)
-        S = _csr_of_coo(*_well_coo(A, spill=False),
+        S = _csr_of_coo(*_well_coo(A, spill=True),
                         (A.num_rows, A.num_columns))
-        lib = _library_ms(S, X, reps=10)
+        lib_rel = _rel(S @ X, want)
+        if lib_rel > TOL_F32:
+            _fail(f"{kname} on {label}: torch.sparse of its entries differs "
+                  f"from the plain version by {lib_rel}")
         nnz = int(S.values().numel())
+        lib = _library_cold(S, X, flush, reps=10)
         del S
-        b = _bound(_nbytes(A.value, A.local_index, A.window_start,
-                           A.group_of_chunk, A.segment_of_step, A.step_ptr)
-                   + (A.num_columns + A.num_rows) * k * 4, 2 * nnz * k,
-                   triad_gbps)
-        default = res["columns_per_block"]
-        by_width = {}
-        for kc in sorted({default, 1, 2, 4, 8}):
-            if A.out_rows * kc * 128 * 4 > SMEM_MAX:
-                continue
-            Y1, Y2 = run(X, columns=kc), run(X, columns=kc)
-            _sync(device)
-            if not torch.equal(Y1, Y2):
-                _fail(f"{kname} on {label} ({kc} columns a block): two "
-                      "launches differ")
-            err = float((Y1.double() - want.double()).abs().max())
-            rel = _rel(Y1, want)
-            if rel > TOL_F32:
-                _fail(f"{kname} on {label}: rel err {rel} > {TOL_F32}")
-            ms = _cold_graph_ms(lambda: run(X, out=out, columns=kc),
-                                lambda: scratch.fill_(0.0), 20)
-            eager_ms = _time_launches(lambda: run(X, out=out, columns=kc), 10)
-            by_width[kc] = {"ms": ms, "eager_ms": eager_ms,
-                            "max_abs_err": err}
-            _say(f"[19 spmm kernels] {kname} on {label} k={k}, {kc} columns"
-                 f" a block{' (the budget default)' if kc == default else ''}"
-                 f": {ms:.4f} ms on the device (CUDA graph, L2 flushed), "
-                 f"{eager_ms:.4f} ms a call through the wrapper, plain "
-                 f"{plain_ms:.4f} ms, torch.sparse CSR of the same entries "
-                 f"{lib:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                 f"({b['bound_by']}, {b['bytes']} B; {b['bound_triad_ms']:.4f}"
-                 f" ms at the triad rate), max abs err {err:.3e} (rel "
-                 f"{rel:.3e}), bitwise repeatable, on {smi_line}")
-            del Y1, Y2
-        found[kname] = {**by_width[default], "plain_ms": plain_ms,
-                        "library_ms": lib, **b,
-                        "columns_per_block": default,
-                        "ms_by_columns_per_block":
-                            {str(c): v["ms"] for c, v in by_width.items()},
+        live, full = _k6_bytes(A, k)
+        b = _bound(live, 2 * nnz * k, triad_gbps)
+        bf = _bound(full, 2 * nnz * k, triad_gbps)
+        plan = well_spmm_plan(k, f32, X.data_ptr(), out.data_ptr())
+        _say(f"[19 spmm kernels] {kname} on {label} k={k}: path {plan} "
+             "(a thread's column sums in registers, Y the store of a row "
+             "the block comes back to; no shared tile), spill folded in, "
+             f"live slots {_live_slots(A)} of {8 * A.num_chunks}")
+        Y1, Y2 = run(X), run(X)
+        _sync(device)
+        if not torch.equal(Y1, Y2):
+            _fail(f"{kname} on {label}: two launches differ")
+        err = float((Y1.double() - want.double()).abs().max())
+        rel = _rel(Y1, want)
+        if rel > TOL_F32:
+            _fail(f"{kname} on {label}: rel err {rel} > {TOL_F32}")
+        del Y1, Y2
+        ms = _cold_graph_ms(lambda: run(X, out=out), flush, 20)
+        eager_ms = _time_launches(lambda: run(X, out=out), 10)
+        _say(f"[19 spmm kernels] {kname} on {label} k={k}: {ms:.4f} ms on "
+             f"the device (CUDA graph, L2 flushed), {eager_ms:.4f} ms a call "
+             f"through the wrapper, plain {plain_ms:.4f} ms, torch.sparse "
+             "CSR of the same entries (the whole matrix) "
+             f"{_library_line(lib)}, bound {b['bound_ms']:.4f} ms "
+             f"({b['bound_by']}, {live} B live; {b['bound_triad_ms']:.4f} ms "
+             f"at the triad rate), the full container's {bf['bound_ms']:.4f}"
+             f" ms ({full} B; {bf['bound_triad_ms']:.4f} at the triad), max "
+             f"abs err {err:.3e} (rel {rel:.3e}), bitwise repeatable, on "
+             f"{smi_line}")
+        found[kname] = {"ms": ms, "eager_ms": eager_ms, "max_abs_err": err,
+                        "plain_ms": plain_ms, **lib, **b,
+                        "bound_full_ms": bf["bound_ms"],
+                        "bound_full_triad_ms": bf["bound_triad_ms"],
+                        "bytes_full": full, "live_slots": _live_slots(A),
+                        "slots": 8 * A.num_chunks, "path": plan,
                         "shape": f"{label} float32, k={k}"}
         del want, out, X, A, res["A"]
         _sync(device)
@@ -2707,7 +2716,6 @@ def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
         out = torch.empty_like(Y1)
         del Y1, Y2, want
         lib, why = _bsr_library(A, Xb)
-        flush = lambda: scratch.fill_(0.0)  # noqa: E731
         k7 = lambda: bsr_spmm_core(A, Xb, out=out)  # noqa: E731
         ms, lib_ms, timing = _cold_graph_ms(k7, flush, 10), None, "graph"
         if lib is not None:
@@ -3234,13 +3242,13 @@ def main() -> int:
     well_kernels = phase_kernels_well(device, profiled, smi_line, triad_gbps)
 
     # the WELL SpMM path's run (CLI, make_kernel("well").spmm_fn at both
-    # sizes, batched CG): its counts, the spill's CSR SpMM included,
-    # start from zero here
+    # sizes, batched CG): its counts start from zero here; the spill is
+    # K6's, so the CSR SpMM must not move (phases 14-16 check it)
     spmm_wrappers = {"well_whole_spmm": well_whole_spmm_core,
-                     "well_seg_spmm": well_seg_spmm_core,
-                     "csr_spmm": csr_spmm_core}
+                     "well_seg_spmm": well_seg_spmm_core}
     for w in spmm_wrappers.values():
         w.launches = 0
+    csr_spmm_core.launches = 0
     phase_cli_well_spmm(device)
     well_spmm = phase_profile_well_spmm(device, {
         label: (w, segmented, dia_of[label], profiled[label]["ms"] * 1e-3)
@@ -3253,11 +3261,16 @@ def main() -> int:
         _fail("batched cg well: the single-RHS solves did not take one K5a "
               "launch a SpMV and no CSR launch")
     well_spmm_launches = {k: w.launches for k, w in spmm_wrappers.items()}
+    csr_on_well = csr_spmm_core.launches
     _say("[16 batched cg] launches on the WELL SpMM path: "
-         + ", ".join(f"{k} {n}" for k, n in well_spmm_launches.items()))
+         + ", ".join(f"{k} {n}" for k, n in well_spmm_launches.items())
+         + f", csr_spmm {csr_on_well}")
     for name, n in well_spmm_launches.items():
         if n <= 0:
             _fail(f"{name} was never launched on the WELL SpMM path")
+    if csr_on_well != 0:
+        _fail("the CSR SpMM was launched on the WELL SpMM path (the spill "
+              "belongs to K6's one launch)")
     del well_mats, dia_of, full, cg_well
     _sync(device)
 
@@ -3397,7 +3410,8 @@ def main() -> int:
             **{label: {k: v for k, v in res.items() if k != "A"}
                for label, res in profiled.items()}},
         "well_spmm": {
-            "launches_on_the_well_spmm_path": well_spmm_launches,
+            "launches_on_the_well_spmm_path": {**well_spmm_launches,
+                                               "csr_spmm": csr_on_well},
             **{label: {k: v for k, v in res.items() if k != "A"}
                for label, res in well_spmm.items()},
             "batched_cg": {**well_cg, "k": CG_K,
@@ -3463,21 +3477,64 @@ print(json.dumps(found, default=str))
 """
 
 
-def wellcw_kernels_beside(other: str) -> int:
-    """Phase 10 of the checkout at ``other`` (another commit's files,
-    e.g. the parent's from ``git archive``) and of this one, each in a
-    process of its own, in the order other, this, this, other, on one
-    card; then each kernel's device ms from the four runs."""
+# phase 19's K6 timings alone, in the checkout it runs from: the JSON of
+# its kernels on the last line
+_PHASE19 = """
+import json
+import sys
+import torch
+import chip_smoke as c
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.io.generate import poisson2d
+from spmv_tpu_torch.models import DeviceWell, WellMatrix
+from spmv_tpu_torch.ops import well_kernels
+from spmv_tpu_torch.perfmodel import measured_machine
+device, smi = c.phase_device()
+c.phase_build()
+f32, k = torch.float32, c.WELL_SPMM_K
+profiled, outs = {}, {}
+for grid in (c.WELL_WHOLE_GRID, c.WELL_SEG_GRID):
+    label = f"poisson2d({grid},{grid})"
+    w = WellMatrix.from_matrix_market(poisson2d(grid, grid), window_rows=4)
+    A = DeviceWell.from_host(w, dtype=f32, device=device)
+    del w
+    try:
+        # a checkout whose K6 kept a shared tile sized its column block
+        kc = well_kernels.well_column_block(f32, k, A.out_rows)
+    except TypeError:
+        kc = well_kernels.well_column_block(k)
+    profiled[label] = {"A": A, "columns_per_block": kc}
+    # the main path's output on these inputs, for a bitwise comparison
+    # across checkouts
+    g = torch.Generator(device=device).manual_seed(1)
+    X = torch.randn(A.num_columns, k, device=device, dtype=f32, generator=g)
+    outs[label] = ops.well_spmm_core(A, X).cpu()
+    del X
+found = c.phase_kernels_spmm(device, profiled, {}, smi,
+                             measured_machine(device).hbm_gbps)
+torch.save(outs, sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
+def _beside(other: str, script: str, phase: int) -> int:
+    """``script``, one phase alone, in the checkout at ``other`` (another
+    commit's files, e.g. the parent's from ``git archive``) and in this
+    one, each in a process of its own, in the order other, this, this,
+    other, on one card; then each kernel's device ms from the four runs
+    and whether the main path's outputs are bitwise equal across the
+    checkouts."""
     import torch
 
     here = os.path.dirname(os.path.abspath(__file__))
     runs, outs = [], {}
-    tmp = tempfile.mkdtemp(prefix="phase10_", dir=here)
+    tmp = tempfile.mkdtemp(prefix=f"phase{phase}_", dir=here)
     for i, (label, root) in enumerate((("other", other), ("this", here),
                                        ("this", here), ("other", other))):
-        _say(f"[10 beside] phase 10 of {label} ({os.path.abspath(root)})")
+        _say(f"[{phase} beside] phase {phase} of {label} "
+             f"({os.path.abspath(root)})")
         path = os.path.join(tmp, f"{i}.pt")
-        r = subprocess.run([sys.executable, "-c", _PHASE10, path],
+        r = subprocess.run([sys.executable, "-c", script, path],
                            cwd=root, capture_output=True, text=True,
                            timeout=1200)
         lines = r.stdout.strip().splitlines()
@@ -3485,24 +3542,24 @@ def wellcw_kernels_beside(other: str) -> int:
             _say(f"  [{label}] {line}")
         if r.returncode != 0 or not lines:
             _say(r.stderr[-4000:])
-            _fail(f"phase 10 of {root} exited with {r.returncode}")
+            _fail(f"phase {phase} of {root} exited with {r.returncode}")
         runs.append((label, json.loads(lines[-1])))
         outs.setdefault(label, torch.load(path))
         os.remove(path)
     os.rmdir(tmp)
     same = {name: torch.equal(y, outs["other"][name])
             for name, y in outs["this"].items() if name in outs["other"]}
-    _say("[10 beside] main-path outputs on phase 10's inputs bitwise equal "
-         "to the other checkout's: " + ", ".join(
+    _say(f"[{phase} beside] main-path outputs on phase {phase}'s inputs "
+         "bitwise equal to the other checkout's: " + ", ".join(
              f"{name} {'yes' if eq else 'no'}" for name, eq in same.items()))
     summary = {}
     for name in runs[1][1]:
         summary[name] = {f"{label}_{i}": run.get(name, {}).get("ms")
                          for i, (label, run) in enumerate(runs)}
         summary[name]["library_ms_this"] = runs[1][1][name]["library_ms"]
-        _say(f"[10 beside] {name}: device ms (CUDA graph, L2 flushed) "
+        _say(f"[{phase} beside] {name}: device ms (CUDA graph, L2 flushed) "
              + ", ".join(f"{k} {v}" for k, v in summary[name].items()))
-    print(json.dumps({"wellcw_kernels_beside": summary,
+    print(json.dumps({f"phase{phase}_kernels_beside": summary,
                       "bitwise_equal_to_other": same,
                       "runs": [{"label": label, "kernels": run}
                                for label, run in runs]}, default=str),
@@ -3510,7 +3567,11 @@ def wellcw_kernels_beside(other: str) -> int:
     return 0
 
 
+BESIDE = {"--wellcw-kernels-beside": (_PHASE10, 10),
+          "--well-spmm-kernels-beside": (_PHASE19, 19)}
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--wellcw-kernels-beside":
-        sys.exit(wellcw_kernels_beside(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in BESIDE:
+        sys.exit(_beside(sys.argv[2], *BESIDE[sys.argv[1]]))
     sys.exit(main())

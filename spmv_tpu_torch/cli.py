@@ -341,12 +341,8 @@ def _profile(args, out, device, dtype) -> None:
                 f"--spmm is not supported by the {kernel.name} kernel")
         step, fargs = kernel.spmm_fn(args.spmm)
         op_info = {"kind": "spmm", "k": args.spmm}
-        # k products share one matrix stream; the x / y volume scales
-        # with k at the same value width bytes_per_run uses
-        m = kernel.matrix
         flops_override = args.spmm * kernel.flops_per_run()
-        bytes_override = kernel.bytes_per_run() + (args.spmm - 1) * (
-            m.num_columns + m.num_rows) * kernel.value_bytes
+        bytes_override = kernel.spmm_bytes_per_run(args.spmm)
     else:
         step, fargs = kernel.run_fn()
     if args.verbose:

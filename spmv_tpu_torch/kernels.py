@@ -208,6 +208,14 @@ class _MatrixKernel(Kernel):
     def flops_per_run(self) -> int:
         return 2 * self.matrix.num_entries
 
+    def spmm_bytes_per_run(self, k: int) -> int:
+        """The bytes of one SpMM of k right-hand sides (``--spmm K``): the
+        matrix stream of ``bytes_per_run`` once, X and Y k times at the
+        value width."""
+        m = self.matrix
+        return self.bytes_per_run() + (k - 1) * (
+            m.num_columns + m.num_rows) * self.value_bytes
+
     def traffic_split(self):
         # the matrix streams; x and y are the chained iterate
         m = self.matrix
@@ -316,8 +324,8 @@ class WellCwKernel(_MatrixKernel):
 
 class WellKernel(_MatrixKernel):
     """WELL SpMV / SpMM through kernels K5a / K6a (whole x) or K5b / K6b
-    (segmented) on CUDA, the SpMV's spill folded into K5 and the SpMM's
-    added by the CSR SpMM kernel (their plain versions on the CPU)."""
+    (segmented) on CUDA, each one launch with the spill folded in (their
+    plain versions on the CPU)."""
 
     name = "well"
 
@@ -346,9 +354,9 @@ class WellKernel(_MatrixKernel):
             (A.num_columns, k), dtype=self.dtype, device=self.device))
 
     def bytes_per_run(self) -> int:
-        """The bytes K5 moves: value + index of each slot that holds a
-        nonzero (it reads no other; the JAX class counts every slot), the
-        spill and the vectors once."""
+        """The bytes K5 moves, and K6 for one column: value + index of
+        each slot that holds a nonzero (they read no other; the JAX class
+        counts every slot), the spill and the vectors once."""
         m = self.matrix
         vb = self.value_bytes
         live = int((np.asarray(m.value) != 0).any(axis=2).sum())

@@ -208,12 +208,14 @@ def load_library() -> ctypes.CDLL:
         _PTR, _PTR, _I32, _I32, _I64, _I64, _I64, _PTR, _PTR, _PTR]
     lib.well_seg_launch.restype = _I32
     lib.well_whole_spmm_launch.argtypes = [
-        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64, _I64,
-        _I64, _I32, _I32, _PTR, _PTR, _PTR]
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _I32, _I32, _I64, _I64, _I64, _I32, _I32, _I32, _PTR, _PTR,
+        _PTR]
     lib.well_whole_spmm_launch.restype = _I32
     lib.well_seg_spmm_launch.argtypes = [
-        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64,
-        _I64, _I64, _I32, _I32, _PTR, _PTR, _PTR]
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _PTR, _I32, _I32, _I64, _I64, _I64, _I32, _I32, _I32, _PTR,
+        _PTR, _PTR]
     lib.well_seg_spmm_launch.restype = _I32
     lib.bsr_simt_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _I32, _I64, _I64, _I64, _I32, _PTR,

@@ -29,20 +29,20 @@ card ``chip_smoke.py`` holds the kernels against them.
   do (XLA's ``mode="clip"`` reads the last entry instead; the two
   differ only where that entry is not finite).
 
-- ``well_spmv_reference`` (K5a / K5b, the spill folded in) and
-  ``well_chunks_reference`` (K6a / K6b), after ``_well_padded``: slot s
+- ``well_spmv_reference`` (K5a / K5b and K6a / K6b, the spill folded
+  in) and ``well_chunks_reference``, after ``_well_padded``: slot s
   of chunk c gathers x at column ``(window_start + segment) * 128 +
   local_index`` (segment 0 in whole-x mode), the 8 slots are summed,
   each chunk adds into its ``group_of_chunk`` rows, and
   ``well_spmv_reference`` adds the spill through
   ``csr_spmv_reference``.  A column at or past the end reads 0, as the
   Pallas kernels' zero-padded x does (XLA clips to the last entry, as
-  for WELL-CW).  K5 reads no slot whose ``slot_mask`` bit is clear (all
-  its values are zero), so ``well_spmv_reference`` counts such a slot
-  as exactly 0 (``torch.where``), even where x holds inf or NaN under
-  it; the JAX kernels and K6 read it (0 * inf = NaN), and so does
-  ``well_chunks_reference(..., masked=False)``.  For finite x the two
-  agree.
+  for WELL-CW).  K5 and K6 read no slot whose ``slot_mask`` bit is
+  clear (all its values are zero), so ``well_spmv_reference`` counts
+  such a slot as exactly 0 (``torch.where``), even where x holds inf or
+  NaN under it; the JAX kernels read it (0 * inf = NaN), and so does
+  ``well_chunks_reference(..., masked=False)``, which states that
+  reading for the tests.  For finite x the two agree.
 - ``bsr_spmm_reference`` (K7a / K7b), after the ``DeviceBsr`` branch of
   ``spmm``: X zero-padded to ``num_block_cols * 128`` rows, each block's
   128 X rows gathered, one product per block, the products summed into
@@ -230,8 +230,8 @@ def well_chunks_reference(A, x: torch.Tensor,
                           masked: bool = True) -> torch.Tensor:
     """The WELL chunks of a ``DeviceWell``, without the spill, in the
     value dtype; x (m,) or (m, k).  With ``masked`` a slot whose
-    ``slot_mask`` bit is clear adds exactly 0 (K5's reading); without,
-    every slot is read (K6a's and K6b's, and the JAX kernels')."""
+    ``slot_mask`` bit is clear adds exactly 0 (K5's and K6's reading);
+    without, every slot is read (the JAX kernels' reading)."""
     k = A.chunks_per_step
     ws = A.window_start.transpose(1, 2).reshape(A.num_chunks, 8).long()
     if A.segment_of_step is not None:
@@ -256,7 +256,7 @@ def well_chunks_reference(A, x: torch.Tensor,
 def well_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x (x (m,)) or Y = A @ X (X (m, k)) for a ``DeviceWell``:
     the live slots of the chunks, then the spill, in the value dtype
-    (K5a's and K5b's whole product)."""
+    (the whole product of K5a and K5b, and of K6a and K6b)."""
     xf = x.to(A.value_dtype)
     y = well_chunks_reference(A, xf)
     if A.spill is not None:

@@ -89,7 +89,7 @@ from spmv_tpu_torch.ops import (
     wellcw_spmv_reference,
 )
 from spmv_tpu_torch.ops import wellcw_kernels
-from spmv_tpu_torch.ops.well_kernels import _launch_spmm, well_column_block
+from spmv_tpu_torch.ops.well_kernels import well_spmm_plan
 from spmv_tpu_torch.ops.wellcw_kernels import column_block
 
 pytestmark = pytest.mark.cuda
@@ -801,19 +801,28 @@ def test_well_k5_live_slots_and_folded_spill(dtype, segmented, cuda):
     want = well_spmv_reference(A, x)
     assert torch.isfinite(want).all()
     assert _rel_err(y1, want) <= TOL[dtype]
-    # reading every slot (K6's plain version) meets the inf
+    # reading every slot, as the JAX kernels do, meets the inf
     assert not torch.isfinite(
         well_chunks_reference(A, x, masked=False)).all()
 
 
-@pytest.mark.parametrize("k", [1, 3, 8])
+WELL_SPMM_KS = (1, 3, 4, 8, 9, 17)
+WELL_SPMM_COUNTERS = (well_whole_spmm_core, well_seg_spmm_core,
+                      csr_spmm_core)
+
+
+def _launched(before):
+    return [c.launches - b for c, b in zip(WELL_SPMM_COUNTERS, before)]
+
+
+@pytest.mark.parametrize("k", WELL_SPMM_KS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
 @pytest.mark.parametrize("case", list(WELL_CASES))
 def test_well_spmm_kernels_match_plain(case, dtype, k, cuda):
-    """K6a / K6b twice (bitwise equal), against the plain version; the
-    whole SpMM with its spill against the plain composition, the fp64
-    host product and, column by column, K5 (the spill folded in) on that
-    column."""
+    """K6a / K6b, the spill folded in, twice (bitwise equal), against the
+    plain version, the fp64 host product and, column by column, K5 on
+    that column; ``well_spmm_core`` makes one K6 launch a product and no
+    CSR launch."""
     w = _well_host(case)
     A = DeviceWell.from_host(w, dtype=dtype, device=cuda,
                              **WELL_CASES[case][2])
@@ -822,20 +831,17 @@ def test_well_spmm_kernels_match_plain(case, dtype, k, cuda):
     spmv_core = well_seg_core if segmented else well_whole_core
     g = torch.Generator(device=cuda).manual_seed(8)
     X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
-    counters = (well_whole_spmm_core, well_seg_spmm_core, csr_spmm_core)
-    before = [c.launches for c in counters]
+    before = [c.launches for c in WELL_SPMM_COUNTERS]
     Y1, Y2 = core(A, X), core(A, X)
     torch.cuda.synchronize()
     assert Y1.shape == (A.num_rows, k)
     assert torch.equal(Y1, Y2)
-    assert _rel_err(Y1, well_chunks_reference(A, X, masked=False)) \
-        <= TOL[dtype]
+    assert _rel_err(Y1, well_spmv_reference(A, X)) <= TOL[dtype]
     Y = well_spmm_core(A, X)
     torch.cuda.synchronize()
-    launched = [c.launches - b for c, b in zip(counters, before)]
-    assert launched == [0 if segmented else 3, 3 if segmented else 0,
-                        int(A.spill is not None)]
-    assert _rel_err(Y, well_spmv_reference(A, X)) <= TOL[dtype]
+    assert _launched(before) == [0 if segmented else 3,
+                                 3 if segmented else 0, 0]
+    assert torch.equal(Y, Y1)
     for j in range(k):
         assert _rel_err(Y[:, j], spmv_core(A, X[:, j].contiguous())) \
             <= TOL[dtype], j
@@ -844,25 +850,112 @@ def test_well_spmm_kernels_match_plain(case, dtype, k, cuda):
     assert _rel_err(Y.cpu(), want) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("columns", [1, 2, 5, 7])
-def test_well_spmm_column_blocks_agree(columns, cuda):
-    """Every column-block width gives the same Y, bit for bit (a column's
-    sums do not depend on its block), in float64 on a segmented matrix
-    with blocks_per_out 4, whose default width is 2 (7, the widest, is a
-    224 KB tile); a width whose tile does not fit raises."""
-    A = DeviceWell.from_host(_well_host("segmented_blocks_per_out_4"),
-                             dtype=torch.float64, device=cuda,
-                             **WELL_CASES["segmented_blocks_per_out_4"][2])
-    assert well_column_block(torch.float64, 8, A.out_rows) == 2
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", ["whole", "window_spill",
+                                  "segment_rows_2_spill",
+                                  "segmented_blocks_per_out_4"])
+def test_well_spmm_column_blocks_agree(case, dtype, cuda):
+    """A column's sums do not depend on its column block: the k = 17
+    product (blocks of 8, 8 and 1 columns) equals, bit for bit, the
+    products of its 8-, 8- and 1-column slices."""
+    A = DeviceWell.from_host(_well_host(case), dtype=dtype, device=cuda,
+                             **WELL_CASES[case][2])
     g = torch.Generator(device=cuda).manual_seed(9)
-    X = torch.randn(A.num_columns, 8, generator=g, device=cuda,
-                    dtype=torch.float64)
-    Y = _launch_spmm(well_seg_spmm_core, "well_seg_spmm", A, X, None, True,
-                     columns)
+    X = torch.randn(A.num_columns, 17, generator=g, device=cuda,
+                    dtype=dtype)
+    assert well_spmm_plan(17, dtype, 0, 0)["column_blocks"] == 3
+    Y = well_spmm_core(A, X)
+    parts = [well_spmm_core(A, X[:, j0:j0 + 8].contiguous())
+             for j0 in (0, 8, 16)]
     torch.cuda.synchronize()
-    assert torch.equal(Y, well_seg_spmm_core(A, X))
-    with pytest.raises(KernelError, match="invalid argument"):
-        _launch_spmm(well_seg_spmm_core, "well_seg_spmm", A, X, None, True, 8)
+    assert torch.equal(Y, torch.cat(parts, dim=1))
+
+
+@pytest.mark.parametrize("k", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", ["whole", "banded_16384",
+                                  "segment_rows_2_spill",
+                                  "segmented_blocks_per_out_4",
+                                  "empty_blocks"])
+def test_well_spmm_vector_and_scalar_x_sum_alike(case, dtype, k, cuda):
+    """X in 16-byte loads (aligned) or one value at a time (one element
+    past a 16-byte boundary): the same Y bit for bit."""
+    A = DeviceWell.from_host(_well_host(case), dtype=dtype, device=cuda,
+                             **WELL_CASES[case][2])
+    g = torch.Generator(device=cuda).manual_seed(10)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
+    Xm = _misaligned(A.num_columns, k, cuda, dtype, 10).copy_(X)
+    assert well_spmm_plan(k, dtype, X.data_ptr(), 0)["vector_x"] == (
+        (k * X.element_size()) % 16 == 0)
+    assert not well_spmm_plan(k, dtype, Xm.data_ptr(), 0)["vector_x"]
+    Y, Ym = well_spmm_core(A, X), well_spmm_core(A, Xm)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, Ym)
+    assert _rel_err(Y, well_spmv_reference(A, X)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
+                                                        "misaligned"])
+@pytest.mark.parametrize("k", WELL_SPMM_KS)
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_well_spmm_live_slots_and_folded_spill(dtype, segmented, k,
+                                               aligned, cuda):
+    """K6 on the synthetic container of K5's test: chunks of 0, 1, 5 and
+    8 live slots, a block that no step visits but whose lanes have spill
+    entries, a lane with 200 of them, live columns past the end (they
+    read 0) beside X's last row, inf, which only the slots whose bit is
+    clear point at: finite, against the plain version, twice (bitwise
+    equal), one K6 launch and no CSR launch; X aligned (16-byte loads
+    where k allows) or one element past a 16-byte boundary (scalar
+    loads), the two bitwise equal."""
+    A, _ = _synthetic_well(dtype, cuda, segmented)
+    m = A.num_columns
+    X = _misaligned(m, k, cuda, dtype, 26)
+    X[m - 1] = float("inf")
+    if aligned:
+        X = X.clone()
+    plan = well_spmm_plan(k, dtype, X.data_ptr(), 0)
+    assert plan["vector_x"] == (aligned and (k * X.element_size()) % 16
+                                == 0)
+    core = well_seg_spmm_core if segmented else well_whole_spmm_core
+    before = [c.launches for c in WELL_SPMM_COUNTERS]
+    Y1, Y2 = core(A, X), well_spmm_core(A, X)
+    torch.cuda.synchronize()
+    assert _launched(before) == [0 if segmented else 2,
+                                 2 if segmented else 0, 0]
+    assert torch.equal(Y1, Y2)
+    assert bool(torch.isfinite(Y1).all())
+    want = well_spmv_reference(A, X)
+    assert bool(torch.isfinite(want).all())
+    assert _rel_err(Y1, want) <= TOL[dtype]
+    other = well_spmm_core(A, X.clone() if not aligned else
+                           _misaligned(m, k, cuda, dtype, 26).copy_(X))
+    torch.cuda.synchronize()
+    assert torch.equal(other, Y1)
+
+
+def test_well_spmm_unvisited_blocks_read_zero(cuda):
+    """An output block that no step visits (and that has no spill) is
+    written with zeros in every column: a NaN-filled out buffer comes back
+    clean there (the container of test_well_unvisited_blocks_read_zero)."""
+    A0 = DeviceWell.from_host(_well_host("empty_blocks"),
+                              dtype=torch.float32, chunks_per_step=1,
+                              segment_rows=4)
+    keep = (A0.block_of_step != 1).numpy()
+    A = DeviceWell(
+        A0.num_rows, A0.num_columns, A0.num_entries, A0.window_rows,
+        A0.num_groups, 1, 1, A0.segment_rows, A0.value[keep],
+        A0.local_index[keep], A0.window_start[keep],
+        A0.group_of_chunk[keep], A0.block_of_step[keep],
+        A0.segment_of_step[keep], device=cuda)
+    assert int(A.step_ptr[1]) == int(A.step_ptr[2])
+    X = torch.ones(A.num_columns, 9, device=cuda)
+    out = torch.full((A.num_rows, 9), float("nan"), device=cuda)
+    well_seg_spmm_core(A, X, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, well_spmv_reference(A, X))
+    assert not out.isnan().any()
 
 
 def _bsr_blocklets(bh, n=1024):

@@ -228,8 +228,8 @@ def test_k5_plain_matches_jax(name):
 
 
 def test_masked_and_unmasked_chunks_agree_on_finite_x():
-    """Without an inf or NaN in x, reading the all-zero slots (K6, the
-    JAX kernels) or not (K5) gives the same numbers."""
+    """Without an inf or NaN in x, reading the all-zero slots (the JAX
+    kernels) or not (K5 and K6) gives the same numbers."""
     _, _, At = _both("segment_rows_2")
     X = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (At.num_columns, 3)))
@@ -252,8 +252,8 @@ def test_zero_times_inf_deviation():
     column window_start * 128 + local_index (here 0); with inf there the
     JAX kernels give 0 * inf = NaN in the slot's rows, in Pallas
     interpret mode and through XLA.  K5 does not read the slot and gives
-    the host's finite product; reading every slot, as K6's plain version
-    does, gives NaN in the port too."""
+    the host's finite product; reading every slot, as the JAX kernels
+    do, gives NaN in the port's plain chunks too."""
     w = WellMatrix.from_matrix_market(_inf_case(MatrixMarket),
                                       window_rows=2)
     wj = JaxWellMatrix.from_matrix_market(_inf_case(JaxMatrixMarket),

@@ -1,4 +1,5 @@
-"""The port's WELL SpMM (K6a, K6b and the CSR spill) against the JAX package.
+"""The port's WELL SpMM (K6a and K6b, the spill folded in) against the JAX
+package.
 
 Inputs come from numpy with fixed seeds, on the matrices of
 tests/test_torch_well.py (windows 1, 2 and 4; segment_rows 2, 4, 8 and
@@ -12,7 +13,12 @@ through both packages:
   marked ``slow``, as the JAX package's own, tests/test_well.py:259-301);
 - column j of the plain SpMM against the plain SpMV of X[:, j];
 - ``make_kernel("well").spmm_fn``, the CLI's ``--spmm`` and ``--cg
-  --nrhs`` on ``-s well`` against the JAX CLI.
+  --nrhs`` on ``-s well`` against the JAX CLI, and the ``--spmm``
+  report's bytes: the JAX CLI's less the all-zero slots, which K6 does
+  not read (a stated deviation, as for K5's SpMV report).
+
+The plain SpMM (what K6 computes) is ``well_spmv_reference`` on 2-D X:
+the live slots, then the spill; for finite X it is JAX's product.
 
 Tolerances: rtol 1e-12 in float64 (the sums differ only in rounding
 order); in float32, 1e-5 relative max-norm against the fp64 host
@@ -23,6 +29,7 @@ import functools
 import io
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -234,20 +241,24 @@ def test_wrapper_rejects_bad_inputs(what):
         well_spmm_core(At, args["X"], out=args.get("out"))
 
 
-@pytest.mark.parametrize("dtype, k, out_rows, want", [
-    (torch.float32, 8, 8, 8),      # 32 KB: the whole width
-    (torch.float32, 8, 32, 4),     # blocks_per_out 4: 16 KB a column
-    (torch.float64, 8, 32, 2),
-    (torch.float32, 3, 32, 3),     # never wider than k
-    (torch.float64, 8, 64, 1),     # 64 KB a column: one at a time
+@pytest.mark.parametrize("k, want", [
+    (1, 1), (3, 3),                # never wider than k
+    (8, 8), (9, 8), (17, 8),       # a thread's register block: 8 columns
 ])
-def test_column_block_by_budget(dtype, k, out_rows, want):
-    assert well_column_block(dtype, k, out_rows) == want
+def test_column_block_by_budget(k, want):
+    """K6 keeps no shared tile: a block is as wide as a thread's 8
+    registers of column sums, whatever the dtype and the output block."""
+    assert well_column_block(k) == want
 
 
 def test_column_block_refuses_a_tile_past_shared_memory():
+    """The container's output block must fit K5's shared tile; the SpMM
+    wrapper refuses the same containers, before any plain version."""
+    A = DeviceWell.from_host(_host("poisson_w2"), dtype=torch.float64,
+                             blocks_per_out=32, device="cpu")
+    assert A.out_rows * 128 * 8 > 232448
     with pytest.raises(KernelError, match="shared memory"):
-        well_column_block(torch.float64, 1, 256)
+        well_spmm_core(A, torch.ones(A.num_columns, 2))
 
 
 @pytest.mark.parametrize("name", ["poisson_w2", "rectangular",
@@ -318,3 +329,46 @@ def test_cli_spmm_matches_jax_cli(poisson_file):
     assert doc["kernel"] == want["kernel"]
     assert doc["device"]["platform"] == "cpu"
     assert doc["achieved"]["gflop_per_s"] > 0
+
+
+# The --spmm report's matrices: poisson2d(64, 64) under -s well (96 of
+# its 256 slots all zero) and a band that -s auto packs as WELL under the
+# SpMM workload (24 of 64 slots all zero).
+PRICED = {
+    "well": (lambda: pgen.poisson2d(64, 64), 96),
+    "auto": (lambda: pgen.banded_random(1024, half_bandwidth=32,
+                                        nnz_per_row=5, seed=1), 24),
+}
+
+
+@pytest.mark.parametrize("fmt", list(PRICED))
+def test_cli_spmm_prices_the_slots_k6_reads(fmt, tmp_path):
+    """The float32 ``--spmm 8`` report prices what K6 reads: the JAX
+    CLI's bytes less value + index of each all-zero slot, and the
+    kernel's SpMM byte count; the flops are the JAX CLI's."""
+    from spmv_tpu_torch.io import write_matrix_market
+
+    make, dead = PRICED[fmt]
+    path = str(tmp_path / f"{fmt}.mtx")
+    write_matrix_market(make(), path)
+    argv = ["--matrix", path, "--spmv-format", fmt, "--profile", "2",
+            "--spmm", "8"]
+    torch.set_default_dtype(torch.float32)   # restored by _fp64
+    rc, text = _run(main, argv)
+    assert rc == 0
+    with jax.enable_x64(False):
+        jrc, jtext = _run(jax_main, argv)
+    assert jrc == 0
+    doc, want = json.loads(text), json.loads(jtext)
+    assert doc["kernel"]["name"] == want["kernel"]["name"] == "well"
+    got = doc["roofline"]["bytes"]
+    assert got == want["roofline"]["bytes"] - dead * 128 * (4 + 4)
+    kernel = make_kernel("well", matrix_path=path, device="cpu",
+                         dtype=torch.float32)
+    kernel.init()
+    dead_host = int((np.asarray(kernel.matrix.value) == 0).all(axis=2).sum())
+    assert dead_host == dead
+    assert got == kernel.spmm_bytes_per_run(8)
+    assert doc["roofline"]["flops"] == want["roofline"]["flops"]
+    if fmt == "well":
+        assert (got, want["roofline"]["bytes"]) == (425984, 524288)
