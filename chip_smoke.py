@@ -67,8 +67,9 @@ Phases (each prints readable lines; any failure exits non-zero):
    poisson2d(16, 128) with smooth_levels 1 and 0, poisson2d(16, 120)
    (identity padding), poisson2d(64, 16) (an offset the JAX kernel's lane
    layout refuses), poisson2d(32, 512) (three levels) and poisson2d(48,
-   64) with aggregates of 3 rows, in float64 (1e-12) and float32 (5e-6,
-   relative 2-norm), each launched twice (bitwise equal); the block
+   64) with aggregates of 3 rows and poisson2d(256, 256) (seven levels),
+   in float64 (1e-12) and float32 (5e-6, relative 2-norm), each launched
+   twice (bitwise equal); the block
    V-cycle (K1 per level) and the generic V-cycle (the CSR kernel) on
    the card against their CPU runs, float64.
 4. DIA main path through the CLI, in process, on a Matrix Market file of
@@ -122,7 +123,14 @@ Phases (each prints readable lines; any failure exits non-zero):
    full container's, and the torch.sparse CSR product (cuSPARSE) of the
    part's own entries, timed the same way and eagerly; K3c's and K3b's
    plans (CTAs a cluster, lanes, ring stages, columns of x a K3c CTA
-   stages), K3a's index width, K4a's grid, path and pool list size;
+   stages), K3a's index width, K4a's grid, path and pool list size,
+   K4c's row list (cells, bytes, the rows that own a cell, the X rows
+   they read), K4c timed as a product's first launch (Y zeroed, then
+   written; its bound from the row list, those X rows and every Y row
+   written) and adding into Y as the main path calls it after the
+   product's first part (bound: the list, those X rows and the listed
+   Y rows read and written), on its rows of at most 8 cells and its
+   longer rows alone;
    then K3a's and K4a's other paths, each bitwise equal to the main path
    and timed the same way (K3a: int32 indices; K4a: scalar X loads).
 11. WELL path through the CLI (the WELL launch counts, K5a and K5b, are
@@ -193,7 +201,10 @@ Phases (each prints readable lines; any failure exits non-zero):
    equal to the applies.  The AMG launch counts are read after it.
 22. K8 alone at that shape (not counted): bitwise repeat, error against
    the plain version, device ms (a CUDA graph, the L2 flushed before
-   each launch) against its bound and the plain version's ms, and the
+   each launch), the grid barriers of one launch (read from the
+   barrier's generation word), its time by level (the V-cycle from each
+   level down, timed alike), against its bound and the plain version's
+   ms, and the
    yardstick, the block V-cycle eager and under one CUDA graph (no single
    PyTorch call computes a V-cycle, so there is no library ms).
 
@@ -204,7 +215,12 @@ a process of its own, in the order DIR, this, this, DIR on one card, and
 prints each kernel's device ms from the four runs and whether the main
 path's outputs are bitwise equal across the checkouts;
 ``--well-spmm-kernels-beside DIR`` does the same for phase 19's K6a and
-K6b (with the WELL matrices of phase 12).
+K6b (with the WELL matrices of phase 12), and ``--fused-vcycle-beside
+DIR`` for phase 22's K8 (with PCG to 1e-6 with K8, host ms an iteration;
+the first run's poisson2d(2048, 2048) hierarchy is pickled for the
+others); phase 10's runs also time K4c adding into Y as the main path
+calls it and as a product's first launch, and the whole k = 8 SpMM
+chained in a CUDA graph.
 
 The second-to-last lines are the kernels' JSON summary (seventeen
 kernels, each with its launches on the main path, max error, ms against
@@ -222,6 +238,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -274,9 +291,10 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM bfloat16, dense tensor cores
 # K8 (the fused V-cycle): (poisson2d grid, smooth_levels, block) of the
 # phase 3 comparisons: aligned with 1 and 0 smoothed levels, identity
 # padding, an offset past the JAX lane chunk, three levels, aggregates of
-# three rows
+# three rows, and 65,536 rows (seven levels)
 FUSED_CASES = (((16, 128), 1, 4), ((16, 128), 0, 4), ((16, 120), 1, 4),
-               ((64, 16), 1, 4), ((32, 512), 1, 4), ((48, 64), 1, 3))
+               ((64, 16), 1, 4), ((32, 512), 1, 4), ((48, 64), 1, 3),
+               ((256, 256), 1, 4))
 TOL_K8_F32 = 5e-6             # tests/test_fused_vcycle.py:65, relative 2-norm
 AMG_CLI_GRID = 256            # the AMG CLI phase's poisson2d
 AMG_FULL_GRID = 2048          # the full-size AMG leg: 178.8 MB of DIA levels
@@ -1393,15 +1411,17 @@ def _cw_coo(kind, p, num_rows, num_columns):
     return row[keep], col[keep], p.value[keep]
 
 
-# buffers that K3a and K4a read in place of the JAX container's arrays
+# buffers that K3a, K4a and K4c read in place of the JAX container's
+# arrays
 DERIVED_BUFFERS = ("local_index16", "level_index16", "pool_ptr",
-                   "pool_col", "pool_value")
+                   "pool_col", "pool_value", "list_rows", "list_len",
+                   "list_slice", "list_col", "list_value")
 
 
 def _part_bytes(kname, part) -> tuple:
     """(read, full) bytes of a WELL-CW part: what kernel ``kname`` reads
     on its path, and the container as earlier runs counted it, every
-    buffer but the ones K3a and K4a derive."""
+    buffer but the ones K3a, K4a and K4c derive."""
     full = _nbytes(*(b for name, b in part.named_buffers(recurse=False)
                      if name not in DERIVED_BUFFERS))
     if kname == "wellcw_level":
@@ -1419,7 +1439,55 @@ def _part_bytes(kname, part) -> tuple:
                 + _nbytes(part.level_index16, part.pool_ptr, part.pool_col,
                           part.pool_value))
         return read, full
+    if kname == "wellcw_pool_spmm":
+        return _nbytes(part.list_rows, part.list_len, part.list_slice,
+                       part.list_col, part.list_value), full
     return full, full
+
+
+def _pool_spmm_rows(part, num_rows, num_columns) -> tuple:
+    """(listed rows, X rows) of K4c's row list: the Y rows below
+    ``num_rows`` that own a cell, and the X rows its cells read."""
+    rows = int((part.list_rows < num_rows).sum())
+    col = part.list_col
+    return rows, col[(col >= 0) & (col < num_columns)].unique().numel()
+
+
+LIST_NAMES = ("list_rows", "list_len", "list_slice", "list_col",
+              "list_value")
+
+
+def _pool_spmm_parts(part, X, num_rows, out, flush) -> dict:
+    """K4c adding into Y as the main path calls it, on the pool's rows of
+    at most 8 cells alone and on its longer rows alone (each a row list
+    of those rows of the container's own, laid out as the container lays
+    out its list): {part: (rows, cells, ms)}."""
+    import torch
+
+    from spmv_tpu_torch.models.device import sliced_row_list
+    from spmv_tpu_torch.ops import wellcw_pool_spmm_core
+
+    rows, lens, start, col, val = (getattr(part, a).cpu().numpy()
+                                   for a in LIST_NAMES)
+    # each row's run in order, the rows in the list's order
+    t = np.repeat(np.arange(lens.size), lens)
+    i = np.arange(t.size) - np.repeat(np.cumsum(lens) - lens, lens)
+    where = start[t // 32] + 32 * i + t % 32
+    col, val = col[where], val[where]
+    found = {}
+    for what, keep in (("rows of at most 8 cells", lens <= 8),
+                       ("longer rows", lens > 8)):
+        cells = np.repeat(keep, lens)
+        sub_ptr = np.concatenate([[0], np.cumsum(lens[keep])])
+        lists = [torch.from_numpy(a).to(X.device) for a in sliced_row_list(
+            rows[keep], sub_ptr, col[cells], val[cells])]
+        with contextlib.ExitStack() as stack:
+            for name, a in zip(LIST_NAMES, lists):
+                stack.enter_context(_patched(part, name, a))
+            ms = _cold_graph_ms(lambda: wellcw_pool_spmm_core(
+                part, X, num_rows, out=out, accumulate=True), flush, 50)
+        found[what] = (int(keep.sum()), int(lens[keep].sum()), ms)
+    return found
 
 
 def _merged_spmm_shape(part, plan, k) -> str:
@@ -1509,6 +1577,13 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                           f"{TOL_F32}")
                 ms = _cold_graph_ms(lambda: run(v, out=out), flush, 50)
                 eager_ms = _time_launches(lambda: run(v, out=out), 50)
+                if kname == "wellcw_pool_spmm":
+                    # K4c as the main path calls it after a product's
+                    # first part: adding into Y
+                    acc_ms = _cold_graph_ms(
+                        lambda: wk.wellcw_pool_spmm_core(
+                            part, v, A.num_rows, out=out, accumulate=True),
+                        flush, 50)
                 plain_ms = _time_launches(lambda: plain(v), 3)
                 k = CW_SPMM_K if spmm else 1
                 shape = (A.num_rows, A.num_columns)
@@ -1531,8 +1606,17 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                 del S, want
                 read, full = _part_bytes(kname, part)
                 vec = (A.num_columns + rows) * k * 4
-                b = _bound(read + vec, 2 * nnz * k, triad_gbps)
                 b_full = _bound(full + vec, 2 * nnz * k, triad_gbps)
+                if kname == "wellcw_pool_spmm":
+                    # the X rows its cells read once; a product's first
+                    # launch writes every Y row, adding into Y reads and
+                    # writes the listed rows
+                    listed, xrows = _pool_spmm_rows(part, A.num_rows,
+                                                    A.num_columns)
+                    vec = (xrows + A.num_rows) * k * 4
+                    b_acc = _bound(read + (xrows + 2 * listed) * k * 4,
+                                   2 * nnz * k, triad_gbps)
+                b = _bound(read + vec, 2 * nnz * k, triad_gbps)
                 found[kname] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, "eager_ms": eager_ms,
                                 **lib, **b,
@@ -1553,17 +1637,46 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                     found[kname]["index_bits"] = bits
                     what = f" ({bits}-bit indices)"
                 if spmm:
-                    kind = kname.split("_")[1]
-                    rows = 128 if "pool" in kname else 64
-                    if kind in ("merged", "level", "pool"):
-                        kb = column_block(kind, f32, CW_SPMM_K, rows=rows)
+                    if not kname.startswith("csr"):
+                        kb = column_block(CW_SPMM_K)
                         found[kname]["columns_per_block"] = kb
                         what = f", {kb} columns a block"
                     if kname == "wellcw_merged_spmm":
-                        plan = wk.merged_spmm_plan(k, f32, v.data_ptr(),
-                                                   out.data_ptr())
+                        plan = wk.spmm_plan(k, f32, v.data_ptr(),
+                                            out.data_ptr())
                         found[kname].update(plan)
                         what = f" ({_merged_spmm_shape(part, plan, k)})"
+                    if kname == "wellcw_pool_spmm":
+                        plan = wk.spmm_plan(k, f32, v.data_ptr(),
+                                            out.data_ptr())
+                        parts = _pool_spmm_parts(part, v, A.num_rows, out,
+                                                 flush)
+                        _say("[10 wellcw kernels] wellcw_pool_spmm adding "
+                             f"into Y: {acc_ms:.4f} ms (CUDA graph, L2 "
+                             f"flushed), bound {b_acc['bound_ms']:.4f} ms "
+                             f"({b_acc['bytes']} B: the list, {xrows} X "
+                             f"rows, {listed} Y rows read and written); by "
+                             "part: " + ", ".join(
+                                 f"{what}: {r} rows, {c} cells, {t:.4f} ms"
+                                 for what, (r, c, t) in parts.items())
+                             + f", on {smi_line}")
+                        found[kname].update(
+                            plan, accumulate_ms=acc_ms,
+                            accumulate_bound_ms=b_acc["bound_ms"],
+                            accumulate_bytes=b_acc["bytes"], by_part=parts,
+                            list_cells=int(part.list_len.sum()),
+                            list_slots=part.list_col.numel(),
+                            list_bytes=read, listed_rows=listed,
+                            x_rows_read=xrows)
+                        what = (f" (one thread a row: {listed} rows of "
+                                f"{A.num_rows} own "
+                                f"{int(part.list_len.sum())} cells, a row "
+                                f"list of {part.list_col.numel()} places "
+                                f"in slices of 32 rows, {read} B; "
+                                f"{'16-byte' if plan['vector_x'] else 'scalar'}"
+                                f" X loads, {xrows} X rows read; a product's "
+                                "first launch: Y zeroed, then its listed "
+                                "rows written)")
                     what = f" k={CW_SPMM_K}{what}"
                 _say(f"[10 wellcw kernels] {kname}{what}"
                      f"{' (chunks_per_step=64)' if dev_kw else ''}: "
@@ -2771,10 +2884,10 @@ def _norm_rel(got, want) -> float:
 
 
 def phase_compare_amg(device):
-    """K8 against fused_vcycle_reference on five hierarchies, float64 and
-    float32, each launched twice (bitwise equal); the block V-cycle (K1
-    per level) and the generic V-cycle (the CSR kernel) on the card
-    against their CPU runs."""
+    """K8 against fused_vcycle_reference on the FUSED_CASES hierarchies,
+    float64 and float32, each launched twice (bitwise equal); the block
+    V-cycle (K1 per level) and the generic V-cycle (the CSR kernel) on
+    the card against their CPU runs."""
     import torch
 
     from spmv_tpu_torch.io.generate import poisson2d
@@ -2972,11 +3085,14 @@ def phase_amg_full(device, smi_line):
 def phase_kernel_fused(device, hier, smi_line, triad_gbps):
     """K8 alone at the full-size leg's shape (not counted): bitwise
     repeat, max error against the plain version, device ms (a CUDA graph
-    of AMG_GRAPH_REPS launches, the L2 flushed before each), ms a call
-    through the wrapper, the plain version's ms, and the yardstick: the
-    port's block_vcycle (K1 per level and torch element-wise ops) eager
-    and under one CUDA graph.  The bound: each input read once and y
-    written once (bytes), and the flops of the matvecs K8 runs."""
+    of AMG_GRAPH_REPS launches, the L2 flushed before each), the grid
+    barriers of one launch (the advance of the barrier's generation
+    word), ms a call through the wrapper, the plain version's ms, and the
+    yardstick: the port's block_vcycle (K1 per level and torch
+    element-wise ops) eager and under one CUDA graph; and K8's time by
+    level (the V-cycle from each level down, timed alike).  The bound:
+    each input read once and y written once (bytes), and the flops of
+    the matvecs K8 runs."""
     import torch
 
     from spmv_tpu_torch.ops import (
@@ -2985,6 +3101,7 @@ def phase_kernel_fused(device, hier, smi_line, triad_gbps):
         fused_vcycle_reference,
     )
     from spmv_tpu_torch.ops.amg import block_amg_device, block_vcycle
+    from spmv_tpu_torch.ops.fused_vcycle import FusedVcycle
 
     f32 = torch.float32
     fv = fused_vcycle_device(hier, dtype=f32, device=device)
@@ -3004,10 +3121,36 @@ def phase_kernel_fused(device, hier, smi_line, triad_gbps):
     if e_block > TOL_K8_F32:
         _fail(f"block V-cycle at full size: {e_block} > {TOL_K8_F32}")
     del y1, y2, want
+    # the grid barriers of one launch: the generation word advances once
+    # a barrier, and the arrival counter is back at 0 after each launch
+    gen = int(fv.barrier[1])
+    fused_vcycle_core(fv, b)
+    _sync(device)
+    barriers = int(fv.barrier[1]) - gen
+    if int(fv.barrier[0]) != 0 or barriers <= 0:
+        _fail(f"K8's grid barrier after a launch: {fv.barrier.tolist()}")
     out = torch.empty_like(b)
     scratch = torch.empty(16 << 20, dtype=f32, device=device)
     ms = _cold_graph_ms(lambda: fused_vcycle_core(fv, b, out=out),
                         lambda: scratch.fill_(0.0), AMG_GRAPH_REPS)
+    # where the time goes: the V-cycle from level k down, timed alike
+    from_level = []
+    for k in range(len(fv.levels)):
+        sub = FusedVcycle(list(fv.levels)[k:], list(fv.dinv)[k:], fv.coarse,
+                          fv.omegas[k:], fv.los[k:], fv.his[k:],
+                          fv.wscales[k:], fv.smoothed[k:], fv.block,
+                          fv.degree, fv.rows[k], fv.rows[k])
+        bk = torch.randn(fv.rows[k], generator=g, device=device, dtype=f32)
+        yk = torch.empty_like(bk)
+        from_level.append(_cold_graph_ms(
+            lambda: fused_vcycle_core(sub, bk, out=yk),
+            lambda: scratch.fill_(0.0), AMG_GRAPH_REPS))
+    by_level = [a - b for a, b in zip(from_level, from_level[1:])] \
+        + from_level[-1:]
+    _say("[22 k8] by level (the V-cycle from level k down, less the one "
+         "from k + 1; the last with the coarse solve): " + ", ".join(
+             f"level {k} ({n} rows) {t:.4f} ms" for k, (n, t) in
+             enumerate(zip(fv.rows, by_level))) + f", on {smi_line}")
     eager_ms = _time_launches(lambda: fused_vcycle_core(fv, b, out=out), 10)
     plain_ms = _time_launches(lambda: fused_vcycle_reference(fv, b), 2)
     block_eager = _time_launches(lambda: block_vcycle(bd, b), 5)
@@ -3027,10 +3170,12 @@ def phase_kernel_fused(device, hier, smi_line, triad_gbps):
            "bytes": bound["bytes"], "flops": bound["flops"],
            "library_ms": None, "block_vcycle_eager_ms": block_eager,
            "block_vcycle_graph_ms": block_graph,
-           "block_vcycle_rel_err": e_block,
+           "block_vcycle_rel_err": e_block, "grid_barriers": barriers,
+           "ms_by_level": by_level,
            "shape": f"poisson2d({AMG_FULL_GRID},{AMG_FULL_GRID}) float32, "
                     f"levels {list(fv.rows)} + {fv.coarse.shape[0]}"}
-    _say(f"[22 k8] K8 at {res['shape']}: {ms:.4f} ms on the device (CUDA "
+    _say(f"[22 k8] K8 at {res['shape']}, {barriers} grid barriers a "
+         f"launch: {ms:.4f} ms on the device (CUDA "
          f"graph, L2 flushed), {eager_ms:.4f} ms a call through the wrapper, "
          f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
          f"({bound['bound_by']}, {nbytes} B, {bound['flops']} flop); block "
@@ -3463,14 +3608,32 @@ X = torch.randn(cw.num_columns, c.CW_SPMM_K, device=device, dtype=f32,
 outs = {}
 for kw in ({}, {"chunks_per_step": 64}):
     A = DeviceWellCw.from_host(cw, dtype=f32, device=device, **kw)
+    n = A.num_rows
     for name, part in (("merged", A.merged), ("level", A.levels[0] if
                                               A.levels else None)):
         if part is not None:
-            n = A.num_rows
             outs[f"wellcw_{name}"] = getattr(
                 ops, f"wellcw_{name}_core")(part, x, n).cpu()
             outs[f"wellcw_{name}_spmm"] = getattr(
                 ops, f"wellcw_{name}_spmm_core")(part, X, n).cpu()
+    if not kw:
+        # K4c on the 128-group tail as a product's first launch and as
+        # the main path adds it, and the whole SpMM chained (a CUDA graph
+        # of 20, L2 warm), timed alike in every checkout
+        pool = A.tail_pools[0]
+        outs["wellcw_pool_spmm"] = ops.wellcw_pool_spmm_core(
+            pool, X, n).cpu()
+        outs["wellcw_spmm"] = ops.wellcw_spmm_core(A, X).cpu()
+        Y = torch.zeros(n, c.CW_SPMM_K, device=device, dtype=f32)
+        scratch = torch.empty(16 << 20, dtype=f32, device=device)
+        flush = lambda: scratch.fill_(0.0)
+        for what, acc in (("first_launch", False), ("accumulate", True)):
+            found[f"wellcw_pool_spmm_{what}"] = {"library_ms": None,
+                "ms": c._cold_graph_ms(lambda: ops.wellcw_pool_spmm_core(
+                    pool, X, n, out=Y, accumulate=acc), flush, 50)}
+        found["wellcw_spmm_chained"] = {"library_ms": None,
+            "ms": c._graph_replay_ms(
+                lambda: ops.wellcw_spmm_core(A, X, out=Y), 20)}
     del A
 torch.save(outs, sys.argv[1])
 print(json.dumps(found, default=str))
@@ -3517,6 +3680,56 @@ print(json.dumps(found, default=str))
 """
 
 
+# phase 22's K8 alone (and PCG with K8 as phase 21 runs it) in the
+# checkout it runs from; the first run's hierarchy is kept beside the
+# outputs for the later runs: the JSON of its kernels on the last line
+_PHASE22 = """
+import json
+import os
+import pickle
+import sys
+import torch
+import chip_smoke as c
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.io.generate import poisson2d
+from spmv_tpu_torch.models import CsrMatrix, DeviceDia, DiaMatrix
+from spmv_tpu_torch.perfmodel import measured_machine
+device, smi = c.phase_device()
+c.phase_build()
+f32 = torch.float32
+mm = poisson2d(c.AMG_FULL_GRID, c.AMG_FULL_GRID)
+cache = os.path.join(os.path.dirname(sys.argv[1]), "hierarchy.pkl")
+if os.path.exists(cache):
+    with open(cache, "rb") as f:
+        hier = pickle.load(f)
+else:
+    hier = ops.fused_block_setup(CsrMatrix.from_matrix_market(mm))
+    with open(cache, "wb") as f:
+        pickle.dump(hier, f)
+found = {"fused_vcycle": c.phase_kernel_fused(
+    device, hier, smi, measured_machine(device).hbm_gbps)}
+A = DeviceDia.from_host(DiaMatrix.from_matrix_market(mm), dtype=f32,
+                        device=device)
+b = A(torch.ones(A.num_columns, dtype=f32, device=device))
+apply, _ = ops.fused_vcycle_preconditioner(hierarchy=hier, dtype=f32,
+                                           device=device)
+res, applies, secs = c._pcg(A, b, apply, c.AMG_TOL, device)
+it = int(res.iterations)
+found["pcg_fused_per_iteration"] = {"ms": secs / max(it, 1) * 1e3,
+                                    "iterations": it, "library_ms": None}
+print(f"PCG with K8 to {c.AMG_TOL}: {it} iterations, "
+      f"{secs / max(it, 1) * 1e3:.4f} ms an iteration (host clock)")
+# the main path's output on phase 22's input, for a bitwise comparison
+# across checkouts
+fv = ops.fused_vcycle_device(hier, dtype=f32, device=device)
+g = torch.Generator(device=device).manual_seed(5)
+b = torch.randn(fv.padded_rows, generator=g, device=device, dtype=f32)
+torch.save({"fused_vcycle": ops.fused_vcycle_core(fv, b).cpu()},
+           sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
 def _beside(other: str, script: str, phase: int) -> int:
     """``script``, one phase alone, in the checkout at ``other`` (another
     commit's files, e.g. the parent's from ``git archive``) and in this
@@ -3546,7 +3759,7 @@ def _beside(other: str, script: str, phase: int) -> int:
         runs.append((label, json.loads(lines[-1])))
         outs.setdefault(label, torch.load(path))
         os.remove(path)
-    os.rmdir(tmp)
+    shutil.rmtree(tmp)
     same = {name: torch.equal(y, outs["other"][name])
             for name, y in outs["this"].items() if name in outs["other"]}
     _say(f"[{phase} beside] main-path outputs on phase {phase}'s inputs "
@@ -3568,7 +3781,8 @@ def _beside(other: str, script: str, phase: int) -> int:
 
 
 BESIDE = {"--wellcw-kernels-beside": (_PHASE10, 10),
-          "--well-spmm-kernels-beside": (_PHASE19, 19)}
+          "--well-spmm-kernels-beside": (_PHASE19, 19),
+          "--fused-vcycle-beside": (_PHASE22, 22)}
 
 
 if __name__ == "__main__":

@@ -13,44 +13,57 @@
 //   prolong (repeat times wscale; if smoothed y0 -= omega dinv A y0),
 //   x += y0, post-smooth.  The coarsest level is y = Cinv b, dense.
 //
-// What bounds it on an H100: bytes.  Every step is a DIA matvec (2 flops a
-// value read) or an axpy.  The least the card could move is each input
-// once: the levels' diagonals, dinv, Cinv, b, and y once (about 235 MB at
-// poisson2d(2048^2) in float32, 0.070 ms at 3.35 TB/s).  The algorithm
-// itself reads each level again for each of its matvecs (8 at a smoothed
-// level, 6 at a plain one, degree 3), so its own traffic is several times
-// that bound.
+// What bounds it on an H100: bytes at the fine levels, latency at the
+// coarse ones.  Every step is a DIA matvec (2 flops a value read) or an
+// axpy.  The least the card could move is each input once: the levels'
+// diagonals, dinv, Cinv, b, and y once (about 235 MB at poisson2d(2048^2)
+// in float32, 0.070 ms at 3.35 TB/s).  The algorithm itself reads each
+// level again for each of its matvecs (8 at a smoothed level, 6 at a
+// plain one, degree 3).  Below level 2 (262,144 rows at 2048^2) a level
+// fits the L2 and a step is a few thousand rows: a thread's chain of
+// dependent loads, then a barrier.
 //
-// The simple design: a cooperative persistent kernel.  The grid is as many
-// blocks as can be co-resident (the occupancy calculator times the SMs: one
-// block of 1,024 threads an SM), launched with cudaLaunchCooperativeKernel,
-// which refuses a grid that could not all be resident.  Each step of the
-// cycle is a grid-stride loop over rows, one thread a row; a grid-wide
-// barrier separates dependent steps: 9 at a smoothed level, 8 at a plain
-// one, one after the coarse solve (58 at poisson2d(2048^2)).  The barrier
-// is written here (an arrival counter and a generation word, with
-// __threadfence), so the file needs no relocatable device code.
-//
-// Why a barrier step costs what it does: every block's arrival makes a
-// round trip through L2, and, at the coarse levels (a few thousand rows), a
-// step is one thread's chain of dependent loads while the other threads
-// wait at the barrier.  So a step costs memory latency, not bandwidth:
-// measured on an H100, K8 took 1.76 ms at poisson2d(2048^2) in float32
-// with one load in flight a thread and 4 blocks of 256 threads an SM, 1.29
-// ms with the loads of 8 diagonals in flight (dia_row) and the restriction
-// spread over fine rows, 1.25 ms with 1,024-thread blocks (fewer arrivals);
-// spinning without __nanosleep changed nothing.  Keeping the coarse levels
-// inside one block or cluster, with fewer barriers, is later work.
+// The design: a cooperative persistent kernel.  The grid is as many
+// blocks as can be co-resident (the occupancy calculator times the SMs:
+// one block of 1,024 threads an SM), launched with
+// cudaLaunchCooperativeKernel, which refuses a grid that could not all be
+// resident.  A step is a grid-stride loop over rows, one thread a row, and
+// dependent steps are separated by a grid-wide barrier (an arrival
+// counter and a generation word, with __threadfence, so the file needs no
+// relocatable device code).  Measured on an H100 at poisson2d(2048^2),
+// float32 (V-cycles from level k down, timed alike): level 0 takes 0.66
+// ms, level 1 0.32, levels 2-6 and the coarse solve 0.21, so the fine
+// levels' streaming (about 60% of the triad rate) sets K8's time, not its
+// barriers.  Not kept, being no faster: the coarse levels in one thread
+// block cluster with the hardware cluster barrier (clusters of 8 or 4
+// leave 120 of the 132 SMs co-resident and took 1.28 ms at their best;
+// clusters of 2 gained 0.002-0.005 ms over these steps on the whole
+// grid), and two rows a thread a trip (spilled at the 64-register cap,
+// 1.31 ms).
+// - Barriers a level, degree k >= 2: the pre-smoother k - 1 (its first
+//   step, x = 0, r = dinv b, p = r / theta, is element-wise and is folded
+//   into the second, which computes p at each neighbour on the fly); the
+//   restriction 1, or 2 at a smoothed level; the prolongation 0 at a
+//   plain level (folded into the post-smoother's first residual, which
+//   reads x + xc wscale at each neighbour) or 1 at a smoothed one (it
+//   needs A y0 at each neighbour); the post-smoother k.  So 2 k + 2 at a
+//   smoothed level and 2 k at a plain one, one after the coarse solve,
+//   less the last step's (the launch's end): 44 at poisson2d(2048^2),
+//   degree 3, against 58 for one barrier a step of every level.
+// - A value a fused step computes on the fly is rounded as the unfused
+//   step rounded the value it stored (mul_rn, div_rn, add_rn: no
+//   contraction into an FMA), so the result is the unfused kernel's bit
+//   for bit.
 //
 // Steps fused so that no vector is written only to be read back by the
 // same row: the matvec with its vector update; the restriction with the
 // last residual or composition matvec (one thread a fine row, a segmented
 // warp shuffle summing each coarse row's `block` fine rows; one thread a
-// coarse row where `block` does not divide 32); the prolongation reads the
-// coarse vector directly.
-// The pre-smoother starts from x = 0, so its first residual is dinv * b
-// (A 0 = 0); the smoother's last step adds p to x and needs no matvec.
-// The p update writes a second buffer (q), since neighbours still read p.
+// coarse row where `block` does not divide 32).  The smoother's last step
+// adds p to x and needs no matvec.  The p update writes a second buffer
+// (q), since neighbours still read p; at a folded prolongation the
+// prolonged x waits in q for the first Chebyshev step, which reads it at
+// its own row only.
 //
 // The coarse solve is part of K8's body: one warp a row of Cinv, a fixed
 // shuffle tree.  There are no atomics on data, so every sum runs in a fixed
@@ -102,6 +115,26 @@ struct Params {
   int block;
 };
 
+// Roundings of their own: never contracted into an FMA with a later add.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
 // Grid-wide barrier for a cooperative launch (every block resident).
 // Thread 0 of each block arrives once; the last to arrive resets the
 // counter and advances the generation, which the others wait to see.  The
@@ -124,6 +157,13 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
   }
   __syncthreads();
 }
+
+// The threads of a step (a grid-stride loop) and the barrier after it.
+struct Grid {
+  unsigned* bar;
+  int tid, stride;
+  __device__ void sync() const { grid_sync(bar); }
+};
 
 // Row i of A v, the diagonals in order, v(j) read for 0 <= j < n.  The
 // loads of U diagonals are issued before any of their products is added,
@@ -157,56 +197,113 @@ __device__ __forceinline__ T dia_row(const Level<T>& L, int i, V v) {
   return acc;
 }
 
-// _cheb_smooth at one level: x = 0 on entry when `pre`, else L.x.
+// Chebyshev steps first .. degree-2 of _cheb_smooth: p is read at each
+// neighbour, x at the row's own entry from xin (L.x, or q where the
+// prolonged x waits), and x, r and q (the next p) are written.  The last
+// step adds p to x and needs no matvec; it is followed by a barrier only
+// with sync_last.
 template <typename T>
-__device__ void smooth(const Level<T>& L, int degree, bool pre, int tid,
-                       int stride, unsigned* bar) {
+__device__ void cheb_steps(const Level<T>& L, int degree, int first, T* p,
+                           T* q, const T* xin, const Grid& on,
+                           bool sync_last) {
   T* x = L.x;
-  for (int i = tid; i < L.n; i += stride) {
-    T res;
-    if (pre) {
-      res = L.b[i];
-      x[i] = T(0);
-    } else {
-      res = L.b[i] - dia_row(L, i, [x](int j) { return x[j]; });
-    }
-    const T rv = L.dinv[i] * res;
-    L.r[i] = rv;
-    L.p[i] = rv / L.theta;
-  }
-  grid_sync(bar);
-  T* p = L.p;
-  T* q = L.q;
-  for (int s = 0; s + 1 < degree; ++s) {
+  for (int s = first; s + 1 < degree; ++s) {
     const bool last = s + 2 == degree;
     const T c1 = L.c1[s], c2 = L.c2[s];
-    for (int i = tid; i < L.n; i += stride) {
+    for (int i = on.tid; i < L.n; i += on.stride) {
       const T ap = dia_row(L, i, [p](int j) { return p[j]; });
       const T pi = p[i];
       const T ri = L.r[i] - L.dinv[i] * ap;
       const T qi = c1 * pi + c2 * ri;
-      T xi = x[i] + pi;
+      T xi = xin[i] + pi;
       if (last) xi = xi + qi;   // the last step: x += p, no matvec
       x[i] = xi;
       L.r[i] = ri;
       q[i] = qi;
     }
-    grid_sync(bar);
+    if (!last || sync_last) on.sync();
     T* t = p;
     p = q;
     q = t;
+    xin = x;
   }
+}
+
+// _cheb_smooth from x = 0.  Its first step (r = dinv b, p = r / theta,
+// x = 0) is element-wise: the next step computes p at each neighbour
+// from b and dinv, rounded as the stored p was.
+template <typename T>
+__device__ void pre_smooth(const Level<T>& L, int degree, const Grid& on) {
+  const T* b = L.b;
+  const T* dinv = L.dinv;
+  const T theta = L.theta;
+  const auto p0 = [b, dinv, theta](int j) {
+    return div_rn(mul_rn(dinv[j], b[j]), theta);
+  };
+  T* x = L.x;
   if (degree == 1) {
-    for (int i = tid; i < L.n; i += stride) x[i] = x[i] + p[i];
-    grid_sync(bar);
+    for (int i = on.tid; i < L.n; i += on.stride) x[i] = add_rn(T(0), p0(i));
+    on.sync();
+    return;
   }
+  const bool last = degree == 2;
+  const T c1 = L.c1[0], c2 = L.c2[0];
+  for (int i = on.tid; i < L.n; i += on.stride) {
+    const T ap = dia_row(L, i, p0);
+    const T pi = p0(i);
+    const T r0 = mul_rn(dinv[i], b[i]);
+    const T ri = r0 - dinv[i] * ap;
+    const T qi = c1 * pi + c2 * ri;
+    T xi = add_rn(T(0), pi);
+    if (last) xi = xi + qi;
+    x[i] = xi;
+    L.r[i] = ri;
+    L.q[i] = qi;
+  }
+  on.sync();
+  cheb_steps(L, degree, 1, L.q, L.p, x, on, true);
+}
+
+// x + xc[j / block] wscale, a plain level's prolongation of row j, with
+// the product rounded on its own as the unfused step rounded it.
+template <typename T>
+__device__ __forceinline__ T prolonged(T x, T xc, T w) {
+  return add_rn(x, mul_rn(xc, w));
+}
+
+// _cheb_smooth from L.x; with Fold (a plain level), L.x is first
+// prolonged from xc, x(j) + xc[j / block] wscale, at each neighbour of
+// the first residual, and the prolonged x of the row waits in q.
+template <bool Fold, typename T>
+__device__ void post_smooth(const Level<T>& L, int degree, int block,
+                            const T* xc, const Grid& on, bool sync_last) {
+  T* x = L.x;
+  const T w = L.wscale;
+  const auto xv = [x, xc, block, w](int j) {
+    return Fold ? prolonged(x[j], xc[j / block], w) : x[j];
+  };
+  for (int i = on.tid; i < L.n; i += on.stride) {
+    const T res = L.b[i] - dia_row(L, i, xv);
+    const T rv = L.dinv[i] * res;
+    L.r[i] = rv;
+    L.p[i] = rv / L.theta;
+    if (Fold) L.q[i] = xv(i);
+  }
+  on.sync();
+  const T* xin = Fold ? L.q : x;
+  if (degree == 1) {
+    for (int i = on.tid; i < L.n; i += on.stride) x[i] = xin[i] + L.p[i];
+    if (sync_last) on.sync();
+    return;
+  }
+  cheb_steps(L, degree, 0, L.p, L.q, xin, on, sync_last);
 }
 
 // bnext[c] = wscale * (the sum of rs over fine rows c*block .. +block-1),
 // rs(i) the restricted residual of fine row i.  When block divides 32, one
 // thread a fine row and a segmented shuffle tree (the rows of one coarse
-// row are neighbouring lanes of one warp: the grid stride is a multiple of
-// 32 and n of block); otherwise one thread a coarse row, in row order.
+// row are neighbouring lanes of one warp: the stride is a multiple of 32
+// and n of block); otherwise one thread a coarse row, in row order.
 template <typename T, typename R>
 __device__ __forceinline__ void restrict_rows(const Level<T>& L, int block,
                                               T* bnext, int tid, int stride,
@@ -233,53 +330,49 @@ __device__ __forceinline__ void restrict_rows(const Level<T>& L, int block,
 // bnext = P^T (b - A x).
 template <typename T>
 __device__ void restrict_residual(const Level<T>& L, int block, T* bnext,
-                                  int tid, int stride, unsigned* bar) {
+                                  const Grid& on) {
   const T* x = L.x;
   if (L.smoothed) {
     // rs = r - omega A (dinv r): r kept in L.r, dinv r in L.p
-    for (int i = tid; i < L.n; i += stride) {
+    for (int i = on.tid; i < L.n; i += on.stride) {
       const T rf = L.b[i] - dia_row(L, i, [x](int j) { return x[j]; });
       L.r[i] = rf;
       L.p[i] = L.dinv[i] * rf;
     }
-    grid_sync(bar);
+    on.sync();
     const T* t = L.p;
-    restrict_rows(L, block, bnext, tid, stride, [&L, t](int i) {
+    restrict_rows(L, block, bnext, on.tid, on.stride, [&L, t](int i) {
       return L.r[i] - L.omega * dia_row(L, i, [t](int j) { return t[j]; });
     });
   } else {
-    restrict_rows(L, block, bnext, tid, stride, [&L, x](int i) {
+    restrict_rows(L, block, bnext, on.tid, on.stride, [&L, x](int i) {
       return L.b[i] - dia_row(L, i, [x](int j) { return x[j]; });
     });
   }
-  grid_sync(bar);
+  on.sync();
 }
 
-// x += P xc, P = (I - omega D^-1 A) P0 when smoothed, else P0 (a repeat
-// times wscale), y0 read straight from xc.
+// A smoothed level's prolongation, x += (I - omega D^-1 A) P0 xc, P0 a
+// repeat times wscale, y0 read straight from xc: a step of its own.
 template <typename T>
-__device__ void prolong(const Level<T>& L, int block, const T* xc, int tid,
-                        int stride, unsigned* bar) {
+__device__ void prolong_smoothed(const Level<T>& L, int block, const T* xc,
+                                 const Grid& on) {
   const T w = L.wscale;
-  for (int i = tid; i < L.n; i += stride) {
-    const T y0 = xc[i / block] * w;
-    if (L.smoothed) {
-      const T ay = dia_row(L, i, [xc, block, w](int j) {
-        return xc[j / block] * w;
-      });
-      L.x[i] = L.x[i] + (y0 - L.omega * L.dinv[i] * ay);
-    } else {
-      L.x[i] = L.x[i] + y0;
-    }
+  for (int i = on.tid; i < L.n; i += on.stride) {
+    const T y0 = mul_rn(xc[i / block], w);
+    const T ay = dia_row(L, i, [xc, block, w](int j) {
+      return xc[j / block] * w;
+    });
+    L.x[i] = L.x[i] + (y0 - L.omega * L.dinv[i] * ay);
   }
-  grid_sync(bar);
+  on.sync();
 }
 
 // xc = Cinv bc, one warp a row, lanes over columns, a fixed shuffle tree.
 template <typename T>
-__device__ void coarse_solve(const Params<T>& P, int tid, int stride) {
+__device__ void coarse_solve(const Params<T>& P, const Grid& on) {
   const int lane = threadIdx.x & 31;
-  for (int row = tid >> 5; row < P.nc; row += stride >> 5) {
+  for (int row = on.tid >> 5; row < P.nc; row += on.stride >> 5) {
     const T* a = P.cinv + static_cast<int64_t>(row) * P.nc;
     T s = T(0);
     for (int c = lane; c < P.nc; c += 32) s += __ldg(a + c) * P.bc[c];
@@ -287,28 +380,42 @@ __device__ void coarse_solve(const Params<T>& P, int tid, int stride) {
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) P.xc[row] = s;
   }
-  grid_sync(P.bar);
+}
+
+// Level l on the way down: pre-smooth, then restrict into level l + 1.
+template <typename T>
+__device__ void descend(const Params<T>& P, int l, const Grid& on) {
+  const Level<T>& L = P.lv[l];
+  pre_smooth(L, P.degree, on);
+  restrict_residual(L, P.block, l + 1 < P.levels ? P.lv[l + 1].b : P.bc,
+                    on);
+}
+
+// Level l on the way up: prolong from level l + 1, then post-smooth.
+template <typename T>
+__device__ void ascend(const Params<T>& P, int l, const Grid& on,
+                       bool sync_last) {
+  const Level<T>& L = P.lv[l];
+  const T* xc = l + 1 < P.levels ? P.lv[l + 1].x : P.xc;
+  if (L.smoothed) {
+    prolong_smoothed(L, P.block, xc, on);
+    post_smooth<false>(L, P.degree, P.block, xc, on, sync_last);
+  } else {
+    post_smooth<true>(L, P.degree, P.block, xc, on, sync_last);
+  }
 }
 
 // One block of 1,024 threads an SM: at most 64 registers a thread.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_vcycle_kernel(const __grid_constant__ Params<T> P) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  for (int l = 0; l < P.levels; ++l) {
-    const Level<T>& L = P.lv[l];
-    smooth(L, P.degree, true, tid, stride, P.bar);
-    restrict_residual(L, P.block, l + 1 < P.levels ? P.lv[l + 1].b : P.bc,
-                      tid, stride, P.bar);
-  }
-  coarse_solve(P, tid, stride);
-  for (int l = P.levels - 1; l >= 0; --l) {
-    const Level<T>& L = P.lv[l];
-    prolong(L, P.block, l + 1 < P.levels ? P.lv[l + 1].x : P.xc, tid,
-            stride, P.bar);
-    smooth(L, P.degree, false, tid, stride, P.bar);
-  }
+  const Grid grid{P.bar, static_cast<int>(blockIdx.x * blockDim.x +
+                                          threadIdx.x),
+                  static_cast<int>(gridDim.x * blockDim.x)};
+  for (int l = 0; l < P.levels; ++l) descend(P, l, grid);
+  coarse_solve(P, grid);
+  grid.sync();
+  for (int l = P.levels - 1; l >= 0; --l) ascend(P, l, grid, l > 0);
 }
 
 template <typename T>
@@ -384,8 +491,8 @@ cudaError_t launch(int device, int levels, int degree, int nc,
 // pointers a level (data, offsets, dinv, b, x, r, p, q) then the coarse
 // inverse's, b's and x's; `ints` 4 a level (rows, diagonals, smoothed,
 // block); `scalars` 3 + 2 * 8 float64 a level (omega, wscale, theta, c1,
-// c2); `barrier` two zeroed unsigned words on the device, zero again when
-// the kernel ends.  dtype 0 is float32, 1 float64.
+// c2); `barrier` two unsigned words on the device, the first zero, zero
+// again when the kernel ends.  dtype 0 is float32, 1 float64.
 extern "C" int fused_vcycle_launch(int dtype, int device, int levels,
                                    int degree, long long nc,
                                    const void* ptrs, const void* ints,

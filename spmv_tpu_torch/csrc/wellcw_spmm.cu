@@ -22,29 +22,36 @@
 // (_cw_tables3) are not built: X is read straight from memory.
 //
 // What the design does about it:
-// - Columns go in blocks of kb (grid dimension y for K4a and K4b, z for
-//   K4c); every column block re-reads its part's value + index stream,
-//   so kb is as wide as registers and shared memory allow.  The wrapper
-//   (ops/wellcw_kernels.py, column_block) picks kb and passes it to
-//   every launch.  A level thread (K4a, K4b) keeps kb <= kKB = 8 sums in
-//   registers.  K4c's pool tiles hold rows x kb x 32 accumulators in
-//   dynamic shared memory, kb from a byte budget per dtype; above 48 KB
-//   the launcher opts in with cudaFuncSetAttribute.  Every k >= 1 is
+// - Columns go in blocks of kb <= kKB = 8 (grid dimension y), a thread's
+//   sums in registers; every column block re-reads its part's stream, so
+//   kb is as wide as registers allow.  The wrapper (ops/wellcw_kernels.py,
+//   column_block) picks kb and passes it to every launch; every k >= 1 is
 //   accepted.
 // - Level chunks: one thread per (group, lane, column block) walks its
 //   group's chunks in order; each chunk's 8 slots are summed per column
 //   into a strip, then added to the column's sum, in the order K3a adds
 //   them (cw_strip_cols), so column j of Y sums as the SpMV of X[:, j].
-// - K4c's pool cells: one warp per (output block, 32-lane slice, column
-//   block) walks the block's pool chunks in order and adds into a shared
-//   tile [rows][kb][32] whose column l32 only thread l32 touches (no bank
-//   conflicts, barriers or atomics).  The X values of a group of slots
-//   are all loaded before any is added (cw_pool_add), so their gather
-//   latencies overlap as K3b's do; the column count of a block is a
-//   template width KB in {1, 2, 4, 8} (kb <= KB, the rest predicated
-//   off), so those loads unroll into registers.  Where a thread reads Y
-//   back (K4c's accumulate), it loads a batch of rows before storing any
-//   (store_tile_rows), so the loads' latencies overlap.
+// - K4c, a pool, one thread per row that owns a pool cell and column
+//   block: the thread sums its run of a host-built row list
+//   (models/device.py, pool_row_list: each row's cells in storage order,
+//   chunk then slot, their value and column) in registers and writes y
+//   or y_old + sum, the order of the Pallas kernel's tile.  So the cell
+//   stream is read once for all kb columns, and only the rows that own a
+//   cell are read and written.  At the bench leg's tail pool, 39.5K of
+//   the 1M rows own cells, and the 8,192 rows of one group of each of
+//   its 64 blocks own about 124 zero-valued padding cells each: so the
+//   list lies in slices of 32 rows, longest runs first
+//   (sliced_row_list), so a warp's lanes read neighbouring cells, and a
+//   thread walks its run G cells at a time, the next G cells' list
+//   entries loaded while the X rows of these are in flight: a long run
+//   is a chain of list load -> X load, which set the time (0.066 ms
+//   without the overlap, 0.024 with it; without it, more cells in
+//   flight, the sliced layout and CTAs of 32-256 threads each changed it
+//   by 10% or less).  Without
+//   accumulate, Y is zeroed first (cudaMemsetAsync) and the rows with no
+//   cell stay 0; with accumulate they are not written, so a -0.0 there
+//   stays -0.0 (the Pallas kernel's tile adds +0.0 there and gives +0.0):
+//   a stated deviation.
 // - K4a, one thread per row of the merged grid and column block (1M
 //   threads at the bench leg's 1M rows: several waves, as K3a's grid):
 //   the thread sums its group's cap level chunks in registers as K4b
@@ -57,7 +64,8 @@
 //   16-byte runs and X and Y are aligned, a cell's kb X values are
 //   16-byte loads (two at kb = 8 in float32), else one load a value.
 //   The level part reads the container's int16 copy of its indices
-//   (w * 128 + lane < 1024 d, and a merged grid has d <= 16).
+//   (w * 128 + lane < 1024 d, and a merged grid has d <= 16).  K4c's
+//   cells load their X values the same way.
 // Every sum runs in a fixed order, so two runs give bitwise equal Y.
 // Sums are kept in the storage type (float or double).
 //
@@ -78,8 +86,10 @@ constexpr int kWarp = 32;
 constexpr int kMergedRows = 64;      // groups per merged output block
 constexpr int kKB = 8;               // columns a level thread holds
 constexpr int kLevelThreads = 256;
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
+// K4c: one warp a CTA, so that the slices of the longest runs spread
+// over the SMs (bench leg, cold L2: 0.0233 ms; CTAs of 64 threads 0.0242,
+// of 256 0.0313)
+constexpr int kPoolThreads = 32;
 
 template <typename T>
 __device__ __forceinline__ void store_cols(T* __restrict__ yr, const T* acc,
@@ -87,80 +97,6 @@ __device__ __forceinline__ void store_cols(T* __restrict__ yr, const T* acc,
 #pragma unroll
   for (int j = 0; j < kKB; ++j) {
     if (j < kc) yr[j] = accumulate ? yr[j] + acc[j] : acc[j];
-  }
-}
-
-// Adds one pool chunk's 8 cells of lane l32 to the tile [rows][kb][32]:
-// cell s goes to tile row rel[s] (skipped outside [0, rows)) and reads X
-// at its column (0 past the end), columns [c0, c0 + kc), kc <= kb <= KB.
-// The slots go in groups of G, each group's X loads issued before its
-// adds, in slot order.
-template <typename T, int KB>
-__device__ __forceinline__ void cw_pool_add(
-    T* tile, int kb, int rows, int l32, const int (&loc)[kCwSlots],
-    const T (&val)[kCwSlots], const int (&rel)[kCwSlots], int anchor4,
-    int d, const T* __restrict__ X, int64_t num_columns, int k, int c0,
-    int kc) {
-  constexpr int G = KB >= 8 ? 4 : kCwSlots;
-#pragma unroll
-  for (int s0 = 0; s0 < kCwSlots; s0 += G) {
-    T xv[G][KB];
-#pragma unroll
-    for (int s = 0; s < G; ++s) {
-      const int64_t col =
-          cw_column(anchor4, d, loc[s0 + s] >> 7, loc[s0 + s]);
-      const bool ok = col < num_columns &&
-          static_cast<unsigned>(rel[s0 + s]) < static_cast<unsigned>(rows);
-      const T* xr = X + (ok ? col : 0) * k + c0;
-#pragma unroll
-      for (int j = 0; j < KB; ++j)
-        xv[s][j] = (ok && j < kc) ? __ldg(xr + j) : T(0);
-    }
-#pragma unroll
-    for (int s = 0; s < G; ++s) {
-      if (static_cast<unsigned>(rel[s0 + s]) >= static_cast<unsigned>(rows))
-        continue;
-      T* tr = tile + static_cast<int64_t>(rel[s0 + s]) * kb * kWarp + l32;
-#pragma unroll
-      for (int j = 0; j < KB; ++j) {
-        if (j < kc) tr[j * kWarp] += val[s0 + s] * xv[s][j];
-      }
-    }
-  }
-}
-
-// Writes tile rows [0, n) of this thread to Y: row_of(i) is tile row i's
-// Y row (skipped at num_rows and past), tile_of(i) its tile column; y =
-// tile, or y + tile with accumulate, columns [c0, c0 + kc), kc <= KB.
-// The Y values of R rows are loaded before any is stored, so their
-// latencies overlap.
-template <typename T, int KB, typename RowOf, typename TileOf>
-__device__ __forceinline__ void store_tile_rows(
-    T* __restrict__ Y, int64_t num_rows, int k, int c0, int kc, int n,
-    bool accumulate, RowOf row_of, TileOf tile_of) {
-  constexpr int R = KB >= 8 ? 4 : 8;
-  for (int i0 = 0; i0 < n; i0 += R) {
-    T yv[R][KB];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int64_t row = row_of(i0 + i);
-      const bool ok = accumulate && i0 + i < n && row < num_rows;
-#pragma unroll
-      for (int j = 0; j < KB; ++j)
-        yv[i][j] = (ok && j < kc) ? Y[row * k + c0 + j] : T(0);
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int64_t row = row_of(i0 + i);
-      if (i0 + i >= n || row >= num_rows) continue;
-      const T* tr = tile_of(i0 + i);
-#pragma unroll
-      for (int j = 0; j < KB; ++j) {
-        if (j < kc)
-          Y[row * k + c0 + j] =
-              accumulate ? yv[i][j] + tr[j * kWarp] : tr[j * kWarp];
-      }
-    }
   }
 }
 
@@ -199,49 +135,6 @@ __global__ void __launch_bounds__(kLevelThreads)
   store_cols(Y + row * k + c0, acc, kc, accumulate);
 }
 
-// K4c: grid (num_blocks, 4, ceil(k / kb)), one warp per block: output
-// block b, lanes blockIdx.y * 32 + [0, 32), columns blockIdx.z * kb +
-// [0, kb), kb <= KB.  Dynamic shared memory: out_rows * kb * 32 T.
-template <typename T, int KB>
-__global__ void __launch_bounds__(kWarp)
-    cw_pool_spmm_kernel(const T* __restrict__ value,
-                        const int* __restrict__ local_index,
-                        const int* __restrict__ anchor4,
-                        const int* __restrict__ rowmap,
-                        const int* __restrict__ block_ptr, int d,
-                        int out_rows, int64_t num_rows, int64_t num_columns,
-                        int k, int kb, const T* __restrict__ X,
-                        T* __restrict__ Y, bool accumulate) {
-  extern __shared__ __align__(16) unsigned char cw_pool_spmm_smem[];
-  T* tile = reinterpret_cast<T*>(cw_pool_spmm_smem);  // [out_rows][kb][32]
-  const int l32 = threadIdx.x;
-  const int lane = blockIdx.y * kWarp + l32;
-  const int64_t b = blockIdx.x;
-  const int c0 = blockIdx.z * kb;
-  const int kc = min(kb, k - c0);
-  const int64_t base_group = b * out_rows;
-  for (int i = 0; i < out_rows * kb; ++i) tile[i * kWarp + l32] = T(0);
-  const int end = block_ptr[b + 1];
-  for (int c = block_ptr[b]; c < end; ++c) {
-    const int a4 = __ldg(anchor4 + c);
-    const int64_t base = static_cast<int64_t>(c) * kCwChunk + lane;
-    int loc[kCwSlots], rel[kCwSlots];
-    T val[kCwSlots];
-#pragma unroll
-    for (int s = 0; s < kCwSlots; ++s) {
-      loc[s] = local_index[base + s * kCwLanes];
-      val[s] = value[base + s * kCwLanes];
-      rel[s] = static_cast<int>(rowmap[base + s * kCwLanes] - base_group);
-    }
-    cw_pool_add<T, KB>(tile, kb, out_rows, l32, loc, val, rel, a4, d,
-                              X, num_columns, k, c0, kc);
-  }
-  store_tile_rows<T, KB>(
-      Y, num_rows, k, c0, kc, out_rows, accumulate,
-      [&](int r) { return (base_group + r) * kCwLanes + lane; },
-      [&](int r) { return tile + static_cast<int64_t>(r) * kb * kWarp + l32; });
-}
-
 // kb <= KB values of one row of X (Ro: through the read-only path) or Y,
 // columns [0, kc) of xr (the rest 0): with Vec, 16-byte loads (xr and kc
 // aligned to them), else one load a value.
@@ -271,6 +164,121 @@ __device__ __forceinline__ void load_row(const T* xr, int kc, T (&v)[KB]) {
     for (int j = 0; j < KB; ++j)
       v[j] = j < kc ? (Ro ? __ldg(xr + j) : xr[j]) : T(0);
   }
+}
+
+// Columns [0, kc) of out to a row of Y (kc <= KB): with Vec, 16-byte
+// stores (yr and kc aligned to them), else one store a value.
+template <typename T, int KB, bool Vec>
+__device__ __forceinline__ void store_row(T* yr, int kc, const T (&out)[KB]) {
+  if constexpr (Vec) {
+    constexpr int W = 16 / sizeof(T);
+#pragma unroll
+    for (int j0 = 0; j0 < KB; j0 += W) {
+      if (j0 >= kc) continue;
+      if constexpr (W == 4) {
+        *reinterpret_cast<float4*>(yr + j0) =
+            make_float4(out[j0], out[j0 + 1], out[j0 + 2], out[j0 + 3]);
+      } else {
+        *reinterpret_cast<double2*>(yr + j0) =
+            make_double2(out[j0], out[j0 + 1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < KB; ++j) {
+      if (j < kc) yr[j] = out[j];
+    }
+  }
+}
+
+// G cells of a K4c run from cell e on (cell i at cp[32 i], vp[32 i]):
+// their columns and values, -1 and 0 past the run's length.
+template <typename T, int G>
+__device__ __forceinline__ void load_cells(const int* cp, const T* vp,
+                                           int e, int len, int (&col)[G],
+                                           T (&v)[G]) {
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const bool live = e + i < len;
+    col[i] = live ? __ldg(cp + (e + i) * kWarp) : -1;
+    v[i] = live ? __ldg(vp + (e + i) * kWarp) : T(0);
+  }
+}
+
+// K4c: grid (ceil(num_listed / 32), ceil(k / kb)); thread t of x owns
+// listed row t, Y row list_rows[t], and its list_len[t] cells in storage
+// order, cell i at list_slice[t / 32] + 32 i + t % 32 (a warp's slice
+// of 32 rows lies slot-major, so its lanes read neighbouring cells); y
+// is the column block of kb <= KB columns.  A row of the bench leg's
+// tail may hold 128 cells, a chain of list load -> X load -> add: the
+// thread loads the X rows of G cells at a time, and the list entries of
+// the next G while they are in flight.  Then it writes y = y_old + sum
+// (accumulate) or sum.
+template <typename T, int KB, bool Vec>
+__global__ void __launch_bounds__(kPoolThreads)
+    cw_pool_spmm_kernel(const int* __restrict__ list_rows,
+                        const int* __restrict__ list_len,
+                        const int* __restrict__ list_slice,
+                        const int* __restrict__ list_col,
+                        const T* __restrict__ list_value,
+                        int64_t num_listed, int64_t num_rows,
+                        int64_t num_columns, int k, int kb,
+                        const T* __restrict__ X, T* __restrict__ Y,
+                        bool accumulate) {
+  // 64 words of X in flight (8 cells at k = 8 in float32): 16 words
+  // were 1.6x slower, 32 1.1x (bench leg, cold L2)
+  constexpr int W = KB * static_cast<int>(sizeof(T)) / 4;
+  constexpr int G = 64 / W < kCwSlots ? 64 / W : kCwSlots;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= num_listed) return;
+  const int64_t row = __ldg(list_rows + t);
+  if (row >= num_rows) return;
+  const int c0 = blockIdx.y * kb;
+  const int kc = min(kb, k - c0);
+  const T* Xc = X + c0;
+  T acc[KB];
+#pragma unroll
+  for (int j = 0; j < KB; ++j) acc[j] = T(0);
+  const int len = __ldg(list_len + t);
+  const int* cp = list_col + __ldg(list_slice + t / kWarp) + t % kWarp;
+  const T* vp = list_value + (cp - list_col);
+  int col[G];
+  T v[G];
+  load_cells(cp, vp, 0, len, col, v);
+  for (int e = 0; e < len; e += G) {
+    T xv[G][KB];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      // a column past the end reads 0 (the cell adds v * 0, as the tile
+      // of the Pallas kernel's pool does)
+      const bool ok = col[i] >= 0 && col[i] < num_columns;
+      load_row<T, KB, Vec>(Xc + static_cast<int64_t>(ok ? col[i] : 0) * k,
+                           ok ? kc : 0, xv[i]);
+    }
+    int next_col[G];
+    T next_v[G];
+    load_cells(cp, vp, e + G, len, next_col, next_v);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (e + i >= len) continue;
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        if (j < kc) acc[j] += v[i] * xv[i][j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      col[i] = next_col[i];
+      v[i] = next_v[i];
+    }
+  }
+  T* yr = Y + row * k + c0;
+  T out[KB];
+  load_row<T, KB, Vec, false>(yr, accumulate ? kc : 0, out);
+#pragma unroll
+  for (int j = 0; j < KB; ++j) out[j] = accumulate ? out[j] + acc[j] : acc[j];
+  store_row<T, KB, Vec>(yr, kc, out);
 }
 
 // K4a: grid (ceil(num_groups * 128 / 256), ceil(k / kb)); thread t of x
@@ -401,25 +409,7 @@ __global__ void __launch_bounds__(kLevelThreads, sizeof(T) == 4 ? 4 : 1)
     T t = accumulate ? old[j] + acc[j] : acc[j];
     out[j] = pool_ptr != nullptr ? t + pool[j] : t;
   }
-  if constexpr (Vec) {
-    constexpr int W = 16 / sizeof(T);
-#pragma unroll
-    for (int j0 = 0; j0 < KB; j0 += W) {
-      if (j0 >= kc) continue;
-      if constexpr (W == 4) {
-        *reinterpret_cast<float4*>(yr + j0) =
-            make_float4(out[j0], out[j0 + 1], out[j0 + 2], out[j0 + 3]);
-      } else {
-        *reinterpret_cast<double2*>(yr + j0) =
-            make_double2(out[j0], out[j0 + 1]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < KB; ++j) {
-      if (j < kc) yr[j] = out[j];
-    }
-  }
+  store_row<T, KB, Vec>(yr, kc, out);
 }
 
 // Grid dimension of ceil(k / kb) column blocks, or 0 if it cannot be.
@@ -434,13 +424,36 @@ int template_width(int kb) {
   return kb <= 1 ? 1 : kb <= 2 ? 2 : kb <= 4 ? 4 : kb <= kKB ? kKB : 0;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  if (bytes <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// Calls launch(KB, Vec), KB the template width of kb and Vec whether
+// X and Y move 16 bytes at a time: vector_x asks for it, and it needs
+// rows and column blocks of whole 16-byte runs and aligned X and Y.
+template <typename T, typename Launch>
+cudaError_t by_width(int k, int kb, bool vector_x, const void* X,
+                     const void* Y, Launch launch) {
+  const auto vec = [&](auto w) -> cudaError_t {
+    constexpr int KB = decltype(w)::value;
+    if (!vector_x) return launch(w, std::false_type());
+    if constexpr ((KB * sizeof(T)) % 16 == 0) {
+      const bool ok = (k * sizeof(T)) % 16 == 0 &&
+                      (kb * sizeof(T)) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(Y) % 16 == 0;
+      if (ok) return launch(w, std::true_type());
+    }
+    return cudaErrorInvalidValue;
+  };
+  switch (template_width(kb)) {
+    case 1:
+      return vec(std::integral_constant<int, 1>());
+    case 2:
+      return vec(std::integral_constant<int, 2>());
+    case 4:
+      return vec(std::integral_constant<int, 4>());
+    case kKB:
+      return vec(std::integral_constant<int, kKB>());
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -463,58 +476,45 @@ cudaError_t level(const void* value, const void* local_index,
   return cudaGetLastError();
 }
 
-template <typename T, int KB>
-cudaError_t pool_kb(const void* value, const void* local_index,
-                    const void* anchor4, const void* rowmap,
-                    const void* block_ptr, int d, int out_rows,
-                    int64_t num_blocks, int64_t num_rows,
-                    int64_t num_columns, int k, int kb, const void* X,
-                    void* Y, bool accumulate, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(out_rows) * kb * kWarp * sizeof(T);
-  cudaError_t e = allow_smem(cw_pool_spmm_kernel<T, KB>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>(num_blocks), kCwLanes / kWarp,
-                  column_blocks(k, kb));
-  cw_pool_spmm_kernel<T, KB><<<grid, kWarp, smem, stream>>>(
-      static_cast<const T*>(value), static_cast<const int*>(local_index),
-      static_cast<const int*>(anchor4), static_cast<const int*>(rowmap),
-      static_cast<const int*>(block_ptr), d, out_rows, num_rows,
-      num_columns, k, kb, static_cast<const T*>(X), static_cast<T*>(Y),
-      accumulate);
-  return cudaGetLastError();
-}
+// Every argument of a K4c launch, passed on as it is.
+struct PoolArgs {
+  const void* list_rows;
+  const void* list_len;
+  const void* list_slice;
+  const void* list_col;
+  const void* list_value;
+  int64_t num_listed, num_rows, num_columns;
+  int k, kb;
+  const void* X;
+  void* Y;
+  bool accumulate;
+};
 
 template <typename T>
-cudaError_t pool(const void* value, const void* local_index,
-                 const void* anchor4, const void* rowmap,
-                 const void* block_ptr, int d, int out_rows,
-                 int64_t num_blocks, int64_t num_rows, int64_t num_columns,
-                 int k, int kb, const void* X, void* Y, bool accumulate,
-                 cudaStream_t stream) {
-  if (num_blocks == 0 || k == 0) return cudaSuccess;
-  if (column_blocks(k, kb) == 0 || out_rows <= 0)
-    return cudaErrorInvalidValue;
-  switch (template_width(kb)) {
-    case 1:
-      return pool_kb<T, 1>(value, local_index, anchor4, rowmap, block_ptr,
-                           d, out_rows, num_blocks, num_rows, num_columns, k,
-                           kb, X, Y, accumulate, stream);
-    case 2:
-      return pool_kb<T, 2>(value, local_index, anchor4, rowmap, block_ptr,
-                           d, out_rows, num_blocks, num_rows, num_columns, k,
-                           kb, X, Y, accumulate, stream);
-    case 4:
-      return pool_kb<T, 4>(value, local_index, anchor4, rowmap, block_ptr,
-                           d, out_rows, num_blocks, num_rows, num_columns, k,
-                           kb, X, Y, accumulate, stream);
-    case kKB:
-      return pool_kb<T, kKB>(value, local_index, anchor4, rowmap, block_ptr,
-                             d, out_rows, num_blocks, num_rows, num_columns,
-                             k, kb, X, Y, accumulate, stream);
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t pool(const PoolArgs& a, bool vector_x, cudaStream_t stream) {
+  if (a.num_rows == 0 || a.k == 0) return cudaSuccess;
+  if (column_blocks(a.k, a.kb) == 0) return cudaErrorInvalidValue;
+  if (!a.accumulate) {
+    cudaError_t e = cudaMemsetAsync(
+        a.Y, 0, static_cast<size_t>(a.num_rows) * a.k * sizeof(T), stream);
+    if (e != cudaSuccess) return e;
   }
+  if (a.num_listed == 0) return cudaSuccess;
+  const dim3 grid(static_cast<unsigned>(
+                      (a.num_listed + kPoolThreads - 1) / kPoolThreads),
+                  column_blocks(a.k, a.kb));
+  return by_width<T>(a.k, a.kb, vector_x, a.X, a.Y, [&](auto w, auto vec) {
+    cw_pool_spmm_kernel<T, decltype(w)::value, decltype(vec)::value>
+        <<<grid, kPoolThreads, 0, stream>>>(
+            static_cast<const int*>(a.list_rows),
+            static_cast<const int*>(a.list_len),
+            static_cast<const int*>(a.list_slice),
+            static_cast<const int*>(a.list_col),
+            static_cast<const T*>(a.list_value), a.num_listed, a.num_rows,
+            a.num_columns, a.k, a.kb, static_cast<const T*>(a.X),
+            static_cast<T*>(a.Y), a.accumulate);
+    return cudaGetLastError();
+  });
 }
 
 // Every argument of a K4a launch, passed on as it is.
@@ -533,40 +533,6 @@ struct MergedArgs {
   bool accumulate;
 };
 
-template <typename T, int KB, bool Vec>
-cudaError_t merged_kb(const MergedArgs& a, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(
-                      (a.num_groups * kCwLanes + kLevelThreads - 1) /
-                      kLevelThreads),
-                  column_blocks(a.k, a.kb));
-  cw_merged_spmm_kernel<T, KB, Vec><<<grid, kLevelThreads, 0, stream>>>(
-      static_cast<const T*>(a.value),
-      static_cast<const int16_t*>(a.level_index),
-      static_cast<const int*>(a.anchor4),
-      static_cast<const int*>(a.pool_ptr),
-      static_cast<const int*>(a.pool_col),
-      static_cast<const T*>(a.pool_value), a.d, a.cap, a.kl, a.num_groups,
-      a.num_rows, a.num_columns, a.k, a.kb, static_cast<const T*>(a.X),
-      static_cast<T*>(a.Y), a.accumulate);
-  return cudaGetLastError();
-}
-
-// 16-byte X and Y loads need 16-byte rows and column blocks and aligned
-// X and Y; a width of fewer than 16 bytes takes them one at a time.
-template <typename T, int KB>
-cudaError_t merged_vec(const MergedArgs& a, bool vector_x,
-                       cudaStream_t stream) {
-  if (!vector_x) return merged_kb<T, KB, false>(a, stream);
-  if constexpr ((KB * sizeof(T)) % 16 == 0) {
-    const bool ok = (a.k * sizeof(T)) % 16 == 0 &&
-                    (a.kb * sizeof(T)) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(a.X) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(a.Y) % 16 == 0;
-    if (ok) return merged_kb<T, KB, true>(a, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
 template <typename T>
 cudaError_t merged(const MergedArgs& a, bool vector_x, cudaStream_t stream) {
   if (a.num_groups == 0 || a.k == 0) return cudaSuccess;
@@ -574,18 +540,23 @@ cudaError_t merged(const MergedArgs& a, bool vector_x, cudaStream_t stream) {
       (a.pool_ptr != nullptr &&
        (a.pool_col == nullptr || a.pool_value == nullptr)))
     return cudaErrorInvalidValue;
-  switch (template_width(a.kb)) {
-    case 1:
-      return merged_vec<T, 1>(a, vector_x, stream);
-    case 2:
-      return merged_vec<T, 2>(a, vector_x, stream);
-    case 4:
-      return merged_vec<T, 4>(a, vector_x, stream);
-    case kKB:
-      return merged_vec<T, kKB>(a, vector_x, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const dim3 grid(static_cast<unsigned>(
+                      (a.num_groups * kCwLanes + kLevelThreads - 1) /
+                      kLevelThreads),
+                  column_blocks(a.k, a.kb));
+  return by_width<T>(a.k, a.kb, vector_x, a.X, a.Y, [&](auto w, auto vec) {
+    cw_merged_spmm_kernel<T, decltype(w)::value, decltype(vec)::value>
+        <<<grid, kLevelThreads, 0, stream>>>(
+            static_cast<const T*>(a.value),
+            static_cast<const int16_t*>(a.level_index),
+            static_cast<const int*>(a.anchor4),
+            static_cast<const int*>(a.pool_ptr),
+            static_cast<const int*>(a.pool_col),
+            static_cast<const T*>(a.pool_value), a.d, a.cap, a.kl,
+            a.num_groups, a.num_rows, a.num_columns, a.k, a.kb,
+            static_cast<const T*>(a.X), static_cast<T*>(a.Y), a.accumulate);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -623,30 +594,28 @@ extern "C" int wellcw_level_spmm_launch(int dtype, int device,
   }
 }
 
-extern "C" int wellcw_pool_spmm_launch(int dtype, int device,
-                                       const void* value,
-                                       const void* local_index,
-                                       const void* anchor4,
-                                       const void* rowmap,
-                                       const void* block_ptr, int d,
-                                       int out_rows, long long num_blocks,
-                                       long long num_rows,
-                                       long long num_columns, int k, int kb,
-                                       const void* X, void* Y,
-                                       int accumulate, void* stream) {
+// K4c: list_rows, list_len, list_slice, list_col and list_value are the
+// pool's row list in slices of 32 rows (num_listed rows); vector_x asks
+// for 16-byte X and Y loads (k and kb whole 16-byte runs, X and Y
+// aligned).  Without accumulate, Y's num_rows rows are zeroed first.
+extern "C" int wellcw_pool_spmm_launch(
+    int dtype, int device, const void* list_rows, const void* list_len,
+    const void* list_slice, const void* list_col, const void* list_value,
+    long long num_listed, long long num_rows, long long num_columns, int k,
+    int kb, int vector_x, const void* X, void* Y, int accumulate,
+    void* stream) {
   using namespace spmv_tpu_torch;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PoolArgs a = {list_rows, list_len, list_slice, list_col,
+                      list_value, num_listed, num_rows, num_columns, k,
+                      kb, X, Y, accumulate != 0};
   switch (dtype) {
     case kFloat32:
-      return pool<float>(value, local_index, anchor4, rowmap, block_ptr, d,
-                         out_rows, num_blocks, num_rows, num_columns, k, kb,
-                         X, Y, accumulate != 0, s);
+      return pool<float>(a, vector_x != 0, s);
     case kFloat64:
-      return pool<double>(value, local_index, anchor4, rowmap, block_ptr, d,
-                          out_rows, num_blocks, num_rows, num_columns, k,
-                          kb, X, Y, accumulate != 0, s);
+      return pool<double>(a, vector_x != 0, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -43,7 +43,8 @@ from spmv_tpu_torch.models.well import WellMatrix
 __all__ = ["DeviceDia", "DeviceCsr", "DeviceCwLevel", "DeviceCwPool",
            "DeviceCwMerged", "DeviceWellCw", "DeviceWell", "DeviceBsr",
            "default_device", "default_value_dtype", "DEVICE_ENV",
-           "level_index_bits", "merged_pool_list"]
+           "level_index_bits", "merged_pool_list", "pool_row_list",
+           "sliced_row_list"]
 
 LANE = 128
 SUBLANE = 8
@@ -276,7 +277,14 @@ class DeviceCwPool(torch.nn.Module):
 
     - ``block_ptr`` (num_blocks + 1,) int32: output block b's chunks are
       ``[block_ptr[b], block_ptr[b + 1])``, so one CUDA block per output
-      block finds its run.
+      block finds its run;
+    - for K4c, one thread a row, the row list (``pool_row_list``) laid
+      out in slices of 32 rows (``sliced_row_list``): ``list_rows`` (n,)
+      int32, the Y rows that own a cell, longest run first,
+      ``list_len`` (n,) int32 their runs' lengths, ``list_slice``
+      (ceil(n / 32) + 1,) int32 each slice's first cell, and per cell
+      ``list_col`` (int32) and ``list_value``: cell i of row t is at
+      ``list_slice[t // 32] + 32 i + t % 32``.
 
     Metadata: ``d``, ``num_chunks``, ``chunks_per_step``, ``xr4`` and
     ``out_rows`` (64 for the stage-1 pool, the pool width for a tail).
@@ -305,6 +313,92 @@ class DeviceCwPool(torch.nn.Module):
                              _tensor(block_of_step.astype(np.int32), device))
         self.register_buffer("block_ptr",
                              _tensor(ptr.astype(np.int32), device))
+        rows = sliced_row_list(*pool_row_list(
+            value, local_index, anchor4, rowmap, self.d, self.out_rows, ptr))
+        for name, a in zip(("list_rows", "list_len", "list_slice",
+                            "list_col", "list_value"), rows):
+            self.register_buffer(name, _tensor(
+                a, device, dtype if name == "list_value" else None))
+
+
+def pool_row_list(value, local_index, anchor4, rowmap, d: int,
+                  out_rows: int, block_ptr) -> tuple:
+    """The cells of a pool as K4c adds them, one run a row: ``(rows, ptr,
+    col, value)`` numpy arrays.
+
+    The cells of output block b are those of its chunks ``[block_ptr[b],
+    block_ptr[b + 1])``; one of chunk c, slot s, lane l with ``rowmap``
+    g belongs to Y row ``g * 128 + l`` and reads x at column ``(anchor4[c]
+    * d + (loc >> 7)) * 128 + (loc & 127)``.  Every cell whose group g
+    lies in the block's ``[b * out_rows, (b + 1) * out_rows)`` is kept,
+    values of 0 and columns past the end included (K4c reads 0 there),
+    as the Pallas kernel's tile adds them; the rest are dropped.  The
+    cells are sorted stably by row, so each row keeps the storage order
+    (chunk, then slot) that the tile adds them in.  ``rows`` holds the
+    rows that own a cell, ascending, and ``ptr`` (len(rows) + 1,) int32
+    their runs' bounds."""
+    value = np.asarray(value)
+    chunks = value.shape[0]
+    ptr = np.asarray(block_ptr, np.int64)
+    block = np.full(chunks, -1, np.int64)      # a chunk of no block: none
+    block[ptr[0]:ptr[-1]] = np.repeat(np.arange(ptr.size - 1), np.diff(ptr))
+    group = np.asarray(rowmap).reshape(chunks, SUBLANE, LANE) \
+        .astype(np.int64)
+    rel = group - block[:, None, None] * out_rows
+    row = group * LANE + np.arange(LANE, dtype=np.int64)
+    loc = np.asarray(local_index).reshape(chunks, SUBLANE, LANE) \
+        .astype(np.int64)
+    a4 = np.asarray(anchor4).reshape(-1).astype(np.int64)[:, None, None]
+    col = (a4 * d + (loc >> 7)) * LANE + (loc & (LANE - 1))
+    keep = (rel >= 0) & (rel < out_rows) & (block >= 0)[:, None, None]
+    row, col, v = row[keep], col[keep], value.reshape(chunks, SUBLANE,
+                                                      LANE)[keep]
+    if row.size and max(row.max(), col.max()) > np.iinfo(np.int32).max:
+        raise MatrixError("pool_row_list: a row or column does not fit "
+                          "int32")
+    order = np.argsort(row, kind="stable")
+    rows, counts = np.unique(row, return_counts=True)
+    run = np.zeros(rows.size + 1, np.int64)
+    np.cumsum(counts, out=run[1:])
+    return (rows.astype(np.int32), run.astype(np.int32),
+            col[order].astype(np.int32), v[order])
+
+
+def sliced_row_list(rows, ptr, col, value, width: int = 32) -> tuple:
+    """A row list (``pool_row_list``) as K4c reads it, a warp a slice of
+    ``width`` rows: ``(rows, lengths, slices, col, value)``.
+
+    The rows are ordered by their runs' lengths, longest first (ties by
+    row), so the rows of one slice have runs of about one length and the
+    longest runs (the zero-valued padding cells of a packed pool pile
+    onto a few rows) spread over the card's first CTAs.  Slice k holds
+    rows ``width k ..`` of that order; its cells start at ``slices[k]``
+    and lie slot-major, cell i of the slice's row l at ``slices[k] +
+    width i + l``, so the lanes of a warp read neighbouring cells.  Each
+    row keeps its run in order; the places past a shorter run hold
+    column -1 and value 0, which K4c does not read (it stops at the
+    row's length).  ``slices`` (ceil(n / width) + 1,) int32."""
+    n = np.diff(np.asarray(ptr, np.int64))
+    order = np.lexsort((np.asarray(rows), -n))
+    n = n[order]
+    slices = -(-n.size // width)
+    span = np.zeros(slices * width, np.int64)
+    span[:n.size] = n
+    span = span.reshape(slices, width).max(axis=1)
+    start = np.zeros(slices + 1, np.int64)
+    np.cumsum(span * width, out=start[1:])
+    if start[-1] > np.iinfo(np.int32).max:
+        raise MatrixError("sliced_row_list: the cells do not fit int32")
+    out_col = np.full(start[-1], -1, np.int32)
+    out_value = np.zeros(start[-1], np.asarray(value).dtype)
+    t = np.repeat(np.arange(n.size), n)                 # cell -> slot
+    i = np.arange(t.size) - np.repeat(np.cumsum(n) - n, n)
+    where = start[t // width] + width * i + t % width
+    src = np.repeat(np.asarray(ptr, np.int64)[:-1][order], n) + i
+    out_col[where] = np.asarray(col)[src]
+    out_value[where] = np.asarray(value)[src]
+    return (np.asarray(rows)[order].astype(np.int32), n.astype(np.int32),
+            start.astype(np.int32), out_col, out_value)
 
 
 class DeviceCwMerged(torch.nn.Module):

@@ -188,8 +188,8 @@ def load_library() -> ctypes.CDLL:
         _I32, _PTR, _PTR, _I32, _PTR]
     lib.wellcw_level_spmm_launch.restype = _I32
     lib.wellcw_pool_spmm_launch.argtypes = [
-        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I64, _I64,
-        _I64, _I32, _I32, _PTR, _PTR, _I32, _PTR]
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32,
+        _I32, _I32, _PTR, _PTR, _I32, _PTR]
     lib.wellcw_pool_spmm_launch.restype = _I32
     lib.wellcw_merged_spmm_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,

@@ -36,7 +36,8 @@ Each part wrapper takes its plain version (``ops/spmv.py``) for CPU
 tensors, launches its kernel for CUDA tensors, and raises for anything
 else, with the launch discipline of ``ops/_launch.py``; ``.launches``
 on each counts its launches.  The SpMM kernels take the columns in
-blocks; ``column_block`` picks the width.  Not ported: the TPU's stride
+blocks; ``column_block`` picks the width, and ``spmm_plan`` K4a's and
+K4c's X loads.  Not ported: the TPU's stride
 tables and VMEM plumbing (``_cw_tables``, ``_cw_tables3``,
 ``_cw_table_reuse``, ``_cw_vmem_guard``, ``_cw_vmem_params``,
 ``_CW_SPMM_UNROLL``): the kernels read x and X directly.
@@ -67,8 +68,7 @@ __all__ = ["wellcw_merged_core", "wellcw_level_core", "wellcw_pool_core",
            "wellcw_spmv_core", "wellcw_spmv", "wellcw_merged_spmm_core",
            "wellcw_level_spmm_core", "wellcw_pool_spmm_core",
            "wellcw_spmm_core", "wellcw_spmm", "column_block", "cluster_size",
-           "stream_plan", "launch_plan", "x_vector_loads",
-           "merged_spmm_plan"]
+           "stream_plan", "launch_plan", "x_vector_loads", "spmm_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 LANE = 128
@@ -90,48 +90,32 @@ BARRIER_BYTES = (2 * MAX_STAGES + 1) * 8
 # clusters of 2 (they did not fit the card in one wave)
 CLUSTER_SIZES = (1, 2)
 # The SpMM kernels' column blocks (csrc/wellcw_spmm.cu), passed to every
-# launch: a level thread (K4a, K4b) holds kb = min(k, COLUMNS) sums in
-# registers; K4c's pool tile holds out_rows x kb x 32 accumulators in
-# shared memory, kb as wide as its TILE_BUDGET allows (32 KB, so that
-# several one-warp blocks share an SM), at most COLUMNS (the kernels'
-# widest register block of X values).  A block may use at most SMEM_MAX
-# bytes.
+# launch: a thread holds kb = min(k, COLUMNS) sums in registers.  A block
+# may use at most SMEM_MAX bytes of shared memory.
 COLUMNS = 8
-TILE_BUDGET = {"pool": 32 * 1024}
 SMEM_MAX = 232448
 
 
-def column_block(kind: str, dtype: torch.dtype, k: int,
-                 rows: int = 64) -> int:
-    """Columns per block of an SpMM kernel: ``kind`` is "level",
-    "merged" or "pool" (``rows`` is the pool tile's out_rows).  Raises
-    where one column's tile cannot fit a block's shared memory."""
-    if kind in ("level", "merged"):
-        return max(1, min(k, COLUMNS))
-    per_column = rows * WARP * dtype.itemsize
-    if per_column > SMEM_MAX:
-        raise KernelError(
-            f"wellcw {kind} SpMM: a {rows}-row tile needs {per_column} "
-            f"bytes of shared memory per column, more than the "
-            f"{SMEM_MAX} a block can have")
-    return max(1, min(k, COLUMNS, TILE_BUDGET[kind] // per_column))
+def column_block(k: int) -> int:
+    """Columns per block of an SpMM kernel (K4a, K4b, K4c): as many as a
+    thread holds in registers."""
+    return max(1, min(k, COLUMNS))
 
 
 def x_vector_loads(k: int, kb: int, itemsize: int, *pointers: int) -> bool:
-    """Whether K4a reads a cell's X values (and writes Y) 16 bytes at a
-    time: X's rows and every column block are whole 16-byte runs, and
+    """Whether K4a or K4c reads a cell's X values (and writes Y) 16 bytes
+    at a time: X's rows and every column block are whole 16-byte runs, and
     each of ``pointers`` (the data pointers of X and Y) is 16-byte
     aligned."""
     return ((k * itemsize) % 16 == 0 and (kb * itemsize) % 16 == 0
             and all(p % 16 == 0 for p in pointers))
 
 
-def merged_spmm_plan(k: int, dtype: torch.dtype, x_ptr: int,
-                     y_ptr: int) -> dict:
-    """The path K4a launches on for X (num_columns, k) and Y of ``dtype``
-    at those data pointers: the columns a block (``kb``) and whether a
-    cell's X values (and Y) move 16 bytes at a time."""
-    kb = column_block("merged", dtype, k)
+def spmm_plan(k: int, dtype: torch.dtype, x_ptr: int, y_ptr: int) -> dict:
+    """The path K4a and K4c launch on for X (num_columns, k) and Y of
+    ``dtype`` at those data pointers: the columns a block (``kb``) and
+    whether a cell's X values (and Y) move 16 bytes at a time."""
+    kb = column_block(k)
     return {"kb": kb, "vector_x": x_vector_loads(k, kb, dtype.itemsize,
                                                  x_ptr, y_ptr)}
 
@@ -389,7 +373,7 @@ def wellcw_merged_spmm_core(mg, X: torch.Tensor, num_rows: int,
     """K4a: the merged grid's contribution to Y (num_rows, k), X of shape
     (num_columns, k), row-major, in the value dtype; ``out`` receives
     it, or ``out + it`` with ``accumulate=True``.  The kernel takes the
-    path ``merged_spmm_plan`` gives."""
+    path ``spmm_plan`` gives."""
     if mg.kl != 64 * mg.cap + mg.pool_per_block:
         raise KernelError("merged grid: kl != 64 * cap + pool_per_block")
     if (mg.pool_ptr is None) != (mg.pool_per_block == 0):
@@ -417,7 +401,7 @@ def wellcw_merged_spmm_core(mg, X: torch.Tensor, num_rows: int,
                           "device in X's dtype")
     k = X.shape[1]
     Y = _output(out, num_rows, X)
-    plan = merged_spmm_plan(k, X.dtype, X.data_ptr(), Y.data_ptr())
+    plan = spmm_plan(k, X.dtype, X.data_ptr(), Y.data_ptr())
     if num_rows > 0 and k > 0:
         lib = load_library()
         ptr = (lambda t: None if t is None else t.data_ptr())
@@ -453,7 +437,7 @@ def wellcw_level_spmm_core(lvl, X: torch.Tensor, num_rows: int,
     from spmv_tpu_torch.ops._build import load_library
 
     k = X.shape[1]
-    kb = column_block("level", X.dtype, k)
+    kb = column_block(k)
     Y = _output(out, num_rows, X)
     if num_rows > 0 and k > 0:
         lib = load_library()
@@ -475,28 +459,37 @@ def wellcw_pool_spmm_core(pool, X: torch.Tensor, num_rows: int,
                           out: torch.Tensor = None,
                           accumulate: bool = False) -> torch.Tensor:
     """K4c: a pooled level's contribution to Y; arguments as for
-    ``wellcw_merged_spmm_core``."""
+    ``wellcw_merged_spmm_core``.  The kernel reads the pool's row list
+    (``list_rows``, ``list_len``, ``list_slice``, ``list_col``,
+    ``list_value``) on the path ``spmm_plan`` gives; without
+    ``accumulate`` it zeroes Y first, with it a row that owns no cell is
+    not written."""
     cuda = _prepare("wellcw_pool_spmm", pool, X, num_rows,
                     pool.num_blocks * pool.out_rows * LANE, out, accumulate,
                     (pool.local_index, pool.anchor4, pool.rowmap,
-                     pool.block_ptr), ndim=2)
+                     pool.block_ptr, pool.list_rows, pool.list_len,
+                     pool.list_slice, pool.list_col), ndim=2)
     if not cuda:
         return _finish_plain(cw_pool_reference(pool, X, num_rows), out,
                              accumulate)
 
     from spmv_tpu_torch.ops._build import load_library
 
+    if pool.list_value.dtype != X.dtype or pool.list_value.device != X.device:
+        raise KernelError("wellcw_pool_spmm: list_value must be on X's "
+                          "device in X's dtype")
     k = X.shape[1]
-    kb = column_block("pool", X.dtype, k, rows=pool.out_rows)
     Y = _output(out, num_rows, X)
+    plan = spmm_plan(k, X.dtype, X.data_ptr(), Y.data_ptr())
     if num_rows > 0 and k > 0:
         lib = load_library()
         rc = lib.wellcw_pool_spmm_launch(
-            _DTYPE_CODE[X.dtype], X.device.index, pool.value.data_ptr(),
-            pool.local_index.data_ptr(), pool.anchor4.data_ptr(),
-            pool.rowmap.data_ptr(), pool.block_ptr.data_ptr(), pool.d,
-            pool.out_rows, pool.num_blocks, num_rows, X.shape[0], k, kb,
-            X.data_ptr(), Y.data_ptr(), int(accumulate), stream_of(X))
+            _DTYPE_CODE[X.dtype], X.device.index, pool.list_rows.data_ptr(),
+            pool.list_len.data_ptr(), pool.list_slice.data_ptr(),
+            pool.list_col.data_ptr(), pool.list_value.data_ptr(),
+            pool.list_rows.numel(), num_rows,
+            X.shape[0], k, plan["kb"], int(plan["vector_x"]), X.data_ptr(),
+            Y.data_ptr(), int(accumulate), stream_of(X))
         raise_on(lib, rc, "wellcw_pool_spmm")
         wellcw_pool_spmm_core.launches += 1
     return Y

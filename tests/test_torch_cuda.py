@@ -285,23 +285,114 @@ def test_wellcw_spmm_kernels_match_plain(case, dtype, k, cuda):
 
 
 def test_wellcw_spmm_wide_tail_pool_float64(cuda):
-    """k = 8 in float64 on a 128-group tail pool: 8 columns of its tile
-    would need 256 KB of shared memory, more than a block has, so the
-    kernel takes them one column block at a time."""
+    """k = 8 in float64 on a 128-group tail pool: K4c holds a row's 8
+    column sums in registers, so the product is one launch of one column
+    block (a shared tile of 128 rows would have needed 256 KB)."""
     A = DeviceWellCw.from_host(_wellcw_host("merged"), dtype=torch.float64,
                                device=cuda)
     tails = [p for p in A.tail_pools if p.out_rows == 128]
     assert tails, [p.out_rows for p in A.tail_pools]
-    assert column_block("pool", torch.float64, 8, rows=128) < 8
+    assert column_block(8) == 8
     g = torch.Generator(device=cuda).manual_seed(5)
     X = torch.randn(A.num_columns, 8, generator=g, device=cuda,
                     dtype=torch.float64)
     for pool in tails:
+        before = wellcw_pool_spmm_core.launches
         Y1 = wellcw_pool_spmm_core(pool, X, A.num_rows)
         Y2 = wellcw_pool_spmm_core(pool, X, A.num_rows)
         torch.cuda.synchronize()
+        assert wellcw_pool_spmm_core.launches == before + 2
         assert torch.equal(Y1, Y2)
         assert _rel_err(Y1, cw_pool_reference(pool, X, A.num_rows)) <= 1e-12
+
+
+# K4c, one thread a row over the pool's row list, on synthetic pools:
+# blocks of 1, 0, 5 and 2 chunks (an empty block, rows ending inside a
+# group), 64- and 128-row blocks, every column-block width, 16-byte X
+# loads (aligned rows of 16-byte runs) or one value at a time.
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
+                                                        "misaligned"])
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("out_rows", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_pool_spmm_paths(dtype, out_rows, k, accumulate, aligned,
+                                cuda):
+    m = 4 * out_rows * 128 - 3
+    pool = synthetic_pool(out_rows, (1, 0, 5, 2), dtype, cuda, m,
+                          seed=out_rows)
+    if aligned:
+        g = torch.Generator(device=cuda).manual_seed(24)
+        X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    else:
+        X = _misaligned(m, k, cuda, dtype, 24)
+    n = m - 70
+    plan = wellcw_kernels.spmm_plan(k, dtype, X.data_ptr(), 0)
+    assert plan["vector_x"] == (aligned and (k * X.element_size()) % 16
+                                == 0)
+    want = cw_pool_reference(pool, X, n)
+    runs = []
+    for _ in range(2):
+        out = None
+        if accumulate:
+            out = torch.full((n, k), 0.5, device=cuda, dtype=dtype)
+        runs.append(wellcw_pool_spmm_core(pool, X, n, out=out,
+                                          accumulate=accumulate))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    if accumulate:
+        want = want + 0.5
+    assert _rel_err(runs[0], want) <= TOL[dtype]
+    for j in (0, k - 1):
+        y = wellcw_pool_core(pool, X[:, j].contiguous(), n)
+        if accumulate:
+            y = y + 0.5
+        assert _rel_err(runs[0][:, j], y) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_pool_spmm_past_the_end_next_to_inf(dtype, cuda):
+    """K4c's cells reading the first row of X past the end read 0, while
+    X's last row, beside it, is inf (read by no cell): Y stays finite."""
+    m, k = 3 * 64 * 128 - 3, 8
+    pool = synthetic_pool(64, (2, 4, 3), dtype, cuda, m)
+    move_past_the_end(pool, m, merged=False)
+    pool = rebuilt_pool(pool)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    X[m - 1] = float("inf")
+    Y = wellcw_pool_spmm_core(pool, X, m)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(Y).all())
+    assert _rel_err(Y, cw_pool_reference(pool, X, m)) <= TOL[dtype]
+
+
+def test_wellcw_pool_spmm_writes_no_row_without_cells(cuda):
+    """The stated deviation: with accumulate, K4c writes only the rows
+    that own a cell, so a -0.0 there stays -0.0 (the plain version, and
+    the tile of the kernel before it, add +0.0 and give +0.0); without
+    accumulate every row below num_rows is written, +0.0 where no cell."""
+    m, k = 3 * 64 * 128 - 3, 4
+    pool = synthetic_pool(64, (1, 0, 2), torch.float64, cuda, m)
+    n = m - 70
+    listed = torch.zeros(n, dtype=torch.bool, device=cuda)
+    rows = pool.list_rows.long()
+    listed[rows[rows < n]] = True
+    assert 0 < int(listed.sum()) < n
+    g = torch.Generator(device=cuda).manual_seed(17)
+    X = torch.randn(m, k, generator=g, device=cuda, dtype=torch.float64)
+    out = torch.full((n, k), -0.0, device=cuda, dtype=torch.float64)
+    got = wellcw_pool_spmm_core(pool, X, n, out=out, accumulate=True)
+    plain = cw_pool_reference(pool, X, n)
+    fresh = wellcw_pool_spmm_core(pool, X, n)
+    torch.cuda.synchronize()
+    assert bool(torch.signbit(got[~listed]).all())
+    assert not bool(torch.signbit(plain[~listed]).any())
+    assert bool((got[~listed] == plain[~listed]).all())
+    assert _rel_err(got, plain) <= 1e-12
+    assert bool((fresh[~listed] == 0).all())
+    assert not bool(torch.signbit(fresh[~listed]).any())
+    assert torch.equal(fresh[listed], got[listed])
 
 
 # K3b and K3c stream chunks through a ring, a cluster of C CTAs an output
@@ -452,6 +543,17 @@ def test_wellcw_stream_past_the_end_next_to_inf(kind, dtype, cuda):
     assert bool(torch.isfinite(y).all())
 
 
+def rebuilt_pool(part):
+    """The pool rebuilt from its current arrays, so that its row list
+    follows an edit of ``local_index``."""
+    return DeviceCwPool(
+        part.d, part.chunks_per_step, part.xr4, part.value.cpu().numpy(),
+        part.local_index.cpu().numpy(), part.anchor4.cpu().numpy(),
+        part.rowmap.cpu().numpy(), part.block_of_step.cpu().numpy(),
+        part.num_blocks * part.out_rows, part.value.dtype,
+        part.value.device, out_rows=part.out_rows)
+
+
 def rebuilt_merged(part):
     """The merged grid rebuilt from its current arrays, so that the pool
     list and the int16 copy follow an edit of ``local_index``."""
@@ -540,7 +642,7 @@ def test_wellcw_merged_spmm_paths(dtype, pool_per_block, k, accumulate,
     else:
         X = _misaligned(m, k, cuda, dtype, 23)
     n = m - 70
-    plan = wellcw_kernels.merged_spmm_plan(k, dtype, X.data_ptr(), 0)
+    plan = wellcw_kernels.spmm_plan(k, dtype, X.data_ptr(), 0)
     assert plan["vector_x"] == (aligned and (k * X.element_size()) % 16
                                 == 0)
     want = cw_merged_reference(mg, X, n)
@@ -575,7 +677,7 @@ def test_wellcw_merged_spmm_vector_and_scalar_x_sum_alike(dtype,
     mg = synthetic_merged(3, 2, pool_per_block, dtype, cuda, m, seed=24)
     g = torch.Generator(device=cuda).manual_seed(24)
     X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
-    assert wellcw_kernels.merged_spmm_plan(k, dtype, X.data_ptr(),
+    assert wellcw_kernels.spmm_plan(k, dtype, X.data_ptr(),
                                            0)["vector_x"]
     want = wellcw_merged_spmm_core(mg, X, m)
     got = wellcw_merged_spmm_core(mg, _misaligned(m, k, cuda, dtype, 24)
@@ -1093,7 +1195,8 @@ def test_bsr_misaligned_x_takes_the_simt_path(case, cuda):
 # (grid, smooth_levels, block): aligned with 1 and 0 smoothed levels,
 # identity padding (1,920 rows to 2,048), an offset of 64 rows past the
 # JAX lane chunk (the guard the port drops), a 3-level hierarchy, and
-# aggregates of 3 rows (K8's restriction without the warp shuffle)
+# aggregates of 3 rows (K8's restriction without the warp shuffle), and
+# 65,536 rows (seven levels, the coarse ones a few threads' worth)
 FUSED_CASES = {
     "p16x128": ((16, 128), 1, 4),
     "p16x128_plain": ((16, 128), 0, 4),
@@ -1101,6 +1204,7 @@ FUSED_CASES = {
     "p64x16": ((64, 16), 1, 4),
     "p32x512": ((32, 512), 1, 4),
     "p48x64_block3": ((48, 64), 1, 3),
+    "p256x256": ((256, 256), 1, 4),
 }
 # the JAX fused V-cycle test's bound in float32 (tests/test_fused_vcycle.py:65)
 FUSED_TOL = {torch.float64: 1e-12, torch.float32: 5e-6}
@@ -1138,6 +1242,30 @@ def test_fused_vcycle_matches_plain(case, dtype, cuda):
     assert torch.equal(y1, y2)
     assert torch.isfinite(y1).all()
     assert _norm_rel(y1, fused_vcycle_reference(fv, b)) <= FUSED_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", list(FUSED_TOL), ids=str)
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_vcycle_barrier_counter_back_at_zero(case, dtype, cuda):
+    """After each launch K8's grid barrier's arrival counter is back at 0,
+    and its generation word has advanced by the barriers of one cycle:
+    2 degree + 2 a smoothed level, 2 degree a plain one (the pre-smoother's
+    first step and a plain level's prolongation fused into the next), one
+    after the coarse solve, none after the last step."""
+    from spmv_tpu_torch.ops import fused_vcycle_core
+
+    fv = _fused(case, dtype, cuda)
+    b = torch.ones(fv.padded_rows, device=cuda, dtype=dtype)
+    gens = []
+    for _ in range(3):
+        fused_vcycle_core(fv, b)
+        torch.cuda.synchronize()
+        assert int(fv.barrier[0]) == 0
+        gens.append(int(fv.barrier[1]))
+    d = fv.degree
+    assert d >= 2
+    want = sum(2 * d + 2 if sm else 2 * d for sm in fv.smoothed)
+    assert gens[2] - gens[1] == gens[1] - gens[0] == want
 
 
 def test_fused_vcycle_one_launch_per_apply(cuda):

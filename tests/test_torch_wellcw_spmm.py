@@ -274,20 +274,12 @@ def test_make_kernel_spmm_fn_chains(name):
 
 
 def test_column_block_widths():
-    """The SpMM kernels' column blocks: a level thread (K4b, and K4a,
-    one thread a row) holds 8 columns; a pool tile as many as its
-    shared-memory budget allows, at least 1; only a tile that cannot
-    hold one column raises."""
-    f32, f64 = torch.float32, torch.float64
-    assert column_block("level", f64, 3) == 3
-    assert column_block("level", f32, 20) == 8
-    assert column_block("merged", f32, 8) == 8      # registers, no tile
-    assert column_block("merged", f64, 8) == 8
-    assert column_block("merged", f32, 2) == 2
-    assert column_block("pool", f32, 8, rows=128) == 2
-    assert column_block("pool", f64, 8, rows=128) == 1   # 32 KB a column
-    assert column_block("pool", f32, 8, rows=64) == 4
-    assert column_block("pool", f32, 16, rows=8) == 8     # register block
-    assert column_block("pool", f64, 1, rows=512) == 1   # 128 KB, opt-in
-    with pytest.raises(KernelError, match="232448"):
-        column_block("pool", f64, 1, rows=1024)
+    """The SpMM kernels' column blocks: a thread (K4a, K4b and, since its
+    redesign, K4c) holds min(k, 8) column sums in registers; no kernel
+    keeps a shared tile, so the width depends on k alone."""
+    assert column_block(3) == 3
+    assert column_block(20) == 8
+    assert column_block(8) == 8
+    assert column_block(2) == 2
+    assert column_block(1) == 1
+    assert column_block(0) == 1
