@@ -130,9 +130,20 @@ Phases (each prints readable lines; any failure exits non-zero):
    written) and adding into Y as the main path calls it after the
    product's first part (bound: the list, those X rows and the listed
    Y rows read and written), on its rows of at most 8 cells and its
-   longer rows alone;
-   then K3a's and K4a's other paths, each bitwise equal to the main path
-   and timed the same way (K3a: int32 indices; K4a: scalar X loads).
+   longer rows alone; K4b's index width and X path; the CSR SpMM (one
+   thread a listed row of the remainder) timed as a product's first
+   launch (Y zeroed, then its listed rows written; bound from the list
+   and its rows' pointers, the entries, the X rows they read and every
+   Y row written) and adding into Y as the main path calls it (bound:
+   the same with the listed Y rows read and written; the full
+   container's bound, all of X and Y, beside);
+   then K3a's, K4a's and K4b's other paths, each bitwise equal to the
+   main path and timed the same way (K3a and K4b: int32 indices; K4a
+   and K4b: scalar X loads).  Last the CSR SpMM on the whole matrix held
+   as one DeviceCsr (the CSR format's own path, no row list) at k = 8:
+   bitwise repeat, against its plain version, bitwise the CSR SpMV's
+   columns, timed as a product's first launch beside its bound and the
+   torch.sparse CSR product of the same entries.
 11. WELL path through the CLI (the WELL launch counts, K5a and K5b, are
    zeroed just before): --profile 5 and --cg 2000 on poisson2d(256,
    256) (K5a); the CSR kernel must not be launched.
@@ -219,8 +230,9 @@ K6b (with the WELL matrices of phase 12), and ``--fused-vcycle-beside
 DIR`` for phase 22's K8 (with PCG to 1e-6 with K8, host ms an iteration;
 the first run's poisson2d(2048, 2048) hierarchy is pickled for the
 others); phase 10's runs also time K4c adding into Y as the main path
-calls it and as a product's first launch, and the whole k = 8 SpMM
-chained in a CUDA graph.
+calls it and as a product's first launch, the CSR SpMM adding the
+remainder into Y and on the whole matrix as one DeviceCsr, and the
+whole k = 8 SpMM chained in a CUDA graph.
 
 The second-to-last lines are the kernels' JSON summary (seventeen
 kernels, each with its launches on the main path, max error, ms against
@@ -1411,20 +1423,20 @@ def _cw_coo(kind, p, num_rows, num_columns):
     return row[keep], col[keep], p.value[keep]
 
 
-# buffers that K3a, K4a and K4c read in place of the JAX container's
-# arrays
+# buffers that K3a, K4a-c and the CSR SpMM read in place of the JAX
+# container's arrays
 DERIVED_BUFFERS = ("local_index16", "level_index16", "pool_ptr",
                    "pool_col", "pool_value", "list_rows", "list_len",
-                   "list_slice", "list_col", "list_value")
+                   "list_slice", "list_col", "list_value", "row_list")
 
 
 def _part_bytes(kname, part) -> tuple:
     """(read, full) bytes of a WELL-CW part: what kernel ``kname`` reads
     on its path, and the container as earlier runs counted it, every
-    buffer but the ones K3a, K4a and K4c derive."""
+    buffer but the ones K3a, K4a-c and the CSR SpMM derive."""
     full = _nbytes(*(b for name, b in part.named_buffers(recurse=False)
                      if name not in DERIVED_BUFFERS))
-    if kname == "wellcw_level":
+    if kname in ("wellcw_level", "wellcw_level_spmm"):
         index = part.local_index16
         if index is None:
             index = part.local_index
@@ -1443,6 +1455,24 @@ def _part_bytes(kname, part) -> tuple:
         return _nbytes(part.list_rows, part.list_len, part.list_slice,
                        part.list_col, part.list_value), full
     return full, full
+
+
+def _csr_spmm_bytes(R, k: int) -> dict:
+    """What the CSR SpMM must move for R and X of k columns: its row
+    list and the listed rows' two pointers (the whole row_ptr without a
+    list), the entries, once each X row they read, and the Y rows: every
+    row written by a product's first launch (``first``), the listed rows
+    read and written adding into Y (``accumulate``)."""
+    listed = R.num_rows if R.row_list is None else R.row_list.numel()
+    col = R.column_index
+    xrows = col[(col >= 0) & (col < R.num_columns)].unique().numel()
+    ptr = (_nbytes(R.row_ptr) if R.row_list is None
+           else _nbytes(R.row_list) + 8 * listed)
+    row = k * R.value.element_size()
+    head = ptr + _nbytes(R.column_index, R.value) + xrows * row
+    return {"first": head + R.num_rows * row,
+            "accumulate": head + 2 * listed * row,
+            "listed_rows": listed, "x_rows_read": xrows}
 
 
 def _pool_spmm_rows(part, num_rows, num_columns) -> tuple:
@@ -1507,29 +1537,34 @@ def _merged_spmm_shape(part, plan, k) -> str:
 
 
 def _variants(kname, part, v, out, run, y_main, flush):
-    """K3a's other path (the int32 indices) and K4a's (scalar X loads,
-    X and Y one element off a 16-byte boundary) at full size: launched
-    on the same input, bitwise equal to the main path's output, and
-    timed as it is.  Returns {label: ms}."""
+    """The other paths of K3a and K4b (the int32 indices) and of K4a and
+    K4b (scalar X loads, X and Y one element off a 16-byte boundary) at
+    full size: launched on the same input, bitwise equal to the main
+    path's output, and timed as it is.  Returns {label: ms}."""
     import torch
 
-    if kname == "wellcw_level":
-        if part.local_index16 is None:
-            return {}
-        label, ctx = "int32 index", _patched(part, "local_index16", None)
-    else:
-        label, ctx = "scalar X loads", contextlib.nullcontext()
-        v = torch.empty(v.numel() + 1, dtype=v.dtype,
-                        device=v.device)[1:].view(v.shape).copy_(v)
-        out = torch.empty(out.numel() + 1, dtype=out.dtype,
-                          device=out.device)[1:].view(out.shape)
-    with ctx:
-        y = run(v)
-        _sync(v.device)
-        if not torch.equal(y, y_main):
-            _fail(f"{kname} ({label}) at full size differs from the main "
-                  "path")
-        return {label: _cold_graph_ms(lambda: run(v, out=out), flush, 50)}
+    def shifted(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype,
+                           device=t.device)[1:].view(t.shape)
+
+    cases = []
+    if kname in ("wellcw_level", "wellcw_level_spmm") and \
+            part.local_index16 is not None:
+        cases.append(("int32 index",
+                      lambda: _patched(part, "local_index16", None), v, out))
+    if kname in ("wellcw_merged_spmm", "wellcw_level_spmm"):
+        cases.append(("scalar X loads", contextlib.nullcontext,
+                      shifted(v).copy_(v), shifted(out)))
+    found = {}
+    for label, ctx, vv, oo in cases:
+        with ctx():
+            y = run(vv)
+            _sync(v.device)
+            if not torch.equal(y, y_main):
+                _fail(f"{kname} ({label}) at full size differs from the "
+                      "main path")
+            found[label] = _cold_graph_ms(lambda: run(vv, out=oo), flush, 50)
+    return found
 
 
 def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
@@ -1538,11 +1573,13 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     merged layout; K3a and K4b on its fallback layout.  Beside each, the
     torch.sparse CSR product (cuSPARSE) of that part's own entries,
     timed as the kernels are (a CUDA graph, the L2 flushed) and eagerly,
-    and its bound from the bytes it reads beside the container's; K3a's
-    and K4a's other paths timed the same way."""
+    and its bound from the bytes it reads beside the container's; K4c
+    and the CSR SpMM also adding into Y, as the main path calls them;
+    K3a's, K4a's and K4b's other paths timed the same way."""
     import torch
 
     from spmv_tpu_torch.models import DeviceWellCw
+    from spmv_tpu_torch.ops import csr_spmm_core
     from spmv_tpu_torch.ops import wellcw_kernels as wk
     from spmv_tpu_torch.ops.wellcw_kernels import column_block, launch_plan
 
@@ -1577,12 +1614,15 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                           f"{TOL_F32}")
                 ms = _cold_graph_ms(lambda: run(v, out=out), flush, 50)
                 eager_ms = _time_launches(lambda: run(v, out=out), 50)
-                if kname == "wellcw_pool_spmm":
-                    # K4c as the main path calls it after a product's
-                    # first part: adding into Y
+                if kname in ("wellcw_pool_spmm", "csr_spmm"):
+                    # K4c and the CSR SpMM as the main path calls them
+                    # after a product's first part: adding into Y
                     acc_ms = _cold_graph_ms(
-                        lambda: wk.wellcw_pool_spmm_core(
-                            part, v, A.num_rows, out=out, accumulate=True),
+                        (lambda: wk.wellcw_pool_spmm_core(
+                            part, v, A.num_rows, out=out, accumulate=True))
+                        if kname == "wellcw_pool_spmm" else
+                        (lambda: csr_spmm_core(part, v, out=out,
+                                               accumulate=True)),
                         flush, 50)
                 plain_ms = _time_launches(lambda: plain(v), 3)
                 k = CW_SPMM_K if spmm else 1
@@ -1617,6 +1657,13 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                     b_acc = _bound(read + (xrows + 2 * listed) * k * 4,
                                    2 * nnz * k, triad_gbps)
                 b = _bound(read + vec, 2 * nnz * k, triad_gbps)
+                if kname == "csr_spmm":
+                    # what it needs (_csr_spmm_bytes), as a first launch
+                    # and adding into Y
+                    cb = _csr_spmm_bytes(part, k)
+                    b = _bound(cb["first"], 2 * nnz * k, triad_gbps)
+                    b_acc = _bound(cb["accumulate"], 2 * nnz * k,
+                                   triad_gbps)
                 found[kname] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, "eager_ms": eager_ms,
                                 **lib, **b,
@@ -1632,15 +1679,46 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                             f"{plan['lanes']} lanes, {plan['stages']} "
                             f"stages, {plan['x_window_columns']} columns "
                             "of x staged)")
-                if kname == "wellcw_level":
+                if kname in ("wellcw_level", "wellcw_level_spmm"):
                     bits = 16 if part.local_index16 is not None else 32
                     found[kname]["index_bits"] = bits
                     what = f" ({bits}-bit indices)"
                 if spmm:
-                    if not kname.startswith("csr"):
-                        kb = column_block(CW_SPMM_K)
-                        found[kname]["columns_per_block"] = kb
-                        what = f", {kb} columns a block"
+                    kb = column_block(CW_SPMM_K)
+                    found[kname]["columns_per_block"] = kb
+                    if kname == "wellcw_level_spmm":
+                        plan = wk.spmm_plan(k, f32, v.data_ptr(),
+                                            out.data_ptr())
+                        found[kname].update(plan)
+                        what = (f" ({bits}-bit indices, "
+                                f"{'16-byte' if plan['vector_x'] else 'scalar'}"
+                                " X loads)")
+                    what = f", {kb} columns a block{what}"
+                    if kname == "csr_spmm":
+                        plan = wk.spmm_plan(k, f32, v.data_ptr(),
+                                            out.data_ptr())
+                        _say("[10 wellcw kernels] csr_spmm adding into Y: "
+                             f"{acc_ms:.4f} ms (CUDA graph, L2 flushed), "
+                             f"bound {b_acc['bound_ms']:.4f} ms "
+                             f"({b_acc['bytes']} B: the list and its "
+                             f"pointers, {part.num_entries} entries, "
+                             f"{cb['x_rows_read']} X rows, "
+                             f"{cb['listed_rows']} Y rows read and "
+                             f"written), on {smi_line}")
+                        found[kname].update(
+                            plan, accumulate_ms=acc_ms,
+                            accumulate_bound_ms=b_acc["bound_ms"],
+                            accumulate_bytes=b_acc["bytes"],
+                            listed_rows=cb["listed_rows"],
+                            x_rows_read=cb["x_rows_read"])
+                        what = (f", {kb} columns a block (one thread a "
+                                f"listed row: {cb['listed_rows']} rows of "
+                                f"{A.num_rows} own {part.num_entries} "
+                                "entries; "
+                                f"{'16-byte' if plan['vector_x'] else 'scalar'}"
+                                f" X loads, {cb['x_rows_read']} X rows "
+                                "read; a product's first launch: Y zeroed, "
+                                "then its listed rows written)")
                     if kname == "wellcw_merged_spmm":
                         plan = wk.spmm_plan(k, f32, v.data_ptr(),
                                             out.data_ptr())
@@ -1689,7 +1767,8 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
                      f"{b_full['bound_ms']:.4f} ms, {b_full['bytes']} B), "
                      f"max abs err {err:.3e} (rel "
                      f"{rel:.3e}), bitwise repeatable, on {smi_line}")
-                if kname in ("wellcw_level", "wellcw_merged_spmm"):
+                if kname in ("wellcw_level", "wellcw_merged_spmm",
+                             "wellcw_level_spmm"):
                     other = _variants(kname, part, v, out, run, y1, flush)
                     found[kname]["variants_ms"] = other
                     _say(f"[10 wellcw kernels] {kname} other paths, each "
@@ -1706,6 +1785,65 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     if missing:
         _fail(f"full-size matrix did not reach {sorted(missing)}")
     return found
+
+
+def phase_csr_whole(device, mm, smi_line, triad_gbps):
+    """The CSR SpMM on a whole matrix held as one ``DeviceCsr`` (the CSR
+    format's own path: every row owns an entry, so no row list) at k =
+    CW_SPMM_K, float32, alone (not counted): bitwise repeat, against its
+    plain version, column by column against the CSR SpMV kernel, device
+    ms (a CUDA graph, the L2 flushed) as a product's first launch, its
+    bound, and the torch.sparse CSR product of the same entries timed
+    the same way and eagerly."""
+    import torch
+
+    from spmv_tpu_torch.models import CsrMatrix, DeviceCsr
+    from spmv_tpu_torch.ops import (
+        csr_spmm_core,
+        csr_spmv_core,
+        csr_spmv_reference,
+    )
+
+    f32, k = torch.float32, CW_SPMM_K
+    R = DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm), dtype=f32,
+                            device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    X = torch.randn(R.num_columns, k, device=device, dtype=f32, generator=g)
+    Y = torch.empty(R.num_rows, k, device=device, dtype=f32)
+    scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
+    Y1, Y2 = csr_spmm_core(R, X), csr_spmm_core(R, X)
+    cols = torch.stack([csr_spmv_core(R, X[:, j].contiguous())
+                        for j in range(k)], dim=1)
+    want = csr_spmv_reference(R, X)
+    _sync(device)
+    if not (torch.equal(Y1, Y2) and torch.equal(Y1, cols)):
+        _fail("csr_spmm on the whole matrix: two launches differ, or a "
+              "column differs from the CSR SpMV kernel's")
+    err = float((Y1.double() - want.double()).abs().max())
+    rel = _rel(Y1, want)
+    if rel > TOL_F32:
+        _fail(f"csr_spmm on the whole matrix: rel err {rel} > {TOL_F32}")
+    ms = _cold_graph_ms(lambda: csr_spmm_core(R, X, out=Y), flush, 50)
+    eager_ms = _time_launches(lambda: csr_spmm_core(R, X, out=Y), 50)
+    plain_ms = _time_launches(lambda: csr_spmv_reference(R, X), 3)
+    lib = _library_cold(_torch_csr(R.row_ptr, R.column_index, R.value,
+                                   (R.num_rows, R.num_columns)), X, flush)
+    b = _bound(_csr_spmm_bytes(R, k)["first"], 2 * R.num_entries * k,
+               triad_gbps)
+    _say(f"[10 wellcw kernels] csr_spmm k={k} on the whole matrix "
+         f"({R.num_rows} rows, {R.num_entries} entries, "
+         f"{'no row list' if R.row_list is None else 'a row list'}): "
+         f"{ms:.4f} ms on the device (CUDA graph, L2 flushed), "
+         f"{eager_ms:.4f} ms a call through the wrapper, plain "
+         f"{plain_ms:.4f} ms, torch.sparse CSR {_library_line(lib)}, bound "
+         f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B), max "
+         f"abs err {err:.3e} (rel {rel:.3e}), bitwise repeatable and "
+         f"bitwise the CSR SpMV's columns, on {smi_line}")
+    del R, X, Y, Y1, Y2, cols, want, scratch
+    _sync(device)
+    return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, **lib, **b}
 
 
 # ------------------------------------------------------- WELL (3, 11-13)
@@ -3349,6 +3487,8 @@ def main() -> int:
         if n <= 0:
             _fail(f"{name} was never launched on the main path")
     cw_kernels = phase_kernels_wellcw(device, cw, smi_line, triad_gbps)
+    cw_kernels["csr_spmm"]["whole_matrix"] = phase_csr_whole(
+        device, cw_mm, smi_line, triad_gbps)
     del cw, cw_mm
     _sync(device)
 
@@ -3589,9 +3729,9 @@ from spmv_tpu_torch.models import WellCwMatrix
 from spmv_tpu_torch.perfmodel import measured_machine
 device, smi = c.phase_device()
 c.phase_build()
-cw = WellCwMatrix.from_matrix_market(banded_random(
-    c.CW_FULL_ROWS, half_bandwidth=c.CW_FULL_HALF_BW, nnz_per_row=8,
-    seed=1))
+mm = banded_random(c.CW_FULL_ROWS, half_bandwidth=c.CW_FULL_HALF_BW,
+                   nnz_per_row=8, seed=1)
+cw = WellCwMatrix.from_matrix_market(mm)
 found = c.phase_kernels_wellcw(device, cw, smi,
                                measured_machine(device).hbm_gbps)
 # the main path's outputs on phase 10's inputs, for a bitwise comparison
@@ -3634,7 +3774,23 @@ for kw in ({}, {"chunks_per_step": 64}):
         found["wellcw_spmm_chained"] = {"library_ms": None,
             "ms": c._graph_replay_ms(
                 lambda: ops.wellcw_spmm_core(A, X, out=Y), 20)}
+        # the CSR SpMM on the remainder as the main path adds it (its
+        # first launch is phase 10's csr_spmm)
+        R = A.remainder
+        outs["csr_spmm"] = ops.csr_spmm_core(R, X).cpu()
+        found["csr_spmm_accumulate"] = {"library_ms": None,
+            "ms": c._cold_graph_ms(lambda: ops.csr_spmm_core(
+                R, X, out=Y, accumulate=True), flush, 50)}
     del A
+# the CSR format's own path: the whole matrix as one DeviceCsr, a
+# product's first launch
+from spmv_tpu_torch.models import CsrMatrix, DeviceCsr
+R = DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm), dtype=f32,
+                        device=device)
+outs["csr_spmm_whole"] = ops.csr_spmm_core(R, X).cpu()
+Y = torch.empty(R.num_rows, c.CW_SPMM_K, device=device, dtype=f32)
+found["csr_spmm_whole"] = {"library_ms": None, "ms": c._cold_graph_ms(
+    lambda: ops.csr_spmm_core(R, X, out=Y), flush, 50)}
 torch.save(outs, sys.argv[1])
 print(json.dumps(found, default=str))
 """

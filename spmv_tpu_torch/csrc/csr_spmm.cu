@@ -6,100 +6,175 @@
 // It serves the WELL-CW remainder of the SpMM (added after K4a-c,
 // accumulate = 1) and plain CSR products (accumulate = 0).  A scatter
 // with atomics, as index_add_ does on CUDA, would add in no fixed order;
-// one thread per (row, column block) sums the row's entries in order, as
-// csr_spmv.cu does for each column, so two runs give bitwise equal Y and
-// column j sums as the SpMV of X[:, j] does.
+// one thread per (row, column block) sums the row's entries in storage
+// order, as csr_spmv.cu does for each column, so two runs give bitwise
+// equal Y and column j sums as the SpMV of X[:, j] does.
 //
-// What bounds it on an H100: bytes (the value, column index and row
-// pointer streams, and the X gather: kb contiguous values a row entry).
-// The design is csr_spmv.cu's, with kKB = 8 column sums in registers and
-// the columns in blocks of kKB along grid dimension y; each column block
-// re-reads the row streams.  An empty row is left alone when
-// accumulating.  Y must not overlap X.
+// What bounds it on an H100: bytes (the value and column index streams,
+// the X gather of kb contiguous values an entry, and Y), and for a thin
+// matrix the latency of its chain of dependent loads.  The WELL-CW
+// remainder of the bench leg holds 2,030 entries in 1,723 of its 1M
+// rows: a thread for every row would read the whole row_ptr to find
+// them.  What the design does about it:
+// - The container lists the rows that own an entry (DeviceCsr.row_list,
+//   built on the host; null where every row owns one, and then thread i
+//   takes row i), and one thread takes each listed row and column block
+//   of kb <= 8 columns, its sums in registers.
+// - A thread loads the next G entries' columns and values while the X
+//   rows of these G are in flight (K4c's walk), and the old Y row, under
+//   accumulate, before the walk, so that its latency hides under it.
+// - X rows and Y rows move 16 bytes at a time where X's rows and the
+//   column block are whole 16-byte runs and X and Y are aligned
+//   (spmm_rows.cuh), else one value at a time.
+// - Output: with a row list, a product's first launch (accumulate = 0)
+//   zeroes Y (cudaMemsetAsync) and then writes the listed rows, so a row
+//   with no entry holds +0.0, the sum of no entry; under accumulate such
+//   a row is not written.  Without a list every row is written.
+// A column outside [0, num_columns) is skipped.  Y must not overlap X.
 
 #include "dia_common.cuh"
+#include "spmm_rows.cuh"
 
 namespace spmv_tpu_torch {
 namespace {
 
-constexpr int kKB = 8;
+constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
+// grid (ceil(num_listed / 256), ceil(k / kb)); thread t of x owns row
+// row_list[t] (row t without a list), y is the column block of kb <= KB
+// columns.
+template <typename T, int KB, bool Vec>
+__global__ void __launch_bounds__(kThreads)
     csr_spmm_kernel(const int* __restrict__ row_ptr,
+                    const int* __restrict__ row_list,
                     const int* __restrict__ column_index,
-                    const T* __restrict__ value, int64_t num_rows,
-                    int64_t num_columns, int k, const T* __restrict__ X,
-                    T* __restrict__ Y, bool accumulate) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    const T* __restrict__ value, int64_t num_listed,
+                    int64_t num_columns, int k, int kb,
+                    const T* __restrict__ X, T* __restrict__ Y,
+                    bool accumulate) {
+  // 32 words of X in flight (4 entries at k = 8 in float32): 16 and 64
+  // words were 5% and 10% slower on the whole bench matrix, and a floor
+  // of four CTAs an SM (64 registers) no faster
+  constexpr int W = KB * static_cast<int>(sizeof(T)) / 4;
+  constexpr int G = 32 / W < 8 ? 32 / W : 8;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (i >= num_rows) return;
-  const int start = row_ptr[i];
-  const int end = row_ptr[i + 1];
-  if (accumulate && start == end) return;
-  const int c0 = blockIdx.y * kKB;
-  const int kc = min(kKB, k - c0);
-  T acc[kKB];
+  if (t >= num_listed) return;
+  const int64_t i = row_list != nullptr ? __ldg(row_list + t) : t;
+  const int start = __ldg(row_ptr + i);
+  const int len = __ldg(row_ptr + i + 1) - start;
+  if (accumulate && len == 0) return;
+  const int c0 = blockIdx.y * kb;
+  const int kc = min(kb, k - c0);
+  const T* Xc = X + c0;
+  T* yr = Y + i * k + c0;
+  T out[KB];
+  load_row<T, KB, Vec, false>(yr, accumulate ? kc : 0, out);
+  T acc[KB];
 #pragma unroll
-  for (int j = 0; j < kKB; ++j) acc[j] = T(0);
-  for (int e = start; e < end; ++e) {
-    const int c = column_index[e];
-    if (static_cast<unsigned>(c) >= static_cast<uint64_t>(num_columns))
-      continue;
-    const T v = value[e];
-    const T* xr = X + static_cast<int64_t>(c) * k + c0;
+  for (int j = 0; j < KB; ++j) acc[j] = T(0);
+  const int* cp = column_index + start;
+  const T* vp = value + start;
+  int col[G];
+  T v[G];
+  load_cells<T, G, 1>(cp, vp, 0, len, col, v);
+  for (int e = 0; e < len; e += G) {
+    T xv[G][KB];
+    bool ok[G];
 #pragma unroll
-    for (int j = 0; j < kKB; ++j) {
-      if (j < kc) acc[j] += v * __ldg(xr + j);
+    for (int q = 0; q < G; ++q) {
+      // -1 past the row's end; outside [0, num_columns): skipped
+      ok[q] = col[q] >= 0 && col[q] < num_columns;
+      const int64_t c = ok[q] ? col[q] : 0;
+      load_row<T, KB, Vec>(Xc + c * k, ok[q] ? kc : 0, xv[q]);
+    }
+    int next_col[G];
+    T next_v[G];
+    load_cells<T, G, 1>(cp, vp, e + G, len, next_col, next_v);
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      if (!ok[q]) continue;
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        if (j < kc) acc[j] += v[q] * xv[q][j];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      col[q] = next_col[q];
+      v[q] = next_v[q];
     }
   }
-  T* yr = Y + i * k + c0;
 #pragma unroll
-  for (int j = 0; j < kKB; ++j) {
-    if (j < kc) yr[j] = accumulate ? yr[j] + acc[j] : acc[j];
-  }
+  for (int j = 0; j < KB; ++j) out[j] = accumulate ? out[j] + acc[j] : acc[j];
+  store_row<T, KB, Vec>(yr, kc, out);
 }
 
+// Every argument of a launch, passed on as it is.
+struct Args {
+  const void* row_ptr;
+  const void* row_list;
+  const void* column_index;
+  const void* value;
+  int64_t num_listed, num_rows, num_columns;
+  int k, kb;
+  const void* X;
+  void* Y;
+  bool accumulate;
+};
+
 template <typename T>
-cudaError_t launch(const void* row_ptr, const void* column_index,
-                   const void* value, int64_t num_rows, int64_t num_columns,
-                   int k, const void* X, void* Y, bool accumulate,
-                   cudaStream_t stream) {
-  constexpr int threads = 256;
-  const int64_t blocks = (num_rows + threads - 1) / threads;
-  if (blocks == 0 || k == 0) return cudaSuccess;
-  const int64_t ncb = (static_cast<int64_t>(k) + kKB - 1) / kKB;
-  if (k < 0 || ncb > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(ncb));
-  csr_spmm_kernel<T><<<grid, threads, 0, stream>>>(
-      static_cast<const int*>(row_ptr),
-      static_cast<const int*>(column_index), static_cast<const T*>(value),
-      num_rows, num_columns, k, static_cast<const T*>(X), static_cast<T*>(Y),
-      accumulate);
-  return cudaGetLastError();
+cudaError_t launch(const Args& a, bool vector_x, cudaStream_t stream) {
+  if (a.num_rows == 0 || a.k == 0) return cudaSuccess;
+  if (column_blocks(a.k, a.kb) == 0) return cudaErrorInvalidValue;
+  if (a.row_list != nullptr && !a.accumulate) {
+    cudaError_t e = cudaMemsetAsync(
+        a.Y, 0, static_cast<size_t>(a.num_rows) * a.k * sizeof(T), stream);
+    if (e != cudaSuccess) return e;
+  }
+  if (a.num_listed == 0) return cudaSuccess;
+  const dim3 grid(
+      static_cast<unsigned>((a.num_listed + kThreads - 1) / kThreads),
+      column_blocks(a.k, a.kb));
+  return by_width<T>(a.k, a.kb, vector_x, a.X, a.Y, [&](auto w, auto vec) {
+    csr_spmm_kernel<T, decltype(w)::value, decltype(vec)::value>
+        <<<grid, kThreads, 0, stream>>>(
+            static_cast<const int*>(a.row_ptr),
+            static_cast<const int*>(a.row_list),
+            static_cast<const int*>(a.column_index),
+            static_cast<const T*>(a.value), a.num_listed, a.num_columns,
+            a.k, a.kb, static_cast<const T*>(a.X), static_cast<T*>(a.Y),
+            a.accumulate);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
 }  // namespace spmv_tpu_torch
 
 // Returns the cudaError_t of the launch (0 on success).  dtype is
-// kFloat32 or kFloat64 (dia_common.cuh).
+// kFloat32 or kFloat64 (dia_common.cuh); row_list is the num_listed rows
+// that own an entry, ascending, or null (num_listed = num_rows); kb is
+// the column-block width, at most 8; vector_x asks for 16-byte X and Y
+// loads (k and kb whole 16-byte runs, X and Y aligned).
 extern "C" int csr_spmm_launch(int dtype, int device, const void* row_ptr,
+                               const void* row_list,
                                const void* column_index, const void* value,
-                               long long num_rows, long long num_columns,
-                               int k, const void* X, void* Y, int accumulate,
-                               void* stream) {
+                               long long num_listed, long long num_rows,
+                               long long num_columns, int k, int kb,
+                               int vector_x, const void* X, void* Y,
+                               int accumulate, void* stream) {
   using namespace spmv_tpu_torch;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a = {row_ptr, row_list, column_index, value, num_listed,
+                  num_rows, num_columns, k, kb, X, Y, accumulate != 0};
   switch (dtype) {
     case kFloat32:
-      return launch<float>(row_ptr, column_index, value, num_rows,
-                           num_columns, k, X, Y, accumulate != 0, s);
+      return launch<float>(a, vector_x != 0, s);
     case kFloat64:
-      return launch<double>(row_ptr, column_index, value, num_rows,
-                            num_columns, k, X, Y, accumulate != 0, s);
+      return launch<double>(a, vector_x != 0, s);
     default:
       return cudaErrorInvalidValue;
   }

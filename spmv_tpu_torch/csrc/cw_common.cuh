@@ -1,6 +1,5 @@
 // Shared helpers of the WELL-CW kernels (wellcw_spmv.cu, wellcw_spmm.cu):
-// the cell addressing, the x gather and a level chunk's strip of X
-// columns.
+// the cell addressing and the x gather.
 //
 // A chunk is 8 slots x 128 lanes; lane l of a chunk serves row
 // group * 128 + l.  Cell (c, s, l) holds value[(c * 8 + s) * 128 + l]
@@ -37,37 +36,6 @@ __device__ __forceinline__ T cw_x(const T* __restrict__ x,
                                   int w, int loc) {
   const int64_t col = cw_column(anchor4, d, w, loc);
   return col < num_columns ? __ldg(x + col) : T(0);
-}
-
-// Sum of one level chunk's 8 slots in lane `lane`, for columns [c0, c0 +
-// kc) of a row-major X (num_columns, k), kc <= KB: strip[j] is column c0
-// + j's chunk sum, added slot by slot in the order K3a adds them
-// (wellcw_spmv.cu), so each column sums as the SpMV does.
-template <typename T, int KB>
-__device__ __forceinline__ void cw_strip_cols(
-    const T* __restrict__ value, const int* __restrict__ local_index,
-    int anchor4, int d, int64_t chunk, int lane, const T* __restrict__ X,
-    int64_t num_columns, int k, int c0, int kc, T (&strip)[KB]) {
-  const int64_t base = chunk * kCwChunk + lane;
-  int loc[kCwSlots];
-  T val[kCwSlots];
-#pragma unroll
-  for (int s = 0; s < kCwSlots; ++s) {
-    loc[s] = local_index[base + s * kCwLanes];
-    val[s] = value[base + s * kCwLanes];
-  }
-#pragma unroll
-  for (int j = 0; j < KB; ++j) strip[j] = T(0);
-#pragma unroll
-  for (int s = 0; s < kCwSlots; ++s) {
-    const int64_t col = cw_column(anchor4, d, loc[s] >> 7, loc[s]);
-    if (col >= num_columns) continue;        // reads 0: adds nothing
-    const T* xr = X + col * k + c0;
-#pragma unroll
-    for (int j = 0; j < KB; ++j) {
-      if (j < kc) strip[j] += val[s] * __ldg(xr + j);
-    }
-  }
 }
 
 }  // namespace spmv_tpu_torch

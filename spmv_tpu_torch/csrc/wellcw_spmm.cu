@@ -22,15 +22,23 @@
 // (_cw_tables3) are not built: X is read straight from memory.
 //
 // What the design does about it:
-// - Columns go in blocks of kb <= kKB = 8 (grid dimension y), a thread's
-//   sums in registers; every column block re-reads its part's stream, so
-//   kb is as wide as registers allow.  The wrapper (ops/wellcw_kernels.py,
+// - Columns go in blocks of kb <= 8 (grid dimension y), a thread's sums
+//   in registers; every column block re-reads its part's stream, so kb
+//   is as wide as registers allow.  The wrapper (ops/wellcw_kernels.py,
 //   column_block) picks kb and passes it to every launch; every k >= 1 is
-//   accepted.
-// - Level chunks: one thread per (group, lane, column block) walks its
-//   group's chunks in order; each chunk's 8 slots are summed per column
-//   into a strip, then added to the column's sum, in the order K3a adds
-//   them (cw_strip_cols), so column j of Y sums as the SpMV of X[:, j].
+//   accepted.  Where X's rows and the column block are whole 16-byte
+//   runs and X and Y are aligned, a cell's kb X values are 16-byte loads
+//   (two at kb = 8 in float32), else one load a value (spmm_rows.cuh).
+// - Level chunks (K4a's level part and K4b): one thread per (group,
+//   lane, column block) walks its group's chunks in order through one
+//   device function, add_level_chunks: values and indices stream with
+//   the evict-first hint, G slots' X rows in flight at a time; each
+//   chunk's 8 slots are summed per column into a strip, then added to
+//   the column's sum, in the order K3a adds them, so column j of Y sums
+//   as the SpMV of X[:, j].  Both read the level's int16 copy of its
+//   indices where it has one (w * 128 + lane < 1024 d: d <= 32, and a
+//   merged grid has d <= 16); K4b reads the int32 local_index of a level
+//   of d > 32.  In float32 both keep to 64 registers, four CTAs an SM.
 // - K4c, a pool, one thread per row that owns a pool cell and column
 //   block: the thread sums its run of a host-built row list
 //   (models/device.py, pool_row_list: each row's cells in storage order,
@@ -60,12 +68,7 @@
 //   chunks in storage order, their value and column), and writes y =
 //   (y_old + level) + pool, the Pallas kernel's order: no shared tile,
 //   no warp walking a block's pool alone, no barrier and no Y read-back
-//   without accumulate.  Where X's rows and the column block are whole
-//   16-byte runs and X and Y are aligned, a cell's kb X values are
-//   16-byte loads (two at kb = 8 in float32), else one load a value.
-//   The level part reads the container's int16 copy of its indices
-//   (w * 128 + lane < 1024 d, and a merged grid has d <= 16).  K4c's
-//   cells load their X values the same way.
+//   without accumulate.
 // Every sum runs in a fixed order, so two runs give bitwise equal Y.
 // Sums are kept in the storage type (float or double).
 //
@@ -78,131 +81,115 @@
 
 #include "cw_common.cuh"
 #include "dia_common.cuh"
+#include "spmm_rows.cuh"
 
 namespace spmv_tpu_torch {
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMergedRows = 64;      // groups per merged output block
-constexpr int kKB = 8;               // columns a level thread holds
 constexpr int kLevelThreads = 256;
 // K4c: one warp a CTA, so that the slices of the longest runs spread
 // over the SMs (bench leg, cold L2: 0.0233 ms; CTAs of 64 threads 0.0242,
 // of 256 0.0313)
 constexpr int kPoolThreads = 32;
 
-template <typename T>
-__device__ __forceinline__ void store_cols(T* __restrict__ yr, const T* acc,
-                                           int kc, bool accumulate) {
+// The n level chunks of one group in lane `lane`, added into acc: chunk
+// q's slot s holds its value at vp[q * 1024 + s * 128] and its index at
+// ip[q * 1024 + s * 128] (IdxT int16_t for an int16 copy, int for the
+// container's local_index), its anchor at ap[q].
+// Merged decodes a cell's window slot as a merged grid's level chunk
+// does, (l >> 7) & (8 d - 1), else as a level's, l >> 7.  The values
+// and indices stream once (__ldcs: evict first, so X's lines stay in the
+// L2); a chunk's 8 slots are summed into a strip slot by slot, G slots'
+// X rows loaded at a time (16 values), and the strip then added to acc:
+// the order K3a adds a chunk in, so column j of Y sums as the SpMV of
+// X[:, j].  A column past the end reads 0 and adds nothing.
+template <typename T, int KB, bool Vec, bool Merged, typename IdxT>
+__device__ __forceinline__ void add_level_chunks(
+    const T* vp, const IdxT* ip, const int* ap, int n, int d,
+    const T* Xc, int64_t num_columns, int k, int kc, T (&acc)[KB]) {
+  constexpr int G = 16 / KB < kCwSlots ? 16 / KB : kCwSlots;
+  // n counts down and ap walks: K4a measured 4% faster than with a
+  // chunk index (0.144 against 0.151 ms at the bench leg), K4b within 1%
+  for (; n > 0; --n, ++ap, vp += kCwChunk, ip += kCwChunk) {
+    const int a4 = __ldg(ap);
+    int loc[kCwSlots];
+    T val[kCwSlots];
 #pragma unroll
-  for (int j = 0; j < kKB; ++j) {
-    if (j < kc) yr[j] = accumulate ? yr[j] + acc[j] : acc[j];
+    for (int s = 0; s < kCwSlots; ++s) {
+      val[s] = __ldcs(vp + s * kCwLanes);
+      loc[s] = __ldcs(ip + s * kCwLanes);
+    }
+    T strip[KB];
+#pragma unroll
+    for (int j = 0; j < KB; ++j) strip[j] = T(0);
+#pragma unroll
+    for (int s0 = 0; s0 < kCwSlots; s0 += G) {
+      T xv[G][KB];
+      bool ok[G];
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        const int l = loc[s0 + s];
+        const int w = Merged ? (l >> 7) & (8 * d - 1) : l >> 7;
+        const int64_t col = cw_column(a4, d, w, l);
+        ok[s] = col < num_columns;   // past the end: reads 0, adds nothing
+        load_row<T, KB, Vec>(Xc + (ok[s] ? col : 0) * k, ok[s] ? kc : 0,
+                             xv[s]);
+      }
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        if (!ok[s]) continue;
+#pragma unroll
+        for (int j = 0; j < KB; ++j) {
+          if (j < kc) strip[j] += val[s0 + s] * xv[s][j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KB; ++j) acc[j] += strip[j];
   }
 }
 
-// K4b: grid (ceil(num_groups * 128 / 256), ceil(k / kb)); thread t of
-// x is (group t / 128, lane t % 128), y is the column block of kb <= kKB
-// columns.
-template <typename T>
-__global__ void __launch_bounds__(kLevelThreads)
+// K4b: grid (ceil(num_groups * 128 / 256), ceil(k / kb)); thread t of x
+// owns row t (group g = t / 128, lane t % 128), y is the column block of
+// kb <= KB columns.  Group g's chunks are [group_ptr[g], group_ptr[g +
+// 1]) of the level, walked as K4a walks its level chunks; then y = y_old
+// + sum (accumulate) or sum.  In float32 it keeps to 64 registers, four
+// CTAs an SM, as K4a does (48 bytes spill there; three CTAs at 80
+// registers, no spill, measured 1.5% slower at the bench leg).
+template <typename T, int KB, bool Vec, typename IdxT>
+__global__ void __launch_bounds__(kLevelThreads, sizeof(T) == 4 ? 4 : 1)
     cw_level_spmm_kernel(const T* __restrict__ value,
-                         const int* __restrict__ local_index,
+                         const IdxT* __restrict__ local_index,
                          const int* __restrict__ anchor4,
                          const int* __restrict__ group_ptr, int d,
                          int64_t num_groups, int64_t num_rows,
                          int64_t num_columns, int k, int kb,
                          const T* __restrict__ X, T* __restrict__ Y,
                          bool accumulate) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  const int64_t g = t / kCwLanes;
-  const int lane = static_cast<int>(t % kCwLanes);
-  const int64_t row = t;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t g = row / kCwLanes;
+  const int lane = static_cast<int>(row % kCwLanes);
   if (g >= num_groups || row >= num_rows) return;
   const int c0 = blockIdx.y * kb;
   const int kc = min(kb, k - c0);
-  T acc[kKB];
+  const int first = __ldg(group_ptr + g);
+  const int n = __ldg(group_ptr + g + 1) - first;
+  const int64_t cell = static_cast<int64_t>(first) * kCwChunk + lane;
+  T acc[KB];
 #pragma unroll
-  for (int j = 0; j < kKB; ++j) acc[j] = T(0);
-  const int end = group_ptr[g + 1];
-  for (int c = group_ptr[g]; c < end; ++c) {
-    T strip[kKB];
-    cw_strip_cols<T, kKB>(value, local_index, __ldg(anchor4 + c), d, c,
-                          lane, X, num_columns, k, c0, kc, strip);
+  for (int j = 0; j < KB; ++j) acc[j] = T(0);
+  add_level_chunks<T, KB, Vec, false>(value + cell, local_index + cell,
+                                      anchor4 + first, n, d, X + c0,
+                                      num_columns, k, kc, acc);
+  T* yr = Y + row * k + c0;
+  T out[KB];
+  load_row<T, KB, Vec, false>(yr, accumulate ? kc : 0, out);
 #pragma unroll
-    for (int j = 0; j < kKB; ++j) acc[j] += strip[j];
-  }
-  store_cols(Y + row * k + c0, acc, kc, accumulate);
-}
-
-// kb <= KB values of one row of X (Ro: through the read-only path) or Y,
-// columns [0, kc) of xr (the rest 0): with Vec, 16-byte loads (xr and kc
-// aligned to them), else one load a value.
-template <typename T, int KB, bool Vec, bool Ro = true>
-__device__ __forceinline__ void load_row(const T* xr, int kc, T (&v)[KB]) {
-  if constexpr (Vec) {
-    using V = typename std::conditional<sizeof(T) == 4, float4,
-                                        double2>::type;
-    constexpr int W = 16 / sizeof(T);
-    static_assert(KB % W == 0, "a 16-byte load of X values");
-#pragma unroll
-    for (int j0 = 0; j0 < KB; j0 += W) {
-      V q = {};
-      if (j0 < kc) {
-        const V* p = reinterpret_cast<const V*>(xr + j0);
-        q = Ro ? __ldg(p) : *p;
-      }
-      v[j0] = q.x;
-      v[j0 + 1] = q.y;
-      if constexpr (W == 4) {
-        v[j0 + 2] = q.z;
-        v[j0 + 3] = q.w;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < KB; ++j)
-      v[j] = j < kc ? (Ro ? __ldg(xr + j) : xr[j]) : T(0);
-  }
-}
-
-// Columns [0, kc) of out to a row of Y (kc <= KB): with Vec, 16-byte
-// stores (yr and kc aligned to them), else one store a value.
-template <typename T, int KB, bool Vec>
-__device__ __forceinline__ void store_row(T* yr, int kc, const T (&out)[KB]) {
-  if constexpr (Vec) {
-    constexpr int W = 16 / sizeof(T);
-#pragma unroll
-    for (int j0 = 0; j0 < KB; j0 += W) {
-      if (j0 >= kc) continue;
-      if constexpr (W == 4) {
-        *reinterpret_cast<float4*>(yr + j0) =
-            make_float4(out[j0], out[j0 + 1], out[j0 + 2], out[j0 + 3]);
-      } else {
-        *reinterpret_cast<double2*>(yr + j0) =
-            make_double2(out[j0], out[j0 + 1]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < KB; ++j) {
-      if (j < kc) yr[j] = out[j];
-    }
-  }
-}
-
-// G cells of a K4c run from cell e on (cell i at cp[32 i], vp[32 i]):
-// their columns and values, -1 and 0 past the run's length.
-template <typename T, int G>
-__device__ __forceinline__ void load_cells(const int* cp, const T* vp,
-                                           int e, int len, int (&col)[G],
-                                           T (&v)[G]) {
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const bool live = e + i < len;
-    col[i] = live ? __ldg(cp + (e + i) * kWarp) : -1;
-    v[i] = live ? __ldg(vp + (e + i) * kWarp) : T(0);
-  }
+  for (int j = 0; j < KB; ++j) out[j] = accumulate ? out[j] + acc[j] : acc[j];
+  store_row<T, KB, Vec>(yr, kc, out);
 }
 
 // K4c: grid (ceil(num_listed / 32), ceil(k / kb)); thread t of x owns
@@ -245,7 +232,7 @@ __global__ void __launch_bounds__(kPoolThreads)
   const T* vp = list_value + (cp - list_col);
   int col[G];
   T v[G];
-  load_cells(cp, vp, 0, len, col, v);
+  load_cells<T, G, kWarp>(cp, vp, 0, len, col, v);
   for (int e = 0; e < len; e += G) {
     T xv[G][KB];
 #pragma unroll
@@ -258,7 +245,7 @@ __global__ void __launch_bounds__(kPoolThreads)
     }
     int next_col[G];
     T next_v[G];
-    load_cells(cp, vp, e + G, len, next_col, next_v);
+    load_cells<T, G, kWarp>(cp, vp, e + G, len, next_col, next_v);
 #pragma unroll
     for (int i = 0; i < G; ++i) {
       if (e + i >= len) continue;
@@ -323,64 +310,24 @@ __global__ void __launch_bounds__(kLevelThreads, sizeof(T) == 4 ? 4 : 1)
     e = __ldg(pool_ptr + i);
     e_end = __ldg(pool_ptr + i + 1);
   }
-  // the group's level chunks, walked by pointer (few 64-bit temporaries:
-  // the float32 kernel runs at its register cap)
+  // the group's level chunks (few 64-bit temporaries: the float32
+  // kernel runs at its register cap)
   const int64_t first = b * kl + static_cast<int64_t>(r) * cap;
-  const T* vp = value + first * kCwChunk + lane;
-  const int16_t* ip = level_index + g * cap * kCwChunk + lane;
-  const int* ap = anchor4 + first;
   const T* Xc = X + c0;
   T acc[KB];
 #pragma unroll
   for (int j = 0; j < KB; ++j) acc[j] = T(0);
-  for (int q = 0; q < cap; ++q, vp += kCwChunk, ip += kCwChunk) {
-    const int a4 = __ldg(ap + q);
-    int loc[kCwSlots];
-    T val[kCwSlots];
-#pragma unroll
-    for (int s = 0; s < kCwSlots; ++s) {
-      val[s] = __ldcs(vp + s * kCwLanes);
-      loc[s] = __ldcs(ip + s * kCwLanes);
-    }
-    T strip[KB];
-#pragma unroll
-    for (int j = 0; j < KB; ++j) strip[j] = T(0);
-#pragma unroll
-    for (int s0 = 0; s0 < kCwSlots; s0 += G) {
-      T xv[G][KB];
-      bool ok[G];
-#pragma unroll
-      for (int s = 0; s < G; ++s) {
-        const int l = loc[s0 + s];
-        const int64_t col = cw_column(a4, d, (l >> 7) & (8 * d - 1), l);
-        ok[s] = col < num_columns;   // past the end: reads 0, adds nothing
-        load_row<T, KB, Vec>(Xc + (ok[s] ? col : 0) * k, ok[s] ? kc : 0,
-                             xv[s]);
-      }
-#pragma unroll
-      for (int s = 0; s < G; ++s) {
-        if (!ok[s]) continue;
-#pragma unroll
-        for (int j = 0; j < KB; ++j) {
-          if (j < kc) strip[j] += val[s0 + s] * xv[s][j];
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KB; ++j) acc[j] += strip[j];
-  }
+  add_level_chunks<T, KB, Vec, true>(value + first * kCwChunk + lane,
+                                     level_index + g * cap * kCwChunk + lane,
+                                     anchor4 + first, cap, d, Xc,
+                                     num_columns, k, kc, acc);
   T pool[KB];
 #pragma unroll
   for (int j = 0; j < KB; ++j) pool[j] = T(0);
   for (; e < e_end; e += G) {
     int col[G];
     T v[G];
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const bool live = e + i < e_end;
-      col[i] = live ? __ldg(pool_col + e + i) : -1;
-      v[i] = live ? __ldg(pool_value + e + i) : T(0);
-    }
+    load_cells<T, G, 1>(pool_col, pool_value, e, e_end, col, v);
     T xv[G][KB];
 #pragma unroll
     for (int i = 0; i < G; ++i) {
@@ -412,68 +359,51 @@ __global__ void __launch_bounds__(kLevelThreads, sizeof(T) == 4 ? 4 : 1)
   store_row<T, KB, Vec>(yr, kc, out);
 }
 
-// Grid dimension of ceil(k / kb) column blocks, or 0 if it cannot be.
-unsigned column_blocks(int k, int kb) {
-  if (k <= 0 || kb <= 0) return 0;
-  const int64_t n = (static_cast<int64_t>(k) + kb - 1) / kb;
-  return n > 65535 ? 0 : static_cast<unsigned>(n);
-}
-
-// The template width KB of a column block of kb columns (0: too wide).
-int template_width(int kb) {
-  return kb <= 1 ? 1 : kb <= 2 ? 2 : kb <= 4 ? 4 : kb <= kKB ? kKB : 0;
-}
-
-// Calls launch(KB, Vec), KB the template width of kb and Vec whether
-// X and Y move 16 bytes at a time: vector_x asks for it, and it needs
-// rows and column blocks of whole 16-byte runs and aligned X and Y.
-template <typename T, typename Launch>
-cudaError_t by_width(int k, int kb, bool vector_x, const void* X,
-                     const void* Y, Launch launch) {
-  const auto vec = [&](auto w) -> cudaError_t {
-    constexpr int KB = decltype(w)::value;
-    if (!vector_x) return launch(w, std::false_type());
-    if constexpr ((KB * sizeof(T)) % 16 == 0) {
-      const bool ok = (k * sizeof(T)) % 16 == 0 &&
-                      (kb * sizeof(T)) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(Y) % 16 == 0;
-      if (ok) return launch(w, std::true_type());
-    }
-    return cudaErrorInvalidValue;
-  };
-  switch (template_width(kb)) {
-    case 1:
-      return vec(std::integral_constant<int, 1>());
-    case 2:
-      return vec(std::integral_constant<int, 2>());
-    case 4:
-      return vec(std::integral_constant<int, 4>());
-    case kKB:
-      return vec(std::integral_constant<int, kKB>());
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
+// Every argument of a K4b launch, passed on as it is.
+struct LevelArgs {
+  const void* value;
+  const void* local_index;
+  int index_bits;
+  const void* anchor4;
+  const void* group_ptr;
+  int d;
+  int64_t num_groups, num_rows, num_columns;
+  int k, kb;
+  const void* X;
+  void* Y;
+  bool accumulate;
+};
 
 template <typename T>
-cudaError_t level(const void* value, const void* local_index,
-                  const void* anchor4, const void* group_ptr, int d,
-                  int64_t num_groups, int64_t num_rows, int64_t num_columns,
-                  int k, int kb, const void* X, void* Y, bool accumulate,
-                  cudaStream_t stream) {
+cudaError_t level(const LevelArgs& a, bool vector_x, cudaStream_t stream) {
   const int64_t blocks =
-      (num_groups * kCwLanes + kLevelThreads - 1) / kLevelThreads;
-  if (blocks == 0 || k == 0) return cudaSuccess;
-  const unsigned ncb = column_blocks(k, kb);
-  if (ncb == 0 || kb > kKB) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks), ncb);
-  cw_level_spmm_kernel<T><<<grid, kLevelThreads, 0, stream>>>(
-      static_cast<const T*>(value), static_cast<const int*>(local_index),
-      static_cast<const int*>(anchor4), static_cast<const int*>(group_ptr),
-      d, num_groups, num_rows, num_columns, k, kb,
-      static_cast<const T*>(X), static_cast<T*>(Y), accumulate);
-  return cudaGetLastError();
+      (a.num_groups * kCwLanes + kLevelThreads - 1) / kLevelThreads;
+  if (blocks == 0 || a.k == 0) return cudaSuccess;
+  if (column_blocks(a.k, a.kb) == 0 ||
+      (a.index_bits != 16 && a.index_bits != 32))
+    return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks), column_blocks(a.k, a.kb));
+  return by_width<T>(a.k, a.kb, vector_x, a.X, a.Y, [&](auto w, auto vec) {
+    constexpr int KB = decltype(w)::value;
+    constexpr bool Vec = decltype(vec)::value;
+    const auto run = [&](auto* index) {
+      using IdxT = std::remove_const_t<std::remove_pointer_t<
+          decltype(index)>>;
+      cw_level_spmm_kernel<T, KB, Vec, IdxT>
+          <<<grid, kLevelThreads, 0, stream>>>(
+              static_cast<const T*>(a.value), index,
+              static_cast<const int*>(a.anchor4),
+              static_cast<const int*>(a.group_ptr), a.d, a.num_groups,
+              a.num_rows, a.num_columns, a.k, a.kb,
+              static_cast<const T*>(a.X), static_cast<T*>(a.Y),
+              a.accumulate);
+    };
+    if (a.index_bits == 16)
+      run(static_cast<const int16_t*>(a.local_index));
+    else
+      run(static_cast<const int*>(a.local_index));
+    return cudaGetLastError();
+  });
 }
 
 // Every argument of a K4c launch, passed on as it is.
@@ -563,32 +493,31 @@ cudaError_t merged(const MergedArgs& a, bool vector_x, cudaStream_t stream) {
 }  // namespace spmv_tpu_torch
 
 // Each returns the cudaError_t of the launch (0 on success).  dtype is
-// kFloat32 or kFloat64 (dia_common.cuh); every index array is int32; kb
-// is the column-block width, at most 8.
+// kFloat32 or kFloat64 (dia_common.cuh); every index array is int32 but
+// K4a's level_index and K4b's int16 copy; kb is the column-block width,
+// at most 8.
 
-extern "C" int wellcw_level_spmm_launch(int dtype, int device,
-                                        const void* value,
-                                        const void* local_index,
-                                        const void* anchor4,
-                                        const void* group_ptr, int d,
-                                        long long num_groups,
-                                        long long num_rows,
-                                        long long num_columns, int k,
-                                        int kb, const void* X, void* Y,
-                                        int accumulate, void* stream) {
+// K4b: local_index is the level's int16 copy (index_bits 16) or its
+// int32 local_index (32); vector_x asks for 16-byte X and Y loads (k and
+// kb whole 16-byte runs, X and Y aligned).
+extern "C" int wellcw_level_spmm_launch(
+    int dtype, int device, const void* value, const void* local_index,
+    int index_bits, const void* anchor4, const void* group_ptr, int d,
+    long long num_groups, long long num_rows, long long num_columns, int k,
+    int kb, int vector_x, const void* X, void* Y, int accumulate,
+    void* stream) {
   using namespace spmv_tpu_torch;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const LevelArgs a = {value, local_index, index_bits, anchor4, group_ptr,
+                       d, num_groups, num_rows, num_columns, k, kb, X, Y,
+                       accumulate != 0};
   switch (dtype) {
     case kFloat32:
-      return level<float>(value, local_index, anchor4, group_ptr, d,
-                          num_groups, num_rows, num_columns, k, kb, X, Y,
-                          accumulate != 0, s);
+      return level<float>(a, vector_x != 0, s);
     case kFloat64:
-      return level<double>(value, local_index, anchor4, group_ptr, d,
-                           num_groups, num_rows, num_columns, k, kb, X, Y,
-                           accumulate != 0, s);
+      return level<double>(a, vector_x != 0, s);
     default:
       return cudaErrorInvalidValue;
   }

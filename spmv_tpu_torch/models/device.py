@@ -154,8 +154,12 @@ class DeviceCsr(torch.nn.Module):
     Buffers: ``row_ptr`` (num_rows + 1,) int32, ``column_index``
     (stored,) int32 and ``value`` (stored,) in the value dtype.  The JAX
     container's padded entries, overflow row and expanded row ids serve
-    its segment sum; the CUDA kernel walks ``row_ptr`` and needs none of
-    them.
+    its segment sum; the CUDA kernels walk ``row_ptr`` and need none of
+    them.  Built on the host for the CSR SpMM, which runs one thread a
+    listed row: ``row_list`` (listed,) int32, the rows that own at least
+    one entry in ascending order, or None where every row owns one (a
+    WELL-CW remainder owns a few of its rows; a CSR matrix of its own
+    usually all).
     """
 
     format_name = "csr"
@@ -177,6 +181,10 @@ class DeviceCsr(torch.nn.Module):
         self.register_buffer("column_index",
                              column_index.to(torch.int32).contiguous())
         self.register_buffer("value", value.contiguous())
+        lengths = np.diff(self.row_ptr.cpu().numpy())
+        self.register_buffer("row_list", None if (lengths > 0).all() else
+                             _tensor(np.flatnonzero(lengths).astype(np.int32),
+                                     self.row_ptr.device))
 
     @classmethod
     def from_host(cls, m: CsrMatrix, dtype: Optional[torch.dtype] = None,

@@ -5,6 +5,8 @@ launches, and raises through ``raise_on`` when the C launcher returns a
 CUDA error.  ``on_cuda`` is the only place that decides between a
 kernel and its plain version: CUDA tensors take the kernel, CPU tensors
 the plain version, and any other device (or a mix) raises.
+``spmm_plan`` gives the path of the SpMM kernels that hold a row's
+column sums in registers (K4a-c, the CSR SpMM; ``csrc/spmm_rows.cuh``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ import torch
 from spmv_tpu_torch.errors import KernelError
 
 __all__ = ["on_cuda", "check_vector", "check_no_alias", "raise_on",
-           "stream_of"]
+           "stream_of", "column_block", "x_vector_loads", "spmm_plan"]
+
+# The column blocks of K4a-c and the CSR SpMM, passed to every launch: a
+# thread holds kb = min(k, COLUMNS) sums in registers.
+COLUMNS = 8
 
 
 def on_cuda(what: str, *tensors: torch.Tensor) -> bool:
@@ -59,3 +65,28 @@ def raise_on(lib, rc: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of t's device, as the C launchers take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def column_block(k: int) -> int:
+    """Columns per block of an SpMM kernel (K4a-c, the CSR SpMM): as many
+    as a thread holds in registers."""
+    return max(1, min(k, COLUMNS))
+
+
+def x_vector_loads(k: int, kb: int, itemsize: int, *pointers: int) -> bool:
+    """Whether an SpMM kernel reads a cell's X values (and writes Y) 16
+    bytes at a time: X's rows and every column block are whole 16-byte
+    runs, and each of ``pointers`` (the data pointers of X and Y) is
+    16-byte aligned."""
+    return ((k * itemsize) % 16 == 0 and (kb * itemsize) % 16 == 0
+            and all(p % 16 == 0 for p in pointers))
+
+
+def spmm_plan(k: int, dtype: torch.dtype, x_ptr: int, y_ptr: int) -> dict:
+    """The path K4a-c and the CSR SpMM launch on for X (num_columns, k)
+    and Y of ``dtype`` at those data pointers: the columns a block
+    (``kb``) and whether a cell's X values (and Y) move 16 bytes at a
+    time."""
+    kb = column_block(k)
+    return {"kb": kb, "vector_x": x_vector_loads(k, kb, dtype.itemsize,
+                                                 x_ptr, y_ptr)}

@@ -23,6 +23,7 @@ from spmv_tpu_torch.ops._launch import (
     check_vector,
     on_cuda,
     raise_on,
+    spmm_plan,
     stream_of,
 )
 from spmv_tpu_torch.ops.spmv import csr_spmv_reference
@@ -96,7 +97,11 @@ def csr_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None,
     of shape (num_rows, k), row-major, in the value dtype.
 
     ``out`` (optional, not overlapping X) receives Y; with
-    ``accumulate=True`` it receives ``out + A @ X`` instead.
+    ``accumulate=True`` it receives ``out + A @ X`` instead.  The kernel
+    runs one thread a row of ``A.row_list`` (every row where it is None)
+    on the path ``spmm_plan`` gives; with a row list and without
+    ``accumulate`` it zeroes Y first, with ``accumulate`` a row that owns
+    no entry is not written.
     """
     _check_matrix(A)
     dt = A.value.dtype
@@ -109,8 +114,12 @@ def csr_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None,
         check_no_alias(X, out)
     elif accumulate:
         raise KernelError("accumulate=True needs an out buffer")
+    rows = A.row_list
+    if rows is not None and (rows.dtype != torch.int32
+                             or not rows.is_contiguous()):
+        raise KernelError("CSR row_list must be contiguous int32")
     tensors = (A.value, A.row_ptr, A.column_index, X) + (
-        () if out is None else (out,))
+        () if rows is None else (rows,)) + (() if out is None else (out,))
     if not on_cuda("CSR", *tensors):
         Y = csr_spmv_reference(A, X)
         if out is None:
@@ -122,13 +131,16 @@ def csr_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None,
     n = A.num_rows
     Y = out if out is not None else torch.empty((n, k), dtype=dt,
                                                 device=X.device)
+    plan = spmm_plan(k, dt, X.data_ptr(), Y.data_ptr())
     if n > 0 and k > 0:
         lib = load_library()
         rc = lib.csr_spmm_launch(
             _DTYPE_CODE[dt], X.device.index, A.row_ptr.data_ptr(),
-            A.column_index.data_ptr(), A.value.data_ptr(), n,
-            A.num_columns, k, X.data_ptr(), Y.data_ptr(), int(accumulate),
-            stream_of(X))
+            None if rows is None else rows.data_ptr(),
+            A.column_index.data_ptr(), A.value.data_ptr(),
+            n if rows is None else rows.numel(), n, A.num_columns, k,
+            plan["kb"], int(plan["vector_x"]), X.data_ptr(), Y.data_ptr(),
+            int(accumulate), stream_of(X))
         raise_on(lib, rc, "csr_spmm")
         csr_spmm_core.launches += 1
     return Y

@@ -26,7 +26,7 @@ padded, so the ``_padded`` entry points have no separate counterpart.
 The SpMM takes the columns in blocks of ``well_column_block`` (at most
 8, one launch for all of them), and ``well_spmm_plan`` gives the path of
 a launch: the column block and 16-byte or scalar X loads
-(``x_vector_loads``, shared with K4a).  Not carried over: the TPU's VMEM
+(``x_vector_loads``, shared with K4a-c).  Not carried over: the TPU's VMEM
 limits on whole x (8 MB) and on the segment (12 MB): the kernels read x
 directly, so K5a and K6a take any x.
 
@@ -52,9 +52,9 @@ from spmv_tpu_torch.ops._launch import (
     on_cuda,
     raise_on,
     stream_of,
+    x_vector_loads,
 )
 from spmv_tpu_torch.ops.spmv import well_spmv_reference
-from spmv_tpu_torch.ops.wellcw_kernels import x_vector_loads
 
 __all__ = ["well_whole_core", "well_seg_core", "well_spmv_core",
            "well_spmv", "well_whole_spmm_core", "well_seg_spmm_core",

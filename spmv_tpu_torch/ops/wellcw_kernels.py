@@ -36,11 +36,12 @@ Each part wrapper takes its plain version (``ops/spmv.py``) for CPU
 tensors, launches its kernel for CUDA tensors, and raises for anything
 else, with the launch discipline of ``ops/_launch.py``; ``.launches``
 on each counts its launches.  The SpMM kernels take the columns in
-blocks; ``column_block`` picks the width, and ``spmm_plan`` K4a's and
-K4c's X loads.  Not ported: the TPU's stride
-tables and VMEM plumbing (``_cw_tables``, ``_cw_tables3``,
-``_cw_table_reuse``, ``_cw_vmem_guard``, ``_cw_vmem_params``,
-``_CW_SPMM_UNROLL``): the kernels read x and X directly.
+blocks; ``column_block`` picks the width, and ``spmm_plan`` their X
+loads (both in ``ops/_launch.py``, shared with the CSR SpMM).  Not
+ported: the TPU's stride tables and VMEM plumbing (``_cw_tables``,
+``_cw_tables3``, ``_cw_table_reuse``, ``_cw_vmem_guard``,
+``_cw_vmem_params``, ``_CW_SPMM_UNROLL``): the kernels read x and X
+directly.
 """
 
 from __future__ import annotations
@@ -53,9 +54,12 @@ from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.ops._launch import (
     check_no_alias,
     check_vector,
+    column_block,
     on_cuda,
     raise_on,
+    spmm_plan,
     stream_of,
+    x_vector_loads,
 )
 from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core, csr_spmv_core
 from spmv_tpu_torch.ops.spmv import (
@@ -89,35 +93,8 @@ BARRIER_BYTES = (2 * MAX_STAGES + 1) * 8
 # bench leg's shapes clusters of 4 ran K3b 1.5x and K3c 1.6x slower than
 # clusters of 2 (they did not fit the card in one wave)
 CLUSTER_SIZES = (1, 2)
-# The SpMM kernels' column blocks (csrc/wellcw_spmm.cu), passed to every
-# launch: a thread holds kb = min(k, COLUMNS) sums in registers.  A block
-# may use at most SMEM_MAX bytes of shared memory.
-COLUMNS = 8
+# A block may use at most SMEM_MAX bytes of shared memory.
 SMEM_MAX = 232448
-
-
-def column_block(k: int) -> int:
-    """Columns per block of an SpMM kernel (K4a, K4b, K4c): as many as a
-    thread holds in registers."""
-    return max(1, min(k, COLUMNS))
-
-
-def x_vector_loads(k: int, kb: int, itemsize: int, *pointers: int) -> bool:
-    """Whether K4a or K4c reads a cell's X values (and writes Y) 16 bytes
-    at a time: X's rows and every column block are whole 16-byte runs, and
-    each of ``pointers`` (the data pointers of X and Y) is 16-byte
-    aligned."""
-    return ((k * itemsize) % 16 == 0 and (kb * itemsize) % 16 == 0
-            and all(p % 16 == 0 for p in pointers))
-
-
-def spmm_plan(k: int, dtype: torch.dtype, x_ptr: int, y_ptr: int) -> dict:
-    """The path K4a and K4c launch on for X (num_columns, k) and Y of
-    ``dtype`` at those data pointers: the columns a block (``kb``) and
-    whether a cell's X values (and Y) move 16 bytes at a time."""
-    kb = column_block(k)
-    return {"kb": kb, "vector_x": x_vector_loads(k, kb, dtype.itemsize,
-                                                 x_ptr, y_ptr)}
 
 
 def cluster_size(units: int, num_sms: int) -> int:
@@ -249,6 +226,19 @@ def wellcw_merged_core(mg, x: torch.Tensor, num_rows: int,
 wellcw_merged_core.launches = 0
 
 
+def _level_index(lvl, device, what: str) -> torch.Tensor:
+    """The index array K3a and K4b read for a level: ``local_index16``
+    where the level has it (checked), else ``local_index``."""
+    index = lvl.local_index16
+    if index is None:
+        return lvl.local_index
+    if index.dtype != torch.int16 or index.shape != lvl.local_index.shape \
+            or not index.is_contiguous() or index.device != device:
+        raise KernelError(f"{what}: local_index16 must be a contiguous "
+                          "int16 copy of local_index")
+    return index
+
+
 def wellcw_level_core(lvl, x: torch.Tensor, num_rows: int,
                       out: torch.Tensor = None,
                       accumulate: bool = False) -> torch.Tensor:
@@ -266,13 +256,7 @@ def wellcw_level_core(lvl, x: torch.Tensor, num_rows: int,
 
     from spmv_tpu_torch.ops._build import load_library
 
-    index = lvl.local_index16
-    if index is None:
-        index = lvl.local_index
-    elif index.dtype != torch.int16 or index.shape != lvl.local_index.shape \
-            or not index.is_contiguous() or index.device != x.device:
-        raise KernelError("wellcw_level: local_index16 must be a "
-                          "contiguous int16 copy of local_index")
+    index = _level_index(lvl, x.device, "wellcw_level")
     y = _output(out, num_rows, x)
     if num_rows > 0:
         lib = load_library()
@@ -424,7 +408,9 @@ def wellcw_level_spmm_core(lvl, X: torch.Tensor, num_rows: int,
                            out: torch.Tensor = None,
                            accumulate: bool = False) -> torch.Tensor:
     """K4b: a fallback level's contribution to Y; arguments as for
-    ``wellcw_merged_spmm_core``."""
+    ``wellcw_merged_spmm_core``.  The kernel reads ``local_index16``
+    where the level has it, else ``local_index``, on the path
+    ``spmm_plan`` gives."""
     num_groups = lvl.group_ptr.numel() - 1
     cuda = _prepare("wellcw_level_spmm", lvl, X, num_rows,
                     num_groups * LANE, out, accumulate,
@@ -436,17 +422,19 @@ def wellcw_level_spmm_core(lvl, X: torch.Tensor, num_rows: int,
 
     from spmv_tpu_torch.ops._build import load_library
 
+    index = _level_index(lvl, X.device, "wellcw_level_spmm")
     k = X.shape[1]
-    kb = column_block(k)
     Y = _output(out, num_rows, X)
+    plan = spmm_plan(k, X.dtype, X.data_ptr(), Y.data_ptr())
     if num_rows > 0 and k > 0:
         lib = load_library()
         rc = lib.wellcw_level_spmm_launch(
             _DTYPE_CODE[X.dtype], X.device.index, lvl.value.data_ptr(),
-            lvl.local_index.data_ptr(), lvl.anchor4.data_ptr(),
-            lvl.group_ptr.data_ptr(), lvl.d, num_groups, num_rows,
-            X.shape[0], k, kb, X.data_ptr(), Y.data_ptr(), int(accumulate),
-            stream_of(X))
+            index.data_ptr(), 8 * index.element_size(),
+            lvl.anchor4.data_ptr(), lvl.group_ptr.data_ptr(), lvl.d,
+            num_groups, num_rows, X.shape[0], k, plan["kb"],
+            int(plan["vector_x"]), X.data_ptr(), Y.data_ptr(),
+            int(accumulate), stream_of(X))
         raise_on(lib, rc, "wellcw_level_spmm")
         wellcw_level_spmm_core.launches += 1
     return Y

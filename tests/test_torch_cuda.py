@@ -622,6 +622,86 @@ def _misaligned(rows, k, device, dtype, seed):
     return X
 
 
+# K4b walks a level as K4a walks its level chunks: the level's int16
+# indices or its int32 ones, X and Y in 16-byte moves (aligned rows of
+# 16-byte runs) or one value at a time (X and Y one element off a 16-byte
+# boundary): every path gives the same Y bit for bit.
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", ["fallback", "forced_fallback",
+                                  "remainder"])
+def test_wellcw_level_spmm_index_and_x_paths(case, dtype, k, accumulate,
+                                             cuda):
+    A = DeviceWellCw.from_host(_wellcw_host(case), dtype=dtype, device=cuda,
+                               **WELLCW_CASES[case][2])
+    m, n = A.num_columns, A.num_rows
+    g = torch.Generator(device=cuda).manual_seed(26)
+    X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    Xs = _misaligned(m, k, cuda, dtype, 26).copy_(X)
+    assert A.levels
+    for lvl in A.levels:
+        assert lvl.local_index16 is not None
+        runs = {}
+        for index in ("int16", "int32"):
+            for x in (X, Xs):
+                out = None
+                if accumulate:
+                    out = (torch.empty(n, k, device=cuda, dtype=dtype)
+                           if x is X else _misaligned(n, k, cuda, dtype, 27))
+                    out.fill_(0.5)
+                keep = lvl.local_index16
+                if index == "int32":
+                    lvl.local_index16 = None
+                try:
+                    Y = wellcw_level_spmm_core(lvl, x, n, out=out,
+                                               accumulate=accumulate)
+                finally:
+                    lvl.local_index16 = keep
+                vec = wellcw_kernels.spmm_plan(k, dtype, x.data_ptr(),
+                                               Y.data_ptr())["vector_x"]
+                assert vec == (x is X and (k * X.element_size()) % 16 == 0)
+                runs[(index, x is X)] = Y
+        torch.cuda.synchronize()
+        first = runs[("int16", True)]
+        for Y in runs.values():
+            assert torch.equal(Y, first)
+        want = cw_level_reference(lvl, X, n)
+        if accumulate:
+            want = want + 0.5
+        assert _rel_err(first, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_wellcw_level_spmm_int32_path_at_d64(dtype, k, cuda):
+    """K4b on a synthetic level of window multiple 64: its indices reach
+    65535, so it has no int16 copy and K4b reads the int32 array; some
+    cells read past the end."""
+    rng = np.random.default_rng(28)
+    chunks, groups, d = 12, 6, 64
+    m = 4 * d * 1024 - 3
+    grp = np.repeat(np.arange(groups), 2).reshape(chunks, 1, 1)
+    lvl = DeviceCwLevel(
+        d, 1, 0, rng.standard_normal((chunks, 8, 128)),
+        rng.integers(0, 1024 * d, size=(chunks, 8, 128)),
+        rng.integers(0, 4, size=(chunks, 1, 1)), grp, np.zeros(chunks),
+        groups, dtype, cuda)
+    assert lvl.local_index16 is None
+    X = torch.from_numpy(rng.standard_normal((m, k))).to(cuda, dtype)
+    n = groups * 128 - 5
+    before = wellcw_level_spmm_core.launches
+    Y1 = wellcw_level_spmm_core(lvl, X, n)
+    Y2 = wellcw_level_spmm_core(lvl, X, n)
+    torch.cuda.synchronize()
+    assert wellcw_level_spmm_core.launches == before + 2
+    assert torch.equal(Y1, Y2)
+    assert _rel_err(Y1, cw_level_reference(lvl, X, n)) <= TOL[dtype]
+    for j in (0, k - 1):
+        y = wellcw_level_core(lvl, X[:, j].contiguous(), n)
+        assert _rel_err(Y1[:, j], y) <= TOL[dtype]
+
+
 # K4a, one thread a row: the pool list of 0, 1 and 16 chunks a block, the
 # column blocks of k = 1 .. 17, with and without accumulate, and X in
 # 16-byte loads (aligned rows of 16-byte runs) or one value at a time.
@@ -729,6 +809,102 @@ def test_csr_spmm_matches_plain(dtype, k, cuda):
     for j in range(k):
         assert _rel_err(Y1[:, j], csr_spmv_core(A, X[:, j].contiguous())) \
             <= TOL[dtype]
+
+
+def _csr_empty_rows(dtype, device):
+    """random_sparse(3000, 2000, 9) with every fourth row and the last
+    one emptied: a row list of 2,249 rows."""
+    mm = random_sparse(3000, 2000, 9, seed=8)
+    r, c = np.asarray(mm.rows_1based) - 1, np.asarray(mm.cols_1based) - 1
+    keep = (r % 4 != 1) & (r != 2999)
+    A = DeviceCsr.from_host(CsrMatrix.from_matrix_market(from_coo_arrays(
+        3000, 2000, r[keep], c[keep], np.asarray(mm.values)[keep])),
+        dtype=dtype, device=device)
+    assert A.row_list is not None and A.row_list.numel() == 2249
+    return A
+
+
+# The CSR SpMM runs one thread a listed row: with the container's row
+# list, with every row listed, and with no list (thread i on row i) it
+# gives the same Y bit for bit, X in 16-byte moves or one value at a time.
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
+                                                        "misaligned"])
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_csr_spmm_row_list_paths(dtype, k, accumulate, aligned, cuda):
+    A = _csr_empty_rows(dtype, cuda)
+    n, m = A.num_rows, A.num_columns
+    if aligned:
+        g = torch.Generator(device=cuda).manual_seed(29)
+        X = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    else:
+        X = _misaligned(m, k, cuda, dtype, 29)
+    want = csr_spmv_reference(A, X)
+    listed = A.row_list
+    runs = []
+    for rows in (listed, torch.arange(n, dtype=torch.int32, device=cuda),
+                 None):
+        out = None
+        if accumulate:
+            out = torch.full((n, k), 0.5, device=cuda, dtype=dtype)
+        A.row_list = rows
+        try:
+            runs.append(csr_spmm_core(A, X, out=out, accumulate=accumulate))
+        finally:
+            A.row_list = listed
+    torch.cuda.synchronize()
+    for Y in runs[1:]:
+        assert torch.equal(Y, runs[0])
+    assert _rel_err(runs[0], want + 0.5 if accumulate else want) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_csr_spmm_rows_without_entries(dtype, cuda):
+    """A product's first launch writes +0.0 in a row with no entry (the
+    buffer held -0.0 and NaN there); adding into Y leaves a -0.0 there
+    untouched."""
+    A = _csr_empty_rows(dtype, cuda)
+    n, k = A.num_rows, 8
+    empty = torch.ones(n, dtype=torch.bool, device=cuda)
+    empty[A.row_list.long()] = False
+    g = torch.Generator(device=cuda).manual_seed(30)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
+    first = torch.full((n, k), -0.0, device=cuda, dtype=dtype)
+    first[::2] = float("nan")
+    csr_spmm_core(A, X, out=first)
+    added = torch.full((n, k), -0.0, device=cuda, dtype=dtype)
+    csr_spmm_core(A, X, out=added, accumulate=True)
+    torch.cuda.synchronize()
+    assert bool((first[empty] == 0).all())
+    assert not bool(torch.signbit(first[empty]).any())
+    assert bool((added[empty] == 0).all())
+    assert bool(torch.signbit(added[empty]).all())
+    want = csr_spmv_reference(A, X)
+    assert _rel_err(first, want) <= TOL[dtype]
+    assert _rel_err(added, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", ["empty_rows", "every_row"])
+def test_csr_spmm_columns_bitwise_equal_to_spmv(case, dtype, k, cuda):
+    """Column j of the CSR SpMM is bit for bit the CSR SpMV of X[:, j],
+    with a row list and without one."""
+    if case == "empty_rows":
+        A = _csr_empty_rows(dtype, cuda)
+    else:
+        A = DeviceCsr.from_host(CsrMatrix.from_matrix_market(
+            random_sparse(3000, 2000, 9, seed=8)), dtype=dtype, device=cuda)
+        assert A.row_list is None
+    g = torch.Generator(device=cuda).manual_seed(31)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
+    Y = csr_spmm_core(A, X)
+    cols = [csr_spmv_core(A, X[:, j].contiguous()) for j in range(k)]
+    torch.cuda.synchronize()
+    for j in range(k):
+        assert torch.equal(Y[:, j], cols[j]), j
 
 
 def _two_clusters():

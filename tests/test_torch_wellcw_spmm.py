@@ -11,7 +11,11 @@ packages:
   grid's interpret run takes minutes, so it is marked ``slow``, as the
   JAX tests mark theirs);
 - column j of the plain SpMM against the plain SpMV of X[:, j], and the
-  plain CSR SpMM against JAX's ``spmm`` on ``DeviceCsr``.
+  plain CSR SpMM against JAX's ``spmm`` on ``DeviceCsr``;
+- ``DeviceCsr.row_list`` (the rows the CSR SpMM kernel runs a thread
+  for) against its definition on WELL-CW remainders, a scattered matrix
+  and one with empty rows, and the WELL-CW and CSR SpMM of those
+  matrices against JAX's ``spmm``.
 
 Tolerances: rtol 1e-12 in float64 (the sums differ only in rounding
 order); in float32, 1e-5 relative max-norm against the fp64 host
@@ -25,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_tpu.io.generate import banded_random, random_sparse
+from spmv_tpu.io.generate import banded_random, from_coo_arrays, random_sparse
 from spmv_tpu.models import CsrMatrix as JaxCsrMatrix
 from spmv_tpu.models import WellCwMatrix as JaxWellCwMatrix
 from spmv_tpu.models import device as jdev
@@ -283,3 +287,82 @@ def test_column_block_widths():
     assert column_block(2) == 2
     assert column_block(1) == 1
     assert column_block(0) == 1
+
+
+def _empty_rows():
+    """random_sparse(3000, 2000, 9) with every fourth row and the last
+    one emptied."""
+    mm = random_sparse(3000, 2000, 9, seed=8)
+    r, c = np.asarray(mm.rows_1based) - 1, np.asarray(mm.cols_1based) - 1
+    keep = (r % 4 != 1) & (r != 2999)
+    return from_coo_arrays(3000, 2000, r[keep], c[keep],
+                           np.asarray(mm.values)[keep])
+
+
+# name -> (matrix, WELL-CW host packing options): the banded matrices of
+# CASES packed without tail pools, so that their spill lands on the CSR
+# remainder as the bench leg's does (1,793 of 4,096 and 3,113 of 16,384
+# rows own an entry there), a scattered matrix whose CSR owns every row,
+# and one with empty rows
+ROW_LIST_CASES = {
+    "banded_4096": (lambda: banded_random(4096, 128, 8, seed=1),
+                    {"tail_specs": ()}),
+    "banded_16384": (lambda: banded_random(16384, 512, 6, seed=20),
+                     {"tail_specs": ()}),
+    "random_sparse": (lambda: random_sparse(3000, 2000, 9, seed=8), {}),
+    "empty_rows": (_empty_rows, {}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _row_list_case(name):
+    """(matrix, port WELL-CW host, JAX WELL-CW host) of a case."""
+    make, kw = ROW_LIST_CASES[name]
+    mm = make()
+    return (mm, WellCwMatrix.from_matrix_market(mm, **kw),
+            JaxWellCwMatrix.from_matrix_market(mm, **kw))
+
+
+@pytest.mark.parametrize("name", list(ROW_LIST_CASES))
+def test_csr_row_list_is_the_rows_with_entries(name):
+    """``row_list`` holds the rows that own an entry, ascending, int32
+    and contiguous, or is None where every row owns one; the matrix's own
+    CSR and its WELL-CW remainder alike."""
+    mm, w, _ = _row_list_case(name)
+    csrs = [DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm))]
+    if w.remainder is not None:
+        csrs.append(DeviceWellCw.from_host(w, device="cpu").remainder)
+    if name.startswith("banded"):
+        assert len(csrs) == 2
+    for R in csrs:
+        want = np.flatnonzero(np.diff(R.row_ptr.numpy()))
+        if want.size == R.num_rows:
+            assert R.row_list is None
+            continue
+        assert R.row_list.dtype == torch.int32
+        assert R.row_list.is_contiguous()
+        np.testing.assert_array_equal(R.row_list.numpy(), want)
+    full = csrs[0].row_list
+    assert (full is None) == (name != "empty_rows")
+    for R in csrs[1:]:
+        assert R.row_list is not None and 0 < R.row_list.numel() < R.num_rows
+
+
+@pytest.mark.parametrize("name", list(ROW_LIST_CASES))
+def test_row_list_matrices_spmm_match_jax(name):
+    """The WELL-CW SpMM and the CSR SpMM (its remainder's, and the whole
+    matrix's) through the plain path against JAX's XLA ``spmm``, fp64."""
+    mm, w, wj = _row_list_case(name)
+    At = DeviceWellCw.from_host(w, device="cpu")
+    Aj = jdev.DeviceWellCw.from_host(wj, dtype=jnp.float64)
+    X = _X(At.num_columns, 3, seed=14)
+    Xt = torch.from_numpy(X)
+    _close(wellcw_spmm(At, Xt), jspmm(Aj, jnp.asarray(X)), 1e-12)
+    pairs = [(DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm)),
+              JaxCsrMatrix.from_matrix_market(mm))]
+    if w.remainder is not None:
+        pairs.append((At.remainder, wj.remainder))
+    for R, hj in pairs:
+        want = jspmm(jdev.DeviceCsr.from_host(hj, dtype=jnp.float64),
+                     jnp.asarray(X))
+        _close(csr_spmm(R, Xt), want, 1e-12)
