@@ -219,6 +219,35 @@ Phases (each prints readable lines; any failure exits non-zero):
    yardstick, the block V-cycle eager and under one CUDA graph (no single
    PyTorch call computes a V-cycle, so there is no library ms).
 
+23. The reference tool's formats through the CLI (the ELL and CSR launch
+   counts are zeroed just before): -s csr, xla-csr, coo, coo-atomic, ell
+   and hybrid with --profile 5, --profile 5 --spmm 8 and --cg 2000 on
+   poisson2d(256, 256) (plus --precondition jacobi and --nrhs 4 on ell
+   and hybrid), hybrid's profile and SpMM again on powerlaw(65536,
+   65536, 8.0), whose hybrid split has a COO part, and -s csr --reorder
+   rcm: each run must launch its format's kernels (CSR for csr and coo,
+   ELL for ell and hybrid, both for hybrid with a COO part) and no other
+   kernel of the port (none for xla-csr, which is torch.sparse); CG to
+   (j + 1) * ones within rms 1e-2; then each format's fp64 host checksum
+   of A x and A X (k = 8) through make_kernel's chained steps.
+24. ELL at full width, poisson2d(4096, 4096) in float32: the chained
+   SpMV and SpMM (k = 8) through make_kernel("ell") (the ELL and CSR
+   launch counts are read after it: each must have moved on the formats
+   path), then the ELL kernels alone (not counted): against their plain
+   versions (float64 at poisson2d(1024, 1024) 1e-12, float32 1e-5),
+   twice bitwise, the SpMM's columns bitwise the SpMV kernel's, device ms
+   (a CUDA graph, L2 flushed) and eager, the bound (the slots, x and y
+   once), the plain version's ms and torch.sparse CSR of the same entries
+   timed the same way and eagerly; and the CSR SpMV kernel on the whole
+   matrix as one DeviceCsr (the path of -s csr) alike.  Phase 10 times
+   the CSR SpMV on the whole bench matrix the same way.
+25. Hybrid at a skewed matrix, powerlaw(4194304, 4194304, 8.0, alpha 1.5,
+   seed 5) in float32 (not counted): the SpMV and SpMM (k = 8) against
+   their plain versions, then the ELL launch, the COO launch (the CSR
+   kernel adding into y over the rows with a COO entry) and the whole
+   SpMV and SpMM alone, each with its bound, beside torch.sparse of the
+   whole matrix.
+
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
 parent commit unpacked with ``git archive``, and for this one, each in
@@ -234,10 +263,11 @@ calls it and as a product's first launch, the CSR SpMM adding the
 remainder into Y and on the whole matrix as one DeviceCsr, and the
 whole k = 8 SpMM chained in a CUDA graph.
 
-The second-to-last lines are the kernels' JSON summary (seventeen
+The second-to-last lines are the kernels' JSON summary (nineteen
 kernels, each with its launches on the main path, max error, ms against
 plain ms, bound and library ms; K7's rows also its launches by path;
-and summaries of each path, `amg` the last) and nvidia-smi's
+the CSR SpMV's its whole-matrix times; and summaries of each path,
+`formats` and `amg` the last) and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
 data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
@@ -313,6 +343,14 @@ AMG_FULL_GRID = 2048          # the full-size AMG leg: 178.8 MB of DIA levels
 AMG_TOL = 1e-6
 AMG_MAX_ITERS = 100
 AMG_GRAPH_REPS = 10
+FORMATS = ("csr", "xla-csr", "coo", "coo-atomic", "ell", "hybrid")
+FORMATS_CLI_GRID = 256        # the formats' CLI phase's poisson2d
+FORMATS_SKEW_ROWS = 1 << 16   # hybrid's CLI matrix with a COO part
+FORMATS_SPMM_K = 8
+FORMATS_CG_ITERS = 2000      # plain CG at poisson2d(256²) needs about 400
+FORMATS_NRHS = 4
+ELL_F64_GRID = 1024           # the ELL kernels' float64 comparison
+HYBRID_ROWS = 1 << 22         # hybrid at a skewed matrix: 35.6M entries
 
 
 def _fail(msg: str) -> None:
@@ -1794,7 +1832,8 @@ def phase_csr_whole(device, mm, smi_line, triad_gbps):
     plain version, column by column against the CSR SpMV kernel, device
     ms (a CUDA graph, the L2 flushed) as a product's first launch, its
     bound, and the torch.sparse CSR product of the same entries timed
-    the same way and eagerly."""
+    the same way and eagerly; then the CSR SpMV on the same matrix alike
+    (``_csr_spmv_whole``).  Returns the SpMM's numbers and the SpMV's."""
     import torch
 
     from spmv_tpu_torch.models import CsrMatrix, DeviceCsr
@@ -1827,8 +1866,9 @@ def phase_csr_whole(device, mm, smi_line, triad_gbps):
     ms = _cold_graph_ms(lambda: csr_spmm_core(R, X, out=Y), flush, 50)
     eager_ms = _time_launches(lambda: csr_spmm_core(R, X, out=Y), 50)
     plain_ms = _time_launches(lambda: csr_spmv_reference(R, X), 3)
-    lib = _library_cold(_torch_csr(R.row_ptr, R.column_index, R.value,
-                                   (R.num_rows, R.num_columns)), X, flush)
+    S = _torch_csr(R.row_ptr, R.column_index, R.value,
+                   (R.num_rows, R.num_columns))
+    lib = _library_cold(S, X, flush)
     b = _bound(_csr_spmm_bytes(R, k)["first"], 2 * R.num_entries * k,
                triad_gbps)
     _say(f"[10 wellcw kernels] csr_spmm k={k} on the whole matrix "
@@ -1840,10 +1880,14 @@ def phase_csr_whole(device, mm, smi_line, triad_gbps):
          f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B), max "
          f"abs err {err:.3e} (rel {rel:.3e}), bitwise repeatable and "
          f"bitwise the CSR SpMV's columns, on {smi_line}")
-    del R, X, Y, Y1, Y2, cols, want, scratch
+    spmv = _csr_spmv_whole(
+        R, S, X[:, 0].contiguous(), flush,
+        f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) float32",
+        "10 wellcw kernels", smi_line, triad_gbps)
+    del R, S, X, Y, Y1, Y2, cols, want, scratch
     _sync(device)
     return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-            "max_abs_err": err, **lib, **b}
+            "max_abs_err": err, **lib, **b}, spmv
 
 
 # ------------------------------------------------------- WELL (3, 11-13)
@@ -3325,6 +3369,460 @@ def phase_kernel_fused(device, hier, smi_line, triad_gbps):
     return res
 
 
+# ------------------------------------------- the reference formats (23-25)
+def _port_wrappers() -> dict:
+    """Every launch counter of the port, by wrapper name."""
+    from spmv_tpu_torch import ops
+
+    return {name: getattr(ops, name) for name in (
+        "dia_spmv_core", "dia_spmm_core", "wellcw_merged_core",
+        "wellcw_level_core", "wellcw_pool_core", "wellcw_merged_spmm_core",
+        "wellcw_level_spmm_core", "wellcw_pool_spmm_core", "csr_spmv_core",
+        "csr_spmm_core", "ell_spmv_core", "ell_spmm_core", "well_whole_core",
+        "well_seg_core", "well_whole_spmm_core", "well_seg_spmm_core",
+        "bsr_spmm_core", "fused_vcycle_core")}
+
+
+def _formats_cli_runs(poisson, skewed):
+    """(name, argv, wrappers that must launch, wrappers that must not) of
+    the formats' CLI phase: each format's profile, SpMM and CG runs on
+    poisson2d(FORMATS_CLI_GRID²) (a stencil: the hybrid split leaves its
+    COO part empty, so hybrid launches no CSR kernel there) and hybrid's
+    profile and SpMM on a skewed matrix, where it launches both."""
+    from spmv_tpu_torch.ops import (
+        csr_spmm_core,
+        csr_spmv_core,
+        ell_spmm_core,
+        ell_spmv_core,
+    )
+
+    spmv_k = {"csr": (csr_spmv_core,), "coo": (csr_spmv_core,),
+              "coo-atomic": (csr_spmv_core,), "ell": (ell_spmv_core,),
+              "hybrid": (ell_spmv_core,), "xla-csr": ()}
+    spmm_k = {"csr": (csr_spmm_core,), "coo": (csr_spmm_core,),
+              "coo-atomic": (csr_spmm_core,), "ell": (ell_spmm_core,),
+              "hybrid": (ell_spmm_core,), "xla-csr": ()}
+    every = tuple(_port_wrappers().values())
+
+    def quiet(want):
+        return tuple(w for w in every if w not in want)
+
+    runs = []
+    for fmt in FORMATS:
+        mat = ["--matrix", poisson, "-s", fmt]
+        runs += [
+            (f"{fmt} profile", mat + ["--profile", "5"], spmv_k[fmt],
+             quiet(spmv_k[fmt])),
+            (f"{fmt} spmm k={FORMATS_SPMM_K}",
+             mat + ["--profile", "5", "--spmm", str(FORMATS_SPMM_K)],
+             spmm_k[fmt], quiet(spmm_k[fmt])),
+            (f"{fmt} cg", mat + ["--cg", str(FORMATS_CG_ITERS), "--cg-tol",
+                                 "1e-5"], spmv_k[fmt], quiet(spmv_k[fmt])),
+        ]
+        if fmt in ("ell", "hybrid"):
+            runs += [
+                (f"{fmt} cg jacobi", mat + [
+                    "--cg", str(FORMATS_CG_ITERS), "--cg-tol", "1e-5",
+                    "--precondition", "jacobi"], spmv_k[fmt],
+                 quiet(spmv_k[fmt])),
+                (f"{fmt} cg nrhs {FORMATS_NRHS}", mat + [
+                    "--cg", str(FORMATS_CG_ITERS), "--cg-tol", "1e-5",
+                    "--nrhs", str(FORMATS_NRHS)], spmm_k[fmt],
+                 quiet(spmm_k[fmt])),
+            ]
+    mat = ["--matrix", skewed, "-s", "hybrid"]
+    both = (ell_spmv_core, csr_spmv_core)
+    both_mm = (ell_spmm_core, csr_spmm_core)
+    runs += [
+        ("hybrid profile (skewed)", mat + ["--profile", "5"], both,
+         quiet(both)),
+        (f"hybrid spmm k={FORMATS_SPMM_K} (skewed)",
+         mat + ["--profile", "5", "--spmm", str(FORMATS_SPMM_K)], both_mm,
+         quiet(both_mm)),
+        ("csr profile --reorder rcm", ["--matrix", poisson, "-s", "csr",
+                                        "--reorder", "rcm", "--profile", "5"],
+         (csr_spmv_core,), quiet((csr_spmv_core,))),
+    ]
+    return runs
+
+
+def _format_checksums(fmt, mm, device):
+    """The fp64 host checksum gate of A x and A X (k = FORMATS_SPMM_K)
+    through ``make_kernel(fmt)``'s chained steps on the card: |A x| summed
+    in float32 on the card against the fp64 host product."""
+    import torch
+
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.models import CsrMatrix
+
+    host = CsrMatrix.from_matrix_market(mm)
+    kernel = make_kernel(fmt, mm=mm, device=device, dtype=torch.float32)
+    kernel.init()
+    rng = np.random.default_rng(7)
+    rels = {}
+    for what, shape, fn in (
+            ("spmv", (mm.num_columns,), kernel.run_fn),
+            ("spmm", (mm.num_columns, FORMATS_SPMM_K),
+             lambda: kernel.spmm_fn(FORMATS_SPMM_K))):
+        x = rng.standard_normal(shape).astype(np.float32)
+        step, args = fn()
+        y = step(torch.from_numpy(x).to(device), args[1])
+        got = float(y.abs().sum(dtype=torch.float32))
+        xd = x.astype(np.float64)
+        want = float(np.abs(host.spmv(xd) if xd.ndim == 1 else np.stack(
+            [host.spmv(xd[:, j]) for j in range(xd.shape[1])], 1)).sum())
+        rels[what] = abs(got - want) / want
+        if not rels[what] <= CHECKSUM_RTOL:
+            _fail(f"{fmt} {what} checksum gate: {rels[what]} > "
+                  f"{CHECKSUM_RTOL}")
+    return rels
+
+
+def phase_cli_formats(device):
+    """The reference tool's formats through the CLI (phase 23): each
+    format's runs, the wrappers each must launch and those it must not
+    (none of the port's kernels for xla-csr, no CSR kernel for hybrid
+    where its COO part is empty), CG to (j + 1) * ones, and each format's
+    fp64 host checksum of A x and A X through ``make_kernel``."""
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d, powerlaw
+    from spmv_tpu_torch.models import HybridMatrix
+
+    tag = "23 formats cli"
+    pmm = poisson2d(FORMATS_CLI_GRID, FORMATS_CLI_GRID)
+    smm = powerlaw(FORMATS_SKEW_ROWS, FORMATS_SKEW_ROWS, 8.0, seed=5)
+    h = HybridMatrix.from_matrix_market(smm)
+    if h.num_coo_entries == 0:
+        _fail("the skewed CLI matrix has no COO part")
+    with tempfile.TemporaryDirectory() as tmp:
+        poisson = os.path.join(tmp, "poisson.mtx")
+        skewed = os.path.join(tmp, "skewed.mtx")
+        write_matrix_market(pmm, poisson)
+        write_matrix_market(smm, skewed)
+        _say(f"[{tag}] poisson2d({FORMATS_CLI_GRID}, {FORMATS_CLI_GRID}) "
+             f"and powerlaw({FORMATS_SKEW_ROWS}, {FORMATS_SKEW_ROWS}, 8.0) "
+             f"(hybrid: ELL width {h.ell_row_length}, "
+             f"{h.num_coo_entries} COO entries)")
+        for name, argv, must, must_not in _formats_cli_runs(poisson, skewed):
+            before = [w.launches for w in must_not]
+            _run_cli(tag, [(name, argv, must)])
+            moved = [w.__name__ for w, b in zip(must_not, before)
+                     if w.launches != b]
+            if moved:
+                _fail(f"CLI {name}: launched {moved}, which its path does "
+                      "not run")
+    checksums = {}
+    for fmt in FORMATS:
+        mm = smm if fmt == "hybrid" else pmm
+        checksums[fmt] = _format_checksums(fmt, mm, device)
+        _say(f"[{tag}] {fmt}: checksum rel err A x "
+             f"{checksums[fmt]['spmv']:.3e}, A X "
+             f"{checksums[fmt]['spmm']:.3e} (gate {CHECKSUM_RTOL})")
+    _sync(device)
+    return checksums
+
+
+def _ell_bytes(A, k: int = 1) -> int:
+    """The bytes an ELL product must move: the slots once, x (X) and y
+    (Y) once."""
+    vb = A.value.element_size()
+    return (_nbytes(A.column_index, A.value)
+            + (A.num_columns + A.num_rows) * k * vb)
+
+
+def _csr_bytes(R, k: int = 1, rows_written: int = None,
+               add: bool = False) -> int:
+    """The bytes a CSR product must move: the entries, ``row_ptr``, X once
+    and the rows of Y written (every row, or ``rows_written``; read too
+    with ``add``)."""
+    vb = R.value.element_size()
+    n = R.num_rows if rows_written is None else rows_written
+    return (_nbytes(R.row_ptr, R.column_index, R.value)
+            + (R.num_columns + n * (2 if add else 1)) * k * vb)
+
+
+def _alone(fn, flush) -> dict:
+    """Device ms (a CUDA graph of 50, the L2 flushed before each) and
+    eager ms a call through the wrapper."""
+    return {"ms": _cold_graph_ms(fn, flush, 50),
+            "eager_ms": _time_launches(fn, 50)}
+
+
+def _ell_compare(A, k, tol, tag, label):
+    """ELL SpMV and SpMM (k columns) on A against their plain versions,
+    twice bitwise, the SpMM's columns bitwise the SpMV kernel's; returns
+    (x, X, max abs err SpMV, max abs err SpMM)."""
+    import torch
+
+    from spmv_tpu_torch.ops import (
+        ell_spmm_core,
+        ell_spmv_core,
+        ell_spmv_reference,
+    )
+
+    dt, dev = A.value.dtype, A.value.device
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(A.num_columns, generator=g, device=dev, dtype=dt)
+    X = torch.randn(A.num_columns, k, generator=g, device=dev, dtype=dt)
+    y1, y2 = ell_spmv_core(A, x), ell_spmv_core(A, x)
+    Y1, Y2 = ell_spmm_core(A, X), ell_spmm_core(A, X)
+    cols = torch.stack([ell_spmv_core(A, X[:, j].contiguous())
+                        for j in range(k)], dim=1)
+    want, Want = ell_spmv_reference(A, x), ell_spmv_reference(A, X)
+    _sync(dev)
+    if not (torch.equal(y1, y2) and torch.equal(Y1, Y2)):
+        _fail(f"ELL {label}: two launches differ")
+    if not torch.equal(Y1, cols):
+        _fail(f"ELL {label}: an SpMM column differs from the SpMV kernel's")
+    errs = []
+    for what, got, ref in (("spmv", y1, want), (f"spmm k={k}", Y1, Want)):
+        rel = _rel(got, ref)
+        errs.append(float((got.double() - ref.double()).abs().max()))
+        _say(f"[{tag}] ELL {what} {label}: rel err {rel:.3e} against the "
+             f"plain version (tol {tol}), max abs err {errs[-1]:.3e}, "
+             "twice bitwise equal")
+        if not rel <= tol:
+            _fail(f"ELL {what} {label}: rel err {rel} > {tol}")
+    _say(f"[{tag}] ELL spmm {label}: columns bitwise the SpMV kernel's")
+    return x, X, errs[0], errs[1]
+
+
+def phase_profile_ell(device, smi_line):
+    """ELL at full width on the main path (phase 24, counted):
+    make_kernel("ell")'s chained SpMV and SpMM (k = FORMATS_SPMM_K) at
+    poisson2d(FULL_GRID²) in float32, seconds per step and the launches
+    of each.  Returns the matrix, its host ELL, its DeviceEll and the
+    numbers."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.models import EllMatrix
+    from spmv_tpu_torch.ops import ell_spmm_core, ell_spmv_core
+    from spmv_tpu_torch.profile import time_kernel
+
+    tag = "24 ell profile"
+    t0 = time.perf_counter()
+    mm = poisson2d(FULL_GRID, FULL_GRID)
+    host = EllMatrix.from_matrix_market(mm)
+    _say(f"[{tag}] host poisson2d({FULL_GRID},{FULL_GRID}): "
+         f"{host.num_entries} entries, row_length {host.row_length}, "
+         f"{host.num_padding_entries} padding slots, built in "
+         f"{time.perf_counter() - t0:.1f} s")
+    kernel = make_kernel("ell", matrix=host, device=device,
+                         dtype=torch.float32)
+    kernel.init()
+    chained = {}
+    for what, (step, args) in (("spmv", kernel.run_fn()),
+                               ("spmm", kernel.spmm_fn(FORMATS_SPMM_K))):
+        wrapper = ell_spmv_core if what == "spmv" else ell_spmm_core
+        before = wrapper.launches
+        t = time_kernel(step, args, k_small=8, k_large=72,
+                        runs=5).seconds_per_iteration
+        if not (np.isfinite(t) and t > 0):
+            _fail(f"ELL chained {what}: bad timing {t}")
+        chained[what] = {"ms": t * 1e3, "launches": wrapper.launches - before}
+        _say(f"[{tag}] make_kernel('ell') chained {what}"
+             f"{'' if what == 'spmv' else f' k={FORMATS_SPMM_K}'}: "
+             f"{t * 1e3:.4f} ms ({wrapper.__name__} launched "
+             f"{chained[what]['launches']} times), on {smi_line}")
+        del step, args
+    A = kernel.device_matrix()
+    del kernel
+    _sync(device)
+    return mm, host, A, chained
+
+
+def phase_kernels_ell(device, mm, host, A, chained, smi_line, triad_gbps):
+    """The ELL kernels alone (phase 24, not counted): against their plain
+    versions (float64 at poisson2d(ELL_F64_GRID²), float32 at the main
+    path's shape), twice bitwise, the SpMM's columns the SpMV kernel's,
+    device ms (a CUDA graph, L2 flushed) and eager, bound, plain ms,
+    torch.sparse CSR of the same entries timed the same way and eagerly;
+    then the CSR SpMV kernel on the whole matrix as one DeviceCsr (the
+    path of -s csr) beside it."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import DeviceCsr, DeviceEll, EllMatrix
+    from spmv_tpu_torch.ops import (
+        csr_spmv_core,
+        csr_spmv_reference,
+        ell_spmm_core,
+        ell_spmv_core,
+        ell_spmv_reference,
+    )
+
+    tag = "24 ell kernels"
+    f32, k = torch.float32, FORMATS_SPMM_K
+    small = DeviceEll.from_host(EllMatrix.from_matrix_market(
+        poisson2d(ELL_F64_GRID, ELL_F64_GRID)), dtype=torch.float64,
+        device=device)
+    _ell_compare(small, k, TOL_F64, tag,
+                 f"poisson2d({ELL_F64_GRID},{ELL_F64_GRID}) float64")
+    del small
+    label = f"poisson2d({FULL_GRID},{FULL_GRID}) float32"
+    x, X, err, err_mm = _ell_compare(A, k, TOL_F32, tag, label)
+    y = torch.empty(A.num_rows, device=device, dtype=f32)
+    Y = torch.empty(A.num_rows, k, device=device, dtype=f32)
+    scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
+    S = _csr_of_mm(mm, device, f32)
+    out = {}
+    for name, fn, plain, v, kk, nbytes, err_k in (
+            ("ell_spmv", lambda: ell_spmv_core(A, x, out=y),
+             lambda: ell_spmv_reference(A, x), x, 1, _ell_bytes(A), err),
+            ("ell_spmm", lambda: ell_spmm_core(A, X, out=Y),
+             lambda: ell_spmv_reference(A, X), X, k, _ell_bytes(A, k),
+             err_mm)):
+        t = _alone(fn, flush)
+        plain_ms = _time_launches(plain, 3)
+        lib = _library_cold(S, v, flush)
+        b = _bound(nbytes, 2 * host.num_entries * kk, triad_gbps)
+        out[name] = {**t, "plain_ms": plain_ms, **lib, **b,
+                     "max_abs_err": err_k,
+                     "chained_ms": chained["spmv" if kk == 1 else "spmm"]["ms"],
+                     "shape": label + ("" if kk == 1 else f", k={kk}")}
+        _say(f"[{tag}] {name} alone at {out[name]['shape']}: "
+             f"{t['ms']:.4f} ms on the device (CUDA graph, L2 flushed), "
+             f"{t['eager_ms']:.4f} ms a call through the wrapper, plain "
+             f"{plain_ms:.4f} ms, torch.sparse CSR {_library_line(lib)}, "
+             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} "
+             f"B), {b['bound_triad_ms']:.4f} ms at the triad, on {smi_line}")
+    del Y, X
+    R = DeviceCsr(A.num_rows, A.num_columns, host.num_entries,
+                  S.crow_indices(), S.col_indices(), S.values())
+    out["csr_spmv_whole"] = _csr_spmv_whole(R, S, x, flush, label, tag,
+                                            smi_line, triad_gbps)
+    del R, S, x, y, scratch
+    _sync(device)
+    return out
+
+
+def _csr_spmv_whole(R, S, x, flush, label, tag, smi_line, triad_gbps):
+    """The CSR SpMV kernel on a whole matrix held as one ``DeviceCsr``
+    (the path of -s csr), alone: against its plain version, twice
+    bitwise, device ms and eager, bound, plain ms and ``S`` (torch.sparse
+    of the same entries) timed the same way and eagerly."""
+    import torch
+
+    from spmv_tpu_torch.ops import csr_spmv_core, csr_spmv_reference
+
+    y1, y2 = csr_spmv_core(R, x), csr_spmv_core(R, x)
+    want = csr_spmv_reference(R, x)
+    _sync(x.device)
+    rel = _rel(y1, want)
+    if not torch.equal(y1, y2) or not rel <= TOL_F32:
+        _fail(f"csr_spmv on {label}: two launches differ or rel err "
+              f"{rel} > {TOL_F32}")
+    y = torch.empty_like(y1)
+    t = _alone(lambda: csr_spmv_core(R, x, out=y), flush)
+    plain_ms = _time_launches(lambda: csr_spmv_reference(R, x), 3)
+    b = _bound(_csr_bytes(R), 2 * R.num_entries, triad_gbps)
+    lib = _library_cold(S, x, flush)
+    _say(f"[{tag}] csr_spmv on the whole matrix ({label}, one DeviceCsr, "
+         f"{R.num_entries} entries): {t['ms']:.4f} ms alone (CUDA graph, L2 "
+         f"flushed), {t['eager_ms']:.4f} ms eager, plain {plain_ms:.4f} ms, "
+         f"torch.sparse CSR {_library_line(lib)}, bound {b['bound_ms']:.4f} "
+         f"ms ({b['bound_by']}, {b['bytes']} B), rel err {rel:.3e}, twice "
+         f"bitwise equal, on {smi_line}")
+    return {**t, "plain_ms": plain_ms, **lib, **b, "shape": label,
+            "max_abs_err": float((y1.double() - want.double()).abs().max())}
+
+
+def phase_hybrid(device, smi_line, triad_gbps):
+    """Hybrid at a skewed matrix (phase 25; not counted):
+    powerlaw(HYBRID_ROWS, HYBRID_ROWS, 8.0, alpha 1.5, seed 5) in float32:
+    the SpMV and SpMM (k = FORMATS_SPMM_K) against their plain versions,
+    then the ELL launch, the COO launch (the CSR kernel adding into y)
+    and the whole product alone, each with its bound, beside torch.sparse
+    of the whole matrix."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import powerlaw
+    from spmv_tpu_torch.models import DeviceHybrid, HybridMatrix
+    from spmv_tpu_torch.ops import (
+        csr_spmv_core,
+        ell_spmv_core,
+        hybrid_spmm_core,
+        hybrid_spmv_core,
+        hybrid_spmv_reference,
+    )
+
+    tag = "25 hybrid"
+    f32, k = torch.float32, FORMATS_SPMM_K
+    t0 = time.perf_counter()
+    mm = powerlaw(HYBRID_ROWS, HYBRID_ROWS, 8.0, alpha=1.5, seed=5)
+    host = HybridMatrix.from_matrix_market(mm)
+    lengths = np.bincount(np.asarray(mm.rows_1based) - 1,
+                          minlength=mm.num_rows)
+    H = DeviceHybrid.from_host(host, dtype=f32, device=device)
+    coo_rows = (H.coo.num_rows if H.coo.row_list is None
+                else H.coo.row_list.numel())
+    label = (f"powerlaw({HYBRID_ROWS}, {HYBRID_ROWS}, 8.0, alpha 1.5, "
+             "seed 5) float32")
+    shape = {"entries": host.num_entries, "longest_row": int(lengths.max()),
+             "ell_row_length": host.ell_row_length,
+             "ell_slots": host.ell_value.size,
+             "coo_entries": host.num_coo_entries, "coo_rows": coo_rows}
+    _say(f"[{tag}] host {label}: {shape}, built in "
+         f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=device).manual_seed(22)
+    x = torch.randn(H.num_columns, generator=g, device=device, dtype=f32)
+    X = torch.randn(H.num_columns, k, generator=g, device=device, dtype=f32)
+    errs = {}
+    for what, got, ref in (
+            ("spmv", hybrid_spmv_core(H, x), hybrid_spmv_reference(H, x)),
+            (f"spmm k={k}", hybrid_spmm_core(H, X),
+             hybrid_spmv_reference(H, X))):
+        rel = _rel(got, ref)
+        errs[what] = float((got.double() - ref.double()).abs().max())
+        _say(f"[{tag}] hybrid {what}: rel err {rel:.3e} against the plain "
+             f"version (tol {TOL_F32})")
+        if not rel <= TOL_F32:
+            _fail(f"hybrid {what}: rel err {rel} > {TOL_F32}")
+    y = torch.empty(H.num_rows, device=device, dtype=f32)
+    Y = torch.empty(H.num_rows, k, device=device, dtype=f32)
+    scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
+    S = _csr_of_mm(mm, device, f32)
+    nnz = host.num_entries
+    parts = {
+        "ell_launch": (lambda: ell_spmv_core(H.ell, x, out=y),
+                       _ell_bytes(H.ell), 2 * host.num_ell_entries),
+        "coo_launch": (lambda: csr_spmv_core(H.coo, x, out=y,
+                                             accumulate=True),
+                       _csr_bytes(H.coo, rows_written=coo_rows, add=True),
+                       2 * host.num_coo_entries),
+        "whole_spmv": (lambda: hybrid_spmv_core(H, x, out=y),
+                       _ell_bytes(H.ell) + _nbytes(
+                           H.coo.row_ptr, H.coo.column_index, H.coo.value),
+                       2 * nnz),
+        f"whole_spmm_k{k}": (lambda: hybrid_spmm_core(H, X, out=Y),
+                             _ell_bytes(H.ell, k) + _nbytes(
+                                 H.coo.row_ptr, H.coo.column_index,
+                                 H.coo.value), 2 * nnz * k),
+    }
+    out = {"shape": label, **shape, "max_abs_err": errs["spmv"],
+           "max_abs_err_spmm": errs[f"spmm k={k}"]}
+    for name, (fn, nbytes, flops) in parts.items():
+        t = _alone(fn, flush)
+        b = _bound(nbytes, flops, triad_gbps)
+        out[name] = {**t, **b}
+        _say(f"[{tag}] {name}: {t['ms']:.4f} ms alone (CUDA graph, L2 "
+             f"flushed), {t['eager_ms']:.4f} ms eager, bound "
+             f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B), "
+             f"on {smi_line}")
+    for name, v in (("library_spmv", x), (f"library_spmm_k{k}", X)):
+        out[name] = _library_cold(S, v, flush)
+        _say(f"[{tag}] torch.sparse CSR of the whole matrix "
+             f"({name}): {_library_line(out[name])}")
+    out["plain_ms"] = _time_launches(lambda: hybrid_spmv_reference(H, x), 3)
+    del H, S, x, X, y, Y, scratch, host, mm
+    _sync(device)
+    return out
+
+
 # ----------------------------------------------------------------- main
 def phase_bsr_path(device, smi_line, triad_gbps):
     """The BSR path's run (CLI, the bench's leg in float32 and bf16, the
@@ -3409,6 +3907,8 @@ def main() -> int:
         csr_spmv_core,
         dia_spmm_core,
         dia_spmv_core,
+        ell_spmm_core,
+        ell_spmv_core,
         fused_vcycle_core,
         well_seg_core,
         well_seg_spmm_core,
@@ -3487,8 +3987,9 @@ def main() -> int:
         if n <= 0:
             _fail(f"{name} was never launched on the main path")
     cw_kernels = phase_kernels_wellcw(device, cw, smi_line, triad_gbps)
-    cw_kernels["csr_spmm"]["whole_matrix"] = phase_csr_whole(
+    cw_kernels["csr_spmm"]["whole_matrix"], csr_whole = phase_csr_whole(
         device, cw_mm, smi_line, triad_gbps)
+    cw_kernels["csr_spmv"]["whole_matrix"] = {"banded_random": csr_whole}
     del cw, cw_mm
     _sync(device)
 
@@ -3582,6 +4083,29 @@ def main() -> int:
               f"preconditioner's {amg_full['fused']['applies']} applies")
     fused = phase_kernel_fused(device, amg_hier, smi_line, triad_gbps)
     del amg_hier
+
+    # the reference formats' run (the CLI's -s csr, xla-csr, coo,
+    # coo-atomic, ell and hybrid, then make_kernel("ell")'s chained SpMV
+    # and SpMM at full width): the ELL and CSR counts start from zero here
+    fmt_wrappers = {"ell_spmv": ell_spmv_core, "ell_spmm": ell_spmm_core,
+                    "csr_spmv": csr_spmv_core, "csr_spmm": csr_spmm_core}
+    for w in fmt_wrappers.values():
+        w.launches = 0
+    fmt_checksums = phase_cli_formats(device)
+    ell_mm, ell_host, ell_A, ell_chained = phase_profile_ell(device,
+                                                             smi_line)
+    fmt_launches = {k: w.launches for k, w in fmt_wrappers.items()}
+    _say("[24 ell profile] launches on the formats path: "
+         + ", ".join(f"{k} {n}" for k, n in fmt_launches.items()))
+    for name, n in fmt_launches.items():
+        if n <= 0:
+            _fail(f"{name} was never launched on the formats path")
+    ell_kernels = phase_kernels_ell(device, ell_mm, ell_host, ell_A,
+                                    ell_chained, smi_line, triad_gbps)
+    del ell_mm, ell_host, ell_A
+    cw_kernels["csr_spmv"]["whole_matrix"]["poisson2d"] = ell_kernels.pop(
+        "csr_spmv_whole")
+    hybrid = phase_hybrid(device, smi_line, triad_gbps)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -3677,6 +4201,20 @@ def main() -> int:
         }
         for name, line in (("well_whole_spmm", 1079),
                            ("well_seg_spmm", 1121))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"spmv_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": fmt_launches[name],
+            **ell_kernels[name],
+        }
+        for name, replaces in (
+            ("ell_spmv", "XLA `_ell_padded` (spmv_tpu/ops/spmv.py:52), not "
+                         "a TPU kernel"),
+            ("ell_spmm", "XLA `spmm` on DeviceEll (spmv_tpu/ops/spmv.py:274)"
+                         ", not a TPU kernel"))
     ] + _bsr_rows(bsr_run, spmm_kernels) + [
         {
             "name": "fused_vcycle",
@@ -3705,6 +4243,9 @@ def main() -> int:
         "bsr_spmm": {"launches_on_the_bsr_path": bsr_run["launches"],
                      "launches_by_path": bsr_run["paths"],
                      **bsr_run["times"]},
+        "formats": {"launches_on_the_formats_path": fmt_launches,
+                    "cli_checksum_rel_err": fmt_checksums,
+                    "ell_chained": ell_chained, "hybrid": hybrid},
         "amg": {"launches_on_the_amg_path": amg_launches,
                 "cli": {**amg_cli, "shape": f"poisson2d({AMG_CLI_GRID},"
                                             f"{AMG_CLI_GRID}) float32"},

@@ -14,23 +14,30 @@ runs the modes ported so far, printing the same JSON documents:
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
-with FMT one of ``dia``, ``wellcw``, ``well``, ``bsr`` and ``auto``
-(``--profile N`` alone times the SpMV, ``--spmm K`` the SpMM of K
-columns).  ``-s auto`` picks the format as the JAX CLI does
-(``auto_format``, the ``spmm`` workload when ``--spmm`` is given, which
-lets a block-structured matrix pick BSR) and refuses ``--reorder``.
-Every other mode or flag prints ``spmv-tpu-torch: ... not yet ported``
-and exits 1.  The device is the first CUDA device; without one the CLI
-exits 1, unless ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as the
-tests do).  ``--list-devices`` lists the CPU when there is no card.
+with FMT any of ``-s``'s values: the reference tool's formats ``csr``
+(the default), ``coo``, ``coo-atomic``, ``ell`` and ``hybrid``, the
+library comparison ``xla-csr`` (``torch.sparse``), and ``dia``,
+``wellcw``, ``well``, ``bsr`` and ``auto`` (``--profile N`` alone times
+the SpMV, ``--spmm K`` the SpMM of K columns).  ``--reorder
+rcm|gp|sigma`` reorders the matrix before conversion on every explicit
+format, as the JAX CLI does; ``-s auto`` picks the format as the JAX CLI
+does (``auto_format``, the ``spmm`` workload when ``--spmm`` is given,
+which lets a block-structured matrix pick BSR) and refuses
+``--reorder``.  Every other mode or flag (``--reorder color`` among
+them) prints ``spmv-tpu-torch: ... not yet ported`` and exits 1.  The
+device is the first CUDA device; without one the CLI exits 1, unless
+``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as the tests do).
+``--list-devices`` lists the CPU when there is no card.
 
-``--cg`` on a WELL-CW, WELL or BSR matrix runs the generic (P)CG over
-``spmv``, as the JAX CLI does (its ``fast_spmv`` runs the Pallas WELL
-kernel; the port's ``spmv`` runs K5a or K5b, and K7 on one column for
-BSR).  Jacobi reads the diagonal from the Matrix Market entries the
-matrix was built from (the JAX CLI's ``extract_diagonal`` has no branch
-for the WELL-CW, WELL and BSR host formats).  On a DIA matrix and a
-CUDA device it runs the kernel loop with K1's fused p.Ap dot
+``--cg`` on any format but DIA runs the generic (P)CG over ``spmv``, as
+the JAX CLI does (its ``fast_spmv`` runs the Pallas WELL kernel; the
+port's ``spmv`` runs K5a or K5b, K7 on one column for BSR, the CSR
+kernel for CSR and COO, the ELL kernel and for hybrid the CSR kernel
+after it, ``torch.sparse`` for ``xla-csr``).  Jacobi reads the diagonal
+from the Matrix Market entries the matrix was built from (the JAX CLI's
+``extract_diagonal`` has no branch for the ELL, hybrid, WELL-CW, WELL
+and BSR host formats).  On a DIA matrix and a CUDA device it runs the
+kernel loop with K1's fused p.Ap dot
 (``dia_conjugate_gradient``'s default, as in the JAX CLI), so both CLIs
 run the same algorithm.  On an H100 the unfused loop (a separate
 ``torch.dot``) measured faster; ``python -m
@@ -46,9 +53,10 @@ entries, also with ``-s auto``, where the JAX CLI raises.  ``--nrhs``
 with amg is refused, with the JAX CLI's message.
 
 ``--cg N --nrhs K`` (K > 1) runs batched multi-RHS CG, one SpMM per
-iteration (K2 on DIA, K4a-c and the CSR SpMM on WELL-CW, K6a or K6b and
-the CSR SpMM on WELL, K7 on BSR), on B = A X with column j of X equal to
-(j + 1) * ones, and reports each column's iterations, residual and
+iteration (K2 on DIA, K4a-c and the CSR SpMM on WELL-CW, K6a or K6b on
+WELL, K7 on BSR, the CSR SpMM on CSR and COO, the ELL SpMM on ELL and,
+for hybrid, the CSR SpMM after it), on B = A X with column j of X
+equal to (j + 1) * ones, and reports each column's iterations, residual and
 error, as the JAX CLI does.
 """
 
@@ -234,7 +242,8 @@ def _check_ported(args) -> None:
         ("--jax-profile", args.jax_profile is not None),
         ("--flush-caches", args.flush_caches),
         # -s auto refuses --reorder itself, as the JAX CLI does
-        ("--reorder", args.reorder != "none" and args.spmv_format != "auto"),
+        ("--reorder color",
+         args.reorder == "color" and args.spmv_format != "auto"),
         ("--solver " + args.solver, args.solver != "cg"),
         ("--precondition " + args.precondition,
          args.precondition not in ("none", "jacobi", "amg")),
@@ -243,14 +252,12 @@ def _check_ported(args) -> None:
             _not_ported(flag)
     if args.cg <= 0 and args.profile <= 0:
         _not_ported("simulation mode (--profile 0)")
-    if args.triad <= 0 and args.matrix and args.spmv_format not in (
-            "dia", "wellcw", "well", "bsr", "auto"):
-        _not_ported(f"--spmv-format {args.spmv_format}")
 
 
 def _make_kernel(args, device, dtype):
     """The kernel of the flags, and with ``-s auto`` the Matrix Market
-    entries its matrix was chosen and converted from (else None)."""
+    entries its matrix was chosen and converted from (else None; with
+    ``--reorder`` the kernel keeps the permuted entries)."""
     from spmv_tpu_torch.kernels import make_kernel
 
     if args.triad > 0:
@@ -273,6 +280,18 @@ def _make_kernel(args, device, dtype):
             print(f"auto format: {rationale}", file=sys.stderr)
         return make_kernel(matrix.format_name, matrix=matrix, device=device,
                            dtype=dtype), mm
+    if args.reorder != "none":
+        from spmv_tpu_torch.io.matrix_market import load_matrix
+        from spmv_tpu_torch.models import reorder
+
+        mm = load_matrix(args.matrix, verbose=args.verbose)
+        order = {
+            "rcm": reorder.find_new_order_rcm,
+            "gp": reorder.find_new_order_gp,
+            "sigma": reorder.find_new_order_sigma,
+        }[args.reorder](mm)
+        return make_kernel(args.spmv_format, mm=mm.permute(order),
+                           device=device, dtype=dtype), None
     return make_kernel(args.spmv_format, matrix_path=args.matrix,
                        device=device, dtype=dtype), None
 
@@ -399,8 +418,9 @@ def _solve_cg(args, out, device, dtype) -> None:
     A = kernel.device_matrix()
     diag = None
     if args.precondition == "jacobi":
-        # the host WELL-CW, WELL and BSR formats keep no diagonal: read
-        # it from the Matrix Market entries the matrix was built from
+        # the host ELL, hybrid, WELL-CW, WELL and BSR formats keep no
+        # diagonal: read it from the Matrix Market entries the matrix
+        # was built from
         diag = extract_diagonal(m if kernel.name == "dia" else
                                 mm if mm is not None else kernel._mm)
     if args.nrhs > 1:

@@ -1,5 +1,5 @@
 // Shared helpers of the SpMM kernels that hold a row's column sums in
-// registers (wellcw_spmm.cu, csr_spmm.cu): a row of X or Y
+// registers (wellcw_spmm.cu, csr_spmm.cu, ell_spmm.cu): a row of X or Y
 // in 16-byte or scalar moves, a run of cells' columns and values, and the
 // dispatch on the column-block width.
 //

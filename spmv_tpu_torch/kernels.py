@@ -1,5 +1,6 @@
-"""Kernels of the port: ``triad``, ``dia``, ``wellcw``, ``well`` and
-``bsr``.
+"""Kernels of the port: ``triad``, ``coo``, ``coo-atomic``, ``csr``,
+``ell``, ``hybrid``, ``dia``, ``well``, ``wellcw``, ``bsr`` and
+``xla-csr``: every name of the JAX package's factory.
 
 The counterpart of ``spmv_tpu/kernels.py``.  ``Kernel`` and
 ``_MatrixKernel`` are the port's copies of the JAX package's base classes
@@ -7,10 +8,14 @@ The counterpart of ``spmv_tpu/kernels.py``.  ``Kernel`` and
 simulation mode's memory layouts and reference strings, which come with
 that mode.  Each kernel runs on ``device`` in ``dtype`` (by default the
 card, through ``default_device``, and ``default_value_dtype``); the byte
-counts are the JAX package's at the tensor's value width.  ``dia``,
-``wellcw``, ``well`` and ``bsr`` have an SpMV and an SpMM step (``bsr``'s
-SpMV is its SpMM of one column).  Every other kernel name raises: it is
-not ported yet.
+counts are the JAX package's at the tensor's value width, except where
+a class says it prices what its launches read.  Every matrix kernel has
+an SpMV and an SpMM step (``bsr``'s SpMV is its SpMM of one column).
+``coo`` and ``coo-atomic`` run on the CSR kernels, through
+``DeviceCsr.from_coo_host``, as the JAX package runs both on its CSR
+segment sum; ``xla-csr`` is the vendor library's product
+(``torch.sparse``, cuSPARSE on the card), the comparison kernel, as the
+reference tool's ``mkl-csr`` is.
 """
 
 from __future__ import annotations
@@ -23,20 +28,36 @@ import torch
 from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.io.matrix_market import MatrixMarket, load_matrix
 from spmv_tpu_torch.models.bsr import BLOCK, BsrMatrix
+from spmv_tpu_torch.models.coo import CooMatrix
+from spmv_tpu_torch.models.csr import CsrMatrix
 from spmv_tpu_torch.models.device import (
     LANE,
     DeviceBsr,
+    DeviceCsr,
     DeviceDia,
+    DeviceEll,
+    DeviceHybrid,
+    DeviceSparseCsr,
     DeviceWell,
     DeviceWellCw,
     default_device,
     default_value_dtype,
 )
 from spmv_tpu_torch.models.dia import DiaMatrix
+from spmv_tpu_torch.models.ell import EllMatrix
+from spmv_tpu_torch.models.hybrid import HybridMatrix
 from spmv_tpu_torch.models.well import WellMatrix
 from spmv_tpu_torch.models.wellcw import WellCwMatrix
 from spmv_tpu_torch.ops.bsr_kernels import bsr_spmm_core
+from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core, csr_spmv_core
 from spmv_tpu_torch.ops.dia_kernels import dia_spmm_core, dia_spmv_core
+from spmv_tpu_torch.ops.dispatch import sparse_csr_core
+from spmv_tpu_torch.ops.ell_kernels import (
+    ell_spmm_core,
+    ell_spmv_core,
+    hybrid_spmm_core,
+    hybrid_spmv_core,
+)
 from spmv_tpu_torch.ops.spmv import accumulate_dtype
 from spmv_tpu_torch.ops.triad import triad
 from spmv_tpu_torch.ops.well_kernels import well_spmm_core, well_spmv_core
@@ -45,8 +66,10 @@ from spmv_tpu_torch.ops.wellcw_kernels import (
     wellcw_spmv_core,
 )
 
-__all__ = ["Kernel", "TriadKernel", "DiaKernel", "WellCwKernel",
-           "WellKernel", "BsrKernel", "make_kernel", "KERNEL_NAMES"]
+__all__ = ["Kernel", "TriadKernel", "CsrKernel", "XlaCsrKernel",
+           "EllKernel", "CooKernel", "CooAtomicKernel", "HybridKernel",
+           "DiaKernel", "WellCwKernel", "WellKernel", "BsrKernel",
+           "make_kernel", "KERNEL_NAMES"]
 
 IDX = 4     # bytes of a stored int32 index
 
@@ -201,6 +224,25 @@ class _MatrixKernel(Kernel):
     def _convert(self, mm):
         raise NotImplementedError
 
+    # the chained steps' cores: y = A @ x and Y = A @ X, each with out=
+    _spmv_core = None
+    _spmm_core = None
+
+    def device_matrix(self):
+        raise NotImplementedError
+
+    def run_fn(self):
+        A = self.device_matrix()
+        return _chained(type(self)._spmv_core, A, torch.ones(
+            A.num_columns, dtype=self.dtype, device=self.device))
+
+    def spmm_fn(self, k: int):
+        if k <= 0:
+            raise KernelError("spmm: k must be positive")
+        A = self.device_matrix()
+        return _chained(type(self)._spmm_core, A, torch.ones(
+            (A.num_columns, k), dtype=self.dtype, device=self.device))
+
     @property
     def value_bytes(self) -> int:
         return self.dtype.itemsize
@@ -235,11 +277,165 @@ class _MatrixKernel(Kernel):
         }
 
 
+class CsrKernel(_MatrixKernel):
+    """CSR SpMV / SpMM through the CSR kernels (``csrc/csr_spmv.cu``,
+    ``csrc/csr_spmm.cu``) on CUDA, their plain versions on the CPU."""
+
+    name = "csr"
+    _spmv_core = csr_spmv_core
+    _spmm_core = csr_spmm_core
+
+    def _convert(self, mm):
+        return CsrMatrix.from_matrix_market(mm)
+
+    def device_matrix(self):
+        return DeviceCsr.from_host(self.matrix, dtype=self.dtype,
+                                   device=self.device)
+
+    def bytes_per_run(self) -> int:
+        m = self.matrix
+        stored = int(m.row_ptr[-1])
+        vb = self.value_bytes
+        return (
+            stored * (IDX + vb)           # column_index + value streamed
+            + (m.num_rows + 1) * IDX      # row_ptr
+            + m.num_columns * vb          # x read at least once
+            + m.num_rows * vb             # y written
+        )
+
+
+class XlaCsrKernel(CsrKernel):
+    """The vendor library's CSR product, the comparison kernel (the
+    reference tool's ``mkl-csr``; the JAX package runs XLA's own
+    lowering): ``torch.sparse`` on a ``DeviceSparseCsr`` built once,
+    cuSPARSE on the card.  By design no kernel of the port runs here."""
+
+    name = "xla-csr"
+    _spmv_core = sparse_csr_core
+    _spmm_core = sparse_csr_core
+
+    def device_matrix(self):
+        return DeviceSparseCsr(super().device_matrix())
+
+
+class EllKernel(_MatrixKernel):
+    """ELL SpMV / SpMM through the ELL kernels (``csrc/ell_spmv.cu``,
+    ``csrc/ell_spmm.cu``) on CUDA, their plain versions on the CPU."""
+
+    name = "ell"
+    _spmv_core = ell_spmv_core
+    _spmm_core = ell_spmm_core
+
+    def __init__(self, *args, skip_padding: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.skip_padding = skip_padding
+
+    def _convert(self, mm):
+        return EllMatrix.from_matrix_market(
+            mm, skip_padding=self.skip_padding)
+
+    def device_matrix(self):
+        return DeviceEll.from_host(self.matrix, dtype=self.dtype,
+                                   device=self.device)
+
+    def bytes_per_run(self) -> int:
+        m = self.matrix
+        vb = self.value_bytes
+        return (m.value.size * (IDX + vb)
+                + m.num_columns * vb + m.num_rows * vb)
+
+    def describe(self) -> dict:
+        d = super().describe()
+        d["row_length"] = self.matrix.row_length
+        d["num_padding_entries"] = self.matrix.num_padding_entries
+        return d
+
+
+def _csr_part_bytes(num_entries: int, num_rows: int, vb: int) -> int:
+    """What the CSR kernel reads of a COO part held as a ``DeviceCsr``:
+    each entry's column index and value, and the row pointers."""
+    return num_entries * (IDX + vb) + (num_rows + 1) * IDX
+
+
+class CooKernel(_MatrixKernel):
+    """COO SpMV / SpMM on the CSR kernels: the entries sorted by row on
+    the host (``DeviceCsr.from_coo_host``), as the JAX package runs both
+    COO variants on its CSR segment sum.
+
+    ``bytes_per_run`` prices what the CSR kernel reads: the entries'
+    column indices and values and ``row_ptr``, where the JAX class counts
+    a row index an entry (``num_entries * (2 * IDX + vb)``); a stated
+    deviation."""
+
+    name = "coo"
+    _spmv_core = csr_spmv_core
+    _spmm_core = csr_spmm_core
+
+    def _convert(self, mm):
+        return CooMatrix.from_matrix_market(mm)
+
+    def device_matrix(self):
+        return DeviceCsr.from_coo_host(self.matrix, dtype=self.dtype,
+                                       device=self.device)
+
+    def bytes_per_run(self) -> int:
+        m = self.matrix
+        vb = self.value_bytes
+        return (_csr_part_bytes(m.num_entries, m.num_rows, vb)
+                + m.num_columns * vb + m.num_rows * vb)
+
+
+class CooAtomicKernel(CooKernel):
+    """The atomic COO variant: on the card, as in the JAX package, the
+    same sorted CSR product as ``coo``."""
+
+    name = "coo-atomic"
+
+
+class HybridKernel(_MatrixKernel):
+    """Hybrid ELL + COO: the ELL kernel writes y, then the CSR kernel adds
+    the COO part (held as a ``DeviceCsr``), none where it is empty.
+
+    ``bytes_per_run`` prices what the launches read: the ELL slots as
+    the JAX class counts them, and the COO part as the CSR kernel reads
+    it (column index, value and ``row_ptr``; nothing where it is empty),
+    where the JAX class counts a row index an entry; a stated
+    deviation."""
+
+    name = "hybrid"
+    _spmv_core = hybrid_spmv_core
+    _spmm_core = hybrid_spmm_core
+
+    def _convert(self, mm):
+        return HybridMatrix.from_matrix_market(mm)
+
+    def device_matrix(self):
+        return DeviceHybrid.from_host(self.matrix, dtype=self.dtype,
+                                      device=self.device)
+
+    def bytes_per_run(self) -> int:
+        m = self.matrix
+        vb = self.value_bytes
+        coo = (_csr_part_bytes(m.num_coo_entries, m.num_rows, vb)
+               if m.num_coo_entries else 0)
+        return (m.ell_value.size * (IDX + vb) + coo
+                + m.num_columns * vb + m.num_rows * vb)
+
+    def describe(self) -> dict:
+        d = super().describe()
+        d["ell_row_length"] = self.matrix.ell_row_length
+        d["num_ell_entries"] = self.matrix.num_ell_entries
+        d["num_coo_entries"] = self.matrix.num_coo_entries
+        return d
+
+
 class DiaKernel(_MatrixKernel):
     """DIA SpMV / SpMM through kernels K1 / K2 on CUDA (their plain
     versions on the CPU)."""
 
     name = "dia"
+    _spmv_core = dia_spmv_core
+    _spmm_core = dia_spmm_core
 
     def __init__(self, *args, max_diagonals: int = 1024, **kw):
         super().__init__(*args, **kw)
@@ -253,17 +449,6 @@ class DiaKernel(_MatrixKernel):
         return DeviceDia.from_host(self.matrix, dtype=self.dtype,
                                    device=self.device)
 
-    def run_fn(self):
-        A = self.device_matrix()
-        return _chained(dia_spmv_core, A, torch.ones(
-            A.num_columns, dtype=self.dtype, device=self.device))
-
-    def spmm_fn(self, k: int):
-        if k <= 0:
-            raise KernelError("spmm: k must be positive")
-        A = self.device_matrix()
-        return _chained(dia_spmm_core, A, torch.ones(
-            (A.num_columns, k), dtype=self.dtype, device=self.device))
 
     def bytes_per_run(self) -> int:
         m = self.matrix
@@ -281,6 +466,8 @@ class WellCwKernel(_MatrixKernel):
     remainder kernels on CUDA (their plain versions on the CPU)."""
 
     name = "wellcw"
+    _spmv_core = wellcw_spmv_core
+    _spmm_core = wellcw_spmm_core
 
     def _convert(self, mm):
         return WellCwMatrix.from_matrix_market(mm)
@@ -289,17 +476,6 @@ class WellCwKernel(_MatrixKernel):
         return DeviceWellCw.from_host(self.matrix, dtype=self.dtype,
                                       device=self.device)
 
-    def run_fn(self):
-        A = self.device_matrix()
-        return _chained(wellcw_spmv_core, A, torch.ones(
-            A.num_columns, dtype=self.dtype, device=self.device))
-
-    def spmm_fn(self, k: int):
-        if k <= 0:
-            raise KernelError("spmm: k must be positive")
-        A = self.device_matrix()
-        return _chained(wellcw_spmm_core, A, torch.ones(
-            (A.num_columns, k), dtype=self.dtype, device=self.device))
 
     def bytes_per_run(self) -> int:
         m = self.matrix
@@ -328,6 +504,8 @@ class WellKernel(_MatrixKernel):
     plain versions on the CPU)."""
 
     name = "well"
+    _spmv_core = well_spmv_core
+    _spmm_core = well_spmm_core
 
     def __init__(self, *args, window_rows: int = 4, **kw):
         super().__init__(*args, **kw)
@@ -341,17 +519,6 @@ class WellKernel(_MatrixKernel):
         return DeviceWell.from_host(self.matrix, dtype=self.dtype,
                                     device=self.device)
 
-    def run_fn(self):
-        A = self.device_matrix()
-        return _chained(well_spmv_core, A, torch.ones(
-            A.num_columns, dtype=self.dtype, device=self.device))
-
-    def spmm_fn(self, k: int):
-        if k <= 0:
-            raise KernelError("spmm: k must be positive")
-        A = self.device_matrix()
-        return _chained(well_spmm_core, A, torch.ones(
-            (A.num_columns, k), dtype=self.dtype, device=self.device))
 
     def bytes_per_run(self) -> int:
         """The bytes K5 moves, and K6 for one column: value + index of
@@ -449,19 +616,24 @@ def make_kernel(
     dtype: Optional[torch.dtype] = None,
     **kw,
 ):
-    """Kernel factory: ``triad``, ``dia``, ``wellcw``, ``well`` and
-    ``bsr``; any other name of the JAX package's factory raises
-    ``KernelError`` (not yet ported)."""
+    """Kernel factory (``spmv_tpu.kernels.make_kernel``): every name of
+    ``KERNEL_NAMES``; any other raises ``KernelError``."""
     if name == "triad":
         return TriadKernel(triad_entries, device=device, dtype=dtype)
-    classes = {"dia": DiaKernel, "wellcw": WellCwKernel, "well": WellKernel,
-               "bsr": BsrKernel}
-    if name in classes:
-        return classes[name](matrix_path=matrix_path, mm=mm, matrix=matrix,
-                             device=device, dtype=dtype, **kw)
-    if name in KERNEL_NAMES:
+    classes = {
+        "coo": CooKernel,
+        "coo-atomic": CooAtomicKernel,
+        "csr": CsrKernel,
+        "ell": EllKernel,
+        "hybrid": HybridKernel,
+        "dia": DiaKernel,
+        "well": WellKernel,
+        "wellcw": WellCwKernel,
+        "bsr": BsrKernel,
+        "xla-csr": XlaCsrKernel,
+    }
+    if name not in classes:
         raise KernelError(
-            f"kernel {name!r} is not yet ported to spmv_tpu_torch; see "
-            "ROADMAP.md")
-    raise KernelError(
-        f"unknown kernel {name!r}; expected one of {KERNEL_NAMES}")
+            f"unknown kernel {name!r}; expected one of {KERNEL_NAMES}")
+    return classes[name](matrix_path=matrix_path, mm=mm, matrix=matrix,
+                         device=device, dtype=dtype, **kw)

@@ -4,8 +4,9 @@
 as numpy arrays (the caller does the ``np.asarray``, so this module needs
 no JAX) and builds the port's ``DeviceDia`` holding the very same
 values, so that both packages compute on identical inputs.
-``wellcw_from_spmv_tpu``, ``well_from_spmv_tpu``, ``bsr_from_spmv_tpu``
-and ``csr_from_spmv_tpu`` take the JAX container itself and read each of its arrays with ``np.asarray`` (which
+``wellcw_from_spmv_tpu``, ``well_from_spmv_tpu``, ``bsr_from_spmv_tpu``,
+``csr_from_spmv_tpu``, ``ell_from_spmv_tpu`` and ``hybrid_from_spmv_tpu``
+take the JAX container itself and read each of its arrays with ``np.asarray`` (which
 needs no JAX import here either).
 """
 
@@ -21,11 +22,14 @@ from spmv_tpu_torch.models.device import (
     DeviceCwMerged,
     DeviceCwPool,
     DeviceDia,
+    DeviceEll,
+    DeviceHybrid,
     DeviceWell,
     DeviceWellCw,
 )
 
-__all__ = ["dia_from_spmv_tpu", "csr_from_spmv_tpu", "wellcw_from_spmv_tpu",
+__all__ = ["dia_from_spmv_tpu", "csr_from_spmv_tpu", "ell_from_spmv_tpu",
+           "hybrid_from_spmv_tpu", "wellcw_from_spmv_tpu",
            "well_from_spmv_tpu", "bsr_from_spmv_tpu"]
 
 
@@ -70,6 +74,28 @@ def csr_from_spmv_tpu(Aj, device=None) -> DeviceCsr:
         _to_torch(row_ptr.astype(np.int32)).to(device),
         _to_torch(np.asarray(Aj.column_index)[:stored]).to(device),
         _to_torch(np.asarray(Aj.value)[:stored]).to(device))
+
+
+def ell_from_spmv_tpu(Aj, device=None) -> DeviceEll:
+    """Port a JAX ``DeviceEll``: its (padded_rows, padded_row_length)
+    tiles cut to ``num_rows`` rows and transposed to the port's
+    slot-major (padded_row_length, num_rows) arrays."""
+    n = int(Aj.num_rows)
+    cols = np.asarray(Aj.column_index)[:n].T
+    vals = np.asarray(Aj.value)[:n].T
+    return DeviceEll(
+        n, int(Aj.num_columns), int(Aj.num_entries), int(Aj.row_length),
+        _to_torch(np.ascontiguousarray(cols)).to(device),
+        _to_torch(np.ascontiguousarray(vals)).to(device))
+
+
+def hybrid_from_spmv_tpu(Aj, device=None) -> DeviceHybrid:
+    """Port a JAX ``DeviceHybrid``: its ELL part through
+    ``ell_from_spmv_tpu``, its COO part (a JAX ``DeviceCsr``) through
+    ``csr_from_spmv_tpu``."""
+    return DeviceHybrid(
+        int(Aj.num_rows), int(Aj.num_columns), int(Aj.num_entries),
+        ell_from_spmv_tpu(Aj.ell, device), csr_from_spmv_tpu(Aj.coo, device))
 
 
 def _cw_pool(p, num_groups, device) -> DeviceCwPool:

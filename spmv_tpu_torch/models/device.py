@@ -1,9 +1,13 @@
-"""Device-side containers: DIA, CSR, WELL-CW, WELL and BSR.
+"""Device-side containers: DIA, CSR, ELL, hybrid, WELL-CW, WELL and BSR.
 
 The counterparts of ``spmv_tpu.models.device``'s ``DeviceDia``,
-``DeviceCsr``, ``DeviceWellCw`` (with its ``DeviceCwLevel``,
-``DeviceCwPool`` and ``DeviceCwMerged``), ``DeviceWell`` and
-``DeviceBsr``.
+``DeviceCsr`` (COO included, through ``DeviceCsr.from_coo_host``),
+``DeviceEll``, ``DeviceHybrid``, ``DeviceWellCw`` (with its
+``DeviceCwLevel``, ``DeviceCwPool`` and ``DeviceCwMerged``),
+``DeviceWell`` and ``DeviceBsr``, and of ``device_put_matrix``.
+``DeviceSparseCsr`` has no counterpart there: it holds a CSR matrix as
+one ``torch.sparse_csr_tensor`` for ``-s xla-csr``, the vendor
+library's product, as XLA's own lowering is in the JAX package.
 
 - DIA: the TPU container folds each diagonal into (rows/128, 128) lanes
   and pads rows to a multiple of 1024 for the Pallas kernel's DMA
@@ -13,6 +17,9 @@ The counterparts of ``spmv_tpu.models.device``'s ``DeviceDia``,
 - CSR: the plain unpadded ``row_ptr`` / ``column_index`` / ``value``
   triple.  The TPU container pads entries and rows for its segment sum
   and carries the expanded row ids; the CUDA kernel walks ``row_ptr``.
+- ELL: slot-major (row_length, num_rows) arrays, no row padding; the
+  TPU container keeps row-major tiles with rows padded to a multiple of
+  8 (``DeviceEll``).
 - WELL-CW, WELL and BSR: the very arrays the JAX containers hold, packed
   by the same numpy code (``_pad_cw_steps``, ``_build_cw_merged``,
   ``DeviceWell.from_host`` and ``DeviceBsr.from_host`` are copied from
@@ -29,6 +36,7 @@ unless the caller asks for the CPU.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -36,12 +44,18 @@ import torch
 
 from spmv_tpu_torch.errors import KernelError, MatrixError
 from spmv_tpu_torch.models.bsr import BLOCK, BsrMatrix
+from spmv_tpu_torch.models.coo import CooMatrix
 from spmv_tpu_torch.models.csr import CsrMatrix
 from spmv_tpu_torch.models.dia import DiaMatrix
+from spmv_tpu_torch.models.ell import ELL_PAD_SENTINEL, EllMatrix
+from spmv_tpu_torch.models.hybrid import HybridMatrix
 from spmv_tpu_torch.models.well import WellMatrix
+from spmv_tpu_torch.models.wellcw import WellCwMatrix
 
-__all__ = ["DeviceDia", "DeviceCsr", "DeviceCwLevel", "DeviceCwPool",
+__all__ = ["DeviceDia", "DeviceCsr", "DeviceEll", "DeviceHybrid",
+           "DeviceSparseCsr", "DeviceCwLevel", "DeviceCwPool",
            "DeviceCwMerged", "DeviceWellCw", "DeviceWell", "DeviceBsr",
+           "device_put_matrix",
            "default_device", "default_value_dtype", "DEVICE_ENV",
            "level_index_bits", "merged_pool_list", "pool_row_list",
            "sliced_row_list"]
@@ -200,6 +214,161 @@ class DeviceCsr(torch.nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x (the plain version on the CPU, the CSR kernel on
         CUDA)."""
+        from spmv_tpu_torch.ops.dispatch import spmv
+
+        return spmv(self, x)
+
+    @classmethod
+    def from_coo_host(cls, m: CooMatrix, dtype: Optional[torch.dtype] = None,
+                      device=None) -> "DeviceCsr":
+        """COO -> device, as ``spmv_tpu``'s ``DeviceCsr.from_coo_host``:
+        a stable sort by row, then the CSR form, so that both COO
+        variants run on the CSR kernels (the JAX package runs both on its
+        CSR segment sum)."""
+        order = np.argsort(m.row_index, kind="stable")
+        rows = m.row_index[order]
+        lengths = np.bincount(rows, minlength=m.num_rows)
+        row_ptr = np.zeros(m.num_rows + 1, dtype=np.int64)
+        np.cumsum(lengths, out=row_ptr[1:])
+        host = CsrMatrix(
+            m.num_rows, m.num_columns, m.num_entries, 1,
+            row_ptr, m.column_index[order], m.value[order],
+        )
+        return cls.from_host(host, dtype=dtype, device=device)
+
+
+class DeviceSparseCsr(torch.nn.Module):
+    """A CSR matrix as one ``torch.sparse_csr_tensor`` (``matrix``, 32-bit
+    indices): the vendor library's product (cuSPARSE on the card), the
+    comparison kernel ``-s xla-csr`` runs, as the JAX package runs XLA's
+    own lowering and the reference tool MKL.  Built once from a
+    ``DeviceCsr``; no path of the port's own formats calls it."""
+
+    format_name = "csr"
+
+    def __init__(self, A: DeviceCsr):
+        super().__init__()
+        self.num_rows = A.num_rows
+        self.num_columns = A.num_columns
+        self.num_entries = A.num_entries
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*beta state")
+            self.matrix = torch.sparse_csr_tensor(
+                A.row_ptr, A.column_index, A.value,
+                size=(A.num_rows, A.num_columns), check_invariants=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x through ``torch.sparse``."""
+        from spmv_tpu_torch.ops.dispatch import spmv
+
+        return spmv(self, x)
+
+
+class DeviceEll(torch.nn.Module):
+    """ELLPACK on a device: slot s of row i holds column
+    ``column_index[s, i]`` and value ``value[s, i]``.
+
+    Buffers: ``column_index`` (padded_row_length, num_rows) int32 and
+    ``value`` (padded_row_length, num_rows) in the value dtype.  The
+    slots are stored slot-major, so that the 32 rows of a warp read one
+    contiguous run of a slot (128 bytes of int32 indices); the JAX
+    container keeps row-major (padded_rows, padded_row_length) tiles
+    with the rows padded to a multiple of 8 (a TPU sublane), a layout
+    choice the port does not copy: no row is padded here.  The
+    semantics are JAX's: a skip-padding sentinel becomes column 0 with
+    value 0, so every padded slot is inert (value 0 at an in-bounds
+    column) and is read like any other; ``padded_row_length`` is
+    ``max(row_length, 1)``, as JAX pads it.
+    """
+
+    format_name = "ell"
+
+    def __init__(self, num_rows: int, num_columns: int, num_entries: int,
+                 row_length: int, column_index: torch.Tensor,
+                 value: torch.Tensor):
+        super().__init__()
+        if column_index.shape != value.shape or column_index.dim() != 2 \
+                or column_index.shape[1] != num_rows:
+            raise ValueError(
+                f"column_index {tuple(column_index.shape)} and value "
+                f"{tuple(value.shape)} must both be (slots, {num_rows})")
+        self.num_rows = int(num_rows)
+        self.num_columns = int(num_columns)
+        self.num_entries = int(num_entries)
+        self.row_length = int(row_length)
+        self.padded_row_length = int(column_index.shape[0])
+        self.register_buffer("column_index",
+                             column_index.to(torch.int32).contiguous())
+        self.register_buffer("value", value.contiguous())
+
+    @classmethod
+    def from_host(cls, m: EllMatrix, dtype: Optional[torch.dtype] = None,
+                  device=None) -> "DeviceEll":
+        dtype = dtype or default_value_dtype()
+        pl = max(m.row_length, 1)
+        cols = np.zeros((pl, m.num_rows), dtype=np.int32)
+        vals = np.zeros((pl, m.num_rows), dtype=np.float64)
+        src_cols = m.column_index
+        if m.skip_padding:
+            # an inert in-bounds column in place of each sentinel
+            src_cols = np.where(src_cols == ELL_PAD_SENTINEL, 0, src_cols)
+        cols[: m.row_length] = np.asarray(src_cols).T
+        vals[: m.row_length] = np.asarray(m.value).T
+        return cls(m.num_rows, m.num_columns, m.num_entries, m.row_length,
+                   _tensor(cols, device), _tensor(vals, device, dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x (the plain version on the CPU, the ELL kernel on
+        CUDA)."""
+        from spmv_tpu_torch.ops.dispatch import spmv
+
+        return spmv(self, x)
+
+
+class DeviceHybrid(torch.nn.Module):
+    """Hybrid ELL + COO on a device: ``ell``, a ``DeviceEll`` of width
+    ``max(ell_row_length, 1)``, and ``coo``, the COO part as a
+    ``DeviceCsr`` (``from_coo_host``), whose ``row_list`` holds the rows
+    that own a COO entry (empty where the COO part is)."""
+
+    format_name = "hybrid"
+
+    def __init__(self, num_rows: int, num_columns: int, num_entries: int,
+                 ell: DeviceEll, coo: DeviceCsr):
+        super().__init__()
+        self.num_rows = int(num_rows)
+        self.num_columns = int(num_columns)
+        self.num_entries = int(num_entries)
+        self.ell = ell
+        self.coo = coo
+
+    @classmethod
+    def from_host(cls, m: HybridMatrix, dtype: Optional[torch.dtype] = None,
+                  device=None) -> "DeviceHybrid":
+        """Device conversion, as ``spmv_tpu``'s ``DeviceHybrid.from_host``."""
+        ell_host = EllMatrix(
+            m.num_rows, m.num_columns, m.num_ell_entries,
+            max(m.ell_row_length, 1),
+            m.ell_column_index
+            if m.ell_row_length > 0
+            else np.zeros((m.num_rows, 1), dtype=np.int32),
+            m.ell_value
+            if m.ell_row_length > 0
+            else np.zeros((m.num_rows, 1)),
+            m.ell_skip_padding,
+        )
+        coo_host = CooMatrix(
+            m.num_rows, m.num_columns, m.num_coo_entries,
+            m.coo_row_index, m.coo_column_index, m.coo_value,
+        )
+        return cls(m.num_rows, m.num_columns, m.num_entries,
+                   DeviceEll.from_host(ell_host, dtype=dtype, device=device),
+                   DeviceCsr.from_coo_host(coo_host, dtype=dtype,
+                                           device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x (the plain versions on the CPU; on CUDA the ELL
+        kernel, then the CSR kernel adding the COO part)."""
         from spmv_tpu_torch.ops.dispatch import spmv
 
         return spmv(self, x)
@@ -1249,3 +1418,20 @@ class DeviceBsr(torch.nn.Module):
         from spmv_tpu_torch.ops.dispatch import spmv
 
         return spmv(self, x)
+
+
+def device_put_matrix(m, dtype: Optional[torch.dtype] = None, device=None,
+                      **kw):
+    """Convert any host format to its device counterpart (``spmv_tpu``'s
+    ``device_put_matrix``): COO to a ``DeviceCsr`` sorted by row."""
+    for host, dev in ((CsrMatrix, DeviceCsr.from_host),
+                      (CooMatrix, DeviceCsr.from_coo_host),
+                      (EllMatrix, DeviceEll.from_host),
+                      (HybridMatrix, DeviceHybrid.from_host),
+                      (DiaMatrix, DeviceDia.from_host),
+                      (WellMatrix, DeviceWell.from_host),
+                      (WellCwMatrix, DeviceWellCw.from_host),
+                      (BsrMatrix, DeviceBsr.from_host)):
+        if isinstance(m, host):
+            return dev(m, dtype=dtype, device=device, **kw)
+    raise TypeError(f"unsupported host matrix type: {type(m)!r}")

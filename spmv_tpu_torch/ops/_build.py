@@ -32,8 +32,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
-           "csr_spmv.cu", "csr_spmm.cu", "well_spmv.cu", "well_spmm.cu",
-           "bsr_spmm.cu", "bsr_spmm_tc.cu", "fused_vcycle.cu")
+           "csr_spmv.cu", "csr_spmm.cu", "ell_spmv.cu", "ell_spmm.cu",
+           "well_spmv.cu", "well_spmm.cu", "bsr_spmm.cu", "bsr_spmm_tc.cu",
+           "fused_vcycle.cu")
 HEADERS = ("dia_common.cuh", "cw_common.cuh", "mbarrier.cuh",
            "spmm_rows.cuh")
 NVCC_FLAGS = (
@@ -184,6 +185,13 @@ def load_library() -> ctypes.CDLL:
     lib.csr_spmv_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I32, _PTR]
     lib.csr_spmv_launch.restype = _I32
+    lib.ell_spmv_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR, _I32, _PTR]
+    lib.ell_spmv_launch.restype = _I32
+    lib.ell_spmm_launch.argtypes = [
+        _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _I32, _I32, _I32, _PTR,
+        _PTR, _I32, _PTR]
+    lib.ell_spmm_launch.restype = _I32
     lib.wellcw_level_spmm_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _I32, _PTR, _PTR, _I32, _I64, _I64, _I64,
         _I32, _I32, _I32, _PTR, _PTR, _I32, _PTR]

@@ -101,7 +101,8 @@ def csr_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None,
     runs one thread a row of ``A.row_list`` (every row where it is None)
     on the path ``spmm_plan`` gives; with a row list and without
     ``accumulate`` it zeroes Y first, with ``accumulate`` a row that owns
-    no entry is not written.
+    no entry is not written.  An empty row list (a matrix with no entry)
+    launches nothing.
     """
     _check_matrix(A)
     dt = A.value.dtype
@@ -131,6 +132,10 @@ def csr_spmm_core(A, X: torch.Tensor, out: torch.Tensor = None,
     n = A.num_rows
     Y = out if out is not None else torch.empty((n, k), dtype=dt,
                                                 device=X.device)
+    if rows is not None and rows.numel() == 0:
+        # no row owns an entry: Y is the sum of none (an empty list has
+        # no data pointer, so the launcher cannot tell it from no list)
+        return Y if accumulate else Y.zero_()
     plan = spmm_plan(k, dt, X.data_ptr(), Y.data_ptr())
     if n > 0 and k > 0:
         lib = load_library()

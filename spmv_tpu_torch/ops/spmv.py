@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the port's kernels: DIA, CSR, WELL-CW, WELL
-and BSR.
+"""Plain PyTorch versions of the port's kernels: DIA, CSR, ELL, hybrid,
+WELL-CW, WELL and BSR.
 
 They are the semantic specification of the CUDA kernels in
 ``spmv_tpu_torch/csrc``, written after the JAX package's XLA
@@ -16,6 +16,12 @@ card ``chip_smoke.py`` holds the kernels against them.
   the Pallas kernel does, and rounds once at the end.
 - ``csr_spmv_reference``, after ``_csr_padded``: each row's products
   summed with ``index_add_``.
+- ``ell_spmv_reference`` (the ELL SpMV and SpMM), after ``_ell_padded``
+  and the ELL branch of ``spmm``: slot s of every row adds
+  ``value[s, i] * x[column_index[s, i]]``, the slots 0..L-1 in order, in
+  the accumulator type; ``hybrid_spmv_reference``, after the hybrid
+  branches of ``spmv_padded`` and ``spmm``: the ELL part, then the COO
+  part (a ``DeviceCsr``) through ``csr_spmv_reference``.
 - ``cw_merged_reference`` (K3c / K4a), ``cw_level_reference`` (K3a /
   K4b) and ``cw_pool_reference`` (K3b / K4c), after
   ``_wellcw_merged_xla`` and ``_wellcw_gathered``: each returns its
@@ -51,8 +57,8 @@ card ``chip_smoke.py`` holds the kernels against them.
   and return float32, as ``bsr_spmm`` does; float32 and float64 blocks
   stay in their own type.
 
-The CSR, WELL-CW and WELL versions take x of shape (m,) or X of shape
-(m, k) and return (n,) or (n, k): the same code specifies the SpMV
+The CSR, ELL, hybrid, WELL-CW and WELL versions take x of shape (m,)
+or X of shape (m, k) and return (n,) or (n, k): the same code specifies the SpMV
 kernels and their SpMM counterparts (K4a-c, K6a-b and the CSR SpMM),
 after the WELL-CW, WELL and ``DeviceCsr`` branches of JAX's ``spmm``.
 Column j of the SpMM is the SpMV of column j.
@@ -72,6 +78,8 @@ __all__ = [
     "dia_spmv_reference",
     "dia_spmm_reference",
     "csr_spmv_reference",
+    "ell_spmv_reference",
+    "hybrid_spmv_reference",
     "cw_merged_reference",
     "cw_level_reference",
     "cw_pool_reference",
@@ -140,6 +148,28 @@ def csr_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((A.num_rows,) + tuple(xs.shape[1:]),
                     dtype=A.value.dtype, device=dev)
     return y.index_add_(0, rows, prod)
+
+
+def ell_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x (x (m,)) or Y = A @ X (X (m, k)) for a ``DeviceEll``, in
+    the value dtype: the slots added in order 0..L-1, each over every
+    row at once, in the accumulator type (``accumulate_dtype``)."""
+    acc = accumulate_dtype(A.value.dtype)
+    xs = x.to(A.value.dtype).to(acc)
+    y = torch.zeros((A.num_rows,) + tuple(xs.shape[1:]), dtype=acc,
+                    device=A.value.device)
+    for s in range(A.padded_row_length):
+        y = y + _cols(A.value[s].to(acc), xs) * xs[A.column_index[s].long()]
+    return y.to(A.value.dtype)
+
+
+def hybrid_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x or Y = A @ X for a ``DeviceHybrid``: the ELL part, then
+    the COO part added (none where it holds no entry)."""
+    y = ell_spmv_reference(A.ell, x)
+    if A.coo.value.numel() == 0:
+        return y
+    return y + csr_spmv_reference(A.coo, x)
 
 
 def _cols(value: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

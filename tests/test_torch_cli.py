@@ -117,17 +117,21 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 
 @pytest.mark.parametrize("argv", [
     [],                                               # simulation mode
-    ["--spmv-format", "csr", "--profile", "2"],
-    # these ids named WELL and BSR modes, which are ported now; they hold
-    # the reference tool's formats, which are not
-    pytest.param(["--spmv-format", "ell", "--profile", "2"],
-                 id="spmvformat_well_profile_2"),
-    pytest.param(["--spmv-format", "hybrid", "--cg", "10", "--nrhs", "2"],
-                 id="spmvformat_well_cg_10_nrhs_2"),
-    pytest.param(["--spmv-format", "coo", "--profile", "2"],
-                 id="spmvformat_bsr_profile_2"),
-    ["--spmv-format", "coo-atomic", "--profile", "2", "--spmm", "2"],
-    ["--spmv-format", "xla-csr", "--cg", "10"],
+    # these ids named modes of the reference tool's formats and of
+    # --reorder, which are ported now; they hold modes that are not
+    pytest.param(["--spmv-format", "csr", "--profile", "2",
+                  "--traffic-split"], id="spmvformat_csr_profile_2"),
+    pytest.param(["--spmv-format", "ell", "--profile", "2",
+                  "--flush-caches"], id="spmvformat_well_profile_2"),
+    pytest.param(["--spmv-format", "hybrid", "--cg", "10", "--solver",
+                  "gmres"], id="spmvformat_well_cg_10_nrhs_2"),
+    pytest.param(["--spmv-format", "coo", "--cg", "10", "--precondition",
+                  "ilu0"], id="spmvformat_bsr_profile_2"),
+    pytest.param(["--spmv-format", "coo-atomic", "--profile", "2",
+                  "--jax-profile", "d"],
+                 id="spmvformat_cooatomic_profile_2_spmm_2"),
+    pytest.param(["--spmv-format", "xla-csr", "--cg", "10", "--solver",
+                  "bicgstab"], id="spmvformat_xlacsr_cg_10"),
     ["--spmv-format", "bsr", "--cg", "10", "--solver", "gmres"],
     ["--spmv-format", "auto", "--eigs", "2"],
     ["--spmv-format", "dia", "--cg", "10", "--solver", "bicgstab"],
@@ -137,7 +141,8 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
     ["--spmv-format", "dia", "--profile", "2", "--traffic-split"],
     ["--spmv-format", "dia", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--profile", "2", "--flush-caches"],
-    ["--spmv-format", "dia", "--profile", "2", "--reorder", "rcm"],
+    pytest.param(["--spmv-format", "dia", "--profile", "2", "--reorder",
+                  "color"], id="spmvformat_dia_profile_2_reorder_rcm"),
 ], ids=lambda a: "_".join(a).replace("-", "") or "simulate")
 def test_unported_modes_exit_1(argv, matrix_file, capsys):
     rc, text = _run(main, ["--matrix", matrix_file] + argv)

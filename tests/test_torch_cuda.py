@@ -1,6 +1,8 @@
 """Kernels K1, K2, K3a-c, K4a-c, K5a-b (the spill folded in), K6a-b, K7,
-K8 and the CSR kernels on the card against their plain versions, and the
-generic and block AMG V-cycles on the card against their CPU runs.
+K8, the CSR kernels and the ELL kernels (alone and in the hybrid
+product) on the card against their plain versions, ``-s xla-csr``'s
+``torch.sparse`` product against the CSR kernel, and the generic and
+block AMG V-cycles on the card against their CPU runs.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -12,8 +14,8 @@ kernel fuses multiply-add where the plain version rounds twice);
 bfloat16 storage 1e-2 (both accumulate in float32 and round y once, so
 they differ by at most one bfloat16 step); the fused dot 1e-10 in
 float64 and 1e-4 in float32, relative to sum |x_i y_i| (the scale of
-the rounding error of any summation order).  The WELL-CW, WELL, BSR and
-CSR kernels (float64 and float32 only, and bfloat16 blocks for BSR) are
+the rounding error of any summation order).  The WELL-CW, WELL, BSR,
+CSR and ELL kernels (float64 and float32 only, and bfloat16 blocks for BSR) are
 also launched twice on the same input, and the two outputs must be
 bitwise equal; each column of an SpMM kernel's output is also held
 against the SpMV kernel on that column.  K3b and K3c also run with each
@@ -38,6 +40,7 @@ from spmv_tpu_torch.io.generate import (
     banded_random,
     from_coo_arrays,
     poisson2d,
+    powerlaw,
     random_sparse,
 )
 from spmv_tpu_torch.io.matrix_market import MatrixMarket
@@ -46,6 +49,11 @@ from spmv_tpu_torch.models import (
     CsrMatrix,
     DeviceBsr,
     DeviceCsr,
+    DeviceEll,
+    DeviceHybrid,
+    DeviceSparseCsr,
+    EllMatrix,
+    HybridMatrix,
     DeviceCwLevel,
     DeviceCwMerged,
     DeviceCwPool,
@@ -70,6 +78,13 @@ from spmv_tpu_torch.ops import (
     dia_spmm_reference,
     dia_spmv_core,
     dia_spmv_reference,
+    ell_spmm_core,
+    ell_spmv_core,
+    ell_spmv_reference,
+    hybrid_spmm_core,
+    hybrid_spmv_core,
+    hybrid_spmv_reference,
+    sparse_csr_core,
     well_chunks_reference,
     well_seg_core,
     well_seg_spmm_core,
@@ -1530,3 +1545,144 @@ def test_block_vcycle_on_card_matches_cpu(max_diagonals, cuda):
     torch.cuda.synchronize()
     assert dia_spmv_core.launches > before
     assert _norm_rel(got, block_vcycle(devs["cpu"], r)) <= 1e-12
+
+
+# ELL: slot-major arrays, one thread a row adding its slots in order.
+# Rows not a multiple of 32 (1001), a skewed matrix with empty rows
+# (powerlaw, 2,000 rows of 1 to about 300 slots) and a stencil.
+ELL_CASES = {
+    "poisson": lambda: poisson2d(40, 30),
+    "powerlaw": lambda: powerlaw(2000, 1500, 5.0, seed=2),
+    "rows_1001": lambda: random_sparse(1001, 700, 7, seed=1),
+}
+
+
+def _ell(case, dtype, device, skip_padding=False):
+    return DeviceEll.from_host(EllMatrix.from_matrix_market(
+        ELL_CASES[case](), skip_padding=skip_padding), dtype=dtype,
+        device=device)
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["pad", "skip"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", list(ELL_CASES))
+def test_ell_spmv_matches_plain(case, dtype, skip, cuda):
+    A = _ell(case, dtype, cuda, skip)
+    g = torch.Generator(device=cuda).manual_seed(40)
+    x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    before = ell_spmv_core.launches
+    y1, y2 = ell_spmv_core(A, x), ell_spmv_core(A, x)
+    out = torch.full((A.num_rows,), 0.5, device=cuda, dtype=dtype)
+    ell_spmv_core(A, x, out=out, accumulate=True)
+    torch.cuda.synchronize()
+    assert ell_spmv_core.launches == before + 3
+    assert torch.equal(y1, y2)
+    want = ell_spmv_reference(A, x)
+    assert _rel_err(y1, want) <= TOL[dtype]
+    assert _rel_err(out, want + 0.5) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("k", [1, 3, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", list(ELL_CASES))
+def test_ell_spmm_matches_plain(case, dtype, k, aligned, cuda):
+    """Against the plain version, twice bitwise, under accumulate, and
+    column by column bitwise the SpMV kernel's (the same order of adds);
+    X aligned to 16 bytes (16-byte moves where k allows) or one element
+    off (scalar moves)."""
+    A = _ell(case, dtype, cuda)
+    if aligned:
+        g = torch.Generator(device=cuda).manual_seed(41)
+        X = torch.randn(A.num_columns, k, generator=g, device=cuda,
+                        dtype=dtype)
+    else:
+        X = _misaligned(A.num_columns, k, cuda, dtype, 41)
+    before = ell_spmm_core.launches
+    Y1, Y2 = ell_spmm_core(A, X), ell_spmm_core(A, X)
+    out = torch.full((A.num_rows, k), 0.5, device=cuda, dtype=dtype)
+    ell_spmm_core(A, X, out=out, accumulate=True)
+    cols = torch.stack([ell_spmv_core(A, X[:, j].contiguous())
+                        for j in range(k)], dim=1)
+    torch.cuda.synchronize()
+    assert ell_spmm_core.launches == before + 3
+    assert torch.equal(Y1, Y2)
+    assert torch.equal(Y1, cols)
+    want = ell_spmv_reference(A, X)
+    assert _rel_err(Y1, want) <= TOL[dtype]
+    assert _rel_err(out, want + 0.5) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("k", [None, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("width", ["median", "zero", "longest"])
+def test_hybrid_matches_plain(width, dtype, k, cuda):
+    """The ELL launch writes every row, then the CSR launch adds the COO
+    part; where the part is empty (width = the longest row) no CSR
+    kernel is launched and nothing raises."""
+    mm = powerlaw(2000, 1500, 5.0, seed=2)
+    L = {"median": None, "zero": 0,
+         "longest": int(mm.max_row_length())}[width]
+    host = HybridMatrix.from_matrix_market(mm, ell_row_length=L)
+    A = DeviceHybrid.from_host(host, dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(42)
+    shape = (A.num_columns,) if k is None else (A.num_columns, k)
+    v = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    ell_w, csr_w = ((ell_spmv_core, csr_spmv_core) if k is None
+                    else (ell_spmm_core, csr_spmm_core))
+    before = (ell_w.launches, csr_w.launches)
+    core = hybrid_spmv_core if k is None else hybrid_spmm_core
+    out = torch.full((A.num_rows,) + shape[1:], float("nan"), device=cuda,
+                     dtype=dtype)
+    y = core(A, v, out=out)
+    y2 = core(A, v)
+    torch.cuda.synchronize()
+    coo = host.num_coo_entries > 0
+    assert ell_w.launches == before[0] + 2
+    assert csr_w.launches == before[1] + (2 if coo else 0)
+    assert torch.equal(y, y2)
+    assert _rel_err(y, hybrid_spmv_reference(A, v)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_csr_wrappers_on_an_empty_part_raise_nothing(k, cuda):
+    """A ``DeviceCsr`` with no entry (a hybrid's empty COO part: its row
+    list is an empty tensor) through both CSR wrappers, adding into y:
+    y is unchanged."""
+    mm = poisson2d(20, 20)
+    host = HybridMatrix.from_matrix_market(
+        mm, ell_row_length=int(mm.max_row_length()))
+    R = DeviceHybrid.from_host(host, dtype=torch.float32, device=cuda).coo
+    assert R.value.numel() == 0 and R.row_list.numel() == 0
+    shape = (R.num_columns,) if k is None else (R.num_columns, k)
+    v = torch.ones(shape, device=cuda)
+    out = torch.full((R.num_rows,) + shape[1:], 2.0, device=cuda)
+    if k is None:
+        csr_spmv_core(R, v, out=out, accumulate=True)
+    else:
+        csr_spmm_core(R, v, out=out, accumulate=True)
+        first = torch.full_like(out, float("nan"))
+        csr_spmm_core(R, v, out=first)
+        torch.cuda.synchronize()
+        assert bool((first == 0).all())
+    torch.cuda.synchronize()
+    assert bool((out == 2.0).all())
+
+
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_xla_csr_matches_csr_kernel(dtype, k, cuda):
+    """``-s xla-csr``'s ``torch.sparse`` product (cuSPARSE) against the
+    port's CSR kernel on the same entries, which it never launches."""
+    A = DeviceCsr.from_host(CsrMatrix.from_matrix_market(
+        random_sparse(3000, 2000, 9, seed=8)), dtype=dtype, device=cuda)
+    S = DeviceSparseCsr(A)
+    g = torch.Generator(device=cuda).manual_seed(43)
+    shape = (A.num_columns,) if k is None else (A.num_columns, k)
+    v = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    before = (csr_spmv_core.launches, csr_spmm_core.launches)
+    got = sparse_csr_core(S, v)
+    torch.cuda.synchronize()
+    assert (csr_spmv_core.launches, csr_spmm_core.launches) == before
+    want = csr_spmv_core(A, v) if k is None else csr_spmm_core(A, v)
+    assert _rel_err(got, want) <= TOL[dtype]
