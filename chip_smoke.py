@@ -243,10 +243,18 @@ Phases (each prints readable lines; any failure exits non-zero):
    the CSR SpMV on the whole bench matrix the same way.
 25. Hybrid at a skewed matrix, powerlaw(4194304, 4194304, 8.0, alpha 1.5,
    seed 5) in float32 (not counted): the SpMV and SpMM (k = 8) against
-   their plain versions, then the ELL launch, the COO launch (the CSR
-   kernel adding into y over the rows with a COO entry) and the whole
-   SpMV and SpMM alone, each with its bound, beside torch.sparse of the
-   whole matrix.
+   their plain versions; the COO part's CSR kernels (its long rows on
+   warps and blocks) against theirs, twice bitwise, the SpMM's columns
+   bitwise the SpMV's; then the ELL launch, the COO launches (the CSR
+   kernels adding into y and Y) and the whole SpMV and SpMM alone, each
+   with its bound, beside torch.sparse of the whole matrix and of each
+   part's own entries, and whether the COO launch makes 0.35 ms and the
+   whole products beat torch.sparse; the CSR SpMV on the whole matrix as
+   one DeviceCsr; the sweep of the CSR kernels' row-split thresholds
+   (LONG_ROW 16, 32, 64, 128 by BLOCK_ROW 256, 1024, 4096, and no split)
+   on the COO part's SpMV and SpMM and the whole matrix's SpMV; and on
+   the AMG path (the SA hierarchy of poisson2d(256, 256)) at each
+   LONG_ROW: its operators' SpMVs in one CUDA graph and PCG's iterations.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -261,12 +269,20 @@ the first run's poisson2d(2048, 2048) hierarchy is pickled for the
 others); phase 10's runs also time K4c adding into Y as the main path
 calls it and as a product's first launch, the CSR SpMM adding the
 remainder into Y and on the whole matrix as one DeviceCsr, and the
-whole k = 8 SpMM chained in a CUDA graph.
+whole k = 8 SpMM chained in a CUDA graph.  ``--csr-kernels-beside DIR``
+does the same for the CSR kernels: phase 25's COO launches and whole
+hybrid products, the whole-matrix CSR SpMV legs of phases 10 and 24, the
+WELL-CW remainder's SpMV and SpMM adding into y and Y, the CSR SpMM on
+the whole bench matrix, and PCG with the generic V-cycle at
+poisson2d(256, 256) (host ms an iteration and iterations); it compares
+the outputs of the rows with no long row bit for bit.
 
 The second-to-last lines are the kernels' JSON summary (nineteen
 kernels, each with its launches on the main path, max error, ms against
 plain ms, bound and library ms; K7's rows also its launches by path;
-the CSR SpMV's its whole-matrix times; and summaries of each path,
+the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
+SpMV's their times at the hybrid's shape, beside torch.sparse of that
+part's own entries; and summaries of each path,
 `formats` and `amg` the last) and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
@@ -351,6 +367,12 @@ FORMATS_CG_ITERS = 2000      # plain CG at poisson2d(256²) needs about 400
 FORMATS_NRHS = 4
 ELL_F64_GRID = 1024           # the ELL kernels' float64 comparison
 HYBRID_ROWS = 1 << 22         # hybrid at a skewed matrix: 35.6M entries
+HYBRID_COO_LIMIT_MS = 0.35    # the COO launch's goal at that shape
+# the CSR kernels' row-split thresholds swept in phase 25 (LONG_ROW,
+# BLOCK_ROW), and a threshold no row passes (no split)
+SWEEP_LONG_ROW = (16, 32, 64, 128)
+SWEEP_BLOCK_ROW = (256, 1024, 4096)
+NO_SPLIT = (1 << 31) - 1
 
 
 def _fail(msg: str) -> None:
@@ -1506,6 +1528,10 @@ def _csr_spmm_bytes(R, k: int) -> dict:
     xrows = col[(col >= 0) & (col < R.num_columns)].unique().numel()
     ptr = (_nbytes(R.row_ptr) if R.row_list is None
            else _nbytes(R.row_list) + 8 * listed)
+    if R.row_list is not None and R.long_rows is not None:
+        # the long rows, listed apart, and their pointers
+        listed += R.long_rows.numel()
+        ptr += _nbytes(R.long_rows) + 8 * R.long_rows.numel()
     row = k * R.value.element_size()
     head = ptr + _nbytes(R.column_index, R.value) + xrows * row
     return {"first": head + R.num_rows * row,
@@ -3730,19 +3756,150 @@ def _csr_spmv_whole(R, S, x, flush, label, tag, smi_line, triad_gbps):
             "max_abs_err": float((y1.double() - want.double()).abs().max())}
 
 
+def _ell_part_csr(host, lengths, device, dtype):
+    """The hybrid's ELL part's own entries (slot s of row i for s <
+    min(length_i, ell_row_length)) as a torch CSR on the card."""
+    import torch
+
+    L = host.ell_row_length
+    keep = np.arange(L)[None, :] < np.minimum(lengths, L)[:, None]
+    ptr = np.zeros(host.num_rows + 1, np.int64)
+    np.cumsum(keep.sum(axis=1), out=ptr[1:])
+
+    def t(a, dt=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    return _torch_csr(t(ptr), t(host.ell_column_index[keep]),
+                      t(host.ell_value[keep], dtype),
+                      (host.num_rows, host.num_columns))
+
+
+def _split_of(R) -> dict:
+    """A DeviceCsr's row split: its warp rows and block rows."""
+    n = 0 if R.long_rows is None else R.long_rows.numel()
+    return {"long_row": R.long_row_entries, "warp_rows": n - R.num_block_rows,
+            "block_rows": R.num_block_rows}
+
+
+def _long_row_sweep(R, W, x, X, y, Y, flush, tag):
+    """The CSR kernels' thresholds (LONG_ROW x BLOCK_ROW, and no split,
+    the thread-a-row walk alone) on the hybrid's COO part ``R`` (SpMV
+    and SpMM adding into y / Y, as the hybrid calls them) and on the
+    whole matrix ``W`` as one DeviceCsr (SpMV): device ms, a CUDA graph of
+    20, the L2 flushed before each."""
+    from spmv_tpu_torch.models import DeviceCsr
+    from spmv_tpu_torch.models import device as device_module
+    from spmv_tpu_torch.ops import csr_spmm_core, csr_spmv_core
+
+    def rebuilt(A):
+        return DeviceCsr(A.num_rows, A.num_columns, A.num_entries,
+                         A.row_ptr, A.column_index, A.value)
+
+    rows = []
+    for long_row, block_row in [(t, b) for t in SWEEP_LONG_ROW
+                                for b in SWEEP_BLOCK_ROW] + [(NO_SPLIT,
+                                                              NO_SPLIT)]:
+        with _patched(device_module, "LONG_ROW", long_row), \
+                _patched(device_module, "BLOCK_ROW", block_row):
+            coo, whole = rebuilt(R), rebuilt(W)
+        row = {"long_row": long_row, "block_row": block_row,
+               "coo": _split_of(coo), "whole": _split_of(whole)}
+        for name, fn in (
+                ("coo_spmv_ms", lambda: csr_spmv_core(coo, x, out=y,
+                                                      accumulate=True)),
+                ("coo_spmm_ms", lambda: csr_spmm_core(coo, X, out=Y,
+                                                      accumulate=True)),
+                ("whole_spmv_ms", lambda: csr_spmv_core(whole, x, out=y))):
+            row[name] = _cold_graph_ms(fn, flush, 20)
+        rows.append(row)
+        _say(f"[{tag}] sweep LONG_ROW {long_row}, BLOCK_ROW {block_row}: "
+             f"COO part {row['coo']}, SpMV {row['coo_spmv_ms']:.4f} ms, "
+             f"SpMM k={X.shape[1]} {row['coo_spmm_ms']:.4f} ms; whole "
+             f"matrix {row['whole']}, SpMV {row['whole_spmv_ms']:.4f} ms")
+        del coo, whole
+    return rows
+
+
+def _amg_sweep(device, tag):
+    """The generic V-cycle's CSR operators (A, P, P^T of every level of
+    the SA hierarchy of poisson2d(AMG_CLI_GRID²), the CLI's AMG path) at
+    each LONG_ROW of the sweep and with no split, float32: their long
+    rows, every operator's SpMV once in one CUDA graph (device ms, L2
+    warm), and PCG to AMG_TOL with the V-cycle (iterations)."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import CsrMatrix, DeviceCsr
+    from spmv_tpu_torch.models import device as device_module
+    from spmv_tpu_torch.ops import (
+        amg_preconditioner,
+        csr_spmv_core,
+        smoothed_aggregation_setup,
+        spmv,
+    )
+
+    f32 = torch.float32
+    host = CsrMatrix.from_matrix_market(poisson2d(AMG_CLI_GRID,
+                                                  AMG_CLI_GRID))
+    hier = smoothed_aggregation_setup(host)
+    A = DeviceCsr.from_host(host, dtype=f32, device=device)
+    b = spmv(A, torch.ones(A.num_columns, dtype=f32, device=device))
+    rows = []
+    for long_row in SWEEP_LONG_ROW + (NO_SPLIT,):
+        with _patched(device_module, "LONG_ROW", long_row):
+            apply, _ = amg_preconditioner(hierarchy=hier, dtype=f32,
+                                          device=device)
+            ops = [DeviceCsr.from_host(CsrMatrix(r, c, len(t[2]), 1, *t),
+                                       dtype=f32, device=device)
+                   for lv in hier.levels
+                   for r, c, t in ((lv.n, lv.n, lv.a),
+                                   (lv.n, lv.n_coarse, lv.p),
+                                   (lv.n_coarse, lv.n, lv.pt))]
+        vs = [(torch.ones(R.num_columns, dtype=f32, device=device),
+               torch.empty(R.num_rows, dtype=f32, device=device))
+              for R in ops]
+
+        def all_ops():
+            for R, (v, out) in zip(ops, vs):
+                csr_spmv_core(R, v, out=out)
+
+        res, _, secs = _pcg(A, b, apply, AMG_TOL, device)
+        it = int(res.iterations)
+        row = {"long_row": long_row,
+               "long_rows": sum(0 if R.long_rows is None
+                                else R.long_rows.numel() for R in ops),
+               "operators_ms": _graph_replay_ms(all_ops, 20),
+               "pcg_iterations": it,
+               "pcg_ms_per_iteration": secs / max(it, 1) * 1e3}
+        rows.append(row)
+        _say(f"[{tag}] AMG sweep LONG_ROW {long_row}: {row['long_rows']} "
+             f"long rows in {len(ops)} operators, all operators' SpMV "
+             f"{row['operators_ms']:.4f} ms (one CUDA graph, L2 warm), PCG "
+             f"{it} iterations ({row['pcg_ms_per_iteration']:.3f} ms an "
+             "iteration, host clock)")
+        del apply, ops, vs
+    return rows
+
+
 def phase_hybrid(device, smi_line, triad_gbps):
     """Hybrid at a skewed matrix (phase 25; not counted):
     powerlaw(HYBRID_ROWS, HYBRID_ROWS, 8.0, alpha 1.5, seed 5) in float32:
-    the SpMV and SpMM (k = FORMATS_SPMM_K) against their plain versions,
-    then the ELL launch, the COO launch (the CSR kernel adding into y)
-    and the whole product alone, each with its bound, beside torch.sparse
-    of the whole matrix."""
+    the SpMV and SpMM (k = FORMATS_SPMM_K) against their plain versions;
+    the COO part's CSR kernels (warp and block rows) against their plain
+    versions, twice bitwise, the SpMM's columns bitwise the SpMV's; then
+    the ELL launch, the COO launches (the CSR kernels adding into y and
+    Y) and the whole SpMV and SpMM alone, each with its bound, beside
+    torch.sparse of the whole matrix and of each part's own entries; the
+    CSR SpMV on the whole matrix as one DeviceCsr; and the sweep of the
+    CSR kernels' row-split thresholds here and on the AMG path."""
     import torch
 
     from spmv_tpu_torch.io.generate import powerlaw
-    from spmv_tpu_torch.models import DeviceHybrid, HybridMatrix
+    from spmv_tpu_torch.models import DeviceCsr, DeviceHybrid, HybridMatrix
     from spmv_tpu_torch.ops import (
+        csr_spmm_core,
         csr_spmv_core,
+        csr_spmv_reference,
         ell_spmv_core,
         hybrid_spmm_core,
         hybrid_spmv_core,
@@ -3757,14 +3914,17 @@ def phase_hybrid(device, smi_line, triad_gbps):
     lengths = np.bincount(np.asarray(mm.rows_1based) - 1,
                           minlength=mm.num_rows)
     H = DeviceHybrid.from_host(host, dtype=f32, device=device)
-    coo_rows = (H.coo.num_rows if H.coo.row_list is None
-                else H.coo.row_list.numel())
+    R = H.coo
+    coo_lengths = np.diff(R.row_ptr.cpu().numpy())
+    coo_rows = int((coo_lengths > 0).sum())
     label = (f"powerlaw({HYBRID_ROWS}, {HYBRID_ROWS}, 8.0, alpha 1.5, "
              "seed 5) float32")
     shape = {"entries": host.num_entries, "longest_row": int(lengths.max()),
              "ell_row_length": host.ell_row_length,
              "ell_slots": host.ell_value.size,
-             "coo_entries": host.num_coo_entries, "coo_rows": coo_rows}
+             "coo_entries": host.num_coo_entries, "coo_rows": coo_rows,
+             "longest_coo_row": int(coo_lengths.max()),
+             "coo_split": _split_of(R)}
     _say(f"[{tag}] host {label}: {shape}, built in "
          f"{time.perf_counter() - t0:.1f} s")
     g = torch.Generator(device=device).manual_seed(22)
@@ -3781,30 +3941,60 @@ def phase_hybrid(device, smi_line, triad_gbps):
              f"version (tol {TOL_F32})")
         if not rel <= TOL_F32:
             _fail(f"hybrid {what}: rel err {rel} > {TOL_F32}")
+    # the COO part's CSR kernels alone, on their warp, block and short rows
+    yc = (csr_spmv_core(R, x), csr_spmv_core(R, x))
+    Yc = (csr_spmm_core(R, X), csr_spmm_core(R, X))
+    cols = torch.stack([csr_spmv_core(R, X[:, j].contiguous())
+                        for j in range(k)], dim=1)
+    _sync(device)
+    if not (torch.equal(*yc) and torch.equal(*Yc)):
+        _fail("the COO part's CSR kernels: two launches differ")
+    if not torch.equal(Yc[0], cols):
+        _fail("the COO part's CSR SpMM: a column differs from the CSR "
+              "SpMV kernel's")
+    for what, got, ref in (("spmv", yc[0], csr_spmv_reference(R, x)),
+                           (f"spmm k={k}", Yc[0],
+                            csr_spmv_reference(R, X))):
+        rel = _rel(got, ref)
+        errs[f"coo {what}"] = float((got.double() - ref.double()).abs()
+                                    .max())
+        _say(f"[{tag}] the COO part's csr {what} ({shape['coo_split']}): "
+             f"rel err {rel:.3e} against the plain version (tol {TOL_F32}),"
+             " twice bitwise equal"
+             + (", columns bitwise the SpMV kernel's" if what != "spmv"
+                else ""))
+        if not rel <= TOL_F32:
+            _fail(f"the COO part's csr {what}: rel err {rel} > {TOL_F32}")
+    del yc, Yc, cols
     y = torch.empty(H.num_rows, device=device, dtype=f32)
     Y = torch.empty(H.num_rows, k, device=device, dtype=f32)
     scratch = torch.empty(16 << 20, dtype=f32, device=device)
     flush = lambda: scratch.fill_(0.0)  # noqa: E731
     S = _csr_of_mm(mm, device, f32)
     nnz = host.num_entries
+    coo_mm = _csr_spmm_bytes(R, k)
     parts = {
         "ell_launch": (lambda: ell_spmv_core(H.ell, x, out=y),
                        _ell_bytes(H.ell), 2 * host.num_ell_entries),
-        "coo_launch": (lambda: csr_spmv_core(H.coo, x, out=y,
-                                             accumulate=True),
-                       _csr_bytes(H.coo, rows_written=coo_rows, add=True),
+        "coo_launch": (lambda: csr_spmv_core(R, x, out=y, accumulate=True),
+                       _csr_bytes(R, rows_written=coo_rows, add=True),
                        2 * host.num_coo_entries),
+        f"coo_launch_spmm_k{k}": (
+            lambda: csr_spmm_core(R, X, out=Y, accumulate=True),
+            coo_mm["accumulate"], 2 * host.num_coo_entries * k),
         "whole_spmv": (lambda: hybrid_spmv_core(H, x, out=y),
                        _ell_bytes(H.ell) + _nbytes(
-                           H.coo.row_ptr, H.coo.column_index, H.coo.value),
+                           R.row_ptr, R.column_index, R.value),
                        2 * nnz),
         f"whole_spmm_k{k}": (lambda: hybrid_spmm_core(H, X, out=Y),
                              _ell_bytes(H.ell, k) + _nbytes(
-                                 H.coo.row_ptr, H.coo.column_index,
-                                 H.coo.value), 2 * nnz * k),
+                                 R.row_ptr, R.column_index, R.value),
+                             2 * nnz * k),
     }
     out = {"shape": label, **shape, "max_abs_err": errs["spmv"],
-           "max_abs_err_spmm": errs[f"spmm k={k}"]}
+           "max_abs_err_spmm": errs[f"spmm k={k}"],
+           "max_abs_err_coo": errs["coo spmv"],
+           "max_abs_err_coo_spmm": errs[f"coo spmm k={k}"]}
     for name, (fn, nbytes, flops) in parts.items():
         t = _alone(fn, flush)
         b = _bound(nbytes, flops, triad_gbps)
@@ -3813,13 +4003,43 @@ def phase_hybrid(device, smi_line, triad_gbps):
              f"flushed), {t['eager_ms']:.4f} ms eager, bound "
              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B), "
              f"on {smi_line}")
-    for name, v in (("library_spmv", x), (f"library_spmm_k{k}", X)):
-        out[name] = _library_cold(S, v, flush)
-        _say(f"[{tag}] torch.sparse CSR of the whole matrix "
-             f"({name}): {_library_line(out[name])}")
+    out["coo_launch"]["plain_ms"] = _time_launches(
+        lambda: csr_spmv_reference(R, x), 3)
+    out[f"coo_launch_spmm_k{k}"]["plain_ms"] = _time_launches(
+        lambda: csr_spmv_reference(R, X), 3)
+    # torch.sparse of the whole matrix and of each part's own entries
+    S_coo = _torch_csr(R.row_ptr, R.column_index, R.value,
+                       (R.num_rows, R.num_columns))
+    S_ell = _ell_part_csr(host, lengths, device, f32)
+    for name, M, v in (("library_spmv", S, x), (f"library_spmm_k{k}", S, X),
+                       ("library_coo_spmv", S_coo, x),
+                       (f"library_coo_spmm_k{k}", S_coo, X),
+                       ("library_ell_spmv", S_ell, x),
+                       (f"library_ell_spmm_k{k}", S_ell, X)):
+        out[name] = _library_cold(M, v, flush)
+        _say(f"[{tag}] torch.sparse CSR ({name}, {M._nnz()} entries): "
+             f"{_library_line(out[name])}")
+    for what, mine, lib in (
+            ("the COO launch", out["coo_launch"]["ms"], None),
+            ("the whole SpMV", out["whole_spmv"]["ms"],
+             out["library_spmv"]["library_ms"]),
+            (f"the whole SpMM k={k}", out[f"whole_spmm_k{k}"]["ms"],
+             out[f"library_spmm_k{k}"]["library_ms"])):
+        limit = HYBRID_COO_LIMIT_MS if lib is None else lib
+        _say(f"[{tag}] {what}: {mine:.4f} ms against "
+             + ("the 0.35 ms goal" if lib is None else
+                f"torch.sparse's {lib:.4f} ms")
+             + (": met" if mine <= limit else ": missed"))
     out["plain_ms"] = _time_launches(lambda: hybrid_spmv_reference(H, x), 3)
-    del H, S, x, X, y, Y, scratch, host, mm
+    # the whole matrix as one DeviceCsr (the path of -s csr)
+    W = DeviceCsr(H.num_rows, H.num_columns, nnz, S.crow_indices(),
+                  S.col_indices(), S.values())
+    out["csr_spmv_whole"] = {**_csr_spmv_whole(
+        W, S, x, flush, label, tag, smi_line, triad_gbps), **_split_of(W)}
+    out["sweep"] = _long_row_sweep(R, W, x, X, y, Y, flush, tag)
+    del H, R, W, S, S_coo, S_ell, x, X, y, Y, scratch, host, mm
     _sync(device)
+    out["amg_sweep"] = _amg_sweep(device, tag)
     return out
 
 
@@ -4250,6 +4470,28 @@ def main() -> int:
                 "cli": {**amg_cli, "shape": f"poisson2d({AMG_CLI_GRID},"
                                             f"{AMG_CLI_GRID}) float32"},
                 **amg_full}}
+    # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
+    # part's launches and the ELL part's, each beside torch.sparse of
+    # that part's own entries
+    k = FORMATS_SPMM_K
+    at_hybrid = {"csr_spmv": ("coo_launch", "library_coo_spmv",
+                              "max_abs_err_coo"),
+                 "csr_spmm": (f"coo_launch_spmm_k{k}",
+                              f"library_coo_spmm_k{k}",
+                              "max_abs_err_coo_spmm"),
+                 "ell_spmv": ("ell_launch", "library_ell_spmv", None)}
+    for row in summary["kernels"]:
+        if row["name"] in at_hybrid:
+            part, lib, err = at_hybrid[row["name"]]
+            row["hybrid"] = {
+                **{f: hybrid[part].get(f) for f in (
+                    "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bytes")},
+                "library_ms": hybrid[lib]["library_ms"],
+                "max_abs_err": hybrid[err] if err else None,
+                "launches_on_the_formats_path": fmt_launches[row["name"]],
+                "shape": hybrid["shape"] + (", COO part" if err else
+                                            ", ELL part")}
     print(json.dumps(summary), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4427,6 +4669,114 @@ print(json.dumps(found, default=str))
 """
 
 
+# phase 25's CSR kernels alone, in the checkout it runs from (this one or
+# another commit's), beside the CSR legs of phases 10 and 24: the hybrid's
+# COO launches and whole products, the whole-matrix CSR SpMV legs, the
+# WELL-CW remainder's SpMV and SpMM as the main path adds them, the CSR
+# SpMM on the whole bench matrix, and PCG with the generic V-cycle (the
+# CSR kernel) at poisson2d(AMG_CLI_GRID²) (the median of seven solves);
+# the JSON of its kernels on the last line.  @LONG_ROW@ is this checkout's threshold: the outputs kept
+# for the bitwise comparison are those of rows with no long row here.
+_PHASE_CSR = """
+import json
+import sys
+import numpy as np
+import torch
+import chip_smoke as c
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.io.generate import banded_random, poisson2d, powerlaw
+from spmv_tpu_torch.models import (CsrMatrix, DeviceCsr, DeviceHybrid,
+                                   DeviceWellCw, HybridMatrix, WellCwMatrix)
+device, smi = c.phase_device()
+c.phase_build()
+f32, k, long_row = torch.float32, c.FORMATS_SPMM_K, @LONG_ROW@
+scratch = torch.empty(16 << 20, dtype=f32, device=device)
+flush = lambda: scratch.fill_(0.0)
+found, outs = {}, {}
+def timed(name, fn):
+    found[name] = {"ms": c._cold_graph_ms(fn, flush, 50), "library_ms": None}
+def vectors(A, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(A.num_columns, generator=g, device=device, dtype=f32),
+            torch.randn(A.num_columns, k, generator=g, device=device,
+                        dtype=f32))
+# the hybrid at phase 25's shape: its rows whose COO part is short here
+mm = powerlaw(c.HYBRID_ROWS, c.HYBRID_ROWS, 8.0, alpha=1.5, seed=5)
+H = DeviceHybrid.from_host(HybridMatrix.from_matrix_market(mm), dtype=f32,
+                           device=device)
+del mm
+x, X = vectors(H, 1)
+y = torch.empty(H.num_rows, device=device, dtype=f32)
+Y = torch.empty(H.num_rows, k, device=device, dtype=f32)
+R = H.coo
+timed("coo_launch", lambda: ops.csr_spmv_core(R, x, out=y, accumulate=True))
+timed(f"coo_launch_spmm_k{k}",
+      lambda: ops.csr_spmm_core(R, X, out=Y, accumulate=True))
+timed("hybrid_spmv", lambda: ops.hybrid_spmv_core(H, x, out=y))
+timed(f"hybrid_spmm_k{k}", lambda: ops.hybrid_spmm_core(H, X, out=Y))
+short = torch.from_numpy(np.diff(R.row_ptr.cpu().numpy()) <= long_row)
+outs["hybrid_spmv_short_rows"] = ops.hybrid_spmv_core(H, x).cpu()[short]
+outs[f"hybrid_spmm_k{k}_short_rows"] = ops.hybrid_spmm_core(H, X).cpu()[short]
+del H, R, x, X, y, Y
+# the whole-matrix CSR SpMV legs (phases 10 and 24)
+for name, mm in (("banded_random", banded_random(
+        c.CW_FULL_ROWS, half_bandwidth=c.CW_FULL_HALF_BW, nnz_per_row=8,
+        seed=1)), ("poisson2d", poisson2d(c.FULL_GRID, c.FULL_GRID))):
+    S = c._csr_of_mm(mm, device, f32)
+    W = DeviceCsr(mm.num_rows, mm.num_columns, S._nnz(), S.crow_indices(),
+                  S.col_indices(), S.values())
+    x, X = vectors(W, 2)
+    y = torch.empty(W.num_rows, device=device, dtype=f32)
+    timed(f"csr_spmv_whole_{name}", lambda: ops.csr_spmv_core(W, x, out=y))
+    outs[f"csr_spmv_whole_{name}"] = ops.csr_spmv_core(W, x).cpu()
+    if name == "banded_random":
+        # the CSR SpMM on the whole bench matrix, a product's first launch
+        Y = torch.empty(W.num_rows, k, device=device, dtype=f32)
+        timed(f"csr_spmm_whole_k{k}", lambda: ops.csr_spmm_core(W, X, out=Y))
+        outs[f"csr_spmm_whole_k{k}"] = ops.csr_spmm_core(W, X).cpu()
+        cw = WellCwMatrix.from_matrix_market(mm)
+    del S, W, x, X, y, mm
+# the WELL-CW remainder as the main path adds it
+A = DeviceWellCw.from_host(cw, dtype=f32, device=device)
+rem = A.remainder
+x, X = vectors(A, 3)
+g = torch.Generator(device=device).manual_seed(4)
+y0 = torch.randn(A.num_rows, generator=g, device=device, dtype=f32)
+Y0 = torch.randn(A.num_rows, k, generator=g, device=device, dtype=f32)
+y, Y = y0.clone(), Y0.clone()
+timed("csr_spmv_remainder", lambda: ops.csr_spmv_core(rem, x, out=y,
+                                                      accumulate=True))
+timed(f"csr_spmm_remainder_k{k}", lambda: ops.csr_spmm_core(
+    rem, X, out=Y, accumulate=True))
+outs["csr_spmv_remainder"] = ops.csr_spmv_core(
+    rem, x, out=y0.clone(), accumulate=True).cpu()
+outs[f"csr_spmm_remainder_k{k}"] = ops.csr_spmm_core(
+    rem, X, out=Y0.clone(), accumulate=True).cpu()
+del A, rem, cw
+# PCG with the generic V-cycle (the CSR kernel on every level's A, P and
+# P^T) at the AMG CLI's poisson2d, float32
+host = CsrMatrix.from_matrix_market(poisson2d(c.AMG_CLI_GRID,
+                                              c.AMG_CLI_GRID))
+A = DeviceCsr.from_host(host, dtype=f32, device=device)
+apply, _ = ops.amg_preconditioner(
+    hierarchy=ops.smoothed_aggregation_setup(host), dtype=f32, device=device)
+b = ops.spmv(A, torch.ones(A.num_columns, dtype=f32, device=device))
+solves = [c._pcg(A, b, apply, c.AMG_TOL, device) for _ in range(7)]
+it = int(solves[0][0].iterations)
+found["amg_pcg"] = {"ms": float(np.median([s / max(it, 1) * 1e3
+                                           for _, _, s in solves])),
+                    "iterations": it, "library_ms": None}
+torch.save(outs, sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
+def _phase_csr_script() -> str:
+    from spmv_tpu_torch.models.device import LONG_ROW
+
+    return _PHASE_CSR.replace("@LONG_ROW@", str(LONG_ROW))
+
+
 def _beside(other: str, script: str, phase: int) -> int:
     """``script``, one phase alone, in the checkout at ``other`` (another
     commit's files, e.g. the parent's from ``git archive``) and in this
@@ -4462,12 +4812,22 @@ def _beside(other: str, script: str, phase: int) -> int:
     _say(f"[{phase} beside] main-path outputs on phase {phase}'s inputs "
          "bitwise equal to the other checkout's: " + ", ".join(
              f"{name} {'yes' if eq else 'no'}" for name, eq in same.items()))
+    for name in (n for n, eq in same.items() if not eq):
+        y, z = outs["this"][name], outs["other"][name]
+        if y.shape == z.shape:
+            _say(f"[{phase} beside] {name}: "
+                 f"{int((y != z).sum())} of {y.numel()} values differ")
     summary = {}
     for name in runs[1][1]:
         summary[name] = {f"{label}_{i}": run.get(name, {}).get("ms")
                          for i, (label, run) in enumerate(runs)}
         summary[name]["library_ms_this"] = runs[1][1][name]["library_ms"]
-        _say(f"[{phase} beside] {name}: device ms (CUDA graph, L2 flushed) "
+        if "iterations" in runs[1][1][name]:
+            summary[name]["iterations"] = [run.get(name, {}).get(
+                "iterations") for _, run in runs]
+        how = ("host ms an iteration" if "iterations" in summary[name]
+               else "device ms (CUDA graph, L2 flushed)")
+        _say(f"[{phase} beside] {name}: {how} "
              + ", ".join(f"{k} {v}" for k, v in summary[name].items()))
     print(json.dumps({f"phase{phase}_kernels_beside": summary,
                       "bitwise_equal_to_other": same,
@@ -4479,10 +4839,14 @@ def _beside(other: str, script: str, phase: int) -> int:
 
 BESIDE = {"--wellcw-kernels-beside": (_PHASE10, 10),
           "--well-spmm-kernels-beside": (_PHASE19, 19),
-          "--fused-vcycle-beside": (_PHASE22, 22)}
+          "--fused-vcycle-beside": (_PHASE22, 22),
+          "--csr-kernels-beside": (_phase_csr_script, 25)}
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] in BESIDE:
-        sys.exit(_beside(sys.argv[2], *BESIDE[sys.argv[1]]))
+        script, phase = BESIDE[sys.argv[1]]
+        if callable(script):
+            script = script()
+        sys.exit(_beside(sys.argv[2], script, phase))
     sys.exit(main())

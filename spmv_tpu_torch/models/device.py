@@ -58,10 +58,18 @@ __all__ = ["DeviceDia", "DeviceCsr", "DeviceEll", "DeviceHybrid",
            "device_put_matrix",
            "default_device", "default_value_dtype", "DEVICE_ENV",
            "level_index_bits", "merged_pool_list", "pool_row_list",
-           "sliced_row_list"]
+           "sliced_row_list", "csr_row_split", "LONG_ROW", "BLOCK_ROW"]
 
 LANE = 128
 SUBLANE = 8
+# The CSR kernels' row split (csr_row_split): a row with more entries
+# than LONG_ROW is long, and a warp sums it; one with more than
+# BLOCK_ROW, a whole block of 256 threads.  The short rows keep a
+# thread each.  Both chosen by the sweep of chip_smoke.py phase 25 on an
+# H100 (PERF.md): 32 and 4,096 were the fastest pair for the hybrid's
+# COO part at k = 8 and within 2% of the fastest for its SpMV.
+LONG_ROW = 32
+BLOCK_ROW = 4096
 # the environment variable through which a caller asks for the CPU
 DEVICE_ENV = "SPMV_TPU_TORCH_DEVICE"
 
@@ -169,11 +177,19 @@ class DeviceCsr(torch.nn.Module):
     (stored,) int32 and ``value`` (stored,) in the value dtype.  The JAX
     container's padded entries, overflow row and expanded row ids serve
     its segment sum; the CUDA kernels walk ``row_ptr`` and need none of
-    them.  Built on the host for the CSR SpMM, which runs one thread a
-    listed row: ``row_list`` (listed,) int32, the rows that own at least
-    one entry in ascending order, or None where every row owns one (a
-    WELL-CW remainder owns a few of its rows; a CSR matrix of its own
-    usually all).
+    them.  Built on the host by ``csr_row_split`` for the CSR kernels,
+    which sum a short row (at most ``long_row_entries`` entries, the
+    module's ``LONG_ROW`` when the container was built) in one thread
+    and a long row in a warp or a block:
+
+    - ``long_rows`` (long,) int32, the long rows, longest first (ties by
+      row), or None where no row is long; the first ``num_block_rows``
+      of them (more than ``BLOCK_ROW`` entries) take a whole block;
+    - ``row_list`` (listed,) int32, the short rows that own at least one
+      entry in ascending order, the rows the CSR SpMM runs a thread on,
+      or None where every row owns one (the SpMM then takes every row
+      and leaves the long ones to their warps).  A WELL-CW remainder
+      owns a few of its rows; a CSR matrix of its own usually all.
     """
 
     format_name = "csr"
@@ -195,10 +211,12 @@ class DeviceCsr(torch.nn.Module):
         self.register_buffer("column_index",
                              column_index.to(torch.int32).contiguous())
         self.register_buffer("value", value.contiguous())
-        lengths = np.diff(self.row_ptr.cpu().numpy())
-        self.register_buffer("row_list", None if (lengths > 0).all() else
-                             _tensor(np.flatnonzero(lengths).astype(np.int32),
-                                     self.row_ptr.device))
+        long_rows, self.num_block_rows, row_list = csr_row_split(
+            self.row_ptr.cpu().numpy(), LONG_ROW, BLOCK_ROW)
+        self.long_row_entries = LONG_ROW
+        for name, rows in (("long_rows", long_rows), ("row_list", row_list)):
+            self.register_buffer(name, None if rows is None else
+                                 _tensor(rows, self.row_ptr.device))
 
     @classmethod
     def from_host(cls, m: CsrMatrix, dtype: Optional[torch.dtype] = None,
@@ -328,8 +346,9 @@ class DeviceEll(torch.nn.Module):
 class DeviceHybrid(torch.nn.Module):
     """Hybrid ELL + COO on a device: ``ell``, a ``DeviceEll`` of width
     ``max(ell_row_length, 1)``, and ``coo``, the COO part as a
-    ``DeviceCsr`` (``from_coo_host``), whose ``row_list`` holds the rows
-    that own a COO entry (empty where the COO part is)."""
+    ``DeviceCsr`` (``from_coo_host``), whose ``row_list`` holds the short
+    rows that own a COO entry (empty where the COO part is) and
+    ``long_rows`` its long ones (``csr_row_split``)."""
 
     format_name = "hybrid"
 
@@ -539,6 +558,28 @@ def pool_row_list(value, local_index, anchor4, rowmap, d: int,
     np.cumsum(counts, out=run[1:])
     return (rows.astype(np.int32), run.astype(np.int32),
             col[order].astype(np.int32), v[order])
+
+
+def csr_row_split(row_ptr, long_row: int, block_row: int) -> tuple:
+    """The CSR kernels' split of a matrix's rows by length:
+    ``(long_rows, num_block_rows, row_list)``.
+
+    - ``long_rows``: the rows with more than ``long_row`` entries,
+      longest first (ties by row), int32, or None where there is none;
+    - ``num_block_rows``: how many of them, at the front, hold more than
+      ``block_row`` entries (a block each; the rest a warp each);
+    - ``row_list``: the rows with 1 to ``long_row`` entries, ascending,
+      int32, or None where every row owns an entry."""
+    lengths = np.diff(np.asarray(row_ptr, np.int64))
+    long = np.flatnonzero(lengths > long_row)
+    long_rows, num_block_rows = None, 0
+    if long.size:
+        long_rows = long[np.lexsort((long, -lengths[long]))].astype(np.int32)
+        num_block_rows = int((lengths[long] > block_row).sum())
+    owned = lengths > 0
+    row_list = None if owned.all() else np.flatnonzero(
+        owned & (lengths <= long_row)).astype(np.int32)
+    return long_rows, num_block_rows, row_list
 
 
 def sliced_row_list(rows, ptr, col, value, width: int = 32) -> tuple:

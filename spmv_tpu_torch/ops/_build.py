@@ -36,7 +36,7 @@ SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
            "well_spmv.cu", "well_spmm.cu", "bsr_spmm.cu", "bsr_spmm_tc.cu",
            "fused_vcycle.cu")
 HEADERS = ("dia_common.cuh", "cw_common.cuh", "mbarrier.cuh",
-           "spmm_rows.cuh")
+           "spmm_rows.cuh", "csr_rows.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -183,7 +183,8 @@ def load_library() -> ctypes.CDLL:
         _I64, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR]
     lib.wellcw_merged_launch.restype = _I32
     lib.csr_spmv_launch.argtypes = [
-        _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _PTR, _I32, _PTR]
+        _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _I64, _I64, _I32,
+        _PTR, _PTR, _I32, _PTR]
     lib.csr_spmv_launch.restype = _I32
     lib.ell_spmv_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR, _I32, _PTR]
@@ -205,8 +206,8 @@ def load_library() -> ctypes.CDLL:
         _I64, _I64, _I64, _I32, _I32, _I32, _PTR, _PTR, _I32, _PTR]
     lib.wellcw_merged_spmm_launch.restype = _I32
     lib.csr_spmm_launch.argtypes = [
-        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32, _I32,
-        _I32, _PTR, _PTR, _I32, _PTR]
+        _I32, _I32, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _I64,
+        _I64, _I32, _I32, _I32, _I32, _I32, _PTR, _PTR, _I32, _PTR]
     lib.csr_spmm_launch.restype = _I32
     lib.well_whole_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,

@@ -18,7 +18,11 @@ the rounding error of any summation order).  The WELL-CW, WELL, BSR,
 CSR and ELL kernels (float64 and float32 only, and bfloat16 blocks for BSR) are
 also launched twice on the same input, and the two outputs must be
 bitwise equal; each column of an SpMM kernel's output is also held
-against the SpMV kernel on that column.  K3b and K3c also run with each
+against the SpMV kernel on that column.  The CSR kernels also run with
+their long-row thresholds set small, so that a matrix has warp rows,
+block rows and empty rows, and on float64 must give the bits of a numpy
+walk in their order (``tests/_csr_walk.py``, a short row's fused
+multiply-add done exactly with fractions).  K3b and K3c also run with each
 cluster size the host can choose, on pools of 0, 1 and more chunks a
 block, on lane slices, and beside an inf in x.  BSR with bfloat16
 blocks: both the kernel (on the tensor cores or the SIMT path) and its
@@ -30,10 +34,12 @@ in float32, the JAX fused V-cycle test's bound
 """
 
 import functools
+from fractions import Fraction
 
 import numpy as np
 import pytest
 import torch
+from _csr_walk import csr_walk
 
 from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.io.generate import (
@@ -103,6 +109,7 @@ from spmv_tpu_torch.ops import (
     wellcw_spmv_core,
     wellcw_spmv_reference,
 )
+from spmv_tpu_torch.models import device as device_module
 from spmv_tpu_torch.ops import wellcw_kernels
 from spmv_tpu_torch.ops.well_kernels import well_spmm_plan
 from spmv_tpu_torch.ops.wellcw_kernels import column_block
@@ -1686,3 +1693,157 @@ def test_xla_csr_matches_csr_kernel(dtype, k, cuda):
     assert (csr_spmv_core.launches, csr_spmm_core.launches) == before
     want = csr_spmv_core(A, v) if k is None else csr_spmm_core(A, v)
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+# The CSR kernels on long rows (csrc/csr_rows.cuh): the thresholds set
+# small (a warp past 16 entries, a block past 128) so that a 4096-row
+# powerlaw matrix with every fourth row emptied has warp rows, block rows
+# and empty rows.
+LONG_SMALL = (16, 128)
+
+
+@pytest.fixture
+def long_small(monkeypatch):
+    monkeypatch.setattr(device_module, "LONG_ROW", LONG_SMALL[0])
+    monkeypatch.setattr(device_module, "BLOCK_ROW", LONG_SMALL[1])
+
+
+def _long_rows_mm():
+    mm = powerlaw(4096, 3000, 8.0, seed=5)
+    r, c = np.asarray(mm.rows_1based) - 1, np.asarray(mm.cols_1based) - 1
+    keep = r % 4 != 1
+    return from_coo_arrays(4096, 3000, r[keep], c[keep],
+                           np.asarray(mm.values)[keep])
+
+
+def _long_rows_csr(dtype, device):
+    A = DeviceCsr.from_host(CsrMatrix.from_matrix_market(_long_rows_mm()),
+                            dtype=dtype, device=device)
+    n = np.diff(A.row_ptr.cpu().numpy())
+    assert A.long_rows is not None and A.num_block_rows > 0
+    assert A.long_rows.numel() > A.num_block_rows and (n == 0).any()
+    return A
+
+
+def _fma_exact(a, b, c):
+    """a * b + c rounded once, element by element (float64)."""
+    return np.array([float(Fraction(float(a)) * Fraction(float(bb))
+                           + Fraction(float(cc)))
+                     for bb, cc in zip(np.ravel(b), np.ravel(c))])
+
+
+def _csr_core(k):
+    return csr_spmv_core if k is None else csr_spmm_core
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("k", [None, 1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_csr_long_rows_match_plain(dtype, k, accumulate, cuda, long_small):
+    """Both CSR kernels with warp, block and empty rows against the plain
+    version, twice bitwise; under accumulate an empty row keeps its
+    -0.0."""
+    A = _long_rows_csr(dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(44)
+    shape = (A.num_columns,) if k is None else (A.num_columns, k)
+    v = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    core = _csr_core(k)
+    oshape = (A.num_rows,) + shape[1:]
+    runs = []
+    for _ in range(2):
+        out = torch.full(oshape, -0.0 if accumulate else float("nan"),
+                         device=cuda, dtype=dtype)
+        before = core.launches
+        runs.append(core(A, v, out=out, accumulate=accumulate))
+        assert core.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert bool(torch.isfinite(runs[0]).all())
+    assert _rel_err(runs[0], csr_spmv_reference(A, v)) <= TOL[dtype]
+    if accumulate:
+        empty = A.row_ptr[1:] == A.row_ptr[:-1]
+        assert bool(torch.signbit(runs[0][empty]).all())
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_csr_long_rows_spmm_columns_bitwise_spmv(dtype, k, cuda,
+                                                  long_small):
+    A = _long_rows_csr(dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(45)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
+    out = torch.full((A.num_rows, k), 0.25, device=cuda, dtype=dtype)
+    Y = csr_spmm_core(A, X)
+    Ya = csr_spmm_core(A, X, out=out.clone(), accumulate=True)
+    for j in range(k):
+        xj = X[:, j].contiguous()
+        assert torch.equal(Y[:, j], csr_spmv_core(A, xj)), j
+        assert torch.equal(Ya[:, j], csr_spmv_core(
+            A, xj, out=out[:, j].contiguous(), accumulate=True)), j
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("case", ["long_rows", "no_long_row"])
+def test_csr_kernels_repeat_the_walk_bitwise(case, k, accumulate, cuda,
+                                             long_small):
+    """float64: the kernels give the numpy walk's bits, long rows in the
+    walk's lane and tree order, short rows a fused multiply-add an entry
+    in storage order (the kernel of no split, as before it)."""
+    mm = (_long_rows_mm() if case == "long_rows"
+          else random_sparse(3000, 2000, 9, seed=8))
+    A = DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm),
+                            dtype=torch.float64, device=cuda)
+    assert (A.long_rows is None) == (case == "no_long_row")
+    rng = np.random.default_rng(46)
+    X = rng.standard_normal(A.num_columns if k is None
+                            else (A.num_columns, k))
+    shape = (A.num_rows,) if k is None else (A.num_rows, k)
+    out = rng.standard_normal(shape) if accumulate else None
+    got = _csr_core(k)(
+        A, torch.from_numpy(X).to(cuda),
+        out=None if out is None else torch.from_numpy(out).to(cuda),
+        accumulate=accumulate).cpu().numpy()
+    want = csr_walk(A.row_ptr.cpu().numpy(), A.column_index.cpu().numpy(),
+                    A.value.cpu().numpy(), X, *LONG_SMALL, out=out,
+                    fma=_fma_exact)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [None, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_hybrid_with_long_rows_matches_plain(dtype, k, cuda, long_small):
+    """The hybrid product whose COO part has warp and block rows: two
+    launches, twice bitwise, against the plain version."""
+    host = HybridMatrix.from_matrix_market(powerlaw(4096, 4096, 8.0, seed=5))
+    A = DeviceHybrid.from_host(host, dtype=dtype, device=cuda)
+    assert A.coo.long_rows is not None and A.coo.num_block_rows > 0
+    g = torch.Generator(device=cuda).manual_seed(47)
+    shape = (A.num_columns,) if k is None else (A.num_columns, k)
+    v = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    core = hybrid_spmv_core if k is None else hybrid_spmm_core
+    y1, y2 = core(A, v), core(A, v)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    assert _rel_err(y1, hybrid_spmv_reference(A, v)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_csr_spmm_long_rows_with_every_row_listed(k, cuda, long_small):
+    """A row list that holds the long rows too (every row listed), and
+    no list: the short walk leaves the long rows to their warps and
+    blocks, and Y is the container's bit for bit."""
+    A = _long_rows_csr(torch.float32, cuda)
+    X = _misaligned(A.num_columns, k, cuda, torch.float32, 48)
+    listed = A.row_list
+    runs = []
+    for rows in (listed, torch.arange(A.num_rows, dtype=torch.int32,
+                                      device=cuda), None):
+        A.row_list = rows
+        try:
+            runs.append(csr_spmm_core(A, X))
+        finally:
+            A.row_list = listed
+    torch.cuda.synchronize()
+    for Y in runs[1:]:
+        assert torch.equal(Y, runs[0])

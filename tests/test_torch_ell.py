@@ -42,6 +42,7 @@ from spmv_tpu_torch.models import (
     ell_from_spmv_tpu,
     hybrid_from_spmv_tpu,
 )
+from spmv_tpu_torch.models.device import LONG_ROW
 from spmv_tpu_torch.ops import (
     ell_kernels,
     ell_spmm_core,
@@ -183,13 +184,20 @@ def test_device_hybrid_matches_jax_container(name, width):
     assert A.ell.padded_row_length == max(p.ell_row_length, 1)
     for f in ("row_ptr", "column_index", "value"):
         assert torch.equal(getattr(A.coo, f), getattr(B.coo, f)), f
-    # the rows that own a COO entry (an empty tensor where none does),
-    # None where every row does
-    rows = np.unique(p.coo_row_index)
-    if rows.size == p.num_rows:
+    # the short rows that own a COO entry (an empty tensor where none
+    # does), None where every row owns one; the long ones apart
+    lengths = np.bincount(p.coo_row_index, minlength=p.num_rows)
+    if (lengths > 0).all():
         assert A.coo.row_list is None
     else:
-        np.testing.assert_array_equal(A.coo.row_list.numpy(), rows)
+        np.testing.assert_array_equal(
+            A.coo.row_list.numpy(),
+            np.flatnonzero((lengths > 0) & (lengths <= LONG_ROW)))
+    long = np.flatnonzero(lengths > LONG_ROW)
+    if long.size == 0:
+        assert A.coo.long_rows is None
+    else:
+        assert sorted(A.coo.long_rows.tolist()) == long.tolist()
 
 
 @pytest.mark.parametrize("skip", [False, True], ids=["pad", "skip"])
