@@ -238,19 +238,21 @@ Phases (each prints readable lines; any failure exits non-zero):
    twice bitwise, the SpMM's columns bitwise the SpMV kernel's, device ms
    (a CUDA graph, L2 flushed) and eager, the bound (the slots, x and y
    once), the plain version's ms and torch.sparse CSR of the same entries
-   timed the same way and eagerly; and the CSR SpMV kernel on the whole
-   matrix as one DeviceCsr (the path of -s csr) alike.  Phase 10 times
-   the CSR SpMV on the whole bench matrix the same way.
+   timed the same way and eagerly, and the SpMV's path (ell_spmv_plan:
+   its template row length); and the CSR SpMV kernel on the whole matrix
+   as one DeviceCsr (the path of -s csr) alike.  Phase 10 times the CSR
+   SpMV on the whole bench matrix the same way.
 25. Hybrid at a skewed matrix, powerlaw(4194304, 4194304, 8.0, alpha 1.5,
    seed 5) in float32 (not counted): the SpMV and SpMM (k = 8) against
    their plain versions; the COO part's CSR kernels (its long rows on
    warps and blocks) against theirs, twice bitwise, the SpMM's columns
    bitwise the SpMV's; then the ELL launch, the COO launches (the CSR
    kernels adding into y and Y) and the whole SpMV and SpMM alone, each
-   with its bound, beside torch.sparse of the whole matrix and of each
-   part's own entries, and whether the COO launch makes 0.35 ms and the
-   whole products beat torch.sparse; the CSR SpMV on the whole matrix as
-   one DeviceCsr; the sweep of the CSR kernels' row-split thresholds
+   with its bound (the ELL and COO launches with their plain versions'
+   ms, the ELL launch with its path), beside torch.sparse of the whole
+   matrix and of each part's own entries, and whether the COO launch
+   makes 0.35 ms and the whole products beat torch.sparse; the CSR SpMV
+   on the whole matrix as one DeviceCsr; the sweep of the CSR kernels' row-split thresholds
    (LONG_ROW 16, 32, 64, 128 by BLOCK_ROW 256, 1024, 4096, and no split)
    on the COO part's SpMV and SpMM and the whole matrix's SpMV; and on
    the AMG path (the SA hierarchy of poisson2d(256, 256)) at each
@@ -276,6 +278,10 @@ WELL-CW remainder's SpMV and SpMM adding into y and Y, the CSR SpMM on
 the whole bench matrix, and PCG with the generic V-cycle at
 poisson2d(256, 256) (host ms an iteration and iterations); it compares
 the outputs of the rows with no long row bit for bit.
+``--ell-kernels-beside DIR`` does the same for the ELL SpMV: the ELL
+SpMV and SpMM (k = 8) at poisson2d(4096, 4096) and the hybrid's ELL
+launch, SpMV and SpMM at phase 25's matrix, each output compared bit for
+bit.
 
 The second-to-last lines are the kernels' JSON summary (nineteen
 kernels, each with its launches on the main path, max error, ms against
@@ -3715,6 +3721,7 @@ def phase_kernels_ell(device, mm, host, A, chained, smi_line, triad_gbps):
              f"{plain_ms:.4f} ms, torch.sparse CSR {_library_line(lib)}, "
              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} "
              f"B), {b['bound_triad_ms']:.4f} ms at the triad, on {smi_line}")
+    out["ell_spmv"]["plan"] = _ell_plan(A, tag, label)
     del Y, X
     R = DeviceCsr(A.num_rows, A.num_columns, host.num_entries,
                   S.crow_indices(), S.col_indices(), S.values())
@@ -3723,6 +3730,16 @@ def phase_kernels_ell(device, mm, host, A, chained, smi_line, triad_gbps):
     del R, S, x, y, scratch
     _sync(device)
     return out
+
+
+def _ell_plan(A, tag, label) -> dict:
+    """The ELL SpMV's path on A (``ell_spmv_plan``), printed."""
+    from spmv_tpu_torch.ops._launch import ell_spmv_plan
+
+    plan = ell_spmv_plan(A.padded_row_length)
+    _say(f"[{tag}] ell_spmv path at {label}: {plan} (row length "
+         f"{A.padded_row_length}, {A.num_rows} rows, a thread a row)")
+    return plan
 
 
 def _csr_spmv_whole(R, S, x, flush, label, tag, smi_line, triad_gbps):
@@ -3901,6 +3918,7 @@ def phase_hybrid(device, smi_line, triad_gbps):
         csr_spmv_core,
         csr_spmv_reference,
         ell_spmv_core,
+        ell_spmv_reference,
         hybrid_spmm_core,
         hybrid_spmv_core,
         hybrid_spmv_reference,
@@ -4003,6 +4021,9 @@ def phase_hybrid(device, smi_line, triad_gbps):
              f"flushed), {t['eager_ms']:.4f} ms eager, bound "
              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes']} B), "
              f"on {smi_line}")
+    out["ell_launch"]["plain_ms"] = _time_launches(
+        lambda: ell_spmv_reference(H.ell, x), 3)
+    out["ell_launch"]["plan"] = _ell_plan(H.ell, tag, label + ", ELL part")
     out["coo_launch"]["plain_ms"] = _time_launches(
         lambda: csr_spmv_reference(R, x), 3)
     out[f"coo_launch_spmm_k{k}"]["plain_ms"] = _time_launches(
@@ -4771,6 +4792,54 @@ print(json.dumps(found, default=str))
 """
 
 
+# the ELL SpMV's legs alone, in the checkout it runs from (this one or
+# another commit's): the ELL SpMV and SpMM at phase 24's poisson2d, and
+# the hybrid's ELL launch, SpMV and SpMM at phase 25's matrix, with their
+# outputs for a bitwise comparison across checkouts; the JSON of its
+# kernels on the last line
+_PHASE_ELL = """
+import json
+import sys
+import torch
+import chip_smoke as c
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.io.generate import poisson2d, powerlaw
+from spmv_tpu_torch.models import (DeviceEll, DeviceHybrid, EllMatrix,
+                                   HybridMatrix)
+device, smi = c.phase_device()
+c.phase_build()
+f32, k = torch.float32, c.FORMATS_SPMM_K
+scratch = torch.empty(16 << 20, dtype=f32, device=device)
+flush = lambda: scratch.fill_(0.0)
+found, outs = {}, {}
+def timed(name, fn):
+    found[name] = {"ms": c._cold_graph_ms(fn, flush, 50), "library_ms": None}
+    outs[name] = fn().cpu()
+def vectors(A, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(A.num_columns, generator=g, device=device, dtype=f32),
+            torch.randn(A.num_columns, k, generator=g, device=device,
+                        dtype=f32),
+            torch.empty(A.num_rows, device=device, dtype=f32),
+            torch.empty(A.num_rows, k, device=device, dtype=f32))
+A = DeviceEll.from_host(EllMatrix.from_matrix_market(
+    poisson2d(c.FULL_GRID, c.FULL_GRID)), dtype=f32, device=device)
+x, X, y, Y = vectors(A, 1)
+timed("ell_spmv", lambda: ops.ell_spmv_core(A, x, out=y))
+timed(f"ell_spmm_k{k}", lambda: ops.ell_spmm_core(A, X, out=Y))
+del A, x, X, y, Y
+H = DeviceHybrid.from_host(HybridMatrix.from_matrix_market(
+    powerlaw(c.HYBRID_ROWS, c.HYBRID_ROWS, 8.0, alpha=1.5, seed=5)),
+    dtype=f32, device=device)
+x, X, y, Y = vectors(H, 2)
+timed("hybrid_ell_launch", lambda: ops.ell_spmv_core(H.ell, x, out=y))
+timed("hybrid_spmv", lambda: ops.hybrid_spmv_core(H, x, out=y))
+timed(f"hybrid_spmm_k{k}", lambda: ops.hybrid_spmm_core(H, X, out=Y))
+torch.save(outs, sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
 def _phase_csr_script() -> str:
     from spmv_tpu_torch.models.device import LONG_ROW
 
@@ -4840,7 +4909,8 @@ def _beside(other: str, script: str, phase: int) -> int:
 BESIDE = {"--wellcw-kernels-beside": (_PHASE10, 10),
           "--well-spmm-kernels-beside": (_PHASE19, 19),
           "--fused-vcycle-beside": (_PHASE22, 22),
-          "--csr-kernels-beside": (_phase_csr_script, 25)}
+          "--csr-kernels-beside": (_phase_csr_script, 25),
+          "--ell-kernels-beside": (_PHASE_ELL, 24)}
 
 
 if __name__ == "__main__":

@@ -187,7 +187,8 @@ def load_library() -> ctypes.CDLL:
         _PTR, _PTR, _I32, _PTR]
     lib.csr_spmv_launch.restype = _I32
     lib.ell_spmv_launch.argtypes = [
-        _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR, _I32, _PTR]
+        _I32, _I32, _PTR, _PTR, _I32, _I32, _I64, _I64, _PTR, _PTR, _I32,
+        _PTR]
     lib.ell_spmv_launch.restype = _I32
     lib.ell_spmm_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _I32, _I32, _I32, _PTR,

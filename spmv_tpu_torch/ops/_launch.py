@@ -6,7 +6,8 @@ CUDA error.  ``on_cuda`` is the only place that decides between a
 kernel and its plain version: CUDA tensors take the kernel, CPU tensors
 the plain version, and any other device (or a mix) raises.
 ``spmm_plan`` gives the path of the SpMM kernels that hold a row's
-column sums in registers (K4a-c, the CSR SpMM; ``csrc/spmm_rows.cuh``).
+column sums in registers (K4a-c, the CSR SpMM; ``csrc/spmm_rows.cuh``),
+``ell_spmv_plan`` that of the ELL SpMV (``csrc/ell_spmv.cu``).
 """
 
 from __future__ import annotations
@@ -16,11 +17,16 @@ import torch
 from spmv_tpu_torch.errors import KernelError
 
 __all__ = ["on_cuda", "check_vector", "check_no_alias", "raise_on",
-           "stream_of", "column_block", "x_vector_loads", "spmm_plan"]
+           "stream_of", "column_block", "x_vector_loads", "spmm_plan",
+           "ell_spmv_plan"]
 
 # The column blocks of K4a-c and the CSR SpMM, passed to every launch: a
 # thread holds kb = min(k, COLUMNS) sums in registers.
 COLUMNS = 8
+
+# The row lengths the ELL SpMV has a template of (kMaxSlots in
+# csrc/ell_spmv.cu); a longer row is walked this many slots a round.
+ELL_MAX_SLOTS = 8
 
 
 def on_cuda(what: str, *tensors: torch.Tensor) -> bool:
@@ -90,3 +96,10 @@ def spmm_plan(k: int, dtype: torch.dtype, x_ptr: int, y_ptr: int) -> dict:
     kb = column_block(k)
     return {"kb": kb, "vector_x": x_vector_loads(k, kb, dtype.itemsize,
                                                  x_ptr, y_ptr)}
+
+
+def ell_spmv_plan(row_length: int) -> dict:
+    """The path the ELL SpMV launches on for rows of ``row_length`` slots:
+    ``slots``, the row length of its template (0 past ``ELL_MAX_SLOTS``
+    and for no slot: rounds of ``ELL_MAX_SLOTS`` slots)."""
+    return {"slots": row_length if 0 < row_length <= ELL_MAX_SLOTS else 0}

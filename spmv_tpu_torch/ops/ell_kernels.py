@@ -28,6 +28,7 @@ from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.ops._launch import (
     check_no_alias,
     check_vector,
+    ell_spmv_plan,
     on_cuda,
     raise_on,
     spmm_plan,
@@ -68,7 +69,9 @@ def ell_spmv_core(A, x: torch.Tensor, out: torch.Tensor = None,
     """y = A @ x for a ``DeviceEll``, x and y in the value dtype.
 
     ``out`` (optional, length num_rows, not overlapping x) receives y;
-    with ``accumulate=True`` it receives ``out + A @ x`` instead.
+    with ``accumulate=True`` it receives ``out + A @ x`` instead.  The
+    kernel runs on ``ell_spmv_plan``'s path: the row length as a template
+    argument up to 8 slots, one row a thread.
     """
     _check_matrix(A)
     dt = A.value.dtype
@@ -89,7 +92,8 @@ def ell_spmv_core(A, x: torch.Tensor, out: torch.Tensor = None,
         lib = load_library()
         rc = lib.ell_spmv_launch(
             _DTYPE_CODE[dt], x.device.index, A.column_index.data_ptr(),
-            A.value.data_ptr(), A.padded_row_length, n, A.num_columns,
+            A.value.data_ptr(), A.padded_row_length,
+            ell_spmv_plan(A.padded_row_length)["slots"], n, A.num_columns,
             x.data_ptr(), y.data_ptr(), int(accumulate), stream_of(x))
         raise_on(lib, rc, "ell_spmv")
         ell_spmv_core.launches += 1

@@ -111,6 +111,7 @@ from spmv_tpu_torch.ops import (
 )
 from spmv_tpu_torch.models import device as device_module
 from spmv_tpu_torch.ops import wellcw_kernels
+from spmv_tpu_torch.ops._launch import ELL_MAX_SLOTS, ell_spmv_plan
 from spmv_tpu_torch.ops.well_kernels import well_spmm_plan
 from spmv_tpu_torch.ops.wellcw_kernels import column_block
 
@@ -1570,23 +1571,72 @@ def _ell(case, dtype, device, skip_padding=False):
         device=device)
 
 
-@pytest.mark.parametrize("skip", [False, True], ids=["pad", "skip"])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
-@pytest.mark.parametrize("case", list(ELL_CASES))
-def test_ell_spmv_matches_plain(case, dtype, skip, cuda):
-    A = _ell(case, dtype, cuda, skip)
-    g = torch.Generator(device=cuda).manual_seed(40)
+def _ell_width(width, rows, dtype, device, aligned=True):
+    """A DeviceEll of ``rows`` rows and ``width`` slots (padded_row_length
+    = width, so the SpMV runs that template or the rounds past 8): random
+    columns below 700 with about a fifth of the slots padding (column 0,
+    value 0) and one row all padding; with ``aligned`` False its index
+    and value buffers start one element past a 16-byte boundary."""
+    rng = np.random.default_rng(1000 * width + rows)
+    cols = rng.integers(0, 700, size=(width, rows)).astype(np.int32)
+    vals = rng.standard_normal((width, rows))
+    pad = rng.random((width, rows)) < 0.2
+    pad[:, rows // 2] = True
+    cols[pad], vals[pad] = 0, 0.0
+    ci = torch.from_numpy(cols).to(device)
+    va = torch.from_numpy(vals).to(device, dtype)
+    if not aligned:
+        ci = torch.cat([ci.new_zeros(1), ci.reshape(-1)])[1:].view(width,
+                                                                   rows)
+        va = torch.cat([va.new_zeros(1), va.reshape(-1)])[1:].view(width,
+                                                                   rows)
+    A = DeviceEll(rows, 700, int((~pad).sum()), width, ci, va)
+    assert (A.column_index.data_ptr() % 16 == 0) == aligned
+    return A
+
+
+def _ell_check(A, dtype, cuda, seed, k=3):
+    """The ELL SpMV on A against its plain version, twice bitwise and
+    under accumulate, and the ELL SpMM's columns (k of them) bitwise the
+    SpMV's."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda, dtype=dtype)
     before = ell_spmv_core.launches
     y1, y2 = ell_spmv_core(A, x), ell_spmv_core(A, x)
     out = torch.full((A.num_rows,), 0.5, device=cuda, dtype=dtype)
     ell_spmv_core(A, x, out=out, accumulate=True)
+    Y = ell_spmm_core(A, X)
+    cols = torch.stack([ell_spmv_core(A, X[:, j].contiguous())
+                        for j in range(k)], dim=1)
     torch.cuda.synchronize()
-    assert ell_spmv_core.launches == before + 3
+    assert ell_spmv_core.launches == before + 3 + k
     assert torch.equal(y1, y2)
+    assert torch.equal(Y, cols)
     want = ell_spmv_reference(A, x)
     assert _rel_err(y1, want) <= TOL[dtype]
     assert _rel_err(out, want + 0.5) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["pad", "skip"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", list(ELL_CASES))
+def test_ell_spmv_matches_plain(case, dtype, skip, cuda):
+    _ell_check(_ell(case, dtype, cuda, skip), dtype, cuda, 40)
+
+
+# The ELL SpMV's paths (ell_spmv_plan): row lengths on both sides of the
+# template's 8 slots and of a round of 8; rows a multiple of a block and
+# not; buffers aligned or a view one element off a 16-byte boundary.
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("rows", [1024, 1001])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("width", [1, 4, 5, 6, 8, 9, 12])
+def test_ell_spmv_paths_match_plain(width, dtype, rows, aligned, cuda):
+    A = _ell_width(width, rows, dtype, cuda, aligned)
+    assert ell_spmv_plan(width)["slots"] == (
+        width if width <= ELL_MAX_SLOTS else 0)
+    _ell_check(A, dtype, cuda, 43 + width)
 
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
@@ -1620,16 +1670,18 @@ def test_ell_spmm_matches_plain(case, dtype, k, aligned, cuda):
     assert _rel_err(out, want + 0.5) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("rows", [2000, 2001])
 @pytest.mark.parametrize("k", [None, 3, 8])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
-@pytest.mark.parametrize("width", ["median", "zero", "longest"])
-def test_hybrid_matches_plain(width, dtype, k, cuda):
+@pytest.mark.parametrize("width", ["median", "zero", "longest", 5, 6, 9])
+def test_hybrid_matches_plain(width, dtype, k, rows, cuda):
     """The ELL launch writes every row, then the CSR launch adds the COO
     part; where the part is empty (width = the longest row) no CSR
-    kernel is launched and nothing raises."""
-    mm = powerlaw(2000, 1500, 5.0, seed=2)
+    kernel is launched and nothing raises.  ELL widths on both sides of
+    the SpMV's 8-slot template, rows a multiple of its R and not."""
+    mm = powerlaw(rows, 1500, 5.0, seed=2)
     L = {"median": None, "zero": 0,
-         "longest": int(mm.max_row_length())}[width]
+         "longest": int(mm.max_row_length())}.get(width, width)
     host = HybridMatrix.from_matrix_market(mm, ell_row_length=L)
     A = DeviceHybrid.from_host(host, dtype=dtype, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(42)
@@ -1649,6 +1701,10 @@ def test_hybrid_matches_plain(width, dtype, k, cuda):
     assert csr_w.launches == before[1] + (2 if coo else 0)
     assert torch.equal(y, y2)
     assert _rel_err(y, hybrid_spmv_reference(A, v)) <= TOL[dtype]
+    if k is not None:
+        cols = torch.stack([hybrid_spmv_core(A, v[:, j].contiguous())
+                            for j in range(k)], dim=1)
+        assert torch.equal(y, cols)
 
 
 @pytest.mark.parametrize("k", [None, 3])
