@@ -257,6 +257,30 @@ Phases (each prints readable lines; any failure exits non-zero):
    on the COO part's SpMV and SpMM and the whole matrix's SpMV; and on
    the AMG path (the SA hierarchy of poisson2d(256, 256)) at each
    LONG_ROW: its operators' SpMVs in one CUDA graph and PCG's iterations.
+26. The traffic split (the six variants' launch counts are zeroed just
+   before): the CLI's --profile 5 --traffic-split at poisson2d(256, 256)
+   on csr, coo, ell, hybrid and well (each report's traffic_split
+   section), its refusals (dia, wellcw, bsr, --triad, --spmm 8: exit 1
+   with the message), then measure_traffic_split at full width, float32:
+   ELL and CSR at poisson2d(4096, 4096), WELL there (K5b) and at
+   poisson2d(1024, 1024) (K5a), the hybrid of phase 25; the counts are
+   read after it, each variant must have launched.  Then, not counted,
+   each case's variants against their plain versions (1e-5), twice
+   bitwise, each leg (full, regular, irregular) launching its own
+   kernels and nothing else of the port, each leg alone (a CUDA graph,
+   L2 flushed) and eagerly beside its bound (traffic_variant_bytes over
+   the data sheet's rate and the triad), its plain version's ms and one
+   PyTorch call for the same function (torch.sparse for the full leg,
+   torch.sum of the ELL slots or torch.segment_reduce of the entries for
+   the regular leg, torch.sparse with unit values for the irregular
+   leg), and the additivity (regular + irregular) / full; last the
+   variants in float64 at poisson2d(1024, 1024) (1e-12).
+27. Simulation mode through the CLI (host only): --profile 0
+   --trace-config configs/cpu-2thread.json with -s csr, ell, well and dia
+   at poisson2d(256, 256) and -s csr at poisson2d(512, 512): the misses
+   per thread and NUMA domain of each cache, the wall seconds, and the
+   native replay core (csrc/simcache.cpp under _build/host/) it ran on;
+   without --trace-config the CLI exits 1.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -281,15 +305,19 @@ the outputs of the rows with no long row bit for bit.
 ``--ell-kernels-beside DIR`` does the same for the ELL SpMV: the ELL
 SpMV and SpMM (k = 8) at poisson2d(4096, 4096) and the hybrid's ELL
 launch, SpMV and SpMM at phase 25's matrix, each output compared bit for
-bit.
+bit.  ``--well-kernels-beside DIR`` does the same for K5a and K5b: the
+WELL SpMV at phase 13's poisson2d(1024, 1024) and poisson2d(4096, 4096)
+in float32 and float64, and at poisson2d(1000, 1000) in float64 (K5a,
+whose float64 x still fits whole), each output compared bit for bit.
 
-The second-to-last lines are the kernels' JSON summary (nineteen
-kernels, each with its launches on the main path, max error, ms against
+The second-to-last lines are the kernels' JSON summary (25 kernels, the
+six traffic variants last, each with its launches on the main path, max
+error, ms against
 plain ms, bound and library ms; K7's rows also its launches by path;
 the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
 SpMV's their times at the hybrid's shape, beside torch.sparse of that
 part's own entries; and summaries of each path,
-`formats` and `amg` the last) and nvidia-smi's
+`formats`, `amg`, `traffic_split` and `simulate` the last) and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
 data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
@@ -539,20 +567,24 @@ def _library_ms(S, v, reps: int = 20) -> float:
     return _time_launches(lambda: S @ v, reps)
 
 
-def _library_cold(S, v, flush, reps: int = 20) -> dict:
-    """``S @ v`` timed as the kernels are: a CUDA graph with the L2
-    flushed before each call (both eager, ``timing`` "eager", where
-    torch's product cannot be captured), and the eager call beside it."""
+def _yardstick(fn, flush, reps: int = 20) -> dict:
+    """One PyTorch call timed as the kernels are: a CUDA graph with the L2
+    flushed before each call (both eager, ``timing`` "eager", where it
+    cannot be captured), and the eager call beside it."""
     import torch
 
-    fn = lambda: S @ v  # noqa: E731
     try:
         ms, timing = _cold_graph_ms(fn, flush, reps), "graph"
     except RuntimeError:
         torch.cuda.synchronize()
         ms, timing = _cold_eager_ms(fn, flush, reps), "eager"
-    return {"library_ms": ms, "library_eager_ms": _library_ms(S, v, reps),
+    return {"library_ms": ms, "library_eager_ms": _time_launches(fn, reps),
             "library_timing": timing}
+
+
+def _library_cold(S, v, flush, reps: int = 20) -> dict:
+    """``S @ v`` (cuSPARSE through torch.sparse) as a yardstick."""
+    return _yardstick(lambda: S @ v, flush, reps)
 
 
 def _library_line(lib: dict) -> str:
@@ -3412,7 +3444,9 @@ def _port_wrappers() -> dict:
         "wellcw_level_spmm_core", "wellcw_pool_spmm_core", "csr_spmv_core",
         "csr_spmm_core", "ell_spmv_core", "ell_spmm_core", "well_whole_core",
         "well_seg_core", "well_whole_spmm_core", "well_seg_spmm_core",
-        "bsr_spmm_core", "fused_vcycle_core")}
+        "bsr_spmm_core", "fused_vcycle_core", "csr_regular_core",
+        "csr_irregular_core", "ell_regular_core", "ell_irregular_core",
+        "well_regular_core", "well_irregular_core")}
 
 
 def _formats_cli_runs(poisson, skewed):
@@ -4058,10 +4092,10 @@ def phase_hybrid(device, smi_line, triad_gbps):
     out["csr_spmv_whole"] = {**_csr_spmv_whole(
         W, S, x, flush, label, tag, smi_line, triad_gbps), **_split_of(W)}
     out["sweep"] = _long_row_sweep(R, W, x, X, y, Y, flush, tag)
-    del H, R, W, S, S_coo, S_ell, x, X, y, Y, scratch, host, mm
+    del H, R, W, S, S_coo, S_ell, x, X, y, Y, scratch
     _sync(device)
     out["amg_sweep"] = _amg_sweep(device, tag)
-    return out
+    return out, mm, host
 
 
 # ----------------------------------------------------------------- main
@@ -4133,6 +4167,435 @@ def _bsr_rows(run, spmm_kernels) -> list:
             **extra,
             "shape": f"{shape} float32",
         })
+    return rows
+
+
+# --------------------------------------------------- traffic split (26, 27)
+TRAFFIC_FORMATS = ("csr", "coo", "ell", "hybrid", "well")
+TRAFFIC_CLI_GRID = 256        # the CLI's --traffic-split runs' poisson2d
+TRAFFIC_F64_GRID = 1024       # the variants' float64 checks
+SIM_CONFIG = "configs/cpu-2thread.json"
+SIM_RUNS = (("csr", 256), ("ell", 256), ("well", 256), ("dia", 256),
+            ("csr", 512))
+
+
+def _traffic_wrappers() -> dict:
+    """The six traffic variants' launch counters, by name."""
+    from spmv_tpu_torch import ops
+
+    return {name: getattr(ops, f"{name}_core") for name in (
+        "csr_regular", "csr_irregular", "ell_regular", "ell_irregular",
+        "well_regular", "well_irregular")}
+
+
+def _traffic_legs(A):
+    """(full, regular, irregular) of A as functions of (x, out), and the
+    wrappers each must launch."""
+    from spmv_tpu_torch import ops
+    from spmv_tpu_torch.models import DeviceCsr, DeviceEll, DeviceWell
+
+    if isinstance(A, DeviceCsr):
+        kind, full = "csr", (ops.csr_spmv_core,)
+    elif isinstance(A, DeviceEll):
+        kind, full = "ell", (ops.ell_spmv_core,)
+    elif isinstance(A, DeviceWell):
+        kind = "well"
+        full = ((ops.well_seg_core,) if A.segment_of_step is not None
+                else (ops.well_whole_core,))
+    else:
+        coo = A.coo.value.numel() > 0
+        pick = lambda *w: w if coo else w[:1]  # noqa: E731
+        return ({"full": (lambda x, y: ops.hybrid_spmv_core(A, x, out=y),
+                          pick(ops.ell_spmv_core, ops.csr_spmv_core)),
+                 "regular": (lambda x, y: ops.hybrid_regular_core(A, out=y),
+                             pick(ops.ell_regular_core,
+                                  ops.csr_regular_core)),
+                 "irregular": (lambda x, y: ops.hybrid_irregular_core(
+                     A, x, out=y), pick(ops.ell_irregular_core,
+                                        ops.csr_irregular_core))})
+    core = {"csr": ops.csr_spmv_core, "ell": ops.ell_spmv_core,
+            "well": ops.well_spmv_core}[kind]
+    reg = getattr(ops, f"{kind}_regular_core")
+    irr = getattr(ops, f"{kind}_irregular_core")
+    return {"full": (lambda x, y: core(A, x, out=y), full),
+            "regular": (lambda x, y: reg(A, out=y), (reg,)),
+            "irregular": (lambda x, y: irr(A, x, out=y), (irr,))}
+
+
+def _traffic_plain(A, x, leg):
+    """The plain version of A's ``leg`` ("regular" or "irregular"); the
+    hybrid's adds its COO part's to its ELL part's."""
+    from spmv_tpu_torch import ops
+    from spmv_tpu_torch.models import DeviceCsr, DeviceEll, DeviceHybrid
+
+    if isinstance(A, DeviceHybrid):
+        y = _traffic_plain(A.ell, x, leg)
+        return (y + _traffic_plain(A.coo, x, leg) if A.coo.value.numel()
+                else y)
+    kind = ("csr" if isinstance(A, DeviceCsr) else
+            "ell" if isinstance(A, DeviceEll) else "well")
+    plain = getattr(ops, f"{kind}_{leg}_reference")
+    return plain(A) if leg == "regular" else plain(A, x)
+
+
+def _traffic_check(A, tol, tag, label) -> dict:
+    """Each variant of A against its plain version, launched twice (bitwise
+    equal), and each leg launching its own kernels and nothing else of
+    the port; returns the max abs errors."""
+    import torch
+
+    every = _port_wrappers()
+    dev = A.ell.value.device if hasattr(A, "ell") else A.value.device
+    dt = A.ell.value.dtype if hasattr(A, "ell") else A.value.dtype
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(A.num_columns, generator=g, device=dev, dtype=dt)
+    legs = _traffic_legs(A)
+    outs = {}
+    for leg, (fn, wrappers) in legs.items():
+        before = {n: w.launches for n, w in every.items()}
+        y1 = fn(x, None)
+        moved = {n: w.launches - before[n] for n, w in every.items()
+                 if w.launches != before[n]}
+        want = {w.__name__: 1 for w in wrappers}
+        if moved != want:
+            _fail(f"{label} {leg} leg launched {moved}, expected {want}")
+        y2 = fn(x, None)
+        _sync(dev)
+        if not torch.equal(y1, y2):
+            _fail(f"{label} {leg} leg: two launches differ")
+        outs[leg] = y1
+    errs = {}
+    for leg in ("regular", "irregular"):
+        ref = _traffic_plain(A, x, leg)
+        rel = _rel(outs[leg], ref)
+        errs[leg] = float((outs[leg].double() - ref.double()).abs().max())
+        _say(f"[{tag}] {label} {leg}: rel err {rel:.3e} against the plain "
+             f"version (tol {tol}), max abs err {errs[leg]:.3e}, twice "
+             "bitwise equal, launched only its own kernels")
+        if not rel <= tol:
+            _fail(f"{label} {leg}: rel err {rel} > {tol}")
+    return errs
+
+
+def _traffic_yardsticks(A, S, x, flush) -> dict:
+    """Per leg, one PyTorch call for the same function: torch.sparse of
+    the whole matrix (full), its value sums (regular: torch.sum over the
+    ELL slots, else torch.segment_reduce over the entries' CSR) and
+    torch.sparse with unit values (irregular)."""
+    import torch
+
+    from spmv_tpu_torch.models import DeviceEll
+
+    ptr = S.crow_indices().long()
+    vals = S.values()
+    U = _torch_csr(S.crow_indices(), S.col_indices(), torch.ones_like(vals),
+                   tuple(S.shape))
+    if isinstance(A, DeviceEll):
+        reg = lambda: torch.sum(A.value, 0)  # noqa: E731
+        reg_name = "torch.sum(value, 0)"
+    else:
+        reg = lambda: torch.segment_reduce(  # noqa: E731
+            vals, "sum", offsets=ptr)
+        reg_name = "torch.segment_reduce(values, 'sum', offsets=row_ptr)"
+    return {"full": {**_library_cold(S, x, flush),
+                     "library_call": "torch.sparse CSR @ x"},
+            "regular": {**_yardstick(reg, flush), "library_call": reg_name},
+            "irregular": {**_library_cold(U, x, flush),
+                          "library_call": "torch.sparse CSR of unit "
+                                          "values @ x"}}
+
+
+def _traffic_case(A, S, label, tag, smi_line, triad_gbps) -> dict:
+    """The traffic split of A at full width (not counted): the variants
+    against their plain versions, then each leg alone (a CUDA graph, L2
+    flushed) and eagerly, beside its bound (``traffic_variant_bytes``
+    over the data sheet's rate and over the triad), its plain version's
+    time and its one-call yardstick; the additivity of the legs alone."""
+    import torch
+
+    from spmv_tpu_torch.ops import traffic_variant_bytes
+
+    errs = _traffic_check(A, TOL_F32, tag, label)
+    dev = A.ell.value.device if hasattr(A, "ell") else A.value.device
+    dt = torch.float32
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(A.num_columns, generator=g, device=dev, dtype=dt)
+    y = torch.empty(A.num_rows, device=dev, dtype=dt)
+    scratch = torch.empty(16 << 20, dtype=dt, device=dev)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
+    model = traffic_variant_bytes(A, dt)
+    stored = model["stored_entries"]
+    lib = _traffic_yardsticks(A, S, x, flush)
+    out = {"shape": label, "analytic": model}
+    for leg, (fn, wrappers) in _traffic_legs(A).items():
+        t = _alone(lambda: fn(x, y), flush)
+        nbytes = model[f"{leg}_bytes"]
+        b = _bound(nbytes, (2 if leg == "full" else 1) * stored, triad_gbps)
+        out[leg] = {**t, **b, **lib[leg],
+                    "kernels": [w.__name__ for w in wrappers]}
+        if leg in errs:
+            out[leg]["plain_ms"] = _time_launches(
+                lambda: _traffic_plain(A, x, leg), 3)
+            out[leg]["max_abs_err"] = errs[leg]
+        _say(f"[{tag}] {label} {leg} leg alone: {t['ms']:.4f} ms (CUDA "
+             f"graph, L2 flushed), {t['eager_ms']:.4f} ms eager, bound "
+             f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {nbytes} B), "
+             f"{b['bound_triad_ms']:.4f} ms at the triad; "
+             f"{lib[leg]['library_call']} {lib[leg]['library_ms']:.4f} ms "
+             f"({lib[leg]['library_timing']}); on {smi_line}")
+    out["additivity_alone"] = ((out["regular"]["ms"]
+                                + out["irregular"]["ms"]) / out["full"]["ms"])
+    out["additivity_of_bounds"] = ((out["regular"]["bound_ms"]
+                                    + out["irregular"]["bound_ms"])
+                                   / out["full"]["bound_ms"])
+    _say(f"[{tag}] {label}: additivity (regular + irregular) / full "
+         f"{out['additivity_alone']:.3f} alone, bounds "
+         f"{out['additivity_of_bounds']:.3f}")
+    del scratch, x, y
+    return out
+
+
+def _traffic_cli(device, tag) -> dict:
+    """--profile 5 --traffic-split through the CLI at
+    poisson2d(TRAFFIC_CLI_GRID²) on each format (counted), and the
+    refusals, each exiting 1 with its message."""
+    from spmv_tpu_torch.cli import main
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
+
+    want_keys = {"format", "rows", "columns", "stored_entries",
+                 "seconds_full", "seconds_regular", "seconds_irregular",
+                 "regular_fraction_of_full", "irregular_fraction_of_full",
+                 "additivity", "analytic", "achieved_gbps",
+                 "roofline_fraction"}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poisson.mtx")
+        write_matrix_market(poisson2d(TRAFFIC_CLI_GRID, TRAFFIC_CLI_GRID),
+                            path)
+        mat = ["--matrix", path]
+        for fmt in TRAFFIC_FORMATS:
+            buf = io.StringIO()
+            rc = main(mat + ["-s", fmt, "--profile", "5",
+                             "--traffic-split"], out=buf)
+            if rc != 0:
+                _fail(f"CLI -s {fmt} --traffic-split exited {rc}")
+            ts = json.loads(buf.getvalue())["traffic_split"]
+            if set(ts) != want_keys or not all(
+                    np.isfinite(ts[k]) and ts[k] > 0 for k in (
+                        "seconds_full", "seconds_regular",
+                        "seconds_irregular")):
+                _fail(f"CLI -s {fmt} --traffic-split: bad section {ts}")
+            out[fmt] = {k: ts[k] for k in (
+                "seconds_full", "seconds_regular", "seconds_irregular",
+                "additivity")}
+            _say(f"[{tag}] CLI -s {fmt} --profile 5 --traffic-split at "
+                 f"poisson2d({TRAFFIC_CLI_GRID},{TRAFFIC_CLI_GRID}): full "
+                 f"{ts['seconds_full'] * 1e3:.4f} ms, regular "
+                 f"{ts['seconds_regular'] * 1e3:.4f} ms, irregular "
+                 f"{ts['seconds_irregular'] * 1e3:.4f} ms, additivity "
+                 f"{ts['additivity']:.3f} (all in the 50 MB L2)")
+        for name, argv, says in (
+                ("dia", mat + ["-s", "dia"], "not defined for DeviceDia"),
+                ("wellcw", mat + ["-s", "wellcw"],
+                 "not defined for DeviceWellCw"),
+                ("bsr", mat + ["-s", "bsr"], "not defined for DeviceBsr"),
+                ("triad", ["--triad", "4096"],
+                 "not supported by the triad kernel"),
+                ("spmm 8", mat + ["-s", "csr", "--spmm", "8"],
+                 "not --spmm")):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = main(argv + ["--profile", "5", "--traffic-split"],
+                          out=io.StringIO())
+            if rc != 1 or says not in err.getvalue():
+                _fail(f"CLI --traffic-split {name}: exit {rc}, "
+                      f"{err.getvalue()!r}")
+            _say(f"[{tag}] CLI --traffic-split {name}: exit 1, "
+                 f"{err.getvalue().strip()}")
+    return out
+
+
+def phase_traffic(device, ell, well_hosts, hybrid_mm, hybrid_host,
+                  smi_line, triad_gbps):
+    """The traffic split (phase 26).  The main path, counted (the variant
+    counts zeroed just before): the CLI's --profile 5 --traffic-split at
+    poisson2d(TRAFFIC_CLI_GRID²), then measure_traffic_split at full
+    width, float32: -s ell and -s csr at poisson2d(FULL_GRID²), -s well at
+    poisson2d(FULL_GRID²) (K5b) and poisson2d(WELL_WHOLE_GRID²) (K5a), the
+    hybrid at powerlaw(HYBRID_ROWS).  Then, not counted, each case's
+    variants against their plain versions and each leg alone beside its
+    bound and yardstick (``_traffic_case``), and the variants in float64
+    at poisson2d(TRAFFIC_F64_GRID²)."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import (
+        CsrMatrix,
+        DeviceCsr,
+        DeviceEll,
+        DeviceWell,
+        EllMatrix,
+        device_put_matrix,
+    )
+    from spmv_tpu_torch.perfmodel import measured_machine
+    from spmv_tpu_torch.profile import measure_traffic_split
+
+    tag = "26 traffic split"
+    f32 = torch.float32
+    wrappers = _traffic_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    cli = _traffic_cli(device, tag)
+    ell_mm, ell_host, ell_A = ell
+    S_full = _csr_of_mm(ell_mm, device, f32)
+    grid = f"poisson2d({FULL_GRID},{FULL_GRID})"
+    cases = {
+        f"ell {grid}": (ell_A, S_full),
+        f"csr {grid}": (DeviceCsr(ell_A.num_rows, ell_A.num_columns,
+                                  ell_host.num_entries, S_full.crow_indices(),
+                                  S_full.col_indices(), S_full.values()),
+                        S_full),
+    }
+    for label, (w, segmented) in well_hosts.items():
+        W = DeviceWell.from_host(w, dtype=f32, device=device)
+        if (W.segment_of_step is not None) != segmented:
+            _fail(f"well {label}: not in the expected mode")
+        S = (S_full if label == grid else
+             _csr_of_mm(poisson2d(WELL_WHOLE_GRID, WELL_WHOLE_GRID), device,
+                        f32))
+        cases[f"well {label} ({'K5b' if segmented else 'K5a'})"] = (W, S)
+    hlabel = f"hybrid powerlaw({HYBRID_ROWS}, {HYBRID_ROWS}, 8.0, alpha 1.5)"
+    cases[hlabel] = (device_put_matrix(hybrid_host, dtype=f32, device=device),
+                     _csr_of_mm(hybrid_mm, device, f32))
+    machine = measured_machine(device)
+    chained = {}
+    for label, (A, _) in cases.items():
+        t0 = time.perf_counter()
+        ts = measure_traffic_split(A, machine=machine)
+        chained[label] = {k: ts[k] for k in (
+            "seconds_full", "seconds_regular", "seconds_irregular",
+            "additivity", "roofline_fraction")}
+        _say(f"[{tag}] measure_traffic_split {label}: full "
+             f"{ts['seconds_full'] * 1e3:.4f} ms, regular "
+             f"{ts['seconds_regular'] * 1e3:.4f} ms, irregular "
+             f"{ts['seconds_irregular'] * 1e3:.4f} ms chained, additivity "
+             f"{ts['additivity']:.3f}, roofline fractions "
+             + ", ".join(f"{k} {v:.3f}" for k, v in
+                         ts["roofline_fraction"].items())
+             + f" ({time.perf_counter() - t0:.1f} s)")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    _say(f"[{tag}] launches on the traffic-split path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            _fail(f"{name} was never launched on the traffic-split path")
+    alone = {label: _traffic_case(A, S, label, tag, smi_line, triad_gbps)
+             for label, (A, S) in cases.items()}
+    del cases, S_full
+    _sync(device)
+    f64 = torch.float64
+    mm = poisson2d(TRAFFIC_F64_GRID, TRAFFIC_F64_GRID)
+    flabel = f"poisson2d({TRAFFIC_F64_GRID},{TRAFFIC_F64_GRID}) float64"
+    whole = [w for w, seg in well_hosts.values() if not seg][0]
+    errs64 = {}
+    for kind, A in (
+            ("csr", DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm),
+                                        dtype=f64, device=device)),
+            ("ell", DeviceEll.from_host(EllMatrix.from_matrix_market(mm),
+                                        dtype=f64, device=device)),
+            ("well", DeviceWell.from_host(whole, dtype=f64, device=device))):
+        errs64[kind] = _traffic_check(A, TOL_F64, tag, f"{kind} {flabel}")
+    _sync(device)
+    return {"cli": cli, "chained": chained, "alone": alone,
+            "launches": launches, "max_abs_err_f64": errs64}
+
+
+def phase_simulate(device):
+    """Simulation mode through the CLI (phase 27, host only): --profile 0
+    --trace-config SIM_CONFIG on each of SIM_RUNS, the misses per thread
+    of each cache, the wall seconds and whether the native replay core
+    (csrc/simcache.cpp built under _build/host/) ran; a missing
+    --trace-config exits 1."""
+    from spmv_tpu_torch.cli import main
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.perfmodel import native
+
+    tag = "27 simulate"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, SIM_CONFIG)
+    out = {"native_core": native.library_path()}
+    _say(f"[{tag}] native replay core: {out['native_core']}")
+    if out["native_core"] is None:
+        _fail("the native replay core (csrc/simcache.cpp) did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, grid in SIM_RUNS:
+            path = os.path.join(tmp, f"poisson{grid}.mtx")
+            if not os.path.exists(path):
+                write_matrix_market(poisson2d(grid, grid), path)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            rc = main(["--matrix", path, "-s", fmt, "--profile", "0",
+                       "--trace-config", config], out=buf)
+            secs = time.perf_counter() - t0
+            if rc != 0:
+                _fail(f"simulate -s {fmt} at {grid}: exit {rc}")
+            misses = json.loads(buf.getvalue())["cache_misses"]
+            if not misses or not all(
+                    sum(map(sum, m)) > 0 for m in misses.values()):
+                _fail(f"simulate -s {fmt} at {grid}: no misses {misses}")
+            key = f"{fmt} poisson2d({grid},{grid})"
+            out[key] = {"cache_misses": misses, "seconds": secs}
+            _say(f"[{tag}] --profile 0 -s {fmt} at poisson2d({grid},{grid})"
+                 f": misses per thread (rows) and NUMA domain {misses}, "
+                 f"{secs:.2f} s wall")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = main(["--matrix", path, "-s", "csr"], out=io.StringIO())
+        if rc != 1 or "requires --trace-config" not in err.getvalue():
+            _fail(f"simulate without --trace-config: exit {rc}, "
+                  f"{err.getvalue()!r}")
+        _say(f"[{tag}] no --trace-config: exit 1, {err.getvalue().strip()}")
+    return out
+
+
+def _traffic_rows(traffic) -> list:
+    """The six traffic variants' rows of the kernels' JSON line: each at
+    poisson2d(FULL_GRID²) float32 (WELL: K5b's mode; K5a's at
+    poisson2d(WELL_WHOLE_GRID²) under ``whole_x``), its launches on the
+    traffic-split path."""
+    grid = f"poisson2d({FULL_GRID},{FULL_GRID})"
+    alone = traffic["alone"]
+    whole = f"poisson2d({WELL_WHOLE_GRID},{WELL_WHOLE_GRID}) (K5a)"
+    rows = []
+    for name, line in (("csr_regular", 59), ("csr_irregular", 69),
+                       ("ell_regular", 83), ("ell_irregular", 87),
+                       ("well_regular", 112), ("well_irregular", 119)):
+        kind, leg = name.split("_")
+        case = alone[f"{kind} {grid}" + (" (K5b)" if kind == "well"
+                                         else "")]
+        keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_triad_ms", "bytes", "library_ms", "library_call",
+                "library_timing", "max_abs_err")
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": f"spmv_tpu_torch/csrc/{kind}_spmv.cu",
+            "replaces": (f"XLA `_{kind}_{leg}` (spmv_tpu/ops/traffic.py:"
+                         f"{line}), not a TPU kernel" if kind != "well" else
+                         f"XLA `_well_{leg}` (spmv_tpu/ops/traffic.py:{line})"
+                         ", the variant of K5 (spmv_tpu/ops/pallas_kernels"
+                         ".py:431, :557)"),
+            "launches": traffic["launches"][name],
+            **{k: case[leg][k] for k in keys},
+            "max_abs_err_f64": traffic["max_abs_err_f64"][kind][leg],
+            "full_ms": case["full"]["ms"],
+            "shape": case["shape"] + " float32",
+        }
+        if kind == "well":
+            row["whole_x"] = {k: alone[f"well {whole}"][leg][k]
+                              for k in keys}
+        rows.append(row)
     return rows
 
 
@@ -4298,6 +4761,9 @@ def main() -> int:
     if csr_on_well != 0:
         _fail("the CSR SpMM was launched on the WELL SpMM path (the spill "
               "belongs to K6's one launch)")
+    # the WELL host matrices, for the traffic split (phase 26)
+    well_hosts = {label: (w, segmented)
+                  for label, (w, segmented, _) in well_mats.items()}
     del well_mats, dia_of, full, cg_well
     _sync(device)
 
@@ -4343,10 +4809,19 @@ def main() -> int:
             _fail(f"{name} was never launched on the formats path")
     ell_kernels = phase_kernels_ell(device, ell_mm, ell_host, ell_A,
                                     ell_chained, smi_line, triad_gbps)
-    del ell_mm, ell_host, ell_A
     cw_kernels["csr_spmv"]["whole_matrix"]["poisson2d"] = ell_kernels.pop(
         "csr_spmv_whole")
-    hybrid = phase_hybrid(device, smi_line, triad_gbps)
+    hybrid, hybrid_mm, hybrid_host = phase_hybrid(device, smi_line,
+                                                  triad_gbps)
+
+    # the traffic split's run (the CLI's --traffic-split, then
+    # measure_traffic_split at full width): the six variants' counts start
+    # from zero in phase_traffic
+    traffic = phase_traffic(device, (ell_mm, ell_host, ell_A), well_hosts,
+                            hybrid_mm, hybrid_host, smi_line, triad_gbps)
+    del ell_mm, ell_host, ell_A, well_hosts, hybrid_mm, hybrid_host
+    _sync(device)
+    simulate = phase_simulate(device)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -4465,7 +4940,7 @@ def main() -> int:
             "launches": amg_launches["fused_vcycle"],
             **fused,
         }
-    ], "wellcw_spmv": {**cw_times, "shape": cw_shape},
+    ] + _traffic_rows(traffic), "wellcw_spmv": {**cw_times, "shape": cw_shape},
         "wellcw_spmm": {**spmm_times, "shape": mm_shape},
         "batched_cg": {**cg_times, "k": CG_K,
                        "shape": f"poisson2d({CG_GRID},{CG_GRID}) float32"},
@@ -4490,7 +4965,9 @@ def main() -> int:
         "amg": {"launches_on_the_amg_path": amg_launches,
                 "cli": {**amg_cli, "shape": f"poisson2d({AMG_CLI_GRID},"
                                             f"{AMG_CLI_GRID}) float32"},
-                **amg_full}}
+                **amg_full},
+        "traffic_split": {k: v for k, v in traffic.items()},
+        "simulate": simulate}
     # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
     # part's launches and the ELL part's, each beside torch.sparse of
     # that part's own entries
@@ -4840,6 +5317,49 @@ print(json.dumps(found, default=str))
 """
 
 
+# K5a and K5b alone, in the checkout it runs from (this one or another
+# commit's): the WELL SpMV at phase 13's two matrices, poisson2d(1024²)
+# and poisson2d(4096²), in float32 and float64 (K5a at 1024² in float32,
+# K5b at the others: float64 x at 1024² switches to segments), and K5a
+# in float64 at poisson2d(1000²), whose x still fits whole; each timed
+# as phase 13 times it (a CUDA graph of 50, the L2 flushed) and its
+# output kept for a bitwise comparison across checkouts; the JSON of its
+# kernels on the last line
+_PHASE_WELL = """
+import json
+import sys
+import torch
+import chip_smoke as c
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.io.generate import poisson2d
+from spmv_tpu_torch.models import DeviceWell, WellMatrix
+device, smi = c.phase_device()
+c.phase_build()
+scratch = torch.empty(16 << 20, dtype=torch.float32, device=device)
+flush = lambda: scratch.fill_(0.0)
+found, outs = {}, {}
+f32, f64 = torch.float32, torch.float64
+for grid, dtypes in ((c.WELL_WHOLE_GRID, (f32, f64)), (1000, (f64,)),
+                     (c.WELL_SEG_GRID, (f32, f64))):
+    w = WellMatrix.from_matrix_market(poisson2d(grid, grid), window_rows=4)
+    for dt in dtypes:
+        A = DeviceWell.from_host(w, dtype=dt, device=device)
+        kname = "well_whole" if A.segment_of_step is None else "well_seg"
+        name = f"{kname}_poisson2d({grid},{grid})_{str(dt)[6:]}"
+        g = torch.Generator(device=device).manual_seed(2)
+        x = torch.randn(A.num_columns, generator=g, device=device, dtype=dt)
+        y = torch.empty(A.num_rows, device=device, dtype=dt)
+        found[name] = {"ms": c._cold_graph_ms(
+            lambda: ops.well_spmv_core(A, x, out=y), flush, 50),
+            "library_ms": None}
+        outs[name] = ops.well_spmv_core(A, x).cpu()
+        del A, x, y
+    del w
+torch.save(outs, sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
 def _phase_csr_script() -> str:
     from spmv_tpu_torch.models.device import LONG_ROW
 
@@ -4910,7 +5430,8 @@ BESIDE = {"--wellcw-kernels-beside": (_PHASE10, 10),
           "--well-spmm-kernels-beside": (_PHASE19, 19),
           "--fused-vcycle-beside": (_PHASE22, 22),
           "--csr-kernels-beside": (_phase_csr_script, 25),
-          "--ell-kernels-beside": (_PHASE_ELL, 24)}
+          "--ell-kernels-beside": (_PHASE_ELL, 24),
+          "--well-kernels-beside": (_PHASE_WELL, 13)}
 
 
 if __name__ == "__main__":

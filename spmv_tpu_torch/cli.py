@@ -11,6 +11,10 @@ runs the modes ported so far, printing the same JSON documents:
         [--recompute-residual K]
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT \
         --cg 2000 --nrhs 4 [--precondition none|jacobi]
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --profile 5 \
+        --traffic-split
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT \
+        --trace-config configs/cpu-2thread.json [--warmup]
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
@@ -28,6 +32,23 @@ them) prints ``spmv-tpu-torch: ... not yet ported`` and exits 1.  The
 device is the first CUDA device; without one the CLI exits 1, unless
 ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as the tests do).
 ``--list-devices`` lists the CPU when there is no card.
+
+``--profile N --traffic-split`` also times the stream-only and
+gather-only variants of the SpMV (``profile.traffic.
+measure_traffic_split``: the hand-written CSR, ELL and WELL variants on
+the card) on the matrix put on the device as the JAX CLI puts it
+(``device_put_matrix``), and reports them under ``"traffic_split"``,
+each leg priced at the port's measured triad rate.  As in the JAX CLI it
+refuses ``--spmm`` and a kernel with no matrix (``--triad``), and ``-s
+dia``, ``wellcw`` and ``bsr`` (also as ``-s auto``'s choice) exit 1 with
+the variants' ``KernelError``.
+
+``--profile 0`` (the default) is the simulation mode, as in the JAX CLI:
+the kernel's per-thread memory reference strings (the format's
+reference loop, ``Kernel.memory_reference_string``) replayed through the
+``--trace-config`` machine model's LRU caches (``perfmodel.cache_trace``;
+the replay in ``csrc/simcache.cpp``, built on the host), with an
+uncounted replay first under ``--warmup``.  It runs on the host alone.
 
 ``--cg`` on any format but DIA runs the generic (P)CG over ``spmv``, as
 the JAX CLI does (its ``fast_spmv`` runs the Pallas WELL kernel; the
@@ -238,7 +259,6 @@ def _check_ported(args) -> None:
         ("--list-profile-events", args.list_profile_events is not None),
         ("--eigs", args.eigs > 0),
         ("--scaling", args.scaling > 0),
-        ("--traffic-split", args.traffic_split),
         ("--jax-profile", args.jax_profile is not None),
         ("--flush-caches", args.flush_caches),
         # -s auto refuses --reorder itself, as the JAX CLI does
@@ -250,8 +270,6 @@ def _check_ported(args) -> None:
     ):
         if on:
             _not_ported(flag)
-    if args.cg <= 0 and args.profile <= 0:
-        _not_ported("simulation mode (--profile 0)")
 
 
 def _make_kernel(args, device, dtype):
@@ -364,6 +382,7 @@ def _profile(args, out, device, dtype) -> None:
         bytes_override = kernel.spmm_bytes_per_run(args.spmm)
     else:
         step, fargs = kernel.run_fn()
+    split = _traffic_split_matrix(args, kernel, device, dtype)
     if args.verbose:
         mode = f"spmm k={args.spmm}" if args.spmm > 0 else "spmv"
         print(f"profiling {kernel.name} ({mode}) for {args.profile} runs "
@@ -378,7 +397,16 @@ def _profile(args, out, device, dtype) -> None:
         from spmv_tpu_torch.perfmodel.trace_config import read_trace_config
 
         config = read_trace_config(args.trace_config)
-    dump_json(profiling_report(
+    traffic = None
+    if split is not None:
+        from spmv_tpu_torch.profile.traffic import measure_traffic_split
+
+        if args.verbose:
+            print("timing traffic-isolation variants "
+                  "(full / regular / irregular)", file=sys.stderr)
+        traffic = measure_traffic_split(split,
+                                        machine=measured_machine(device))
+    doc = profiling_report(
         kernel,
         runs_sample=runs,
         seconds_per_iteration=chained.seconds_per_iteration,
@@ -390,7 +418,57 @@ def _profile(args, out, device, dtype) -> None:
         op_info=op_info,
         flops_per_run=flops_override,
         bytes_per_run=bytes_override,
-    ), out)
+    )
+    if traffic is not None:
+        doc["traffic_split"] = traffic
+    dump_json(doc, out)
+
+
+def _traffic_split_matrix(args, kernel, device, dtype):
+    """With ``--traffic-split``: the device matrix to measure after the
+    profile, put on the device as the JAX CLI puts it (None without the
+    flag).  Refuses, as the JAX CLI does, ``--spmm``, a kernel with no
+    matrix, and a format with no variants (the last with the variants'
+    ``KernelError``), before any timing."""
+    if not args.traffic_split:
+        return None
+    if args.spmm > 0:
+        raise SpmvError("--traffic-split applies to the SpMV step, "
+                        "not --spmm")
+    if not hasattr(kernel, "matrix"):
+        raise SpmvError(
+            f"--traffic-split is not supported by the {kernel.name} kernel")
+    from spmv_tpu_torch.models.device import device_put_matrix
+    from spmv_tpu_torch.ops.traffic import check_traffic_format
+
+    A = device_put_matrix(kernel.matrix, dtype=dtype, device=device)
+    check_traffic_format(A)
+    return A
+
+
+def _simulate(args, out, device, dtype) -> None:
+    """Simulation mode (``--profile 0``), after the JAX CLI's
+    ``_simulate``: the kernel's reference strings replayed through the
+    ``--trace-config`` machine model's caches, on the host."""
+    from spmv_tpu_torch.perfmodel.cache_trace import trace_cache_misses
+    from spmv_tpu_torch.perfmodel.trace_config import read_trace_config
+    from spmv_tpu_torch.utils.jsonio import dump_json
+
+    if not args.trace_config:
+        raise SpmvError(
+            "simulation mode requires --trace-config (JSON machine "
+            "model); run with --profile N for on-device timing instead"
+        )
+    config = read_trace_config(args.trace_config)
+    kernel, _ = _make_kernel(args, device, dtype)
+    kernel.init(verbose=args.verbose)
+    trace = trace_cache_misses(
+        config, kernel, warmup=bool(args.warmup),
+        verbose=args.verbose,
+        progress_interval=(args.progress_interval
+                           if args.verbose else 0.0),
+    )
+    dump_json(trace.to_json(), out)
 
 
 def _solve_cg(args, out, device, dtype) -> None:
@@ -598,8 +676,10 @@ def main(argv=None, out=None) -> int:
         dtype = default_value_dtype()
         if args.cg > 0:
             _solve_cg(args, out, device, dtype)
-        else:
+        elif args.profile > 0:
             _profile(args, out, device, dtype)
+        else:
+            _simulate(args, out, device, dtype)
     except (SpmvError, FileNotFoundError) as e:
         print(f"spmv-tpu-torch: {e}", file=sys.stderr)
         return 1

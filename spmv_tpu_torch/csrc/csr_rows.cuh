@@ -127,6 +127,63 @@ __device__ __forceinline__ void lane_sums(const int* __restrict__ col,
   }
 }
 
+// The traffic-isolation variants' lane sums (csr_spmv.cu), over the same
+// entries e, e + S, ... < end as lane_sums, G entries in flight: the
+// stream-only sum of the values (no column index or x load), and the
+// gather-only sum of x at the columns (no value load; a column outside
+// [0, num_columns) reads 0, as in lane_sums).
+template <typename T, int G>
+__device__ __forceinline__ void lane_values(const T* __restrict__ val,
+                                            int64_t e, int64_t end, int S,
+                                            T (&acc)[1]) {
+  acc[0] = T(0);
+  for (; e < end; e += static_cast<int64_t>(G) * S) {
+    T v[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int64_t j = e + static_cast<int64_t>(q) * S;
+      v[q] = j < end ? __ldg(val + j) : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      if (e + static_cast<int64_t>(q) * S < end) acc[0] += v[q];
+    }
+  }
+}
+
+template <typename T, int G>
+__device__ __forceinline__ void lane_gathers(const int* __restrict__ col,
+                                             int64_t e, int64_t end, int S,
+                                             int64_t num_columns,
+                                             const T* __restrict__ x,
+                                             T (&acc)[1]) {
+  acc[0] = T(0);
+  int c[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const int64_t j = e + static_cast<int64_t>(q) * S;
+    c[q] = j < end ? __ldg(col + j) : -1;
+  }
+  for (; e < end; e += static_cast<int64_t>(G) * S) {
+    T xv[G];
+    bool ok[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      ok[q] = c[q] >= 0 && c[q] < num_columns;
+      xv[q] = ok[q] ? __ldg(x + c[q]) : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const int64_t j = e + static_cast<int64_t>(G + q) * S;
+      c[q] = j < end ? __ldg(col + j) : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      if (ok[q]) acc[0] += xv[q];
+    }
+  }
+}
+
 // The warp's sums into lane 0 (the other lanes hold partial sums).
 template <typename T, int KB>
 __device__ __forceinline__ void warp_sums(T (&s)[KB]) {

@@ -23,6 +23,13 @@
 // a long row after reading its row_ptr pair.  Without long rows the
 // launch is that walk alone, as before the split.  An empty row is left
 // alone when accumulating.  y must not overlap x.
+//
+// The traffic-isolation variants (--traffic-split; the JAX package's
+// _csr_regular / _csr_irregular, spmv_tpu/ops/traffic.py:59, :69, in
+// XLA) are modes of this kernel: the same walk, rows to threads, warps
+// and blocks as above, with one stream left out.  kRegular sums each
+// row's values and loads no column index and no x; kIrregular sums x at
+// each row's columns (0 outside [0, num_columns)) and loads no value.
 
 #include "csr_rows.cuh"
 #include "dia_common.cuh"
@@ -31,8 +38,9 @@ namespace spmv_tpu_torch {
 namespace {
 
 // Blocks [0, lr.blocks()) sum the long rows (Split only, csr_rows.cuh);
-// thread t of the later blocks takes row t.
-template <typename T, bool Split>
+// thread t of the later blocks takes row t.  Mode is a TrafficMode
+// (dia_common.cuh).
+template <typename T, bool Split, int Mode>
 __global__ void __launch_bounds__(kCsrThreads)
     csr_spmv_kernel(const int* __restrict__ row_ptr,
                     const int* __restrict__ column_index,
@@ -50,8 +58,14 @@ __global__ void __launch_bounds__(kCsrThreads)
       long_row<T, 1>(
           row_ptr, lr, b,
           [&](int64_t e, int64_t end, int S, T(&acc)[1]) {
-            lane_sums<T, 1, G>(column_index, value, e, end, S, num_columns,
-                               load_x, acc);
+            if constexpr (Mode == kFull)
+              lane_sums<T, 1, G>(column_index, value, e, end, S,
+                                 num_columns, load_x, acc);
+            else if constexpr (Mode == kRegular)
+              lane_values<T, G>(value, e, end, S, acc);
+            else
+              lane_gathers<T, G>(column_index, e, end, S, num_columns, x,
+                                 acc);
           },
           [&](int64_t i, const T(&s)[1]) {
             y[i] = accumulate ? y[i] + s[0] : s[0];
@@ -70,14 +84,22 @@ __global__ void __launch_bounds__(kCsrThreads)
   if (accumulate && start == end) return;
   T acc = T(0);
   for (int j = start; j < end; ++j) {
-    const int c = column_index[j];
-    if (static_cast<unsigned>(c) < static_cast<uint64_t>(num_columns))
-      acc += value[j] * __ldg(x + c);
+    if constexpr (Mode == kRegular) {
+      acc += value[j];
+    } else {
+      const int c = column_index[j];
+      if (static_cast<unsigned>(c) < static_cast<uint64_t>(num_columns)) {
+        if constexpr (Mode == kFull)
+          acc += value[j] * __ldg(x + c);
+        else
+          acc += __ldg(x + c);
+      }
+    }
   }
   y[i] = accumulate ? y[i] + acc : acc;
 }
 
-template <typename T>
+template <typename T, int Mode>
 cudaError_t launch(const void* row_ptr, const void* column_index,
                    const void* value, int64_t num_rows, int64_t num_columns,
                    const LongRows& lr, const void* x, void* y,
@@ -93,27 +115,18 @@ cudaError_t launch(const void* row_ptr, const void* column_index,
         static_cast<T*>(y), accumulate);
   };
   if (lr.rows != nullptr)
-    args(csr_spmv_kernel<T, true>);
+    args(csr_spmv_kernel<T, true, Mode>);
   else
-    args(csr_spmv_kernel<T, false>);
+    args(csr_spmv_kernel<T, false, Mode>);
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace spmv_tpu_torch
-
-// Returns the cudaError_t of the launch (0 on success).  dtype is
-// kFloat32 or kFloat64 (dia_common.cuh); long_rows is the num_long rows
-// with more than max_short entries, longest first, the first num_block
-// of them summed by a block each (csr_rows.cuh), or null.
-extern "C" int csr_spmv_launch(int dtype, int device, const void* row_ptr,
-                               const void* column_index, const void* value,
-                               long long num_rows, long long num_columns,
-                               const void* long_rows, long long num_long,
-                               long long num_block, int max_short,
-                               const void* x, void* y, int accumulate,
-                               void* stream) {
-  using namespace spmv_tpu_torch;
+template <int Mode>
+int dispatch(int dtype, int device, const void* row_ptr,
+             const void* column_index, const void* value, long long num_rows,
+             long long num_columns, const void* long_rows, long long num_long,
+             long long num_block, int max_short, const void* x, void* y,
+             int accumulate, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -122,12 +135,37 @@ extern "C" int csr_spmv_launch(int dtype, int device, const void* row_ptr,
                        long_rows != nullptr ? num_block : 0, max_short};
   switch (dtype) {
     case kFloat32:
-      return launch<float>(row_ptr, column_index, value, num_rows,
-                           num_columns, lr, x, y, accumulate != 0, s);
+      return launch<float, Mode>(row_ptr, column_index, value, num_rows,
+                                 num_columns, lr, x, y, accumulate != 0, s);
     case kFloat64:
-      return launch<double>(row_ptr, column_index, value, num_rows,
-                            num_columns, lr, x, y, accumulate != 0, s);
+      return launch<double, Mode>(row_ptr, column_index, value, num_rows,
+                                  num_columns, lr, x, y, accumulate != 0, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+}  // namespace spmv_tpu_torch
+
+// Returns the cudaError_t of the launch (0 on success).  dtype is
+// kFloat32 or kFloat64 (dia_common.cuh); long_rows is the num_long rows
+// with more than max_short entries, longest first, the first num_block
+// of them summed by a block each (csr_rows.cuh), or null.  mode is a
+// TrafficMode (dia_common.cuh): kFull for the product, kRegular (reads no
+// column_index and no x) or kIrregular (reads no value) for a
+// traffic-isolation variant.
+extern "C" int csr_spmv_launch(int dtype, int device, const void* row_ptr,
+                               const void* column_index, const void* value,
+                               long long num_rows, long long num_columns,
+                               const void* long_rows, long long num_long,
+                               long long num_block, int max_short,
+                               const void* x, void* y, int accumulate,
+                               int mode, void* stream) {
+  using namespace spmv_tpu_torch;
+  return by_mode(mode, [&](auto m) {
+    return dispatch<decltype(m)::value>(
+        dtype, device, row_ptr, column_index, value, num_rows, num_columns,
+        long_rows, num_long, num_block, max_short, x, y, accumulate, stream);
+  });
 }

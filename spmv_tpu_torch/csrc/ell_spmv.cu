@@ -31,6 +31,14 @@
 // SpMM's columns (ell_spmm.cu), keep their bits.  A column outside
 // [0, num_columns) is skipped (the host never builds one).  Under
 // accumulate y[i] + sum is written, else the sum.  y must not overlap x.
+//
+// The traffic-isolation variants (--traffic-split; the JAX package's
+// _ell_regular / _ell_irregular, spmv_tpu/ops/traffic.py:83, :87, in
+// XLA) are modes of this kernel (Mode, a TrafficMode of dia_common.cuh):
+// the same template row length, rows to threads and slot order, with one
+// stream left out.  kRegular sums each row's slot values and loads no
+// index and no x; kIrregular sums x at each row's slot indices (0 outside
+// [0, num_columns)) and loads no value.
 
 #include <type_traits>
 
@@ -80,7 +88,9 @@ __device__ __forceinline__ void stream_load(const T* p, T (&o)[R]) {
 // The sums of R consecutive rows whose slot s lies at cp / vp + s *
 // stride (L slots; L = 0: row_length slots, kMaxSlots a round).  Every
 // slot of a round is loaded, then gathered, then added in slot order.
-template <typename T, int R, int L>
+// Mode kRegular loads and adds the values alone, kIrregular the x
+// gathers alone.
+template <typename T, int R, int L, int Mode = kFull>
 __device__ __forceinline__ void ell_rows(const int* __restrict__ cp,
                                          const T* __restrict__ vp,
                                          int row_length, int64_t stride,
@@ -98,8 +108,8 @@ __device__ __forceinline__ void ell_rows(const int* __restrict__ cp,
     for (int q = 0; q < G; ++q) {
       if (L > 0 || s0 + q < len) {
         const int64_t at = static_cast<int64_t>(s0 + q) * stride;
-        stream_load<int, R>(cp + at, col[q]);
-        stream_load<T, R>(vp + at, v[q]);
+        if constexpr (Mode != kRegular) stream_load<int, R>(cp + at, col[q]);
+        if constexpr (Mode != kIrregular) stream_load<T, R>(vp + at, v[q]);
       } else {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
@@ -107,6 +117,16 @@ __device__ __forceinline__ void ell_rows(const int* __restrict__ cp,
           v[q][r] = T(0);
         }
       }
+    }
+    if constexpr (Mode == kRegular) {
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        if (L > 0 || s0 + q < len) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] += v[q][r];
+        }
+      }
+      continue;
     }
     T xv[G][R];
 #pragma unroll
@@ -123,8 +143,12 @@ __device__ __forceinline__ void ell_rows(const int* __restrict__ cp,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (static_cast<unsigned>(col[q][r]) <
-            static_cast<uint64_t>(num_columns))
-          acc[r] += v[q][r] * xv[q][r];
+            static_cast<uint64_t>(num_columns)) {
+          if constexpr (Mode == kFull)
+            acc[r] += v[q][r] * xv[q][r];
+          else
+            acc[r] += xv[q][r];
+        }
       }
     }
   }
@@ -132,7 +156,7 @@ __device__ __forceinline__ void ell_rows(const int* __restrict__ cp,
 
 // Thread t takes rows R t .. R t + R - 1 (num_rows a multiple of R and
 // both buffers aligned to R values where R > 1; the port launches R = 1).
-template <typename T, int R, int L>
+template <typename T, int R, int L, int Mode = kFull>
 __global__ void __launch_bounds__(kThreads, ELL_SPMV_MIN_BLOCKS)
     ell_spmv_kernel(const int* __restrict__ column_index,
                     const T* __restrict__ value, int row_length,
@@ -143,8 +167,8 @@ __global__ void __launch_bounds__(kThreads, ELL_SPMV_MIN_BLOCKS)
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * R;
   if (i >= num_rows) return;
   T acc[R];
-  ell_rows<T, R, L>(column_index + i, value + i, row_length, num_rows,
-                    num_columns, x, acc);
+  ell_rows<T, R, L, Mode>(column_index + i, value + i, row_length, num_rows,
+                          num_columns, x, acc);
 #pragma unroll
   for (int r = 0; r < R; ++r)
     y[i + r] = accumulate ? y[i + r] + acc[r] : acc[r];
@@ -173,7 +197,7 @@ cudaError_t by_slots(int slots, Launch launch) {
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, int Mode = kFull>
 cudaError_t launch_rows(const void* column_index, const void* value,
                         int row_length, int slots, int64_t num_rows,
                         int64_t num_columns, const void* x, void* y,
@@ -182,7 +206,7 @@ cudaError_t launch_rows(const void* column_index, const void* value,
   const int64_t blocks = (num_rows + per_block - 1) / per_block;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   return by_slots(slots, [&](auto l) {
-    ell_spmv_kernel<T, R, decltype(l)::value>
+    ell_spmv_kernel<T, R, decltype(l)::value, Mode>
         <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
             static_cast<const int*>(column_index),
             static_cast<const T*>(value), row_length, num_rows, num_columns,
@@ -192,7 +216,7 @@ cudaError_t launch_rows(const void* column_index, const void* value,
 }
 
 // slots is 0 (the rounds) or the row length, at most kMaxSlots.
-template <typename T>
+template <typename T, int Mode>
 cudaError_t launch(const void* column_index, const void* value,
                    int row_length, int slots, int64_t num_rows,
                    int64_t num_columns, const void* x, void* y,
@@ -201,8 +225,31 @@ cudaError_t launch(const void* column_index, const void* value,
       slots > kMaxSlots)
     return cudaErrorInvalidValue;
   if (num_rows == 0) return cudaSuccess;
-  return launch_rows<T, 1>(column_index, value, row_length, slots, num_rows,
-                           num_columns, x, y, accumulate, stream);
+  return launch_rows<T, 1, Mode>(column_index, value, row_length, slots,
+                                 num_rows, num_columns, x, y, accumulate,
+                                 stream);
+}
+
+template <int Mode>
+int dispatch(int dtype, int device, const void* column_index,
+             const void* value, int row_length, int slots, long long num_rows,
+             long long num_columns, const void* x, void* y, int accumulate,
+             void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch<float, Mode>(column_index, value, row_length, slots,
+                                 num_rows, num_columns, x, y,
+                                 accumulate != 0, s);
+    case kFloat64:
+      return launch<double, Mode>(column_index, value, row_length, slots,
+                                  num_rows, num_columns, x, y,
+                                  accumulate != 0, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -211,24 +258,20 @@ cudaError_t launch(const void* column_index, const void* value,
 // Returns the cudaError_t of the launch (0 on success).  dtype is
 // kFloat32 or kFloat64 (dia_common.cuh); column_index and value are
 // (row_length, num_rows), slot-major; slots is ell_spmv_plan's
-// (ops/_launch.py): the template row length, or 0 for the rounds.
+// (ops/_launch.py): the template row length, or 0 for the rounds.  mode
+// is a TrafficMode (dia_common.cuh): kFull for the product, kRegular
+// (reads no column_index and no x) or kIrregular (reads no value) for a
+// traffic-isolation variant.
 extern "C" int ell_spmv_launch(int dtype, int device,
                                const void* column_index, const void* value,
                                int row_length, int slots, long long num_rows,
                                long long num_columns, const void* x, void* y,
-                               int accumulate, void* stream) {
+                               int accumulate, int mode, void* stream) {
   using namespace spmv_tpu_torch;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch<float>(column_index, value, row_length, slots, num_rows,
-                           num_columns, x, y, accumulate != 0, s);
-    case kFloat64:
-      return launch<double>(column_index, value, row_length, slots, num_rows,
-                            num_columns, x, y, accumulate != 0, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_mode(mode, [&](auto m) {
+    return dispatch<decltype(m)::value>(dtype, device, column_index, value,
+                                        row_length, slots, num_rows,
+                                        num_columns, x, y, accumulate,
+                                        stream);
+  });
 }

@@ -75,8 +75,21 @@
 //
 // Output: every row < num_rows is written; rows past it never are, so y
 // can be an exactly num_rows buffer.  y must not overlap x.
+//
+// The traffic-isolation variants (--traffic-split; the JAX package's
+// _well_regular / _well_irregular, spmv_tpu/ops/traffic.py:112, :119, in
+// XLA) are modes of these kernels (Mode, a TrafficMode of
+// dia_common.cuh): the same blocks, staging, slot_mask and step walk,
+// tile and spill fold, with one stream left out.  kRegular sums the live
+// slots' values and the spill's values, and reads no local_index, no
+// window_start, no spill column and no x; kIrregular sums x at the live
+// slots' columns and the spill's columns, and reads no value.  Both read
+// the live slots only, as the product does, where the JAX variants
+// gather every stored slot: the gather-only sum leaves out the x
+// gathers of the all-zero slots (a stated deviation).
 
 #include <cstdint>
+#include <type_traits>
 
 #include "dia_common.cuh"
 
@@ -125,7 +138,7 @@ __device__ __forceinline__ void load_quad(const int* p, int (&v)[kQuad]) {
   v[3] = q.w;
 }
 
-template <typename T, bool Segmented>
+template <typename T, bool Segmented, int Mode>
 __global__ void __launch_bounds__(kThreads)
     well_kernel(const T* __restrict__ value,
                 const int* __restrict__ local_index,
@@ -168,14 +181,16 @@ __global__ void __launch_bounds__(kThreads)
       const unsigned m = slot_mask[c];
       s_mask[tid] = static_cast<uint8_t>(m);
       if (m != 0) {
-        const int64_t t = c / k;
-        const int kk = static_cast<int>(c - t * k);
-        const int seg = Segmented ? segment_of_step[t] : 0;
-        const int* ws = window_start + t * kWellSlots * k + kk;
+        if constexpr (Mode != kRegular) {
+          const int64_t t = c / k;
+          const int kk = static_cast<int>(c - t * k);
+          const int seg = Segmented ? segment_of_step[t] : 0;
+          const int* ws = window_start + t * kWellSlots * k + kk;
 #pragma unroll
-        for (int s = 0; s < kWellSlots; ++s)
-          s_window[tid * kWellSlots + s] =
-              (m & (1u << s)) ? ws[s * k] + seg : 0;
+          for (int s = 0; s < kWellSlots; ++s)
+            s_window[tid * kWellSlots + s] =
+                (m & (1u << s)) ? ws[s * k] + seg : 0;
+        }
         s_row[tid] = group_of_chunk[c] % out_rows;
       }
     }
@@ -189,8 +204,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int s = 0; s < kWellSlots; ++s) {
         if (m & (1u << s)) {
-          load_quad(value + base + s * kWellLanes, val[s]);
-          load_quad(local_index + base + s * kWellLanes, loc[s]);
+          if constexpr (Mode != kIrregular)
+            load_quad(value + base + s * kWellLanes, val[s]);
+          if constexpr (Mode != kRegular)
+            load_quad(local_index + base + s * kWellLanes, loc[s]);
         }
       }
       const int* wrow = s_window + j * kWellSlots;
@@ -198,6 +215,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int s = 0; s < kWellSlots; ++s) {
         if (m & (1u << s)) {
+          if constexpr (Mode == kRegular) {
+#pragma unroll
+            for (int q = 0; q < kQuad; ++q) strip[q] += val[s][q];
+            continue;
+          }
           const int64_t w0 = static_cast<int64_t>(wrow[s]) * kWellLanes;
 #pragma unroll
           for (int q = 0; q < kQuad; ++q) {
@@ -206,7 +228,10 @@ __global__ void __launch_bounds__(kThreads)
                                  static_cast<uint64_t>(num_columns)
                              ? __ldg(x + col)
                              : T(0);
-            strip[q] += val[s][q] * xv;
+            if constexpr (Mode == kFull)
+              strip[q] += val[s][q] * xv;
+            else
+              strip[q] += xv;
           }
         }
       }
@@ -220,24 +245,43 @@ __global__ void __launch_bounds__(kThreads)
   T first = T(0);
   int first_row = 0;
   if (e < e_end) {
-    const int col = __ldg(spill_col + e);
-    first_row = __ldg(spill_row + e);
-    first = __ldg(spill_value + e) *
-            (static_cast<uint64_t>(static_cast<uint32_t>(col)) <
-                     static_cast<uint64_t>(num_columns)
-                 ? __ldg(x + col)
-                 : T(0));
+    if constexpr (Mode == kFull) {
+      const int col = __ldg(spill_col + e);
+      first_row = __ldg(spill_row + e);
+      first = __ldg(spill_value + e) *
+              (static_cast<uint64_t>(static_cast<uint32_t>(col)) <
+                       static_cast<uint64_t>(num_columns)
+                   ? __ldg(x + col)
+                   : T(0));
+    } else if constexpr (Mode == kRegular) {
+      first_row = __ldg(spill_row + e);
+      first = __ldg(spill_value + e);
+    } else {
+      const int col = __ldg(spill_col + e);
+      first_row = __ldg(spill_row + e);
+      first = static_cast<uint64_t>(static_cast<uint32_t>(col)) <
+                      static_cast<uint64_t>(num_columns)
+                  ? __ldg(x + col)
+                  : T(0);
+    }
   }
   __syncthreads();  // the chunks' sums are in the tile
   if (e < e_end) tile[first_row * kWellLanes + tid] += first;
   for (++e; e < e_end; ++e) {
-    const int col = __ldg(spill_col + e);
-    const T xv = static_cast<uint64_t>(static_cast<uint32_t>(col)) <
-                         static_cast<uint64_t>(num_columns)
-                     ? __ldg(x + col)
-                     : T(0);
-    tile[__ldg(spill_row + e) * kWellLanes + tid] +=
-        __ldg(spill_value + e) * xv;
+    if constexpr (Mode == kRegular) {
+      tile[__ldg(spill_row + e) * kWellLanes + tid] += __ldg(spill_value + e);
+    } else {
+      const int col = __ldg(spill_col + e);
+      const T xv = static_cast<uint64_t>(static_cast<uint32_t>(col)) <
+                           static_cast<uint64_t>(num_columns)
+                       ? __ldg(x + col)
+                       : T(0);
+      if constexpr (Mode == kFull)
+        tile[__ldg(spill_row + e) * kWellLanes + tid] +=
+            __ldg(spill_value + e) * xv;
+      else
+        tile[__ldg(spill_row + e) * kWellLanes + tid] += xv;
+    }
   }
   for (int r = 0; r < out_rows; ++r) {
     const int64_t row = (b * out_rows + r) * kWellLanes + tid;
@@ -245,7 +289,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool Segmented>
+template <typename T, bool Segmented, int Mode>
 cudaError_t launch(const void* value, const void* local_index,
                    const void* window_start, const void* group_of_chunk,
                    const void* segment_of_step, const void* step_ptr,
@@ -263,11 +307,11 @@ cudaError_t launch(const void* value, const void* local_index,
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
-        well_kernel<T, Segmented>,
+        well_kernel<T, Segmented, Mode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  well_kernel<T, Segmented>
+  well_kernel<T, Segmented, Mode>
       <<<static_cast<unsigned>(num_out_blocks), kThreads, smem, stream>>>(
           static_cast<const T*>(value), static_cast<const int*>(local_index),
           static_cast<const int*>(window_start),
@@ -283,7 +327,7 @@ cudaError_t launch(const void* value, const void* local_index,
   return cudaGetLastError();
 }
 
-template <bool Segmented>
+template <bool Segmented, int Mode>
 int dispatch(int dtype, int device, const void* value,
              const void* local_index, const void* window_start,
              const void* group_of_chunk, const void* segment_of_step,
@@ -297,12 +341,12 @@ int dispatch(int dtype, int device, const void* value,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return launch<float, Segmented>(
+      return launch<float, Segmented, Mode>(
           value, local_index, window_start, group_of_chunk, segment_of_step,
           step_ptr, slot_mask, spill_ptr, spill_row, spill_col, spill_value,
           k, out_rows, num_out_blocks, num_rows, num_columns, x, y, s);
     case kFloat64:
-      return launch<double, Segmented>(
+      return launch<double, Segmented, Mode>(
           value, local_index, window_start, group_of_chunk, segment_of_step,
           step_ptr, slot_mask, spill_ptr, spill_row, spill_col, spill_value,
           k, out_rows, num_out_blocks, num_rows, num_columns, x, y, s);
@@ -316,9 +360,13 @@ int dispatch(int dtype, int device, const void* value,
 
 // Each returns the cudaError_t of the launch (0 on success).  dtype is
 // kFloat32 or kFloat64 (dia_common.cuh); every index array is int32 and
-// slot_mask is uint8; value and local_index start on 16-byte boundaries.  segment_of_step is read only by K5b
-// (well_seg_launch).  The four spill arrays are all null where the
-// matrix has no spill.
+// slot_mask is uint8; value and local_index start on 16-byte boundaries.
+// segment_of_step is read only by K5b (well_seg_launch).  The four spill
+// arrays are all null where the matrix has no spill.  mode is a
+// TrafficMode (dia_common.cuh): kFull for the product, kRegular (reads no
+// local_index, window_start, segment_of_step, spill_col and no x) or
+// kIrregular (reads no value and no spill_value) for a traffic-isolation
+// variant.
 
 extern "C" int well_whole_launch(
     int dtype, int device, const void* value, const void* local_index,
@@ -326,12 +374,15 @@ extern "C" int well_whole_launch(
     const void* step_ptr, const void* slot_mask, const void* spill_ptr,
     const void* spill_row, const void* spill_col, const void* spill_value,
     int k, int out_rows, long long num_out_blocks, long long num_rows,
-    long long num_columns, const void* x, void* y, void* stream) {
-  return spmv_tpu_torch::dispatch<false>(
-      dtype, device, value, local_index, window_start, group_of_chunk,
-      nullptr, step_ptr, slot_mask, spill_ptr, spill_row, spill_col,
-      spill_value, k, out_rows, num_out_blocks, num_rows, num_columns, x, y,
-      stream);
+    long long num_columns, const void* x, void* y, int mode, void* stream) {
+  using namespace spmv_tpu_torch;
+  return by_mode(mode, [&](auto m) {
+    return dispatch<false, decltype(m)::value>(
+        dtype, device, value, local_index, window_start, group_of_chunk,
+        nullptr, step_ptr, slot_mask, spill_ptr, spill_row, spill_col,
+        spill_value, k, out_rows, num_out_blocks, num_rows, num_columns, x,
+        y, stream);
+  });
 }
 
 extern "C" int well_seg_launch(
@@ -341,10 +392,13 @@ extern "C" int well_seg_launch(
     const void* spill_ptr, const void* spill_row, const void* spill_col,
     const void* spill_value, int k, int out_rows, long long num_out_blocks,
     long long num_rows, long long num_columns, const void* x, void* y,
-    void* stream) {
-  return spmv_tpu_torch::dispatch<true>(
-      dtype, device, value, local_index, window_start, group_of_chunk,
-      segment_of_step, step_ptr, slot_mask, spill_ptr, spill_row, spill_col,
-      spill_value, k, out_rows, num_out_blocks, num_rows, num_columns, x, y,
-      stream);
+    int mode, void* stream) {
+  using namespace spmv_tpu_torch;
+  return by_mode(mode, [&](auto m) {
+    return dispatch<true, decltype(m)::value>(
+        dtype, device, value, local_index, window_start, group_of_chunk,
+        segment_of_step, step_ptr, slot_mask, spill_ptr, spill_row,
+        spill_col, spill_value, k, out_rows, num_out_blocks, num_rows,
+        num_columns, x, y, stream);
+  });
 }

@@ -4,9 +4,13 @@
 
 The counterpart of ``spmv_tpu/kernels.py``.  ``Kernel`` and
 ``_MatrixKernel`` are the port's copies of the JAX package's base classes
-(loading, conversion, ``describe``, ``flops_per_run``), without the
-simulation mode's memory layouts and reference strings, which come with
-that mode.  Each kernel runs on ``device`` in ``dtype`` (by default the
+(loading, conversion, ``describe``, ``flops_per_run``), with the
+simulation mode's memory layouts (``_make_layout``) and per-thread
+memory reference strings (``memory_reference_string``), JAX's element
+for element: they model the format's reference loop on the trace
+config's CPU-like cache hierarchy, not the port's GPU kernels.  The
+layout is built from the host matrix at its first use (``layout``), so
+profile mode pays nothing for it.  Each kernel runs on ``device`` in ``dtype`` (by default the
 card, through ``default_device``, and ``default_value_dtype``); the byte
 counts are the JAX package's at the tensor's value width, except where
 a class says it prices what its launches read.  Every matrix kernel has
@@ -48,6 +52,20 @@ from spmv_tpu_torch.models.ell import EllMatrix
 from spmv_tpu_torch.models.hybrid import HybridMatrix
 from spmv_tpu_torch.models.well import WellMatrix
 from spmv_tpu_torch.models.wellcw import WellCwMatrix
+from spmv_tpu_torch.perfmodel.layout import VirtualLayout
+from spmv_tpu_torch.perfmodel.refstring import (
+    VAL,
+    bsr_spmv_refstring,
+    coo_atomic_spmv_refstring,
+    coo_spmv_refstring,
+    csr_spmv_refstring,
+    dia_spmv_refstring,
+    ell_spmv_refstring,
+    hybrid_spmv_refstring,
+    triad_refstring,
+    well_spmv_refstring,
+    wellcw_spmv_refstring,
+)
 from spmv_tpu_torch.ops.bsr_kernels import bsr_spmm_core
 from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core, csr_spmv_core
 from spmv_tpu_torch.ops.dia_kernels import dia_spmm_core, dia_spmv_core
@@ -127,12 +145,33 @@ def _chained(core, A, v0: torch.Tensor):
     return step, (v0, A)
 
 
+def _numa(trace_config) -> np.ndarray:
+    return np.asarray(trace_config.numa_domains_of_threads())
+
+
 class Kernel:
     """Base kernel interface (the JAX package's ``Kernel``)."""
 
     name: str = "kernel"
+    _layout: Optional[VirtualLayout] = None
 
     def init(self, verbose: bool = False) -> None:
+        raise NotImplementedError
+
+    @property
+    def layout(self) -> VirtualLayout:
+        """The simulation's virtual memory layout, built at first use."""
+        if self._layout is None:
+            self._layout = self._make_layout()
+        return self._layout
+
+    def _make_layout(self) -> VirtualLayout:
+        raise NotImplementedError
+
+    def memory_reference_string(self, trace_config, thread: int,
+                                num_threads: int):
+        """(addresses, numa_domains) of ``thread``'s references, one run
+        of the format's reference loop split over ``num_threads``."""
         raise NotImplementedError
 
     def run_fn(self):
@@ -173,6 +212,16 @@ class TriadKernel(Kernel):
     def init(self, verbose: bool = False) -> None:
         pass
 
+    def _make_layout(self):
+        lay = VirtualLayout()
+        for nm in ("a", "b", "c"):
+            lay.allocate(nm, self.num_entries, VAL)
+        return lay
+
+    def memory_reference_string(self, trace_config, thread, num_threads):
+        return triad_refstring(self.num_entries, self.layout, thread,
+                               num_threads, _numa(trace_config))
+
     def run_fn(self):
         n = self.num_entries
         b = torch.ones(n, dtype=self.dtype, device=self.device)
@@ -212,6 +261,7 @@ class _MatrixKernel(Kernel):
         self.dtype = dtype or default_value_dtype()
 
     def init(self, verbose: bool = False) -> None:
+        self._layout = None
         if self._premade is not None:
             self.matrix = self._premade
             return
@@ -220,6 +270,13 @@ class _MatrixKernel(Kernel):
             mm = load_matrix(self.matrix_path, verbose=verbose)
         self._mm = mm
         self.matrix = self._convert(mm)
+
+    # the reference string generator of the format (perfmodel/refstring)
+    _refstring = None
+
+    def memory_reference_string(self, trace_config, thread, num_threads):
+        return type(self)._refstring(self.matrix, self.layout, thread,
+                                     num_threads, _numa(trace_config))
 
     def _convert(self, mm):
         raise NotImplementedError
@@ -285,8 +342,20 @@ class CsrKernel(_MatrixKernel):
     _spmv_core = csr_spmv_core
     _spmm_core = csr_spmm_core
 
+    _refstring = csr_spmv_refstring
+
     def _convert(self, mm):
         return CsrMatrix.from_matrix_market(mm)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("row_ptr", m.row_ptr.size, IDX)
+        lay.allocate("column_index", m.column_index.size, IDX)
+        lay.allocate("value", m.value.size, VAL)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        return lay
 
     def device_matrix(self):
         return DeviceCsr.from_host(self.matrix, dtype=self.dtype,
@@ -317,6 +386,11 @@ class XlaCsrKernel(CsrKernel):
     def device_matrix(self):
         return DeviceSparseCsr(super().device_matrix())
 
+    def memory_reference_string(self, trace_config, thread, num_threads):
+        raise KernelError(
+            "Memory reference strings are not implemented for the "
+            "library kernel 'xla-csr'")
+
 
 class EllKernel(_MatrixKernel):
     """ELL SpMV / SpMM through the ELL kernels (``csrc/ell_spmv.cu``,
@@ -330,9 +404,20 @@ class EllKernel(_MatrixKernel):
         super().__init__(*args, **kw)
         self.skip_padding = skip_padding
 
+    _refstring = ell_spmv_refstring
+
     def _convert(self, mm):
         return EllMatrix.from_matrix_market(
             mm, skip_padding=self.skip_padding)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("column_index", m.column_index.size, IDX)
+        lay.allocate("value", m.value.size, VAL)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        return lay
 
     def device_matrix(self):
         return DeviceEll.from_host(self.matrix, dtype=self.dtype,
@@ -370,9 +455,34 @@ class CooKernel(_MatrixKernel):
     name = "coo"
     _spmv_core = csr_spmv_core
     _spmm_core = csr_spmm_core
+    _refstring = coo_spmv_refstring
+    _num_threads_hint = 1
+
+    def set_num_threads_hint(self, n: int) -> None:
+        """The workspace array is num_threads * rows elements
+        (coo-spmv.cpp:41-48); the simulator sizes it per config."""
+        self._num_threads_hint = max(1, int(n))
+        self._layout = None
 
     def _convert(self, mm):
         return CooMatrix.from_matrix_market(mm)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("row_index", m.row_index.size, IDX)
+        lay.allocate("column_index", m.column_index.size, IDX)
+        lay.allocate("value", m.value.size, VAL)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        lay.allocate("workspace", self._num_threads_hint * m.num_rows, VAL)
+        return lay
+
+    def memory_reference_string(self, trace_config, thread, num_threads):
+        if num_threads != self._num_threads_hint:
+            self.set_num_threads_hint(num_threads)
+        return super().memory_reference_string(trace_config, thread,
+                                               num_threads)
 
     def device_matrix(self):
         return DeviceCsr.from_coo_host(self.matrix, dtype=self.dtype,
@@ -387,9 +497,25 @@ class CooKernel(_MatrixKernel):
 
 class CooAtomicKernel(CooKernel):
     """The atomic COO variant: on the card, as in the JAX package, the
-    same sorted CSR product as ``coo``."""
+    same sorted CSR product as ``coo``; its simulation has no
+    workspace."""
 
     name = "coo-atomic"
+    _refstring = coo_atomic_spmv_refstring
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("row_index", m.row_index.size, IDX)
+        lay.allocate("column_index", m.column_index.size, IDX)
+        lay.allocate("value", m.value.size, VAL)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        return lay
+
+    def memory_reference_string(self, trace_config, thread, num_threads):
+        return _MatrixKernel.memory_reference_string(
+            self, trace_config, thread, num_threads)
 
 
 class HybridKernel(_MatrixKernel):
@@ -405,9 +531,35 @@ class HybridKernel(_MatrixKernel):
     name = "hybrid"
     _spmv_core = hybrid_spmv_core
     _spmm_core = hybrid_spmm_core
+    _refstring = hybrid_spmv_refstring
+    _num_threads_hint = 1
+
+    def set_num_threads_hint(self, n: int) -> None:
+        self._num_threads_hint = max(1, int(n))
+        self._layout = None
 
     def _convert(self, mm):
         return HybridMatrix.from_matrix_market(mm)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("ell_column_index", m.ell_column_index.size, IDX)
+        lay.allocate("ell_value", m.ell_value.size, VAL)
+        lay.allocate("coo_row_index", max(m.coo_row_index.size, 1), IDX)
+        lay.allocate("coo_column_index", max(m.coo_column_index.size, 1),
+                     IDX)
+        lay.allocate("coo_value", max(m.coo_value.size, 1), VAL)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        lay.allocate("workspace", self._num_threads_hint * m.num_rows, VAL)
+        return lay
+
+    def memory_reference_string(self, trace_config, thread, num_threads):
+        if num_threads != self._num_threads_hint:
+            self.set_num_threads_hint(num_threads)
+        return super().memory_reference_string(trace_config, thread,
+                                               num_threads)
 
     def device_matrix(self):
         return DeviceHybrid.from_host(self.matrix, dtype=self.dtype,
@@ -441,9 +593,19 @@ class DiaKernel(_MatrixKernel):
         super().__init__(*args, **kw)
         self.max_diagonals = max_diagonals
 
+    _refstring = dia_spmv_refstring
+
     def _convert(self, mm):
         return DiaMatrix.from_matrix_market(
             mm, max_diagonals=self.max_diagonals)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("data", m.data.size, VAL)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        return lay
 
     def device_matrix(self) -> DeviceDia:
         return DeviceDia.from_host(self.matrix, dtype=self.dtype,
@@ -469,8 +631,31 @@ class WellCwKernel(_MatrixKernel):
     _spmv_core = wellcw_spmv_core
     _spmm_core = wellcw_spmm_core
 
+    _refstring = wellcw_spmv_refstring
+
     def _convert(self, mm):
         return WellCwMatrix.from_matrix_market(mm)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        for i, lv in enumerate(m.levels):
+            lay.allocate(f"value{i}", lv.value.size, VAL)
+            lay.allocate(f"local_index{i}", lv.local_index.size, IDX)
+            lay.allocate(f"anchor{i}", lv.anchor4.size, IDX)
+        for j, p in enumerate(m._pools()):
+            lay.allocate(f"pool{j}_value", p.value.size, VAL)
+            lay.allocate(f"pool{j}_local_index", p.local_index.size, IDX)
+            lay.allocate(f"pool{j}_anchor", p.anchor4.size, IDX)
+            lay.allocate(f"pool{j}_rowmap", p.rowmap.size, IDX)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        if m.remainder is not None:
+            lay.allocate("rem_row_ptr", m.remainder.row_ptr.size, IDX)
+            lay.allocate("rem_column_index",
+                         m.remainder.column_index.size, IDX)
+            lay.allocate("rem_value", m.remainder.value.size, VAL)
+        return lay
 
     def device_matrix(self) -> DeviceWellCw:
         return DeviceWellCw.from_host(self.matrix, dtype=self.dtype,
@@ -511,9 +696,26 @@ class WellKernel(_MatrixKernel):
         super().__init__(*args, **kw)
         self.window_rows = window_rows
 
+    _refstring = well_spmv_refstring
+
     def _convert(self, mm):
         return WellMatrix.from_matrix_market(
             mm, window_rows=self.window_rows)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("value", m.value.size, VAL)
+        lay.allocate("local_index", m.local_index.size, IDX)
+        lay.allocate("window_start", m.window_start.size, IDX)
+        lay.allocate("x", m.num_columns, VAL)
+        lay.allocate("y", m.num_rows, VAL)
+        if m.spill is not None:
+            lay.allocate("spill_row_ptr", m.spill.row_ptr.size, IDX)
+            lay.allocate("spill_column_index", m.spill.column_index.size,
+                         IDX)
+            lay.allocate("spill_value", m.spill.value.size, VAL)
+        return lay
 
     def device_matrix(self) -> DeviceWell:
         return DeviceWell.from_host(self.matrix, dtype=self.dtype,
@@ -567,8 +769,22 @@ class BsrKernel(_MatrixKernel):
         super().__init__(*args, **kw)
         self.block_rows = block_rows
 
+    _refstring = bsr_spmv_refstring
+
     def _convert(self, mm):
         return BsrMatrix.from_matrix_market(mm, block_rows=self.block_rows)
+
+    def _make_layout(self):
+        m = self.matrix
+        lay = VirtualLayout()
+        lay.allocate("blocks", m.blocks.size, VAL)
+        lay.allocate("block_col", m.block_col.size, IDX)
+        lay.allocate("block_rowptr", m.block_rowptr.size, IDX)
+        # padded vector footprints, matching the device layout
+        ncb = -(-m.num_columns // BLOCK)
+        lay.allocate("x", ncb * BLOCK, VAL)
+        lay.allocate("y", m.num_block_rows * m.block_rows, VAL)
+        return lay
 
     def device_matrix(self) -> DeviceBsr:
         """The host's blocks and no zero padding (``blocks_per_step=1``):

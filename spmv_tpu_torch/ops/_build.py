@@ -184,11 +184,11 @@ def load_library() -> ctypes.CDLL:
     lib.wellcw_merged_launch.restype = _I32
     lib.csr_spmv_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _I64, _I64, _PTR, _I64, _I64, _I32,
-        _PTR, _PTR, _I32, _PTR]
+        _PTR, _PTR, _I32, _I32, _PTR]
     lib.csr_spmv_launch.restype = _I32
     lib.ell_spmv_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _I32, _I32, _I64, _I64, _PTR, _PTR, _I32,
-        _PTR]
+        _I32, _PTR]
     lib.ell_spmv_launch.restype = _I32
     lib.ell_spmm_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _I32, _I32, _I32, _PTR,
@@ -212,11 +212,11 @@ def load_library() -> ctypes.CDLL:
     lib.csr_spmm_launch.restype = _I32
     lib.well_whole_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-        _PTR, _I32, _I32, _I64, _I64, _I64, _PTR, _PTR, _PTR]
+        _PTR, _I32, _I32, _I64, _I64, _I64, _PTR, _PTR, _I32, _PTR]
     lib.well_whole_launch.restype = _I32
     lib.well_seg_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-        _PTR, _PTR, _I32, _I32, _I64, _I64, _I64, _PTR, _PTR, _PTR]
+        _PTR, _PTR, _I32, _I32, _I64, _I64, _I64, _PTR, _PTR, _I32, _PTR]
     lib.well_seg_launch.restype = _I32
     lib.well_whole_spmm_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,

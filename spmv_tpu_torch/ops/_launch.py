@@ -8,6 +8,10 @@ the plain version, and any other device (or a mix) raises.
 ``spmm_plan`` gives the path of the SpMM kernels that hold a row's
 column sums in registers (K4a-c, the CSR SpMM; ``csrc/spmm_rows.cuh``),
 ``ell_spmv_plan`` that of the ELL SpMV (``csrc/ell_spmv.cu``).
+``FULL``, ``REGULAR`` and ``IRREGULAR`` are the modes the CSR, ELL and
+WELL SpMV launchers take: the product, and its stream-only and
+gather-only traffic-isolation variants (``TrafficMode`` in
+``csrc/dia_common.cuh``).
 """
 
 from __future__ import annotations
@@ -18,11 +22,17 @@ from spmv_tpu_torch.errors import KernelError
 
 __all__ = ["on_cuda", "check_vector", "check_no_alias", "raise_on",
            "stream_of", "column_block", "x_vector_loads", "spmm_plan",
-           "ell_spmv_plan"]
+           "ell_spmv_plan", "FULL", "REGULAR", "IRREGULAR"]
 
 # The column blocks of K4a-c and the CSR SpMM, passed to every launch: a
 # thread holds kb = min(k, COLUMNS) sums in registers.
 COLUMNS = 8
+
+# The modes of the SpMV launches (TrafficMode, csrc/dia_common.cuh): the
+# product, stream-only and gather-only.
+FULL = 0
+REGULAR = 1
+IRREGULAR = 2
 
 # The row lengths the ELL SpMV has a template of (kMaxSlots in
 # csrc/ell_spmv.cu); a longer row is walked this many slots a round.

@@ -13,6 +13,14 @@ row of ``DeviceCsr.long_rows`` in a warp or a block
 tensors, launches its kernel for CUDA tensors, and raises for anything
 else, with the launch discipline of ``ops/_launch.py``.  ``.launches``
 on each counts its launches.
+
+``csr_regular_core`` and ``csr_irregular_core`` are the traffic-isolation
+variants of the CSR SpMV (``--traffic-split``; the JAX package's
+``_csr_regular`` and ``_csr_irregular``, ``spmv_tpu/ops/traffic.py:59,
+:69``): the kernel's own walk in its ``REGULAR`` and ``IRREGULAR`` modes,
+each row's stored values summed (no index, no x) or x at its columns
+summed (no value).  Their plain versions are ``csr_regular_reference``
+and ``csr_irregular_reference``; each counts its own launches.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ import torch
 
 from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.ops._launch import (
+    FULL,
+    IRREGULAR,
+    REGULAR,
     check_no_alias,
     check_vector,
     on_cuda,
@@ -28,9 +39,14 @@ from spmv_tpu_torch.ops._launch import (
     spmm_plan,
     stream_of,
 )
-from spmv_tpu_torch.ops.spmv import csr_spmv_reference
+from spmv_tpu_torch.ops.spmv import (
+    csr_irregular_reference,
+    csr_regular_reference,
+    csr_spmv_reference,
+)
 
-__all__ = ["csr_spmv_core", "csr_spmv", "csr_spmm_core", "csr_spmm"]
+__all__ = ["csr_spmv_core", "csr_spmv", "csr_spmm_core", "csr_spmm",
+           "csr_regular_core", "csr_irregular_core"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -57,25 +73,26 @@ def _long_rows(A) -> tuple:
             A.long_row_entries)
 
 
-def csr_spmv_core(A, x: torch.Tensor, out: torch.Tensor = None,
-                  accumulate: bool = False) -> torch.Tensor:
-    """y = A @ x for a ``DeviceCsr``, x and y in the value dtype.
-
-    ``out`` (optional, length num_rows, not overlapping x) receives y;
-    with ``accumulate=True`` it receives ``out + A @ x`` instead.
-    """
+def _spmv(wrapper, mode, A, x, out, accumulate) -> torch.Tensor:
+    """Launch the CSR SpMV in ``mode`` (``FULL``, or a traffic variant: x
+    None for ``REGULAR``, which reads none) and count it on ``wrapper``;
+    the plain version for CPU tensors."""
     _check_matrix(A)
     dt = A.value.dtype
-    check_vector("x", x, (A.num_columns,), dt)
+    if x is not None:
+        check_vector("x", x, (A.num_columns,), dt)
     if out is not None:
         check_vector("out", out, (A.num_rows,), dt)
-        check_no_alias(x, out)
+        if x is not None:
+            check_no_alias(x, out)
     elif accumulate:
         raise KernelError("accumulate=True needs an out buffer")
-    tensors = (A.value, A.row_ptr, A.column_index, x) + tuple(
-        t for t in (A.long_rows, out) if t is not None)
+    tensors = (A.value, A.row_ptr, A.column_index) + tuple(
+        t for t in (x, A.long_rows, out) if t is not None)
     if not on_cuda("CSR", *tensors):
-        y = csr_spmv_reference(A, x)
+        y = (csr_spmv_reference(A, x) if mode == FULL
+             else csr_regular_reference(A) if mode == REGULAR
+             else csr_irregular_reference(A, x))
         if out is None:
             return y
         return out.add_(y) if accumulate else out.copy_(y)
@@ -83,17 +100,29 @@ def csr_spmv_core(A, x: torch.Tensor, out: torch.Tensor = None,
     from spmv_tpu_torch.ops._build import load_library
 
     n = A.num_rows
-    y = out if out is not None else torch.empty(n, dtype=dt, device=x.device)
+    dev = A.value.device
+    y = out if out is not None else torch.empty(n, dtype=dt, device=dev)
     if n > 0:
         lib = load_library()
         rc = lib.csr_spmv_launch(
-            _DTYPE_CODE[dt], x.device.index, A.row_ptr.data_ptr(),
+            _DTYPE_CODE[dt], dev.index, A.row_ptr.data_ptr(),
             A.column_index.data_ptr(), A.value.data_ptr(), n,
-            A.num_columns, *_long_rows(A), x.data_ptr(), y.data_ptr(),
-            int(accumulate), stream_of(x))
-        raise_on(lib, rc, "csr_spmv")
-        csr_spmv_core.launches += 1
+            A.num_columns, *_long_rows(A),
+            None if x is None else x.data_ptr(), y.data_ptr(),
+            int(accumulate), mode, stream_of(y))
+        raise_on(lib, rc, wrapper.__name__.removesuffix("_core"))
+        wrapper.launches += 1
     return y
+
+
+def csr_spmv_core(A, x: torch.Tensor, out: torch.Tensor = None,
+                  accumulate: bool = False) -> torch.Tensor:
+    """y = A @ x for a ``DeviceCsr``, x and y in the value dtype.
+
+    ``out`` (optional, length num_rows, not overlapping x) receives y;
+    with ``accumulate=True`` it receives ``out + A @ x`` instead.
+    """
+    return _spmv(csr_spmv_core, FULL, A, x, out, accumulate)
 
 
 csr_spmv_core.launches = 0
@@ -167,3 +196,26 @@ csr_spmm_core.launches = 0
 def csr_spmm(A, X: torch.Tensor) -> torch.Tensor:
     """One-shot Y = A @ X: X is cast to the value dtype first."""
     return csr_spmm_core(A, X.to(A.value.dtype).contiguous())
+
+
+def csr_regular_core(A, out: torch.Tensor = None,
+                     accumulate: bool = False) -> torch.Tensor:
+    """The stream-only variant of the CSR SpMV for a ``DeviceCsr``: y[i] =
+    the sum of row i's stored values, in the value dtype.  ``out`` and
+    ``accumulate`` as for ``csr_spmv_core``."""
+    return _spmv(csr_regular_core, REGULAR, A, None, out, accumulate)
+
+
+csr_regular_core.launches = 0
+
+
+def csr_irregular_core(A, x: torch.Tensor, out: torch.Tensor = None,
+                       accumulate: bool = False) -> torch.Tensor:
+    """The gather-only variant of the CSR SpMV for a ``DeviceCsr``: y[i] =
+    the sum of x at row i's stored columns (0 outside [0, num_columns)),
+    x in the value dtype.  ``out`` and ``accumulate`` as for
+    ``csr_spmv_core``."""
+    return _spmv(csr_irregular_core, IRREGULAR, A, x, out, accumulate)
+
+
+csr_irregular_core.launches = 0

@@ -18,6 +18,16 @@ launches, after the hybrid branches of JAX's ``spmv_padded`` and
 kernel adds the COO part into it (``accumulate=True``; it leaves a row
 with no COO entry alone).  Where the COO part holds no entry no CSR
 kernel is launched.
+
+``ell_regular_core`` and ``ell_irregular_core`` are the traffic-isolation
+variants of the ELL SpMV (``--traffic-split``; the JAX package's
+``_ell_regular`` and ``_ell_irregular``, ``spmv_tpu/ops/traffic.py:83,
+:87``): the kernel's own walk, on ``ell_spmv_plan``'s template row
+length, in its ``REGULAR`` and ``IRREGULAR`` modes, each row's slot
+values summed (no index, no x) or x at its slot columns summed (no
+value); each counts its own launches.  ``hybrid_regular_core`` and
+``hybrid_irregular_core`` launch the ELL variant, then the CSR variant
+adding the COO part into y, as the hybrid product does.
 """
 
 from __future__ import annotations
@@ -26,6 +36,9 @@ import torch
 
 from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.ops._launch import (
+    FULL,
+    IRREGULAR,
+    REGULAR,
     check_no_alias,
     check_vector,
     ell_spmv_plan,
@@ -34,12 +47,22 @@ from spmv_tpu_torch.ops._launch import (
     spmm_plan,
     stream_of,
 )
-from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core, csr_spmv_core
-from spmv_tpu_torch.ops.spmv import ell_spmv_reference
+from spmv_tpu_torch.ops.csr_kernels import (
+    csr_irregular_core,
+    csr_regular_core,
+    csr_spmm_core,
+    csr_spmv_core,
+)
+from spmv_tpu_torch.ops.spmv import (
+    ell_irregular_reference,
+    ell_regular_reference,
+    ell_spmv_reference,
+)
 
 __all__ = ["ell_spmv_core", "ell_spmv", "ell_spmm_core", "ell_spmm",
            "hybrid_spmv_core", "hybrid_spmv", "hybrid_spmm_core",
-           "hybrid_spmm"]
+           "hybrid_spmm", "ell_regular_core", "ell_irregular_core",
+           "hybrid_regular_core", "hybrid_irregular_core"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -64,6 +87,45 @@ def _out(A, x, out, accumulate, shape):
         raise KernelError("accumulate=True needs an out buffer")
 
 
+def _spmv(wrapper, mode, A, x, out, accumulate=False) -> torch.Tensor:
+    """Launch the ELL SpMV in ``mode`` (``FULL``, or a traffic variant: x
+    None for ``REGULAR``, which reads none) on ``ell_spmv_plan``'s path
+    and count it on ``wrapper``; the plain version for CPU tensors."""
+    _check_matrix(A)
+    dt = A.value.dtype
+    if x is not None:
+        check_vector("x", x, (A.num_columns,), dt)
+        _out(A, x, out, accumulate, (A.num_rows,))
+    elif out is not None:
+        check_vector("out", out, (A.num_rows,), dt)
+    tensors = (A.value, A.column_index) + tuple(
+        t for t in (x, out) if t is not None)
+    if not on_cuda("ELL", *tensors):
+        y = (ell_spmv_reference(A, x) if mode == FULL
+             else ell_regular_reference(A) if mode == REGULAR
+             else ell_irregular_reference(A, x))
+        if out is None:
+            return y
+        return out.add_(y) if accumulate else out.copy_(y)
+
+    from spmv_tpu_torch.ops._build import load_library
+
+    n = A.num_rows
+    dev = A.value.device
+    y = out if out is not None else torch.empty(n, dtype=dt, device=dev)
+    if n > 0:
+        lib = load_library()
+        rc = lib.ell_spmv_launch(
+            _DTYPE_CODE[dt], dev.index, A.column_index.data_ptr(),
+            A.value.data_ptr(), A.padded_row_length,
+            ell_spmv_plan(A.padded_row_length)["slots"], n, A.num_columns,
+            None if x is None else x.data_ptr(), y.data_ptr(),
+            int(accumulate), mode, stream_of(y))
+        raise_on(lib, rc, wrapper.__name__.removesuffix("_core"))
+        wrapper.launches += 1
+    return y
+
+
 def ell_spmv_core(A, x: torch.Tensor, out: torch.Tensor = None,
                   accumulate: bool = False) -> torch.Tensor:
     """y = A @ x for a ``DeviceEll``, x and y in the value dtype.
@@ -73,31 +135,7 @@ def ell_spmv_core(A, x: torch.Tensor, out: torch.Tensor = None,
     kernel runs on ``ell_spmv_plan``'s path: the row length as a template
     argument up to 8 slots, one row a thread.
     """
-    _check_matrix(A)
-    dt = A.value.dtype
-    check_vector("x", x, (A.num_columns,), dt)
-    _out(A, x, out, accumulate, (A.num_rows,))
-    tensors = (A.value, A.column_index, x) + (() if out is None else (out,))
-    if not on_cuda("ELL", *tensors):
-        y = ell_spmv_reference(A, x)
-        if out is None:
-            return y
-        return out.add_(y) if accumulate else out.copy_(y)
-
-    from spmv_tpu_torch.ops._build import load_library
-
-    n = A.num_rows
-    y = out if out is not None else torch.empty(n, dtype=dt, device=x.device)
-    if n > 0:
-        lib = load_library()
-        rc = lib.ell_spmv_launch(
-            _DTYPE_CODE[dt], x.device.index, A.column_index.data_ptr(),
-            A.value.data_ptr(), A.padded_row_length,
-            ell_spmv_plan(A.padded_row_length)["slots"], n, A.num_columns,
-            x.data_ptr(), y.data_ptr(), int(accumulate), stream_of(x))
-        raise_on(lib, rc, "ell_spmv")
-        ell_spmv_core.launches += 1
-    return y
+    return _spmv(ell_spmv_core, FULL, A, x, out, accumulate)
 
 
 ell_spmv_core.launches = 0
@@ -187,3 +225,46 @@ def hybrid_spmm_core(A, X: torch.Tensor,
 def hybrid_spmm(A, X: torch.Tensor) -> torch.Tensor:
     """One-shot Y = A @ X: X is cast to the value dtype first."""
     return hybrid_spmm_core(A, X.to(A.ell.value.dtype).contiguous())
+
+
+def ell_regular_core(A, out: torch.Tensor = None) -> torch.Tensor:
+    """The stream-only variant of the ELL SpMV for a ``DeviceEll``: y[i]
+    = the sum of row i's slot values, in slot order.  ``out`` (optional)
+    receives y."""
+    return _spmv(ell_regular_core, REGULAR, A, None, out)
+
+
+ell_regular_core.launches = 0
+
+
+def ell_irregular_core(A, x: torch.Tensor,
+                       out: torch.Tensor = None) -> torch.Tensor:
+    """The gather-only variant of the ELL SpMV for a ``DeviceEll``: y[i]
+    = the sum of x at row i's slot columns (0 outside [0, num_columns)),
+    in slot order, x in the value dtype.  ``out`` (optional, not
+    overlapping x) receives y."""
+    return _spmv(ell_irregular_core, IRREGULAR, A, x, out)
+
+
+ell_irregular_core.launches = 0
+
+
+def hybrid_regular_core(A, out: torch.Tensor = None) -> torch.Tensor:
+    """The stream-only variant for a ``DeviceHybrid``: the ELL variant
+    writes y, then the CSR variant adds the COO part's value sums (not
+    launched where the part is empty)."""
+    y = ell_regular_core(A.ell, out=out)
+    if A.coo.value.numel():
+        csr_regular_core(A.coo, out=y, accumulate=True)
+    return y
+
+
+def hybrid_irregular_core(A, x: torch.Tensor,
+                          out: torch.Tensor = None) -> torch.Tensor:
+    """The gather-only variant for a ``DeviceHybrid``: the ELL variant
+    writes y, then the CSR variant adds the COO part's gathers (not
+    launched where the part is empty)."""
+    y = ell_irregular_core(A.ell, x, out=out)
+    if A.coo.value.numel():
+        csr_irregular_core(A.coo, x, out=y, accumulate=True)
+    return y

@@ -57,6 +57,21 @@ card ``chip_smoke.py`` holds the kernels against them.
   and return float32, as ``bsr_spmm`` does; float32 and float64 blocks
   stay in their own type.
 
+The traffic-isolation variants (``--traffic-split``), after
+``spmv_tpu/ops/traffic.py``: each sums the stored layout the product
+reads with one stream left out.  The stream-only (regular) versions sum
+the values a row holds and read no index and no x:
+``csr_regular_reference`` (``_csr_regular``), ``ell_regular_reference``
+(``_ell_regular``, the slots in order) and ``well_regular_reference``
+(``_well_regular``: the live slots, then the spill).  The gather-only
+(irregular) versions sum x at the indices and read no value:
+``csr_irregular_reference``, ``ell_irregular_reference`` and
+``well_irregular_reference``, where a column outside [0, num_columns)
+reads 0, as in the products.  The WELL ones read the live slots alone,
+as K5 does: JAX's ``_well_irregular`` gathers every stored slot, so the
+port's gather-only sum leaves out the all-zero slots' gathers (a stated
+deviation).  They are SpMV only (x of shape (m,)).
+
 The CSR, ELL, hybrid, WELL-CW and WELL versions take x of shape (m,)
 or X of shape (m, k) and return (n,) or (n, k): the same code specifies the SpMV
 kernels and their SpMM counterparts (K4a-c, K6a-b and the CSR SpMM),
@@ -87,6 +102,12 @@ __all__ = [
     "well_chunks_reference",
     "well_spmv_reference",
     "bsr_spmm_reference",
+    "csr_regular_reference",
+    "csr_irregular_reference",
+    "ell_regular_reference",
+    "ell_irregular_reference",
+    "well_regular_reference",
+    "well_irregular_reference",
 ]
 
 LANE = 128
@@ -256,21 +277,34 @@ def wellcw_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def well_chunks_reference(A, x: torch.Tensor,
-                          masked: bool = True) -> torch.Tensor:
-    """The WELL chunks of a ``DeviceWell``, without the spill, in the
-    value dtype; x (m,) or (m, k).  With ``masked`` a slot whose
-    ``slot_mask`` bit is clear adds exactly 0 (K5's and K6's reading);
-    without, every slot is read (the JAX kernels' reading)."""
+def _well_gathers(A, x: torch.Tensor) -> torch.Tensor:
+    """(chunks, 8, 128[, k]) x at each WELL slot cell's column, 0 at or
+    past the end."""
     k = A.chunks_per_step
     ws = A.window_start.transpose(1, 2).reshape(A.num_chunks, 8).long()
     if A.segment_of_step is not None:
         ws = ws + A.segment_of_step.long().repeat_interleave(k)[:, None]
     col = ws[:, :, None] * LANE + A.local_index.long()
     m = x.shape[0]
-    tail = tuple(x.shape[1:])
-    xz = torch.cat([x, x.new_zeros((1,) + tail)])
-    prod = _cols(A.value, x) * xz[col.clamp_(max=m)]  # (chunks, 8, 128[, k])
+    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return xz[col.clamp_(max=m)]
+
+
+def well_chunks_reference(A, x: torch.Tensor,
+                          masked: bool = True) -> torch.Tensor:
+    """The WELL chunks of a ``DeviceWell``, without the spill, in the
+    value dtype; x (m,) or (m, k).  With ``masked`` a slot whose
+    ``slot_mask`` bit is clear adds exactly 0 (K5's and K6's reading);
+    without, every slot is read (the JAX kernels' reading)."""
+    prod = _cols(A.value, x) * _well_gathers(A, x)  # (chunks, 8, 128[, k])
+    return _well_group_sums(A, prod, masked)
+
+
+def _well_group_sums(A, prod: torch.Tensor, masked: bool) -> torch.Tensor:
+    """Sum (chunks, 8, 128[, k]) slot terms over the slots (a slot whose
+    ``slot_mask`` bit is clear adding exactly 0 with ``masked``) and each
+    chunk into its ``group_of_chunk`` rows."""
+    tail = tuple(prod.shape[3:])
     if masked:
         bits = 1 << torch.arange(8, device=prod.device)
         live = (A.slot_mask.long()[:, None] & bits) != 0     # (chunks, 8)
@@ -291,6 +325,76 @@ def well_spmv_reference(A, x: torch.Tensor) -> torch.Tensor:
     y = well_chunks_reference(A, xf)
     if A.spill is not None:
         y = y + csr_spmv_reference(A.spill, xf)
+    return y
+
+
+def _gather0(x: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """x[col], 0 where col lies outside [0, len(x))."""
+    m = x.shape[0]
+    col = col.long()
+    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return xz[torch.where((col < 0) | (col >= m), m, col)]
+
+
+def _csr_row_sums(A, terms: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of its entries' ``terms``, for a ``DeviceCsr``."""
+    dev = terms.device
+    counts = (A.row_ptr[1:] - A.row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(A.num_rows, device=dev), counts,
+        output_size=terms.shape[0])
+    y = torch.zeros(A.num_rows, dtype=terms.dtype, device=dev)
+    return y.index_add_(0, rows, terms)
+
+
+def csr_regular_reference(A) -> torch.Tensor:
+    """The stream-only variant for a ``DeviceCsr``: each row's sum of its
+    stored values, in the value dtype."""
+    return _csr_row_sums(A, A.value)
+
+
+def csr_irregular_reference(A, x: torch.Tensor) -> torch.Tensor:
+    """The gather-only variant for a ``DeviceCsr``: each row's sum of x at
+    its stored columns (0 outside the columns), in the value dtype."""
+    return _csr_row_sums(A, _gather0(x.to(A.value.dtype), A.column_index))
+
+
+def ell_regular_reference(A) -> torch.Tensor:
+    """The stream-only variant for a ``DeviceEll``: each row's slot
+    values added in slot order, in the value dtype."""
+    y = torch.zeros(A.num_rows, dtype=A.value.dtype, device=A.value.device)
+    for s in range(A.padded_row_length):
+        y = y + A.value[s]
+    return y
+
+
+def ell_irregular_reference(A, x: torch.Tensor) -> torch.Tensor:
+    """The gather-only variant for a ``DeviceEll``: each row's x at its
+    slot columns (0 outside the columns) added in slot order."""
+    xs = x.to(A.value.dtype)
+    y = torch.zeros(A.num_rows, dtype=A.value.dtype, device=A.value.device)
+    for s in range(A.padded_row_length):
+        y = y + _gather0(xs, A.column_index[s])
+    return y
+
+
+def well_regular_reference(A) -> torch.Tensor:
+    """The stream-only variant for a ``DeviceWell``: the live slots'
+    values summed into their rows, then the spill's values."""
+    y = _well_group_sums(A, A.value, masked=True)
+    if A.spill is not None:
+        y = y + csr_regular_reference(A.spill)
+    return y
+
+
+def well_irregular_reference(A, x: torch.Tensor) -> torch.Tensor:
+    """The gather-only variant for a ``DeviceWell``: x at the live slots'
+    columns summed into their rows, then x at the spill's columns (0 at
+    or past the end)."""
+    xf = x.to(A.value_dtype)
+    y = _well_group_sums(A, _well_gathers(A, xf), masked=True)
+    if A.spill is not None:
+        y = y + csr_irregular_reference(A.spill, xf)
     return y
 
 

@@ -35,6 +35,17 @@ under an all-zero slot, which gives NaN in the JAX kernels (0 * inf),
 leaves the port's product finite: a stated deviation (ROADMAP.md, Queue
 3), which ``well_spmv_reference`` specifies for x and for X.
 
+The traffic-isolation variants of K5 (``--traffic-split``; the JAX
+package's ``_well_regular`` and ``_well_irregular``,
+``spmv_tpu/ops/traffic.py:112, :119``): ``well_regular_core`` and
+``well_irregular_core`` launch the kernel of the container's mode (K5a or
+K5b) in its ``REGULAR`` or ``IRREGULAR`` mode, the same walk over the
+live slots and the spill with one stream left out: the values summed
+(no index, window, spill column or x) or x at the columns summed (no
+value).  Like K5 they read no all-zero slot, where JAX's gather-only
+variant gathers every stored slot: a stated deviation.  Each counts its
+own launches, K5a's and K5b's modes together.
+
 Each part wrapper takes its plain version (``ops/spmv.py``) for CPU
 tensors, launches its kernel for CUDA tensors, and raises for anything
 else, with the launch discipline of ``ops/_launch.py``; ``.launches``
@@ -47,6 +58,9 @@ import torch
 
 from spmv_tpu_torch.errors import KernelError
 from spmv_tpu_torch.ops._launch import (
+    FULL,
+    IRREGULAR,
+    REGULAR,
     check_no_alias,
     check_vector,
     on_cuda,
@@ -54,12 +68,16 @@ from spmv_tpu_torch.ops._launch import (
     stream_of,
     x_vector_loads,
 )
-from spmv_tpu_torch.ops.spmv import well_spmv_reference
+from spmv_tpu_torch.ops.spmv import (
+    well_irregular_reference,
+    well_regular_reference,
+    well_spmv_reference,
+)
 
 __all__ = ["well_whole_core", "well_seg_core", "well_spmv_core",
            "well_spmv", "well_whole_spmm_core", "well_seg_spmm_core",
            "well_spmm_core", "well_spmm", "well_column_block",
-           "well_spmm_plan"]
+           "well_spmm_plan", "well_regular_core", "well_irregular_core"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 LANE = 128
@@ -89,7 +107,8 @@ def well_spmm_plan(k: int, dtype: torch.dtype, x_ptr: int,
 
 def _prepare(what, A, x, out, segmented: bool, ndim: int = 1) -> bool:
     """Check A's arrays and x (``ndim`` 1 for the SpMV, 2 for the SpMM's
-    X); returns whether they lie on a CUDA device."""
+    X; None for the stream-only variant, which reads no x); returns
+    whether they lie on a CUDA device."""
     if (A.segment_of_step is not None) != segmented:
         raise KernelError(
             f"{what}: the matrix is in "
@@ -117,6 +136,11 @@ def _prepare(what, A, x, out, segmented: bool, ndim: int = 1) -> bool:
         raise KernelError(
             f"{what}: blocks_per_out={A.blocks_per_out} needs more than "
             f"{SMEM_MAX} bytes of shared memory per block (K5's tile)")
+    if x is None:
+        if out is not None:
+            check_vector("out", out, (A.num_rows,), dt)
+        tensors = arrays + indices + (() if out is None else (out,))
+        return on_cuda("WELL", *tensors)
     if x.dim() != ndim:
         raise KernelError(f"{what}: x must be {ndim}-D; got "
                           f"{tuple(x.shape)}")
@@ -142,21 +166,32 @@ def _matrix_args(A, segmented) -> tuple:
             A.num_columns)
 
 
-def _launch(wrapper, name, A, x, out, segmented):
-    """Launch ``name``'s kernel and count it on ``wrapper``."""
+def _spmv(wrapper, mode, A, x, out, segmented) -> torch.Tensor:
+    """Launch K5a (``segmented`` False) or K5b in ``mode`` (``FULL``, or a
+    traffic variant: x None for ``REGULAR``, which reads none) and count
+    it on ``wrapper``; the plain version for CPU tensors."""
+    name = wrapper.__name__.removesuffix("_core")
+    if not _prepare(name, A, x, out, segmented):
+        y = (well_spmv_reference(A, x) if mode == FULL
+             else well_regular_reference(A) if mode == REGULAR
+             else well_irregular_reference(A, x))
+        return y if out is None else out.copy_(y)
+
     from spmv_tpu_torch.ops._build import load_library
 
     if A.value.data_ptr() % 16 or A.local_index.data_ptr() % 16:
         raise KernelError(f"{name}: value and local_index must start on "
                           "16-byte boundaries (K5 loads 4 lanes at once)")
+    dev = A.value.device
     y = out if out is not None else torch.empty(
-        A.num_rows, dtype=x.dtype, device=x.device)
+        A.num_rows, dtype=A.value.dtype, device=dev)
     if A.num_rows > 0:
         lib = load_library()
-        rc = getattr(lib, f"{name}_launch")(
-            _DTYPE_CODE[x.dtype], x.device.index,
-            *_matrix_args(A, segmented), x.data_ptr(), y.data_ptr(),
-            stream_of(x))
+        launch = lib.well_seg_launch if segmented else lib.well_whole_launch
+        rc = launch(_DTYPE_CODE[A.value.dtype], dev.index,
+                    *_matrix_args(A, segmented),
+                    None if x is None else x.data_ptr(), y.data_ptr(), mode,
+                    stream_of(y))
         raise_on(lib, rc, name)
         wrapper.launches += 1
     return y
@@ -168,11 +203,7 @@ def well_whole_core(A, x: torch.Tensor,
     launch, for a whole-x ``DeviceWell``; x of length num_columns and y
     of length num_rows in the value dtype.  ``out`` (optional, not
     overlapping x) receives y."""
-    if not _prepare("well_whole", A, x, out, segmented=False):
-        y = well_spmv_reference(A, x)
-        return y if out is None else out.copy_(y)
-    return _launch(well_whole_core, "well_whole", A, x, out,
-                   segmented=False)
+    return _spmv(well_whole_core, FULL, A, x, out, segmented=False)
 
 
 well_whole_core.launches = 0
@@ -182,10 +213,7 @@ def well_seg_core(A, x: torch.Tensor,
                   out: torch.Tensor = None) -> torch.Tensor:
     """K5b: y = A @ x for a segmented ``DeviceWell``; arguments as for
     ``well_whole_core``."""
-    if not _prepare("well_seg", A, x, out, segmented=True):
-        y = well_spmv_reference(A, x)
-        return y if out is None else out.copy_(y)
-    return _launch(well_seg_core, "well_seg", A, x, out, segmented=True)
+    return _spmv(well_seg_core, FULL, A, x, out, segmented=True)
 
 
 well_seg_core.launches = 0
@@ -274,3 +302,27 @@ def well_spmm_core(A, X: torch.Tensor,
 def well_spmm(A, X: torch.Tensor) -> torch.Tensor:
     """One-shot Y = A @ X: X is cast to the value dtype first."""
     return well_spmm_core(A, X.to(A.value_dtype).contiguous())
+
+
+def well_regular_core(A, out: torch.Tensor = None) -> torch.Tensor:
+    """The stream-only variant of K5 (K5a or K5b by the container's mode)
+    for a ``DeviceWell``: each row's sum of its live slot values and its
+    spill values.  ``out`` (optional) receives y."""
+    return _spmv(well_regular_core, REGULAR, A, None, out,
+                 A.segment_of_step is not None)
+
+
+well_regular_core.launches = 0
+
+
+def well_irregular_core(A, x: torch.Tensor,
+                        out: torch.Tensor = None) -> torch.Tensor:
+    """The gather-only variant of K5 for a ``DeviceWell``: each row's sum
+    of x at its live slot cells' columns and its spill columns (0 at or
+    past num_columns), x in the value dtype.  ``out`` (optional, not
+    overlapping x) receives y."""
+    return _spmv(well_irregular_core, IRREGULAR, A, x, out,
+                 A.segment_of_step is not None)
+
+
+well_irregular_core.launches = 0

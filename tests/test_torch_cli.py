@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's, on a tiny matrix.
 
 Each ported mode prints a document with the JAX CLI's top-level keys
-for the same flags; every unported mode exits 1 with "not yet ported";
+for the same flags; simulation mode and ``--traffic-split`` exit as the
+JAX CLI does; every unported mode exits 1 with "not yet ported";
 importing the port and running its CPU paths never loads JAX nor any
 module of the JAX package (checked in a subprocess, since this test
 process already imported both, and by a scan of the port's imports);
@@ -116,11 +117,8 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 
 
 @pytest.mark.parametrize("argv", [
-    [],                                               # simulation mode
     # these ids named modes of the reference tool's formats and of
     # --reorder, which are ported now; they hold modes that are not
-    pytest.param(["--spmv-format", "csr", "--profile", "2",
-                  "--traffic-split"], id="spmvformat_csr_profile_2"),
     pytest.param(["--spmv-format", "ell", "--profile", "2",
                   "--flush-caches"], id="spmvformat_well_profile_2"),
     pytest.param(["--spmv-format", "hybrid", "--cg", "10", "--solver",
@@ -138,7 +136,6 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
     ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0"],
     ["--spmv-format", "dia", "--eigs", "2"],
     ["--spmv-format", "dia", "--scaling", "2"],
-    ["--spmv-format", "dia", "--profile", "2", "--traffic-split"],
     ["--spmv-format", "dia", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--profile", "2", "--flush-caches"],
     pytest.param(["--spmv-format", "dia", "--profile", "2", "--reorder",
@@ -148,6 +145,40 @@ def test_unported_modes_exit_1(argv, matrix_file, capsys):
     rc, text = _run(main, ["--matrix", matrix_file] + argv)
     assert rc == 1 and text == ""
     assert "not yet ported" in capsys.readouterr().err
+
+
+# Simulation mode and --traffic-split are ported: these cases stood in
+# test_unported_modes_exit_1 and keep their ids here.  Where the JAX CLI
+# exits 1 (simulation mode without --trace-config; -s dia, which has no
+# traffic variants) the port does too, with its message; -s csr reports a
+# traffic_split section.
+@pytest.mark.parametrize("argv,jax_exit", [
+    pytest.param([], 1, id="simulate"),
+    pytest.param(["--spmv-format", "csr", "--profile", "2",
+                  "--traffic-split"], 0, id="spmvformat_csr_profile_2"),
+    pytest.param(["--spmv-format", "dia", "--profile", "2",
+                  "--traffic-split"], 1,
+                 id="spmvformat_dia_profile_2_trafficsplit"),
+])
+def test_measurement_modes_exit_as_jax_cli(argv, jax_exit, matrix_file,
+                                           capsys):
+    import jax
+
+    torch.set_default_dtype(torch.float32)    # restored by _fp64
+    rc, text = _run(main, ["--matrix", matrix_file] + argv)
+    err = capsys.readouterr().err
+    with jax.enable_x64(False):     # the JAX CLI's own default
+        jrc, jtext = _run(jax_main, ["--matrix", matrix_file] + argv)
+    jerr = capsys.readouterr().err
+    assert rc == jrc == jax_exit
+    assert "not yet ported" not in err
+    if jax_exit:
+        assert text == "" and err.startswith("spmv-tpu-torch: ")
+        assert err.replace("spmv-tpu-torch:", "spmv-tpu:") in jerr
+    else:
+        ts, jts = (json.loads(text)["traffic_split"],
+                   json.loads(jtext)["traffic_split"])
+        assert set(ts) == set(jts) and ts["format"] == jts["format"]
 
 
 @pytest.fixture(scope="module")
@@ -231,14 +262,18 @@ def test_port_never_imports_jax(matrix_file):
                      ["-s", "bsr", "--cg", "20", "--nrhs", "2"],
                      ["-s", "auto", "--profile", "2", "--spmm", "2"],
                      ["-s", "auto", "--cg", "20", "--precondition",
-                      "jacobi"]):
+                      "jacobi"],
+                     ["-s", "hybrid", "--profile", "2", "--traffic-split"],
+                     ["-s", "well", "--profile", "0", "--trace-config",
+                      {os.path.join(REPO, "configs", "cpu-2thread.json")!r}]):
             out = io.StringIO()
             rc = main(["--matrix", {matrix_file!r}] + argv, out=out)
             assert rc == 0, (argv, rc)
             doc = json.loads(out.getvalue())
-            assert (doc.get("device") or doc["cg"]) is not None
+            assert (doc.get("device") or doc.get("cg")
+                    or doc["cache_misses"]) is not None
         import spmv_tpu_torch.kernels, spmv_tpu_torch.profile.report
-        import spmv_tpu_torch.profile.harness
+        import spmv_tpu_torch.profile.harness, spmv_tpu_torch.perfmodel
         assert "jax" not in sys.modules, "the port imported jax"
         shared = sorted(m for m in sys.modules
                         if m == "spmv_tpu" or m.startswith("spmv_tpu."))

@@ -2,7 +2,9 @@
 K8, the CSR kernels and the ELL kernels (alone and in the hybrid
 product) on the card against their plain versions, ``-s xla-csr``'s
 ``torch.sparse`` product against the CSR kernel, and the generic and
-block AMG V-cycles on the card against their CPU runs.
+block AMG V-cycles on the card against their CPU runs; and the
+traffic-isolation variants of the CSR, ELL and WELL SpMV (stream-only
+and gather-only, ``--traffic-split``) against their plain versions.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -30,7 +32,13 @@ plain version multiply the same bfloat16 values and sum in float32, so
 they agree to 1e-5 of the output's scale.  K8 (the fused V-cycle) is
 held to its plain version by relative 2-norm: 1e-12 in float64 and 5e-6
 in float32, the JAX fused V-cycle test's bound
-(tests/test_fused_vcycle.py:65).
+(tests/test_fused_vcycle.py:65).  The six traffic variants are held to
+their plain versions at the same tolerances, launched twice (bitwise
+equal), each moving its own launch count and no other kernel's; and
+since each is its full kernel's walk with one stream left out, the full
+kernel on x = ones gives the stream-only variant's bits and the full
+kernel on the matrix with every stored value 1 (the same slots live)
+the gather-only variant's bits: the full kernels keep their walk.
 """
 
 import functools
@@ -74,6 +82,10 @@ from spmv_tpu_torch.ops import (
     bsr_path,
     bsr_spmm_core,
     bsr_spmm_reference,
+    csr_irregular_core,
+    csr_irregular_reference,
+    csr_regular_core,
+    csr_regular_reference,
     csr_spmm_core,
     csr_spmv_core,
     csr_spmv_reference,
@@ -84,6 +96,10 @@ from spmv_tpu_torch.ops import (
     dia_spmm_reference,
     dia_spmv_core,
     dia_spmv_reference,
+    ell_irregular_core,
+    ell_irregular_reference,
+    ell_regular_core,
+    ell_regular_reference,
     ell_spmm_core,
     ell_spmv_core,
     ell_spmv_reference,
@@ -92,6 +108,10 @@ from spmv_tpu_torch.ops import (
     hybrid_spmv_reference,
     sparse_csr_core,
     well_chunks_reference,
+    well_irregular_core,
+    well_irregular_reference,
+    well_regular_core,
+    well_regular_reference,
     well_seg_core,
     well_seg_spmm_core,
     well_spmm_core,
@@ -1903,3 +1923,138 @@ def test_csr_spmm_long_rows_with_every_row_listed(k, cuda, long_small):
     torch.cuda.synchronize()
     for Y in runs[1:]:
         assert torch.equal(Y, runs[0])
+
+
+# The traffic-isolation variants: name -> (variant wrapper, plain version,
+# full product), each variant taking (A, x) (x unused by the stream-only
+# ones).
+TRAFFIC = {
+    "csr_regular": (lambda A, x: csr_regular_core(A),
+                    lambda A, x: csr_regular_reference(A), csr_spmv_core),
+    "csr_irregular": (csr_irregular_core, csr_irregular_reference,
+                      csr_spmv_core),
+    "ell_regular": (lambda A, x: ell_regular_core(A),
+                    lambda A, x: ell_regular_reference(A), ell_spmv_core),
+    "ell_irregular": (ell_irregular_core, ell_irregular_reference,
+                      ell_spmv_core),
+    "well_regular": (lambda A, x: well_regular_core(A),
+                     lambda A, x: well_regular_reference(A), well_spmv_core),
+    "well_irregular": (well_irregular_core, well_irregular_reference,
+                       well_spmv_core),
+}
+TRAFFIC_COUNTERS = (csr_regular_core, csr_irregular_core, ell_regular_core,
+                    ell_irregular_core, well_regular_core,
+                    well_irregular_core, csr_spmv_core, ell_spmv_core,
+                    well_whole_core, well_seg_core)
+
+
+def _traffic_cases(fmt):
+    """(label, maker) of the matrices each format's variants run
+    on: CSR with and without long rows (the thresholds patched small),
+    ELL at row lengths on both sides of the 8-slot template, every WELL
+    case (whole x and segmented, with and without a spill)."""
+    if fmt == "csr":
+        return {"rect": lambda dt, dev: DeviceCsr.from_host(
+                    CsrMatrix.from_matrix_market(
+                        random_sparse(300, 250, 7, seed=3)), dtype=dt,
+                    device=dev),
+                "long_rows": _long_rows_csr}
+    if fmt == "ell":
+        cases = {c: functools.partial(lambda c, dt, dev: _ell(c, dt, dev),
+                                      c) for c in ELL_CASES}
+        for w in (1, 6, 9, 12):
+            cases[f"width_{w}"] = functools.partial(
+                lambda w, dt, dev: _ell_width(w, 1001, dt, dev), w)
+        return cases
+    return {c: functools.partial(
+        lambda c, dt, dev: DeviceWell.from_host(
+            _well_host(c), dtype=dt, device=dev, **WELL_CASES[c][2]), c)
+        for c in WELL_CASES}
+
+
+def _unit(A):
+    """A with every stored value 1 (a WELL container keeps its
+    slot_mask, so the same slots stay live)."""
+    if isinstance(A, DeviceWell):
+        B = DeviceWell.__new__(DeviceWell)
+        B.__dict__.update(A.__dict__)
+        B._buffers = dict(A._buffers, value=torch.ones_like(A.value),
+                          spill_value=None if A.spill_value is None
+                          else torch.ones_like(A.spill_value))
+        return B
+    if isinstance(A, DeviceEll):
+        return DeviceEll(A.num_rows, A.num_columns, A.num_entries,
+                         A.row_length, A.column_index,
+                         torch.ones_like(A.value))
+    B = DeviceCsr(A.num_rows, A.num_columns, A.num_entries, A.row_ptr,
+                  A.column_index, torch.ones_like(A.value))
+    B.long_rows, B.num_block_rows = A.long_rows, A.num_block_rows
+    return B
+
+
+_TRAFFIC_PARAMS = [(name, case) for name in TRAFFIC
+                   for case in _traffic_cases(name.split("_")[0])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("name,case", _TRAFFIC_PARAMS,
+                         ids=[f"{n}-{c}" for n, c in _TRAFFIC_PARAMS])
+def test_traffic_variants_match_plain(name, case, dtype, cuda, long_small):
+    """Each variant against its plain version, twice bitwise, its own
+    count moving by its launches and no other kernel's; the full kernel
+    on ones (stream-only) or on unit values (gather-only) gives the
+    variant's bits."""
+    variant, plain, full = TRAFFIC[name]
+    A = _traffic_cases(name.split("_")[0])[case](dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(53)
+    x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    before = [c.launches for c in TRAFFIC_COUNTERS]
+    y1, y2 = variant(A, x), variant(A, x)
+    torch.cuda.synchronize()
+    moved = [c.launches - b for c, b in zip(TRAFFIC_COUNTERS, before)]
+    own = [c.__name__ for c in TRAFFIC_COUNTERS].index(f"{name}_core")
+    assert moved == [2 if i == own else 0 for i in range(len(moved))]
+    assert torch.equal(y1, y2)
+    assert _rel_err(y1, plain(A, x)) <= TOL[dtype]
+    if name.endswith("_regular"):
+        same = full(A, torch.ones_like(x))
+    else:
+        same = full(_unit(A), x)
+    torch.cuda.synchronize()
+    assert torch.equal(same, y1)
+
+
+@pytest.mark.parametrize("coo", [True, False], ids=["coo", "no_coo"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_hybrid_traffic_variants_match_plain(dtype, coo, cuda, long_small):
+    """The hybrid's variants: the ELL variant, then the CSR variant adding
+    the COO part (its long rows on warps and blocks; not launched where
+    the part is empty), each against the parts' plain versions."""
+    from spmv_tpu_torch.ops import (
+        hybrid_irregular_core,
+        hybrid_regular_core,
+    )
+
+    mm = powerlaw(4096, 4096, 8.0, seed=5)
+    host = HybridMatrix.from_matrix_market(
+        mm, ell_row_length=None if coo else int(mm.max_row_length()))
+    A = DeviceHybrid.from_host(host, dtype=dtype, device=cuda)
+    assert (A.coo.value.numel() > 0) == coo
+    g = torch.Generator(device=cuda).manual_seed(54)
+    x = torch.randn(A.num_columns, generator=g, device=cuda, dtype=dtype)
+    counters = (ell_regular_core, csr_regular_core, ell_irregular_core,
+                csr_irregular_core)
+    before = [c.launches for c in counters]
+    reg, irr = hybrid_regular_core(A), hybrid_irregular_core(A, x)
+    reg2, irr2 = hybrid_regular_core(A), hybrid_irregular_core(A, x)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        2, 2 * coo, 2, 2 * coo]
+    assert torch.equal(reg, reg2) and torch.equal(irr, irr2)
+    want_reg = ell_regular_reference(A.ell)
+    want_irr = ell_irregular_reference(A.ell, x)
+    if coo:
+        want_reg = want_reg + csr_regular_reference(A.coo)
+        want_irr = want_irr + csr_irregular_reference(A.coo, x)
+    assert _rel_err(reg, want_reg) <= TOL[dtype]
+    assert _rel_err(irr, want_irr) <= TOL[dtype]
