@@ -281,6 +281,34 @@ Phases (each prints readable lines; any failure exits non-zero):
    per thread and NUMA domain of each cache, the wall seconds, and the
    native replay core (csrc/simcache.cpp under _build/host/) it ran on;
    without --trace-config the CLI exits 1.
+28. The other solvers (the tri_solve and K1 launch counts are zeroed
+   just before): the CLI at poisson2d(256, 256), --cg-tol 1e-5, in
+   float32 and in float64: --solver bicgstab --precondition ilu0,
+   --solver gmres --restart 32 --precondition ic0, --solver chebyshev,
+   --precondition ic0-sweeps and -s dia --reorder color --solver
+   bicgstab --precondition ilu0, each converged (rms error against ones
+   within 1e-2), tri_solve launched where ic0 / ilu0 ran, and its
+   iterations against the port's own CPU run of the same command (two
+   child processes, one a dtype, with SPMV_TPU_TORCH_DEVICE=cpu, beside
+   the card's work): in float64 within 2; in float32 within 2,
+   Chebyshev's within one check interval (20), BiCGSTAB's within a
+   tenth; then -s dia --reorder color --solver bicgstab --precondition
+   ilu0 --cg 20 at poisson2d(4096, 4096) through the CLI's main (its
+   Matrix Market reader handed the generated matrix): seconds, host
+   set-up, K1 and tri_solve launches; the counts are read after it
+   (the native ic0.cpp library must load first).  Then, not counted,
+   the tri_solve kernel against its plain version (float64 and float32,
+   twice bitwise, levels and 6 sweeps, the CLI's count) on IC(0)'s L and
+   L^T of poisson2d(1024, 1024) at natural order (2,047 levels each) and
+   on the full-width run's ILU(0) unit L and U; each triangle solve alone
+   (float32, a CUDA graph, L2 flushed) beside its bound (the bytes it
+   must move: no level_rows where the levels are contiguous row ranges,
+   no diag_inv for a unit diagonal; with the z reads and the container's
+   bytes beside; and the levels times the least launch, measured on a
+   chain of one-row levels), its plain version's ms and
+   torch.triangular_solve on the same sparse CSR triangle (cuSPARSE; in
+   a child process, since on an H100 with torch 2.11 it ended its
+   process with SIGFPE).
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -310,14 +338,15 @@ WELL SpMV at phase 13's poisson2d(1024, 1024) and poisson2d(4096, 4096)
 in float32 and float64, and at poisson2d(1000, 1000) in float64 (K5a,
 whose float64 x still fits whole), each output compared bit for bit.
 
-The second-to-last lines are the kernels' JSON summary (25 kernels, the
-six traffic variants last, each with its launches on the main path, max
-error, ms against
+The second-to-last lines are the kernels' JSON summary (26 kernels, the
+six traffic variants and tri_solve last, each with its launches on the
+main path, max error, ms against
 plain ms, bound and library ms; K7's rows also its launches by path;
 the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
 SpMV's their times at the hybrid's shape, beside torch.sparse of that
 part's own entries; and summaries of each path,
-`formats`, `amg`, `traffic_split` and `simulate` the last) and nvidia-smi's
+`formats`, `amg`, `traffic_split`, `simulate` and `solvers` the last)
+and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
 data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
@@ -4559,6 +4588,614 @@ def phase_simulate(device):
     return out
 
 
+# ------------------------------------------------------- the solvers (28)
+SOLVER_CLI_GRID = 256         # the solvers' CLI runs' poisson2d
+# Chebyshev there needs about 5,900 (float32, to 1e-5): 30 Lanczos steps
+# put lambda_min at 0.0136, 45x the spectrum's 3.0e-4, and the bounds
+# clip it, as in the JAX CLI
+SOLVER_CLI_ITERS = 10000
+SOLVER_CLI_TOL = "1e-5"       # in reach of float32, as phase 4's CG
+SOLVER_NATURAL_GRID = 1024    # IC(0) at natural order: 2,047 levels
+SOLVER_FULL_GRID = FULL_GRID  # ILU(0) after --reorder color, 16.8M rows
+SOLVER_FULL_ITERS = 20
+SOLVER_GRAPH_REPS = 5         # solves in one CUDA graph
+SOLVER_CHAIN_ROWS = 300       # the one-row-a-level chain: least launch
+SOLVER_SWEEPS = 6             # the CLI's *-sweeps count a triangle
+# The tri_solve kernel against its plain version (relative max-norm), as
+# the other kernels (the kernel fuses multiply-add where the plain version
+# rounds twice); an error made at one level feeds every later level, and
+# 2,047 levels measured 1.7e-7 in float32 and 1.5e-16 in float64 on an
+# H100.
+TOL_TRI = {"float64": TOL_F64, "float32": TOL_F32}
+SOLVER_CLI_RUNS = (
+    ("bicgstab ilu0", ["--solver", "bicgstab", "--precondition", "ilu0"]),
+    ("gmres(32) ic0", ["--solver", "gmres", "--restart", "32",
+                       "--precondition", "ic0"]),
+    ("chebyshev", ["--solver", "chebyshev"]),
+    ("cg ic0-sweeps", ["--precondition", "ic0-sweeps"]),
+    ("dia color bicgstab ilu0", ["-s", "dia", "--reorder", "color",
+                                 "--solver", "bicgstab", "--precondition",
+                                 "ilu0"]),
+)
+
+
+SOLVER_CLI_DTYPES = ("float32", "float64")
+
+
+def _cli_doc(argv, what, dtype="float32"):
+    """The CLI's "cg" report and wall seconds; ``dtype`` is the CLI's
+    value type (torch's default dtype while it runs)."""
+    import torch
+
+    from spmv_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    keep = torch.get_default_dtype()
+    torch.set_default_dtype(getattr(torch, dtype))
+    try:
+        t0 = time.perf_counter()
+        rc = main(argv, out=buf)
+        secs = time.perf_counter() - t0
+    finally:
+        torch.set_default_dtype(keep)
+    if rc != 0:
+        _fail(f"{what}: CLI {' '.join(argv)} exited {rc}")
+    return json.loads(buf.getvalue())["cg"], secs
+
+
+def _solver_cli_runs(path):
+    """(name, argv) of the five CLI runs on the Matrix Market file."""
+    return [(name, ["--matrix", path, "-s", "csr", "--cg",
+                    str(SOLVER_CLI_ITERS), "--cg-tol", SOLVER_CLI_TOL]
+             + extra) for name, extra in SOLVER_CLI_RUNS]
+
+
+def _solver_cli_cpu(path, dtype) -> dict:
+    """The five CLI runs on the CPU (the port's plain versions) in
+    ``dtype``, in a child process phase 28 starts with
+    SPMV_TPU_TORCH_DEVICE=cpu: each run's report."""
+    import torch
+
+    torch.set_num_threads(3)
+    return {name: _cli_doc(argv, f"{name} on the CPU, {dtype}", dtype)[0]
+            for name, argv in _solver_cli_runs(path)}
+
+
+# phase 28's CPU runs, in processes of their own beside the card's work
+_SOLVER_CPU = """
+import json, sys
+import chip_smoke as c
+print(json.dumps(c._solver_cli_cpu(sys.argv[1], sys.argv[2])))
+"""
+
+
+def _start_solver_cpu(path, dtype):
+    from spmv_tpu_torch.models.device import DEVICE_ENV
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-c", _SOLVER_CPU, path, dtype], cwd=repo,
+        env={**os.environ, DEVICE_ENV: "cpu"}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _solver_cli(device, path, tag, dtype):
+    """The five CLI runs at poisson2d(SOLVER_CLI_GRID²) on the card in
+    ``dtype``: each converges (rms error against ones within CG_RMS_ERR),
+    moves the tri_solve count where ic0 / ilu0 runs and K1 where -s dia
+    does.  Returns each run's report."""
+    from spmv_tpu_torch.ops import dia_spmv_core, tri_solve_core
+
+    out = {}
+    for name, argv in _solver_cli_runs(path):
+        tri0, k10 = tri_solve_core.launches, dia_spmv_core.launches
+        cg, _ = _cli_doc(argv, f"{name}, {dtype}", dtype)
+        tri, k1 = (tri_solve_core.launches - tri0,
+                   dia_spmv_core.launches - k10)
+        incomplete = any(a.startswith(("ic0", "ilu0")) for a in argv)
+        err = cg["solution_rms_error_vs_ones"]
+        _say(f"[{tag}] {name}, {dtype}: {cg['iterations']} iterations on "
+             f"the card, residual {cg['residual_norm']:.3e}, rms error vs "
+             f"ones {err:.3e}, {cg['seconds']:.3f} s, tri_solve launches "
+             f"+{tri}, dia_spmv +{k1}"
+             + (f", factorization {cg['factorization']}"
+                if "factorization" in cg else "")
+             + (f", bounds {cg['spectral_bounds']}"
+                if "spectral_bounds" in cg else ""))
+        if not (np.isfinite(err) and err <= CG_RMS_ERR
+                and cg["iterations"] < SOLVER_CLI_ITERS):
+            _fail(f"solver CLI {name}, {dtype}: did not converge ({cg})")
+        if incomplete != (tri > 0):
+            _fail(f"solver CLI {name}, {dtype}: tri_solve launches +{tri}")
+        if "dia" in argv and k1 <= 0:
+            _fail(f"solver CLI {name}, {dtype}: K1 was not launched")
+        out[name] = {"iterations": cg["iterations"],
+                     "residual_norm": cg["residual_norm"],
+                     "solution_rms_error_vs_ones": err,
+                     "seconds": cg["seconds"], "tri_solve_launches": tri,
+                     **({"factorization": cg["factorization"]}
+                        if "factorization" in cg else {})}
+    return out
+
+
+def _solver_cli_against_cpu(cli, proc, dtype, tag):
+    """Each card run's iterations against the port's CPU run of the same
+    command in the same dtype (the child process).  In float64 within 2
+    (the two orders of summation differ by far less than the tolerance
+    the counts hinge on).  In float32 within 2; Chebyshev's within one
+    check interval of 20 (its counts' step); BiCGSTAB's within 2 or a
+    tenth of the CPU's count, the larger (its residual wanders, and
+    float32 sums in another order move where it crosses the tolerance:
+    83 iterations on an H100 against 78 on its host's CPU at
+    poisson2d(256²))."""
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        _fail(f"the solvers' CPU runs ({dtype}) did not end in 900 s")
+    if proc.returncode != 0:
+        _fail(f"the solvers' CPU runs ({dtype}) exited {proc.returncode}: "
+              f"{(stdout + stderr)[-2000:]}")
+    cpu = json.loads(stdout.strip().splitlines()[-1])
+    for name, extra in SOLVER_CLI_RUNS:
+        got, want = cli[name]["iterations"], cpu[name]["iterations"]
+        slack = (2 if dtype == "float64" else
+                 20 if "chebyshev" in extra else
+                 max(2, want // 10) if "bicgstab" in extra else 2)
+        _say(f"[{tag}] {name}, {dtype}: {got} iterations on the card, "
+             f"{want} on the CPU ({cpu[name]['seconds']:.2f} s there), "
+             f"residual {cpu[name]['residual_norm']:.3e} there")
+        if abs(got - want) > slack:
+            _fail(f"solver CLI {name}, {dtype}: {got} iterations on the "
+                  f"card, {want} on the CPU (within {slack} asked)")
+        cli[name].update(cpu_iterations=want,
+                         cpu_seconds=cpu[name]["seconds"])
+
+
+def _full_width_cli(device, mm, tag):
+    """-s dia --reorder color --solver bicgstab --precondition ilu0 --cg
+    SOLVER_FULL_ITERS at poisson2d(SOLVER_FULL_GRID²) through the CLI's
+    main, in process, its Matrix Market reader handed the generated
+    matrix (84M lines of text would take minutes to write and parse);
+    the triangles the CLI factors are kept for the kernel checks."""
+    from spmv_tpu_torch.io import matrix_market
+    from spmv_tpu_torch.ops import dia_spmv_core, incomplete, tri_solve_core
+
+    grid = SOLVER_FULL_GRID
+    kept = []
+    cls = incomplete.DeviceTriSolve
+    build = cls.__dict__["from_host"]
+
+    def keep(t, lower=True, unit_diag=False, dtype=None, device=None):
+        T = build.__func__(cls, t, lower=lower, unit_diag=unit_diag,
+                           dtype=dtype, device=device)
+        kept.append((t, lower, unit_diag, T))
+        return T
+
+    tri0, k10 = tri_solve_core.launches, dia_spmv_core.launches
+    cls.from_host = keep
+    try:
+        with _patched(matrix_market, "load_matrix", lambda path, **kw: mm):
+            cg, wall = _cli_doc(
+                ["--matrix", f"poisson2d_{grid}.mtx", "-s", "dia",
+                 "--reorder", "color", "--solver", "bicgstab",
+                 "--precondition", "ilu0", "--cg", str(SOLVER_FULL_ITERS)],
+                "full width")
+    finally:
+        cls.from_host = build
+    tri, k1 = (tri_solve_core.launches - tri0,
+               dia_spmv_core.launches - k10)
+    f = cg["factorization"]
+    _say(f"[{tag}] -s dia --reorder color --solver bicgstab --precondition "
+         f"ilu0 --cg {SOLVER_FULL_ITERS} at poisson2d({grid},{grid}): "
+         f"{cg['iterations']} iterations, residual {cg['residual_norm']:.3e}"
+         f", rms error vs ones {cg['solution_rms_error_vs_ones']:.3e}, "
+         f"{cg['seconds']:.3f} s solving ({wall:.1f} s with the host set-up: "
+         f"coloring, DIA, ILU(0), levels), launches: dia_spmv +{k1}, "
+         f"tri_solve +{tri}; factorization {f}")
+    if len(kept) != 2 or tri <= 0 or k1 <= 0:
+        _fail(f"full width: {len(kept)} triangles, tri_solve +{tri}, "
+              f"dia_spmv +{k1}")
+    res = {k: cg[k] for k in ("iterations", "residual_norm",
+                              "solution_rms_error_vs_ones", "seconds")}
+    res.update(wall_seconds=wall, dia_spmv_launches=k1,
+               tri_solve_launches=tri, factorization=f,
+               shape=f"poisson2d({grid},{grid}) after --reorder color, "
+                     "float32")
+    return res, kept
+
+
+def _tri_check(T, label, tag, sweeps=None):
+    """The kernel against its plain version on T (twice bitwise): the
+    max abs and relative errors."""
+    import torch
+
+    from spmv_tpu_torch.ops import (
+        tri_solve_core,
+        tri_solve_reference,
+        tri_sweeps_reference,
+    )
+
+    dt = str(T.dep_vals.dtype).removeprefix("torch.")
+    g = torch.Generator(device=T.dep_vals.device).manual_seed(81)
+    b = torch.randn(T.n, generator=g, device=T.dep_vals.device,
+                    dtype=T.dep_vals.dtype)
+    z1 = tri_solve_core(T, b, sweeps=sweeps)
+    z2 = tri_solve_core(T, b, sweeps=sweeps)
+    want = (tri_solve_reference(T, b) if sweeps is None
+            else tri_sweeps_reference(T, b, sweeps))
+    torch.cuda.synchronize()
+    if not torch.equal(z1, z2):
+        _fail(f"tri_solve {label} {dt}: two launches differ")
+    err = float((z1.double() - want.double()).abs().max())
+    rel = _rel(z1, want)
+    mode = "levels" if sweeps is None else f"{sweeps} sweep(s)"
+    _say(f"[{tag}] tri_solve {label}, {dt}, {mode}: {T.num_levels} levels, "
+         f"{T.n} rows, {T.num_deps} dependencies; max abs err {err:.3e} "
+         f"(rel {rel:.3e}) against the plain version, bitwise repeatable")
+    if not rel <= TOL_TRI[dt]:
+        _fail(f"tri_solve {label} {dt} {mode}: relative error {rel} > "
+              f"{TOL_TRI[dt]}")
+    return err, rel
+
+
+def _tri_library_case(path) -> dict:
+    """torch.triangular_solve on one triangle as a sparse CSR tensor
+    (cuSPARSE), timed as the kernel is, and its agreement with the
+    kernel's z; from the arrays ``_tri_libraries`` saved."""
+    import torch
+
+    d = np.load(path)
+    dev = torch.device("cuda")
+    try:
+        S = torch.sparse_csr_tensor(
+            torch.from_numpy(d["row_ptr"]).long(),
+            torch.from_numpy(d["cols"]).long(),
+            torch.from_numpy(d["vals"]), size=tuple(d["shape"])).to(dev)
+        B = torch.from_numpy(d["b"]).to(dev)[:, None].contiguous()
+        upper, unit = bool(d["upper"]), bool(d["unit"])
+
+        def call():
+            return torch.triangular_solve(B, S, upper=upper,
+                                          unitriangular=unit)
+
+        got = call()[0][:, 0].cpu()
+        scratch = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+        lib = _yardstick(call, lambda: scratch.fill_(0.0), reps=5)
+        lib["library_rel_err_vs_kernel"] = _rel(got, torch.from_numpy(
+            d["z"]))
+        return lib
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return {"library_ms": None,
+                "library_error": f"{type(e).__name__}: {e}"[:300]}
+
+
+# torch.triangular_solve on sparse CSR factors, in a process of its own:
+# on an H100 with torch 2.11 it ended its process with SIGFPE (int32
+# indices and int64 alike)
+_TRI_LIBRARY = """
+import json, sys
+import chip_smoke as c
+for path in sys.argv[1:]:
+    print(json.dumps(c._tri_library_case(path)), flush=True)
+"""
+
+
+def _tri_libraries(cases, tag) -> dict:
+    """torch.triangular_solve's time on each (key, host triangle, lower,
+    unit, b, z) case, in one child process, in order; a case whose call
+    ends the process is recorded with its exit code, and the cases after
+    it as not run."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp()
+    try:
+        paths = []
+        for i, (key, t, lower, unit, b, z) in enumerate(cases):
+            path = os.path.join(tmp, f"tri{i}.npz")
+            np.savez(path, row_ptr=np.asarray(t.row_ptr, np.int32),
+                     cols=np.asarray(t.column_index, np.int32),
+                     vals=np.asarray(t.value, np.float32),
+                     shape=np.array([t.num_rows, t.num_columns]),
+                     upper=not lower, unit=unit,
+                     b=b.cpu().numpy(), z=z.cpu().numpy())
+            paths.append(path)
+        r = subprocess.run([sys.executable, "-c", _TRI_LIBRARY, *paths],
+                           cwd=repo, capture_output=True, text=True,
+                           timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    done = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+    out = {}
+    for i, case in enumerate(cases):
+        if i < len(done):
+            out[case[0]] = done[i]
+        elif i == len(done):
+            out[case[0]] = {"library_ms": None, "library_error": (
+                f"torch.triangular_solve on the sparse CSR factor ended "
+                f"its process with exit code {r.returncode}"
+                + (f" (signal {-r.returncode})" if r.returncode < 0 else "")
+                + f": {r.stderr.strip()[-200:]}")}
+        else:
+            out[case[0]] = {"library_ms": None, "library_error":
+                            "not run: the call ended the process on an "
+                            "earlier triangle"}
+        lib = out[case[0]]
+        _say(f"[{tag}] {case[0]}: " + (
+            f"torch.triangular_solve (cuSPARSE) {_library_line(lib)}, rel "
+            f"err vs the kernel {lib['library_rel_err_vs_kernel']:.2e}"
+            if lib["library_ms"] is not None
+            else f"torch.triangular_solve not timed: {lib['library_error']}"))
+    return out
+
+
+def _tri_alone(t, lower, unit, T, label, tag, smi_line, triad_gbps,
+               launch_ms):
+    """One triangle solve alone (a CUDA graph of SOLVER_GRAPH_REPS
+    solves, the L2 flushed before each) beside its bound (bytes over the
+    data sheet's rate; with its levels x the least launch time beside),
+    the plain version's ms and torch.triangular_solve's."""
+    import torch
+
+    from spmv_tpu_torch.ops import tri_solve_core, tri_solve_reference
+
+    dev = T.dep_vals.device
+    g = torch.Generator(device=dev).manual_seed(82)
+    b = torch.randn(T.n, generator=g, device=dev, dtype=T.dep_vals.dtype)
+    z = torch.empty_like(b)
+    scratch = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
+    ms = _cold_graph_ms(lambda: tri_solve_core(T, b, out=z), flush,
+                        SOLVER_GRAPH_REPS)
+    eager_ms = _time_launches(lambda: tri_solve_core(T, b, out=z), 3)
+    plain_ms = _time_launches(lambda: tri_solve_reference(T, b), 2)
+    tri_solve_core(T, b, out=z)
+    nbytes, z_reads, container = _tri_bytes(T, b, z)
+    flops = 2 * T.num_deps + (1 if T.unit_diag else 2) * T.n
+    bound = _bound(nbytes, flops, triad_gbps)
+    with_z = _bound(nbytes + z_reads, flops, triad_gbps)
+    res = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "bound_triad_ms": bound["bound_triad_ms"],
+           "bytes": bound["bytes"], "flops": bound["flops"],
+           "bound_with_z_reads_ms": with_z["bound_ms"],
+           "z_read_bytes": z_reads, "container_bytes": container,
+           "launch_bound_ms": T.num_levels * launch_ms,
+           "levels": T.num_levels, "rows": T.n,
+           "dependencies": T.num_deps,
+           "reads_level_rows": T.level_shift is None,
+           "reads_diag_inv": not T.unit_diag}
+    _say(f"[{tag}] tri_solve alone, {label}: {ms:.4f} ms (CUDA graph, L2 "
+         f"flushed), {eager_ms:.4f} ms eager, plain {plain_ms:.3f} ms; bound "
+         f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {nbytes} B "
+         f"needed; {bound['bound_triad_ms']:.4f} at the triad), "
+         f"{with_z['bound_ms']:.4f} ms with one read of each z a dependency "
+         f"reads (+{z_reads} B); the container holds {container} B; the "
+         f"kernel reads level_rows: {res['reads_level_rows']}, diag_inv: "
+         f"{res['reads_diag_inv']}; {T.num_levels} "
+         f"launches x {launch_ms * 1e3:.2f} us = "
+         f"{res['launch_bound_ms']:.4f} ms; on {smi_line}")
+    del scratch
+    return res, (t, lower, unit, b, z)
+
+
+def _tri_bytes(T, b, z):
+    """(the bytes one level solve must move, the z values its dependencies
+    read, the container's bytes).  It must read dep_ptr, dep_cols,
+    dep_vals and b once and write z once; level_rows only where the
+    levels are not contiguous row ranges (``level_shift`` is None) and
+    diag_inv only where the diagonal is not 1, as the kernel does.  The
+    z reads (one of each distinct dependency column) are an output read
+    back, which may stay in L2: they are counted beside the bound."""
+    import torch
+
+    needed = _nbytes(T.dep_ptr, T.dep_cols, T.dep_vals, b, z,
+                     T.level_rows if T.level_shift is None else None,
+                     None if T.unit_diag else T.diag_inv)
+    z_reads = int(torch.unique(T.dep_cols).numel()) * z.element_size()
+    container = _nbytes(T.level_rows, T.dep_ptr, T.dep_cols, T.dep_vals,
+                        T.diag_inv, b, z)
+    return needed, z_reads, container
+
+
+def _least_launch_ms(device, tag):
+    """The least time of one tri_solve launch: a chain of
+    SOLVER_CHAIN_ROWS levels of one row each, solved in a CUDA graph,
+    over its launches."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import from_coo_arrays
+    from spmv_tpu_torch.models import CsrMatrix
+    from spmv_tpu_torch.ops import DeviceTriSolve, tri_solve_core
+
+    n = SOLVER_CHAIN_ROWS
+    i = np.arange(1, n)
+    chain = CsrMatrix.from_matrix_market(from_coo_arrays(
+        n, n, np.concatenate([np.arange(n), i]),
+        np.concatenate([np.arange(n), i - 1]),
+        np.concatenate([np.full(n, 2.0), np.full(n - 1, -0.5)])))
+    T = DeviceTriSolve.from_host(chain, dtype=torch.float32, device=device)
+    b = torch.ones(n, dtype=torch.float32, device=device)
+    z = torch.empty_like(b)
+    ms = _graph_replay_ms(lambda: tri_solve_core(T, b, out=z),
+                          SOLVER_GRAPH_REPS) / T.num_levels
+    _say(f"[{tag}] the least launch: {T.num_levels} one-row levels in a "
+         f"CUDA graph, {ms * 1e3:.2f} us a launch")
+    return ms
+
+
+def phase_solvers(device, smi_line, triad_gbps):
+    """The other solvers (phase 28): the CLI's five runs at
+    poisson2d(SOLVER_CLI_GRID²) against the port's CPU runs and the
+    full-width run (the tri_solve and K1 counts zeroed just before, read
+    just after); then, not counted, the tri_solve kernel against its
+    plain version (float64 and float32, forward and backward, levels and
+    SOLVER_SWEEPS sweeps) on IC(0) of poisson2d(SOLVER_NATURAL_GRID²) at natural
+    order and on the full-width run's ILU(0) triangles, and one triangle
+    solve alone at both shapes."""
+    import torch
+
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import CsrMatrix
+    from spmv_tpu_torch.ops import (
+        DeviceTriSolve,
+        _ic_native,
+        dia_spmv_core,
+        ic0_factor,
+        tri_solve_core,
+    )
+    from spmv_tpu_torch.ops.incomplete import _transpose_csr
+
+    tag = "28 solvers"
+    t_phase = time.perf_counter()
+    if not _ic_native.available():
+        _fail("the native incomplete factorizers (csrc/ic0.cpp, built "
+              "with the host C++ compiler into spmv_tpu_torch/_build/host/) "
+              "did not load; the Python loops would not factor 16.8M rows "
+              "in the time limit")
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, f"poisson2d_{SOLVER_CLI_GRID}.mtx")
+    write_matrix_market(poisson2d(SOLVER_CLI_GRID, SOLVER_CLI_GRID), path)
+    procs = {dt: _start_solver_cpu(path, dt) for dt in SOLVER_CLI_DTYPES}
+    try:
+        tri_solve_core.launches = 0
+        dia_spmv_core.launches = 0
+        cli = {dt: _solver_cli(device, path, tag, dt)
+               for dt in SOLVER_CLI_DTYPES}
+        t0 = time.perf_counter()
+        mm = poisson2d(SOLVER_FULL_GRID, SOLVER_FULL_GRID)
+        _say(f"[{tag}] host poisson2d({SOLVER_FULL_GRID},{SOLVER_FULL_GRID})"
+             f" in {time.perf_counter() - t0:.1f} s")
+        full, kept = _full_width_cli(device, mm, tag)
+        del mm
+        launches = {"tri_solve": tri_solve_core.launches,
+                    "dia_spmv": dia_spmv_core.launches}
+        _say(f"[{tag}] launches on the solvers path: tri_solve "
+             f"{launches['tri_solve']}, dia_spmv {launches['dia_spmv']}")
+        if launches["tri_solve"] <= 0:
+            _fail("tri_solve was never launched on the solvers path")
+        for dt, proc in procs.items():
+            _solver_cli_against_cpu(cli[dt], proc, dt, tag)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _sync(device)
+
+    # the kernel against its plain version
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    L = ic0_factor(CsrMatrix.from_matrix_market(
+        poisson2d(SOLVER_NATURAL_GRID, SOLVER_NATURAL_GRID)))
+    natural = [(L, True, False, "IC(0) L"),
+               (_transpose_csr(L), False, False, "IC(0) L^T")]
+    _say(f"[{tag}] IC(0) of poisson2d({SOLVER_NATURAL_GRID},"
+         f"{SOLVER_NATURAL_GRID}) at natural order in "
+         f"{time.perf_counter() - t0:.1f} s")
+    grid_n = f"poisson2d({SOLVER_NATURAL_GRID},{SOLVER_NATURAL_GRID})"
+    errs = {}
+    dev_n = {}
+    for t, lower, unit, name in natural:
+        for dt in (f64, f32):
+            T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                         dtype=dt, device=device)
+            label = f"{name} of {grid_n}, natural order"
+            key = (name, str(dt).removeprefix("torch."))
+            errs[key] = _tri_check(T, label, tag)
+            errs[key + ("sweeps",)] = _tri_check(T, label, tag,
+                                                  sweeps=SOLVER_SWEEPS)
+            if dt == f32:
+                dev_n[name] = T
+            else:
+                del T
+    grid_c = (f"poisson2d({SOLVER_FULL_GRID},{SOLVER_FULL_GRID}) after "
+              "--reorder color")
+    names = {True: "ILU(0) unit L", False: "ILU(0) U"}
+    for t, lower, unit, T in kept:
+        label = f"{names[lower]} of {grid_c}"
+        errs[(names[lower], "float32")] = _tri_check(T, label, tag)
+        errs[(names[lower], "float32", "sweeps")] = _tri_check(
+            T, label, tag, sweeps=SOLVER_SWEEPS)
+        T64 = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                       dtype=f64, device=device)
+        errs[(names[lower], "float64")] = _tri_check(T64, label, tag)
+        errs[(names[lower], "float64", "sweeps")] = _tri_check(
+            T64, label, tag, sweeps=SOLVER_SWEEPS)
+        del T64
+        _sync(device)
+
+    # one triangle solve alone at both shapes
+    launch_ms = _least_launch_ms(device, tag)
+    alone, cases = {}, []
+    for t, lower, unit, T in kept:
+        key = f"{names[lower]} {grid_c}"
+        alone[key], case = _tri_alone(
+            t, lower, unit, T, f"{names[lower]} of {grid_c}, float32", tag,
+            smi_line, triad_gbps, launch_ms)
+        cases.append((key,) + case)
+    for t, lower, unit, name in natural:
+        key = f"{name} {grid_n} natural"
+        alone[key], case = _tri_alone(
+            t, lower, unit, dev_n[name], f"{name} of {grid_n}, natural "
+            "order, float32", tag, smi_line, triad_gbps, launch_ms)
+        cases.append((key,) + case)
+    for key, lib in _tri_libraries(cases, tag).items():
+        alone[key].update(lib)
+    del cases
+    apply = {grid_n + " natural, IC(0)": sum(T.num_levels
+                                             for T in dev_n.values()),
+             grid_c + ", ILU(0)": sum(k[3].num_levels for k in kept)}
+    _say(f"[{tag}] tri_solve launches a preconditioner apply: {apply}")
+    del dev_n, kept, natural, L
+    _sync(device)
+    secs = time.perf_counter() - t_phase
+    _say(f"[{tag}] phase took {secs:.1f} s")
+    return {"launches": launches, "cli": cli, "full_width": full,
+            "errors": {" ".join(k): {"max_abs_err": e, "max_rel_err": r}
+                       for k, (e, r) in errs.items()},
+            "alone": alone, "launches_an_apply": apply,
+            "least_launch_ms": launch_ms, "seconds": secs}
+
+
+def _tri_row(solvers) -> dict:
+    """The tri_solve row of the kernels' JSON line: the ILU(0) unit L
+    after --reorder color at full width (the full-width run's shape),
+    its launches on the solvers path; the natural-order IC(0) L beside."""
+    grid_c = (f"poisson2d({SOLVER_FULL_GRID},{SOLVER_FULL_GRID}) after "
+              "--reorder color")
+    grid_n = f"poisson2d({SOLVER_NATURAL_GRID},{SOLVER_NATURAL_GRID})"
+    main = solvers["alone"][f"ILU(0) unit L {grid_c}"]
+    keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_triad_ms", "bytes", "bound_with_z_reads_ms",
+            "z_read_bytes", "container_bytes", "reads_level_rows",
+            "reads_diag_inv", "launch_bound_ms", "levels", "library_ms")
+    err = solvers["errors"]
+    return {
+        "name": "tri_solve",
+        "route": "cuda",
+        "source": "spmv_tpu_torch/csrc/tri_solve.cu",
+        "replaces": "XLA `lax.scan` of DeviceTriSolve.solve "
+                    "(spmv_tpu/ops/incomplete.py:374) and `fori_loop` of "
+                    "tri_solve_sweeps (:418), not a TPU kernel",
+        "launches": solvers["launches"]["tri_solve"],
+        "max_abs_err": err["ILU(0) unit L float32"]["max_abs_err"],
+        **{k: main.get(k) for k in keys},
+        "library": {k: v for k, v in main.items() if k.startswith("library")},
+        "max_abs_err_f64": max(v["max_abs_err"] for k, v in err.items()
+                               if "float64" in k),
+        "natural_order": {
+            **{k: solvers["alone"][f"IC(0) L {grid_n} natural"].get(k)
+               for k in keys},
+            "shape": f"IC(0) L of {grid_n}, natural order, float32"},
+        "launches_an_apply": solvers["launches_an_apply"],
+        "shape": f"ILU(0) unit L of {grid_c}, float32",
+    }
+
+
 def _traffic_rows(traffic) -> list:
     """The six traffic variants' rows of the kernels' JSON line: each at
     poisson2d(FULL_GRID²) float32 (WELL: K5b's mode; K5a's at
@@ -4822,6 +5459,7 @@ def main() -> int:
     del ell_mm, ell_host, ell_A, well_hosts, hybrid_mm, hybrid_host
     _sync(device)
     simulate = phase_simulate(device)
+    solvers = phase_solvers(device, smi_line, triad_gbps)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -4940,7 +5578,8 @@ def main() -> int:
             "launches": amg_launches["fused_vcycle"],
             **fused,
         }
-    ] + _traffic_rows(traffic), "wellcw_spmv": {**cw_times, "shape": cw_shape},
+    ] + _traffic_rows(traffic) + [_tri_row(solvers)],
+        "wellcw_spmv": {**cw_times, "shape": cw_shape},
         "wellcw_spmm": {**spmm_times, "shape": mm_shape},
         "batched_cg": {**cg_times, "k": CG_K,
                        "shape": f"poisson2d({CG_GRID},{CG_GRID}) float32"},
@@ -4967,7 +5606,10 @@ def main() -> int:
                                             f"{AMG_CLI_GRID}) float32"},
                 **amg_full},
         "traffic_split": {k: v for k, v in traffic.items()},
-        "simulate": simulate}
+        "simulate": simulate,
+        "solvers": {k: solvers[k] for k in (
+            "launches", "cli", "full_width", "errors", "launches_an_apply",
+            "least_launch_ms", "seconds")}}
     # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
     # part's launches and the ELL part's, each beside torch.sparse of
     # that part's own entries

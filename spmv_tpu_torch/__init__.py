@@ -15,8 +15,11 @@ NVIDIA Hopper card (sm_90a):
                                the JAX containers.
 - ``spmv_tpu_torch.ops``       DIA, WELL-CW, WELL and CSR SpMV / SpMM and
                                BSR SpMM (plain PyTorch versions and
-                               hand-written CUDA kernels), the triad, and
-                               conjugate gradient (single and multi-RHS).
+                               hand-written CUDA kernels), the triad,
+                               conjugate gradient (single and multi-RHS),
+                               BiCGSTAB, GMRES, Chebyshev, iterative
+                               refinement, AMG and IC(0) / ILU(0) with
+                               the level-scheduled triangular solve.
 - ``spmv_tpu_torch.perfmodel`` The card's machine model, its bandwidth
                                measured by the triad, and the roofline.
 - ``spmv_tpu_torch.profile``   Chained-step timing and the profiling

@@ -7,7 +7,9 @@ runs the modes ported so far, printing the same JSON documents:
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format dia --profile 10
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --profile 5 --spmm 8
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --cg 2000 \
-        [--cg-tol 1e-6] [--precondition none|jacobi|amg] \
+        [--cg-tol 1e-6] [--solver cg|bicgstab|gmres|chebyshev] \
+        [--restart 32] \
+        [--precondition none|jacobi|ic0|ic0-sweeps|ilu0|ilu0-sweeps|amg] \
         [--recompute-residual K]
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT \
         --cg 2000 --nrhs 4 [--precondition none|jacobi]
@@ -23,12 +25,15 @@ with FMT any of ``-s``'s values: the reference tool's formats ``csr``
 library comparison ``xla-csr`` (``torch.sparse``), and ``dia``,
 ``wellcw``, ``well``, ``bsr`` and ``auto`` (``--profile N`` alone times
 the SpMV, ``--spmm K`` the SpMM of K columns).  ``--reorder
-rcm|gp|sigma`` reorders the matrix before conversion on every explicit
-format, as the JAX CLI does; ``-s auto`` picks the format as the JAX CLI
-does (``auto_format``, the ``spmm`` workload when ``--spmm`` is given,
-which lets a block-structured matrix pick BSR) and refuses
-``--reorder``.  Every other mode or flag (``--reorder color`` among
-them) prints ``spmv-tpu-torch: ... not yet ported`` and exits 1.  The
+rcm|gp|sigma|color`` reorders the matrix before conversion on every
+explicit format, as the JAX CLI does (``color``: greedy multicoloring,
+rows numbered color by color, which collapses an incomplete factor's
+triangular-solve levels to the colors); ``-s auto`` picks the format as
+the JAX CLI does (``auto_format``, the ``spmm`` workload when ``--spmm``
+is given, which lets a block-structured matrix pick BSR) and refuses
+``--reorder``.  Every other mode or flag (``--eigs``, ``--scaling``,
+``--jax-profile``, ``--list-profile-events``, ``--flush-caches``) prints
+``spmv-tpu-torch: ... not yet ported`` and exits 1.  The
 device is the first CUDA device; without one the CLI exits 1, unless
 ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as the tests do).
 ``--list-devices`` lists the CPU when there is no card.
@@ -72,6 +77,22 @@ DIA kernel loop, as the JAX CLI does; the report carries the hierarchy
 under ``"factorization"``.  The hierarchy is built from the Matrix Market
 entries, also with ``-s auto``, where the JAX CLI raises.  ``--nrhs``
 with amg is refused, with the JAX CLI's message.
+
+``--cg N --solver bicgstab|gmres|chebyshev`` runs the JAX CLI's other
+solvers over ``spmv`` on every format, with its branches and messages:
+BiCGSTAB and GMRES (``--restart`` m, reported as ``restart``) with
+``--precondition`` none, jacobi, ic0, ic0-sweeps, ilu0, ilu0-sweeps or
+amg; Chebyshev with ``lanczos_bounds`` (reported as
+``spectral_bounds``) and no preconditioner.  ``--precondition
+ic0|ilu0`` (any solver but Chebyshev) factors the matrix on the host
+(``ops.incomplete``, ``csrc/ic0.cpp``) from an unpadded CSR view (the
+CSR matrix itself, else the Matrix Market entries; ``-s auto`` keeps
+none and exits 1) and applies the level-scheduled triangular solves of
+the hand-written ``tri_solve`` kernel; the ``-sweeps`` variants apply 6
+Jacobi sweeps a triangle on the same kernel.  The report carries the
+factor's levels, width and the JAX layout's ``padding_factor`` under
+``"factorization"``.  ``--recompute-residual`` with a solver other than
+cg exits 1, as in the JAX CLI.
 
 ``--cg N --nrhs K`` (K > 1) runs batched multi-RHS CG, one SpMM per
 iteration (K2 on DIA, K4a-c and the CSR SpMM on WELL-CW, K6a or K6b on
@@ -261,12 +282,6 @@ def _check_ported(args) -> None:
         ("--scaling", args.scaling > 0),
         ("--jax-profile", args.jax_profile is not None),
         ("--flush-caches", args.flush_caches),
-        # -s auto refuses --reorder itself, as the JAX CLI does
-        ("--reorder color",
-         args.reorder == "color" and args.spmv_format != "auto"),
-        ("--solver " + args.solver, args.solver != "cg"),
-        ("--precondition " + args.precondition,
-         args.precondition not in ("none", "jacobi", "amg")),
     ):
         if on:
             _not_ported(flag)
@@ -307,6 +322,7 @@ def _make_kernel(args, device, dtype):
             "rcm": reorder.find_new_order_rcm,
             "gp": reorder.find_new_order_gp,
             "sigma": reorder.find_new_order_sigma,
+            "color": reorder.find_new_order_coloring,
         }[args.reorder](mm)
         return make_kernel(args.spmv_format, mm=mm.permute(order),
                            device=device, dtype=dtype), None
@@ -476,8 +492,12 @@ def _solve_cg(args, out, device, dtype) -> None:
 
     from spmv_tpu_torch.utils.jsonio import dump_json
     from spmv_tpu_torch.ops import (
+        bicgstab,
+        chebyshev,
         dia_conjugate_gradient,
+        gmres,
         jacobi_preconditioner,
+        lanczos_bounds,
         preconditioned_conjugate_gradient,
         spmv,
     )
@@ -491,6 +511,11 @@ def _solve_cg(args, out, device, dtype) -> None:
     m = kernel.matrix
     if m.num_rows != m.num_columns:
         raise SpmvError("--cg requires a square matrix")
+    if args.recompute_residual and args.solver != "cg":
+        raise SpmvError(
+            "--recompute-residual applies to --solver cg only "
+            "(bicgstab/gmres/chebyshev have their own residual "
+            "semantics)")
     if args.recompute_residual < 0:
         raise SpmvError("--recompute-residual must be >= 0")
     A = kernel.device_matrix()
@@ -506,31 +531,54 @@ def _solve_cg(args, out, device, dtype) -> None:
         return
     b = spmv(A, torch.ones(m.num_columns, dtype=dtype, device=device))
 
-    factor_info = None
-    if args.precondition == "amg":
-        # before the DIA kernel loop, as in the JAX CLI: generic PCG
-        # over spmv with the SA-AMG V-cycle, on every format
+    def matvec(v):
+        return spmv(A, v)
+
+    # the JAX CLI's choices: Chebyshev takes no preconditioner; amg and
+    # ic0/ilu0 run the generic solver over spmv on every format, before
+    # the DIA kernel loop, which takes plain and Jacobi CG
+    factor_info = chebyshev_bounds = minv = None
+    if args.solver == "chebyshev":
+        if args.precondition != "none":
+            raise SpmvError(
+                "--solver chebyshev does not take a preconditioner "
+                "(its spectral bounds already play that role)")
+        lo, hi = lanczos_bounds(matvec, m.num_rows, dtype=dtype,
+                                device=device)
+        chebyshev_bounds = {"lambda_min": lo, "lambda_max": hi}
+    elif args.precondition.startswith(("ic0", "ilu0")):
+        minv, factor_info = _incomplete_preconditioner(args, kernel, m,
+                                                       device, dtype)
+    elif args.precondition == "amg":
         minv, factor_info = _amg_preconditioner_cli(kernel, m, mm, device,
                                                     dtype)
+    elif diag is not None:
+        minv = jacobi_preconditioner(
+            torch.as_tensor(diag, dtype=dtype, device=device))
 
+    if args.solver == "chebyshev":
         def solve(max_iterations):
-            return preconditioned_conjugate_gradient(
-                lambda v: spmv(A, v), b, minv, tol=args.cg_tol,
-                max_iterations=max_iterations,
-                recompute_every=args.recompute_residual)
-    elif kernel.name == "dia":
+            return chebyshev(matvec, b, lo, hi, tol=args.cg_tol,
+                             max_iterations=max_iterations)
+    elif args.solver == "gmres":
+        def solve(max_iterations):
+            return gmres(matvec, b, preconditioner=minv, tol=args.cg_tol,
+                         restart=args.restart,
+                         max_iterations=max_iterations)
+    elif args.solver == "bicgstab":
+        def solve(max_iterations):
+            return bicgstab(matvec, b, preconditioner=minv,
+                            tol=args.cg_tol, max_iterations=max_iterations)
+    elif kernel.name == "dia" and factor_info is None:
         def solve(max_iterations):
             return dia_conjugate_gradient(
                 A, b, tol=args.cg_tol, max_iterations=max_iterations,
                 jacobi_diag=diag, recompute_every=args.recompute_residual)
     else:
-        precond = None if diag is None else jacobi_preconditioner(
-            torch.as_tensor(diag, dtype=dtype, device=device))
-
         def solve(max_iterations):
-            # CG when precond is None, as conjugate_gradient runs it
+            # CG when minv is None, as conjugate_gradient runs it
             return preconditioned_conjugate_gradient(
-                lambda v: spmv(A, v), b, precond, tol=args.cg_tol,
+                matvec, b, minv, tol=args.cg_tol,
                 max_iterations=max_iterations,
                 recompute_every=args.recompute_residual)
 
@@ -563,7 +611,50 @@ def _solve_cg(args, out, device, dtype) -> None:
     }
     if factor_info is not None:
         doc["cg"]["factorization"] = factor_info
+    if args.solver == "gmres":
+        doc["cg"]["restart"] = args.restart
+    if chebyshev_bounds is not None:
+        doc["cg"]["spectral_bounds"] = chebyshev_bounds
     dump_json(doc, out)
+
+
+def _incomplete_preconditioner(args, kernel, m, device, dtype):
+    """The IC(0) / ILU(0) apply for ``--precondition ic0|ilu0[-sweeps]``,
+    after the JAX CLI's ``_incomplete_preconditioner``: the factor of an
+    unpadded host CSR view of the matrix (the matrix itself when it is
+    one, else the Matrix Market entries the kernel was built from; a
+    matrix that ``-s auto`` converted keeps none, and the CLI exits 1 as
+    the JAX CLI does), applied by the level-scheduled solves, or by 6
+    Jacobi sweeps a triangle for the ``-sweeps`` variants."""
+    from spmv_tpu_torch.models.csr import CsrMatrix
+    from spmv_tpu_torch.ops.incomplete import (
+        ic0_factor,
+        ic0_preconditioner,
+        ilu0_factor,
+        ilu0_preconditioner,
+    )
+
+    mm = kernel._mm
+    if isinstance(m, CsrMatrix) and int(m.row_ptr[-1]) == m.num_entries:
+        csr = m
+    elif mm is not None:
+        csr = CsrMatrix.from_matrix_market(mm)
+    else:
+        raise SpmvError(
+            f"--precondition {args.precondition} needs a CSR view of "
+            "the matrix; use -s csr (or a file-loaded matrix)"
+        )
+    name, _, variant = args.precondition.partition("-")
+    method = "sweeps" if variant == "sweeps" else "levels"
+    if name == "ic0":
+        apply_fn, info = ic0_preconditioner(ic0_factor(csr), method=method,
+                                            dtype=dtype, device=device)
+    else:
+        L, U = ilu0_factor(csr)
+        apply_fn, info = ilu0_preconditioner(L, U, method=method,
+                                             dtype=dtype, device=device)
+    info["kind"] = name
+    return apply_fn, info
 
 
 def _amg_preconditioner_cli(kernel, m, mm, device, dtype):

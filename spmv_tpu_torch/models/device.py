@@ -105,6 +105,11 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``default_device()`` when None."""
+    return torch.device(device) if device is not None else default_device()
+
+
 def default_value_dtype() -> torch.dtype:
     """float64 when torch's default dtype is float64 (the tests' analogue
     of JAX's x64 mode), else float32."""

@@ -19,10 +19,9 @@ after RCM, a banded matrix's row-block shards only need neighbor
 x-segments (see spmv_tpu.parallel.halo).
 
 The port's copy of ``spmv_tpu/models/reorder.py``: the same code,
-importing the port's copies instead of the JAX package.
-``find_new_order_coloring`` is left out: it serves the IC(0) / ILU(0)
-preconditioners, which are not ported yet, and its native core lives in
-the JAX package's ``ops``.
+importing the port's copies instead of the JAX package
+(``find_new_order_coloring``'s native core is the port's
+``ops._ic_native``).
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ import numpy as np
 from spmv_tpu_torch.io.matrix_market import MatrixMarket
 
 __all__ = ["find_new_order_rcm", "find_new_order_gp",
-           "find_new_order_sigma",
+           "find_new_order_sigma", "find_new_order_coloring",
            "bandwidth", "partition_graph", "edge_cut"]
 
 
@@ -564,3 +563,51 @@ def find_new_order_sigma(
     new_order[order] = np.arange(mm.num_rows, dtype=np.int64)
     return new_order
 
+
+def find_new_order_coloring(mm: MatrixMarket) -> np.ndarray:
+    """Greedy multicolor (graph-coloring) old->new map.
+
+    The parallel-preconditioning classic: color the adjacency graph so
+    no two neighbors share a color, then number rows color-by-color.
+    Rows of one color have no dependencies on each other, so an
+    incomplete factor of the *reordered* matrix has one triangular-
+    solve level per color — a 5-point Laplacian collapses from
+    ~2*sqrt(n) natural-order levels to 2, turning the level-scheduled
+    solve (ops.incomplete.DeviceTriSolve) into a handful of kernel
+    launches.  The trade is a (usually mild) loss of
+    factor quality vs the natural order.
+
+    Greedy first-fit in degree order (Welsh-Powell), symmetrized
+    adjacency; like every order here it composes with
+    ``MatrixMarket.permute``.
+    """
+    n = mm.num_rows
+    degrees, ptr, adj = _adjacency(mm)
+    # symmetrize: color constraints are undirected
+    i = np.repeat(np.arange(n, dtype=np.int64), np.diff(ptr))
+    si = np.concatenate([i, adj])
+    sj = np.concatenate([adj, i])
+    order_e = np.argsort(si, kind="stable")
+    si, sj = si[order_e], sj[order_e]
+    sptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(si, minlength=n), out=sptr[1:])
+
+    visit = np.argsort(-(np.bincount(si, minlength=n)), kind="stable")
+    from spmv_tpu_torch.ops import _ic_native
+
+    if _ic_native.available():
+        color = _ic_native.greedy_color(sptr, sj, visit)
+    else:
+        color = np.full(n, -1, dtype=np.int64)
+        for v in visit:
+            neigh = sj[sptr[v]:sptr[v + 1]]
+            used = set(color[neigh][color[neigh] >= 0].tolist())
+            c = 0
+            while c in used:
+                c += 1
+            color[v] = c
+    # number rows color-major, stable within a color
+    perm = np.lexsort((np.arange(n), color))
+    new_order = np.empty(n, dtype=np.int64)
+    new_order[perm] = np.arange(n, dtype=np.int64)
+    return new_order

@@ -34,7 +34,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("dia_spmv.cu", "dia_spmm.cu", "wellcw_spmv.cu", "wellcw_spmm.cu",
            "csr_spmv.cu", "csr_spmm.cu", "ell_spmv.cu", "ell_spmm.cu",
            "well_spmv.cu", "well_spmm.cu", "bsr_spmm.cu", "bsr_spmm_tc.cu",
-           "fused_vcycle.cu")
+           "fused_vcycle.cu", "tri_solve.cu")
 HEADERS = ("dia_common.cuh", "cw_common.cuh", "mbarrier.cuh",
            "spmm_rows.cuh", "csr_rows.cuh")
 NVCC_FLAGS = (
@@ -239,6 +239,11 @@ def load_library() -> ctypes.CDLL:
     lib.fused_vcycle_launch.argtypes = [
         _I32, _I32, _I32, _I32, _I64, _PTR, _PTR, _PTR, _PTR, _I32, _PTR]
     lib.fused_vcycle_launch.restype = _I32
+    lib.tri_solve_launch.argtypes = [
+        _I32, _I32, _I32, _PTR, _PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _I32, _PTR,
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.tri_solve_launch.restype = _I32
     lib.spmv_tpu_torch_error_string.argtypes = [_I32]
     lib.spmv_tpu_torch_error_string.restype = ctypes.c_char_p
     return lib

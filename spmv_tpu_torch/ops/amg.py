@@ -47,8 +47,8 @@ from spmv_tpu_torch.models.csr import CsrMatrix
 from spmv_tpu_torch.models.device import (
     DeviceCsr,
     DeviceDia,
-    default_device,
     default_value_dtype,
+    resolve_device,
 )
 from spmv_tpu_torch.models.dia import DiaMatrix
 from spmv_tpu_torch.ops.dispatch import spmv
@@ -418,10 +418,6 @@ def _cheb_smooth(matvec, dinv, b, x, lo, hi, degree):
     return x
 
 
-def _device_of(device) -> torch.device:
-    return torch.device(device) if device is not None else default_device()
-
-
 def amg_preconditioner(
     m=None,
     hierarchy: AmgHierarchy = None,
@@ -447,7 +443,7 @@ def amg_preconditioner(
         if m is None:
             raise ValueError("need a host matrix or a hierarchy")
         hierarchy = smoothed_aggregation_setup(m, **setup_kw)
-    device = _device_of(device)
+    device = resolve_device(device)
     dtype = dtype or default_value_dtype()
     dev = []
     for lv in hierarchy.levels:
@@ -690,7 +686,7 @@ def block_amg_device(
     count stays under ``max_diagonals``; otherwise it falls back to the
     CSR form (the CSR kernel).
     """
-    device = _device_of(device)
+    device = resolve_device(device)
     dtype = dtype or default_value_dtype()
     dev_levels = []
     for lv in hierarchy.levels:

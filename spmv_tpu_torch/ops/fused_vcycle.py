@@ -43,7 +43,7 @@ import torch
 
 from spmv_tpu_torch.errors import KernelError, MatrixError
 from spmv_tpu_torch.models.csr import CsrMatrix
-from spmv_tpu_torch.models.device import LANE, DeviceDia
+from spmv_tpu_torch.models.device import LANE, DeviceDia, resolve_device
 from spmv_tpu_torch.models.dia import DiaMatrix
 from spmv_tpu_torch.ops._launch import (
     check_no_alias,
@@ -55,7 +55,6 @@ from spmv_tpu_torch.ops._launch import (
 from spmv_tpu_torch.ops.amg import (
     _as_host_csr,
     _cheb_smooth,
-    _device_of,
     _extract_diag,
     _pad_csr_identity,
     block_aggregation_setup,
@@ -225,7 +224,7 @@ def fused_vcycle_device(
     if not hierarchy.levels:
         raise MatrixError("hierarchy has no levels — matrix is "
                           "already coarse; use a dense solve")
-    device = _device_of(device)
+    device = resolve_device(device)
     levels, dinv, omegas, los, his, wscales, smoothed = ([] for _ in
                                                          range(7))
     for lv in hierarchy.levels:

@@ -1,12 +1,14 @@
-"""Conjugate gradient: generic (P)CG over any matvec, the DIA kernel
-loop, and batched multi-RHS CG over any matmat and over K2.
+"""Conjugate gradient and BiCGSTAB: generic (P)CG over any matvec, the
+DIA kernel loop, batched multi-RHS CG over any matmat and over K2, and
+BiCGSTAB for non-symmetric systems.
 
-The counterpart of the CG part of ``spmv_tpu/ops/solvers.py``.  The
-iteration runs eagerly in a Python loop; the stopping rule is the JAX
-package's exactly (iterate while ``r.r > tol^2 * max(b.b, 1e-300)`` and
-``k < max_iterations``, compared in the vector dtype; per column in the
-batched solver), checked with one host sync per iteration, so iteration
-counts compare one to one with the JAX solvers.
+The counterpart of ``spmv_tpu/ops/solvers.py``.  The iteration runs
+eagerly in a Python loop; the stopping rule is the JAX package's exactly
+(iterate while ``r.r > tol^2 * max(b.b, 1e-300)`` and ``k <
+max_iterations``, compared in the vector dtype; per column in the
+batched solver; BiCGSTAB also stops at a rho or omega breakdown),
+checked with one host sync per iteration, so iteration counts compare
+one to one with the JAX solvers.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "batched_conjugate_gradient",
     "dia_batched_conjugate_gradient",
     "preconditioned_conjugate_gradient",
+    "bicgstab",
     "dia_conjugate_gradient",
     "jacobi_preconditioner",
     "extract_diagonal",
@@ -49,6 +52,18 @@ def _tol2(b: torch.Tensor, tol: float, b_norm2=None) -> torch.Tensor:
         b_norm2 = torch.dot(b, b)
     b_norm2 = torch.clamp(b_norm2, min=1e-300)
     return torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 * b_norm2
+
+
+def _np_type(dtype: torch.dtype):
+    """The numpy scalar type of a torch dtype."""
+    return torch.empty((), dtype=dtype).numpy().dtype.type
+
+
+def _eps(dtype: torch.dtype):
+    """The breakdown threshold of the JAX solvers, ``finfo(dtype).tiny *
+    1e4`` in the dtype, as a numpy scalar."""
+    t = _np_type(dtype)
+    return t(np.finfo(t).tiny * t(1e4))
 
 
 def _check_recompute(recompute_every: int):
@@ -110,6 +125,67 @@ def preconditioned_conjugate_gradient(
         rz = rz_new
         k += 1
     return CgResult(x=x, residual_norm=torch.sqrt(rr), iterations=k)
+
+
+def bicgstab(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    preconditioner: Callable[[torch.Tensor], torch.Tensor] = None,
+    x0: torch.Tensor = None,
+    tol: float = 1e-8,
+    max_iterations: int = 1000,
+) -> CgResult:
+    """BiCGSTAB for general (non-symmetric) systems (van der Vorst 1992).
+
+    Right-preconditioned, as the JAX function: ``preconditioner`` (M^-1,
+    e.g. ``ops.incomplete.ilu0_preconditioner``) is applied to the
+    search directions, so the residual tested is the true residual of
+    A x = b.  The loop runs while ``r.r > tol2``, the last iteration saw
+    no breakdown (``|rho|`` and ``|omega|`` at least ``eps =
+    finfo(dtype).tiny * 1e4``) and ``k < max_iterations``; a breakdown
+    keeps the iterate.
+    """
+    if preconditioner is None:
+        def preconditioner(v):
+            return v
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r = b - matvec(x)
+    rhat = r
+    tol2 = _tol2(b, tol)
+    eps = torch.tensor(_eps(b.dtype), device=b.device)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho_prev = alpha_prev = omega_prev = one
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rr = torch.dot(r, r)
+    go = rr > tol2
+    k = 0
+    while k < max_iterations and bool(go):
+        rho = torch.dot(rhat, r)
+        beta = (rho / _safe(rho_prev, eps)) * (alpha_prev /
+                                               _safe(omega_prev, eps))
+        p = r + beta * (p - omega_prev * v)
+        ph = preconditioner(p)
+        v = matvec(ph)
+        alpha = rho / _safe(torch.dot(rhat, v), eps)
+        s = r - alpha * v
+        sh = preconditioner(s)
+        t = matvec(sh)
+        omega = torch.dot(t, s) / _safe(torch.dot(t, t), eps)
+        x = x + alpha * ph + omega * sh
+        r = s - omega * t
+        rr = torch.dot(r, r)
+        # breakdown (rho or omega ~ 0): stop iterating, keep the iterate
+        go = (rr > tol2) & (rho.abs() >= eps) & (omega.abs() >= eps)
+        rho_prev, alpha_prev, omega_prev = rho, alpha, omega
+        k += 1
+    return CgResult(x=x, residual_norm=torch.sqrt(rr), iterations=k)
+
+
+def _safe(v: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """Divide-safe denominator: keep magnitude >= eps, keep sign."""
+    mag = torch.maximum(v.abs(), eps)
+    return torch.where(v < 0, -mag, mag)
 
 
 def _colsum(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

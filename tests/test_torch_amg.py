@@ -394,10 +394,11 @@ def test_cli_auto_amg_reads_the_entries(tmp_path):
 @pytest.mark.parametrize("argv,message", [
     (["--spmv-format", "dia", "--cg", "50", "--precondition", "amg",
       "--nrhs", "3"], "use single-RHS solves for ic0/ilu0/amg"),
-    (["--spmv-format", "dia", "--cg", "50", "--precondition", "ilu0"],
-     "not yet ported"),
+    (["--spmv-format", "dia", "--cg", "50", "--precondition", "ilu0",
+      "--nrhs", "3"], "use single-RHS solves for ic0/ilu0/amg"),
     (["--spmv-format", "well", "--cg", "50", "--precondition",
-      "ic0-sweeps"], "not yet ported"),
+      "ic0-sweeps", "--solver", "chebyshev"],
+     "does not take a preconditioner"),
 ])
 def test_cli_amg_refusals(argv, message, poisson32_file, capsys):
     rc, text = _run(main, ["--matrix", poisson32_file] + argv)

@@ -117,29 +117,22 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 
 
 @pytest.mark.parametrize("argv", [
-    # these ids named modes of the reference tool's formats and of
-    # --reorder, which are ported now; they hold modes that are not
-    pytest.param(["--spmv-format", "ell", "--profile", "2",
-                  "--flush-caches"], id="spmvformat_well_profile_2"),
-    pytest.param(["--spmv-format", "hybrid", "--cg", "10", "--solver",
-                  "gmres"], id="spmvformat_well_cg_10_nrhs_2"),
-    pytest.param(["--spmv-format", "coo", "--cg", "10", "--precondition",
-                  "ilu0"], id="spmvformat_bsr_profile_2"),
-    pytest.param(["--spmv-format", "coo-atomic", "--profile", "2",
-                  "--jax-profile", "d"],
-                 id="spmvformat_cooatomic_profile_2_spmm_2"),
-    pytest.param(["--spmv-format", "xla-csr", "--cg", "10", "--solver",
-                  "bicgstab"], id="spmvformat_xlacsr_cg_10"),
-    ["--spmv-format", "bsr", "--cg", "10", "--solver", "gmres"],
+    ["--spmv-format", "ell", "--profile", "2", "--flush-caches"],
+    ["--spmv-format", "hybrid", "--eigs", "2"],
+    ["--spmv-format", "coo", "--scaling", "2"],
+    ["--spmv-format", "coo-atomic", "--profile", "2", "--jax-profile", "d"],
+    ["--spmv-format", "xla-csr", "--eigs", "3"],
+    ["--spmv-format", "bsr", "--eigs", "2", "--which", "largest"],
     ["--spmv-format", "auto", "--eigs", "2"],
-    ["--spmv-format", "dia", "--cg", "10", "--solver", "bicgstab"],
-    ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0"],
+    ["--spmv-format", "dia", "--cg", "10", "--list-profile-events"],
+    ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0",
+     "--flush-caches"],
     ["--spmv-format", "dia", "--eigs", "2"],
     ["--spmv-format", "dia", "--scaling", "2"],
     ["--spmv-format", "dia", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--profile", "2", "--flush-caches"],
-    pytest.param(["--spmv-format", "dia", "--profile", "2", "--reorder",
-                  "color"], id="spmvformat_dia_profile_2_reorder_rcm"),
+    ["--spmv-format", "dia", "--profile", "2", "--reorder", "color",
+     "--scaling", "4"],
 ], ids=lambda a: "_".join(a).replace("-", "") or "simulate")
 def test_unported_modes_exit_1(argv, matrix_file, capsys):
     rc, text = _run(main, ["--matrix", matrix_file] + argv)
@@ -263,6 +256,11 @@ def test_port_never_imports_jax(matrix_file):
                      ["-s", "auto", "--profile", "2", "--spmm", "2"],
                      ["-s", "auto", "--cg", "20", "--precondition",
                       "jacobi"],
+                     ["-s", "csr", "--cg", "20", "--solver", "gmres",
+                      "--precondition", "ilu0"],
+                     ["-s", "dia", "--cg", "20", "--solver", "bicgstab",
+                      "--precondition", "ic0-sweeps", "--reorder", "color"],
+                     ["-s", "csr", "--cg", "20", "--solver", "chebyshev"],
                      ["-s", "hybrid", "--profile", "2", "--traffic-split"],
                      ["-s", "well", "--profile", "0", "--trace-config",
                       {os.path.join(REPO, "configs", "cpu-2thread.json")!r}]):

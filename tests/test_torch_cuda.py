@@ -1,10 +1,13 @@
 """Kernels K1, K2, K3a-c, K4a-c, K5a-b (the spill folded in), K6a-b, K7,
-K8, the CSR kernels and the ELL kernels (alone and in the hybrid
+K8, the CSR kernels, the ELL kernels (alone and in the hybrid
 product) on the card against their plain versions, ``-s xla-csr``'s
 ``torch.sparse`` product against the CSR kernel, and the generic and
-block AMG V-cycles on the card against their CPU runs; and the
+block AMG V-cycles on the card against their CPU runs; the
 traffic-isolation variants of the CSR, ELL and WELL SpMV (stream-only
-and gather-only, ``--traffic-split``) against their plain versions.
+and gather-only, ``--traffic-split``) against their plain versions; and
+the level-scheduled triangular solve (``tri_solve``, its level and
+sweep modes) against its plain version, with ``BlockTriSolve``'s
+rectangular DIA and CSR blocks against its CPU run.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -2058,3 +2061,195 @@ def test_hybrid_traffic_variants_match_plain(dtype, coo, cuda, long_small):
         want_irr = want_irr + csr_irregular_reference(A.coo, x)
     assert _rel_err(reg, want_reg) <= TOL[dtype]
     assert _rel_err(irr, want_irr) <= TOL[dtype]
+
+
+# ------------------------------------------------ level-scheduled tri solve
+# The kernels' tolerances (TOL): an error made at one level feeds every
+# later level, but 2,047 levels measured 1.7e-7 in float32 and 1.5e-16 in
+# float64 on an H100 (chip_smoke.py phase 28).
+TRI_TOL = TOL
+
+
+def _diag_dominant(n, seed):
+    """A random non-symmetric sparse matrix with a dominant diagonal."""
+    mm = random_sparse(n, n, 4, seed=seed)
+    rows = np.asarray(mm.rows_1based, np.int64) - 1
+    cols = np.asarray(mm.cols_1based, np.int64) - 1
+    vals = np.asarray(mm.values, np.float64)
+    off = rows != cols
+    rows, cols, vals = rows[off], cols[off], vals[off]
+    dom = np.bincount(rows, weights=np.abs(vals), minlength=n) + 1.0
+    return from_coo_arrays(n, n, np.concatenate([rows, np.arange(n)]),
+                           np.concatenate([cols, np.arange(n)]),
+                           np.concatenate([vals, dom]))
+
+
+def _tri_factors(case):
+    """(factor, lower, unit_diag) triangles of each kind the solves see."""
+    from spmv_tpu_torch.models import reorder
+    from spmv_tpu_torch.ops import ic0_factor, ilu0_factor
+    from spmv_tpu_torch.ops.incomplete import _transpose_csr
+
+    if case == "ic0_natural":
+        L = ic0_factor(CsrMatrix.from_matrix_market(poisson2d(40, 30)))
+        return [(L, True, False), (_transpose_csr(L), False, False)]
+    if case in ("ilu0_natural", "ilu0_colored", "ilu0_colored_stencil"):
+        # the stencil's two colors make every level a row range (the
+        # kernel's Contig path: L's shifts 0, U's not); the random
+        # pattern's colors do not
+        mm = (poisson2d(40, 30) if case == "ilu0_colored_stencil"
+              else _diag_dominant(600, seed=3))
+        if case != "ilu0_natural":
+            mm = mm.permute(reorder.find_new_order_coloring(mm))
+        L, U = ilu0_factor(CsrMatrix.from_matrix_market(mm))
+        return [(L, True, True), (U, False, False)]
+    if case == "one_row_levels":
+        # a bidiagonal chain: every level holds one row
+        n = 300
+        i = np.arange(1, n)
+        mm = from_coo_arrays(n, n, np.concatenate([np.arange(n), i]),
+                             np.concatenate([np.arange(n), i - 1]),
+                             np.concatenate([np.full(n, 2.0),
+                                             np.full(n - 1, -0.5)]))
+        return [(CsrMatrix.from_matrix_market(mm), True, False)]
+    # no dependency at all: the diagonal alone, and a unit diagonal with
+    # an empty strict part
+    n = 257
+    d = from_coo_arrays(n, n, np.arange(n), np.arange(n),
+                        np.linspace(1.0, 3.0, n))
+    empty = CsrMatrix(n, n, 0, 1, np.zeros(n + 1, np.int64),
+                      np.zeros(0, np.int32), np.zeros(0))
+    return [(CsrMatrix.from_matrix_market(d), True, False),
+            (empty, True, True)]
+
+
+TRI_CASES = ("ic0_natural", "ilu0_natural", "ilu0_colored",
+             "ilu0_colored_stencil", "one_row_levels", "no_dependencies")
+
+
+@pytest.mark.parametrize("sweeps", [None, 0, 1, 3], ids=lambda s: (
+    "levels" if s is None else f"sweeps{s}"))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", TRI_CASES)
+def test_tri_solve_matches_plain(case, dtype, sweeps, cuda):
+    """The kernel against its plain version in the level mode (one launch
+    a non-empty level) and the sweep mode (one launch a sweep), twice
+    bitwise; the level mode also against a dense solve in float64."""
+    from spmv_tpu_torch.ops import (
+        DeviceTriSolve,
+        tri_solve_core,
+        tri_solve_reference,
+        tri_sweeps_reference,
+    )
+
+    for t, lower, unit in _tri_factors(case):
+        T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                     dtype=dtype, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(71)
+        b = torch.randn(T.n, generator=g, device=cuda, dtype=dtype)
+        before = tri_solve_core.launches
+        z1 = tri_solve_core(T, b, sweeps=sweeps)
+        z2 = tri_solve_core(T, b, sweeps=sweeps)
+        torch.cuda.synchronize()
+        per = T.num_levels if sweeps is None else sweeps
+        assert tri_solve_core.launches - before == 2 * per
+        assert torch.equal(z1, z2)
+        want = (tri_solve_reference(T, b) if sweeps is None
+                else tri_sweeps_reference(T, b, sweeps))
+        if sweeps == 0:
+            assert torch.equal(z1, torch.zeros_like(z1))
+            continue
+        assert _rel(z1, want) <= TRI_TOL[dtype]
+        if sweeps is None and dtype == torch.float64:
+            dense = np.zeros((t.num_rows, t.num_columns))
+            rows = np.repeat(np.arange(t.num_rows), np.diff(t.row_ptr))
+            np.add.at(dense, (rows, t.column_index), t.value)
+            if unit:
+                np.fill_diagonal(dense, 1.0)
+            exact = np.linalg.solve(dense, b.cpu().numpy())
+            assert _rel(z1.cpu(), torch.from_numpy(exact)) <= 1e-10
+
+
+def test_tri_solve_sweeps_reach_the_exact_solve(cuda):
+    """num_levels sweeps give the level solve (Jacobi on a triangle is
+    exact after as many sweeps as levels)."""
+    from spmv_tpu_torch.ops import DeviceTriSolve, tri_solve_core
+
+    L, _ = _tri_factors("ic0_natural")[0][:2]
+    T = DeviceTriSolve.from_host(L, dtype=torch.float64, device=cuda)
+    b = torch.ones(T.n, dtype=torch.float64, device=cuda)
+    exact = tri_solve_core(T, b)
+    swept = tri_solve_core(T, b, sweeps=T.num_levels)
+    assert _rel(swept, exact) <= 1e-12
+
+
+@pytest.mark.parametrize("sweeps", [None, 3], ids=lambda s: (
+    "levels" if s is None else f"sweeps{s}"))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_tri_solve_skips_what_it_need_not_read(dtype, sweeps, cuda):
+    """After coloring a stencil, every level is a row range
+    (``level_shift``) and ILU(0)'s L has a unit diagonal: the kernel then reads neither
+    ``level_rows`` nor ``diag_inv``, so overwriting them (rows with 0,
+    1/diagonal with NaN) leaves its z unchanged.  U's sweep has shifted
+    levels, so it still reads ``level_rows`` there and is left as is."""
+    from spmv_tpu_torch.ops import DeviceTriSolve, tri_solve_core
+
+    for t, lower, unit in _tri_factors("ilu0_colored_stencil"):
+        T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                     dtype=dtype, device=cuda)
+        assert T.level_shift is not None and T.unit_diag == lower
+        assert T.level_shift.any() != lower
+        b = torch.randn(T.n, generator=torch.Generator(
+            device=cuda).manual_seed(72), device=cuda, dtype=dtype)
+        want = tri_solve_core(T, b, sweeps=sweeps)
+        identity = not T.level_shift.any()
+        if sweeps is None or identity:
+            T.level_rows.zero_()
+        if unit:
+            T.diag_inv.fill_(float("nan"))
+        assert torch.equal(tri_solve_core(T, b, sweeps=sweeps), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("block", ["dia", "csr"])
+def test_block_tri_solve_rectangular_blocks(block, dtype, cuda):
+    """BlockTriSolve after --reorder color: each level's dependency block
+    is a rectangular (rows of the level) x n matrix on K1 (DIA) or the
+    CSR kernel; the solve on the card against its CPU run."""
+    from spmv_tpu_torch.models import reorder
+    from spmv_tpu_torch.ops import BlockTriSolve, ic0_factor
+
+    mm = poisson2d(48, 40)
+    mm = mm.permute(reorder.find_new_order_coloring(mm))
+    L = ic0_factor(CsrMatrix.from_matrix_market(mm))
+    kw = {} if block == "dia" else {"max_diagonals": 1}
+    dev = BlockTriSolve.from_host(L, dtype=dtype, device=cuda, **kw)
+    cpu = BlockTriSolve.from_host(L, dtype=dtype, device="cpu", **kw)
+    blocks = [b for b in dev.blocks if b is not None]
+    assert blocks and all(b.num_rows != b.num_columns for b in blocks)
+    assert {b.format_name for b in blocks} == {block}
+    counter = dia_spmv_core if block == "dia" else csr_spmv_core
+    before = counter.launches
+    g = torch.Generator().manual_seed(72)
+    b = torch.randn(L.num_rows, generator=g, dtype=dtype)
+    z = dev.solve(b.to(cuda))
+    torch.cuda.synchronize()
+    assert counter.launches - before == len(blocks)
+    assert _rel(z.cpu(), cpu.solve(b)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_rectangular_dia_and_csr_kernels(dtype, cuda):
+    """K1 and the CSR SpMV on a tall and a wide matrix: x of num_columns,
+    y of num_rows."""
+    for shape in ((300, 1000), (1000, 300)):
+        mm = random_sparse(*shape, 5, seed=sum(shape))
+        A = DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm),
+                                dtype=dtype, device=cuda)
+        D = DeviceDia.from_host(DiaMatrix.from_matrix_market(mm),
+                                dtype=dtype, device=cuda)
+        x = torch.randn(shape[1], dtype=dtype, device=cuda)
+        for y, want in ((csr_spmv_core(A, x), csr_spmv_reference(A, x)),
+                        (dia_spmv_core(D, x), dia_spmv_reference(D, x))):
+            assert y.shape == (shape[0],)
+            assert _rel(y, want) <= TOL[dtype]

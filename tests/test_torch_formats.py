@@ -22,8 +22,8 @@ packages:
   the JAX CLI's keys, and their CG iteration counts are within one of
   the JAX CLI's;
 - ``--reorder rcm|gp|sigma`` builds the JAX CLI's permuted entries and
-  host matrix; ``--reorder color`` and ``-s auto --reorder`` are
-  refused.
+  host matrix; ``-s auto --reorder`` is refused (``--reorder color`` is
+  held against the JAX CLI in tests/test_torch_solver_cli.py).
 """
 
 import io
@@ -494,10 +494,10 @@ def test_reorder_cli_runs(fmt, shuffled_file):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-s", "csr", "--reorder", "color", "--profile", "2"],
-     "--reorder color is not yet ported"),
-    (["-s", "ell", "--reorder", "color", "--cg", "10"],
-     "--reorder color is not yet ported"),
+    (["-s", "csr", "--reorder", "color", "--eigs", "2"],
+     "--eigs is not yet ported"),
+    (["-s", "ell", "--reorder", "color", "--cg", "10", "--precondition",
+      "ic0", "--nrhs", "2"], "use single-RHS solves"),
     (["-s", "auto", "--reorder", "rcm", "--profile", "2"],
      "drop --reorder"),
     (["-s", "auto", "--reorder", "color", "--profile", "2"],
