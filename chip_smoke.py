@@ -293,22 +293,30 @@ Phases (each prints readable lines; any failure exits non-zero):
    the card's work): in float64 within 2; in float32 within 2,
    Chebyshev's within one check interval (20), BiCGSTAB's within a
    tenth; then -s dia --reorder color --solver bicgstab --precondition
-   ilu0 --cg 20 at poisson2d(4096, 4096) through the CLI's main (its
-   Matrix Market reader handed the generated matrix): seconds, host
-   set-up, K1 and tri_solve launches; the counts are read after it
+   ilu0 --cg 20 at poisson2d(4096, 4096) and -s csr --solver cg
+   --precondition ic0 --cg 50 at poisson2d(1024, 1024), natural order,
+   float32, through the CLI's main (its Matrix Market reader handed the
+   generated matrix): seconds (host ms an iteration at 1024), host
+   set-up, K1 and tri_solve launches; the counts are read after them
    (the native ic0.cpp library must load first).  Then, not counted,
    the tri_solve kernel against its plain version (float64 and float32,
-   twice bitwise, levels and 6 sweeps, the CLI's count) on IC(0)'s L and
-   L^T of poisson2d(1024, 1024) at natural order (2,047 levels each) and
-   on the full-width run's ILU(0) unit L and U; each triangle solve alone
-   (float32, a CUDA graph, L2 flushed) beside its bound (the bytes it
-   must move: no level_rows where the levels are contiguous row ranges,
-   no diag_inv for a unit diagonal; with the z reads and the container's
-   bytes beside; and the levels times the least launch, measured on a
-   chain of one-row levels), its plain version's ms and
-   torch.triangular_solve on the same sparse CSR triangle (cuSPARSE; in
-   a child process, since on an H100 with torch 2.11 it ended its
-   process with SIGFPE).
+   twice bitwise, the mode tri_solve_plan picks and 6 sweeps, the CLI's
+   count; the level and chained modes bitwise equal) on IC(0)'s L and
+   L^T of poisson2d(1024, 1024) at natural order (2,047 levels each,
+   chained) and on the full-width run's ILU(0) unit L and U (2 levels,
+   the level mode); each triangle solve alone in both modes (float32, a
+   CUDA graph, L2 flushed) beside its bound (the bytes it must move: no
+   level_rows where the levels are contiguous row ranges, no diag_inv
+   for a unit diagonal; with the z reads and the container's bytes
+   beside; the levels times the least launch and times the chained
+   mode's hand-off, both measured on a chain of one-row levels), its
+   plain version's ms and cuSPARSE's SpSV on the same CSR triangle
+   (profile/tri_study.cu, the analysis once; in a child process) and
+   torch.triangular_solve on it as a sparse CSR tensor (in another child
+   process, since on an H100 with torch 2.11 it ended its process with
+   SIGFPE); last, the plan's line: layered triangles of 2^21 rows in
+   levels of 16,384 to 262,144 rows and of 2^16 rows in 2 and 4 levels,
+   each in both modes.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -337,6 +345,13 @@ bit.  ``--well-kernels-beside DIR`` does the same for K5a and K5b: the
 WELL SpMV at phase 13's poisson2d(1024, 1024) and poisson2d(4096, 4096)
 in float32 and float64, and at poisson2d(1000, 1000) in float64 (K5a,
 whose float64 x still fits whole), each output compared bit for bit.
+``--tri-kernels-beside DIR`` does the same for the triangular solve:
+phase 28's natural-order IC(0) L and L^T of poisson2d(1024, 1024) and
+the colored ILU(0) unit L and U of poisson2d(4096, 4096) (the first run
+pickles the colored factors for the others), each solve alone in
+float32 and float64, and the CLI's --solver gmres --restart 32
+--precondition ic0 at poisson2d(256, 256) in float32 and float64 (host
+ms an iteration, iterations), every z and residual compared bit for bit.
 
 The second-to-last lines are the kernels' JSON summary (26 kernels, the
 six traffic variants and tri_solve last, each with its launches on the
@@ -4599,7 +4614,13 @@ SOLVER_NATURAL_GRID = 1024    # IC(0) at natural order: 2,047 levels
 SOLVER_FULL_GRID = FULL_GRID  # ILU(0) after --reorder color, 16.8M rows
 SOLVER_FULL_ITERS = 20
 SOLVER_GRAPH_REPS = 5         # solves in one CUDA graph
-SOLVER_CHAIN_ROWS = 300       # the one-row-a-level chain: least launch
+SOLVER_CHAIN_ROWS = 300       # the one-row-a-level chain: least launch,
+                              # and the chained mode's hand-off
+SOLVER_NATURAL_CG_ITERS = 50  # -s csr --cg 50 --precondition ic0, natural
+# the plan's line: layered triangles (rows, rows a level); the fifth has
+# the colored CLI triangles' shape (2 levels of 32,768 rows)
+PLAN_LINE = ((1 << 21, 16384), (1 << 21, 65536), (1 << 21, 131072),
+             (1 << 21, 262144), (1 << 16, 32768), (1 << 16, 16384))
 SOLVER_SWEEPS = 6             # the CLI's *-sweeps count a triangle
 # The tri_solve kernel against its plain version (relative max-norm), as
 # the other kernels (the kernel fuses multiply-add where the plain version
@@ -4806,13 +4827,52 @@ def _full_width_cli(device, mm, tag):
     return res, kept
 
 
+def _natural_cli(device, mm, tag):
+    """-s csr --solver cg --precondition ic0 --cg SOLVER_NATURAL_CG_ITERS
+    at poisson2d(SOLVER_NATURAL_GRID²), natural order, float32, through
+    the CLI's main with its reader handed the generated matrix: host ms
+    an iteration and the tri_solve launches (two triangles an apply)."""
+    from spmv_tpu_torch import kernels
+    from spmv_tpu_torch.io import matrix_market
+    from spmv_tpu_torch.ops import tri_solve_core
+
+    grid = SOLVER_NATURAL_GRID
+    tri0 = tri_solve_core.launches
+    load = lambda path, **kw: mm  # noqa: E731
+    with _patched(matrix_market, "load_matrix", load), \
+            _patched(kernels, "load_matrix", load):
+        cg, wall = _cli_doc(
+            ["--matrix", f"poisson2d_{grid}.mtx", "-s", "csr", "--solver",
+             "cg", "--precondition", "ic0", "--cg",
+             str(SOLVER_NATURAL_CG_ITERS)], "natural order IC(0)")
+    tri = tri_solve_core.launches - tri0
+    it = cg["iterations"]
+    ms = cg["seconds"] / max(it, 1) * 1e3
+    f = cg["factorization"]
+    _say(f"[{tag}] -s csr --solver cg --precondition ic0 --cg "
+         f"{SOLVER_NATURAL_CG_ITERS} at poisson2d({grid},{grid}), natural "
+         f"order, float32: {it} iterations, residual "
+         f"{cg['residual_norm']:.3e}, {cg['seconds']:.4f} s solving, "
+         f"{ms:.4f} host ms an iteration ({wall:.1f} s with the host "
+         f"set-up), tri_solve launches +{tri}; factorization {f}")
+    if tri <= 0 or not np.isfinite(cg["residual_norm"]):
+        _fail(f"natural order IC(0) CLI: tri_solve +{tri}, {cg}")
+    return {"iterations": it, "residual_norm": cg["residual_norm"],
+            "seconds": cg["seconds"], "host_ms_an_iteration": ms,
+            "wall_seconds": wall, "tri_solve_launches": tri,
+            "factorization": f,
+            "shape": f"poisson2d({grid},{grid}), natural order, float32"}
+
+
 def _tri_check(T, label, tag, sweeps=None):
-    """The kernel against its plain version on T (twice bitwise): the
-    max abs and relative errors."""
+    """The kernel against its plain version on T (twice bitwise), in the
+    mode the plan picks, and the other exact mode bitwise equal to it:
+    the max abs and relative errors."""
     import torch
 
     from spmv_tpu_torch.ops import (
         tri_solve_core,
+        tri_solve_plan,
         tri_solve_reference,
         tri_sweeps_reference,
     )
@@ -4823,71 +4883,145 @@ def _tri_check(T, label, tag, sweeps=None):
                     dtype=T.dep_vals.dtype)
     z1 = tri_solve_core(T, b, sweeps=sweeps)
     z2 = tri_solve_core(T, b, sweeps=sweeps)
+    plan = tri_solve_plan(T)
+    other = None
+    if sweeps is None:
+        other = "levels" if plan == "chained" else "chained"
+        z3 = tri_solve_core(T, b, mode=other)
     want = (tri_solve_reference(T, b) if sweeps is None
             else tri_sweeps_reference(T, b, sweeps))
     torch.cuda.synchronize()
     if not torch.equal(z1, z2):
         _fail(f"tri_solve {label} {dt}: two launches differ")
+    if other is not None and not torch.equal(z1, z3):
+        _fail(f"tri_solve {label} {dt}: the {plan} and {other} modes "
+              f"differ in {int((z1 != z3).sum())} of {T.n} values")
     err = float((z1.double() - want.double()).abs().max())
     rel = _rel(z1, want)
-    mode = "levels" if sweeps is None else f"{sweeps} sweep(s)"
+    mode = plan if sweeps is None else f"{sweeps} sweep(s)"
     _say(f"[{tag}] tri_solve {label}, {dt}, {mode}: {T.num_levels} levels, "
          f"{T.n} rows, {T.num_deps} dependencies; max abs err {err:.3e} "
-         f"(rel {rel:.3e}) against the plain version, bitwise repeatable")
+         f"(rel {rel:.3e}) against the plain version, bitwise repeatable"
+         + (f", bitwise equal to the {other} mode" if other else ""))
     if not rel <= TOL_TRI[dt]:
         _fail(f"tri_solve {label} {dt} {mode}: relative error {rel} > "
               f"{TOL_TRI[dt]}")
     return err, rel
 
 
-def _tri_library_case(path) -> dict:
-    """torch.triangular_solve on one triangle as a sparse CSR tensor
-    (cuSPARSE), timed as the kernel is, and its agreement with the
-    kernel's z; from the arrays ``_tri_libraries`` saved."""
+def _tri_case_arrays(path):
+    """A saved case's triangle (host CSR arrays), b and the kernel's z on
+    the card, and whether it is upper and unit."""
+    import types
+
     import torch
 
     d = np.load(path)
+    t = types.SimpleNamespace(num_rows=int(d["shape"][0]),
+                              row_ptr=d["row_ptr"], column_index=d["cols"],
+                              value=d["vals"])
     dev = torch.device("cuda")
+    return (t, torch.from_numpy(d["b"]).to(dev),
+            torch.from_numpy(d["z"]), bool(d["upper"]), bool(d["unit"]))
+
+
+def _tri_spsv_case(path) -> dict:
+    """cuSPARSE's SpSV (profile/tri_study.cu; the analysis once, then the
+    solve) on one saved triangle, timed as the kernel is, and its
+    agreement with the kernel's z."""
+    import torch
+
+    from spmv_tpu_torch.errors import KernelError
+    from spmv_tpu_torch.profile.tri_study import Spsv
+
+    t, b, want, upper, unit = _tri_case_arrays(path)
+    z = torch.empty_like(b)
+    try:
+        solve = Spsv(t, lower=not upper, unit=unit, b=b, z=z)
+    except (RuntimeError, KernelError) as e:
+        return {"library_ms": None,
+                "library_error": f"{type(e).__name__}: {e}"[:300]}
+    got = solve().cpu()
+    scratch = torch.empty(16 << 20, dtype=torch.float32, device=b.device)
+    lib = _yardstick(solve, lambda: scratch.fill_(0.0), reps=5)
+    lib["library_rel_err_vs_kernel"] = _rel(got, want)
+    lib["library_call"] = ("cusparseSpSV_solve, the analysis done once "
+                           "(spmv_tpu_torch/profile/tri_study.cu)")
+    solve.close()
+    return lib
+
+
+def _tri_library_case(path) -> dict:
+    """torch.triangular_solve on one saved triangle as a sparse CSR tensor
+    (int64 indices, B of (n, 1)), timed as the kernel is, and its
+    agreement with the kernel's z."""
+    import torch
+
+    t, b, want, upper, unit = _tri_case_arrays(path)
     try:
         S = torch.sparse_csr_tensor(
-            torch.from_numpy(d["row_ptr"]).long(),
-            torch.from_numpy(d["cols"]).long(),
-            torch.from_numpy(d["vals"]), size=tuple(d["shape"])).to(dev)
-        B = torch.from_numpy(d["b"]).to(dev)[:, None].contiguous()
-        upper, unit = bool(d["upper"]), bool(d["unit"])
+            torch.from_numpy(t.row_ptr).long(),
+            torch.from_numpy(t.column_index).long(),
+            torch.from_numpy(t.value),
+            size=(t.num_rows, t.num_rows)).to(b.device)
+        B = b[:, None].contiguous()
 
         def call():
             return torch.triangular_solve(B, S, upper=upper,
                                           unitriangular=unit)
 
         got = call()[0][:, 0].cpu()
-        scratch = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+        scratch = torch.empty(16 << 20, dtype=torch.float32, device=b.device)
         lib = _yardstick(call, lambda: scratch.fill_(0.0), reps=5)
-        lib["library_rel_err_vs_kernel"] = _rel(got, torch.from_numpy(
-            d["z"]))
+        lib["library_rel_err_vs_kernel"] = _rel(got, want)
         return lib
     except (RuntimeError, NotImplementedError, TypeError) as e:
         return {"library_ms": None,
                 "library_error": f"{type(e).__name__}: {e}"[:300]}
 
 
-# torch.triangular_solve on sparse CSR factors, in a process of its own:
-# on an H100 with torch 2.11 it ended its process with SIGFPE (int32
-# indices and int64 alike)
+# phase 28's yardsticks on the saved triangles, each in a process of its
+# own: torch.triangular_solve on sparse CSR factors ended its process with
+# SIGFPE on an H100 with torch 2.11 (int32 indices and int64 alike)
 _TRI_LIBRARY = """
 import json, sys
 import chip_smoke as c
-for path in sys.argv[1:]:
-    print(json.dumps(c._tri_library_case(path)), flush=True)
+case = getattr(c, sys.argv[1])
+for path in sys.argv[2:]:
+    print(json.dumps(case(path)), flush=True)
 """
 
 
-def _tri_libraries(cases, tag) -> dict:
-    """torch.triangular_solve's time on each (key, host triangle, lower,
-    unit, b, z) case, in one child process, in order; a case whose call
-    ends the process is recorded with its exit code, and the cases after
-    it as not run."""
+def _tri_library_runs(how, paths, cases) -> dict:
+    """``how`` (a function of this module) on each saved case in one child
+    process, in order; a case whose call ends the process is recorded
+    with its exit code, and the cases after it as not run."""
     repo = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", _TRI_LIBRARY, how, *paths],
+                       cwd=repo, capture_output=True, text=True, timeout=900)
+    done = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+    out = {}
+    for i, case in enumerate(cases):
+        if i < len(done):
+            out[case[0]] = done[i]
+        elif i == len(done):
+            out[case[0]] = {"library_ms": None, "library_error": (
+                f"{how} ended its process with exit code {r.returncode}"
+                + (f" (signal {-r.returncode})" if r.returncode < 0 else "")
+                + f": {r.stderr.strip()[-300:]}")}
+        else:
+            out[case[0]] = {"library_ms": None, "library_error":
+                            "not run: the call ended the process on an "
+                            "earlier triangle"}
+    return out
+
+
+def _tri_libraries(cases, tag) -> dict:
+    """The yardsticks of each (key, host triangle, lower, unit, b, z)
+    case: cuSPARSE's SpSV through profile/tri_study.cu (the row's
+    library_ms) and torch.triangular_solve on the sparse CSR triangle
+    (under "torch_triangular_solve"), each in a child process."""
     tmp = tempfile.mkdtemp()
     try:
         paths = []
@@ -4900,45 +5034,40 @@ def _tri_libraries(cases, tag) -> dict:
                      upper=not lower, unit=unit,
                      b=b.cpu().numpy(), z=z.cpu().numpy())
             paths.append(path)
-        r = subprocess.run([sys.executable, "-c", _TRI_LIBRARY, *paths],
-                           cwd=repo, capture_output=True, text=True,
-                           timeout=900)
+        spsv = _tri_library_runs("_tri_spsv_case", paths, cases)
+        torch_call = _tri_library_runs("_tri_library_case", paths, cases)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    done = [json.loads(ln) for ln in r.stdout.splitlines()
-            if ln.startswith("{")]
     out = {}
-    for i, case in enumerate(cases):
-        if i < len(done):
-            out[case[0]] = done[i]
-        elif i == len(done):
-            out[case[0]] = {"library_ms": None, "library_error": (
-                f"torch.triangular_solve on the sparse CSR factor ended "
-                f"its process with exit code {r.returncode}"
-                + (f" (signal {-r.returncode})" if r.returncode < 0 else "")
-                + f": {r.stderr.strip()[-200:]}")}
-        else:
-            out[case[0]] = {"library_ms": None, "library_error":
-                            "not run: the call ended the process on an "
-                            "earlier triangle"}
-        lib = out[case[0]]
+    for case in cases:
+        lib, tc = spsv[case[0]], torch_call[case[0]]
+        out[case[0]] = {**lib, "torch_triangular_solve": tc}
         _say(f"[{tag}] {case[0]}: " + (
-            f"torch.triangular_solve (cuSPARSE) {_library_line(lib)}, rel "
-            f"err vs the kernel {lib['library_rel_err_vs_kernel']:.2e}"
+            f"cuSPARSE SpSV {_library_line(lib)}, rel err vs the kernel "
+            f"{lib['library_rel_err_vs_kernel']:.2e}"
             if lib["library_ms"] is not None
-            else f"torch.triangular_solve not timed: {lib['library_error']}"))
+            else f"cuSPARSE SpSV not timed: {lib['library_error']}")
+            + "; " + (
+            f"torch.triangular_solve {_library_line(tc)}"
+            if tc["library_ms"] is not None
+            else f"torch.triangular_solve not timed: {tc['library_error']}"))
     return out
 
 
 def _tri_alone(t, lower, unit, T, label, tag, smi_line, triad_gbps,
-               launch_ms):
+               chain):
     """One triangle solve alone (a CUDA graph of SOLVER_GRAPH_REPS
-    solves, the L2 flushed before each) beside its bound (bytes over the
-    data sheet's rate; with its levels x the least launch time beside),
-    the plain version's ms and torch.triangular_solve's."""
+    solves, the L2 flushed before each) in the mode the plan picks and in
+    the other one, beside its bound (bytes over the data sheet's rate;
+    with its levels x the least launch and x the chained mode's hand-off
+    beside), the plain version's ms; the yardsticks come after."""
     import torch
 
-    from spmv_tpu_torch.ops import tri_solve_core, tri_solve_reference
+    from spmv_tpu_torch.ops import (
+        tri_solve_core,
+        tri_solve_plan,
+        tri_solve_reference,
+    )
 
     dev = T.dep_vals.device
     g = torch.Generator(device=dev).manual_seed(82)
@@ -4946,8 +5075,11 @@ def _tri_alone(t, lower, unit, T, label, tag, smi_line, triad_gbps,
     z = torch.empty_like(b)
     scratch = torch.empty(16 << 20, dtype=torch.float32, device=dev)
     flush = lambda: scratch.fill_(0.0)  # noqa: E731
-    ms = _cold_graph_ms(lambda: tri_solve_core(T, b, out=z), flush,
-                        SOLVER_GRAPH_REPS)
+    plan = tri_solve_plan(T)
+    modes = {m: _cold_graph_ms(
+        lambda m=m: tri_solve_core(T, b, out=z, mode=m), flush,
+        SOLVER_GRAPH_REPS) for m in ("levels", "chained")}
+    ms = modes[plan]
     eager_ms = _time_launches(lambda: tri_solve_core(T, b, out=z), 3)
     plain_ms = _time_launches(lambda: tri_solve_reference(T, b), 2)
     tri_solve_core(T, b, out=z)
@@ -4955,27 +5087,34 @@ def _tri_alone(t, lower, unit, T, label, tag, smi_line, triad_gbps,
     flops = 2 * T.num_deps + (1 if T.unit_diag else 2) * T.n
     bound = _bound(nbytes, flops, triad_gbps)
     with_z = _bound(nbytes + z_reads, flops, triad_gbps)
-    res = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+    res = {"ms": ms, "mode": plan, "levels_ms": modes["levels"],
+           "chained_ms": modes["chained"], "eager_ms": eager_ms,
+           "plain_ms": plain_ms,
            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
            "bound_triad_ms": bound["bound_triad_ms"],
            "bytes": bound["bytes"], "flops": bound["flops"],
            "bound_with_z_reads_ms": with_z["bound_ms"],
            "z_read_bytes": z_reads, "container_bytes": container,
-           "launch_bound_ms": T.num_levels * launch_ms,
+           "launch_bound_ms": T.num_levels * chain["least_launch_ms"],
+           "handoff_bound_ms": T.num_levels * chain["handoff_ms"],
            "levels": T.num_levels, "rows": T.n,
            "dependencies": T.num_deps,
            "reads_level_rows": T.level_shift is None,
            "reads_diag_inv": not T.unit_diag}
-    _say(f"[{tag}] tri_solve alone, {label}: {ms:.4f} ms (CUDA graph, L2 "
-         f"flushed), {eager_ms:.4f} ms eager, plain {plain_ms:.3f} ms; bound "
-         f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {nbytes} B "
-         f"needed; {bound['bound_triad_ms']:.4f} at the triad), "
+    _say(f"[{tag}] tri_solve alone, {label}: {ms:.4f} ms in the {plan} "
+         f"mode (CUDA graph, L2 flushed; levels {modes['levels']:.4f}, "
+         f"chained {modes['chained']:.4f}), {eager_ms:.4f} ms eager, plain "
+         f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms "
+         f"({bound['bound_by']}, {nbytes} B needed; "
+         f"{bound['bound_triad_ms']:.4f} at the triad), "
          f"{with_z['bound_ms']:.4f} ms with one read of each z a dependency "
          f"reads (+{z_reads} B); the container holds {container} B; the "
          f"kernel reads level_rows: {res['reads_level_rows']}, diag_inv: "
-         f"{res['reads_diag_inv']}; {T.num_levels} "
-         f"launches x {launch_ms * 1e3:.2f} us = "
-         f"{res['launch_bound_ms']:.4f} ms; on {smi_line}")
+         f"{res['reads_diag_inv']}; {T.num_levels} levels x "
+         f"{chain['least_launch_ms'] * 1e3:.3f} us a launch = "
+         f"{res['launch_bound_ms']:.4f} ms, x "
+         f"{chain['handoff_ms'] * 1e3:.3f} us a hand-off = "
+         f"{res['handoff_bound_ms']:.4f} ms; on {smi_line}")
     del scratch
     return res, (t, lower, unit, b, z)
 
@@ -4999,10 +5138,11 @@ def _tri_bytes(T, b, z):
     return needed, z_reads, container
 
 
-def _least_launch_ms(device, tag):
-    """The least time of one tri_solve launch: a chain of
-    SOLVER_CHAIN_ROWS levels of one row each, solved in a CUDA graph,
-    over its launches."""
+def _chain_ms(device, tag) -> dict:
+    """On a chain of SOLVER_CHAIN_ROWS levels of one row each, solved in
+    a CUDA graph: the least time of one tri_solve launch (the level mode,
+    a launch a level) and the chained mode's hand-off from one level to
+    the next (its one launch over the levels), each a level."""
     import torch
 
     from spmv_tpu_torch.io.generate import from_coo_arrays
@@ -5018,22 +5158,87 @@ def _least_launch_ms(device, tag):
     T = DeviceTriSolve.from_host(chain, dtype=torch.float32, device=device)
     b = torch.ones(n, dtype=torch.float32, device=device)
     z = torch.empty_like(b)
-    ms = _graph_replay_ms(lambda: tri_solve_core(T, b, out=z),
-                          SOLVER_GRAPH_REPS) / T.num_levels
-    _say(f"[{tag}] the least launch: {T.num_levels} one-row levels in a "
-         f"CUDA graph, {ms * 1e3:.2f} us a launch")
-    return ms
+    out = {}
+    for key, mode in (("least_launch_ms", "levels"),
+                      ("handoff_ms", "chained")):
+        out[key] = _graph_replay_ms(
+            lambda: tri_solve_core(T, b, out=z, mode=mode),
+            SOLVER_GRAPH_REPS) / T.num_levels
+    _say(f"[{tag}] {T.num_levels} one-row levels in a CUDA graph: the "
+         f"least launch {out['least_launch_ms'] * 1e3:.3f} us a level (a "
+         f"launch a level), the chained mode's hand-off "
+         f"{out['handoff_ms'] * 1e3:.3f} us a level (one launch)")
+    return out
+
+
+def _layered(n: int, width: int):
+    """A lower triangle of n rows in levels of ``width`` rows: each row
+    past the first level depends on two rows of the level before (the
+    one above it and its neighbour), diagonal 4, off-diagonal -1."""
+    from spmv_tpu_torch.io.generate import from_coo_arrays
+    from spmv_tpu_torch.models import CsrMatrix
+
+    r = np.arange(n)
+    dep = r[r >= width]
+    up = dep - width
+    side = np.where(dep % width + 1 < width, up + 1, up - 1)
+    return CsrMatrix.from_matrix_market(from_coo_arrays(
+        n, n, np.concatenate([r, dep, dep]), np.concatenate([r, up, side]),
+        np.concatenate([np.full(n, 4.0), np.full(2 * dep.size, -1.0)])))
+
+
+def _plan_line(device, tag) -> dict:
+    """Both modes on the layered triangles of PLAN_LINE (float32, a CUDA
+    graph, L2 flushed), beside the mode tri_solve_plan picks: where its
+    line should lie."""
+    import torch
+
+    from spmv_tpu_torch.ops import (
+        DeviceTriSolve,
+        tri_solve_core,
+        tri_solve_plan,
+    )
+
+    scratch = torch.empty(16 << 20, dtype=torch.float32, device=device)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
+    out = {}
+    for rows, width in PLAN_LINE:
+        T = DeviceTriSolve.from_host(_layered(rows, width),
+                                     dtype=torch.float32, device=device)
+        g = torch.Generator(device=device).manual_seed(83)
+        b = torch.randn(T.n, generator=g, device=device)
+        z = torch.empty_like(b)
+        got = {m: tri_solve_core(T, b, mode=m) for m in ("levels",
+                                                         "chained")}
+        if not torch.equal(got["levels"], got["chained"]):
+            _fail(f"plan line, levels of {width} rows: the modes differ")
+        ms = {m: _cold_graph_ms(
+            lambda m=m: tri_solve_core(T, b, out=z, mode=m), flush,
+            SOLVER_GRAPH_REPS) for m in ("levels", "chained")}
+        plan = tri_solve_plan(T)
+        faster = min(ms, key=ms.get)
+        out[f"{T.num_levels}x{width}"] = {"levels": T.num_levels, **{
+            f"{m}_ms": v for m, v in ms.items()}, "plan": plan,
+            "faster": faster}
+        _say(f"[{tag}] plan line: {T.num_levels} levels of {width} rows, "
+             f"levels {ms['levels']:.4f} ms, chained {ms['chained']:.4f} "
+             f"ms; the plan picks {plan}, the faster is {faster}")
+        del T, got
+    del scratch
+    return out
 
 
 def phase_solvers(device, smi_line, triad_gbps):
     """The other solvers (phase 28): the CLI's five runs at
-    poisson2d(SOLVER_CLI_GRID²) against the port's CPU runs and the
-    full-width run (the tri_solve and K1 counts zeroed just before, read
-    just after); then, not counted, the tri_solve kernel against its
-    plain version (float64 and float32, forward and backward, levels and
-    SOLVER_SWEEPS sweeps) on IC(0) of poisson2d(SOLVER_NATURAL_GRID²) at natural
-    order and on the full-width run's ILU(0) triangles, and one triangle
-    solve alone at both shapes."""
+    poisson2d(SOLVER_CLI_GRID²) against the port's CPU runs, the
+    full-width run and CG + IC(0) at natural order (the tri_solve and K1
+    counts zeroed just before, read just after); then, not counted, the
+    tri_solve kernel against its plain version (float64 and float32,
+    forward and backward, the planned mode, the other exact mode bitwise
+    and SOLVER_SWEEPS sweeps) on IC(0) of poisson2d(SOLVER_NATURAL_GRID²)
+    at natural order and on the full-width run's ILU(0) triangles, one
+    triangle solve alone at both shapes in both modes with its
+    yardsticks, and the plan's line."""
     import torch
 
     from spmv_tpu_torch.io import write_matrix_market
@@ -5045,6 +5250,7 @@ def phase_solvers(device, smi_line, triad_gbps):
         dia_spmv_core,
         ic0_factor,
         tri_solve_core,
+        tri_solve_plan,
     )
     from spmv_tpu_torch.ops.incomplete import _transpose_csr
 
@@ -5070,6 +5276,8 @@ def phase_solvers(device, smi_line, triad_gbps):
              f" in {time.perf_counter() - t0:.1f} s")
         full, kept = _full_width_cli(device, mm, tag)
         del mm
+        natural_mm = poisson2d(SOLVER_NATURAL_GRID, SOLVER_NATURAL_GRID)
+        natural_cli = _natural_cli(device, natural_mm, tag)
         launches = {"tri_solve": tri_solve_core.launches,
                     "dia_spmv": dia_spmv_core.launches}
         _say(f"[{tag}] launches on the solvers path: tri_solve "
@@ -5089,8 +5297,8 @@ def phase_solvers(device, smi_line, triad_gbps):
     # the kernel against its plain version
     f32, f64 = torch.float32, torch.float64
     t0 = time.perf_counter()
-    L = ic0_factor(CsrMatrix.from_matrix_market(
-        poisson2d(SOLVER_NATURAL_GRID, SOLVER_NATURAL_GRID)))
+    L = ic0_factor(CsrMatrix.from_matrix_market(natural_mm))
+    del natural_mm
     natural = [(L, True, False, "IC(0) L"),
                (_transpose_csr(L), False, False, "IC(0) L^T")]
     _say(f"[{tag}] IC(0) of poisson2d({SOLVER_NATURAL_GRID},"
@@ -5129,51 +5337,61 @@ def phase_solvers(device, smi_line, triad_gbps):
         _sync(device)
 
     # one triangle solve alone at both shapes
-    launch_ms = _least_launch_ms(device, tag)
+    chain = _chain_ms(device, tag)
     alone, cases = {}, []
     for t, lower, unit, T in kept:
         key = f"{names[lower]} {grid_c}"
         alone[key], case = _tri_alone(
             t, lower, unit, T, f"{names[lower]} of {grid_c}, float32", tag,
-            smi_line, triad_gbps, launch_ms)
+            smi_line, triad_gbps, chain)
         cases.append((key,) + case)
     for t, lower, unit, name in natural:
         key = f"{name} {grid_n} natural"
         alone[key], case = _tri_alone(
             t, lower, unit, dev_n[name], f"{name} of {grid_n}, natural "
-            "order, float32", tag, smi_line, triad_gbps, launch_ms)
+            "order, float32", tag, smi_line, triad_gbps, chain)
         cases.append((key,) + case)
     for key, lib in _tri_libraries(cases, tag).items():
         alone[key].update(lib)
     del cases
-    apply = {grid_n + " natural, IC(0)": sum(T.num_levels
-                                             for T in dev_n.values()),
-             grid_c + ", ILU(0)": sum(k[3].num_levels for k in kept)}
+    apply = {grid_n + " natural, IC(0)": sum(
+                 1 if tri_solve_plan(T) == "chained" else T.num_levels
+                 for T in dev_n.values()),
+             grid_c + ", ILU(0)": sum(
+                 1 if tri_solve_plan(k[3]) == "chained" else k[3].num_levels
+                 for k in kept)}
     _say(f"[{tag}] tri_solve launches a preconditioner apply: {apply}")
     del dev_n, kept, natural, L
+    _sync(device)
+    plan_line = _plan_line(device, tag)
     _sync(device)
     secs = time.perf_counter() - t_phase
     _say(f"[{tag}] phase took {secs:.1f} s")
     return {"launches": launches, "cli": cli, "full_width": full,
+            "natural_cli": natural_cli,
             "errors": {" ".join(k): {"max_abs_err": e, "max_rel_err": r}
                        for k, (e, r) in errs.items()},
-            "alone": alone, "launches_an_apply": apply,
-            "least_launch_ms": launch_ms, "seconds": secs}
+            "alone": alone, "launches_an_apply": apply, **chain,
+            "plan_line": plan_line, "seconds": secs}
 
 
 def _tri_row(solvers) -> dict:
     """The tri_solve row of the kernels' JSON line: the ILU(0) unit L
-    after --reorder color at full width (the full-width run's shape),
-    its launches on the solvers path; the natural-order IC(0) L beside."""
+    after --reorder color at full width (the full-width run's shape, the
+    level mode), its launches on the solvers path; the natural-order
+    IC(0) L (the chained mode) beside, with the hand-off."""
     grid_c = (f"poisson2d({SOLVER_FULL_GRID},{SOLVER_FULL_GRID}) after "
               "--reorder color")
     grid_n = f"poisson2d({SOLVER_NATURAL_GRID},{SOLVER_NATURAL_GRID})"
     main = solvers["alone"][f"ILU(0) unit L {grid_c}"]
-    keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
-            "bound_triad_ms", "bytes", "bound_with_z_reads_ms",
-            "z_read_bytes", "container_bytes", "reads_level_rows",
-            "reads_diag_inv", "launch_bound_ms", "levels", "library_ms")
+    keys = ("ms", "mode", "levels_ms", "chained_ms", "eager_ms",
+            "plain_ms", "bound_ms", "bound_by", "bound_triad_ms", "bytes",
+            "bound_with_z_reads_ms", "z_read_bytes", "container_bytes",
+            "reads_level_rows", "reads_diag_inv", "launch_bound_ms",
+            "handoff_bound_ms", "levels", "library_ms", "library_call",
+            "library_timing", "library_eager_ms")
     err = solvers["errors"]
+    natural = solvers["alone"][f"IC(0) L {grid_n} natural"]
     return {
         "name": "tri_solve",
         "route": "cuda",
@@ -5184,12 +5402,15 @@ def _tri_row(solvers) -> dict:
         "launches": solvers["launches"]["tri_solve"],
         "max_abs_err": err["ILU(0) unit L float32"]["max_abs_err"],
         **{k: main.get(k) for k in keys},
-        "library": {k: v for k, v in main.items() if k.startswith("library")},
+        "torch_triangular_solve": main.get("torch_triangular_solve"),
         "max_abs_err_f64": max(v["max_abs_err"] for k, v in err.items()
                                if "float64" in k),
+        "least_launch_ms": solvers["least_launch_ms"],
+        "handoff_ms": solvers["handoff_ms"],
         "natural_order": {
-            **{k: solvers["alone"][f"IC(0) L {grid_n} natural"].get(k)
-               for k in keys},
+            **{k: natural.get(k) for k in keys},
+            "torch_triangular_solve": natural.get("torch_triangular_solve"),
+            "max_abs_err": err["IC(0) L float32"]["max_abs_err"],
             "shape": f"IC(0) L of {grid_n}, natural order, float32"},
         "launches_an_apply": solvers["launches_an_apply"],
         "shape": f"ILU(0) unit L of {grid_c}, float32",
@@ -5608,8 +5829,9 @@ def main() -> int:
         "traffic_split": {k: v for k, v in traffic.items()},
         "simulate": simulate,
         "solvers": {k: solvers[k] for k in (
-            "launches", "cli", "full_width", "errors", "launches_an_apply",
-            "least_launch_ms", "seconds")}}
+            "launches", "cli", "full_width", "natural_cli", "errors",
+            "launches_an_apply", "least_launch_ms", "handoff_ms",
+            "plan_line", "seconds")}}
     # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
     # part's launches and the ELL part's, each beside torch.sparse of
     # that part's own entries
@@ -6002,6 +6224,83 @@ print(json.dumps(found, default=str))
 """
 
 
+# phase 28's triangle solves alone, in the checkout it runs from (this
+# one or another commit's): the natural-order IC(0) L and L^T of
+# poisson2d(1024²) and the colored ILU(0) unit L and U of poisson2d(4096²)
+# (the first run pickles the colored factors for the others), each in
+# float32 and float64, timed as phase 28 times them (a CUDA graph, the L2
+# flushed) in the mode the checkout picks, its z kept for a bitwise
+# comparison across checkouts; then the CLI's GMRES(32) + IC(0) at
+# poisson2d(256²) in float32 and float64 (host ms an iteration, its
+# iterations and residual); the JSON of its kernels on the last line
+_PHASE_TRI = """
+import json
+import os
+import pickle
+import sys
+import torch
+import chip_smoke as c
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.io import write_matrix_market
+from spmv_tpu_torch.io.generate import poisson2d
+from spmv_tpu_torch.models import CsrMatrix, reorder
+from spmv_tpu_torch.ops.incomplete import _transpose_csr
+device, smi = c.phase_device()
+c.phase_build()
+here = os.path.dirname(sys.argv[1])
+scratch = torch.empty(16 << 20, dtype=torch.float32, device=device)
+flush = lambda: scratch.fill_(0.0)
+found, outs = {}, {}
+grid = c.SOLVER_NATURAL_GRID
+L = ops.ic0_factor(CsrMatrix.from_matrix_market(poisson2d(grid, grid)))
+cache = os.path.join(here, "colored.pkl")
+if os.path.exists(cache):
+    with open(cache, "rb") as f:
+        Lc, Uc = pickle.load(f)
+else:
+    mm = poisson2d(c.SOLVER_FULL_GRID, c.SOLVER_FULL_GRID)
+    mm = mm.permute(reorder.find_new_order_coloring(mm))
+    Lc, Uc = ops.ilu0_factor(CsrMatrix.from_matrix_market(mm))
+    del mm
+    with open(cache, "wb") as f:
+        pickle.dump((Lc, Uc), f, protocol=4)
+for name, t, lower, unit in (("ic0_L_natural", L, True, False),
+                             ("ic0_LT_natural", _transpose_csr(L), False,
+                              False),
+                             ("ilu0_L_colored", Lc, True, True),
+                             ("ilu0_U_colored", Uc, False, False)):
+    for dt in (torch.float32, torch.float64):
+        T = ops.DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                         dtype=dt, device=device)
+        g = torch.Generator(device=device).manual_seed(84)
+        b = torch.randn(T.n, generator=g, device=device, dtype=dt)
+        z = torch.empty_like(b)
+        key = f"{name}_{str(dt)[6:]}"
+        found[key] = {"ms": c._cold_graph_ms(
+            lambda: ops.tri_solve_core(T, b, out=z), flush,
+            c.SOLVER_GRAPH_REPS), "library_ms": None}
+        outs[key] = ops.tri_solve_core(T, b).cpu()
+        del T, b, z
+path = os.path.join(here, f"poisson2d_{c.SOLVER_CLI_GRID}.mtx")
+if not os.path.exists(path):
+    write_matrix_market(poisson2d(c.SOLVER_CLI_GRID, c.SOLVER_CLI_GRID),
+                        path)
+for dt in ("float32", "float64"):
+    cg, _ = c._cli_doc(["--matrix", path, "-s", "csr", "--cg",
+                        str(c.SOLVER_CLI_ITERS), "--cg-tol",
+                        c.SOLVER_CLI_TOL, "--solver", "gmres", "--restart",
+                        "32", "--precondition", "ic0"], "gmres(32) ic0", dt)
+    it = cg["iterations"]
+    key = f"gmres32_ic0_cli_{dt}"
+    found[key] = {"ms": cg["seconds"] / max(it, 1) * 1e3, "iterations": it,
+                  "seconds": cg["seconds"], "library_ms": None}
+    outs[key + "_residual"] = torch.tensor([cg["residual_norm"]],
+                                           dtype=torch.float64)
+torch.save(outs, sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
 def _phase_csr_script() -> str:
     from spmv_tpu_torch.models.device import LONG_ROW
 
@@ -6073,7 +6372,8 @@ BESIDE = {"--wellcw-kernels-beside": (_PHASE10, 10),
           "--fused-vcycle-beside": (_PHASE22, 22),
           "--csr-kernels-beside": (_phase_csr_script, 25),
           "--ell-kernels-beside": (_PHASE_ELL, 24),
-          "--well-kernels-beside": (_PHASE_WELL, 13)}
+          "--well-kernels-beside": (_PHASE_WELL, 13),
+          "--tri-kernels-beside": (_PHASE_TRI, 28)}
 
 
 if __name__ == "__main__":

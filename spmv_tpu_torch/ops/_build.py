@@ -241,7 +241,7 @@ def load_library() -> ctypes.CDLL:
     lib.fused_vcycle_launch.restype = _I32
     lib.tri_solve_launch.argtypes = [
         _I32, _I32, _I32, _PTR, _PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR,
-        _PTR, _PTR, _PTR, _PTR, _I32, _PTR,
+        _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I32, _I32, _PTR,
         ctypes.POINTER(ctypes.c_longlong)]
     lib.tri_solve_launch.restype = _I32
     lib.spmv_tpu_torch_error_string.argtypes = [_I32]

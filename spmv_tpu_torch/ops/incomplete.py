@@ -18,7 +18,10 @@ together.
   order on poisson2d(4096²) that is 8,191 levels of 4,096 slots for
   16.8M rows.  The port stores no padding (its padding slots added
   ``0 * z[n]``), and its solve is the hand-written kernel of
-  ``ops.tri_kernels`` (``csrc/tri_solve.cu``), one launch a level.
+  ``ops.tri_kernels`` (``csrc/tri_solve.cu``): one launch a level where
+  the levels are few and wide, one launch for the whole solve (each row
+  waiting until its dependencies are published) where they are many and
+  narrow (``tri_solve_plan``).
   ``num_levels``, ``width``, ``max_deps`` and ``padding_factor`` keep
   the JAX definitions, which the CLI reports.
 - **tri_solve_sweeps** (the "sweeps" method): Jacobi iteration on the
@@ -293,7 +296,17 @@ class DeviceTriSolve:
       every level's rows are a contiguous ascending range (as after
       ``--reorder color``), the row at position p of level l is
       ``p + level_shift[l]``, and the kernel does not read
-      ``level_rows``.
+      ``level_rows``;
+    - the chained solve's layout and state (``csrc/tri_solve.cu``,
+      ``tri_chained_kernel``): ``ticket_ptr`` (num_tickets + 1,) int32,
+      the first position of each ticket, a run of at most
+      ``CHAIN_TICKET_ROWS`` positions of one level (``chain_tickets``);
+      ``ready`` (n, 1) int64 for a float32 factor, (n, 2) for float64,
+      the words in which each row publishes its value and the solve's
+      tag; and ``chain_counters`` (3,) int32, the epoch, ticket and done
+      counters.  ``ready`` and ``chain_counters`` are zeros on the
+      container's device, allocated once here, so the kernel allocates
+      nothing and a CUDA graph of the solve replays it anew.
 
     ``solve`` computes ``z[i] = (b[i] - sum_j T[i, j] z[j]) * diag_inv``
     level by level, as the JAX scan does; the widths of the JAX layout
@@ -315,6 +328,13 @@ class DeviceTriSolve:
         self.max_deps = int(max_deps)
         self.unit_diag = bool(unit_diag)
         self.level_shift = level_shift
+        dev = dep_ptr.device
+        self.ticket_ptr = torch.from_numpy(
+            chain_tickets(self.level_ptr).astype(np.int32)).to(dev)
+        self.ready = torch.zeros(
+            self.n, 2 if dep_vals.dtype == torch.float64 else 1,
+            dtype=torch.int64, device=dev)
+        self.chain_counters = torch.zeros(3, dtype=torch.int32, device=dev)
 
     @property
     def num_levels(self) -> int:
@@ -323,6 +343,10 @@ class DeviceTriSolve:
     @property
     def num_deps(self) -> int:
         return int(self.dep_cols.numel())
+
+    @property
+    def num_tickets(self) -> int:
+        return int(self.ticket_ptr.numel()) - 1
 
     @classmethod
     def from_host(cls, t: CsrMatrix, lower: bool = True,
@@ -387,10 +411,32 @@ class DeviceTriSolve:
         return self.num_levels * self.width / max(self.n, 1)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """z = T^-1 b, one kernel launch a level (``tri_solve_core``)."""
+        """z = T^-1 b on the ``tri_solve`` kernel, in the mode
+        ``tri_solve_plan`` picks (``tri_solve_core``)."""
         from spmv_tpu_torch.ops.tri_kernels import tri_solve_core
 
         return tri_solve_core(self, b.to(self.dep_vals.dtype).contiguous())
+
+
+# Positions a ticket of the chained solve at most (kTicketRows in
+# csrc/tri_solve.cu): a warp's lanes.
+CHAIN_TICKET_ROWS = 32
+
+
+def chain_tickets(level_ptr: np.ndarray) -> np.ndarray:
+    """The chained solve's tickets: each level cut into runs of at most
+    ``CHAIN_TICKET_ROWS`` positions, in order.  Returns the first
+    position of each ticket and, last, the number of positions (int64),
+    so ticket t covers ``[out[t], out[t + 1])`` and never straddles two
+    levels."""
+    level_ptr = np.asarray(level_ptr, np.int64)
+    sizes = np.diff(level_ptr)
+    counts = -(-sizes // CHAIN_TICKET_ROWS)
+    level = np.repeat(np.arange(sizes.size), counts)
+    first = np.repeat(np.cumsum(counts) - counts, counts)
+    starts = (level_ptr[:-1][level]
+              + CHAIN_TICKET_ROWS * (np.arange(level.size) - first))
+    return np.append(starts, level_ptr[-1]).astype(np.int64)
 
 
 def _level_shift(level_ptr: np.ndarray, rows: np.ndarray):

@@ -5,9 +5,10 @@ product) on the card against their plain versions, ``-s xla-csr``'s
 block AMG V-cycles on the card against their CPU runs; the
 traffic-isolation variants of the CSR, ELL and WELL SpMV (stream-only
 and gather-only, ``--traffic-split``) against their plain versions; and
-the level-scheduled triangular solve (``tri_solve``, its level and
-sweep modes) against its plain version, with ``BlockTriSolve``'s
-rectangular DIA and CSR blocks against its CPU run.
+the triangular solve (``tri_solve``, its level, chained and sweep
+modes) against its plain version, the chained mode bitwise against the
+level mode, with ``BlockTriSolve``'s rectangular DIA and CSR blocks
+against its CPU run.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -2132,12 +2133,14 @@ TRI_CASES = ("ic0_natural", "ilu0_natural", "ilu0_colored",
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
 @pytest.mark.parametrize("case", TRI_CASES)
 def test_tri_solve_matches_plain(case, dtype, sweeps, cuda):
-    """The kernel against its plain version in the level mode (one launch
-    a non-empty level) and the sweep mode (one launch a sweep), twice
-    bitwise; the level mode also against a dense solve in float64."""
+    """The kernel against its plain version in the mode its plan picks
+    (one launch a non-empty level, or one chained launch a solve) and the
+    sweep mode (one launch a sweep), twice bitwise; the exact solve also
+    against a dense solve in float64."""
     from spmv_tpu_torch.ops import (
         DeviceTriSolve,
         tri_solve_core,
+        tri_solve_plan,
         tri_solve_reference,
         tri_sweeps_reference,
     )
@@ -2151,7 +2154,8 @@ def test_tri_solve_matches_plain(case, dtype, sweeps, cuda):
         z1 = tri_solve_core(T, b, sweeps=sweeps)
         z2 = tri_solve_core(T, b, sweeps=sweeps)
         torch.cuda.synchronize()
-        per = T.num_levels if sweeps is None else sweeps
+        per = (sweeps if sweeps is not None else
+               1 if tri_solve_plan(T) == "chained" else T.num_levels)
         assert tri_solve_core.launches - before == 2 * per
         assert torch.equal(z1, z2)
         want = (tri_solve_reference(T, b) if sweeps is None
@@ -2188,10 +2192,13 @@ def test_tri_solve_sweeps_reach_the_exact_solve(cuda):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
 def test_tri_solve_skips_what_it_need_not_read(dtype, sweeps, cuda):
     """After coloring a stencil, every level is a row range
-    (``level_shift``) and ILU(0)'s L has a unit diagonal: the kernel then reads neither
+    (``level_shift``) and ILU(0)'s L has a unit diagonal: the kernel's
+    level mode then reads neither
     ``level_rows`` nor ``diag_inv``, so overwriting them (rows with 0,
     1/diagonal with NaN) leaves its z unchanged.  U's sweep has shifted
-    levels, so it still reads ``level_rows`` there and is left as is."""
+    levels, so it still reads ``level_rows`` there and is left as is.
+    The exact solve runs in the level mode here, whatever the plan picks
+    (the chained mode reads ``level_rows`` where a shift is not 0)."""
     from spmv_tpu_torch.ops import DeviceTriSolve, tri_solve_core
 
     for t, lower, unit in _tri_factors("ilu0_colored_stencil"):
@@ -2201,13 +2208,171 @@ def test_tri_solve_skips_what_it_need_not_read(dtype, sweeps, cuda):
         assert T.level_shift.any() != lower
         b = torch.randn(T.n, generator=torch.Generator(
             device=cuda).manual_seed(72), device=cuda, dtype=dtype)
-        want = tri_solve_core(T, b, sweeps=sweeps)
+        mode = "levels" if sweeps is None else None
+        want = tri_solve_core(T, b, sweeps=sweeps, mode=mode)
         identity = not T.level_shift.any()
         if sweeps is None or identity:
             T.level_rows.zero_()
         if unit:
             T.diag_inv.fill_(float("nan"))
-        assert torch.equal(tri_solve_core(T, b, sweeps=sweeps), want)
+        assert torch.equal(tri_solve_core(T, b, sweeps=sweeps, mode=mode),
+                           want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("case", TRI_CASES)
+def test_tri_solve_chained_matches_levels(case, dtype, cuda):
+    """The chained mode (one launch a solve, rows waiting on ready flags)
+    bitwise against the level mode and against the plain version, on
+    every triangle kind (lower and upper, unit and not, colored and
+    natural), whichever mode the plan would pick."""
+    from spmv_tpu_torch.ops import (
+        DeviceTriSolve,
+        tri_solve_core,
+        tri_solve_reference,
+    )
+
+    for t, lower, unit in _tri_factors(case):
+        T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                     dtype=dtype, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(73)
+        b = torch.randn(T.n, generator=g, device=cuda, dtype=dtype)
+        levels = tri_solve_core(T, b, mode="levels")
+        before = tri_solve_core.launches
+        chained = tri_solve_core(T, b, mode="chained")
+        torch.cuda.synchronize()
+        assert tri_solve_core.launches - before == 1
+        assert torch.equal(chained, levels)
+        assert _rel(chained, tri_solve_reference(T, b)) <= TRI_TOL[dtype]
+
+
+def _chain(n):
+    """A bidiagonal chain of n rows: every level holds one row."""
+    i = np.arange(1, n)
+    return CsrMatrix.from_matrix_market(from_coo_arrays(
+        n, n, np.concatenate([np.arange(n), i]),
+        np.concatenate([np.arange(n), i - 1]),
+        np.concatenate([np.full(n, 2.0), np.full(n - 1, -0.5)])))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1025, 2 * 256 * 7 + 5])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_tri_solve_chained_ragged_rows(n, dtype, cuda):
+    """Row counts that fill no whole ticket (32 rows) or block: a chain
+    of n rows and a natural-order IC(0) L of about n rows (where its
+    count is not a multiple of 32 either), chained against levels."""
+    from spmv_tpu_torch.ops import DeviceTriSolve, ic0_factor, tri_solve_core
+
+    assert n % 32 != 0
+    nx = max(1, int(np.sqrt(n)))
+    cases = [_chain(n)]
+    if nx * (n // nx) % 32:
+        cases.append(ic0_factor(CsrMatrix.from_matrix_market(
+            poisson2d(nx, n // nx))))
+    for t in cases:
+        T = DeviceTriSolve.from_host(t, dtype=dtype, device=cuda)
+        b = torch.randn(T.n, generator=torch.Generator(
+            device=cuda).manual_seed(n), device=cuda, dtype=dtype)
+        assert torch.equal(tri_solve_core(T, b, mode="chained"),
+                           tri_solve_core(T, b, mode="levels"))
+
+
+_LONG_CHAIN = """
+import sys
+import numpy as np
+import torch
+from spmv_tpu_torch.io.generate import from_coo_arrays
+from spmv_tpu_torch.models import CsrMatrix
+from spmv_tpu_torch.ops import DeviceTriSolve, tri_solve_core
+n = int(sys.argv[1])
+i = np.arange(1, n)
+chain = CsrMatrix.from_matrix_market(from_coo_arrays(
+    n, n, np.concatenate([np.arange(n), i]),
+    np.concatenate([np.arange(n), i - 1]),
+    np.concatenate([np.full(n, 2.0), np.full(n - 1, -0.5)])))
+T = DeviceTriSolve.from_host(chain, dtype=torch.float64,
+                             device=torch.device("cuda"))
+b = torch.linspace(-1.0, 1.0, n, dtype=torch.float64, device="cuda")
+z = tri_solve_core(T, b, mode="chained")
+torch.cuda.synchronize()
+np.save(sys.argv[2], z.cpu().numpy())
+print(T.num_levels)
+"""
+
+
+def test_tri_solve_chained_long_chain_ends(cuda, tmp_path):
+    """20,000 levels of one row, chained, in a process of its own that
+    must end within 300 s (a deadlock would hold the launch): z against
+    the recurrence z[i] = (b[i] + 0.5 z[i-1]) / 2 at float64."""
+    import os
+    import subprocess
+    import sys
+
+    n = 20_000
+    out = tmp_path / "z.npy"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _LONG_CHAIN, str(n),
+                        str(out)], cwd=repo, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == [str(n)]
+    b = np.linspace(-1.0, 1.0, n)
+    want = np.empty(n)
+    prev = 0.0
+    for i in range(n):
+        prev = want[i] = (b[i] + 0.5 * prev) * 0.5
+    got = np.load(out)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_tri_solve_chained_graph_replays(dtype, cuda):
+    """One CUDA graph of a chained solve, replayed three times on new b
+    with z set to NaN before each: every replay gives the level mode's
+    bits for its b (a stale epoch would let rows read unset z)."""
+    from spmv_tpu_torch.ops import DeviceTriSolve, tri_solve_core
+
+    for t, lower, unit in _tri_factors("ic0_natural"):
+        T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                     dtype=dtype, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(74)
+        bs = [torch.randn(T.n, generator=g, device=cuda, dtype=dtype)
+              for _ in range(4)]
+        b, z = bs[0].clone(), torch.empty(T.n, device=cuda, dtype=dtype)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            tri_solve_core(T, b, out=z, mode="chained")   # warm up
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tri_solve_core(T, b, out=z, mode="chained")
+        for new in bs[1:]:
+            b.copy_(new)
+            z.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(z, tri_solve_core(T, new, mode="levels"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_tri_solve_chained_twice_in_a_row(dtype, cuda):
+    """Two chained solves of one container queued back to back (no
+    synchronisation between), on two right-hand sides: each the level
+    mode's bits."""
+    from spmv_tpu_torch.ops import DeviceTriSolve, tri_solve_core
+
+    for t, lower, unit in _tri_factors("ilu0_natural"):
+        T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                     dtype=dtype, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(75)
+        b1, b2 = (torch.randn(T.n, generator=g, device=cuda, dtype=dtype)
+                  for _ in range(2))
+        z1 = tri_solve_core(T, b1, mode="chained")
+        z2 = tri_solve_core(T, b2, mode="chained")
+        torch.cuda.synchronize()
+        assert torch.equal(z1, tri_solve_core(T, b1, mode="levels"))
+        assert torch.equal(z2, tri_solve_core(T, b2, mode="levels"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
