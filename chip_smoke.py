@@ -317,6 +317,29 @@ Phases (each prints readable lines; any failure exits non-zero):
    SIGFPE); last, the plan's line: layered triangles of 2^21 rows in
    levels of 16,384 to 262,144 rows and of 2^16 rows in 2 and 4 levels,
    each in both modes.
+29. The eigensolver (the K2, CSR SpMM and CSR SpMV counts are zeroed
+   just before): -s dia --eigs 8 --which smallest --precondition amg at
+   poisson2d(1024, 1024) through the CLI's main (its reader handed the
+   generated matrix), float32 at --eigs-tol 1e-4 and float64 at 1e-8,
+   against the analytic eigenvalues (float64 at rtol 1e-6; float32
+   within ||R||_F + 8 eps of each, R the residual block: Kahan's bound),
+   K2 launched 2 + iterations a solve (plus the symmetry probe's 2 and
+   the one-step warm-up's 3), the CSR SpMM a whole number of 11-launch
+   V-cycle levels an apply, the CSR SpMV never (the block apply has no
+   column loop); then --eigs 4 --precondition amg at poisson2d(256, 256)
+   on dia, csr, ell, hybrid, well and wellcw in float32 (1e-4) and
+   float64 (1e-8), each converged, within the analytic bound, its
+   format's SpMM launched, and against the port's CPU run of the same
+   command (a child process a dtype): float64 eigenvalues at rtol 1e-9,
+   float32 within the two runs' bounds (iterations reported, not held:
+   no column is locked, so converged columns' rounding noise moves the
+   step that crosses the tolerance).  Then, not counted: host and device ms a step of the
+   full-width solves (fixed-length solves under torch.profiler), the
+   host set-up seconds, K2 at k = 8 alone (float32, a CUDA graph, L2
+   flushed) beside its plain version, torch.sparse and its bound, and
+   the Rayleigh-Ritz step with its (24, 24) algebra on the host (the
+   port's) against all on the card (cuSOLVER's eigh), with one eigh
+   alone at each place.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -360,7 +383,8 @@ plain ms, bound and library ms; K7's rows also its launches by path;
 the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
 SpMV's their times at the hybrid's shape, beside torch.sparse of that
 part's own entries; and summaries of each path,
-`formats`, `amg`, `traffic_split`, `simulate` and `solvers` the last)
+`formats`, `amg`, `traffic_split`, `simulate`, `solvers` and `eigs`
+the last)
 and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
@@ -4643,9 +4667,10 @@ SOLVER_CLI_RUNS = (
 SOLVER_CLI_DTYPES = ("float32", "float64")
 
 
-def _cli_doc(argv, what, dtype="float32"):
-    """The CLI's "cg" report and wall seconds; ``dtype`` is the CLI's
-    value type (torch's default dtype while it runs)."""
+def _cli_doc(argv, what, dtype="float32", key="cg"):
+    """The CLI's report under ``key`` ("cg", or "eigs" for --eigs) and
+    wall seconds; ``dtype`` is the CLI's value type (torch's default
+    dtype while it runs)."""
     import torch
 
     from spmv_tpu_torch.cli import main
@@ -4661,7 +4686,7 @@ def _cli_doc(argv, what, dtype="float32"):
         torch.set_default_dtype(keep)
     if rc != 0:
         _fail(f"{what}: CLI {' '.join(argv)} exited {rc}")
-    return json.loads(buf.getvalue())["cg"], secs
+    return json.loads(buf.getvalue())[key], secs
 
 
 def _solver_cli_runs(path):
@@ -5375,6 +5400,416 @@ def phase_solvers(device, smi_line, triad_gbps):
             "plan_line": plan_line, "seconds": secs}
 
 
+# ---------------------------------------------------- the eigensolver (29)
+EIGS_GRID = 1024              # the full-width runs: poisson2d(1024²), 1M rows
+EIGS_K = 8
+EIGS_MAXITER = 200
+EIGS_TOL = {"float32": "1e-4", "float64": "1e-8"}
+EIGS_F64_RTOL = 1e-6          # float64 against the analytic eigenvalues
+# float32 against the analytic eigenvalues: each Ritz value lies within
+# ||R||_2 <= ||R||_F of an eigenvalue (Kahan's bound for an orthonormal
+# block, R the block's residual), plus the rounding of a float32
+# Rayleigh quotient, about eps * ||A|| (||A|| <= 8 for poisson2d)
+EIGS_F32_ROUNDING = 8 * float(np.finfo(np.float32).eps)
+EIGS_CLI_GRID = 256           # the CLI's --eigs runs on each format
+EIGS_CLI_K = 4
+EIGS_CLI_FORMATS = ("dia", "csr", "ell", "hybrid", "well", "wellcw")
+# each format's SpMM kernels, one of which must launch (the hybrid's COO
+# part is empty on a stencil, so it launches the ELL SpMM alone)
+EIGS_CLI_SPMM = {"dia": ("dia_spmm_core",), "csr": ("csr_spmm_core",),
+                 "ell": ("ell_spmm_core",), "hybrid": ("ell_spmm_core",),
+                 "well": ("well_whole_spmm_core", "well_seg_spmm_core"),
+                 "wellcw": ("wellcw_merged_spmm_core",
+                            "wellcw_level_spmm_core",
+                            "wellcw_pool_spmm_core")}
+EIGS_SLOPE_ITERS = (5, 25)    # fixed-length solves for the times a step
+EIGS_RR_REPS = 30             # Rayleigh-Ritz steps timed at each place
+EIGS_VCYCLE_SPMM = 11         # CSR SpMMs a level of a V-cycle: 4 + 4
+                              # smoothing, the residual, P^T and P
+
+
+def _poisson_eigs(n: int, k: int) -> np.ndarray:
+    """The k smallest eigenvalues of poisson2d(n, n), analytic:
+    4 - 2 cos(i pi / (n + 1)) - 2 cos(j pi / (n + 1))."""
+    c = 2.0 - 2.0 * np.cos(np.arange(1, k + 1) * np.pi / (n + 1))
+    return np.sort((c[:, None] + c[None, :]).ravel())[:k]
+
+
+def _eigs_argv(path, fmt, k, dtype):
+    return ["--matrix", path, "-s", fmt, "--eigs", str(k), "--eigs-tol",
+            EIGS_TOL[dtype], "--eigs-maxiter", str(EIGS_MAXITER),
+            "--precondition", "amg"]
+
+
+def _eigs_check(eigs, n, dtype, what, tag):
+    """The report's eigenvalues against the analytic ones of
+    poisson2d(n, n): float64 at EIGS_F64_RTOL, float32 within the
+    residual's bound.  Returns the largest relative error."""
+    got = np.asarray(eigs["eigenvalues"])
+    want = _poisson_eigs(n, len(got))
+    rel = float(np.max(np.abs(got - want) / want))
+    if dtype == "float64":
+        ok, limit = rel <= EIGS_F64_RTOL, f"rtol {EIGS_F64_RTOL}"
+    else:
+        bound = float(np.sqrt(np.sum(np.square(eigs["residual_norms"])))
+                      + EIGS_F32_ROUNDING)
+        ok = float(np.max(np.abs(got - want))) <= bound
+        limit = f"|error| <= ||R||_F + 8 eps = {bound:.3e}"
+    converged = eigs["iterations"] < EIGS_MAXITER
+    _say(f"[{tag}] {what}: {eigs['iterations']} iterations, eigenvalues "
+         f"{got.tolist()}, max relative error {rel:.3e} against the "
+         f"analytic ones ({limit}), residual norms {eigs['residual_norms']}"
+         f", {eigs['seconds']:.3f} s solving")
+    if not (ok and converged):
+        _fail(f"eigs {what}: {eigs}")
+    return rel
+
+
+def _eigs_cli_cpu(path, dtype) -> dict:
+    """The CLI's --eigs runs of phase 29 on the CPU in ``dtype`` (a child
+    process with SPMV_TPU_TORCH_DEVICE=cpu): each format's report."""
+    import torch
+
+    torch.set_num_threads(3)
+    return {fmt: _cli_doc(_eigs_argv(path, fmt, EIGS_CLI_K, dtype),
+                           f"{fmt} on the CPU, {dtype}", dtype,
+                          "eigs")[0]
+            for fmt in EIGS_CLI_FORMATS}
+
+
+_EIGS_CPU = """
+import json, sys
+import chip_smoke as c
+print(json.dumps(c._eigs_cli_cpu(sys.argv[1], sys.argv[2])))
+"""
+
+
+def _eigs_cli(device, path, tag, cpu_procs) -> dict:
+    """--eigs EIGS_CLI_K --precondition amg at poisson2d(EIGS_CLI_GRID²)
+    on each format of EIGS_CLI_FORMATS, float32 and float64: converged,
+    within the analytic bound, the format's SpMM kernels launched, and
+    against the port's CPU run of the same command (child processes):
+    float64 eigenvalues at rtol 1e-9, float32 within the sum of the two
+    runs' residual bounds.  Iterations are reported, not held: LOBPCG
+    locks no column, so a column that reached the residual floor early
+    feeds rounding noise into the basis and the order of the sums moves
+    the step that crosses the tolerance (on an H100 against its host's
+    CPU, in one run: 17 against 12 in float32, 19 against 22 in float64;
+    tests/test_torch_eigen.py saw the same against the JAX package)."""
+    wrappers = _port_wrappers()
+    out = {}
+    for dtype in EIGS_TOL:
+        out[dtype] = {}
+        for fmt in EIGS_CLI_FORMATS:
+            before = {k: w.launches for k, w in wrappers.items()}
+            eigs, wall = _cli_doc(_eigs_argv(path, fmt, EIGS_CLI_K, dtype),
+                                  f"{fmt}, {dtype}", dtype, "eigs")
+            moved = {k: w.launches - before[k] for k, w in wrappers.items()
+                     if w.launches != before[k]}
+            rel = _eigs_check(eigs, EIGS_CLI_GRID, dtype, f"-s {fmt} --eigs "
+                              f"{EIGS_CLI_K} --precondition amg, {dtype}",
+                              tag)
+            if not any(moved.get(k, 0) > 0 for k in EIGS_CLI_SPMM[fmt]):
+                _fail(f"eigs CLI {fmt}, {dtype}: launches {moved}")
+            _say(f"[{tag}] -s {fmt}, {dtype}: launches {moved}, "
+                 f"{wall:.2f} s with the host set-up")
+            out[dtype][fmt] = {
+                "iterations": eigs["iterations"],
+                "eigenvalues": eigs["eigenvalues"],
+                "residual_norms": eigs["residual_norms"],
+                "max_rel_err_vs_analytic": rel, "seconds": eigs["seconds"],
+                "wall_seconds": wall, "launches": moved}
+    for dtype, proc in cpu_procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            _fail(f"the eigs CPU runs ({dtype}) did not end in 600 s")
+        if proc.returncode != 0:
+            _fail(f"the eigs CPU runs ({dtype}) exited {proc.returncode}: "
+                  f"{(stdout + stderr)[-2000:]}")
+        cpu = json.loads(stdout.strip().splitlines()[-1])
+        for fmt in EIGS_CLI_FORMATS:
+            card, want = out[dtype][fmt], cpu[fmt]
+            a, b = np.asarray(card["eigenvalues"]), np.asarray(
+                want["eigenvalues"])
+            if dtype == "float64":
+                ok = np.allclose(a, b, rtol=1e-9, atol=0)
+            else:
+                bound = (np.sqrt(np.sum(np.square(card["residual_norms"])))
+                         + np.sqrt(np.sum(np.square(want["residual_norms"])))
+                         + 2 * EIGS_F32_ROUNDING)
+                ok = float(np.max(np.abs(a - b))) <= bound
+            _say(f"[{tag}] -s {fmt}, {dtype}: {card['iterations']} iterations"
+                 f" on the card, {want['iterations']} on the CPU; eigenvalues"
+                 f" differ by {float(np.max(np.abs(a - b) / b)):.3e} "
+                 f"(relative); {want['seconds']:.2f} s solving there")
+            if not ok:
+                _fail(f"eigs CLI {fmt}, {dtype}: card {card}, CPU {want}")
+            card.update(cpu_iterations=want["iterations"],
+                        cpu_eigenvalues=want["eigenvalues"])
+    return out
+
+
+def _eigs_full_width(device, mm, dtype, tag) -> tuple:
+    """-s dia --eigs EIGS_K --which smallest --precondition amg at
+    poisson2d(EIGS_GRID²) through the CLI's main (its reader handed the
+    generated matrix) in ``dtype``: eigenvalues against the analytic
+    ones, K2 launches = the symmetry probe's 2 + the one-step warm-up's 3
+    + 2 + iterations, the CSR SpMM launches a whole number of V-cycles
+    (EIGS_VCYCLE_SPMM a level) a preconditioner apply, no CSR SpMV.
+    Returns the summary and the captured (matmat, X0, preconditioner)."""
+    from spmv_tpu_torch import kernels, ops
+    from spmv_tpu_torch.io import matrix_market
+
+    captured = []
+    real = ops.lobpcg
+
+    def keep(matmat, X0, preconditioner=None, **kw):
+        captured.append((matmat, X0, preconditioner))
+        return real(matmat, X0, preconditioner=preconditioner, **kw)
+
+    counts = {k: getattr(ops, k) for k in ("dia_spmm_core", "csr_spmm_core",
+                                           "csr_spmv_core")}
+    before = {k: w.launches for k, w in counts.items()}
+    load = lambda path, **kw: mm  # noqa: E731
+    argv = _eigs_argv(f"poisson2d_{EIGS_GRID}.mtx", "dia", EIGS_K, dtype)
+    argv += ["--which", "smallest"]
+    with _patched(matrix_market, "load_matrix", load), \
+            _patched(kernels, "load_matrix", load), \
+            _patched(ops, "lobpcg", keep):
+        eigs, wall = _cli_doc(argv, f"full width, {dtype}", dtype, "eigs")
+    moved = {k: w.launches - before[k] for k, w in counts.items()}
+    it = eigs["iterations"]
+    rel = _eigs_check(eigs, EIGS_GRID, dtype, f"-s dia --eigs {EIGS_K} "
+                      f"--precondition amg at poisson2d({EIGS_GRID},"
+                      f"{EIGS_GRID}), {dtype}, --eigs-tol {EIGS_TOL[dtype]}",
+                      tag)
+    probe = 2 if mm.symmetry == "general" else 0
+    applies = 1 + it                 # the warm-up's step and the solve's
+    per_apply = moved["csr_spmm_core"] / applies
+    _say(f"[{tag}] full width {dtype}: launches {moved} (K2: probe {probe} "
+         f"+ warm-up 3 + 2 + {it}; CSR SpMM {per_apply:g} an apply, "
+         f"{per_apply / EIGS_VCYCLE_SPMM:g} levels); {wall:.1f} s with the "
+         f"host set-up (DIA, SA-AMG hierarchy, probe, warm-up), "
+         f"{wall - eigs['seconds']:.1f} s of it set-up; "
+         f"{eigs['seconds'] / max(it, 1) * 1e3:.3f} host ms an iteration")
+    if (moved["dia_spmm_core"] != probe + 3 + 2 + it
+            or moved["csr_spmv_core"] != 0 or per_apply <= 0
+            or per_apply != int(per_apply)
+            or per_apply % EIGS_VCYCLE_SPMM != 0):
+        _fail(f"eigs full width {dtype}: launches {moved}, {it} iterations")
+    res = {"iterations": it, "eigenvalues": eigs["eigenvalues"],
+           "residual_norms": eigs["residual_norms"],
+           "max_rel_err_vs_analytic": rel, "seconds": eigs["seconds"],
+           "wall_seconds": wall, "setup_seconds": wall - eigs["seconds"],
+           "host_ms_an_iteration": eigs["seconds"] / max(it, 1) * 1e3,
+           "launches": moved, "csr_spmm_an_apply": int(per_apply),
+           "tolerance": float(EIGS_TOL[dtype])}
+    return res, captured[-1]
+
+
+def _eigs_slopes(device, captured, tag, dtype) -> dict:
+    """Host and device ms a step of the full-width solve: fixed-length
+    solves (tol 0) of EIGS_SLOPE_ITERS steps under torch.profiler, the
+    difference over the difference of the lengths."""
+    from spmv_tpu_torch.ops import lobpcg
+    from spmv_tpu_torch.profile.cg_breakdown import traced
+
+    matmat, X0, minv = captured
+
+    def solve(n):
+        lobpcg(matmat, X0, preconditioner=minv, tol=0.0, max_iterations=n)
+
+    solve(1)
+    runs = [traced(lambda: solve(n), device) for n in EIGS_SLOPE_ITERS]
+    span = EIGS_SLOPE_ITERS[1] - EIGS_SLOPE_ITERS[0]
+    host = (runs[1][0] - runs[0][0]) / span * 1e3
+    dev = (runs[1][1] - runs[0][1]) / span * 1e3
+    _say(f"[{tag}] full width {dtype}, a step: {host:.3f} host ms, {dev:.3f}"
+         f" device ms (busy share {dev / host:.3f}); kernels of the "
+         f"{EIGS_SLOPE_ITERS[1]}-step solve:\n{runs[1][2]}")
+    return {"host_ms_a_step": host, "device_ms_a_step": dev,
+            "busy_share": dev / host}
+
+
+def _eigs_k2(device, mm, smi_line, triad_gbps, tag) -> dict:
+    """K2 at k = EIGS_K on poisson2d(EIGS_GRID²), float32, alone: a CUDA
+    graph with the L2 flushed before each launch, beside its plain
+    version, torch.sparse's CSR product and its bound."""
+    import torch
+
+    from spmv_tpu_torch.models import DeviceDia, DiaMatrix
+    from spmv_tpu_torch.ops import dia_spmm_core, dia_spmm_reference
+
+    f32 = torch.float32
+    A = DeviceDia.from_host(DiaMatrix.from_matrix_market(mm), dtype=f32,
+                            device=device)
+    g = torch.Generator(device=device).manual_seed(29)
+    X = torch.randn(A.num_columns, EIGS_K, device=device, dtype=f32,
+                    generator=g)
+    Y = torch.empty(A.num_rows, EIGS_K, device=device, dtype=f32)
+    scratch = torch.empty(16 << 20, dtype=f32, device=device)
+    flush = lambda: scratch.fill_(0.0)  # noqa: E731
+    ms = _cold_graph_ms(lambda: dia_spmm_core(A, X, out=Y), flush, 20)
+    plain_ms = _time_launches(lambda: dia_spmm_reference(A, X), 5)
+    err = _rel(Y, dia_spmm_reference(A, X))
+    S = _csr_of_mm(mm, device, f32)
+    lib = _yardstick(lambda: S @ X, flush)
+    b = _bound(_nbytes(A.data, A.offsets_dev, X, Y),
+               2 * mm.num_entries * EIGS_K, triad_gbps)
+    _say(f"[{tag}] K2 alone at poisson2d({EIGS_GRID},{EIGS_GRID}) float32, "
+         f"k={EIGS_K} (CUDA graph, L2 flushed): {ms:.4f} ms, plain "
+         f"{plain_ms:.4f} ms, torch.sparse CSR {lib['library_ms']:.4f} ms, "
+         f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), relative error "
+         f"{err:.2e}, on {smi_line}")
+    if err > TOL_F32:
+        _fail(f"K2 at the eigensolver's shape: relative error {err}")
+    del A, X, Y, scratch, S
+    return {"ms": ms, "plain_ms": plain_ms, "max_rel_err": err, **lib, **b,
+            "shape": f"poisson2d({EIGS_GRID},{EIGS_GRID}) float32, "
+                     f"k={EIGS_K}"}
+
+
+def _eigs_rayleigh_ritz(device, tag) -> dict:
+    """Where the Rayleigh-Ritz step runs: the port's way (S^T [S, AS] on
+    the card, one copy to the host, the (3k, 3k) algebra and its two
+    eigh there, the coefficients back) against the whole step on the card
+    (cuSOLVER's eigh), at EIGS_GRID² rows, k = EIGS_K, float32 and
+    float64; and one (3k, 3k) eigh alone at each place (the host's with
+    its copy).  Median host ms of EIGS_RR_REPS, each ending in a
+    synchronise."""
+    import torch
+
+    from spmv_tpu_torch.ops.eigen import _mmh, _rayleigh_ritz
+
+    k, n = EIGS_K, EIGS_GRID * EIGS_GRID
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        g = torch.Generator(device=device).manual_seed(3)
+        B = torch.randn(n, 6 * k, device=device, dtype=dt, generator=g)
+        S = B[:, :3 * k]
+
+        def on_host():
+            GS = _mmh(S.T, B).cpu()
+            c = _rayleigh_ritz(GS[:, :3 * k], GS[:, 3 * k:], k, 1.0, 1e-4)
+            return c.to(device)
+
+        def on_card():
+            GS = _mmh(S.T, B)
+            return _rayleigh_ritz(GS[:, :3 * k], GS[:, 3 * k:], k, 1.0, 1e-4)
+
+        H = _mmh(S.T, S)
+
+        def eigh_host():
+            return torch.linalg.eigh(H.cpu())
+
+        def eigh_card():
+            return torch.linalg.eigh(H)
+
+        times = {}
+        for name, fn in (("step_host", on_host), ("step_card", on_card),
+                         ("eigh_host", eigh_host), ("eigh_card", eigh_card)):
+            fn()
+            torch.cuda.synchronize(device)
+            ts = []
+            for _ in range(EIGS_RR_REPS):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(device)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[name] = float(np.median(ts))
+        # eigh fixes each eigenvector up to its sign: align the columns
+        card, host = on_card(), on_host()
+        diff = _rel(card * torch.sign((card * host).sum(0)), host)
+        dtn = str(dt).removeprefix("torch.")
+        _say(f"[{tag}] Rayleigh-Ritz step at n={n}, k={k}, {dtn}: "
+             f"{times['step_host']:.3f} ms with the small algebra on the "
+             f"host (the port's), {times['step_card']:.3f} ms all on the "
+             f"card; a ({3 * k},{3 * k}) eigh {times['eigh_host']:.3f} ms "
+             f"on the host with its copy, {times['eigh_card']:.3f} ms on "
+             f"the card (cuSOLVER); coefficients differ by {diff:.2e} "
+             "(up to each column's sign)")
+        out[dtn] = {**times, "coeff_rel_diff": diff}
+        del B, S, H
+    faster = all(v["step_host"] <= v["step_card"] for v in out.values())
+    out["eigh_runs_on"] = "host"
+    out["host_is_faster"] = faster
+    if not faster:
+        _say(f"[{tag}] NOTE: the step on the card was faster than on the "
+             "host in at least one dtype")
+    return out
+
+
+def phase_eigs(device, smi_line, triad_gbps):
+    """The eigensolver (phase 29): the CLI's --eigs on six formats at
+    poisson2d(EIGS_CLI_GRID²) against the port's CPU runs, and the
+    full-width runs at poisson2d(EIGS_GRID²) in float32 and float64 (the
+    K2, CSR SpMM and CSR SpMV counts zeroed just before, read just
+    after); then, not counted, host and device ms a step, K2 alone at
+    k = EIGS_K, and where the Rayleigh-Ritz step runs."""
+    import torch
+
+    from spmv_tpu_torch.io import write_matrix_market
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models.device import DEVICE_ENV
+    from spmv_tpu_torch.ops import csr_spmm_core, csr_spmv_core, dia_spmm_core
+
+    tag = "29 eigs"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, f"poisson2d_{EIGS_CLI_GRID}.mtx")
+    write_matrix_market(poisson2d(EIGS_CLI_GRID, EIGS_CLI_GRID), path)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = {dt: subprocess.Popen(
+        [sys.executable, "-c", _EIGS_CPU, path, dt], cwd=repo,
+        env={**os.environ, DEVICE_ENV: "cpu"}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for dt in EIGS_TOL}
+    try:
+        dia_spmm_core.launches = 0
+        csr_spmm_core.launches = 0
+        csr_spmv_core.launches = 0
+        t0 = time.perf_counter()
+        mm = poisson2d(EIGS_GRID, EIGS_GRID)
+        _say(f"[{tag}] host poisson2d({EIGS_GRID},{EIGS_GRID}) in "
+             f"{time.perf_counter() - t0:.1f} s")
+        full, captured = {}, {}
+        for dt in EIGS_TOL:
+            full[dt], captured[dt] = _eigs_full_width(device, mm, dt, tag)
+            _sync(device)
+        launches = {"dia_spmm": dia_spmm_core.launches,
+                    "csr_spmm": csr_spmm_core.launches,
+                    "csr_spmv": csr_spmv_core.launches}
+        _say(f"[{tag}] launches on the eigensolver's full-width path: "
+             f"{launches}")
+        if launches["dia_spmm"] <= 0 or launches["csr_spmm"] <= 0:
+            _fail(f"K2 or the CSR SpMM was never launched on the "
+                  f"eigensolver's path: {launches}")
+        cli = _eigs_cli(device, path, tag, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for dt in EIGS_TOL:
+        full[dt].update(_eigs_slopes(device, captured[dt], tag, dt))
+    del captured
+    _sync(device)
+    k2 = _eigs_k2(device, mm, smi_line, triad_gbps, tag)
+    del mm
+    _sync(device)
+    rr = _eigs_rayleigh_ritz(device, tag)
+    _sync(device)
+    secs = time.perf_counter() - t_phase
+    _say(f"[{tag}] phase took {secs:.1f} s")
+    return {"launches": launches, "full_width": full, "cli": cli,
+            "k2_alone": k2, "rayleigh_ritz": rr, "seconds": secs,
+            "shape": f"poisson2d({EIGS_GRID},{EIGS_GRID}), k={EIGS_K}, "
+                     "-s dia --precondition amg"}
+
+
 def _tri_row(solvers) -> dict:
     """The tri_solve row of the kernels' JSON line: the ILU(0) unit L
     after --reorder color at full width (the full-width run's shape, the
@@ -5681,6 +6116,7 @@ def main() -> int:
     _sync(device)
     simulate = phase_simulate(device)
     solvers = phase_solvers(device, smi_line, triad_gbps)
+    eigs = phase_eigs(device, smi_line, triad_gbps)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -5831,7 +6267,8 @@ def main() -> int:
         "solvers": {k: solvers[k] for k in (
             "launches", "cli", "full_width", "natural_cli", "errors",
             "launches_an_apply", "least_launch_ms", "handoff_ms",
-            "plan_line", "seconds")}}
+            "plan_line", "seconds")},
+        "eigs": eigs}
     # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
     # part's launches and the ELL part's, each beside torch.sparse of
     # that part's own entries

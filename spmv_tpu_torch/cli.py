@@ -17,6 +17,9 @@ runs the modes ported so far, printing the same JSON documents:
         --traffic-split
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT \
         --trace-config configs/cpu-2thread.json [--warmup]
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --eigs 8 \
+        [--which smallest|largest] [--eigs-tol 1e-6] [--eigs-maxiter 200] \
+        [--precondition none|jacobi|amg]
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
@@ -31,7 +34,7 @@ rows numbered color by color, which collapses an incomplete factor's
 triangular-solve levels to the colors); ``-s auto`` picks the format as
 the JAX CLI does (``auto_format``, the ``spmm`` workload when ``--spmm``
 is given, which lets a block-structured matrix pick BSR) and refuses
-``--reorder``.  Every other mode or flag (``--eigs``, ``--scaling``,
+``--reorder``.  Every other mode or flag (``--scaling``,
 ``--jax-profile``, ``--list-profile-events``, ``--flush-caches``) prints
 ``spmv-tpu-torch: ... not yet ported`` and exits 1.  The
 device is the first CUDA device; without one the CLI exits 1, unless
@@ -100,6 +103,21 @@ WELL, K7 on BSR, the CSR SpMM on CSR and COO, the ELL SpMM on ELL and,
 for hybrid, the CSR SpMM after it), on B = A X with column j of X
 equal to (j + 1) * ones, and reports each column's iterations, residual and
 error, as the JAX CLI does.
+
+``--eigs K`` computes the K extreme eigenpairs with block LOBPCG
+(``ops.eigen.lobpcg``) over the format's SpMM, with the JAX CLI's guards
+and messages: a matrix kernel, a square matrix, K below its dimension,
+no skew-symmetric storage, and for general storage a random symmetry
+probe (two SpMMs).  Symmetric storage is expanded and the matrix rebuilt
+from the expanded entries.  ``--precondition jacobi`` reads the diagonal
+from the Matrix Market entries; ``amg`` applies one SA-AMG V-cycle to the
+whole (n, K) block (every product one CSR SpMM launch), built from the
+expanded entries for symmetric storage and from the entries under ``-s
+auto`` (the JAX CLI hands over the converted matrix, and raises
+``TypeError`` where auto picks WELL).  The start block comes
+from a ``torch.Generator`` seeded 0, so iteration counts differ from the
+JAX CLI's, whose start is ``jax.random``'s.  One untimed solve of one
+iteration first keeps the kernel builds out of ``seconds``.
 """
 
 from __future__ import annotations
@@ -278,7 +296,6 @@ def _check_ported(args) -> None:
         return
     for flag, on in (
         ("--list-profile-events", args.list_profile_events is not None),
-        ("--eigs", args.eigs > 0),
         ("--scaling", args.scaling > 0),
         ("--jax-profile", args.jax_profile is not None),
         ("--flush-caches", args.flush_caches),
@@ -676,6 +693,113 @@ def _amg_preconditioner_cli(kernel, m, mm, device, dtype):
     return amg_preconditioner(host, dtype=dtype, device=device)
 
 
+def _solve_eigs(args, out, device, dtype) -> None:
+    """--eigs K: block LOBPCG eigenpairs, JSON report on stdout; after the
+    JAX CLI's ``_solve_eigs``."""
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.ops import jacobi_preconditioner, lobpcg, spmm
+    from spmv_tpu_torch.ops.amg import amg_preconditioner
+    from spmv_tpu_torch.ops.solvers import extract_diagonal
+    from spmv_tpu_torch.profile import device_info
+    from spmv_tpu_torch.utils.jsonio import dump_json
+
+    kernel, mm = _make_kernel(args, device, dtype)
+    if kernel.name == "triad":
+        raise SpmvError("--eigs needs a matrix kernel, not triad")
+    kernel.init(verbose=args.verbose)
+    m = kernel.matrix
+    if m.num_rows != m.num_columns:
+        raise SpmvError("--eigs requires a square (symmetric) matrix")
+    if args.eigs >= m.num_rows:
+        raise SpmvError("--eigs K must be < the matrix dimension")
+    # the entries the matrix was built from (-s auto keeps them apart)
+    entries = mm if mm is not None else kernel._mm
+    sym = entries.symmetry
+    if sym == "skew-symmetric":
+        raise SpmvError(
+            "--eigs needs a symmetric operator; skew-symmetric "
+            "matrices have an imaginary spectrum")
+    mm_full = None
+    operator = kernel
+    if sym != "general":
+        # symmetric storage holds one triangle; the eigenproblem needs
+        # the whole operator
+        mm_full = entries.expand_symmetry()
+        operator = make_kernel(kernel.name, mm=mm_full, device=device,
+                               dtype=dtype)
+        operator.init()
+    A = operator.device_matrix()
+    n = m.num_rows
+    if sym == "general":
+        # general storage promises nothing: <u, A v> == <A u, v> on two
+        # random pairs catches an asymmetric A for two SpMMs
+        gen = torch.Generator(device=device).manual_seed(1)
+        Up = torch.randn((n, 2), generator=gen, dtype=dtype, device=device)
+        Vp = torch.randn((n, 2), generator=gen, dtype=dtype, device=device)
+        AU = spmm(A, Up)
+        AV = spmm(A, Vp)
+        lhs = (Up * AV).sum(0)
+        rhs = (AU * Vp).sum(0)
+        scale = torch.maximum(
+            lhs.abs() + rhs.abs(),
+            torch.linalg.vector_norm(AU, dim=0)
+            * torch.linalg.vector_norm(Vp, dim=0)
+            * torch.finfo(torch.float32).eps)
+        asym = float(((lhs - rhs).abs() / scale).max())
+        if asym > 1e-3:
+            raise SpmvError(
+                "--eigs requires a numerically symmetric operator; "
+                f"random probe found <u,Av> != <Au,v> (relative "
+                f"asymmetry {asym:.2e}). Re-store the matrix with "
+                "symmetric field or symmetrize it first.")
+    minv = None
+    if args.precondition == "jacobi":
+        minv = jacobi_preconditioner(torch.as_tensor(
+            extract_diagonal(entries), dtype=dtype, device=device)[:, None])
+    elif args.precondition == "amg":
+        if mm_full is not None:
+            minv, _ = amg_preconditioner(mm_full, dtype=dtype, device=device)
+        else:
+            minv, _ = _amg_preconditioner_cli(kernel, m, mm, device, dtype)
+    elif args.precondition != "none":
+        raise SpmvError(
+            "--eigs takes --precondition none, jacobi or amg")
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    X0 = torch.randn((n, args.eigs), generator=gen, dtype=dtype,
+                     device=device)
+
+    def solve(max_iterations):
+        return lobpcg(lambda V: spmm(A, V), X0, preconditioner=minv,
+                      largest=(args.which == "largest"), tol=args.eigs_tol,
+                      max_iterations=max_iterations)
+
+    # one untimed iteration first, as in _solve_cg
+    solve(1)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    res = solve(args.eigs_maxiter)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    dump_json({
+        "kernel": kernel.describe(),
+        "eigs": {
+            "k": args.eigs,
+            "which": args.which,
+            "method": "lobpcg",
+            "preconditioner": args.precondition,
+            "tolerance": args.eigs_tol,
+            "eigenvalues": [float(v) for v in res.eigenvalues.cpu()],
+            "residual_norms": [float(v) for v in res.residual_norms.cpu()],
+            "iterations": int(res.iterations),
+            "seconds": seconds,
+            "device": device_info(device)["platform"],
+        },
+    }, out)
+
+
 def _solve_cg_batched(args, out, device, dtype, kernel, A, diag) -> None:
     """--cg N --nrhs K: batched multi-RHS CG (one SpMM per iteration),
     per-column convergence in the report; after the JAX CLI's
@@ -765,7 +889,9 @@ def main(argv=None, out=None) -> int:
             return 0
         device = default_device()
         dtype = default_value_dtype()
-        if args.cg > 0:
+        if args.eigs > 0:
+            _solve_eigs(args, out, device, dtype)
+        elif args.cg > 0:
             _solve_cg(args, out, device, dtype)
         elif args.profile > 0:
             _profile(args, out, device, dtype)

@@ -51,7 +51,7 @@ from spmv_tpu_torch.models.device import (
     resolve_device,
 )
 from spmv_tpu_torch.models.dia import DiaMatrix
-from spmv_tpu_torch.ops.dispatch import spmv
+from spmv_tpu_torch.ops.dispatch import spmm, spmv
 from spmv_tpu_torch.ops.solvers import (
     CgResult,
     preconditioned_conjugate_gradient,
@@ -438,6 +438,11 @@ def amg_preconditioner(
     PyAMG-standard (1/30, 1.1) band); identical pre/post smoothing
     keeps the cycle symmetric for CG.  A, P and P^T are ``DeviceCsr``
     on ``device``: each product is one CSR kernel launch on the card.
+
+    ``apply`` takes a vector (n,) or a block (n, k): a block runs one
+    V-cycle for all its columns, each product one launch of the CSR SpMM
+    (the JAX CLI's ``jax.vmap`` of the vector apply, as LOBPCG's
+    preconditioner).
     """
     if hierarchy is None:
         if m is None:
@@ -461,12 +466,17 @@ def amg_preconditioner(
         if level == len(dev):
             return coarse_inv @ b
         a, p, pt, dinv, lo, hi = dev[level]
-        x = _cheb_smooth(lambda v: spmv(a, v), dinv, b,
+        # a block (n, k) takes every product through spmm (one launch of
+        # the CSR SpMM on the card) and dinv over its columns
+        prod = spmv if b.dim() == 1 else spmm
+        if b.dim() == 2:
+            dinv = dinv[:, None]
+        x = _cheb_smooth(lambda v: prod(a, v), dinv, b,
                          torch.zeros_like(b), lo, hi, smoother_degree)
-        r = b - spmv(a, x)
-        xc = vcycle(level + 1, spmv(pt, r))
-        x = x + spmv(p, xc)
-        return _cheb_smooth(lambda v: spmv(a, v), dinv, b, x, lo, hi,
+        r = b - prod(a, x)
+        xc = vcycle(level + 1, prod(pt, r))
+        x = x + prod(p, xc)
+        return _cheb_smooth(lambda v: prod(a, v), dinv, b, x, lo, hi,
                             smoother_degree)
 
     def apply(r):

@@ -118,16 +118,11 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 
 @pytest.mark.parametrize("argv", [
     ["--spmv-format", "ell", "--profile", "2", "--flush-caches"],
-    ["--spmv-format", "hybrid", "--eigs", "2"],
     ["--spmv-format", "coo", "--scaling", "2"],
     ["--spmv-format", "coo-atomic", "--profile", "2", "--jax-profile", "d"],
-    ["--spmv-format", "xla-csr", "--eigs", "3"],
-    ["--spmv-format", "bsr", "--eigs", "2", "--which", "largest"],
-    ["--spmv-format", "auto", "--eigs", "2"],
     ["--spmv-format", "dia", "--cg", "10", "--list-profile-events"],
     ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0",
      "--flush-caches"],
-    ["--spmv-format", "dia", "--eigs", "2"],
     ["--spmv-format", "dia", "--scaling", "2"],
     ["--spmv-format", "dia", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--profile", "2", "--flush-caches"],
@@ -138,6 +133,36 @@ def test_unported_modes_exit_1(argv, matrix_file, capsys):
     rc, text = _run(main, ["--matrix", matrix_file] + argv)
     assert rc == 1 and text == ""
     assert "not yet ported" in capsys.readouterr().err
+
+
+# --eigs is ported: these cases stood in test_unported_modes_exit_1 and
+# keep their argv and ids here, each run beside the JAX CLI.  The start
+# blocks differ (torch.Generator against jax.random), so the eigenvalues
+# are compared and the iteration counts are not.
+EIGS_CASES = [
+    ["--spmv-format", "hybrid", "--eigs", "2"],
+    ["--spmv-format", "xla-csr", "--eigs", "3"],
+    ["--spmv-format", "bsr", "--eigs", "2", "--which", "largest"],
+    ["--spmv-format", "auto", "--eigs", "2"],
+    ["--spmv-format", "dia", "--eigs", "2"],
+]
+
+
+@pytest.mark.parametrize("argv", EIGS_CASES,
+                         ids=lambda a: "_".join(a).replace("-", ""))
+def test_eigs_runs_as_jax_cli(argv, matrix_file):
+    import numpy as np
+
+    argv = ["--matrix", matrix_file] + argv
+    rc, text = _run(main, argv)
+    jrc, jtext = _run(jax_main, argv)
+    assert rc == jrc == 0
+    doc, want = json.loads(text), json.loads(jtext)
+    assert set(doc) == set(want) and set(doc["eigs"]) == set(want["eigs"])
+    assert doc["kernel"]["name"] == want["kernel"]["name"]
+    assert doc["eigs"]["device"] == "cpu"
+    np.testing.assert_allclose(doc["eigs"]["eigenvalues"],
+                               want["eigs"]["eigenvalues"], rtol=1e-8)
 
 
 # Simulation mode and --traffic-split are ported: these cases stood in
@@ -262,13 +287,16 @@ def test_port_never_imports_jax(matrix_file):
                       "--precondition", "ic0-sweeps", "--reorder", "color"],
                      ["-s", "csr", "--cg", "20", "--solver", "chebyshev"],
                      ["-s", "hybrid", "--profile", "2", "--traffic-split"],
+                     ["-s", "csr", "--eigs", "2", "--precondition", "amg"],
+                     ["-s", "dia", "--eigs", "2", "--precondition",
+                      "jacobi"],
                      ["-s", "well", "--profile", "0", "--trace-config",
                       {os.path.join(REPO, "configs", "cpu-2thread.json")!r}]):
             out = io.StringIO()
             rc = main(["--matrix", {matrix_file!r}] + argv, out=out)
             assert rc == 0, (argv, rc)
             doc = json.loads(out.getvalue())
-            assert (doc.get("device") or doc.get("cg")
+            assert (doc.get("device") or doc.get("cg") or doc.get("eigs")
                     or doc["cache_misses"]) is not None
         import spmv_tpu_torch.kernels, spmv_tpu_torch.profile.report
         import spmv_tpu_torch.profile.harness, spmv_tpu_torch.perfmodel

@@ -8,7 +8,10 @@ and gather-only, ``--traffic-split``) against their plain versions; and
 the triangular solve (``tri_solve``, its level, chained and sweep
 modes) against its plain version, the chained mode bitwise against the
 level mode, with ``BlockTriSolve``'s rectangular DIA and CSR blocks
-against its CPU run.
+against its CPU run; and LOBPCG (``ops.eigen.lobpcg``) with K2, the CSR
+SpMM and the block AMG apply against its CPU run (float64 eigenvalues
+at rtol 1e-10, one SpMM launch for X, one for P and one a step), and its
+float32 products kept off TF32 when the process switches TF32 on.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -2418,3 +2421,114 @@ def test_rectangular_dia_and_csr_kernels(dtype, cuda):
                         (dia_spmv_core(D, x), dia_spmv_reference(D, x))):
             assert y.shape == (shape[0],)
             assert _rel(y, want) <= TOL[dtype]
+
+
+# ------------------------------------------------------------ LOBPCG
+
+def _lobpcg_case(kind, device, dtype, tol, X0, max_iterations=200):
+    """lobpcg on ``device`` with K2 (``dia``) or the CSR SpMM (``csr``) at
+    poisson2d(20, 18), or K2 and the block AMG apply (``amg``) at
+    poisson2d(40, 36): the result and the SpMM launches it made (K2's,
+    else the CSR SpMM's)."""
+    from spmv_tpu_torch.ops import amg_preconditioner, lobpcg, spmm
+
+    mm = poisson2d(*LOBPCG_GRID[kind])
+    if kind == "csr":
+        A = DeviceCsr.from_host(CsrMatrix.from_matrix_market(mm),
+                                dtype=dtype, device=device)
+        count = csr_spmm_core
+    else:
+        A = DeviceDia.from_host(DiaMatrix.from_matrix_market(mm),
+                                dtype=dtype, device=device)
+        count = dia_spmm_core
+    minv = None
+    if kind == "amg":
+        minv, _ = amg_preconditioner(CsrMatrix.from_matrix_market(mm),
+                                     dtype=dtype, device=device,
+                                     coarse_size=64)
+    before = count.launches
+    res = lobpcg(lambda V: spmm(A, V), X0.to(device=device, dtype=dtype),
+                 preconditioner=minv, tol=tol,
+                 max_iterations=max_iterations,
+                 P0=_lobpcg_p0(X0.shape).to(device=device, dtype=dtype))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, count.launches - before
+
+
+LOBPCG_GRID = {"dia": (20, 18), "csr": (20, 18), "amg": (40, 36)}
+
+
+def _lobpcg_x0(kind):
+    nx, ny = LOBPCG_GRID[kind]
+    return torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (nx * ny, 4)))
+
+
+def _lobpcg_p0(shape):
+    return torch.from_numpy(np.random.default_rng(12).standard_normal(shape))
+
+
+def _poisson_smallest(nx, ny, k):
+    i, j = np.arange(1, nx + 1), np.arange(1, ny + 1)
+    lam = (4.0 - 2.0 * np.cos(i * np.pi / (nx + 1))[:, None]
+           - 2.0 * np.cos(j * np.pi / (ny + 1))[None, :])
+    return np.sort(lam.reshape(-1))[:k]
+
+
+@pytest.mark.parametrize("kind", ["dia", "csr", "amg"])
+def test_lobpcg_on_card_matches_cpu(kind, cuda):
+    """float64: the card's eigenvalues against the CPU run's (the
+    kernels' plain versions) and the analytic ones, and one SpMM launch
+    for X, one for P and one a step.  The block AMG apply launches the
+    CSR SpMM and never the CSR SpMV (no column loop)."""
+    X0 = _lobpcg_x0(kind)
+    cpu, _ = _lobpcg_case(kind, torch.device("cpu"), torch.float64, 1e-8, X0)
+    spmv_before = csr_spmv_core.launches
+    amg_before = csr_spmm_core.launches
+    card, launches = _lobpcg_case(kind, cuda, torch.float64, 1e-8, X0)
+    assert card.eigenvalues.device.type == "cuda"
+    assert card.iterations < 200
+    assert launches == 2 + card.iterations
+    if kind == "amg":
+        assert csr_spmm_core.launches > amg_before
+        assert csr_spmv_core.launches == spmv_before
+    np.testing.assert_allclose(card.eigenvalues.cpu().numpy(),
+                               cpu.eigenvalues.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(card.eigenvalues.cpu().numpy(),
+                               _poisson_smallest(*LOBPCG_GRID[kind], 4),
+                               rtol=1e-8)
+    assert float(card.residual_norms.max()) <= 1e-8
+
+
+def test_lobpcg_float32_contractions_stay_float32(cuda):
+    """With TF32 switched on for the whole process, the solver's own
+    products still run in float32: the float32 solve reaches tol.  The
+    same solve with the products left to the switch (``_ieee_fp32``
+    made a no-op) stalls above tol: TF32's 10-bit mantissa floors the
+    residual near 1e-3 of ||A||."""
+    import contextlib
+
+    from spmv_tpu_torch.ops import eigen
+
+    X0 = _lobpcg_x0("amg")
+    flags = torch.backends.cuda.matmul
+    old = flags.fp32_precision
+    flags.fp32_precision = "tf32"
+    try:
+        good, launches = _lobpcg_case("amg", cuda, torch.float32, 1e-4, X0)
+        pinned = eigen._ieee_fp32
+        eigen._ieee_fp32 = contextlib.nullcontext
+        try:
+            bad, _ = _lobpcg_case("amg", cuda, torch.float32, 1e-4, X0)
+        finally:
+            eigen._ieee_fp32 = pinned
+        assert flags.fp32_precision == "tf32"
+    finally:
+        flags.fp32_precision = old
+    assert good.iterations < 200 and launches == 2 + good.iterations
+    assert float(good.residual_norms.max()) <= 1e-4
+    assert bad.iterations == 200
+    assert float(bad.residual_norms.max()) > 1e-4
+    np.testing.assert_allclose(good.eigenvalues.cpu().numpy(),
+                               _poisson_smallest(40, 36, 4), rtol=1e-3)

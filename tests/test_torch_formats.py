@@ -493,9 +493,22 @@ def test_reorder_cli_runs(fmt, shuffled_file):
             assert doc["cg"]["solution_rms_error_vs_ones"] < 1e-6
 
 
+# --eigs is ported: this case stood in test_reorder_refusals and keeps its
+# argv here, run beside the JAX CLI on the permuted matrix
+@pytest.mark.parametrize("argv", [
+    ["-s", "csr", "--reorder", "color", "--eigs", "2"],
+], ids=lambda a: "_".join(a).replace("-", ""))
+def test_reorder_eigs_as_jax_cli(argv, shuffled_file):
+    argv = ["--matrix", shuffled_file] + argv
+    rc, text = _run(pcli.main, argv)
+    jrc, jtext = _run(jcli.main, argv)
+    assert rc == jrc == 0
+    np.testing.assert_allclose(json.loads(text)["eigs"]["eigenvalues"],
+                               json.loads(jtext)["eigs"]["eigenvalues"],
+                               rtol=1e-8)
+
+
 @pytest.mark.parametrize("argv,message", [
-    (["-s", "csr", "--reorder", "color", "--eigs", "2"],
-     "--eigs is not yet ported"),
     (["-s", "ell", "--reorder", "color", "--cg", "10", "--precondition",
       "ic0", "--nrhs", "2"], "use single-RHS solves"),
     (["-s", "auto", "--reorder", "rcm", "--profile", "2"],
