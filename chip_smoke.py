@@ -240,12 +240,16 @@ Phases (each prints readable lines; any failure exits non-zero):
    once), the plain version's ms and torch.sparse CSR of the same entries
    timed the same way and eagerly, and the SpMV's path (ell_spmv_plan:
    its template row length); and the CSR SpMV kernel on the whole matrix
-   as one DeviceCsr (the path of -s csr) alike.  Phase 10 times the CSR
+   as one DeviceCsr (the path of -s csr) alike, against the fp64 product
+   of its entries.  Phase 10 times the CSR
    SpMV on the whole bench matrix the same way.
 25. Hybrid at a skewed matrix, powerlaw(4194304, 4194304, 8.0, alpha 1.5,
    seed 5) in float32 (not counted): the SpMV and SpMM (k = 8) against
-   their plain versions; the COO part's CSR kernels (its long rows on
-   warps and blocks) against theirs, twice bitwise, the SpMM's columns
+   the fp64 product of the matrix; the COO part's CSR kernels (its long
+   rows on warps and blocks) against that of its entries (the float32
+   plain versions add with atomics on the card, in no fixed order, and
+   at rows of 44,547 entries their sums moved the difference across
+   1e-5), twice bitwise, the SpMM's columns
    bitwise the SpMV's; then the ELL launch, the COO launches (the CSR
    kernels adding into y and Y) and the whole SpMV and SpMM alone, each
    with its bound (the ELL and COO launches with their plain versions'
@@ -340,6 +344,34 @@ Phases (each prints readable lines; any failure exits non-zero):
    the Rayleigh-Ritz step with its (24, 24) algebra on the host (the
    port's) against all on the card (cuSOLVER's eigh), with one eigh
    alone at each place.
+30. The sharded paths (``parallel``) on 4 virtual shards of the card
+   (the K1, K2, CSR SpMV and CSR SpMM launches of the sharded calls
+   make the path's counts; the unsharded products they are held against
+   and the timing runs do not): at poisson2d(4096, 4096) in float32 the
+   DIA halo SpMV (K1 a shard), the all-gather CSR SpMV (the CSR SpMV a
+   shard) and the halo CSR SpMV (neighbor: an interior and a boundary
+   launch a shard), at powerlaw(2^22, 2^22, 8.0, alpha 1.5, seed 5) the
+   halo CSR SpMV forced to all2all; at poisson2d(1024, 1024) the same
+   in float64, the halo CSR forced to all2all too, and the DIA SpMM (K2
+   a shard) and halo CSR SpMM at k = 4 in float64 and float32.  Each
+   product against the unsharded kernel of its format on the same x
+   (max|dy| / max|y|: float32 1e-5, float64 1e-12; whether the bits
+   agree), its launches held exactly (P a product, 2P for the halo
+   path, every shard reading a halo), ms a product beside the
+   unsharded kernel's (20 back to back, CUDA events, eager; the halo
+   exchange alone; the DIA SpMM's two transposes and its K2 launches
+   alone).  Then CG over each strategy and batched CG over the DIA
+   matmat (k = 4) at poisson2d(1024, 1024), float64 to 1e-8 and float32
+   to 1e-5, b = A ones from the fp64 host product: iterations within 2
+   of the unsharded CG (the port's generic CG over the unsharded kernel;
+   ``dia_batched_conjugate_gradient`` for the batched solve), the
+   solution's error, host us an iteration, K2 launched 4 a matmat.
+   Then ``python -m spmv_tpu_torch --scaling 4`` in a child process
+   that loads no JAX (its reader handed the generated matrices):
+   poisson2d(4096, 4096) with -s dia and the powerlaw matrix with -s csr,
+   each ``halo_elements_measured`` held equal to the worst shard's
+   off-shard reads by ``communication_volume``; last
+   ``dryrun_multichip(4)`` on the card (every error below 1e-3).
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -382,9 +414,10 @@ main path, max error, ms against
 plain ms, bound and library ms; K7's rows also its launches by path;
 the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
 SpMV's their times at the hybrid's shape, beside torch.sparse of that
-part's own entries; and summaries of each path,
-`formats`, `amg`, `traffic_split`, `simulate`, `solvers` and `eigs`
-the last)
+part's own entries; the K1, K2 and CSR rows their launches on the
+sharded path; and summaries of each path,
+`formats`, `amg`, `traffic_split`, `simulate`, `solvers`, `eigs` and
+`sharded` the last)
 and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
@@ -607,6 +640,18 @@ def _torch_csr(row_ptr, column_index, value, shape):
     return torch.sparse_csr_tensor(row_ptr.to(torch.int32),
                                    column_index.to(torch.int32), value,
                                    size=shape)
+
+
+def _float64_product(R, v):
+    """The fp64 product of the ``DeviceCsr`` R's entries with v (torch.sparse
+    in float64): the reference of a float32 kernel on long rows, where the
+    float32 plain version's sums move with their order (on the card it
+    adds with atomics, in no fixed order)."""
+    import torch
+
+    S = _torch_csr(R.row_ptr, R.column_index, R.value.double(),
+                   (R.num_rows, R.num_columns))
+    return S @ v.to(torch.float64)
 
 
 def _csr_of_coo(rows, cols, vals, shape):
@@ -3846,20 +3891,20 @@ def _ell_plan(A, tag, label) -> dict:
 
 def _csr_spmv_whole(R, S, x, flush, label, tag, smi_line, triad_gbps):
     """The CSR SpMV kernel on a whole matrix held as one ``DeviceCsr``
-    (the path of -s csr), alone: against its plain version, twice
-    bitwise, device ms and eager, bound, plain ms and ``S`` (torch.sparse
-    of the same entries) timed the same way and eagerly."""
+    (the path of -s csr), alone: against the fp64 product of its entries,
+    twice bitwise, device ms and eager, bound, plain ms and ``S``
+    (torch.sparse of the same entries) timed the same way and eagerly."""
     import torch
 
     from spmv_tpu_torch.ops import csr_spmv_core, csr_spmv_reference
 
     y1, y2 = csr_spmv_core(R, x), csr_spmv_core(R, x)
-    want = csr_spmv_reference(R, x)
+    want = _float64_product(R, x)
     _sync(x.device)
     rel = _rel(y1, want)
-    if not torch.equal(y1, y2) or not rel <= TOL_F32:
+    if not torch.equal(y1, y2) or not rel <= TOL_F32_HOST:
         _fail(f"csr_spmv on {label}: two launches differ or rel err "
-              f"{rel} > {TOL_F32}")
+              f"{rel} > {TOL_F32_HOST} against the fp64 product")
     y = torch.empty_like(y1)
     t = _alone(lambda: csr_spmv_core(R, x, out=y), flush)
     plain_ms = _time_launches(lambda: csr_spmv_reference(R, x), 3)
@@ -4051,16 +4096,17 @@ def phase_hybrid(device, smi_line, triad_gbps):
     x = torch.randn(H.num_columns, generator=g, device=device, dtype=f32)
     X = torch.randn(H.num_columns, k, generator=g, device=device, dtype=f32)
     errs = {}
+    S64 = _csr_of_mm(mm, device, torch.float64)
     for what, got, ref in (
-            ("spmv", hybrid_spmv_core(H, x), hybrid_spmv_reference(H, x)),
-            (f"spmm k={k}", hybrid_spmm_core(H, X),
-             hybrid_spmv_reference(H, X))):
+            ("spmv", hybrid_spmv_core(H, x), S64 @ x.double()),
+            (f"spmm k={k}", hybrid_spmm_core(H, X), S64 @ X.double())):
         rel = _rel(got, ref)
-        errs[what] = float((got.double() - ref.double()).abs().max())
-        _say(f"[{tag}] hybrid {what}: rel err {rel:.3e} against the plain "
-             f"version (tol {TOL_F32})")
-        if not rel <= TOL_F32:
-            _fail(f"hybrid {what}: rel err {rel} > {TOL_F32}")
+        errs[what] = float((got.double() - ref).abs().max())
+        _say(f"[{tag}] hybrid {what}: rel err {rel:.3e} against the fp64 "
+             f"product (tol {TOL_F32_HOST})")
+        if not rel <= TOL_F32_HOST:
+            _fail(f"hybrid {what}: rel err {rel} > {TOL_F32_HOST}")
+    del S64
     # the COO part's CSR kernels alone, on their warp, block and short rows
     yc = (csr_spmv_core(R, x), csr_spmv_core(R, x))
     Yc = (csr_spmm_core(R, X), csr_spmm_core(R, X))
@@ -4072,19 +4118,18 @@ def phase_hybrid(device, smi_line, triad_gbps):
     if not torch.equal(Yc[0], cols):
         _fail("the COO part's CSR SpMM: a column differs from the CSR "
               "SpMV kernel's")
-    for what, got, ref in (("spmv", yc[0], csr_spmv_reference(R, x)),
-                           (f"spmm k={k}", Yc[0],
-                            csr_spmv_reference(R, X))):
+    for what, got, ref in (("spmv", yc[0], _float64_product(R, x)),
+                           (f"spmm k={k}", Yc[0], _float64_product(R, X))):
         rel = _rel(got, ref)
-        errs[f"coo {what}"] = float((got.double() - ref.double()).abs()
-                                    .max())
+        errs[f"coo {what}"] = float((got.double() - ref).abs().max())
         _say(f"[{tag}] the COO part's csr {what} ({shape['coo_split']}): "
-             f"rel err {rel:.3e} against the plain version (tol {TOL_F32}),"
-             " twice bitwise equal"
+             f"rel err {rel:.3e} against the fp64 product (tol "
+             f"{TOL_F32_HOST}), twice bitwise equal"
              + (", columns bitwise the SpMV kernel's" if what != "spmv"
                 else ""))
-        if not rel <= TOL_F32:
-            _fail(f"the COO part's csr {what}: rel err {rel} > {TOL_F32}")
+        if not rel <= TOL_F32_HOST:
+            _fail(f"the COO part's csr {what}: rel err {rel} > "
+                  f"{TOL_F32_HOST}")
     del yc, Yc, cols
     y = torch.empty(H.num_rows, device=device, dtype=f32)
     Y = torch.empty(H.num_rows, k, device=device, dtype=f32)
@@ -5810,6 +5855,561 @@ def phase_eigs(device, smi_line, triad_gbps):
                      "-s dia --precondition amg"}
 
 
+# ---------------------------------------------------------------- phase 30
+SHARD_P = 4                   # virtual shards of the one card
+SHARD_GRID = FULL_GRID        # poisson2d(4096²): DIA, CSR all-gather, halo
+SHARD_SKEW_ROWS = HYBRID_ROWS  # powerlaw(2²²): the CSR halo, all2all
+SHARD_CG_GRID = CG_GRID       # poisson2d(1024²): products in float64, CG
+SHARD_CG_K = CG_K             # batched CG's right-hand sides
+SHARD_CG_TOL = {"float64": 1e-8, "float32": 1e-5}
+SHARD_CG_MAX = 20000
+SHARD_CG_SLACK = 2            # iterations a sharded CG may differ by
+SHARD_REPS = 20               # products a timing
+TOL_SHARD = {"float64": 1e-12, "float32": 1e-5}
+SHARD_WRAPPERS = ("dia_spmv_core", "dia_spmm_core", "csr_spmv_core",
+                  "csr_spmm_core")
+
+
+def _shard_counts() -> dict:
+    from spmv_tpu_torch import ops
+
+    return {name: getattr(ops, name).launches for name in SHARD_WRAPPERS}
+
+
+class _ShardPath:
+    """The launches the sharded path makes: ``run`` calls fn, adds the
+    wrappers' launches during it to the path's count and returns (fn's
+    result, those launches).  Launches outside ``run`` (the unsharded
+    products the sharded ones are held against) are not counted."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(SHARD_WRAPPERS, 0)
+
+    def run(self, fn):
+        before = _shard_counts()
+        out = fn()
+        delta = {k: v - before[k] for k, v in _shard_counts().items()}
+        for k, v in delta.items():
+            self.launches[k] += v
+        return out, delta
+
+
+def _shard_unstack(kind, A, y):
+    """The stacked y of a sharded product as the unsharded one, on the
+    device: the DIA layout's first num_rows, the CSR layout's rows of
+    each shard (trailing axes ride along)."""
+    import torch
+
+    if kind == "dia":
+        return y.reshape((-1,) + tuple(y.shape[2:]))[: A.num_rows]
+    return torch.cat([y[p, : A.bounds[p + 1] - A.bounds[p]]
+                      for p in range(A.num_shards)])
+
+
+def _shard_case(kind, host, dtype, mesh, path, tag, label, exchange="auto",
+                time_it=True) -> dict:
+    """One sharded SpMV (``kind``: dia, csr or halo) on ``mesh`` against
+    the unsharded kernel of its format on the same x: the launches (P a
+    product; P more for the halo path's boundary launches), max|dy| /
+    max|y|, and ms a product of each (SHARD_REPS back to back, CUDA
+    events, eager: the P launches' host cost and the exchange in)."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.models import DeviceCsr, DeviceDia
+    from spmv_tpu_torch.ops import csr_spmv_core, dia_spmv_core
+
+    device = mesh.device
+    dtn = str(dtype).removeprefix("torch.")
+    t0 = time.perf_counter()
+    if kind == "dia":
+        A = par.shard_dia(host, SHARD_P, dtype=dtype, mesh=mesh)
+        full = DeviceDia.from_host(host, dtype=dtype, device=device)
+        stack, product, core = (par.stack_dia_vector, par.sharded_dia_spmv,
+                                dia_spmv_core)
+    else:
+        A = (par.shard_csr(host, SHARD_P, dtype=dtype, mesh=mesh)
+             if kind == "csr" else
+             par.shard_csr_halo(host, SHARD_P, dtype=dtype, mesh=mesh,
+                                exchange=exchange))
+        full = DeviceCsr.from_host(host, dtype=dtype, device=device)
+        stack = par.stack_vector
+        product = (par.sharded_spmv if kind == "csr"
+                   else par.sharded_halo_spmv)
+        core = csr_spmv_core
+    build = time.perf_counter() - t0
+    g = torch.Generator(device=device).manual_seed(30)
+    x = torch.randn(host.num_rows, generator=g, device=device, dtype=dtype)
+    xs = stack(x, A)
+    want = core(full, x)
+    y, delta = path.run(lambda: product(A, xs, mesh))
+    name = "dia_spmv_core" if kind == "dia" else "csr_spmv_core"
+    boundary = (sum(b is not None for b in A.boundary) if kind == "halo"
+                else 0)
+    launches = delta[name]
+    if launches != SHARD_P + boundary or sum(delta.values()) != launches:
+        _fail(f"[{tag}] {label}: launches {delta} for one product, not "
+              f"{SHARD_P} + {boundary} of {name}")
+    if kind == "halo" and boundary != SHARD_P:
+        _fail(f"[{tag}] {label}: only {boundary} of {SHARD_P} shards read "
+              "a halo")
+    got = _shard_unstack(kind, A, y)
+    err = _rel(got, want)
+    if not err <= TOL_SHARD[dtn]:
+        _fail(f"[{tag}] {label} {dtn}: max|dy|/max|y| {err} > "
+              f"{TOL_SHARD[dtn]}")
+    res = {"launches_a_product": launches, "max_rel_err": err,
+           "bitwise_equal_to_unsharded": bool(torch.equal(got, want)),
+           "host_build_s": build}
+    if kind == "halo":
+        res.update(exchange=A.exchange, max_distance=A.max_distance,
+                   comm_elements_exact=A.comm_elements_exact,
+                   comm_elements_padded=A.comm_elements_padded,
+                   halo_slots=A.halo_slots)
+    if time_it:
+        buf = torch.empty_like(want)
+        res["ms"] = _time_launches(lambda: product(A, xs, mesh), SHARD_REPS)
+        res["unsharded_ms"] = _time_launches(lambda: core(full, x, out=buf),
+                                             SHARD_REPS)
+        if kind == "halo":
+            res["exchange_ms"] = _time_launches(
+                lambda: par.halo_shard.exchange_halos(
+                    xs, A.recv_index, A.recv_missing), SHARD_REPS)
+    _say(f"[{tag}] {label} {dtn}: {launches} launches a product, max|dy|/"
+         f"max|y| {err:.3e} against the unsharded kernel (bitwise "
+         f"{res['bitwise_equal_to_unsharded']}), host build {build:.1f} s"
+         + (f"; {res['ms']:.4f} ms a product against {res['unsharded_ms']:.4f}"
+            " unsharded" if time_it else "")
+         + (f", the exchange alone {res['exchange_ms']:.4f} ms"
+            if "exchange_ms" in res else "")
+         + (f"; exchange {A.exchange}, {A.comm_elements_exact} elements "
+            f"({A.comm_elements_padded} padded)" if kind == "halo" else ""))
+    return res
+
+
+def _shard_spmm_case(kind, host, dtype, mesh, path, tag, k) -> dict:
+    """One sharded SpMM at k columns (dia: K2 a shard on the stacked
+    (P, k, Rb) block; halo: the CSR SpMM over interior and boundary a
+    shard) against the unsharded SpMM kernel; for DIA also the two
+    transposes the product makes beside its K2 launches, timed alone."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.models import DeviceCsr, DeviceDia
+    from spmv_tpu_torch.ops import csr_spmm_core, dia_spmm_core
+
+    device = mesh.device
+    dtn = str(dtype).removeprefix("torch.")
+    g = torch.Generator(device=device).manual_seed(31)
+    X = torch.randn(host.num_rows, k, generator=g, device=device,
+                    dtype=dtype)
+    if kind == "dia":
+        A = par.shard_dia(host, SHARD_P, dtype=dtype, mesh=mesh)
+        full = DeviceDia.from_host(host, dtype=dtype, device=device)
+        Xs, product, core = (par.stack_dia_matrix(X, A),
+                             par.sharded_dia_spmm, dia_spmm_core)
+        name, want_launches = "dia_spmm_core", SHARD_P
+    else:
+        A = par.shard_csr_halo(host, SHARD_P, dtype=dtype, mesh=mesh)
+        full = DeviceCsr.from_host(host, dtype=dtype, device=device)
+        Xs, product, core = (par.stack_block(X, A), par.sharded_halo_spmm,
+                             csr_spmm_core)
+        name = "csr_spmm_core"
+        want_launches = SHARD_P + sum(b is not None for b in A.boundary)
+    want = core(full, X)
+    Y, delta = path.run(lambda: product(A, Xs, mesh))
+    if delta[name] != want_launches or sum(delta.values()) != delta[name]:
+        _fail(f"[{tag}] {kind} SpMM k={k}: launches {delta}, not "
+              f"{want_launches} of {name}")
+    got = _shard_unstack(kind, A, Y.transpose(1, 2) if kind == "dia"
+                         else Y)
+    err = _rel(got, want)
+    if not err <= TOL_SHARD[dtn]:
+        _fail(f"[{tag}] {kind} SpMM k={k} {dtn}: max|dY|/max|Y| {err} > "
+              f"{TOL_SHARD[dtn]}")
+    res = {"launches_a_product": delta[name], "max_rel_err": err}
+    if dtype == torch.float32:
+        buf = torch.empty_like(want)
+        res["ms"] = _time_launches(lambda: product(A, Xs, mesh), SHARD_REPS)
+        res["unsharded_ms"] = _time_launches(lambda: core(full, X, out=buf),
+                                             SHARD_REPS)
+        if kind == "dia":
+            Xt = Xs.transpose(1, 2).reshape(A.stacked_size, k).contiguous()
+            Yt = torch.empty(SHARD_P, A.rows_per_shard, k, dtype=dtype,
+                             device=device)
+
+            def launches():
+                for q, (s, e) in enumerate(A.windows):
+                    dia_spmm_core(A.blocks[q], Xt[s:e], out=Yt[q])
+
+            def copies():
+                Xs.transpose(1, 2).reshape(A.stacked_size, k).contiguous()
+                Yt.transpose(1, 2).contiguous()
+
+            res["k2_launches_ms"] = _time_launches(launches, SHARD_REPS)
+            res["transposes_ms"] = _time_launches(copies, SHARD_REPS)
+    _say(f"[{tag}] {kind} SpMM k={k} {dtn}: {delta[name]} launches, "
+         f"max|dY|/max|Y| {err:.3e}"
+         + (f"; {res['ms']:.4f} ms against {res['unsharded_ms']:.4f} "
+            "unsharded" if "ms" in res else "")
+         + (f" (the {SHARD_P} K2 launches alone {res['k2_launches_ms']:.4f}"
+            f", the two transposes alone {res['transposes_ms']:.4f})"
+            if "k2_launches_ms" in res else ""))
+    return res
+
+
+def _shard_cg(device, mesh, csr, dia, path, tag) -> dict:
+    """CG over each strategy and batched CG over the DIA matmat (k =
+    SHARD_CG_K) at poisson2d(SHARD_CG_GRID²), float64 to 1e-8 and float32
+    to 1e-5, b = A ones from the fp64 host product: iterations within
+    SHARD_CG_SLACK of the unsharded CG on the same matrix and kernel,
+    the solution's max error against ones, host us an iteration."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.models import DeviceCsr, DeviceDia
+    from spmv_tpu_torch.ops import (
+        batched_conjugate_gradient,
+        conjugate_gradient,
+        csr_spmv_core,
+        dia_batched_conjugate_gradient,
+        dia_spmv_core,
+    )
+
+    b = csr.spmv(np.ones(csr.num_rows))
+    B = np.stack([(j + 1) * b for j in range(SHARD_CG_K)], axis=1)
+    want_x = np.arange(1, SHARD_CG_K + 1)[None, :]
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    for dtn, tol in SHARD_CG_TOL.items():
+        dt = getattr(torch, dtn)
+        Dfull = DeviceDia.from_host(dia, dtype=dt, device=device)
+        Cfull = DeviceCsr.from_host(csr, dtype=dt, device=device)
+        bt = torch.from_numpy(b).to(device, dt)
+        D = par.shard_dia(dia, SHARD_P, dtype=dt, mesh=mesh)
+        C = par.shard_csr(csr, SHARD_P, dtype=dt, mesh=mesh)
+        H = par.shard_csr_halo(csr, SHARD_P, dtype=dt, mesh=mesh)
+        cases = {
+            "dia_halo": (par.make_sharded_dia_matvec(D, mesh),
+                         par.stack_dia_vector(b, D),
+                         lambda v: par.unstack_dia_vector(v, D),
+                         lambda v: dia_spmv_core(Dfull, v)),
+            "csr_all_gather": (par.make_sharded_matvec(C, mesh),
+                               par.stack_vector(b, C),
+                               lambda v: par.unstack_vector(v, C),
+                               lambda v: csr_spmv_core(Cfull, v)),
+            "csr_halo": (par.make_sharded_halo_matvec(H, mesh),
+                         par.stack_vector(b, H),
+                         lambda v: par.unstack_vector(v, H),
+                         lambda v: csr_spmv_core(Cfull, v)),
+        }
+        res_dt = {}
+        for name, (mv, bs, unstack, flat) in cases.items():
+            (r, wall), _ = path.run(lambda: timed(lambda: conjugate_gradient(
+                mv, bs, tol=tol, max_iterations=SHARD_CG_MAX)))
+            u, uwall = timed(lambda: conjugate_gradient(
+                flat, bt, tol=tol, max_iterations=SHARD_CG_MAX))
+            err = float(np.abs(unstack(r.x) - 1.0).max())
+            res_dt[name] = {
+                "iterations": r.iterations,
+                "unsharded_iterations": u.iterations,
+                "max_abs_err_vs_ones": err,
+                "unsharded_max_abs_err_vs_ones": float(
+                    (u.x.double() - 1.0).abs().max()),
+                "host_us_an_iteration": wall / max(r.iterations, 1) * 1e6,
+                "unsharded_host_us_an_iteration":
+                    uwall / max(u.iterations, 1) * 1e6}
+            _say(f"[{tag}] CG {name} {dtn} tol {tol:g}: {r.iterations} "
+                 f"iterations (unsharded {u.iterations}), max|x - 1| "
+                 f"{err:.3e}, {res_dt[name]['host_us_an_iteration']:.1f} "
+                 f"host us an iteration (unsharded "
+                 f"{res_dt[name]['unsharded_host_us_an_iteration']:.1f})")
+            if (r.iterations >= SHARD_CG_MAX
+                    or abs(r.iterations - u.iterations) > SHARD_CG_SLACK):
+                _fail(f"[{tag}] CG {name} {dtn}: {r.iterations} iterations "
+                      f"against {u.iterations} unsharded")
+        matmat = par.make_sharded_dia_matmat(D, mesh)
+        Bs = par.stack_dia_matrix(B, D)
+        (r, wall), delta = path.run(lambda: timed(
+            lambda: batched_conjugate_gradient(
+                matmat, Bs, tol=tol, max_iterations=SHARD_CG_MAX)))
+        its = [int(i) for i in r.iterations]
+        u, uwall = timed(lambda: dia_batched_conjugate_gradient(
+            Dfull, torch.from_numpy(B).to(device, dt), tol=tol,
+            max_iterations=SHARD_CG_MAX))
+        uits = [int(i) for i in u.iterations]
+        err = float(np.abs(par.unstack_dia_matrix(r.x, D) - want_x).max())
+        res_dt["batched_dia_halo"] = {
+            "iterations": its, "unsharded_iterations": uits,
+            "max_abs_err_vs_solution": err, "k": SHARD_CG_K,
+            "dia_spmm_launches": delta["dia_spmm_core"],
+            "host_us_an_iteration": wall / max(max(its), 1) * 1e6,
+            "unsharded_host_us_an_iteration":
+                uwall / max(max(uits), 1) * 1e6}
+        _say(f"[{tag}] batched CG dia_halo k={SHARD_CG_K} {dtn} tol "
+             f"{tol:g}: iterations {its} (unsharded {uits}), max|X - X*| "
+             f"{err:.3e}, K2 launches {delta['dia_spmm_core']} "
+             f"({SHARD_P} a matmat), "
+             f"{res_dt['batched_dia_halo']['host_us_an_iteration']:.1f} "
+             "host us an iteration (unsharded "
+             f"{res_dt['batched_dia_halo']['unsharded_host_us_an_iteration']:.1f})")
+        if (delta["dia_spmm_core"] != SHARD_P * max(its)
+                or max(its) >= SHARD_CG_MAX
+                or max(abs(a - c) for a, c in zip(its, uits))
+                > SHARD_CG_SLACK):
+            _fail(f"[{tag}] batched CG {dtn}: iterations {its} against "
+                  f"{uits}, K2 launches {delta['dia_spmm_core']}")
+        out[dtn] = res_dt
+        del Dfull, Cfull, D, C, H, cases
+        _sync(device)
+    return out
+
+
+# phase 30's --scaling runs, in a process of its own that loads no JAX:
+# the triad first, on its own line (the parent does host work only until
+# it reads it), then the CLI's main on the two generated matrices (84M
+# lines of Matrix Market text would take minutes to write and parse), and
+# the modules it loaded
+_SCALING_CHILD = """
+import io, json, sys, time
+from spmv_tpu_torch.models.device import default_device
+from spmv_tpu_torch.perfmodel import measured_machine
+machine = measured_machine(default_device())
+print(json.dumps({"triad_gbps": machine.hbm_gbps}), flush=True)
+from spmv_tpu_torch import kernels
+from spmv_tpu_torch.cli import main
+from spmv_tpu_torch.io import matrix_market
+from spmv_tpu_torch.io.generate import poisson2d, powerlaw
+grid, rows, parts = map(int, sys.argv[1:4])
+out = {}
+for name, fmt, make in (
+        ("poisson", "dia", lambda: poisson2d(grid, grid)),
+        ("powerlaw", "csr",
+         lambda: powerlaw(rows, rows, 8.0, alpha=1.5, seed=5))):
+    mm = make()
+    kernels.load_matrix = matrix_market.load_matrix = lambda p, **kw: mm
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    rc = main(["--matrix", name + ".mtx", "-s", fmt, "--scaling",
+               str(parts)], out=buf)
+    if rc:
+        sys.exit(rc)
+    out[name] = {"doc": json.loads(buf.getvalue()),
+                 "seconds": time.perf_counter() - t0}
+    del mm
+out["jax_modules"] = sorted(
+    m for m in sys.modules
+    if m in ("jax", "spmv_tpu") or m.startswith(("jax.", "spmv_tpu.")))
+print(json.dumps(out))
+"""
+
+
+def _start_scaling_child():
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-c", _SCALING_CHILD, str(SHARD_GRID),
+         str(SHARD_SKEW_ROWS), str(SHARD_P)], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _scaling_triad(proc, tag) -> float:
+    """Wait for the --scaling child's first line, its triad rate: until
+    then this process keeps off the card."""
+    line = proc.stdout.readline()
+    if not line:
+        _fail(f"[{tag}] --scaling child exited {proc.wait()} before its "
+              f"triad: {proc.stderr.read()[-2000:]}")
+    return json.loads(line)["triad_gbps"]
+
+
+def _shard_scaling(proc, halos, triad_gbps, tag) -> dict:
+    """The --scaling child's reports: each halo_elements_measured equal to
+    the worst shard's off-shard reads by communication_volume (counted
+    here, ``halos``), no JAX module loaded."""
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        _fail(f"[{tag}] --scaling child exited {proc.returncode}: "
+              f"{stderr[-2000:]}")
+    got = json.loads(stdout.strip().splitlines()[-1])
+    if got.pop("jax_modules"):
+        _fail(f"[{tag}] the --scaling child loaded JAX modules")
+    out = {"triad_gbps": triad_gbps}
+    for name, run in got.items():
+        s = run["doc"]["scaling"]
+        out[name] = {k: s[k] for k in (
+            "halo_elements_measured", "all_gather_elements",
+            "rows_per_shard", "comm_bytes_per_shard", "t_local_s",
+            "t_comm_s", "t_step_s", "weak_efficiency",
+            "interconnect_efficiency_assumed",
+            "interconnect_efficiency_breakeven", "hbm_efficiency_measured",
+            "interconnect")}
+        out[name]["cli_seconds"] = run["seconds"]
+        _say(f"[{tag}] --scaling {SHARD_P} on {name} "
+             f"({run['doc']['kernel']['name']}): halo_elements_measured "
+             f"{s['halo_elements_measured']} (communication_volume: "
+             f"{halos[name]}), all_gather_elements "
+             f"{s['all_gather_elements']}, weak_efficiency "
+             f"{s['weak_efficiency']:.4f}, interconnect "
+             f"{s['interconnect']['name']} at "
+             f"{s['interconnect']['gbps_per_direction']} GB/s a direction, "
+             f"efficiency {s['interconnect_efficiency_assumed']} assumed "
+             f"(breakeven {s['interconnect_efficiency_breakeven']:.4f}), "
+             f"t_local {s['t_local_s']:.3e} s, t_comm {s['t_comm_s']:.3e} "
+             f"s; {run['seconds']:.1f} s in the CLI")
+        if s["halo_elements_measured"] != halos[name]:
+            _fail(f"[{tag}] --scaling on {name}: halo_elements_measured "
+                  f"{s['halo_elements_measured']} != {halos[name]}")
+    return out
+
+
+def _worst_halo(csr) -> int:
+    """The worst shard's distinct off-shard reads, by
+    communication_volume over the nnz-balanced partition."""
+    from spmv_tpu_torch.models.partition import rows_partition_balanced_nnz
+    from spmv_tpu_torch.parallel import communication_volume
+
+    need = communication_volume(csr, rows_partition_balanced_nnz(
+        csr.row_ptr, SHARD_P))["need"]
+    return int((need.sum(axis=1) - np.diag(need)).max())
+
+
+def _csr_of_dia(dia):
+    """The host CSR of a DIA matrix whose stored zeros are no entries (a
+    generated poisson2d's), as ``CsrMatrix.from_matrix_market`` builds it
+    from the entries: rows in order, each row's columns ascending (the
+    offsets are).  A few seconds at 16.8M rows, where the conversion
+    from the 84M entries takes half a minute."""
+    from spmv_tpu_torch.models import CsrMatrix
+
+    n = dia.num_rows
+    data = np.asarray(dia.data)
+    keep = data != 0
+    cols = np.arange(n)[None, :] + np.asarray(dia.offsets)[:, None]
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(keep.sum(axis=0), out=row_ptr[1:])
+    keep = keep.T
+    return CsrMatrix(n, dia.num_columns, int(row_ptr[-1]), 1, row_ptr,
+                     cols.T[keep].astype(np.int32), data.T[keep])
+
+
+def phase_sharded(device, smi_line, grid_dia=None, skew_mm=None):
+    """The sharded paths (phase 30), on SHARD_P virtual shards of the
+    card: every product held against the unsharded kernel, its launches
+    counted exactly; CG and batched CG; --scaling in a child process;
+    dryrun_multichip.  The launches of the sharded calls (not the
+    unsharded ones they are held against, nor the timing runs) make the
+    path's counts.  ``grid_dia`` and ``skew_mm`` (optional) are
+    poisson2d(SHARD_GRID²)'s DIA host matrix and the skewed matrix's
+    entries, made by earlier phases; without them the phase makes them.
+    Until the --scaling child has measured its triad, this process does
+    host work only."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import poisson2d, powerlaw
+    from spmv_tpu_torch.models import CsrMatrix, DiaMatrix
+    from spmv_tpu_torch.parallel import make_mesh
+    from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    tag = "30 sharded"
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    proc = _start_scaling_child()
+    try:
+        path = _ShardPath()
+        mesh = make_mesh(SHARD_P, devices=[device] * SHARD_P)
+        t0 = time.perf_counter()
+        dia = (grid_dia if grid_dia is not None else DiaMatrix
+               .from_matrix_market(poisson2d(SHARD_GRID, SHARD_GRID)))
+        csr = _csr_of_dia(dia)
+        if csr.num_entries != dia.num_entries:
+            _fail(f"[{tag}] the CSR of the DIA matrix holds {csr.num_entries}"
+                  f" entries, not {dia.num_entries}")
+        skew = CsrMatrix.from_matrix_market(
+            skew_mm if skew_mm is not None else powerlaw(
+                SHARD_SKEW_ROWS, SHARD_SKEW_ROWS, 8.0, alpha=1.5, seed=5))
+        del grid_dia, skew_mm
+        halos = {"poisson": _worst_halo(csr), "powerlaw": _worst_halo(skew)}
+        label = f"poisson2d({SHARD_GRID},{SHARD_GRID})"
+        skew_label = (f"powerlaw({SHARD_SKEW_ROWS}, {SHARD_SKEW_ROWS}, 8.0, "
+                      "alpha 1.5, seed 5)")
+        _say(f"[{tag}] host {label} CSR (from its DIA) and {skew_label} CSR "
+             f"and both halo counts in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        triad_gbps = _scaling_triad(proc, tag)
+        _say(f"[{tag}] waited {time.perf_counter() - t0:.1f} s for the "
+             f"--scaling child's triad ({triad_gbps:.1f} GB/s)")
+        products = {label: {
+            "dia_halo": _shard_case("dia", dia, f32, mesh, path, tag,
+                                    f"{label} DIA halo"),
+            "csr_all_gather": _shard_case("csr", csr, f32, mesh, path, tag,
+                                          f"{label} CSR all-gather"),
+            "csr_halo": _shard_case("halo", csr, f32, mesh, path, tag,
+                                    f"{label} CSR halo")}}
+        del csr, dia
+        _sync(device)
+        csr, label = skew, skew_label
+        del skew
+        products[label] = {"csr_halo": _shard_case(
+            "halo", csr, f32, mesh, path, tag, f"{label} CSR halo",
+            exchange="all2all")}
+        del csr
+        _sync(device)
+        mm = poisson2d(SHARD_CG_GRID, SHARD_CG_GRID)
+        csr, dia = CsrMatrix.from_matrix_market(mm), \
+            DiaMatrix.from_matrix_market(mm)
+        del mm
+        label = f"poisson2d({SHARD_CG_GRID},{SHARD_CG_GRID})"
+        products[label] = {
+            "dia_halo": _shard_case("dia", dia, f64, mesh, path, tag,
+                                    f"{label} DIA halo", time_it=False),
+            "csr_all_gather": _shard_case(
+                "csr", csr, f64, mesh, path, tag, f"{label} CSR all-gather",
+                time_it=False),
+            "csr_halo": _shard_case("halo", csr, f64, mesh, path, tag,
+                                    f"{label} CSR halo", time_it=False),
+            "csr_halo_all2all": _shard_case(
+                "halo", csr, f64, mesh, path, tag,
+                f"{label} CSR halo (all2all)", exchange="all2all",
+                time_it=False)}
+        for dt in (f64, f32):
+            dtn = str(dt).removeprefix("torch.")
+            for kind, host in (("dia", dia), ("halo", csr)):
+                products[label][f"{kind}_spmm_k{SHARD_CG_K}_{dtn}"] = \
+                    _shard_spmm_case(kind, host, dt, mesh, path, tag,
+                                     SHARD_CG_K)
+        cg = _shard_cg(device, mesh, csr, dia, path, tag)
+        del csr, dia
+        _sync(device)
+        dry, delta = path.run(lambda: dryrun_multichip(SHARD_P,
+                                                       device=device))
+        _say(f"[{tag}] dryrun_multichip({SHARD_P}) on {device}: launches "
+             f"{delta}")
+        scaling = _shard_scaling(proc, halos, triad_gbps, tag)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    launches = {k.removesuffix("_core"): n for k, n in path.launches.items()}
+    _say(f"[{tag}] launches on the sharded path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            _fail(f"[{tag}] {name} was never launched on the sharded path")
+    secs = time.perf_counter() - t_phase
+    _say(f"[{tag}] phase took {secs:.1f} s")
+    return {"launches": launches, "products": products, "cg": cg,
+            "scaling": scaling, "dryrun": dry, "shards": SHARD_P,
+            "seconds": secs, "card": smi_line,
+            "note": "virtual shards on one card: no interconnect in any "
+                    "time"}
+
+
 def _tri_row(solvers) -> dict:
     """The tri_solve row of the kernels' JSON line: the ILU(0) unit L
     after --reorder color at full width (the full-width run's shape, the
@@ -6057,7 +6657,9 @@ def main() -> int:
     # the WELL host matrices, for the traffic split (phase 26)
     well_hosts = {label: (w, segmented)
                   for label, (w, segmented, _) in well_mats.items()}
-    del well_mats, dia_of, full, cg_well
+    # the DIA host matrix of poisson2d(FULL_GRID²) stays for the sharded
+    # paths (phase 30)
+    del well_mats, dia_of, cg_well
     _sync(device)
 
     bsr_run = phase_bsr_path(device, smi_line, triad_gbps)
@@ -6112,11 +6714,15 @@ def main() -> int:
     # from zero in phase_traffic
     traffic = phase_traffic(device, (ell_mm, ell_host, ell_A), well_hosts,
                             hybrid_mm, hybrid_host, smi_line, triad_gbps)
-    del ell_mm, ell_host, ell_A, well_hosts, hybrid_mm, hybrid_host
+    # the skewed matrix's entries stay for the sharded paths (phase 30)
+    del ell_mm, ell_host, ell_A, well_hosts, hybrid_host
     _sync(device)
     simulate = phase_simulate(device)
     solvers = phase_solvers(device, smi_line, triad_gbps)
     eigs = phase_eigs(device, smi_line, triad_gbps)
+    _sync(device)
+    sharded = phase_sharded(device, smi_line, full, hybrid_mm)
+    del full, hybrid_mm
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -6268,7 +6874,12 @@ def main() -> int:
             "launches", "cli", "full_width", "natural_cli", "errors",
             "launches_an_apply", "least_launch_ms", "handoff_ms",
             "plan_line", "seconds")},
-        "eigs": eigs}
+        "eigs": eigs,
+        "sharded": sharded}
+    for row in summary["kernels"]:
+        if row["name"] in sharded["launches"]:
+            row["launches_on_the_sharded_path"] = sharded["launches"][
+                row["name"]]
     # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
     # part's launches and the ELL part's, each beside torch.sparse of
     # that part's own entries

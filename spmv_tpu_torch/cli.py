@@ -20,6 +20,7 @@ runs the modes ported so far, printing the same JSON documents:
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --eigs 8 \
         [--which smallest|largest] [--eigs-tol 1e-6] [--eigs-maxiter 200] \
         [--precondition none|jacobi|amg]
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --scaling 4
     python -m spmv_tpu_torch --triad 100000000 --profile 5
     python -m spmv_tpu_torch --list-devices
 
@@ -34,8 +35,8 @@ rows numbered color by color, which collapses an incomplete factor's
 triangular-solve levels to the colors); ``-s auto`` picks the format as
 the JAX CLI does (``auto_format``, the ``spmm`` workload when ``--spmm``
 is given, which lets a block-structured matrix pick BSR) and refuses
-``--reorder``.  Every other mode or flag (``--scaling``,
-``--jax-profile``, ``--list-profile-events``, ``--flush-caches``) prints
+``--reorder``.  Every other mode or flag (``--jax-profile``,
+``--list-profile-events``, ``--flush-caches``) prints
 ``spmv-tpu-torch: ... not yet ported`` and exits 1.  The
 device is the first CUDA device; without one the CLI exits 1, unless
 ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as the tests do).
@@ -103,6 +104,16 @@ WELL, K7 on BSR, the CSR SpMM on CSR and COO, the ELL SpMM on ELL and,
 for hybrid, the CSR SpMM after it), on B = A X with column j of X
 equal to (j + 1) * ones, and reports each column's iterations, residual and
 error, as the JAX CLI does.
+
+``--scaling P`` predicts the sharded SpMV step on P cards
+(``perfmodel.scaling``): the halo each shard of the nnz-balanced row
+partition must receive, counted on the host from the matrix's CSR view
+(the CSR matrix itself, else the Matrix Market entries), the local time
+priced with the triad measured on the device, the communication over an
+assumed NVLink 4 rate with its breakeven efficiency.  The report keeps
+the JAX CLI's keys but for the ICI-named ones (``interconnect``,
+``interconnect_efficiency_assumed``, ``interconnect_efficiency_breakeven``)
+and prices ``value_bytes`` at the value dtype's width.
 
 ``--eigs K`` computes the K extreme eigenpairs with block LOBPCG
 (``ops.eigen.lobpcg``) over the format's SpMM, with the JAX CLI's guards
@@ -296,7 +307,6 @@ def _check_ported(args) -> None:
         return
     for flag, on in (
         ("--list-profile-events", args.list_profile_events is not None),
-        ("--scaling", args.scaling > 0),
         ("--jax-profile", args.jax_profile is not None),
         ("--flush-caches", args.flush_caches),
     ):
@@ -390,6 +400,72 @@ def _list_devices(out) -> None:
         },
         "machine_models": [measured_machine(dev).to_json()],
     }, out)
+
+
+def _scaling_report(args, out, device, dtype) -> None:
+    """Predict the P-card sharded-SpMV step for the loaded matrix (the
+    JAX CLI's ``_scaling_report``).
+
+    The halo volume is counted on the host from the actual nnz-balanced
+    row partition (``parallel.halo.communication_volume``); the local
+    time is priced with the triad measured on ``device``; the NVLink
+    efficiency is an assumption, printed beside the efficiency at which
+    the weak-scaling claim would fail.  ``value_bytes`` is the value
+    dtype's width, where the JAX CLI prices 4 bytes at every dtype.
+    """
+    import numpy as np
+
+    from spmv_tpu_torch.models.csr import CsrMatrix
+    from spmv_tpu_torch.models.partition import rows_partition_balanced_nnz
+    from spmv_tpu_torch.parallel.halo import communication_volume
+    from spmv_tpu_torch.perfmodel import measured_machine, spmv_scaling_model
+    from spmv_tpu_torch.utils.jsonio import dump_json
+
+    P = args.scaling
+    kernel, mm = _make_kernel(args, device, dtype)
+    if kernel.name == "triad":
+        raise SpmvError("--scaling needs a matrix kernel, not triad")
+    kernel.init(verbose=args.verbose)
+    m = kernel.matrix
+    csr = (m if isinstance(m, CsrMatrix) else CsrMatrix.from_matrix_market(
+        kernel._mm if kernel._mm is not None else mm))
+    if csr.num_rows < P:
+        raise SpmvError(
+            f"--scaling {P} exceeds the row count {csr.num_rows}")
+    bounds = rows_partition_balanced_nnz(csr.row_ptr, P)
+    vol = communication_volume(csr, bounds)
+    need = np.asarray(vol["need"])
+    # the exchanged elements of the worst shard (the halo paths pad
+    # every shard's exchange to it): its distinct off-shard reads
+    off_diag = need.sum(axis=1) - np.diag(need)
+    halo = int(off_diag.max()) if P > 1 else 0
+    # priced as the measured element count (ragged-halo: halo *
+    # value_bytes), as the JAX CLI does: it already counts both sides
+    scheme = "ragged-halo"
+    machine = measured_machine(device)
+    nnz_per_row = max(csr.num_entries / max(csr.num_rows, 1), 1.0)
+    model = spmv_scaling_model(
+        num_shards=P,
+        rows_per_shard=-(-csr.num_rows // P),
+        num_diagonals=max(int(round(nnz_per_row)), 1),
+        halo=halo,
+        value_bytes=dtype.itemsize,
+        scheme=scheme,
+        machine=machine,
+    )
+    doc = model.to_json()
+    doc["scheme"] = scheme
+    doc["halo_elements_measured"] = halo
+    doc["all_gather_elements"] = int(vol["all_gather_elements"])
+    doc["note"] = (
+        f"local time priced at the triad measured on {machine.name} "
+        f"({machine.hbm_gbps:.1f} GB/s); interconnect_efficiency_assumed is "
+        "an assumption (no second card reachable): the weak-scaling claim "
+        "fails below interconnect_efficiency_breakeven")
+    dump_json({"kernel": {"name": kernel.name,
+                          "num_rows": csr.num_rows,
+                          "num_entries": csr.num_entries},
+               "scaling": doc}, out)
 
 
 def _profile(args, out, device, dtype) -> None:
@@ -891,6 +967,8 @@ def main(argv=None, out=None) -> int:
         dtype = default_value_dtype()
         if args.eigs > 0:
             _solve_eigs(args, out, device, dtype)
+        elif args.scaling > 0:
+            _scaling_report(args, out, device, dtype)
         elif args.cg > 0:
             _solve_cg(args, out, device, dtype)
         elif args.profile > 0:

@@ -5,7 +5,8 @@
   ``HybridMatrix``, ``DiaMatrix``, ``WellCwMatrix``, ``WellMatrix`` and
   ``BsrMatrix``, with their packers, the ``reorder`` orders that
   ``load_matrix``'s ``__RCM`` / ``__GP<n>`` suffixes apply, and
-  ``auto_format``, the format selection.
+  ``auto_format``, the format selection, and the row partitioners of
+  the sharded paths (``partition``).
 - Device containers (``nn.Module`` with buffers): ``DeviceDia``,
   ``DeviceCsr``, ``DeviceEll``, ``DeviceHybrid``, ``DeviceSparseCsr``,
   ``DeviceWellCw``, ``DeviceWell`` and ``DeviceBsr``,
@@ -43,6 +44,12 @@ from spmv_tpu_torch.models.device import (
 from spmv_tpu_torch.models.dia import DiaMatrix
 from spmv_tpu_torch.models.ell import ELL_PAD_SENTINEL, EllMatrix
 from spmv_tpu_torch.models.hybrid import HybridMatrix
+from spmv_tpu_torch.models.partition import (
+    nnz_per_part,
+    partition_bounds_to_sizes,
+    rows_partition_balanced_nnz,
+    rows_partition_equal,
+)
 from spmv_tpu_torch.models.select import auto_format
 from spmv_tpu_torch.models.well import WellMatrix
 from spmv_tpu_torch.models.wellcw import WellCwMatrix
@@ -54,4 +61,6 @@ __all__ = ["CooMatrix", "CsrMatrix", "EllMatrix", "HybridMatrix",
            "DeviceBsr", "DeviceCwLevel", "DeviceCwPool", "DeviceCwMerged",
            "default_value_dtype", "device_put_matrix", "dia_from_spmv_tpu",
            "csr_from_spmv_tpu", "ell_from_spmv_tpu", "hybrid_from_spmv_tpu",
-           "wellcw_from_spmv_tpu", "well_from_spmv_tpu", "bsr_from_spmv_tpu"]
+           "wellcw_from_spmv_tpu", "well_from_spmv_tpu", "bsr_from_spmv_tpu",
+           "rows_partition_equal", "rows_partition_balanced_nnz",
+           "partition_bounds_to_sizes", "nnz_per_part"]

@@ -8,7 +8,9 @@ eagerly in a Python loop; the stopping rule is the JAX package's exactly
 max_iterations``, compared in the vector dtype; per column in the
 batched solver; BiCGSTAB also stops at a rho or omega breakdown),
 checked with one host sync per iteration, so iteration counts compare
-one to one with the JAX solvers.
+one to one with the JAX solvers.  As there, the dots run over every
+element (``jnp.vdot``), so a matvec over the sharded paths' stacked
+(P, R) vectors (``parallel``) runs unchanged.
 """
 
 from __future__ import annotations
@@ -47,9 +49,15 @@ class BatchedCgResult(NamedTuple):
     iterations: torch.Tensor      # (k,) int32, each column's own count
 
 
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b> over every element, as ``jnp.vdot`` (real): 1-D vectors
+    and the sharded paths' stacked (P, R) layouts alike."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
 def _tol2(b: torch.Tensor, tol: float, b_norm2=None) -> torch.Tensor:
     if b_norm2 is None:
-        b_norm2 = torch.dot(b, b)
+        b_norm2 = _vdot(b, b)
     b_norm2 = torch.clamp(b_norm2, min=1e-300)
     return torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 * b_norm2
 
@@ -107,20 +115,20 @@ def preconditioned_conjugate_gradient(
     r = b - matvec(x)
     z = preconditioner(r) if preconditioner is not None else r
     p = z.clone()
-    rz = torch.dot(r, z)
-    rr = torch.dot(r, r) if preconditioner is not None else rz
+    rz = _vdot(r, z)
+    rr = _vdot(r, r) if preconditioner is not None else rz
     tol2 = _tol2(b, tol)
     k = 0
     while k < max_iterations and bool(rr > tol2):
         ap = matvec(p)
-        alpha = rz / torch.dot(p, ap)
+        alpha = rz / _vdot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
         if recompute_every and (k + 1) % recompute_every == 0:
             r = b - matvec(x)
         z = preconditioner(r) if preconditioner is not None else r
-        rz_new = torch.dot(r, z)
-        rr = torch.dot(r, r) if preconditioner is not None else rz_new
+        rz_new = _vdot(r, z)
+        rr = _vdot(r, r) if preconditioner is not None else rz_new
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
@@ -157,24 +165,24 @@ def bicgstab(
     rho_prev = alpha_prev = omega_prev = one
     p = torch.zeros_like(b)
     v = torch.zeros_like(b)
-    rr = torch.dot(r, r)
+    rr = _vdot(r, r)
     go = rr > tol2
     k = 0
     while k < max_iterations and bool(go):
-        rho = torch.dot(rhat, r)
+        rho = _vdot(rhat, r)
         beta = (rho / _safe(rho_prev, eps)) * (alpha_prev /
                                                _safe(omega_prev, eps))
         p = r + beta * (p - omega_prev * v)
         ph = preconditioner(p)
         v = matvec(ph)
-        alpha = rho / _safe(torch.dot(rhat, v), eps)
+        alpha = rho / _safe(_vdot(rhat, v), eps)
         s = r - alpha * v
         sh = preconditioner(s)
         t = matvec(sh)
-        omega = torch.dot(t, s) / _safe(torch.dot(t, t), eps)
+        omega = _vdot(t, s) / _safe(_vdot(t, t), eps)
         x = x + alpha * ph + omega * sh
         r = s - omega * t
-        rr = torch.dot(r, r)
+        rr = _vdot(r, r)
         # breakdown (rho or omega ~ 0): stop iterating, keep the iterate
         go = (rr > tol2) & (rho.abs() >= eps) & (omega.abs() >= eps)
         rho_prev, alpha_prev, omega_prev = rho, alpha, omega
@@ -189,8 +197,18 @@ def _safe(v: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
 
 
 def _colsum(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Per-column <v, w> of two (n, k) tensors."""
-    return (v * w).sum(dim=0)
+    """Per-column <v, w>: the sum over every axis but the column axis
+    (axis 1), as in the JAX package, so it takes the (n, k) layout and
+    the sharded DIA block's stacked (P, k, Rb) alike."""
+    return (v * w).sum(dim=tuple(i for i in range(v.dim()) if i != 1))
+
+
+def _bcast_cols(a: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Per-column scalars (k,) shaped to broadcast along axis 1 of an
+    ndim-dimensional block."""
+    shape = [1] * ndim
+    shape[1] = -1
+    return a.reshape(shape)
 
 
 def batched_conjugate_gradient(
@@ -203,6 +221,9 @@ def batched_conjugate_gradient(
 ) -> BatchedCgResult:
     """Multi-RHS CG: k independent per-column recurrences sharing one
     SpMM (``matmat``) per iteration, for B of shape (n, k), from X = 0.
+    The columns lie on axis 1 and every other axis is summed, as in the
+    JAX function, so the sharded DIA block's stacked (P, k, Rb) layout
+    (``parallel.make_sharded_dia_matmat``) runs unchanged.
 
     As the JAX function: each column carries its own alpha and beta and
     converges on its own relative residual; a converged column freezes
@@ -232,7 +253,8 @@ def batched_conjugate_gradient(
         AP = matmat(P)
         pap = _colsum(P, AP)
         one = torch.ones_like(pap)
-        alpha = torch.where(active, rz / torch.where(active, pap, one), 0.0)
+        alpha = _bcast_cols(torch.where(
+            active, rz / torch.where(active, pap, one), 0.0), B.dim())
         X = X + alpha * P
         R = R - alpha * AP
         if recompute_every and (k + 1) % recompute_every == 0:
@@ -242,7 +264,7 @@ def batched_conjugate_gradient(
         rr = _colsum(R, R) if preconditioner is not None else rz_new
         beta = torch.where(active, rz_new / torch.where(active, rz, one),
                            0.0)
-        P = Z + beta * P
+        P = Z + _bcast_cols(beta, B.dim()) * P
         rz = rz_new
         iters += active.to(torch.int32)
         k += 1

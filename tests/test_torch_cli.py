@@ -2,7 +2,8 @@
 
 Each ported mode prints a document with the JAX CLI's top-level keys
 for the same flags; simulation mode and ``--traffic-split`` exit as the
-JAX CLI does; every unported mode exits 1 with "not yet ported";
+JAX CLI does (``--scaling`` too, with its ICI-named keys renamed);
+every unported mode exits 1 with "not yet ported";
 importing the port and running its CPU paths never loads JAX nor any
 module of the JAX package (checked in a subprocess, since this test
 process already imported both, and by a scan of the port's imports);
@@ -118,21 +119,48 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
 
 @pytest.mark.parametrize("argv", [
     ["--spmv-format", "ell", "--profile", "2", "--flush-caches"],
-    ["--spmv-format", "coo", "--scaling", "2"],
     ["--spmv-format", "coo-atomic", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--cg", "10", "--list-profile-events"],
     ["--spmv-format", "dia", "--cg", "10", "--precondition", "ic0",
      "--flush-caches"],
-    ["--spmv-format", "dia", "--scaling", "2"],
     ["--spmv-format", "dia", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--profile", "2", "--flush-caches"],
-    ["--spmv-format", "dia", "--profile", "2", "--reorder", "color",
-     "--scaling", "4"],
 ], ids=lambda a: "_".join(a).replace("-", "") or "simulate")
 def test_unported_modes_exit_1(argv, matrix_file, capsys):
     rc, text = _run(main, ["--matrix", matrix_file] + argv)
     assert rc == 1 and text == ""
     assert "not yet ported" in capsys.readouterr().err
+
+
+# --scaling is ported: these cases stood in test_unported_modes_exit_1 and
+# keep their argv and ids here, each run beside the JAX CLI (--scaling
+# takes precedence over --profile in both).  The ICI-named keys take
+# interconnect names (tests/test_torch_shard_plan.py holds the values).
+SCALING_CASES = [
+    ["--spmv-format", "coo", "--scaling", "2"],
+    ["--spmv-format", "dia", "--scaling", "2"],
+    ["--spmv-format", "dia", "--profile", "2", "--reorder", "color",
+     "--scaling", "4"],
+]
+
+
+@pytest.mark.parametrize("argv", SCALING_CASES,
+                         ids=lambda a: "_".join(a).replace("-", ""))
+def test_scaling_runs_as_jax_cli(argv, matrix_file, capsys):
+    argv = ["--matrix", matrix_file] + argv
+    rc, text = _run(main, argv)
+    jrc, jtext = _run(jax_main, argv)
+    assert rc == jrc == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    doc, want = json.loads(text), json.loads(jtext)
+    assert set(doc) == set(want) == {"kernel", "scaling"}
+    assert doc["kernel"] == want["kernel"]
+    assert set(doc["scaling"]) == {
+        k.replace("ici_", "interconnect_") for k in want["scaling"]
+    } | {"interconnect"}
+    for k in ("halo_elements_measured", "all_gather_elements",
+              "rows_per_shard", "num_shards"):
+        assert doc["scaling"][k] == want["scaling"][k], k
 
 
 # --eigs is ported: these cases stood in test_unported_modes_exit_1 and
@@ -290,6 +318,7 @@ def test_port_never_imports_jax(matrix_file):
                      ["-s", "csr", "--eigs", "2", "--precondition", "amg"],
                      ["-s", "dia", "--eigs", "2", "--precondition",
                       "jacobi"],
+                     ["-s", "csr", "--scaling", "2"],
                      ["-s", "well", "--profile", "0", "--trace-config",
                       {os.path.join(REPO, "configs", "cpu-2thread.json")!r}]):
             out = io.StringIO()
@@ -297,7 +326,9 @@ def test_port_never_imports_jax(matrix_file):
             assert rc == 0, (argv, rc)
             doc = json.loads(out.getvalue())
             assert (doc.get("device") or doc.get("cg") or doc.get("eigs")
-                    or doc["cache_misses"]) is not None
+                    or doc.get("scaling") or doc["cache_misses"]) is not None
+        from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
+        dryrun_multichip(2)
         import spmv_tpu_torch.kernels, spmv_tpu_torch.profile.report
         import spmv_tpu_torch.profile.harness, spmv_tpu_torch.perfmodel
         assert "jax" not in sys.modules, "the port imported jax"

@@ -11,7 +11,11 @@ level mode, with ``BlockTriSolve``'s rectangular DIA and CSR blocks
 against its CPU run; and LOBPCG (``ops.eigen.lobpcg``) with K2, the CSR
 SpMM and the block AMG apply against its CPU run (float64 eigenvalues
 at rtol 1e-10, one SpMM launch for X, one for P and one a step), and its
-float32 products kept off TF32 when the process switches TF32 on.
+float32 products kept off TF32 when the process switches TF32 on; and the
+sharded paths (``parallel``) on 1, 2 and 4 virtual shards of the card:
+each sharded SpMV and SpMM against its CPU run and the unsharded kernel,
+one launch a shard (two for the halo CSR path's shards that read a
+halo), CG within 2 iterations of its CPU run.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -2532,3 +2536,112 @@ def test_lobpcg_float32_contractions_stay_float32(cuda):
     assert float(bad.residual_norms.max()) > 1e-4
     np.testing.assert_allclose(good.eigenvalues.cpu().numpy(),
                                _poisson_smallest(40, 36, 4), rtol=1e-3)
+
+
+# The sharded paths (``parallel``) on P virtual shards of the card: each
+# shard's product one launch of the kernel of its format (two for the halo
+# CSR path where a shard reads a halo), held against the same sharded
+# product on the CPU (the plain versions) and against the unsharded
+# kernel; CG over each strategy stops within 2 iterations of its CPU run.
+
+SHARD_P = (1, 2, 4)
+
+
+def _sharded(kind, m, d, P, dtype, device, exchange="auto"):
+    """(sharded matrix, product, stack, unstack, counted wrappers)."""
+    from spmv_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(P, devices=[device] * P)
+    if kind == "dia":
+        A = par.shard_dia(d, P, dtype=dtype, mesh=mesh)
+        return (A, par.make_sharded_dia_matvec(A, mesh),
+                lambda v: par.stack_dia_vector(v, A),
+                lambda v: par.unstack_dia_vector(v, A), (dia_spmv_core,))
+    if kind == "csr":
+        A = par.shard_csr(m, P, dtype=dtype, mesh=mesh)
+        return (A, par.make_sharded_matvec(A, mesh),
+                lambda v: par.stack_vector(v, A),
+                lambda v: par.unstack_vector(v, A), (csr_spmv_core,))
+    A = par.shard_csr_halo(m, P, dtype=dtype, mesh=mesh, exchange=exchange)
+    return (A, par.make_sharded_halo_matvec(A, mesh),
+            lambda v: par.stack_vector(v, A),
+            lambda v: par.unstack_vector(v, A), (csr_spmv_core,))
+
+
+@pytest.mark.parametrize("P", SHARD_P)
+@pytest.mark.parametrize("kind,exchange", [("dia", "auto"), ("csr", "auto"),
+                                           ("halo", "auto"),
+                                           ("halo", "all2all")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sharded_spmv_on_the_card(cuda, P, kind, exchange, dtype):
+    mm = poisson2d(48, 40)
+    m, d = CsrMatrix.from_matrix_market(mm), DiaMatrix.from_matrix_market(mm)
+    x = np.random.default_rng(7).standard_normal(m.num_rows)
+    A, mv, stack, unstack, wrappers = _sharded(kind, m, d, P, dtype, cuda,
+                                               exchange)
+    before = [w.launches for w in wrappers]
+    xs = stack(x)
+    y = mv(xs)
+    y2 = mv(xs)
+    torch.cuda.synchronize()
+    launches = sum(w.launches - b for w, b in zip(wrappers, before))
+    extra = 0 if kind != "halo" else sum(b is not None for b in A.boundary)
+    assert launches == 2 * (P + extra)
+    assert torch.equal(y, y2)
+    _, cmv, cstack, _, _ = _sharded(kind, m, d, P, dtype,
+                                    torch.device("cpu"), exchange)
+    want = cmv(cstack(x))
+    scale = float(want.abs().max())
+    assert float((y.cpu() - want).abs().max()) <= TOL[dtype] * scale
+    full = (DeviceDia.from_host(d, dtype=dtype, device=cuda) if kind == "dia"
+            else DeviceCsr.from_host(m, dtype=dtype, device=cuda))
+    core = dia_spmv_core if kind == "dia" else csr_spmv_core
+    ref = core(full, torch.from_numpy(x).to(cuda, dtype)).cpu().numpy()
+    assert np.abs(unstack(y) - ref).max() <= TOL[dtype] * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("P", SHARD_P)
+def test_sharded_spmm_on_the_card(cuda, P):
+    """The DIA SpMM (K2 a shard, stacked (P, k, Rb)) and the halo CSR SpMM
+    (interior and boundary CSR SpMM a shard, stacked (P, R, k)) against
+    their CPU runs."""
+    from spmv_tpu_torch import parallel as par
+
+    mm = poisson2d(48, 40)
+    m, d = CsrMatrix.from_matrix_market(mm), DiaMatrix.from_matrix_market(mm)
+    X = np.random.default_rng(8).standard_normal((m.num_rows, 3))
+    for device in (cuda, torch.device("cpu")):
+        mesh = par.make_mesh(P, devices=[device] * P)
+        D = par.shard_dia(d, P, dtype=torch.float64, mesh=mesh)
+        H = par.shard_csr_halo(m, P, dtype=torch.float64, mesh=mesh)
+        k2, spmm = dia_spmm_core.launches, csr_spmm_core.launches
+        Yd = par.unstack_dia_matrix(par.sharded_dia_spmm(
+            D, par.stack_dia_matrix(X, D), mesh), D)
+        Yh = par.unstack_block(par.sharded_halo_spmm(
+            H, par.stack_block(X, H), mesh), H)
+        if device.type == "cuda":
+            got = (Yd, Yh)
+            assert dia_spmm_core.launches - k2 == P
+            assert csr_spmm_core.launches - spmm == P + sum(
+                b is not None for b in H.boundary)
+    for a, b in zip(got, (Yd, Yh)):
+        assert np.abs(a - b).max() <= 1e-12 * np.abs(b).max()
+
+
+@pytest.mark.parametrize("kind", ["dia", "csr", "halo"])
+def test_sharded_cg_on_the_card(cuda, kind):
+    """CG over each strategy at P = 4, float64: within 2 iterations of its
+    CPU run, x at 1e-8 of the solution."""
+    mm = poisson2d(48, 40)
+    m, d = CsrMatrix.from_matrix_market(mm), DiaMatrix.from_matrix_market(mm)
+    b = m.spmv(np.ones(m.num_rows))
+    from spmv_tpu_torch.ops import conjugate_gradient
+
+    res = {}
+    for device in (cuda, torch.device("cpu")):
+        _, mv, stack, unstack, _ = _sharded(kind, m, d, 4, torch.float64,
+                                            device)
+        r = conjugate_gradient(mv, stack(b), tol=1e-10, max_iterations=2000)
+        res[device.type] = (r.iterations, unstack(r.x))
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 2
+    assert np.abs(res["cuda"][1] - 1.0).max() <= 1e-8
