@@ -106,7 +106,7 @@ Phases (each prints readable lines; any failure exits non-zero):
 9. Batched CG, the bench's solver leg: poisson2d(1024, 1024) in float32,
    k = 4, on DIA (K2) and on WELL-CW (K4a): us per iteration of batched
    against single-RHS CG (fixed iteration counts, the slope between two
-   lengths; host clock, the median and range of 11 interleaved rounds,
+   lengths; host clock, the median and range of 5 interleaved rounds,
    and the kernels' device time from torch.profiler), the throughput
    against k sequential solves (k t1 / tk), and a solve to tolerance of
    B = A ((j + 1) ones), B from the fp64 host product, whose columns
@@ -297,7 +297,7 @@ Phases (each prints readable lines; any failure exits non-zero):
    the card's work): in float64 within 2; in float32 within 2,
    Chebyshev's within one check interval (20), BiCGSTAB's within a
    tenth; then -s dia --reorder color --solver bicgstab --precondition
-   ilu0 --cg 20 at poisson2d(4096, 4096) and -s csr --solver cg
+   ilu0 --cg 20 at poisson2d(2048, 2048) and -s csr --solver cg
    --precondition ic0 --cg 50 at poisson2d(1024, 1024), natural order,
    float32, through the CLI's main (its Matrix Market reader handed the
    generated matrix): seconds (host ms an iteration at 1024), host
@@ -330,7 +330,7 @@ Phases (each prints readable lines; any failure exits non-zero):
    K2 launched 2 + iterations a solve (plus the symmetry probe's 2 and
    the one-step warm-up's 3), the CSR SpMM a whole number of 11-launch
    V-cycle levels an apply, the CSR SpMV never (the block apply has no
-   column loop); then --eigs 4 --precondition amg at poisson2d(256, 256)
+   column loop); then --eigs 4 --precondition amg at poisson2d(128, 128)
    on dia, csr, ell, hybrid, well and wellcw in float32 (1e-4) and
    float64 (1e-8), each converged, within the analytic bound, its
    format's SpMM launched, and against the port's CPU run of the same
@@ -351,7 +351,7 @@ Phases (each prints readable lines; any failure exits non-zero):
    DIA halo SpMV (K1 a shard), the all-gather CSR SpMV (the CSR SpMV a
    shard) and the halo CSR SpMV (neighbor: an interior and a boundary
    launch a shard), at powerlaw(2^22, 2^22, 8.0, alpha 1.5, seed 5) the
-   halo CSR SpMV forced to all2all; at poisson2d(1024, 1024) the same
+   halo CSR SpMV forced to all2all; at poisson2d(512, 512) the same
    in float64, the halo CSR forced to all2all too, and the DIA SpMM (K2
    a shard) and halo CSR SpMM at k = 4 in float64 and float32.  Each
    product against the unsharded kernel of its format on the same x
@@ -361,7 +361,7 @@ Phases (each prints readable lines; any failure exits non-zero):
    unsharded kernel's (20 back to back, CUDA events, eager; the halo
    exchange alone; the DIA SpMM's two transposes and its K2 launches
    alone).  Then CG over each strategy and batched CG over the DIA
-   matmat (k = 4) at poisson2d(1024, 1024), float64 to 1e-8 and float32
+   matmat (k = 4) at poisson2d(512, 512), float64 to 1e-8 and float32
    to 1e-5, b = A ones from the fp64 host product: iterations within 2
    of the unsharded CG (the port's generic CG over the unsharded kernel;
    ``dia_batched_conjugate_gradient`` for the batched solve), the
@@ -370,8 +370,37 @@ Phases (each prints readable lines; any failure exits non-zero):
    that loads no JAX (its reader handed the generated matrices):
    poisson2d(4096, 4096) with -s dia and the powerlaw matrix with -s csr,
    each ``halo_elements_measured`` held equal to the worst shard's
-   off-shard reads by ``communication_volume``; last
+   off-shard reads, counted from each shard's run of entries; last
    ``dryrun_multichip(4)`` on the card (every error below 1e-3).
+31. The sharded formats on the same 4 virtual shards (the K5a/b,
+   K3a-c, K4a-c, CSR SpMV / SpMM, K7 and tri_solve launches of the
+   sharded calls make the path's counts): at poisson2d(4096, 4096),
+   window rows 4, float32, the WELL all-gather SpMV (one K5b launch a
+   shard on the flat stacked x) and the WELL halo SpMV (K5b over a
+   shard's own columns, the CSR SpMV over its halo), beside phase 12's
+   unsharded K5b; at phase 7's banded_random(2^20, 2048, 8) the WELL-CW
+   halo SpMV and SpMM (k = 8), the neighbor exchange and all2all forced
+   (each shard's interior WELL-CW product and its boundary CSR launch),
+   beside the unsharded WELL-CW SpMV / SpMM; at phase 18's
+   block_random(131072, 131072, 8), k = 128, the BSR halo SpMM (one K7
+   launch a shard on its extended X) in float32 (SIMT) and bf16 (tensor
+   cores), beside the unsharded K7.  Each against the unsharded kernel
+   and the fp64 product (torch.sparse, or a batched product a block, in
+   float64 on the card; max|dy| / max|y| within 1e-5), its launches
+   exactly the container's ``launches_a_product``, whether it is bitwise
+   the unsharded kernel's, ms a product beside the unsharded kernel's
+   and the exchange alone (20 back to back, CUDA events, eager), the
+   exchange's elements (tiles) a step and the host build seconds.  Then
+   Jacobi-PCG against block-Jacobi IC(0) PCG over the halo CSR matvec at
+   poisson2d(1024, 1024), float64 to 1e-8 and float32 to 1e-5: the
+   block-IC(0) one in fewer iterations, tri_solve launched exactly
+   ``launches_an_apply`` an apply, host us an iteration; at
+   poisson2d(256, 256) float32 Chebyshev on 300-step ``lanczos_bounds``
+   (within 20 iterations of the unsharded CSR kernel's Chebyshev on the
+   same bounds) and, in float64 to 1e-8, LOBPCG at k = 4 with the
+   padding rows masked and the block-IC(0) apply a column as its
+   preconditioner (the analytic eigenvalues within 1e-6 relative); last
+   ``dryrun_multichip(4)``.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -402,7 +431,7 @@ in float32 and float64, and at poisson2d(1000, 1000) in float64 (K5a,
 whose float64 x still fits whole), each output compared bit for bit.
 ``--tri-kernels-beside DIR`` does the same for the triangular solve:
 phase 28's natural-order IC(0) L and L^T of poisson2d(1024, 1024) and
-the colored ILU(0) unit L and U of poisson2d(4096, 4096) (the first run
+the colored ILU(0) unit L and U of poisson2d(2048, 2048) (the first run
 pickles the colored factors for the others), each solve alone in
 float32 and float64, and the CLI's --solver gmres --restart 32
 --precondition ic0 at poisson2d(256, 256) in float32 and float64 (host
@@ -414,10 +443,11 @@ main path, max error, ms against
 plain ms, bound and library ms; K7's rows also its launches by path;
 the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
 SpMV's their times at the hybrid's shape, beside torch.sparse of that
-part's own entries; the K1, K2 and CSR rows their launches on the
-sharded path; and summaries of each path,
+part's own entries; the K1, K2, K3a-c, K4a-c, K5a/b, K7, CSR and
+tri_solve rows their launches on the sharded paths (phases 30 and 31);
+and summaries of each path,
 `formats`, `amg`, `traffic_split`, `simulate`, `solvers`, `eigs` and
-`sharded` the last)
+`sharded` the last, with phase 31's under ``formats``)
 and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
@@ -428,6 +458,7 @@ data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -463,8 +494,8 @@ SPMM_CHAIN = 20               # chained SpMMs in the traced window
 COMPARE_KS = (3, 8)           # right-hand sides of the K4 comparisons
 CG_GRID = 1024                # bench.py's solver leg (batched CG)
 CG_K = 4
-CG_ITERS = (50, 250)          # fixed-length solves for the slope
-CG_ROUNDS = 11                # rounds of those solves, for the spread
+CG_ITERS = (25, 125)          # fixed-length solves for the slope
+CG_ROUNDS = 5                 # rounds of those solves, for the spread
 WELL_CLI_GRID = 256           # the WELL CLI phase's poisson2d
 WELL_WHOLE_GRID = 1024        # K5a: x fits whole in float32
 WELL_SEG_GRID = FULL_GRID     # K5b: x past 8 MiB, segmented mode
@@ -517,6 +548,18 @@ def _fail(msg: str) -> None:
 
 def _say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _walled(phase):
+    """Print a phase function's wall seconds on a line of its own when it
+    returns."""
+    @functools.wraps(phase)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = phase(*args, **kw)
+        _say(f"[wall] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+    return run
 
 
 def _sync(device) -> None:
@@ -707,6 +750,7 @@ def _library_line(lib: dict) -> str:
             f"{lib['library_eager_ms']:.4f} ms eager")
 
 
+@_walled
 def phase_device():
     import torch
 
@@ -729,6 +773,7 @@ def phase_device():
 
 
 # ---------------------------------------------------------------- phase 2
+@_walled
 def phase_build():
     from spmv_tpu_torch.ops._build import (
         build_library,
@@ -835,6 +880,7 @@ def _compare(name, dia, dtype, device, k=SPMM_K):
             float((Y.double() - Y_plain.double()).abs().max()))
 
 
+@_walled
 def phase_compare(device, full):
     import torch
 
@@ -991,6 +1037,7 @@ def _compare_cw_spmm(name, w, dev_kw, dtype, k, device, bitwise):
     _say(line + " (each kernel twice, bitwise equal)")
 
 
+@_walled
 def phase_compare_wellcw(device, cg_mats):
     """The WELL-CW SpMV kernels, then the SpMM kernels, on four matrices,
     then K2 and the K4 kernels at the batched-CG leg's shape (``cg_mats``,
@@ -1101,6 +1148,7 @@ def _run_cli(tag, runs):
     return docs
 
 
+@_walled
 def phase_cli(device):
     import torch
 
@@ -1132,6 +1180,7 @@ def phase_cli(device):
 
 
 # ---------------------------------------------------------------- phase 5
+@_walled
 def phase_profile(device, full, full_mm, smi_line):
     import torch
 
@@ -1218,6 +1267,7 @@ def phase_profile(device, full, full_mm, smi_line):
 
 
 # ---------------------------------------------------------------- phase 6
+@_walled
 def phase_cli_wellcw(device):
     from spmv_tpu_torch.io import write_matrix_market
     from spmv_tpu_torch.io.generate import banded_random, poisson2d
@@ -1283,6 +1333,7 @@ def _cw_stream_bytes(A) -> int:
     return b
 
 
+@_walled
 def phase_profile_wellcw(device, cw, cw_mm, smi_line):
     import torch
 
@@ -1373,6 +1424,7 @@ def phase_profile_wellcw(device, cw, cw_mm, smi_line):
 
 
 # ---------------------------------------------------------------- phase 8
+@_walled
 def phase_profile_wellcw_spmm(device, cw, cw_mm, smi_line, t_spmv):
     """The bench's WELL-CW SpMM leg (bench.py:433-468) at k = 8 through
     ``make_kernel("wellcw").spmm_fn``; ``t_spmv`` is phase 7's seconds
@@ -1503,6 +1555,7 @@ def _device_slope(solve, device) -> float:
     return (dev[1] - dev[0]) / (CG_ITERS[1] - CG_ITERS[0])
 
 
+@_walled
 def phase_batched_cg(device, mats, smi_line, tag="9 batched cg"):
     """bench.py's solver leg (bench.py:694-712) on the port: batched CG
     (k = CG_K) against single-RHS CG at poisson2d(CG_GRID²), float32, on
@@ -1559,9 +1612,9 @@ def phase_batched_cg(device, mats, smi_line, tag="9 batched cg"):
                       _spread(thr))
         # B from the fp64 host product, so that a wrong SpMM fails the
         # rms gate instead of solving its own operator
-        X_true = np.ones((n, CG_K)) * np.arange(1, CG_K + 1)
-        rhs = torch.from_numpy(np.stack(
-            [host.spmv(X_true[:, j]) for j in range(CG_K)], axis=1))
+        # A ((j + 1) ones) = (j + 1) A ones: one host product
+        rhs = torch.from_numpy(host.spmv(np.ones(n))[:, None]
+                               * np.arange(1, CG_K + 1))
         res = batched(3000, rhs=rhs.to(device, f32).contiguous(), tol=1e-5)
         X = res.x.double().cpu().numpy()
         errs = [float(np.linalg.norm(X[:, j] - (j + 1)) / np.sqrt(n)
@@ -1782,6 +1835,7 @@ def _variants(kname, part, v, out, run, y_main, flush):
     return found
 
 
+@_walled
 def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     """Each WELL-CW / CSR kernel alone at the full-size matrix: K3c, K3b
     and CSR, and K4a, K4c and the CSR SpMM at k = CW_SPMM_K, on its
@@ -2002,6 +2056,7 @@ def phase_kernels_wellcw(device, cw, smi_line, triad_gbps):
     return found
 
 
+@_walled
 def phase_csr_whole(device, mm, smi_line, triad_gbps):
     """The CSR SpMM on a whole matrix held as one ``DeviceCsr`` (the CSR
     format's own path: every row owns an entry, so no row list) at k =
@@ -2190,6 +2245,7 @@ def _compare_well(name, w, dev_kw, dtype, device):
     return A.segment_rows is not None
 
 
+@_walled
 def phase_compare_well(device, cg_well):
     """K5a and K5b against their plain versions on the JAX WELL tests'
     kinds of matrix: whole x, forced segments of 4 and 2 rows (escaping
@@ -2254,6 +2310,7 @@ def phase_compare_well(device, cg_well):
     return bitwise
 
 
+@_walled
 def phase_cli_well(device):
     from spmv_tpu_torch.io import write_matrix_market
     from spmv_tpu_torch.io.generate import poisson2d
@@ -2277,6 +2334,7 @@ def phase_cli_well(device):
               "to K5's one launch)")
 
 
+@_walled
 def phase_profile_well(device, mats, smi_line):
     """make_kernel("well").run_fn at each size of ``mats`` (label ->
     (host WellMatrix, whether K5b is expected, K1's seconds per SpMV on
@@ -2434,6 +2492,7 @@ def _compacted(R):
                      R.column_index, R.value)
 
 
+@_walled
 def phase_kernels_well(device, profiled, smi_line, triad_gbps):
     """K5a and K5b alone on the DeviceWell of each profiled size, the
     spill folded in: bitwise repeat, max error against the plain version,
@@ -2657,6 +2716,7 @@ def _bsr_path_delta(before: dict) -> dict:
     return {p: n - before[p] for p, n in _bsr_path_counts().items()}
 
 
+@_walled
 def phase_compare_bsr(device):
     """K7 against its plain version on block matrices: block heights 8,
     32, 64 and 128, blocks_per_step 1, 3 and 8, an empty block row, a 300
@@ -2724,6 +2784,7 @@ def phase_compare_bsr(device):
     _sync(device)
 
 
+@_walled
 def phase_cli_well_spmm(device):
     from spmv_tpu_torch.io import write_matrix_market
     from spmv_tpu_torch.io.generate import poisson2d
@@ -2750,6 +2811,7 @@ def phase_cli_well_spmm(device):
               "to K6's one launch)")
 
 
+@_walled
 def phase_profile_well_spmm(device, mats, smi_line):
     """make_kernel("well").spmm_fn(WELL_SPMM_K) on each host matrix of
     ``mats`` (label -> (host WellMatrix, whether K6b is expected, its DIA
@@ -2863,6 +2925,7 @@ def _bsr_regime(num_columns: int, k: int, itemsize: int) -> str:
     return "bsr_spmm_wholex" if x_bytes <= BSR_WHOLEX_BYTES else "bsr_spmm"
 
 
+@_walled
 def phase_cli_bsr(device):
     """-s bsr (--profile with --spmm, and --cg) on a small poisson2d, and
     -s auto --spmm on a small block_random, whose report must name bsr.
@@ -3018,6 +3081,7 @@ def _bsr_leg(tag, host, dtype, device, smi_line, triad_gbps, gate):
     return res, A, Xd, {regime: launched}
 
 
+@_walled
 def phase_bsr_legs(device, smi_line, triad_gbps):
     """The JAX bench's BSR leg (bench.py:487-545): block_random(131072,
     131072, 8, seed=2) through the port's auto_format(workload="spmm"),
@@ -3054,7 +3118,7 @@ def phase_bsr_legs(device, smi_line, triad_gbps):
         for r, c in n.items():
             launches[r] = launches.get(r, 0) + c
     out["bf16_speedup_vs_f32"] = out["float32"]["ms"] / out["bfloat16"]["ms"]
-    del host
+    keep["host"] = host          # phase 31 shards it
     t0 = time.perf_counter()
     far_label = f"block_random({BSR_FAR_ROWS},{BSR_FAR_ROWS},2)"
     far = BsrMatrix.from_matrix_market(
@@ -3085,6 +3149,7 @@ def _k6_bytes(A, k: int) -> tuple:
     return live + vec, full + vec
 
 
+@_walled
 def phase_kernels_spmm(device, well_profiled, bsr_keep, smi_line,
                        triad_gbps):
     """K6a / K6b, the spill folded in, on the DeviceWell of each size of
@@ -3242,6 +3307,7 @@ def _norm_rel(got, want) -> float:
                  max(float(torch.linalg.norm(want)), 1e-300))
 
 
+@_walled
 def phase_compare_amg(device):
     """K8 against fused_vcycle_reference on the FUSED_CASES hierarchies,
     float64 and float32, each launched twice (bitwise equal); the block
@@ -3305,6 +3371,7 @@ def phase_compare_amg(device):
     _sync(device)
 
 
+@_walled
 def phase_cli_amg(device):
     """--cg 200 --precondition amg on poisson2d(AMG_CLI_GRID²), -s dia and
     -s wellcw: the generic V-cycle's CSR kernel launches, and K1 or K3c
@@ -3362,6 +3429,7 @@ def _pcg(A, b, apply, tol, device):
     return res, count[0], time.perf_counter() - t0
 
 
+@_walled
 def phase_amg_full(device, smi_line):
     """The full-size leg, poisson2d(AMG_FULL_GRID²) in float32: the host
     setup, PCG to AMG_TOL with K8 (fused_vcycle_preconditioner) and with
@@ -3441,6 +3509,7 @@ def phase_amg_full(device, smi_line):
     return hier, out
 
 
+@_walled
 def phase_kernel_fused(device, hier, smi_line, triad_gbps):
     """K8 alone at the full-size leg's shape (not counted): bitwise
     repeat, max error against the plain version, device ms (a CUDA graph
@@ -3657,6 +3726,7 @@ def _format_checksums(fmt, mm, device):
     return rels
 
 
+@_walled
 def phase_cli_formats(device):
     """The reference tool's formats through the CLI (phase 23): each
     format's runs, the wrappers each must launch and those it must not
@@ -3766,6 +3836,7 @@ def _ell_compare(A, k, tol, tag, label):
     return x, X, errs[0], errs[1]
 
 
+@_walled
 def phase_profile_ell(device, smi_line):
     """ELL at full width on the main path (phase 24, counted):
     make_kernel("ell")'s chained SpMV and SpMM (k = FORMATS_SPMM_K) at
@@ -3812,6 +3883,7 @@ def phase_profile_ell(device, smi_line):
     return mm, host, A, chained
 
 
+@_walled
 def phase_kernels_ell(device, mm, host, A, chained, smi_line, triad_gbps):
     """The ELL kernels alone (phase 24, not counted): against their plain
     versions (float64 at poisson2d(ELL_F64_GRID²), float32 at the main
@@ -4045,6 +4117,7 @@ def _amg_sweep(device, tag):
     return rows
 
 
+@_walled
 def phase_hybrid(device, smi_line, triad_gbps):
     """Hybrid at a skewed matrix (phase 25; not counted):
     powerlaw(HYBRID_ROWS, HYBRID_ROWS, 8.0, alpha 1.5, seed 5) in float32:
@@ -4212,6 +4285,7 @@ def phase_hybrid(device, smi_line, triad_gbps):
 
 
 # ----------------------------------------------------------------- main
+@_walled
 def phase_bsr_path(device, smi_line, triad_gbps):
     """The BSR path's run (CLI, the bench's leg in float32 and bf16, the
     leg past the 80 MB line): K7's counts start from zero here; each
@@ -4224,6 +4298,7 @@ def phase_bsr_path(device, smi_line, triad_gbps):
     bsr_spmm_core.simt_launches = 0
     launches, cli_paths = phase_cli_bsr(device)
     times, keep, leg_launches = phase_bsr_legs(device, smi_line, triad_gbps)
+    host = keep.pop("host")
     for r, n in leg_launches.items():
         launches[r] = launches.get(r, 0) + n
     if sum(launches.values()) != bsr_spmm_core.launches:
@@ -4243,7 +4318,7 @@ def phase_bsr_path(device, smi_line, triad_gbps):
         if launches.get(name, 0) <= 0:
             _fail(f"{name} was never launched on the BSR path")
     return {"launches": launches, "paths": paths, "times": times,
-            "keep": keep}
+            "keep": keep, "host": host}
 
 
 def _bsr_rows(run, spmm_kernels) -> list:
@@ -4529,6 +4604,7 @@ def _traffic_cli(device, tag) -> dict:
     return out
 
 
+@_walled
 def phase_traffic(device, ell, well_hosts, hybrid_mm, hybrid_host,
                   smi_line, triad_gbps):
     """The traffic split (phase 26).  The main path, counted (the variant
@@ -4623,6 +4699,7 @@ def phase_traffic(device, ell, well_hosts, hybrid_mm, hybrid_host,
             "launches": launches, "max_abs_err_f64": errs64}
 
 
+@_walled
 def phase_simulate(device):
     """Simulation mode through the CLI (phase 27, host only): --profile 0
     --trace-config SIM_CONFIG on each of SIM_RUNS, the misses per thread
@@ -4680,7 +4757,7 @@ SOLVER_CLI_GRID = 256         # the solvers' CLI runs' poisson2d
 SOLVER_CLI_ITERS = 10000
 SOLVER_CLI_TOL = "1e-5"       # in reach of float32, as phase 4's CG
 SOLVER_NATURAL_GRID = 1024    # IC(0) at natural order: 2,047 levels
-SOLVER_FULL_GRID = FULL_GRID  # ILU(0) after --reorder color, 16.8M rows
+SOLVER_FULL_GRID = 2048       # ILU(0) after --reorder color, 4.2M rows
 SOLVER_FULL_ITERS = 20
 SOLVER_GRAPH_REPS = 5         # solves in one CUDA graph
 SOLVER_CHAIN_ROWS = 300       # the one-row-a-level chain: least launch,
@@ -5298,6 +5375,7 @@ def _plan_line(device, tag) -> dict:
     return out
 
 
+@_walled
 def phase_solvers(device, smi_line, triad_gbps):
     """The other solvers (phase 28): the CLI's five runs at
     poisson2d(SOLVER_CLI_GRID²) against the port's CPU runs, the
@@ -5354,6 +5432,80 @@ def phase_solvers(device, smi_line, triad_gbps):
              f"{launches['tri_solve']}, dia_spmv {launches['dia_spmv']}")
         if launches["tri_solve"] <= 0:
             _fail("tri_solve was never launched on the solvers path")
+        _sync(device)
+
+        # the kernel against its plain version
+        f32, f64 = torch.float32, torch.float64
+        t0 = time.perf_counter()
+        L = ic0_factor(CsrMatrix.from_matrix_market(natural_mm))
+        del natural_mm
+        natural = [(L, True, False, "IC(0) L"),
+                   (_transpose_csr(L), False, False, "IC(0) L^T")]
+        _say(f"[{tag}] IC(0) of poisson2d({SOLVER_NATURAL_GRID},"
+             f"{SOLVER_NATURAL_GRID}) at natural order in "
+             f"{time.perf_counter() - t0:.1f} s")
+        grid_n = f"poisson2d({SOLVER_NATURAL_GRID},{SOLVER_NATURAL_GRID})"
+        errs = {}
+        dev_n = {}
+        for t, lower, unit, name in natural:
+            for dt in (f64, f32):
+                T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                             dtype=dt, device=device)
+                label = f"{name} of {grid_n}, natural order"
+                key = (name, str(dt).removeprefix("torch."))
+                errs[key] = _tri_check(T, label, tag)
+                errs[key + ("sweeps",)] = _tri_check(T, label, tag,
+                                                      sweeps=SOLVER_SWEEPS)
+                if dt == f32:
+                    dev_n[name] = T
+                else:
+                    del T
+        grid_c = (f"poisson2d({SOLVER_FULL_GRID},{SOLVER_FULL_GRID}) after "
+                  "--reorder color")
+        names = {True: "ILU(0) unit L", False: "ILU(0) U"}
+        for t, lower, unit, T in kept:
+            label = f"{names[lower]} of {grid_c}"
+            errs[(names[lower], "float32")] = _tri_check(T, label, tag)
+            errs[(names[lower], "float32", "sweeps")] = _tri_check(
+                T, label, tag, sweeps=SOLVER_SWEEPS)
+            T64 = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
+                                           dtype=f64, device=device)
+            errs[(names[lower], "float64")] = _tri_check(T64, label, tag)
+            errs[(names[lower], "float64", "sweeps")] = _tri_check(
+                T64, label, tag, sweeps=SOLVER_SWEEPS)
+            del T64
+            _sync(device)
+
+        # one triangle solve alone at both shapes
+        chain = _chain_ms(device, tag)
+        alone, cases = {}, []
+        for t, lower, unit, T in kept:
+            key = f"{names[lower]} {grid_c}"
+            alone[key], case = _tri_alone(
+                t, lower, unit, T, f"{names[lower]} of {grid_c}, float32", tag,
+                smi_line, triad_gbps, chain)
+            cases.append((key,) + case)
+        for t, lower, unit, name in natural:
+            key = f"{name} {grid_n} natural"
+            alone[key], case = _tri_alone(
+                t, lower, unit, dev_n[name], f"{name} of {grid_n}, natural "
+                "order, float32", tag, smi_line, triad_gbps, chain)
+            cases.append((key,) + case)
+        for key, lib in _tri_libraries(cases, tag).items():
+            alone[key].update(lib)
+        del cases
+        apply = {grid_n + " natural, IC(0)": sum(
+                     1 if tri_solve_plan(T) == "chained" else T.num_levels
+                     for T in dev_n.values()),
+                 grid_c + ", ILU(0)": sum(
+                     1 if tri_solve_plan(k[3]) == "chained" else k[3].num_levels
+                     for k in kept)}
+        _say(f"[{tag}] tri_solve launches a preconditioner apply: {apply}")
+        del dev_n, kept, natural, L
+        _sync(device)
+        plan_line = _plan_line(device, tag)
+        _sync(device)
+        # the port's CPU runs, read last: they ran beside all of the above
         for dt, proc in procs.items():
             _solver_cli_against_cpu(cli[dt], proc, dt, tag)
     finally:
@@ -5362,79 +5514,6 @@ def phase_solvers(device, smi_line, triad_gbps):
                 proc.kill()
                 proc.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
-    _sync(device)
-
-    # the kernel against its plain version
-    f32, f64 = torch.float32, torch.float64
-    t0 = time.perf_counter()
-    L = ic0_factor(CsrMatrix.from_matrix_market(natural_mm))
-    del natural_mm
-    natural = [(L, True, False, "IC(0) L"),
-               (_transpose_csr(L), False, False, "IC(0) L^T")]
-    _say(f"[{tag}] IC(0) of poisson2d({SOLVER_NATURAL_GRID},"
-         f"{SOLVER_NATURAL_GRID}) at natural order in "
-         f"{time.perf_counter() - t0:.1f} s")
-    grid_n = f"poisson2d({SOLVER_NATURAL_GRID},{SOLVER_NATURAL_GRID})"
-    errs = {}
-    dev_n = {}
-    for t, lower, unit, name in natural:
-        for dt in (f64, f32):
-            T = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
-                                         dtype=dt, device=device)
-            label = f"{name} of {grid_n}, natural order"
-            key = (name, str(dt).removeprefix("torch."))
-            errs[key] = _tri_check(T, label, tag)
-            errs[key + ("sweeps",)] = _tri_check(T, label, tag,
-                                                  sweeps=SOLVER_SWEEPS)
-            if dt == f32:
-                dev_n[name] = T
-            else:
-                del T
-    grid_c = (f"poisson2d({SOLVER_FULL_GRID},{SOLVER_FULL_GRID}) after "
-              "--reorder color")
-    names = {True: "ILU(0) unit L", False: "ILU(0) U"}
-    for t, lower, unit, T in kept:
-        label = f"{names[lower]} of {grid_c}"
-        errs[(names[lower], "float32")] = _tri_check(T, label, tag)
-        errs[(names[lower], "float32", "sweeps")] = _tri_check(
-            T, label, tag, sweeps=SOLVER_SWEEPS)
-        T64 = DeviceTriSolve.from_host(t, lower=lower, unit_diag=unit,
-                                       dtype=f64, device=device)
-        errs[(names[lower], "float64")] = _tri_check(T64, label, tag)
-        errs[(names[lower], "float64", "sweeps")] = _tri_check(
-            T64, label, tag, sweeps=SOLVER_SWEEPS)
-        del T64
-        _sync(device)
-
-    # one triangle solve alone at both shapes
-    chain = _chain_ms(device, tag)
-    alone, cases = {}, []
-    for t, lower, unit, T in kept:
-        key = f"{names[lower]} {grid_c}"
-        alone[key], case = _tri_alone(
-            t, lower, unit, T, f"{names[lower]} of {grid_c}, float32", tag,
-            smi_line, triad_gbps, chain)
-        cases.append((key,) + case)
-    for t, lower, unit, name in natural:
-        key = f"{name} {grid_n} natural"
-        alone[key], case = _tri_alone(
-            t, lower, unit, dev_n[name], f"{name} of {grid_n}, natural "
-            "order, float32", tag, smi_line, triad_gbps, chain)
-        cases.append((key,) + case)
-    for key, lib in _tri_libraries(cases, tag).items():
-        alone[key].update(lib)
-    del cases
-    apply = {grid_n + " natural, IC(0)": sum(
-                 1 if tri_solve_plan(T) == "chained" else T.num_levels
-                 for T in dev_n.values()),
-             grid_c + ", ILU(0)": sum(
-                 1 if tri_solve_plan(k[3]) == "chained" else k[3].num_levels
-                 for k in kept)}
-    _say(f"[{tag}] tri_solve launches a preconditioner apply: {apply}")
-    del dev_n, kept, natural, L
-    _sync(device)
-    plan_line = _plan_line(device, tag)
-    _sync(device)
     secs = time.perf_counter() - t_phase
     _say(f"[{tag}] phase took {secs:.1f} s")
     return {"launches": launches, "cli": cli, "full_width": full,
@@ -5456,7 +5535,7 @@ EIGS_F64_RTOL = 1e-6          # float64 against the analytic eigenvalues
 # block, R the block's residual), plus the rounding of a float32
 # Rayleigh quotient, about eps * ||A|| (||A|| <= 8 for poisson2d)
 EIGS_F32_ROUNDING = 8 * float(np.finfo(np.float32).eps)
-EIGS_CLI_GRID = 256           # the CLI's --eigs runs on each format
+EIGS_CLI_GRID = 128           # the CLI's --eigs runs on each format
 EIGS_CLI_K = 4
 EIGS_CLI_FORMATS = ("dia", "csr", "ell", "hybrid", "well", "wellcw")
 # each format's SpMM kernels, one of which must launch (the hybrid's COO
@@ -5787,6 +5866,7 @@ def _eigs_rayleigh_ritz(device, tag) -> dict:
     return out
 
 
+@_walled
 def phase_eigs(device, smi_line, triad_gbps):
     """The eigensolver (phase 29): the CLI's --eigs on six formats at
     poisson2d(EIGS_CLI_GRID²) against the port's CPU runs, and the
@@ -5859,7 +5939,7 @@ def phase_eigs(device, smi_line, triad_gbps):
 SHARD_P = 4                   # virtual shards of the one card
 SHARD_GRID = FULL_GRID        # poisson2d(4096²): DIA, CSR all-gather, halo
 SHARD_SKEW_ROWS = HYBRID_ROWS  # powerlaw(2²²): the CSR halo, all2all
-SHARD_CG_GRID = CG_GRID       # poisson2d(1024²): products in float64, CG
+SHARD_CG_GRID = 512           # poisson2d(512²): products in float64, CG
 SHARD_CG_K = CG_K             # batched CG's right-hand sides
 SHARD_CG_TOL = {"float64": 1e-8, "float32": 1e-5}
 SHARD_CG_MAX = 20000
@@ -5870,25 +5950,28 @@ SHARD_WRAPPERS = ("dia_spmv_core", "dia_spmm_core", "csr_spmv_core",
                   "csr_spmm_core")
 
 
-def _shard_counts() -> dict:
+def _shard_counts(names=SHARD_WRAPPERS) -> dict:
     from spmv_tpu_torch import ops
 
-    return {name: getattr(ops, name).launches for name in SHARD_WRAPPERS}
+    return {name: getattr(ops, name).launches for name in names}
 
 
 class _ShardPath:
     """The launches the sharded path makes: ``run`` calls fn, adds the
-    wrappers' launches during it to the path's count and returns (fn's
-    result, those launches).  Launches outside ``run`` (the unsharded
-    products the sharded ones are held against) are not counted."""
+    wrappers' (``names``) launches during it to the path's count and
+    returns (fn's result, those launches).  Launches outside ``run`` (the
+    unsharded products the sharded ones are held against) are not
+    counted."""
 
-    def __init__(self):
-        self.launches = dict.fromkeys(SHARD_WRAPPERS, 0)
+    def __init__(self, names=SHARD_WRAPPERS):
+        self.names = names
+        self.launches = dict.fromkeys(names, 0)
 
     def run(self, fn):
-        before = _shard_counts()
+        before = _shard_counts(self.names)
         out = fn()
-        delta = {k: v - before[k] for k, v in _shard_counts().items()}
+        delta = {k: v - before[k]
+                 for k, v in _shard_counts(self.names).items()}
         for k, v in delta.items():
             self.launches[k] += v
         return out, delta
@@ -6231,7 +6314,7 @@ def _scaling_triad(proc, tag) -> float:
 
 def _shard_scaling(proc, halos, triad_gbps, tag) -> dict:
     """The --scaling child's reports: each halo_elements_measured equal to
-    the worst shard's off-shard reads by communication_volume (counted
+    the worst shard's off-shard reads (counted
     here, ``halos``), no JAX module loaded."""
     stdout, stderr = proc.communicate(timeout=600)
     if proc.returncode != 0:
@@ -6253,7 +6336,7 @@ def _shard_scaling(proc, halos, triad_gbps, tag) -> dict:
         out[name]["cli_seconds"] = run["seconds"]
         _say(f"[{tag}] --scaling {SHARD_P} on {name} "
              f"({run['doc']['kernel']['name']}): halo_elements_measured "
-             f"{s['halo_elements_measured']} (communication_volume: "
+             f"{s['halo_elements_measured']} (counted here: "
              f"{halos[name]}), all_gather_elements "
              f"{s['all_gather_elements']}, weak_efficiency "
              f"{s['weak_efficiency']:.4f}, interconnect "
@@ -6270,14 +6353,18 @@ def _shard_scaling(proc, halos, triad_gbps, tag) -> dict:
 
 
 def _worst_halo(csr) -> int:
-    """The worst shard's distinct off-shard reads, by
-    communication_volume over the nnz-balanced partition."""
+    """The worst shard's distinct off-shard reads over the nnz-balanced
+    partition, counted from each shard's own run of entries (what
+    communication_volume counts, without its masks over every entry)."""
     from spmv_tpu_torch.models.partition import rows_partition_balanced_nnz
-    from spmv_tpu_torch.parallel import communication_volume
 
-    need = communication_volume(csr, rows_partition_balanced_nnz(
-        csr.row_ptr, SHARD_P))["need"]
-    return int((need.sum(axis=1) - np.diag(need)).max())
+    bounds = rows_partition_balanced_nnz(csr.row_ptr, SHARD_P)
+    rp = np.asarray(csr.row_ptr, np.int64)
+    worst = 0
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        c = np.asarray(csr.column_index[rp[lo]: rp[hi]])
+        worst = max(worst, np.unique(c[(c < lo) | (c >= hi)]).size)
+    return int(worst)
 
 
 def _csr_of_dia(dia):
@@ -6299,6 +6386,7 @@ def _csr_of_dia(dia):
                      cols.T[keep].astype(np.int32), data.T[keep])
 
 
+@_walled
 def phase_sharded(device, smi_line, grid_dia=None, skew_mm=None):
     """The sharded paths (phase 30), on SHARD_P virtual shards of the
     card: every product held against the unsharded kernel, its launches
@@ -6410,6 +6498,479 @@ def phase_sharded(device, smi_line, grid_dia=None, skew_mm=None):
                     "time"}
 
 
+# phase 31: the second sharded half (WELL, WELL-CW, BSR, block-Jacobi
+# IC(0)), on SHARD_P virtual shards of the card
+SHARD_WELL_WINDOW = 4         # phase 12's window rows at poisson2d(4096²)
+SHARD_CW_K = CW_SPMM_K        # the WELL-CW halo SpMM's right-hand sides
+SHARD_FMT_CG_GRID = CG_GRID   # poisson2d(1024²): block-IC(0) vs Jacobi PCG
+SHARD_SMALL_GRID = 256        # Chebyshev and masked LOBPCG
+SHARD_LANCZOS_STEPS = 300     # 30 (the dryrun's) put lambda_min 40x high
+SHARD_CHEB_CHECK = 10
+SHARD_CHEB_MAX = 20000
+SHARD_EIG_K = 4
+SHARD_EIG_TOL = 1e-8          # float64: float32 at 1e-4 stalled, its 4th
+SHARD_EIG_MAX = 2000          # eigenvalue 2.7% off after 1,000 steps
+SHARD_EIG_RTOL = 1e-6         # against the analytic eigenvalues
+FORMAT_WRAPPERS = ("well_whole_core", "well_seg_core", "wellcw_merged_core",
+                   "wellcw_level_core", "wellcw_pool_core",
+                   "wellcw_merged_spmm_core", "wellcw_level_spmm_core",
+                   "wellcw_pool_spmm_core", "csr_spmv_core", "csr_spmm_core",
+                   "bsr_spmm_core", "tri_solve_core")
+
+
+def _format_product(tag, label, A, product, unsharded, unstack, ref64,
+                    exchange, want, path, build_s) -> dict:
+    """One sharded product of phase 31 against the unsharded kernel of its
+    format (``unsharded(out)``) and the fp64 product ``ref64``: its
+    launches exactly ``want`` (the container's ``launches_a_product``),
+    max|dy| / max|y| against each within TOL_SHARD's float32, whether it is
+    bitwise the unsharded kernel's, ms a product of each and of the
+    exchange alone (SHARD_REPS back to back, CUDA events, eager: the
+    launches' host cost in), and the exchange's volume."""
+    import torch
+
+    base = unsharded(None)
+    y, delta = path.run(product)
+    moved = {k: v for k, v in delta.items() if v}
+    if moved != want:
+        _fail(f"[{tag}] {label}: launches {moved} for one product, not "
+              f"{want}")
+    got = unstack(y)
+    err, err64 = _rel(got, base), _rel(got, ref64)
+    tol = TOL_SHARD["float32"]
+    if not (err <= tol and err64 <= tol):
+        _fail(f"[{tag}] {label}: max|dy|/max|y| {err} against the unsharded "
+              f"kernel, {err64} against the fp64 product (> {tol})")
+    buf = torch.empty_like(base)
+    res = {"launches_a_product": moved, "max_rel_err": err,
+           "max_rel_err_fp64": err64,
+           "bitwise_equal_to_unsharded": bool(torch.equal(got, base)),
+           "host_build_s": build_s,
+           "ms": _time_launches(product, SHARD_REPS),
+           "unsharded_ms": _time_launches(lambda: unsharded(buf), SHARD_REPS),
+           "exchange": getattr(A, "exchange", "all-gather")}
+    if exchange is not None:
+        res["exchange_ms"] = _time_launches(exchange, SHARD_REPS)
+        res.update({f: getattr(A, f) for f in (
+            "max_distance", "halo_slots", "comm_elements_exact",
+            "comm_elements_padded", "comm_blocks_exact") if hasattr(A, f)})
+    _say(f"[{tag}] {label}: launches {moved} a product, max|dy|/max|y| "
+         f"{err:.3e} against the unsharded kernel (bitwise "
+         f"{res['bitwise_equal_to_unsharded']}), {err64:.3e} against fp64; "
+         f"{res['ms']:.4f} ms a product against {res['unsharded_ms']:.4f} "
+         f"unsharded"
+         + (f", the exchange alone {res['exchange_ms']:.4f} ms ({A.exchange},"
+            f" {A.comm_elements_exact} elements exact, "
+            f"{A.comm_elements_padded} padded"
+            + (f", {A.comm_blocks_exact} tiles" if hasattr(
+                A, "comm_blocks_exact") else "") + ")"
+            if exchange is not None else "")
+         + f"; host build {build_s:.1f} s")
+    return res
+
+
+def _fp64_csr(m, device):
+    """The host CSR's entries as a float64 torch.sparse matrix on the card:
+    the fp64 reference products."""
+    import torch
+
+    t = torch.from_numpy
+    return _torch_csr(t(np.asarray(m.row_ptr, np.int64)).to(device),
+                      t(np.asarray(m.column_index[: m.num_entries],
+                                   np.int64)).to(device),
+                      t(np.asarray(m.value[: m.num_entries],
+                                   np.float64)).to(device),
+                      (m.num_rows, m.num_columns))
+
+
+def _bsr_fp64(host, X, device):
+    """Y = A @ X in float64 from the host BSR's blocks (each rounded to
+    ``X``'s dtype first, as K7 reads them) on the card: a batched product a
+    block, summed by block row."""
+    import torch
+
+    bh = host.block_rows
+    blocks = torch.from_numpy(np.asarray(host.blocks)).to(device)
+    blocks = blocks.to(X.dtype).double()
+    col = torch.from_numpy(np.asarray(host.block_col, np.int64)).to(device)
+    row = torch.from_numpy(np.repeat(
+        np.arange(host.num_block_rows), np.diff(host.block_rowptr))).to(device)
+    k = X.shape[1]
+    ncb = -(-host.num_columns // 128)
+    Xp = torch.zeros(ncb * 128, k, dtype=torch.float64, device=device)
+    Xp[: host.num_columns] = X.double()
+    prods = torch.bmm(blocks, Xp.reshape(ncb, 128, k)[col])
+    Y = torch.zeros(host.num_block_rows, bh, k, dtype=torch.float64,
+                    device=device)
+    Y.index_add_(0, row, prods)
+    return Y.reshape(-1, k)[: host.num_rows]
+
+
+def _format_products(device, mesh, path, tag, poisson, well_full, cw_mm,
+                     cw_host, bsr_host) -> dict:
+    """The full-width products: the WELL all-gather and halo SpMV at
+    poisson2d(SHARD_GRID²), window rows SHARD_WELL_WINDOW, beside phase
+    12's K5b ``well_full``; the WELL-CW halo SpMV and SpMM (k =
+    SHARD_CW_K) at phase 7's banded_random, neighbor and all2all forced,
+    beside its unsharded kernels; the BSR halo SpMM at phase 18's
+    block_random, k = BSR_K, float32 (SIMT) and bf16 (tensor cores),
+    beside its unsharded K7."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.models import CsrMatrix, DeviceBsr, DeviceWellCw
+    from spmv_tpu_torch.ops import (
+        bsr_spmm_core,
+        well_spmv_core,
+        wellcw_spmm_core,
+        wellcw_spmv_core,
+    )
+    from spmv_tpu_torch.parallel import bsr_shard
+
+    f32 = torch.float32
+    out = {}
+    g = torch.Generator(device=device).manual_seed(31)
+    label = f"poisson2d({SHARD_GRID},{SHARD_GRID})"
+    x = torch.randn(poisson.num_rows, generator=g, device=device, dtype=f32)
+    ref = _fp64_csr(poisson, device) @ x.double()
+    for kind in ("well_all_gather", "well_halo"):
+        t0 = time.perf_counter()
+        A = (par.shard_well(poisson, SHARD_P, window_rows=SHARD_WELL_WINDOW,
+                            dtype=f32, mesh=mesh)
+             if kind == "well_all_gather" else
+             par.shard_well_halo(poisson, SHARD_P,
+                                 window_rows=SHARD_WELL_WINDOW, dtype=f32,
+                                 mesh=mesh))
+        build = time.perf_counter() - t0
+        xs = par.stack_vector(x, A)
+        product = (par.sharded_well_spmv if kind == "well_all_gather"
+                   else par.sharded_well_halo_spmv)
+        out[f"{label} {kind}"] = _format_product(
+            tag, f"{label} WELL {kind.split('_', 1)[1].replace('_', '-')}",
+            A, lambda: product(A, xs, mesh),
+            lambda o: well_spmv_core(well_full, x, out=o),
+            lambda y: _shard_unstack("csr", A, y), ref,
+            None if kind == "well_all_gather"
+            else lambda: par.halo_shard.halo_of(A, xs),
+            A.launches_a_product(), path, build)
+        del A, xs
+        _sync(device)
+    del ref
+
+    label = f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8)"
+    t0 = time.perf_counter()
+    cw = CsrMatrix.from_matrix_market(cw_mm)
+    full = DeviceWellCw.from_host(cw_host, dtype=f32, device=device)
+    _say(f"[{tag}] host {label} CSR and the unsharded DeviceWellCw in "
+         f"{time.perf_counter() - t0:.1f} s")
+    S = _fp64_csr(cw, device)
+    x = torch.randn(cw.num_rows, generator=g, device=device, dtype=f32)
+    X = torch.randn(cw.num_rows, SHARD_CW_K, generator=g, device=device,
+                    dtype=f32)
+    ref, ref_mm = S @ x.double(), S @ X.double()
+    del S
+    for exchange in ("neighbor", "all2all"):
+        t0 = time.perf_counter()
+        A = par.shard_wellcw_halo(cw, SHARD_P, dtype=f32, mesh=mesh,
+                                  exchange=exchange)
+        build = time.perf_counter() - t0
+        xs, Xs = par.stack_vector(x, A), par.stack_block(X, A)
+        out[f"{label} wellcw_halo {exchange}"] = _format_product(
+            tag, f"{label} WELL-CW halo ({exchange})", A,
+            lambda: par.sharded_wellcw_halo_spmv(A, xs, mesh),
+            lambda o: wellcw_spmv_core(full, x, out=o),
+            lambda y: _shard_unstack("csr", A, y), ref,
+            lambda: par.halo_shard.halo_of(A, xs), A.launches_a_product(),
+            path, build)
+        out[f"{label} wellcw_halo_spmm_k{SHARD_CW_K} {exchange}"] = \
+            _format_product(
+                tag, f"{label} WELL-CW halo SpMM k={SHARD_CW_K} ({exchange})",
+                A, lambda: par.sharded_wellcw_halo_spmm(A, Xs, mesh),
+                lambda o: wellcw_spmm_core(full, X, out=o),
+                lambda y: _shard_unstack("csr", A, y), ref_mm,
+                lambda: par.halo_shard.halo_of(A, Xs),
+                A.launches_a_product(spmm=True), path, 0.0)
+        del A, xs, Xs
+        _sync(device)
+    del full, ref, ref_mm, x, X, cw
+
+    label = f"block_random({BSR_ROWS},{BSR_ROWS},8)"
+    X32 = torch.randn(bsr_host.num_columns, BSR_K, generator=g,
+                      device=device, dtype=f32)
+    for dt in (f32, torch.bfloat16):
+        dtn = str(dt).removeprefix("torch.")
+        X = X32.to(dt)
+        full = DeviceBsr.from_host(bsr_host, dtype=dt, blocks_per_step=1,
+                                   device=device)
+        ref = _bsr_fp64(bsr_host, X, device)
+        t0 = time.perf_counter()
+        A = par.shard_bsr_halo(bsr_host, SHARD_P, dtype=dt, mesh=mesh)
+        build = time.perf_counter() - t0
+        Xs = bsr_shard.stack_columns(X, A)
+        n = bsr_host.num_rows
+        out[f"{label} bsr_halo k={BSR_K} {dtn}"] = _format_product(
+            tag, f"{label} BSR halo SpMM k={BSR_K} {dtn}", A,
+            lambda: par.sharded_bsr_spmm(A, Xs, mesh),
+            lambda o: bsr_spmm_core(full, X, out=o),
+            lambda y: y.reshape(-1, BSR_K)[:n], ref,
+            lambda: bsr_shard.extend_columns(A, Xs), A.launches_a_product(),
+            path, build)
+        del A, Xs, full, ref, X
+        _sync(device)
+    return out
+
+
+def _format_solvers(device, mesh, path, tag) -> dict:
+    """Block-Jacobi IC(0) PCG against Jacobi-PCG over the halo CSR matvec
+    at poisson2d(SHARD_FMT_CG_GRID²), float64 and float32 (SHARD_CG_TOL,
+    b = A ones): iterations, host us an
+    iteration, tri_solve launches an apply; then, at
+    poisson2d(SHARD_SMALL_GRID²), Chebyshev with lanczos_bounds in float32
+    (beside the unsharded CSR kernel's Chebyshev on the same bounds) and
+    LOBPCG at k = SHARD_EIG_K in float64 with the padding rows masked and
+    the block-IC(0) apply a column as its preconditioner, against the
+    analytic eigenvalues."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import CsrMatrix, DeviceCsr
+    from spmv_tpu_torch.ops import (
+        chebyshev,
+        csr_spmv_core,
+        extract_diagonal,
+        jacobi_preconditioner,
+        lanczos_bounds,
+        lobpcg,
+        preconditioned_conjugate_gradient,
+    )
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    out = {}
+    m = CsrMatrix.from_matrix_market(poisson2d(SHARD_FMT_CG_GRID,
+                                               SHARD_FMT_CG_GRID))
+    b = m.spmv(np.ones(m.num_rows))
+    label = f"poisson2d({SHARD_FMT_CG_GRID},{SHARD_FMT_CG_GRID})"
+    for dtn, tol in SHARD_CG_TOL.items():
+        dt = getattr(torch, dtn)
+        H = par.shard_csr_halo(m, SHARD_P, dtype=dt, mesh=mesh)
+        t0 = time.perf_counter()
+        M = par.block_jacobi_ic0(m, H.bounds, H.rows_per_shard, dtype=dt,
+                                 mesh=mesh)
+        build = time.perf_counter() - t0
+        mv = par.make_sharded_halo_matvec(H, mesh)
+        bs = par.stack_vector(b, H)
+        jac = jacobi_preconditioner(par.stack_vector(extract_diagonal(m), H))
+        apply = par.make_sharded_block_ic0_preconditioner(M, mesh)
+        applies = [0]
+
+        def counted(r):
+            applies[0] += 1
+            return apply(r)
+
+        res = {"block_ic0_setup_s": build, "shift_used": M.shift_used,
+               "levels_a_triangle": [T.num_levels for T in M.lower],
+               "launches_an_apply": M.launches_an_apply()["tri_solve_core"]}
+        for name, pre in (("jacobi_pcg", jac), ("block_ic0_pcg", counted)):
+            (r, wall), delta = path.run(lambda: timed(
+                lambda: preconditioned_conjugate_gradient(
+                    mv, bs, pre, tol=tol, max_iterations=SHARD_CG_MAX)))
+            err = float(np.abs(par.unstack_vector(r.x, H) - 1.0).max())
+            res[name] = {"iterations": r.iterations,
+                         "max_abs_err_vs_ones": err,
+                         "host_us_an_iteration":
+                             wall / max(r.iterations, 1) * 1e6,
+                         "tri_solve_launches": delta["tri_solve_core"]}
+            if r.iterations >= SHARD_CG_MAX:
+                _fail(f"[{tag}] {name} {dtn} did not converge")
+        tri = res["block_ic0_pcg"]["tri_solve_launches"]
+        if tri != applies[0] * res["launches_an_apply"] or not applies[0]:
+            _fail(f"[{tag}] block-IC(0) PCG {dtn}: {tri} tri_solve launches "
+                  f"for {applies[0]} applies, not {res['launches_an_apply']} "
+                  "each")
+        if (res["block_ic0_pcg"]["iterations"]
+                >= res["jacobi_pcg"]["iterations"]):
+            _fail(f"[{tag}] block-IC(0) PCG {dtn} took no fewer iterations "
+                  "than Jacobi-PCG")
+        res["tri_solve_launches_an_apply"] = tri / applies[0]
+        _say(f"[{tag}] {label} {dtn} tol {tol:g}: Jacobi-PCG "
+             f"{res['jacobi_pcg']['iterations']} iterations "
+             f"({res['jacobi_pcg']['host_us_an_iteration']:.1f} host us an "
+             f"iteration), block-IC(0) PCG "
+             f"{res['block_ic0_pcg']['iterations']} "
+             f"({res['block_ic0_pcg']['host_us_an_iteration']:.1f} host us, "
+             f"{res['tri_solve_launches_an_apply']:g} tri_solve launches an "
+             f"apply, levels a shard's L {res['levels_a_triangle']}); "
+             f"max|x - 1| {res['jacobi_pcg']['max_abs_err_vs_ones']:.2e} / "
+             f"{res['block_ic0_pcg']['max_abs_err_vs_ones']:.2e}; IC(0) of "
+             f"the {SHARD_P} blocks and their solves {build:.1f} s")
+        out[f"{label} {dtn}"] = res
+        del H, M
+        _sync(device)
+
+    f32 = torch.float32
+    m = CsrMatrix.from_matrix_market(poisson2d(SHARD_SMALL_GRID,
+                                               SHARD_SMALL_GRID))
+    label = f"poisson2d({SHARD_SMALL_GRID},{SHARD_SMALL_GRID})"
+    H = par.shard_csr_halo(m, SHARD_P, dtype=f32, mesh=mesh)
+    mv = par.make_sharded_halo_matvec(H, mesh)
+    rng = np.random.default_rng(31)
+    bs = par.stack_vector(m.spmv(np.ones(m.num_rows)), H)
+    v0 = par.stack_vector(rng.standard_normal(m.num_rows), H)
+    (lo, hi), _ = path.run(lambda: lanczos_bounds(
+        mv, tuple(bs.shape), num_steps=SHARD_LANCZOS_STEPS, dtype=f32, v0=v0,
+        device=device))
+    (r, wall), _ = path.run(lambda: timed(lambda: chebyshev(
+        mv, bs, lo, hi, tol=SHARD_CG_TOL["float32"],
+        max_iterations=SHARD_CHEB_MAX, check_every=SHARD_CHEB_CHECK)))
+    full = DeviceCsr.from_host(m, dtype=f32, device=device)
+    u = chebyshev(lambda v: csr_spmv_core(full, v),
+                  torch.from_numpy(m.spmv(np.ones(m.num_rows))).to(device,
+                                                                   f32),
+                  lo, hi, tol=SHARD_CG_TOL["float32"],
+                  max_iterations=SHARD_CHEB_MAX,
+                  check_every=SHARD_CHEB_CHECK)
+    cheb = {"bounds": [lo, hi], "lanczos_steps": SHARD_LANCZOS_STEPS,
+            "iterations": r.iterations, "unsharded_iterations": u.iterations,
+            "max_abs_err_vs_ones": float(np.abs(
+                par.unstack_vector(r.x, H) - 1.0).max()),
+            "host_us_an_iteration": wall / max(r.iterations, 1) * 1e6}
+    _say(f"[{tag}] {label} float32 Chebyshev on lanczos_bounds "
+         f"({SHARD_LANCZOS_STEPS} steps) [{lo:.4e}, {hi:.4f}]: "
+         f"{r.iterations} iterations (unsharded {u.iterations}), max|x - 1| "
+         f"{cheb['max_abs_err_vs_ones']:.2e}, "
+         f"{cheb['host_us_an_iteration']:.1f} host us an iteration")
+    if (r.iterations >= SHARD_CHEB_MAX or abs(r.iterations - u.iterations)
+            > SHARD_CG_SLACK * SHARD_CHEB_CHECK):
+        _fail(f"[{tag}] Chebyshev: {r.iterations} iterations against "
+              f"{u.iterations} unsharded")
+    out[f"{label} chebyshev"] = cheb
+
+    f64 = torch.float64
+    H = par.shard_csr_halo(m, SHARD_P, dtype=f64, mesh=mesh)
+    k, P, R = SHARD_EIG_K, H.num_shards, H.rows_per_shard
+    mask = np.zeros((P, R))
+    for q in range(P):
+        mask[q, : H.bounds[q + 1] - H.bounds[q]] = 1.0
+    mask[:, R - 1] = 0.0
+    M = par.block_jacobi_ic0(m, H.bounds, R, dtype=f64, mesh=mesh)
+    apply = par.make_sharded_block_ic0_preconditioner(M, mesh)
+    matmat = par.make_sharded_halo_matmat(H, mesh)
+    X0 = par.stack_block(rng.standard_normal((m.num_rows, k)), H)
+    (r, wall), delta = path.run(lambda: timed(lambda: lobpcg(
+        lambda V: matmat(V.reshape(P, R, k)).reshape(P * R, k),
+        X0.reshape(P * R, k),
+        preconditioner=lambda W: torch.stack(
+            [apply(W[:, j].reshape(P, R)).reshape(-1) for j in range(k)], 1),
+        tol=SHARD_EIG_TOL, max_iterations=SHARD_EIG_MAX,
+        mask=torch.from_numpy(mask.reshape(-1)).to(device, f64))))
+    i = np.arange(1, SHARD_SMALL_GRID + 1)
+    want = np.sort((4.0 - 2.0 * np.cos(i * np.pi / (SHARD_SMALL_GRID + 1))
+                    [:, None] - 2.0 * np.cos(i * np.pi / (
+                        SHARD_SMALL_GRID + 1))[None]).ravel())[:k]
+    got = r.eigenvalues.double().cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / want))
+    its = int(r.iterations)
+    eig = {"iterations": its, "k": k, "dtype": "float64",
+           "tol": SHARD_EIG_TOL, "eigenvalues": got.tolist(),
+           "max_rel_err_vs_analytic": rel,
+           "host_ms_an_iteration": wall / max(its, 1) * 1e3,
+           "csr_spmm_launches": delta["csr_spmm_core"],
+           "tri_solve_launches": delta["tri_solve_core"]}
+    _say(f"[{tag}] {label} float64 LOBPCG k={k}, tol {SHARD_EIG_TOL:g}, "
+         f"masked, block-IC(0) a column: {its} iterations, eigenvalues "
+         f"{got} (analytic {want}, max rel err {rel:.2e}), "
+         f"{eig['host_ms_an_iteration']:.2f} host ms an iteration, CSR SpMM "
+         f"launches {delta['csr_spmm_core']}, tri_solve "
+         f"{delta['tri_solve_core']}")
+    if its >= SHARD_EIG_MAX or not rel <= SHARD_EIG_RTOL:
+        _fail(f"[{tag}] LOBPCG: {its} iterations, eigenvalue rel err {rel}")
+    out[f"{label} lobpcg"] = eig
+    return out
+
+
+@_walled
+def phase_sharded_formats(device, smi_line, grid_dia=None, well_full=None,
+                          cw_mm=None, cw_host=None, bsr_host=None):
+    """The second sharded half (phase 31) on SHARD_P virtual shards of the
+    card: the full-width WELL, WELL-CW and BSR products held against the
+    unsharded kernel of their format and the fp64 product, launches exact
+    (``_format_products``); the solvers over the sharded operators
+    (``_format_solvers``); ``dryrun_multichip``.  The wrappers' launches
+    of the sharded calls make the path's counts.  The host matrices come
+    from earlier phases where given (``grid_dia``: poisson2d(SHARD_GRID²)
+    as DIA; ``well_full``: its unsharded DeviceWell, K5b; ``cw_mm`` /
+    ``cw_host``: phase 7's banded_random entries and WELL-CW;
+    ``bsr_host``: phase 18's block_random BSR), else made here."""
+    import torch
+
+    from spmv_tpu_torch.io.generate import banded_random, block_random
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import (
+        BsrMatrix,
+        DeviceWell,
+        DiaMatrix,
+        WellCwMatrix,
+        WellMatrix,
+    )
+    from spmv_tpu_torch.parallel import make_mesh
+    from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    tag = "31 sharded formats"
+    t_phase = time.perf_counter()
+    path = _ShardPath(FORMAT_WRAPPERS)
+    mesh = make_mesh(SHARD_P, devices=[device] * SHARD_P)
+    t0 = time.perf_counter()
+    if grid_dia is None:
+        grid_dia = DiaMatrix.from_matrix_market(poisson2d(SHARD_GRID,
+                                                          SHARD_GRID))
+    poisson = _csr_of_dia(grid_dia)
+    del grid_dia
+    if well_full is None:
+        well_full = DeviceWell.from_host(WellMatrix.from_csr(
+            poisson, window_rows=SHARD_WELL_WINDOW), dtype=torch.float32,
+            device=device)
+    if cw_mm is None:
+        cw_mm = banded_random(CW_FULL_ROWS, half_bandwidth=CW_FULL_HALF_BW,
+                              nnz_per_row=8, seed=1)
+    if cw_host is None:
+        cw_host = WellCwMatrix.from_matrix_market(cw_mm)
+    if bsr_host is None:
+        bsr_host = BsrMatrix.from_matrix_market(
+            block_random(BSR_ROWS, BSR_ROWS, 8, seed=2), block_rows=128)
+    _say(f"[{tag}] host matrices in {time.perf_counter() - t0:.1f} s")
+    products = _format_products(device, mesh, path, tag, poisson, well_full,
+                                cw_mm, cw_host, bsr_host)
+    del poisson, well_full, cw_mm, cw_host, bsr_host
+    _sync(device)
+    solvers = _format_solvers(device, mesh, path, tag)
+    _sync(device)
+    dry, delta = path.run(lambda: dryrun_multichip(SHARD_P, device=device))
+    _say(f"[{tag}] dryrun_multichip({SHARD_P}) on {device}: launches "
+         f"{ {k: v for k, v in delta.items() if v} }")
+    launches = {k.removesuffix("_core"): n for k, n in path.launches.items()}
+    _say(f"[{tag}] launches on the sharded formats' path: {launches}")
+    # K4b is the fallback level's SpMM: the full-width WELL-CW interiors
+    # are merged grids (K4a), and the dryrun takes no WELL-CW SpMM
+    for name, n in launches.items():
+        if n <= 0 and name != "wellcw_level_spmm":
+            _fail(f"[{tag}] {name} was never launched on the sharded "
+                  "formats' path")
+    secs = time.perf_counter() - t_phase
+    _say(f"[{tag}] phase took {secs:.1f} s")
+    return {"launches": launches, "products": products, "solvers": solvers,
+            "dryrun": dry, "shards": SHARD_P, "seconds": secs,
+            "card": smi_line,
+            "note": "virtual shards on one card: no interconnect in any "
+                    "time"}
+
+
 def _tri_row(solvers) -> dict:
     """The tri_solve row of the kernels' JSON line: the ILU(0) unit L
     after --reorder color at full width (the full-width run's shape, the
@@ -6493,6 +7054,7 @@ def _traffic_rows(traffic) -> list:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     device, smi_line = phase_device()
 
     import torch
@@ -6587,7 +7149,7 @@ def main() -> int:
     cw_kernels["csr_spmm"]["whole_matrix"], csr_whole = phase_csr_whole(
         device, cw_mm, smi_line, triad_gbps)
     cw_kernels["csr_spmv"]["whole_matrix"] = {"banded_random": csr_whole}
-    del cw, cw_mm
+    # cw and cw_mm stay for the sharded formats (phase 31)
     _sync(device)
 
     # the WELL path's run (CLI, then make_kernel("well") at both sizes):
@@ -6616,6 +7178,9 @@ def main() -> int:
         dia_of[label] = dia
     del full_mm
     profiled = phase_profile_well(device, well_mats, smi_line)
+    # phase 31 holds its sharded WELL products against this K5b
+    well_seg_full = profiled[f"poisson2d({WELL_SEG_GRID},{WELL_SEG_GRID})"][
+        "A"]
     well_launches = {k: w.launches for k, w in well_wrappers.items()}
     _say("[12 well profile] launches on the WELL path: "
          + ", ".join(f"{k} {n}" for k, n in well_launches.items()))
@@ -6663,6 +7228,7 @@ def main() -> int:
     _sync(device)
 
     bsr_run = phase_bsr_path(device, smi_line, triad_gbps)
+    bsr_host = bsr_run.pop("host")          # for phase 31
     spmm_kernels = phase_kernels_spmm(device, well_spmm, bsr_run.pop("keep"),
                                       smi_line, triad_gbps)
 
@@ -6722,7 +7288,14 @@ def main() -> int:
     eigs = phase_eigs(device, smi_line, triad_gbps)
     _sync(device)
     sharded = phase_sharded(device, smi_line, full, hybrid_mm)
-    del full, hybrid_mm
+    del hybrid_mm
+    _sync(device)
+    formats = phase_sharded_formats(
+        device, smi_line, full, well_seg_full, cw_mm, cw, bsr_host)
+    del full, well_seg_full, cw_mm, cw, bsr_host
+    for name, n in formats["launches"].items():
+        sharded["launches"][name] = sharded["launches"].get(name, 0) + n
+    sharded["formats"] = formats
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -6877,9 +7450,12 @@ def main() -> int:
         "eigs": eigs,
         "sharded": sharded}
     for row in summary["kernels"]:
-        if row["name"] in sharded["launches"]:
-            row["launches_on_the_sharded_path"] = sharded["launches"][
-                row["name"]]
+        # K7a and K7b are one kernel on the card (bsr_spmm_core): its rows
+        # both carry the wrapper's count
+        key = "bsr_spmm" if row["name"].startswith("bsr_spmm") \
+            else row["name"]
+        if key in sharded["launches"]:
+            row["launches_on_the_sharded_path"] = sharded["launches"][key]
     # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
     # part's launches and the ELL part's, each beside torch.sparse of
     # that part's own entries
@@ -6902,6 +7478,7 @@ def main() -> int:
                 "launches_on_the_formats_path": fmt_launches[row["name"]],
                 "shape": hybrid["shape"] + (", COO part" if err else
                                             ", ELL part")}
+    _say(f"[wall] chip_smoke: {time.perf_counter() - t_main:.1f} s")
     print(json.dumps(summary), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7274,7 +7851,7 @@ print(json.dumps(found, default=str))
 
 # phase 28's triangle solves alone, in the checkout it runs from (this
 # one or another commit's): the natural-order IC(0) L and L^T of
-# poisson2d(1024²) and the colored ILU(0) unit L and U of poisson2d(4096²)
+# poisson2d(1024²) and the colored ILU(0) unit L and U of poisson2d(2048²)
 # (the first run pickles the colored factors for the others), each in
 # float32 and float64, timed as phase 28 times them (a CUDA graph, the L2
 # flushed) in the mode the checkout picks, its z kept for a bitwise

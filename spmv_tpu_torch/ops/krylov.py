@@ -26,6 +26,11 @@ iteration counts compare one to one:
 - **lanczos_bounds** runs ``num_steps`` Lanczos steps with full
   reorthogonalisation from ``np.random.default_rng(seed)``'s start, the
   JAX function's, and widens the Ritz extremes on the host.
+
+Every dot runs over every element (``ops.solvers._vdot``, JAX's
+``vdot``) and the basis products over the flattened vectors, so the
+sharded paths' stacked (P, R) vectors go through as 1-D ones do, whose
+results keep their bits.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.models.device import resolve_device
-from spmv_tpu_torch.ops.solvers import CgResult, _eps, _np_type, _tol2
+from spmv_tpu_torch.ops.solvers import CgResult, _eps, _np_type, _tol2, _vdot
 
 __all__ = ["gmres", "chebyshev", "lanczos_bounds"]
 
@@ -77,10 +82,10 @@ def gmres(
     V = torch.zeros((m + 1,) + tuple(b.shape), dtype=dtype, device=dev)
 
     r = b - matvec(x)
-    rr = torch.dot(r, r)
+    rr = _vdot(r, r)
     k = 0
     while bool(rr > tol2) and k < max_iterations:
-        beta_t = torch.sqrt(torch.dot(r, r))
+        beta_t = torch.sqrt(_vdot(r, r))
         beta = nd(beta_t.item())
         V.zero_()
         V[0] = r / (beta_t if beta > eps else 1.0)
@@ -98,12 +103,12 @@ def gmres(
                 break
             w = matvec(preconditioner(V[j]))
             # CGS2 against rows 0..j (the rows past j are zero)
-            Vj = V[: j + 1]
-            h1 = Vj @ w
-            w = w - h1 @ Vj
-            h2 = Vj @ w
-            w = w - h2 @ Vj
-            hn_t = torch.sqrt(torch.dot(w, w))
+            Vj = V[: j + 1].reshape(j + 1, -1)
+            h1 = Vj @ w.reshape(-1)
+            w = w - (h1 @ Vj).reshape(w.shape)
+            h2 = Vj @ w.reshape(-1)
+            w = w - (h2 @ Vj).reshape(w.shape)
+            hn_t = torch.sqrt(_vdot(w, w))
             hv = torch.cat([h1 + h2, hn_t.reshape(1)]).cpu().numpy()
             h = np.zeros(m + 1, dtype=nd)
             h[: j + 1] = hv[: j + 1]
@@ -139,9 +144,10 @@ def gmres(
         y = torch.linalg.solve_triangular(
             torch.from_numpy(R), torch.from_numpy(g_solve)[:, None],
             upper=True)[:, 0]
-        x = x + preconditioner(y.to(dev) @ V[:m])
+        x = x + preconditioner((y.to(dev) @ V[:m].reshape(m, -1))
+                               .reshape(b.shape))
         r = b - matvec(x)
-        rr = torch.dot(r, r)
+        rr = _vdot(r, r)
         k += steps
     return CgResult(x=x, residual_norm=torch.sqrt(rr), iterations=k)
 
@@ -184,7 +190,7 @@ def chebyshev(
     r = b - matvec(x)
     p = r / float(theta)
     rho = nd(0) if richardson else nd(1) / sigma1
-    rr = torch.dot(r, r)
+    rr = _vdot(r, r)
     k = 0
     while bool(rr > tol2) and k < max_iterations:
         for _ in range(check):
@@ -195,7 +201,7 @@ def chebyshev(
                      else nd(2) * rho_new / delta)
             p = float(rho_new * rho) * p + float(scale) * r
             rho = rho_new
-        rr = torch.dot(r, r)
+        rr = _vdot(r, r)
         k += check
     return CgResult(x=x, residual_norm=torch.sqrt(rr), iterations=k)
 
@@ -207,16 +213,16 @@ def _lanczos_tridiag(matvec, v0: torch.Tensor, num_steps: int):
     m = num_steps
     V = torch.zeros((m + 1,) + tuple(v0.shape), dtype=v0.dtype,
                     device=v0.device)
-    V[0] = v0 / torch.sqrt(torch.dot(v0, v0))
+    V[0] = v0 / torch.sqrt(_vdot(v0, v0))
     alpha = torch.zeros(m, dtype=v0.dtype, device=v0.device)
     beta = torch.zeros(m, dtype=v0.dtype, device=v0.device)
     for j in range(m):
         w = matvec(V[j])
-        alpha[j] = torch.dot(V[j], w)
-        Vj = V[: j + 1]
-        w = w - (Vj @ w) @ Vj
-        w = w - (Vj @ w) @ Vj
-        bnew = torch.sqrt(torch.dot(w, w))
+        alpha[j] = _vdot(V[j], w)
+        Vj = V[: j + 1].reshape(j + 1, -1)
+        w = w - ((Vj @ w.reshape(-1)) @ Vj).reshape(w.shape)
+        w = w - ((Vj @ w.reshape(-1)) @ Vj).reshape(w.shape)
+        bnew = torch.sqrt(_vdot(w, w))
         V[j + 1] = torch.where(bnew > 0, w / torch.where(bnew > 0, bnew, 1.0),
                                0.0)
         beta[j] = bnew

@@ -1,16 +1,16 @@
-"""Sharded SpMV: the port's counterpart of ``spmv_tpu/parallel/``, first
-half.
+"""Sharded SpMV: the port's counterpart of ``spmv_tpu/parallel/``.
 
 As in the JAX package, which is single-controller (one ``shard_map``
 over a 1-D mesh), the port runs one process over a mesh of P shards
 (``make_mesh``); the shards may all lie on one device (virtual shards,
 as the JAX tests' 8 CPU devices), and a mesh over distinct devices is
-refused until that half is ported.  The collectives become tensor
-operations on the stacked layout: the all-gather of x is the stacked x
-itself, a ``ppermute`` of halo strips a window or a gather of it, an
+refused (``MeshError``).  The collectives become tensor operations on
+the stacked layout: the all-gather of x is the stacked x itself, a
+``ppermute`` of halo strips a window or a gather of it, an
 ``all_to_all`` one gather by the schedule's table, and the ``psum`` of
-CG's dots the dot over the whole stacked tensor.  Every shard's local
-product is one launch of the port's hand-written kernel for its format.
+a solver's dots the dot over the whole stacked tensor.  Every shard's
+local product is a launch of the port's hand-written kernel for its
+format.
 
 - ``shard`` (``ShardedCsr``): nnz-balanced row blocks, x all-gathered,
   the CSR SpMV a shard;
@@ -19,7 +19,22 @@ product is one launch of the port's hand-written kernel for its format.
 - ``halo_shard`` (``ShardedCsrHalo``): the ragged halo exchange of the
   x elements that cross shards (``neighbor`` / ``all2all``), the CSR
   SpMV or SpMM over the interior and the boundary a shard;
-- ``halo``: the communication-volume model and the halo plan (numpy).
+- ``halo``: the communication-volume model and the halo plan (numpy);
+- ``well_shard`` (``ShardedWell``, ``ShardedWellHalo``): 128-aligned
+  row blocks as WELL, x all-gathered (one K5 launch a shard) or a halo
+  exchange (K5 over the interior, the CSR SpMV over the boundary);
+- ``wellcw_shard`` (``ShardedWellCwHalo``): WELL-CW interiors (K3a-c /
+  K4a-c and the CSR remainder) and CSR boundaries, SpMV and SpMM;
+- ``bsr_shard`` (``ShardedBsrHalo``): whole 128-row X tiles as the halo
+  unit, one K7 launch a shard on an extended X;
+- ``precond_shard`` (``ShardedBlockJacobiIC0``): block-Jacobi IC(0),
+  two ``tri_solve``s a shard;
+- ``dryrun``: ``dryrun_multichip``, the eleven strategies of
+  ``__graft_entry__.py``'s.
+
+Left: ``distributed.py`` (the multi-process bootstrap), a mesh over
+distinct GPUs and products whose exchanges are real collectives
+(ROADMAP.md, Queue 1).
 """
 
 from spmv_tpu_torch.parallel.dia_shard import (
@@ -55,6 +70,37 @@ from spmv_tpu_torch.parallel.mesh import (
     MeshError,
     make_mesh,
     mesh_info,
+)
+from spmv_tpu_torch.parallel.precond_shard import (
+    ShardedBlockJacobiIC0,
+    block_jacobi_ic0,
+    make_sharded_block_ic0_preconditioner,
+    sharded_block_ic0_apply,
+)
+from spmv_tpu_torch.parallel.bsr_shard import (
+    ShardedBsrHalo,
+    make_sharded_bsr_matvec,
+    shard_bsr_halo,
+    sharded_bsr_spmm,
+    sharded_bsr_spmv,
+)
+from spmv_tpu_torch.parallel.well_shard import (
+    ShardedWell,
+    ShardedWellHalo,
+    make_sharded_well_halo_matvec,
+    make_sharded_well_matvec,
+    shard_well,
+    shard_well_halo,
+    sharded_well_halo_spmv,
+    sharded_well_spmv,
+)
+from spmv_tpu_torch.parallel.wellcw_shard import (
+    ShardedWellCwHalo,
+    make_sharded_wellcw_halo_matmat,
+    make_sharded_wellcw_halo_matvec,
+    shard_wellcw_halo,
+    sharded_wellcw_halo_spmm,
+    sharded_wellcw_halo_spmv,
 )
 from spmv_tpu_torch.parallel.shard import (
     ShardedCsr,
@@ -98,4 +144,27 @@ __all__ = [
     "unstack_dia_vector",
     "stack_dia_matrix",
     "unstack_dia_matrix",
+    "ShardedBlockJacobiIC0",
+    "block_jacobi_ic0",
+    "make_sharded_block_ic0_preconditioner",
+    "sharded_block_ic0_apply",
+    "ShardedBsrHalo",
+    "shard_bsr_halo",
+    "sharded_bsr_spmm",
+    "sharded_bsr_spmv",
+    "make_sharded_bsr_matvec",
+    "ShardedWell",
+    "shard_well",
+    "sharded_well_spmv",
+    "make_sharded_well_matvec",
+    "ShardedWellHalo",
+    "shard_well_halo",
+    "sharded_well_halo_spmv",
+    "make_sharded_well_halo_matvec",
+    "ShardedWellCwHalo",
+    "shard_wellcw_halo",
+    "sharded_wellcw_halo_spmv",
+    "make_sharded_wellcw_halo_matvec",
+    "sharded_wellcw_halo_spmm",
+    "make_sharded_wellcw_halo_matmat",
 ]

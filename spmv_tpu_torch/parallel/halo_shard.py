@@ -2,8 +2,9 @@
 
 The counterpart of ``spmv_tpu/parallel/halo_shard.py``.  In place of
 the all-gather of x (``parallel.shard``), each shard receives only the x
-elements its rows read from other shards, as planned on the host by
-``parallel.halo.build_halo_plan``.
+elements its rows read from other shards, the needs of
+``parallel.halo.build_halo_plan`` (found here from each shard's own run
+of entries).
 
 Exchange strategies (``build_exchange_schedule``, JAX's numpy code):
 
@@ -47,7 +48,6 @@ import torch
 from spmv_tpu_torch.models.csr import CsrMatrix
 from spmv_tpu_torch.models.device import default_value_dtype, round_up
 from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core, csr_spmv_core
-from spmv_tpu_torch.parallel.halo import build_halo_plan
 from spmv_tpu_torch.parallel.mesh import Mesh
 from spmv_tpu_torch.parallel.shard import (
     _device,
@@ -72,6 +72,7 @@ __all__ = [
     "build_exchange_schedule",
     "receive_index",
     "exchange_halos",
+    "halo_of",
 ]
 
 SLOT_PAD = 8  # pair/strip slot counts padded to multiples of 8, as in JAX
@@ -328,17 +329,22 @@ def shard_csr_halo(
     device = _device(mesh)
     p = int(num_shards)
     bounds = np.asarray(partition_rows(m, p, partition), dtype=np.int64)
-    plan = build_halo_plan(m, bounds)
     R = rows_per_shard(bounds)
+    row_ptr = np.asarray(m.row_ptr, dtype=np.int64)
+    cols = np.asarray(m.column_index[: row_ptr[-1]], dtype=np.int64)
+    # each shard's needs from its own run of entries: build_halo_plan's
+    # halo_indices, without its masks over every entry
+    needs = []
+    for q in range(p):
+        c = cols[row_ptr[bounds[q]]: row_ptr[bounds[q + 1]]]
+        needs.append(np.unique(c[(c < bounds[q]) | (c >= bounds[q + 1])]))
     sched = build_exchange_schedule(
-        list(plan.halo_indices), bounds,
+        needs, bounds,
         exchange=exchange,
         neighbor_max_distance=neighbor_max_distance,
     )
     slots = sched.num_strips * sched.halo_slots
 
-    row_ptr = np.asarray(m.row_ptr, dtype=np.int64)
-    cols = np.asarray(m.column_index[: row_ptr[-1]], dtype=np.int64)
     interior, boundary = [], []
     # each shard's halo slot of a remote column: a table over the columns
     # (``sched.remap``'s binary search over the need list, at every entry,
@@ -391,7 +397,9 @@ def shard_csr_halo(
     )
 
 
-def _halo(A: ShardedCsrHalo, x_stacked: torch.Tensor):
+def halo_of(A, x_stacked: torch.Tensor):
+    """Every shard's received halo of the stacked x (or X) for a halo
+    container, or None for ``exchange == "none"``."""
     if A.exchange == "none":
         return None
     return exchange_halos(x_stacked, A.recv_index, A.recv_missing)
@@ -403,7 +411,7 @@ def sharded_halo_spmv(A: ShardedCsrHalo, x_stacked: torch.Tensor,
     interior launch on its own x, then the boundary launch on its
     received halo, accumulating."""
     check_mesh(A, mesh)
-    halo = _halo(A, x_stacked)
+    halo = halo_of(A, x_stacked)
     y = torch.empty_like(x_stacked)
     for q in range(A.num_shards):
         csr_spmv_core(A.interior[q], x_stacked[q], out=y[q])
@@ -418,7 +426,7 @@ def sharded_halo_spmm(A: ShardedCsrHalo, X_stacked: torch.Tensor,
     moves every column's halo; a shard makes the interior and boundary
     launches of the CSR SpMM."""
     check_mesh(A, mesh)
-    halo = _halo(A, X_stacked)
+    halo = halo_of(A, X_stacked)
     Y = torch.empty_like(X_stacked)
     for q in range(A.num_shards):
         csr_spmm_core(A.interior[q], X_stacked[q], out=Y[q])

@@ -328,7 +328,7 @@ def test_port_never_imports_jax(matrix_file):
             assert (doc.get("device") or doc.get("cg") or doc.get("eigs")
                     or doc.get("scaling") or doc["cache_misses"]) is not None
         from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
-        dryrun_multichip(2)
+        assert len(dryrun_multichip(2)) == 11
         import spmv_tpu_torch.kernels, spmv_tpu_torch.profile.report
         import spmv_tpu_torch.profile.harness, spmv_tpu_torch.perfmodel
         assert "jax" not in sys.modules, "the port imported jax"

@@ -15,7 +15,11 @@ float32 products kept off TF32 when the process switches TF32 on; and the
 sharded paths (``parallel``) on 1, 2 and 4 virtual shards of the card:
 each sharded SpMV and SpMM against its CPU run and the unsharded kernel,
 one launch a shard (two for the halo CSR path's shards that read a
-halo), CG within 2 iterations of its CPU run.
+halo), CG within 2 iterations of its CPU run; the WELL, WELL-CW and BSR
+sharded products and the block-Jacobi IC(0) apply (launches exactly the
+container's ``launches_a_product`` / ``launches_an_apply``, twice
+bitwise), Chebyshev, Jacobi-PCG, block-IC(0) PCG and masked LOBPCG over
+sharded operators against their CPU runs, and ``dryrun_multichip(4)``.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -2645,3 +2649,227 @@ def test_sharded_cg_on_the_card(cuda, kind):
         res[device.type] = (r.iterations, unstack(r.x))
     assert abs(res["cuda"][0] - res["cpu"][0]) <= 2
     assert np.abs(res["cuda"][1] - 1.0).max() <= 1e-8
+
+
+# The second sharded half on P virtual shards of the card: the WELL
+# all-gather and halo SpMV, the WELL-CW halo SpMV and SpMM, the BSR tile
+# halo SpMM (float32 and float64 on the SIMT kernel, bfloat16 blocks of 128
+# rows at k = 8 on the tensor cores) and the block-Jacobi IC(0) apply, each
+# launched twice (bitwise equal), its launches exactly the container's
+# ``launches_a_product`` (``launches_an_apply``), held against its CPU run
+# and the fp64 host product; then Chebyshev, Jacobi-PCG, block-IC(0) PCG
+# and masked LOBPCG over the sharded operators against their CPU runs, and
+# ``dryrun_multichip`` on the card.
+
+SHARD_FORMAT_CASES = {
+    "well": ("poisson", "auto", 1),
+    "well_halo": ("poisson", "auto", 1),
+    "well_halo_all2all": ("poisson", "all2all", 1),
+    "wellcw": ("banded", "auto", 1),
+    "wellcw_all2all": ("scattered", "all2all", 1),
+    "wellcw_spmm": ("banded", "auto", 3),
+    "bsr": ("poisson", "auto", 3),
+    "bsr_all2all": ("poisson", "all2all", 3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_mm(name):
+    return {"poisson": lambda: poisson2d(48, 40),
+            "banded": lambda: banded_random(4000, 300, 8, seed=3),
+            "scattered": lambda: random_sparse(1536, 1536, 5, seed=4),
+            "blocks": lambda: _bsr_dense_blocks(128, 1024, 1024, 3, 5)}[name]()
+
+
+def _shard_format(case, P, dtype, device):
+    """(sharded matrix, product on a host (n,) or (n, k) array -> device
+    result, unstack to host, host fp64 product)."""
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.parallel import bsr_shard
+
+    name, exchange, k = SHARD_FORMAT_CASES[case]
+    mm = _shard_mm(name)
+    m = CsrMatrix.from_matrix_market(mm)
+    mesh = par.make_mesh(P, devices=[device] * P)
+    if case.startswith("bsr"):
+        A = par.shard_bsr_halo(BsrMatrix.from_matrix_market(mm, block_rows=8),
+                               P, dtype=dtype, mesh=mesh, exchange=exchange)
+        return (A, lambda X: par.sharded_bsr_spmm(
+                    A, bsr_shard.stack_columns(X, A), mesh),
+                lambda Y: bsr_shard.unstack_rows(Y, A), m)
+    if case == "well":
+        A = par.shard_well(m, P, window_rows=2, dtype=dtype, mesh=mesh)
+        product = par.sharded_well_spmv
+    elif case.startswith("well_halo"):
+        A = par.shard_well_halo(m, P, window_rows=2, dtype=dtype, mesh=mesh,
+                                exchange=exchange)
+        product = par.sharded_well_halo_spmv
+    else:
+        A = par.shard_wellcw_halo(m, P, dtype=dtype, mesh=mesh,
+                                  exchange=exchange)
+        product = (par.sharded_wellcw_halo_spmm if k > 1
+                   else par.sharded_wellcw_halo_spmv)
+    stack = par.stack_block if k > 1 else par.stack_vector
+    unstack = par.unstack_block if k > 1 else par.unstack_vector
+    return (A, lambda X: product(A, stack(X, A), mesh),
+            lambda Y: unstack(Y, A), m)
+
+
+def _counts(names):
+    from spmv_tpu_torch import ops
+
+    return {n: getattr(ops, n).launches for n in names}
+
+
+def _host_product(m, X):
+    return (m.spmv(X) if X.ndim == 1
+            else np.stack([m.spmv(c) for c in X.T], axis=1))
+
+
+@pytest.mark.parametrize("P", SHARD_P)
+@pytest.mark.parametrize("case", list(SHARD_FORMAT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_sharded_format_products_on_the_card(cuda, P, case, dtype):
+    A, product, unstack, m = _shard_format(case, P, dtype, cuda)
+    k = SHARD_FORMAT_CASES[case][2]
+    rng = np.random.default_rng(9)
+    X = (rng.standard_normal(m.num_rows) if k == 1
+         else rng.standard_normal((m.num_rows, k)))
+    want = (A.launches_a_product(spmm=True) if case == "wellcw_spmm"
+            else A.launches_a_product())
+    before = _counts(want)
+    y1 = product(X)
+    y2 = product(X)
+    torch.cuda.synchronize()
+    after = _counts(want)
+    assert {n: after[n] - before[n] for n in want} == {
+        n: 2 * c for n, c in want.items()}
+    assert torch.equal(y1, y2)
+    assert sum(want.values()) >= P
+    C, cproduct, _, _ = _shard_format(case, P, dtype, torch.device("cpu"))
+    plain = cproduct(X)
+    assert _rel_err(y1.cpu(), plain) <= TOL[dtype]
+    ref = _host_product(m, X)
+    got = unstack(y1)
+    assert np.abs(got - ref).max() <= TOL[dtype] * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("P", SHARD_P)
+def test_sharded_bsr_tensor_cores(cuda, P):
+    """bfloat16 blocks of 128 rows at k = 8: one tensor-core K7 launch a
+    shard on its extended X, float32 Y, against the CPU run (the same
+    bfloat16 products summed in float32) to 1e-5 of the output's scale."""
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.parallel import bsr_shard
+
+    host = _shard_mm("blocks")
+    X = np.random.default_rng(10).standard_normal((host.num_columns, 8))
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        mesh = par.make_mesh(P, devices=[device] * P)
+        A = par.shard_bsr_halo(host, P, dtype=torch.bfloat16, mesh=mesh)
+        tc = bsr_spmm_core.tensor_core_launches
+        Y = par.sharded_bsr_spmm(A, bsr_shard.stack_columns(X, A), mesh)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert bsr_spmm_core.tensor_core_launches - tc == P
+        assert Y.dtype == torch.float32
+        out[device.type] = Y.cpu()
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("P", SHARD_P)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_sharded_block_ic0_apply_on_the_card(cuda, P, dtype):
+    from spmv_tpu_torch import parallel as par
+
+    m = CsrMatrix.from_matrix_market(_shard_mm("poisson"))
+    r = np.random.default_rng(11).standard_normal(m.num_rows)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        mesh = par.make_mesh(P, devices=[device] * P)
+        H = par.shard_csr_halo(m, P, dtype=dtype, mesh=mesh)
+        M = par.block_jacobi_ic0(m, H.bounds, H.rows_per_shard, dtype=dtype,
+                                 mesh=mesh)
+        want = M.launches_an_apply()
+        before = _counts(want)
+        z = par.sharded_block_ic0_apply(M, par.stack_vector(r, H), mesh)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            after = _counts(want)
+            assert {n: after[n] - before[n] for n in want} == want
+        out[device.type] = z.cpu()
+    assert _rel_err(out["cuda"], out["cpu"]) <= TOL[dtype]
+
+
+def _shard_solvers(device):
+    """Iterations and solutions of Chebyshev, Jacobi-PCG and block-IC(0)
+    PCG over the halo CSR matvec, and masked LOBPCG (k = 2) over its
+    SpMM, at P = 4 in float64."""
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.ops import (
+        chebyshev,
+        extract_diagonal,
+        jacobi_preconditioner,
+        lanczos_bounds,
+        lobpcg,
+        preconditioned_conjugate_gradient,
+    )
+
+    m = CsrMatrix.from_matrix_market(_shard_mm("poisson"))
+    f64 = torch.float64
+    mesh = par.make_mesh(4, devices=[device] * 4)
+    H = par.shard_csr_halo(m, 4, dtype=f64, mesh=mesh)
+    mv = par.make_sharded_halo_matvec(H, mesh)
+    rng = np.random.default_rng(12)
+    bs = par.stack_vector(m.spmv(np.ones(m.num_rows)), H)
+    v0 = par.stack_vector(rng.standard_normal(m.num_rows), H)
+    lo, hi = lanczos_bounds(mv, tuple(bs.shape), dtype=f64, v0=v0,
+                            device=device)
+    out = {"bounds": (lo, hi)}
+    out["chebyshev"] = chebyshev(mv, bs, lo, hi, tol=1e-10,
+                                 max_iterations=5000, check_every=10)
+    jac = jacobi_preconditioner(par.stack_vector(extract_diagonal(m), H))
+    out["jacobi"] = preconditioned_conjugate_gradient(
+        mv, bs, jac, tol=1e-10, max_iterations=2000, recompute_every=25)
+    M = par.block_jacobi_ic0(m, H.bounds, H.rows_per_shard, dtype=f64,
+                             mesh=mesh)
+    out["block_ic0"] = preconditioned_conjugate_gradient(
+        mv, bs, par.make_sharded_block_ic0_preconditioner(M, mesh),
+        tol=1e-10, max_iterations=2000, recompute_every=25)
+    P_, R = H.num_shards, H.rows_per_shard
+    mask = np.zeros((P_, R))
+    for q in range(P_):
+        mask[q, : H.bounds[q + 1] - H.bounds[q]] = 1.0
+    mask[:, R - 1] = 0.0
+    mm = par.make_sharded_halo_matmat(H, mesh)
+    X0 = par.stack_block(rng.standard_normal((m.num_rows, 2)), H)
+    P0 = torch.from_numpy(rng.standard_normal((P_ * R, 2))).to(device)
+    out["lobpcg"] = lobpcg(
+        lambda V: mm(V.reshape(P_, R, 2)).reshape(P_ * R, 2),
+        X0.reshape(P_ * R, 2), tol=1e-9, max_iterations=400,
+        mask=torch.from_numpy(mask.reshape(-1)).to(device), P0=P0)
+    out["unstack"] = lambda v: par.unstack_vector(v, H)
+    return out
+
+
+def test_sharded_solvers_on_the_card(cuda):
+    gpu, cpu = _shard_solvers(cuda), _shard_solvers(torch.device("cpu"))
+    np.testing.assert_allclose(gpu["bounds"], cpu["bounds"], rtol=1e-10)
+    for name in ("chebyshev", "jacobi", "block_ic0"):
+        assert abs(gpu[name].iterations - cpu[name].iterations) <= 2, name
+        assert np.abs(gpu["unstack"](gpu[name].x) - 1.0).max() <= 1e-8
+    assert gpu["block_ic0"].iterations < gpu["jacobi"].iterations
+    assert abs(int(gpu["lobpcg"].iterations)
+               - int(cpu["lobpcg"].iterations)) <= 2
+    np.testing.assert_allclose(gpu["lobpcg"].eigenvalues.cpu().numpy(),
+                               _poisson_smallest(48, 40, 2), rtol=1e-8)
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(4, device=cuda)
+    assert len(out) == 11
+    assert all(r["rel_err"] < 1e-3 for r in out.values())

@@ -9,8 +9,8 @@ SpMV and SpMM (K1 / K2 a shard on a window of the stacked x), the halo
 CSR SpMV and SpMM (neighbor and all2all).  The stacked geometry (bounds,
 rows a shard, exchange) is JAX's.  CG over each strategy and batched
 CG over the DIA matmat at k = 2 stop at JAX's iteration counts, x at
-rtol 1e-10; ``dryrun_multichip(8)`` stops at the counts of a live run
-of JAX's.  Also: CG and batched CG keep their bits on 1-D vectors and
+rtol 1e-10; ``dryrun_multichip(8)``'s eleven strategies stop at the
+counts of a live run of JAX's (LOBPCG: its eigenvalues).  Also: CG and batched CG keep their bits on 1-D vectors and
 (n, k) blocks after the change to stacked reductions, and JAX's batched
 CG over its halo matmat (columns on axis 2) is not a batched solve.
 """
@@ -374,8 +374,8 @@ def test_jax_batched_cg_over_halo_matmat_is_not_a_batched_solve():
 
 
 def _jax_dryrun_counts(n):
-    """The iteration counts a live run of JAX's ``dryrun_multichip(n)``
-    prints for the four strategies the port has."""
+    """What a live run of JAX's ``dryrun_multichip(n)`` prints for its
+    eleven strategies: iteration counts, exchanges and volumes."""
     spec = importlib.util.spec_from_file_location(
         "graft_entry", os.path.join(REPO, "__graft_entry__.py"))
     entry = importlib.util.module_from_spec(spec)
@@ -384,31 +384,56 @@ def _jax_dryrun_counts(n):
     with contextlib.redirect_stdout(buf):
         entry.dryrun_multichip(n)
     line = buf.getvalue()
-    halo = re.search(r"CSR\(halo-(\w+), (\d+) elems/step\) CG iters=(\d+)",
-                     line)
+
+    def one(pattern):
+        return re.search(pattern, line).groups()
+
+    halo = one(r"CSR\(halo-(\w+), (\d+) elems/step\) CG iters=(\d+)")
     return {
-        "csr_all_gather": int(re.search(
-            r"CSR\(all-gather\) CG iters=(\d+)", line)[1]),
-        "dia_halo": int(re.search(r"DIA\(halo-ppermute\) CG iters=(\d+)",
-                                  line)[1]),
-        "csr_halo": (halo[1], int(halo[2]), int(halo[3])),
-        "batched_dia_halo": [int(i) for i in re.search(
-            r"batched-CG\(halo-ppermute, k=2 RHS\) iters=\[(\d+), (\d+)\]",
-            line).groups()],
+        "csr_all_gather": int(one(r"CSR\(all-gather\) CG iters=(\d+)")[0]),
+        "dia_halo": int(one(r"DIA\(halo-ppermute\) CG iters=(\d+)")[0]),
+        "csr_halo": (halo[0], int(halo[1]), int(halo[2])),
+        "well_halo": one(r"WELL\(halo-(\w+)\) SpMV")[0],
+        "wellcw_halo": tuple(one(
+            r"WELL-CW\(halo-(\w+), (\d+) elems/step\) SpMV")),
+        "bsr_halo": tuple(one(r"BSR\(halo-(\w+), (\d+) blocks/step\) SpMM")),
+        "chebyshev": int(one(r"Chebyshev\(halo-\w+, no-reduction loop\) "
+                             r"iters=(\d+)")[0]),
+        "jacobi_pcg": int(one(r"Jacobi-PCG\(halo-\w+, residual replacement "
+                              r"every 25\) iters=(\d+)")[0]),
+        "batched_dia_halo": [int(i) for i in one(
+            r"batched-CG\(halo-ppermute, k=2 RHS\) iters=\[(\d+), (\d+)\]")],
+        "block_ic0_pcg": tuple(one(r"block-Jacobi-IC0 PCG\(local tri-solves, "
+                                   r"shift=([\d.]+)\) iters=(\d+)")),
+        "lobpcg": one(r"LOBPCG\(halo-\w+ SpMM, k=2, masked basis\) "
+                      r"iters=(\d+) eig_rel_err=(\S+)"),
     }
 
 
 def test_dryrun_matches_a_live_jax_dryrun(capsys):
+    """All eleven strategies: JAX's iteration counts, exchanges and
+    volumes; LOBPCG to JAX's 1e-4 of the analytic eigenvalues (its random
+    P is the port's own draw, so its count is not JAX's)."""
     got = dryrun_multichip(8, device="cpu")
     line = capsys.readouterr().out
     assert line.startswith("dryrun_multichip(8): ok — 128 rows, 592 nnz")
     want = _jax_dryrun_counts(8)
-    assert got["csr_all_gather"]["iterations"] == want["csr_all_gather"]
-    assert got["dia_halo"]["iterations"] == want["dia_halo"]
+    assert len(got) == len(want) == 11
+    for name in ("csr_all_gather", "dia_halo", "chebyshev", "jacobi_pcg",
+                 "batched_dia_halo"):
+        assert got[name]["iterations"] == want[name], name
     h = got["csr_halo"]
     assert ((h["exchange"], h["comm_elements_padded"], h["iterations"])
             == want["csr_halo"])
-    assert got["batched_dia_halo"]["iterations"] == want["batched_dia_halo"]
+    assert got["well_halo"]["exchange"] == want["well_halo"]
+    c, b = got["wellcw_halo"], got["bsr_halo"]
+    assert (c["exchange"], str(c["comm_elements_padded"])) == \
+        want["wellcw_halo"]
+    assert (b["exchange"], str(b["comm_blocks_exact"])) == want["bsr_halo"]
+    bj = got["block_ic0_pcg"]
+    assert (str(bj["shift_used"]), str(bj["iterations"])) == \
+        want["block_ic0_pcg"]
+    assert got["lobpcg"]["rel_err"] < 1e-4
     for res in got.values():
         assert res["rel_err"] < 1e-5
 
