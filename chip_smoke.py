@@ -401,6 +401,26 @@ Phases (each prints readable lines; any failure exits non-zero):
    padding rows masked and the block-IC(0) apply a column as its
    preconditioner (the analytic eigenvalues within 1e-6 relative); last
    ``dryrun_multichip(4)``.
+32. The process mesh (``parallel.distributed``, ``parallel.comm``; the
+   K1, K2 and CSR SpMV launches of the process-mesh runs make the
+   path's counts).  This process makes every product below on 4 virtual
+   shards (the rows to equal) and then joins a one-rank NCCL job over a
+   file store: the DIA halo SpMV at poisson2d(4096, 4096) float32 and
+   the halo CSR SpMV at poisson2d(2048, 2048) bitwise the virtual
+   shards' rows, CG over the DIA halo at poisson2d(1024, 1024) at their
+   count (every dot all-reduced through NCCL).  Two child processes,
+   started first, make a Gloo job (Gloo asked for by name, both on
+   cuda:0, the tensors it moves staged through pinned host memory), 2
+   shards a rank: the DIA halo SpMV and SpMM (k = 4) at poisson2d(4096,
+   4096), the all-gather CSR and the halo CSR SpMV (neighbor and
+   all2all forced) at poisson2d(2048, 2048), each rank's rows bitwise
+   the virtual shards' rows of its shards (sha256), ms a product and the
+   exchange alone (host clock, 10 back to back; host-staged Gloo on one
+   card, not NVLink); CG float32 to 1e-5 over the DIA halo and the halo
+   CSR at poisson2d(1024, 1024) within 2% of the virtual shards' count,
+   batched CG float64 to 1e-8 over the DIA matmat (k = 4) at
+   poisson2d(256, 256) at it.  A rank that fails or outlasts 420 s
+   fails the run.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -444,10 +464,12 @@ plain ms, bound and library ms; K7's rows also its launches by path;
 the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
 SpMV's their times at the hybrid's shape, beside torch.sparse of that
 part's own entries; the K1, K2, K3a-c, K4a-c, K5a/b, K7, CSR and
-tri_solve rows their launches on the sharded paths (phases 30 and 31);
+tri_solve rows their launches on the sharded paths (phases 30 and 31),
+the K1, K2 and CSR SpMV rows theirs on the distributed path (phase 32);
 and summaries of each path,
-`formats`, `amg`, `traffic_split`, `simulate`, `solvers`, `eigs` and
-`sharded` the last, with phase 31's under ``formats``)
+`formats`, `amg`, `traffic_split`, `simulate`, `solvers`, `eigs`,
+`sharded`, with phase 31's under ``formats``, and `distributed` the
+last)
 and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
@@ -6971,6 +6993,441 @@ def phase_sharded_formats(device, smi_line, grid_dia=None, well_full=None,
                     "time"}
 
 
+# phase 32: the process mesh (parallel.distributed, parallel.comm), first
+# at one NCCL rank in this process, then in a Gloo job of two child
+# processes sharing the card
+DIST_P = SHARD_P              # shards: 4, two a rank in the Gloo job
+DIST_WORLD = 2                # ranks of the Gloo job
+DIST_DIA_GRID = FULL_GRID     # poisson2d(4096²): the DIA halo SpMV / SpMM
+DIST_CSR_GRID = 2048          # poisson2d(2048²): the CSR paths
+DIST_CG_GRID = CG_GRID        # poisson2d(1024²): CG float32 to 1e-5
+DIST_CG_TOL = 1e-5
+DIST_CG_SLACK = 0.02          # a rank job's CG count within 2% of one
+DIST_BCG_GRID = 256           # batched CG float64 to 1e-8, k = DIST_K
+DIST_BCG_TOL = 1e-8
+DIST_K = 4
+DIST_REPS = 10                # products (exchanges) a host-clock timing
+DIST_CHILD_S = 420            # the Gloo job's wall limit: past it, fail
+DIST_WRAPPERS = ("dia_spmv_core", "dia_spmm_core", "csr_spmv_core")
+DIST_CASES = ("dia_spmv", f"dia_spmm_k{DIST_K}", "csr_all_gather",
+              "csr_halo_neighbor", "csr_halo_all2all")
+DIST_GLOO_NOTE = ("host-staged Gloo times of two processes on one card, "
+                  "not NVLink")
+
+# one rank of phase 32's Gloo job (store, world size, rank, device, the
+# grids as JSON): its JSON on the last line
+_DIST_CHILD = """
+import json, sys
+import chip_smoke as c
+print(json.dumps(c.distributed_rank(sys.argv[1], int(sys.argv[2]),
+                                    int(sys.argv[3]), sys.argv[4],
+                                    json.loads(sys.argv[5]))), flush=True)
+"""
+
+
+def _dist_grids() -> dict:
+    return {"dia": DIST_DIA_GRID, "csr": DIST_CSR_GRID, "cg": DIST_CG_GRID,
+            "bcg": DIST_BCG_GRID}
+
+
+def _dist_hosts(grids, dia_full=None) -> dict:
+    """Phase 32's host matrices, poisson2d of each of ``grids``: ``dia``
+    as DIA (the caller's where given), ``csr`` as CSR, ``cg`` as DIA and
+    CSR, ``bcg`` as DIA; every CSR from its DIA (``_csr_of_dia``), so
+    every process builds the same entries in the same order."""
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import DiaMatrix
+
+    def dia(grid):
+        return DiaMatrix.from_matrix_market(poisson2d(grid, grid))
+
+    cg = dia(grids["cg"])
+    return {"dia": dia_full if dia_full is not None else dia(grids["dia"]),
+            "csr": _csr_of_dia(dia(grids["csr"])), "cg_dia": cg,
+            "cg_csr": _csr_of_dia(cg), "bcg_dia": dia(grids["bcg"])}
+
+
+def _rows_hash(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _dsync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _host_ms(fn, reps: int, device) -> float:
+    """Host milliseconds a call of fn, synchronized, after one warm-up:
+    the Gloo exchanges block the host, so the host clock holds them."""
+    fn()
+    _dsync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _dsync(device)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _dist_products(hosts, mesh, path, cases=DIST_CASES,
+                   time_it=False) -> dict:
+    """Phase 32's float32 products on ``mesh`` (the path's launches
+    counted by ``path``): {case: {"rows": this process's stacked rows,
+    and with ``time_it`` "ms" a product and "exchange_ms" the exchange
+    alone}}; x (X) drawn on the device from a seed a case, whole, so
+    every process draws the same."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.parallel import dia_shard, halo_shard
+
+    device, f32 = mesh.device, torch.float32
+    out = {}
+    for case in cases:
+        g = torch.Generator(device=device).manual_seed(
+            320 + DIST_CASES.index(case))
+        if case.startswith("dia"):
+            A = par.shard_dia(hosts["dia"], DIST_P, dtype=f32, mesh=mesh)
+            if case == "dia_spmv":
+                xs = par.stack_dia_vector(torch.randn(
+                    A.num_rows, generator=g, device=device, dtype=f32), A)
+                product = par.sharded_dia_spmv
+                flat = xs.reshape(-1)
+            else:
+                xs = par.stack_dia_matrix(torch.randn(
+                    A.num_rows, DIST_K, generator=g, device=device,
+                    dtype=f32), A)
+                product = par.sharded_dia_spmm
+                flat = xs.transpose(1, 2).reshape(-1, DIST_K).contiguous()
+
+            def exchange():
+                return dia_shard._extended(A, flat)
+        else:
+            kind = case.removeprefix("csr_")
+            A = (par.shard_csr(hosts["csr"], DIST_P, dtype=f32, mesh=mesh)
+                 if kind == "all_gather" else par.shard_csr_halo(
+                     hosts["csr"], DIST_P, dtype=f32, mesh=mesh,
+                     exchange=kind.removeprefix("halo_")))
+            xs = par.stack_vector(torch.randn(
+                A.num_rows, generator=g, device=device, dtype=f32), A, mesh)
+            product = (par.sharded_spmv if kind == "all_gather"
+                       else par.sharded_halo_spmv)
+
+            def exchange():
+                if kind == "all_gather":
+                    return par.all_gather_rows(xs, mesh)
+                return halo_shard.halo_of(A, xs)
+        rows, _ = path.run(lambda: product(A, xs, mesh))
+        res = {"rows": rows}
+        if time_it:
+            res["ms"] = _host_ms(lambda: product(A, xs, mesh), DIST_REPS,
+                                 device)
+            res["exchange_ms"] = _host_ms(exchange, DIST_REPS, device)
+        out[case] = res
+    return out
+
+
+def _dist_solvers(hosts, mesh, path, cases=("dia_halo", "csr_halo",
+                                            "batched_dia_halo")) -> dict:
+    """CG float32 to DIST_CG_TOL over the DIA halo and the halo CSR
+    matvecs at poisson2d(DIST_CG_GRID²) and batched CG float64 to
+    DIST_BCG_TOL over the DIA matmat (k = DIST_K) at
+    poisson2d(DIST_BCG_GRID²), on ``mesh`` with ``mesh=`` (its dots summed
+    over the ranks of a process mesh), b = A ones from the fp64 host
+    product (column j: j + 1 times it): iterations, max|x - x*|, host us
+    an iteration."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.ops import (
+        batched_conjugate_gradient,
+        conjugate_gradient,
+    )
+
+    out = {}
+    for case in cases:
+        if case == "batched_dia_halo":
+            b = hosts["bcg_dia"].spmv(np.ones(hosts["bcg_dia"].num_rows))
+            B = np.stack([(j + 1) * b for j in range(DIST_K)], axis=1)
+            A = par.shard_dia(hosts["bcg_dia"], DIST_P, dtype=torch.float64,
+                              mesh=mesh)
+            mv, bs = par.make_sharded_dia_matmat(A, mesh), \
+                par.stack_dia_matrix(B, A)
+
+            def solve():
+                return batched_conjugate_gradient(
+                    mv, bs, tol=DIST_BCG_TOL, max_iterations=SHARD_CG_MAX,
+                    mesh=mesh)
+
+            def unstack(v):
+                return par.unstack_dia_matrix(v, A) - np.arange(
+                    1, DIST_K + 1)[None, :]
+        else:
+            b = hosts["cg_csr"].spmv(np.ones(hosts["cg_csr"].num_rows))
+            if case == "dia_halo":
+                A = par.shard_dia(hosts["cg_dia"], DIST_P,
+                                  dtype=torch.float32, mesh=mesh)
+                mv, bs = par.make_sharded_dia_matvec(A, mesh), \
+                    par.stack_dia_vector(b, A)
+                unstack = functools.partial(_dist_unstack_err,
+                                            par.unstack_dia_vector, A)
+            else:
+                A = par.shard_csr_halo(hosts["cg_csr"], DIST_P,
+                                       dtype=torch.float32, mesh=mesh)
+                mv, bs = par.make_sharded_halo_matvec(A, mesh), \
+                    par.stack_vector(b, A, mesh)
+                unstack = functools.partial(_dist_unstack_err,
+                                            par.unstack_vector, A)
+
+            def solve():
+                return conjugate_gradient(mv, bs, tol=DIST_CG_TOL,
+                                          max_iterations=SHARD_CG_MAX,
+                                          mesh=mesh)
+        _dsync(mesh.device)
+        t0 = time.perf_counter()
+        r, _ = path.run(solve)
+        _dsync(mesh.device)
+        wall = time.perf_counter() - t0
+        its = ([int(i) for i in r.iterations] if case.startswith("batched")
+               else int(r.iterations))
+        out[case] = {"iterations": its,
+                     "max_abs_err": float(np.abs(unstack(r.x)).max()),
+                     "host_us_an_iteration": wall / max(np.max(its), 1)
+                     * 1e6}
+    return out
+
+
+def _dist_unstack_err(unstack, A, x):
+    return unstack(x, A) - 1.0
+
+
+def distributed_rank(store: str, world: int, rank: int, device: str,
+                     grids: dict) -> dict:
+    """One rank of phase 32's Gloo job: Gloo asked for by name on
+    ``device`` (the parent's card, which every rank shares), through the
+    ``file://`` store ``store``; builds the host matrices of ``grids``
+    (``_dist_hosts``), waits for the file
+    ``store + ".go"`` (the parent's runs are done with the card), then
+    runs ``_dist_products`` (timed) and ``_dist_solvers`` on the process
+    mesh of DIST_P shards and returns its rows' hashes, times, solver
+    results and the wrappers' launches."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+
+    t0 = time.perf_counter()
+    par.initialize_distributed(f"file://{store}", world, rank,
+                               backend="gloo", device=device)
+    mesh = par.global_mesh(DIST_P)
+    hosts = _dist_hosts(grids)
+    setup = time.perf_counter() - t0
+    deadline = time.monotonic() + DIST_CHILD_S
+    while not os.path.exists(store + ".go"):
+        if time.monotonic() > deadline:
+            raise TimeoutError("no go from the parent")
+        time.sleep(0.05)
+    path = _ShardPath(DIST_WRAPPERS)
+    products = _dist_products(hosts, mesh, path, time_it=True)
+    for case, res in products.items():
+        rows = res.pop("rows")
+        res["sha256"] = _rows_hash(rows)
+        res["finite"] = bool(torch.isfinite(rows).all())
+    solvers = _dist_solvers(hosts, mesh, path)
+    torch.distributed.destroy_process_group()
+    return {"rank": rank, "backend": "gloo", "device": str(mesh.device),
+            "local_shards": [mesh.local_shards.start,
+                             mesh.local_shards.stop],
+            "setup_s": setup, "products": products, "solvers": solvers,
+            "launches": path.launches}
+
+
+def _start_dist_children(store: str, device) -> list:
+    """The Gloo job's ranks, each writing its output to files beside the
+    store (a pipe left unread could stall a rank, and its peer with
+    it)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "LOCAL_RANK"):
+        env.pop(name, None)
+    procs = []
+    for rank in range(DIST_WORLD):
+        with open(f"{store}.out{rank}", "w") as out, \
+                open(f"{store}.err{rank}", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _DIST_CHILD, store, str(DIST_WORLD),
+                 str(rank), str(device), json.dumps(_dist_grids())],
+                cwd=repo, env=env, stdout=out, stderr=err))
+    return procs
+
+
+def _wait_dist_children(procs, store, tag) -> list:
+    """Each rank's JSON; a rank that fails or outlasts DIST_CHILD_S fails
+    the run."""
+    deadline = time.monotonic() + DIST_CHILD_S
+    got = []
+    for rank, proc in enumerate(procs):
+        try:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            _fail(f"[{tag}] rank {rank} of the Gloo job outlasted "
+                  f"{DIST_CHILD_S} s")
+        with open(f"{store}.out{rank}") as f:
+            out = f.read()
+        if proc.returncode != 0:
+            with open(f"{store}.err{rank}") as f:
+                err = f.read()
+            _fail(f"[{tag}] rank {rank} of the Gloo job exited "
+                  f"{proc.returncode}: {err[-3000:]}")
+        got.append(json.loads(out.strip().splitlines()[-1]))
+    return got
+
+
+@_walled
+def phase_distributed(device, smi_line, dia_full=None):
+    """The process mesh (phase 32).  The Gloo job's two ranks start
+    first and build their host matrices while this process, on the same
+    inputs, makes every product on DIST_P virtual shards (the rows every
+    rank's must equal, bitwise) and the solvers there (the counts), then
+    joins a one-rank NCCL job: the DIA halo SpMV at poisson2d(4096²) and
+    the halo CSR SpMV at poisson2d(2048²) bitwise the virtual shards',
+    CG over the DIA halo at the virtual shards' count.  Then the ranks
+    run: every product's rows (sha256) bitwise the virtual shards' rows
+    of their shards, CG within DIST_CG_SLACK of the virtual count,
+    batched CG at it, each product's and each exchange's host ms.  The
+    launches of the process-mesh runs (the one-rank job's here, the
+    ranks' own) make the path's counts."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+
+    tag = "32 distributed"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spmv-dist-")
+    store = os.path.join(tmp, "gloo")
+    procs = _start_dist_children(store, device)
+    try:
+        hosts = _dist_hosts(_dist_grids(), dia_full)
+        del dia_full
+        virtual = par.make_mesh(DIST_P, devices=[device] * DIST_P)
+        vpath = _ShardPath(DIST_WRAPPERS)     # not the path's launches
+        vrows = _dist_products(hosts, virtual, vpath)
+        vsolve = _dist_solvers(hosts, virtual, vpath)
+        _say(f"[{tag}] on {DIST_P} virtual shards: "
+             + ", ".join(f"{k} {v['iterations']}" for k, v in vsolve.items())
+             + " iterations")
+
+        path = _ShardPath(DIST_WRAPPERS)
+        multi = par.initialize_distributed(
+            "file://" + os.path.join(tmp, "nccl"), 1, 0)
+        try:
+            backend = torch.distributed.get_backend()
+            mesh = par.global_mesh(DIST_P)
+            if multi or backend != "nccl" or mesh.group is None:
+                _fail(f"[{tag}] a one-rank job on {backend}, group "
+                      f"{mesh.group}")
+            one = _dist_products(hosts, mesh, path,
+                                 ("dia_spmv", "csr_halo_neighbor"),
+                                 time_it=True)
+            one_cg = _dist_solvers(hosts, mesh, path, ("dia_halo",))
+            info = par.mesh_info(mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+        nccl = {}
+        for case, res in one.items():
+            same = bool(torch.equal(res.pop("rows"), vrows[case]["rows"]))
+            nccl[case] = {**res, "bitwise_equal_to_virtual": same}
+            _say(f"[{tag}] NCCL, one rank, {case}: bitwise equal to the "
+                 f"virtual shards' rows {same}; {res['ms']:.4f} ms a "
+                 f"product, the exchange alone {res['exchange_ms']:.4f} ms "
+                 f"(host clock; one rank, no peer) on {smi_line}")
+            if not same:
+                _fail(f"[{tag}] NCCL one-rank {case} differs from the "
+                      "virtual shards' rows")
+        nccl["cg_dia_halo"] = one_cg["dia_halo"]
+        if one_cg["dia_halo"]["iterations"] != \
+                vsolve["dia_halo"]["iterations"]:
+            _fail(f"[{tag}] NCCL one-rank CG {one_cg['dia_halo']} against "
+                  f"{vsolve['dia_halo']} on virtual shards")
+        _say(f"[{tag}] NCCL, one rank: CG dia_halo "
+             f"{one_cg['dia_halo']['iterations']} iterations (virtual "
+             f"{vsolve['dia_halo']['iterations']}), mesh {info}")
+
+        with open(store + ".go", "w"):
+            pass
+        ranks = _wait_dist_children(procs, store, tag)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gloo = {"ranks": DIST_WORLD, "products": {}, "solvers": {},
+            "setup_s": [r["setup_s"] for r in ranks]}
+    for case in DIST_CASES:
+        want = vrows[case]["rows"]
+        per = []
+        for r in ranks:
+            lo, hi = r["local_shards"]
+            got = r["products"][case]
+            same = got["sha256"] == _rows_hash(want[lo:hi])
+            per.append({"bitwise_equal_to_virtual": same,
+                        "ms": got["ms"], "exchange_ms": got["exchange_ms"]})
+            if not (same and got["finite"]):
+                _fail(f"[{tag}] Gloo rank {r['rank']} {case}: its rows are "
+                      "not the virtual shards' rows")
+        gloo["products"][case] = per
+        _say(f"[{tag}] Gloo, {DIST_WORLD} ranks, {case}: every rank's rows "
+             "bitwise the virtual shards'; ms a product "
+             + " / ".join(f"{p['ms']:.3f}" for p in per)
+             + ", the exchange alone "
+             + " / ".join(f"{p['exchange_ms']:.3f}" for p in per)
+             + f" (rank 0 / 1; {DIST_GLOO_NOTE}; {smi_line})")
+    for case, want in vsolve.items():
+        its = [r["solvers"][case]["iterations"] for r in ranks]
+        gloo["solvers"][case] = {"iterations": its[0],
+                                 "virtual_iterations": want["iterations"],
+                                 **{k: [r["solvers"][case][k]
+                                        for r in ranks]
+                                    for k in ("max_abs_err",
+                                              "host_us_an_iteration")}}
+        if any(i != its[0] for i in its):
+            _fail(f"[{tag}] the ranks' {case} counts differ: {its}")
+        if case.startswith("batched"):
+            ok = its[0] == want["iterations"]
+        else:
+            ok = abs(its[0] - want["iterations"]) <= DIST_CG_SLACK * \
+                want["iterations"]
+        _say(f"[{tag}] Gloo, {DIST_WORLD} ranks, {case}: {its[0]} "
+             f"iterations (virtual {want['iterations']}), max|x - x*| "
+             + " / ".join(f"{r['solvers'][case]['max_abs_err']:.3e}"
+                          for r in ranks)
+             + ", host us an iteration "
+             + " / ".join(f"{r['solvers'][case]['host_us_an_iteration']:.0f}"
+                          for r in ranks)
+             + f" ({DIST_GLOO_NOTE}; {smi_line})")
+        if not ok:
+            _fail(f"[{tag}] Gloo {case}: {its[0]} iterations against "
+                  f"{want['iterations']} on virtual shards")
+    launches = {k.removesuffix("_core"): n + sum(r["launches"][k]
+                                                 for r in ranks)
+                for k, n in path.launches.items()}
+    _say(f"[{tag}] launches on the distributed path (the one-rank job's "
+         f"and both ranks'): {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            _fail(f"[{tag}] {name} was never launched on the distributed "
+                  "path")
+    secs = time.perf_counter() - t_phase
+    _say(f"[{tag}] phase took {secs:.1f} s")
+    return {"launches": launches, "nccl_one_rank": nccl, "gloo": gloo,
+            "virtual": vsolve, "shards": DIST_P, "seconds": secs,
+            "card": smi_line, "note": DIST_GLOO_NOTE}
+
+
 def _tri_row(solvers) -> dict:
     """The tri_solve row of the kernels' JSON line: the ILU(0) unit L
     after --reorder color at full width (the full-width run's shape, the
@@ -7292,10 +7749,13 @@ def main() -> int:
     _sync(device)
     formats = phase_sharded_formats(
         device, smi_line, full, well_seg_full, cw_mm, cw, bsr_host)
-    del full, well_seg_full, cw_mm, cw, bsr_host
+    del well_seg_full, cw_mm, cw, bsr_host
     for name, n in formats["launches"].items():
         sharded["launches"][name] = sharded["launches"].get(name, 0) + n
     sharded["formats"] = formats
+    _sync(device)
+    distributed = phase_distributed(device, smi_line, full)
+    del full
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -7448,7 +7908,8 @@ def main() -> int:
             "launches_an_apply", "least_launch_ms", "handoff_ms",
             "plan_line", "seconds")},
         "eigs": eigs,
-        "sharded": sharded}
+        "sharded": sharded,
+        "distributed": distributed}
     for row in summary["kernels"]:
         # K7a and K7b are one kernel on the card (bsr_spmm_core): its rows
         # both carry the wrapper's count
@@ -7456,6 +7917,9 @@ def main() -> int:
             else row["name"]
         if key in sharded["launches"]:
             row["launches_on_the_sharded_path"] = sharded["launches"][key]
+        if key in distributed["launches"]:
+            row["launches_on_the_distributed_path"] = \
+                distributed["launches"][key]
     # the CSR and ELL kernels at the hybrid's shape (phase 25): the COO
     # part's launches and the ELL part's, each beside torch.sparse of
     # that part's own entries

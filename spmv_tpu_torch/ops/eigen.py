@@ -50,6 +50,7 @@ import torch
 
 from spmv_tpu_torch.models.device import default_device
 from spmv_tpu_torch.ops.dispatch import spmm
+from spmv_tpu_torch.ops.solvers import refuse_process_closure
 
 __all__ = ["lobpcg", "dia_eigsh", "EigResult"]
 
@@ -170,6 +171,7 @@ def lobpcg(
     small value would keep numerically degenerate directions in
     float32.
     """
+    refuse_process_closure(matmat, "lobpcg")
     dev = X0.device if isinstance(X0, torch.Tensor) else default_device()
     X0 = torch.as_tensor(X0, device=dev)
     n, k = X0.shape

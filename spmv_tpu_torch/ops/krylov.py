@@ -41,7 +41,14 @@ import numpy as np
 import torch
 
 from spmv_tpu_torch.models.device import resolve_device
-from spmv_tpu_torch.ops.solvers import CgResult, _eps, _np_type, _tol2, _vdot
+from spmv_tpu_torch.ops.solvers import (
+    CgResult,
+    _eps,
+    _np_type,
+    _tol2,
+    _vdot,
+    refuse_process_closure,
+)
 
 __all__ = ["gmres", "chebyshev", "lanczos_bounds"]
 
@@ -67,6 +74,7 @@ def gmres(
     step when its starting residual is at most ``eps``.  The basis costs
     ``(restart + 1) * n`` values.
     """
+    refuse_process_closure(matvec, "gmres")
     if preconditioner is None:
         def preconditioner(v):
             return v
@@ -171,6 +179,7 @@ def chebyshev(
     Richardson with the exact step 1/theta.  Convergence is tested on the
     true residual once every ``check_every`` iterations.
     """
+    refuse_process_closure(matvec, "chebyshev")
     lo = float(lambda_min)
     hi = float(lambda_max)
     if not (0 < lo <= hi):
@@ -249,6 +258,7 @@ def lanczos_bounds(
     the spectrum, and ``chebyshev`` diverges on bounds that clip it).
     The returned floor is clamped positive.
     """
+    refuse_process_closure(matvec, "lanczos_bounds")
     if v0 is None:
         v0 = torch.from_numpy(np.random.default_rng(seed).standard_normal(n))
     v0 = torch.as_tensor(v0).to(device=resolve_device(device), dtype=dtype)

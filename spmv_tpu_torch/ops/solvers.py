@@ -10,7 +10,14 @@ batched solver; BiCGSTAB also stops at a rho or omega breakdown),
 checked with one host sync per iteration, so iteration counts compare
 one to one with the JAX solvers.  As there, the dots run over every
 element (``jnp.vdot``), so a matvec over the sharded paths' stacked
-(P, R) vectors (``parallel``) runs unchanged.
+(P, R) vectors (``parallel``) runs unchanged.  Over a process mesh
+(``parallel.global_mesh``) a rank holds only its shards' rows: CG, PCG
+and batched CG then take ``mesh=``, reduce each dot locally and sum it
+over the ranks (``parallel.comm.all_reduce_sum``), where JAX gets its
+``psum`` from global arrays; without it, or on a single-process mesh,
+every call keeps its bits.  A sharded closure over a process mesh
+carries it (``matvec.mesh``), and a solver refuses one that it is not
+given.
 """
 
 from __future__ import annotations
@@ -49,15 +56,52 @@ class BatchedCgResult(NamedTuple):
     iterations: torch.Tensor      # (k,) int32, each column's own count
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the ranks of a process mesh; ``t`` itself
+    without one."""
+    if mesh is None or mesh.group is None:
+        return t
+    # imported here: ``parallel`` imports ``ops``
+    from spmv_tpu_torch.parallel.comm import all_reduce_sum
+
+    return all_reduce_sum(t, mesh)
+
+
+def _solver_mesh(fn, mesh, what: str):
+    """The mesh ``what`` reduces its dots over: ``mesh``, which must be
+    the process mesh a sharded closure ``fn`` runs on, if it runs on
+    one."""
+    held = getattr(fn, "mesh", None)
+    if held is not None and held.group is not None and mesh != held:
+        from spmv_tpu_torch.parallel.mesh import MeshError
+
+        raise MeshError(
+            f"{what} over a closure on a process mesh reduces its dots "
+            "across the ranks: pass the closure's mesh as mesh=")
+    return mesh
+
+
+def refuse_process_closure(fn, what: str) -> None:
+    """Raise ``MeshError`` where ``fn`` is a sharded closure over a mesh
+    of several ranks: ``what`` does not reduce across processes yet."""
+    held = getattr(fn, "mesh", None)
+    if held is not None and held.world_size > 1:
+        from spmv_tpu_torch.parallel.mesh import refuse_process_mesh
+
+        refuse_process_mesh(held, what)
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """<a, b> over every element, as ``jnp.vdot`` (real): 1-D vectors
-    and the sharded paths' stacked (P, R) layouts alike."""
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+    and the sharded paths' stacked (P, R) layouts alike, summed over the
+    ranks of a process ``mesh``."""
+    return _reduce(torch.dot(a.reshape(-1), b.reshape(-1)), mesh)
 
 
-def _tol2(b: torch.Tensor, tol: float, b_norm2=None) -> torch.Tensor:
+def _tol2(b: torch.Tensor, tol: float, b_norm2=None,
+          mesh=None) -> torch.Tensor:
     if b_norm2 is None:
-        b_norm2 = _vdot(b, b)
+        b_norm2 = _vdot(b, b, mesh)
     b_norm2 = torch.clamp(b_norm2, min=1e-300)
     return torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 * b_norm2
 
@@ -87,16 +131,19 @@ def conjugate_gradient(
     tol: float = 1e-8,
     max_iterations: int = 1000,
     recompute_every: int = 0,
+    mesh=None,
 ) -> CgResult:
     """Unpreconditioned CG for SPD systems.
 
     ``recompute_every=k`` (k > 0) replaces the recurrence residual with
     the true residual ``b - A x`` every k iterations, keeping the search
     direction (see the JAX function for the measured reasons).
+    ``mesh``: the process mesh a sharded ``matvec`` runs on, across
+    whose ranks the dots are summed.
     """
     return preconditioned_conjugate_gradient(
         matvec, b, None, x0=x0, tol=tol, max_iterations=max_iterations,
-        recompute_every=recompute_every)
+        recompute_every=recompute_every, mesh=mesh)
 
 
 def preconditioned_conjugate_gradient(
@@ -107,28 +154,31 @@ def preconditioned_conjugate_gradient(
     tol: float = 1e-8,
     max_iterations: int = 1000,
     recompute_every: int = 0,
+    mesh=None,
 ) -> CgResult:
     """PCG with an SPD ``preconditioner`` (M^-1 applied to a vector), or
-    plain CG when it is None.  Convergence is tested on ||r||."""
+    plain CG when it is None.  Convergence is tested on ||r||.
+    ``mesh``: as ``conjugate_gradient``'s."""
     _check_recompute(recompute_every)
+    mesh = _solver_mesh(matvec, mesh, "CG")
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - matvec(x)
     z = preconditioner(r) if preconditioner is not None else r
     p = z.clone()
-    rz = _vdot(r, z)
-    rr = _vdot(r, r) if preconditioner is not None else rz
-    tol2 = _tol2(b, tol)
+    rz = _vdot(r, z, mesh)
+    rr = _vdot(r, r, mesh) if preconditioner is not None else rz
+    tol2 = _tol2(b, tol, mesh=mesh)
     k = 0
     while k < max_iterations and bool(rr > tol2):
         ap = matvec(p)
-        alpha = rz / _vdot(p, ap)
+        alpha = rz / _vdot(p, ap, mesh)
         x = x + alpha * p
         r = r - alpha * ap
         if recompute_every and (k + 1) % recompute_every == 0:
             r = b - matvec(x)
         z = preconditioner(r) if preconditioner is not None else r
-        rz_new = _vdot(r, z)
-        rr = _vdot(r, r) if preconditioner is not None else rz_new
+        rz_new = _vdot(r, z, mesh)
+        rr = _vdot(r, r, mesh) if preconditioner is not None else rz_new
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
@@ -153,6 +203,7 @@ def bicgstab(
     finfo(dtype).tiny * 1e4``) and ``k < max_iterations``; a breakdown
     keeps the iterate.
     """
+    refuse_process_closure(matvec, "bicgstab")
     if preconditioner is None:
         def preconditioner(v):
             return v
@@ -196,11 +247,13 @@ def _safe(v: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     return torch.where(v < 0, -mag, mag)
 
 
-def _colsum(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _colsum(v: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-column <v, w>: the sum over every axis but the column axis
     (axis 1), as in the JAX package, so it takes the (n, k) layout and
-    the sharded DIA block's stacked (P, k, Rb) alike."""
-    return (v * w).sum(dim=tuple(i for i in range(v.dim()) if i != 1))
+    the sharded DIA block's stacked (P, k, Rb) alike; summed over the
+    ranks of a process ``mesh``."""
+    return _reduce(
+        (v * w).sum(dim=tuple(i for i in range(v.dim()) if i != 1)), mesh)
 
 
 def _bcast_cols(a: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -218,6 +271,7 @@ def batched_conjugate_gradient(
     tol: float = 1e-8,
     max_iterations: int = 1000,
     recompute_every: int = 0,
+    mesh=None,
 ) -> BatchedCgResult:
     """Multi-RHS CG: k independent per-column recurrences sharing one
     SpMM (``matmat``) per iteration, for B of shape (n, k), from X = 0.
@@ -234,16 +288,18 @@ def batched_conjugate_gradient(
     columns every k iterations; a frozen column whose true residual is
     above tolerance reactivates, its search direction restarted.  The
     loop runs while any column is active and fewer than
-    ``max_iterations`` iterations have run.
+    ``max_iterations`` iterations have run.  ``mesh``: as
+    ``conjugate_gradient``'s.
     """
     _check_recompute(recompute_every)
+    mesh = _solver_mesh(matmat, mesh, "batched CG")
     X = torch.zeros_like(B)
     R = B.clone()
     Z = preconditioner(R) if preconditioner is not None else R
     P = Z.clone()
-    rz = _colsum(R, Z)
-    rr = _colsum(R, R) if preconditioner is not None else rz
-    tol2 = _tol2(B, tol, _colsum(B, B))
+    rz = _colsum(R, Z, mesh)
+    rr = _colsum(R, R, mesh) if preconditioner is not None else rz
+    tol2 = _tol2(B, tol, _colsum(B, B, mesh))
     iters = torch.zeros(B.shape[1], dtype=torch.int32, device=B.device)
     k = 0
     while k < max_iterations:
@@ -251,7 +307,7 @@ def batched_conjugate_gradient(
         if not bool(active.any()):
             break
         AP = matmat(P)
-        pap = _colsum(P, AP)
+        pap = _colsum(P, AP, mesh)
         one = torch.ones_like(pap)
         alpha = _bcast_cols(torch.where(
             active, rz / torch.where(active, pap, one), 0.0), B.dim())
@@ -260,8 +316,8 @@ def batched_conjugate_gradient(
         if recompute_every and (k + 1) % recompute_every == 0:
             R = B - matmat(X)
         Z = preconditioner(R) if preconditioner is not None else R
-        rz_new = _colsum(R, Z)
-        rr = _colsum(R, R) if preconditioner is not None else rz_new
+        rz_new = _colsum(R, Z, mesh)
+        rr = _colsum(R, R, mesh) if preconditioner is not None else rz_new
         beta = torch.where(active, rz_new / torch.where(active, rz, one),
                            0.0)
         P = Z + _bcast_cols(beta, B.dim()) * P

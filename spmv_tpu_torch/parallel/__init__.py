@@ -1,16 +1,19 @@
 """Sharded SpMV: the port's counterpart of ``spmv_tpu/parallel/``.
 
-As in the JAX package, which is single-controller (one ``shard_map``
-over a 1-D mesh), the port runs one process over a mesh of P shards
-(``make_mesh``); the shards may all lie on one device (virtual shards,
-as the JAX tests' 8 CPU devices), and a mesh over distinct devices is
-refused (``MeshError``).  The collectives become tensor operations on
-the stacked layout: the all-gather of x is the stacked x itself, a
-``ppermute`` of halo strips a window or a gather of it, an
-``all_to_all`` one gather by the schedule's table, and the ``psum`` of
-a solver's dots the dot over the whole stacked tensor.  Every shard's
-local product is a launch of the port's hand-written kernel for its
-format.
+As in the JAX package (one ``shard_map`` over a 1-D mesh), a mesh of P
+shards runs in one process (``make_mesh``), the shards all on one
+device (virtual shards, as the JAX tests' 8 CPU devices; a
+single-process mesh over distinct devices is refused, ``MeshError``),
+or spans ``torch.distributed`` ranks, one process a GPU
+(``distributed``: ``initialize_distributed``, ``global_mesh``), each
+rank holding a contiguous block of shards.  On one process the
+collectives are tensor operations on the stacked layout: the all-gather
+of x is the stacked x itself, a ``ppermute`` of halo strips a window or
+a gather of it, an ``all_to_all`` one gather by the schedule's table,
+and the ``psum`` of a solver's dots the dot over the whole stacked
+tensor; across ranks they are real collectives (``comm``).  Every
+shard's local product is a launch of the port's hand-written kernel for
+its format.
 
 - ``shard`` (``ShardedCsr``): nnz-balanced row blocks, x all-gathered,
   the CSR SpMV a shard;
@@ -30,13 +33,30 @@ format.
 - ``precond_shard`` (``ShardedBlockJacobiIC0``): block-Jacobi IC(0),
   two ``tri_solve``s a shard;
 - ``dryrun``: ``dryrun_multichip``, the eleven strategies of
-  ``__graft_entry__.py``'s.
+  ``__graft_entry__.py``'s;
+- ``distributed``: the ``torch.distributed`` bootstrap and the process
+  mesh; ``comm``: its collectives.
 
-Left: ``distributed.py`` (the multi-process bootstrap), a mesh over
-distinct GPUs and products whose exchanges are real collectives
-(ROADMAP.md, Queue 1).
+Across ranks run the all-gather CSR, DIA halo and ragged-halo CSR paths
+and CG, PCG and batched CG over them (``mesh=``).  The WELL, WELL-CW
+and BSR paths, block-Jacobi IC(0), the Krylov solvers and LOBPCG over
+sharded operators, and ``dryrun`` raise ``MeshError`` on a mesh of
+several ranks (ROADMAP.md, Queue 1).
 """
 
+from spmv_tpu_torch.parallel.comm import (
+    all_gather_rows,
+    all_reduce_sum,
+    all_to_all_strips,
+    exchange_strips,
+)
+from spmv_tpu_torch.parallel.distributed import (
+    global_mesh,
+    host_local_info,
+    initialize_distributed,
+    is_multi_host,
+    local_rows,
+)
 from spmv_tpu_torch.parallel.dia_shard import (
     ShardedDia,
     make_sharded_dia_matmat,
@@ -117,6 +137,15 @@ __all__ = [
     "MeshError",
     "make_mesh",
     "mesh_info",
+    "initialize_distributed",
+    "is_multi_host",
+    "global_mesh",
+    "local_rows",
+    "host_local_info",
+    "all_gather_rows",
+    "exchange_strips",
+    "all_to_all_strips",
+    "all_reduce_sum",
     "ShardedCsr",
     "shard_csr",
     "stack_vector",

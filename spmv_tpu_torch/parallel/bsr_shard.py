@@ -56,7 +56,7 @@ from spmv_tpu_torch.parallel.halo_shard import (
     exchange_halos,
     receive_index,
 )
-from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
 from spmv_tpu_torch.parallel.shard import _device, check_mesh
 
 __all__ = [
@@ -131,6 +131,7 @@ def shard_bsr_halo(
     """Build the tile-halo sharding of a square host BSR matrix
     (``exchange`` as ``shard_csr_halo``'s).  The blocks go to ``mesh``'s
     device, or to ``default_device()`` without a mesh."""
+    refuse_process_mesh(mesh, "shard_bsr_halo")
     if m.num_rows != m.num_columns:
         raise MatrixError(
             "halo-sharded BSR requires a square matrix (x and y share "

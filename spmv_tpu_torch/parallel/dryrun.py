@@ -117,7 +117,13 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
         unstack_vector,
     )
     from spmv_tpu_torch.parallel.bsr_shard import stack_columns, unstack_rows
+    from spmv_tpu_torch.parallel.distributed import is_multi_host
+    from spmv_tpu_torch.parallel.mesh import MeshError
 
+    if is_multi_host():
+        raise MeshError(
+            "dryrun_multichip runs on virtual shards of one process, not "
+            "across the ranks of a job yet; see ROADMAP.md, Queue 1 item 5")
     dev = resolve_device(device)
     mesh = make_mesh(n_shards, devices=[dev] * n_shards)
     mm = poisson2d(8, 2 * n_shards)  # tiny, but rows > shards

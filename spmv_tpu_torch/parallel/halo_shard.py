@@ -23,6 +23,14 @@ sends (a neighbour strip past either end), which receives 0 as JAX's
 ``ppermute`` delivers.  ``exchange_halos`` is then one gather for every
 shard at once, with no copy made only to imitate a network.
 
+On a process mesh a rank holds its own shards' rows and the rows of that
+table for its shards: the slots whose sender lies on the same rank are
+that gather over its local x, and the others arrive from their owners
+(``comm.exchange_strips`` for ``neighbor``, ``comm.all_to_all_strips``
+for ``all2all``, the plan ``comm.exchange_plan`` makes from every
+rank's rows of the table), so each rank's receive buffer is, element
+for element, what the single-process gather gives its shards.
+
 Column indices are split on the host into an **interior** list (the
 shard's own x) and a **boundary** list (its received halo slots), each
 one ``DeviceCsr`` of R rows.  A product is, a shard, one launch of the
@@ -48,6 +56,12 @@ import torch
 from spmv_tpu_torch.models.csr import CsrMatrix
 from spmv_tpu_torch.models.device import default_value_dtype, round_up
 from spmv_tpu_torch.ops.csr_kernels import csr_spmm_core, csr_spmv_core
+from spmv_tpu_torch.parallel.comm import (
+    ExchangePlan,
+    all_to_all_strips,
+    exchange_plan,
+    exchange_strips,
+)
 from spmv_tpu_torch.parallel.mesh import Mesh
 from spmv_tpu_torch.parallel.shard import (
     _device,
@@ -269,14 +283,16 @@ def exchange_halos(x_stacked: torch.Tensor, index: torch.Tensor,
 class ShardedCsrHalo:
     """CSR split into P row blocks with a static halo-exchange plan.
 
-    ``interior[p]`` is shard p's ``DeviceCsr`` over its own x (R rows,
-    R columns); ``boundary[p]`` the one over its received halo (R rows,
+    ``interior[i]`` is the ``DeviceCsr`` of the i-th shard this process
+    holds (all P on a single-process mesh) over its own x (R rows, R
+    columns); ``boundary[i]`` the one over its received halo (R rows,
     ``strips * H`` columns), or None where the shard reads no other
     shard's x.  ``send_idx`` is the schedule's table (JAX's layout:
     (P, P, H) for all2all, (P, 2*D, H) for neighbor); ``recv_index``
-    and ``recv_missing`` its receiving side on the shards' device
-    (``receive_index``; ``recv_missing`` None where every slot has a
-    sender).
+    and ``recv_missing`` its receiving side for the local shards on
+    their device (``receive_index``, as positions in the local flat x;
+    ``recv_missing`` None where every slot has a sender), and ``plan``
+    the slots other ranks send (None on one process).
     """
 
     num_rows: int
@@ -293,8 +309,10 @@ class ShardedCsrHalo:
     send_idx: np.ndarray
     recv_index: torch.Tensor
     recv_missing: torch.Tensor
-    interior: tuple            # P DeviceCsr
-    boundary: tuple            # P DeviceCsr or None
+    interior: tuple            # P_local DeviceCsr
+    boundary: tuple            # P_local DeviceCsr or None
+    mesh: Mesh = None
+    plan: ExchangePlan = None
 
     @property
     def stacked_size(self) -> int:
@@ -323,11 +341,15 @@ def shard_csr_halo(
     ``exchange``: "auto" picks "neighbor" when the halo plan's largest
     source distance is at most ``neighbor_max_distance``, else
     "all2all"; either can be forced.  The blocks go to ``mesh``'s
-    device, or to ``default_device()`` without a mesh.
+    device, or to ``default_device()`` without a mesh; on a process mesh
+    a rank builds only its own shards' blocks.
     """
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     p = int(num_shards)
+    if mesh is not None and mesh.size != p:
+        raise ValueError(f"{p} shards on a mesh of {mesh.size}")
+    shards = mesh.local_shards if mesh is not None else range(p)
     bounds = np.asarray(partition_rows(m, p, partition), dtype=np.int64)
     R = rows_per_shard(bounds)
     row_ptr = np.asarray(m.row_ptr, dtype=np.int64)
@@ -350,7 +372,7 @@ def shard_csr_halo(
     # (``sched.remap``'s binary search over the need list, at every entry,
     # took most of a 4M-row build)
     slot_of = np.zeros(m.num_columns, dtype=np.int64)
-    for q in range(p):
+    for q in shards:
         lo, hi = int(row_ptr[bounds[q]]), int(row_ptr[bounds[q + 1]])
         ptr = row_ptr[bounds[q]: bounds[q + 1] + 1]
         rows_q = np.repeat(np.arange(ptr.size - 1), np.diff(ptr))
@@ -375,7 +397,15 @@ def shard_csr_halo(
 
     recv = receive_index(sched.send_idx, R, sched.exchange,
                          sched.max_distance)
-    missing = recv < 0
+    plan = None
+    if mesh is not None and mesh.world_size > 1 and recv.size:
+        per_rank = mesh.shards_per_rank
+        index, missing, plan = exchange_plan(
+            [recv[r * per_rank:(r + 1) * per_rank].reshape(-1)
+             for r in range(mesh.world_size)], per_rank * R, mesh)
+        index, missing = (a.reshape(per_rank, -1) for a in (index, missing))
+    else:
+        index, missing = np.maximum(recv, 0), recv < 0
     return ShardedCsrHalo(
         num_rows=m.num_rows,
         num_columns=m.num_columns,
@@ -389,20 +419,31 @@ def shard_csr_halo(
         comm_elements_exact=sched.comm_elements_exact,
         comm_elements_padded=sched.comm_elements_padded,
         send_idx=sched.send_idx,
-        recv_index=torch.from_numpy(np.maximum(recv, 0)).to(device),
+        recv_index=torch.from_numpy(index).to(device),
         recv_missing=(torch.from_numpy(missing).to(device)
                       if missing.any() else None),
         interior=tuple(interior),
         boundary=tuple(boundary),
+        mesh=mesh,
+        plan=plan,
     )
 
 
 def halo_of(A, x_stacked: torch.Tensor):
-    """Every shard's received halo of the stacked x (or X) for a halo
-    container, or None for ``exchange == "none"``."""
+    """Every local shard's received halo of the stacked x (or X) for a
+    halo container, or None for ``exchange == "none"``: the slots this
+    process holds gathered from its x, those of other ranks received."""
     if A.exchange == "none":
         return None
-    return exchange_halos(x_stacked, A.recv_index, A.recv_missing)
+    recv = exchange_halos(x_stacked, A.recv_index, A.recv_missing)
+    plan = getattr(A, "plan", None)
+    if plan is not None:
+        trailing = tuple(x_stacked.shape[2:])
+        move = (all_to_all_strips if A.exchange == "all2all"
+                else exchange_strips)
+        move(x_stacked.reshape((-1,) + trailing),
+             recv.view((-1,) + trailing), plan, A.mesh)
+    return recv
 
 
 def sharded_halo_spmv(A: ShardedCsrHalo, x_stacked: torch.Tensor,
@@ -413,7 +454,7 @@ def sharded_halo_spmv(A: ShardedCsrHalo, x_stacked: torch.Tensor,
     check_mesh(A, mesh)
     halo = halo_of(A, x_stacked)
     y = torch.empty_like(x_stacked)
-    for q in range(A.num_shards):
+    for q in range(len(A.interior)):
         csr_spmv_core(A.interior[q], x_stacked[q], out=y[q])
         if A.boundary[q] is not None:
             csr_spmv_core(A.boundary[q], halo[q], out=y[q], accumulate=True)
@@ -428,7 +469,7 @@ def sharded_halo_spmm(A: ShardedCsrHalo, X_stacked: torch.Tensor,
     check_mesh(A, mesh)
     halo = halo_of(A, X_stacked)
     Y = torch.empty_like(X_stacked)
-    for q in range(A.num_shards):
+    for q in range(len(A.interior)):
         csr_spmm_core(A.interior[q], X_stacked[q], out=Y[q])
         if A.boundary[q] is not None:
             csr_spmm_core(A.boundary[q], halo[q], out=Y[q], accumulate=True)
@@ -441,6 +482,7 @@ def make_sharded_halo_matvec(A: ShardedCsrHalo, mesh: Mesh = None):
     def matvec(x_stacked):
         return sharded_halo_spmv(A, x_stacked, mesh)
 
+    matvec.mesh = A.mesh
     return matvec
 
 
@@ -456,17 +498,19 @@ def make_sharded_halo_matmat(A: ShardedCsrHalo, mesh: Mesh = None):
     def matmat(X_stacked):
         return sharded_halo_spmm(A, X_stacked, mesh)
 
+    matmat.mesh = A.mesh
     return matmat
 
 
 def stack_block(V, sharded, mesh: Mesh = None) -> torch.Tensor:
     """Block (num_rows, k), numpy or torch -> stacked (P, R, k) layout on
-    the shards' device, in their value dtype."""
+    the shards' device, in their value dtype: the rows of the shards this
+    process holds."""
     check_mesh(sharded, mesh)
-    return _stack(V, sharded.bounds, sharded.rows_per_shard, sharded.dtype,
-                  sharded.device)
+    return _stack(V, sharded)
 
 
 def unstack_block(stacked, sharded) -> np.ndarray:
-    """Stacked (P, R, k) -> host (num_rows, k)."""
-    return _unstack(stacked, sharded.bounds)
+    """Stacked (P, R, k) -> host (num_rows, k), on every rank of a
+    process mesh."""
+    return _unstack(stacked, sharded)

@@ -37,7 +37,7 @@ from spmv_tpu_torch.ops.incomplete import (
     ic0_factor,
 )
 from spmv_tpu_torch.ops.tri_kernels import tri_solve_core, tri_solve_plan
-from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
 from spmv_tpu_torch.parallel.shard import _device, check_mesh
 
 __all__ = [
@@ -131,6 +131,7 @@ def block_jacobi_ic0(
     block (a preconditioner is one fixed operator).  The solves go to
     ``mesh``'s device, or to ``default_device()`` without a mesh.
     """
+    refuse_process_mesh(mesh, "block_jacobi_ic0")
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     bounds = np.asarray(bounds, dtype=np.int64)

@@ -20,13 +20,22 @@ unpadded: the JAX package pads every shard's entries to a multiple of
 
 Compute
 -------
-On a mesh of shards on one device, JAX's ``all_gather`` of x is the
-stacked x itself: ``sharded_spmv`` hands every shard's launch of the
-CSR SpMV (``ops.csr_kernels.csr_spmv_core``, the hand-written kernel on
-a CUDA tensor, its plain version on the CPU) the flat stacked x, and
-each launch writes its row of the stacked y.  One launch a shard, no
-copy.  CG iterates in the stacked space (``ops.solvers`` reduces over
-every axis).
+``sharded_spmv`` hands every shard's launch of the CSR SpMV
+(``ops.csr_kernels.csr_spmv_core``, the hand-written kernel on a CUDA
+tensor, its plain version on the CPU) the flat stacked x, JAX's
+``all_gather`` of x (``comm.all_gather_rows``), and each launch writes
+its row of the stacked y.  One launch a shard.  On a mesh of shards on
+one device the gathered x is the stacked x itself, with no copy; on a
+process mesh (``distributed.global_mesh``) a rank holds its own shards'
+blocks and rows, and the gather is a real ``all_gather``: every launch
+reads the same x values as on one device, so each rank's rows of y are
+bitwise those of the single-process product.  CG iterates in the
+stacked space (``ops.solvers`` reduces over every axis, and over the
+ranks given ``mesh=``).
+
+The stacking helpers work on either mesh: ``stack_vector`` returns the
+rows of the shards this process holds, ``unstack_vector`` the whole
+vector on every rank (a collective on a process mesh).
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ from spmv_tpu_torch.models.partition import (
     rows_partition_equal,
 )
 from spmv_tpu_torch.ops.csr_kernels import csr_spmv_core
-from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.comm import all_gather_rows
+from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
 
 __all__ = [
     "ShardedCsr",
@@ -65,9 +75,11 @@ __all__ = [
 class ShardedCsr:
     """CSR split into P row blocks.
 
-    ``blocks[p]`` is shard p's ``DeviceCsr``: R local rows (those past
-    the shard's own hold no entry), P*R columns in the stacked x index
-    space.  ``bounds`` (host tuple) are the global row offsets.
+    ``blocks[i]`` is the ``DeviceCsr`` of the i-th shard this process
+    holds (all P on a single-process mesh): R local rows (those past the
+    shard's own hold no entry), P*R columns in the stacked x index
+    space.  ``bounds`` (host tuple) are the global row offsets, ``mesh``
+    the mesh it was built on (None: ``default_device()``).
     """
 
     num_rows: int
@@ -76,7 +88,8 @@ class ShardedCsr:
     num_shards: int
     rows_per_shard: int      # R
     bounds: tuple            # (P+1,) python ints
-    blocks: tuple            # P DeviceCsr
+    blocks: tuple            # the local shards' DeviceCsr
+    mesh: Mesh = None
 
     @property
     def stacked_size(self) -> int:
@@ -131,11 +144,25 @@ def _device(mesh: Mesh):
     return mesh.device if mesh is not None else default_device()
 
 
+def local_shards(sharded) -> range:
+    """The shards of ``sharded`` this process holds."""
+    mesh = getattr(sharded, "mesh", None)
+    return (mesh.local_shards if mesh is not None
+            else range(sharded.num_shards))
+
+
 def check_mesh(sharded, mesh: Mesh) -> None:
     """Raise unless ``mesh`` (where given) is the one ``sharded`` was
-    built on: one entry a shard, on the shards' device."""
-    if mesh is not None and (mesh.size != sharded.num_shards
-                             or mesh.device != sharded.device):
+    built on: one entry a shard, on the shards' device, in the same
+    process group.  A container of a path not carried across processes
+    (no ``mesh`` field) refuses a mesh of several ranks."""
+    if mesh is None:
+        return
+    if not hasattr(sharded, "mesh"):
+        refuse_process_mesh(mesh, type(sharded).__name__)
+    held = getattr(sharded, "mesh", mesh)
+    if (mesh.size != sharded.num_shards or mesh.device != sharded.device
+            or (held.group if held is not None else None) is not mesh.group):
         raise ValueError(
             f"a mesh of {mesh.size} shards on {mesh.device} does not hold "
             f"this matrix's {sharded.num_shards} shards on "
@@ -153,10 +180,14 @@ def shard_csr(
 
     ``partition``: "nnz" (balanced nonzeros, default) or "rows" (the
     reference's equal-rows split).  The blocks go to ``mesh``'s device,
-    or to ``default_device()`` without a mesh.
+    or to ``default_device()`` without a mesh; on a process mesh a rank
+    builds only its own shards' blocks.
     """
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
+    if mesh is not None and mesh.size != num_shards:
+        raise ValueError(f"{num_shards} shards on a mesh of {mesh.size}")
+    shards = mesh.local_shards if mesh is not None else range(num_shards)
     bounds = partition_rows(m, num_shards, partition)
     R = rows_per_shard(bounds)
     row_ptr = np.asarray(m.row_ptr, dtype=np.int64)
@@ -169,7 +200,7 @@ def shard_csr(
                   stacked_cols[row_ptr[bounds[p]]: row_ptr[bounds[p + 1]]],
                   m.value[row_ptr[bounds[p]]: row_ptr[bounds[p + 1]]],
                   R, num_shards * R, dtype, device)
-        for p in range(num_shards))
+        for p in shards)
     return ShardedCsr(
         num_rows=m.num_rows,
         num_columns=m.num_columns,
@@ -178,47 +209,56 @@ def shard_csr(
         rows_per_shard=R,
         bounds=tuple(int(b) for b in bounds),
         blocks=blocks,
+        mesh=mesh,
     )
 
 
-def _stack(v, bounds, width: int, dtype, device) -> torch.Tensor:
-    """Rows of v split at ``bounds`` into a zeroed (P, width, ...)."""
-    v = torch.as_tensor(v).to(device=device, dtype=dtype)
-    P = len(bounds) - 1
-    out = torch.zeros((P, width) + tuple(v.shape[1:]), dtype=dtype,
-                      device=device)
-    for p in range(P):
-        out[p, : bounds[p + 1] - bounds[p]] = v[bounds[p]: bounds[p + 1]]
+def _stack(v, sharded) -> torch.Tensor:
+    """Rows of v split at the shards' bounds into a zeroed (P_local,
+    R, ...) for the shards this process holds."""
+    bounds = sharded.bounds
+    v = torch.as_tensor(v).to(device=sharded.device, dtype=sharded.dtype)
+    shards = local_shards(sharded)
+    out = torch.zeros((len(shards), sharded.rows_per_shard)
+                      + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+    for i, p in enumerate(shards):
+        out[i, : bounds[p + 1] - bounds[p]] = v[bounds[p]: bounds[p + 1]]
     return out
 
 
-def _unstack(stacked, bounds) -> np.ndarray:
+def _unstack(stacked, sharded) -> np.ndarray:
+    """The whole host vector (or block) from the stacked rows: on a
+    process mesh every rank's rows, gathered on every rank."""
+    bounds = sharded.bounds
     s = torch.as_tensor(stacked)
+    s = all_gather_rows(s, getattr(sharded, "mesh", None)).reshape(
+        (sharded.num_shards,) + tuple(s.shape[1:]))
     return torch.cat([s[p, : bounds[p + 1] - bounds[p]]
                       for p in range(len(bounds) - 1)]).cpu().numpy()
 
 
 def stack_vector(v, sharded, mesh: Mesh = None) -> torch.Tensor:
     """Vector (num_rows,), numpy or torch -> stacked (P, R) layout on the
-    shards' device, in their value dtype.  ``mesh`` (optional) must be
-    the shards' mesh."""
+    shards' device, in their value dtype: the rows of the shards this
+    process holds.  ``mesh`` (optional) must be the shards' mesh."""
     check_mesh(sharded, mesh)
-    return _stack(v, sharded.bounds, sharded.rows_per_shard, sharded.dtype,
-                  sharded.device)
+    return _stack(v, sharded)
 
 
 def unstack_vector(stacked, sharded) -> np.ndarray:
-    """Stacked (P, R) layout -> host vector (num_rows,)."""
-    return _unstack(stacked, sharded.bounds)
+    """Stacked (P, R) layout -> host vector (num_rows,), on every rank of
+    a process mesh."""
+    return _unstack(stacked, sharded)
 
 
 def sharded_spmv(A: ShardedCsr, x_stacked: torch.Tensor,
                  mesh: Mesh = None) -> torch.Tensor:
-    """y = A @ x; both vectors in stacked (P, R) layout.  One CSR SpMV
-    launch a shard, each on the flat stacked x (the all-gather).
-    ``mesh`` (optional) must be the shards' mesh."""
+    """y = A @ x; both vectors in stacked (P, R) layout (the local shards'
+    rows on a process mesh).  One CSR SpMV launch a shard, each on the
+    flat stacked x (the all-gather).  ``mesh`` (optional) must be the
+    shards' mesh."""
     check_mesh(A, mesh)
-    x = x_stacked.reshape(-1)
+    x = all_gather_rows(x_stacked, A.mesh)
     y = torch.empty_like(x_stacked)
     for p, block in enumerate(A.blocks):
         csr_spmv_core(block, x, out=y[p])
@@ -226,9 +266,12 @@ def sharded_spmv(A: ShardedCsr, x_stacked: torch.Tensor,
 
 
 def make_sharded_matvec(A: ShardedCsr, mesh: Mesh = None):
-    """y = A @ x in stacked layout, as a closure (for solvers)."""
+    """y = A @ x in stacked layout, as a closure (for solvers); its
+    ``mesh`` attribute is the shards' mesh, which a solver over a
+    process mesh reduces its dots across."""
 
     def matvec(x_stacked):
         return sharded_spmv(A, x_stacked, mesh)
 
+    matvec.mesh = A.mesh
     return matvec

@@ -71,7 +71,7 @@ from spmv_tpu_torch.parallel.halo_shard import (
     halo_of,
     receive_index,
 )
-from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
 from spmv_tpu_torch.parallel.shard import _device, check_mesh, local_csr
 
 __all__ = [
@@ -185,6 +185,7 @@ def shard_well(
 ) -> ShardedWell:
     """Build a ``ShardedWell`` from a square host CSR matrix.  The blocks
     go to ``mesh``'s device, or to ``default_device()`` without a mesh."""
+    refuse_process_mesh(mesh, "shard_well")
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     p = int(num_shards)
@@ -357,6 +358,7 @@ def shard_well_halo(
     """Halo-exchange sharding of a square host CSR matrix as local WELLs
     (``exchange``: "auto", or "neighbor" / "all2all" forced, as
     ``shard_csr_halo``)."""
+    refuse_process_mesh(mesh, "shard_well_halo")
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     bounds, R = group_partition(m, num_shards, "WELL")

@@ -51,7 +51,7 @@ from spmv_tpu_torch.ops.wellcw_kernels import (
 )
 from spmv_tpu_torch.parallel.halo import communication_volume
 from spmv_tpu_torch.parallel.halo_shard import halo_of
-from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
 from spmv_tpu_torch.parallel.shard import _device, check_mesh
 from spmv_tpu_torch.parallel.well_shard import (
     boundary_launches,
@@ -137,6 +137,7 @@ def shard_wellcw_halo(
 ) -> ShardedWellCwHalo:
     """Halo-exchange sharding of a square host CSR matrix as local
     WELL-CW packs (``exchange`` as ``shard_csr_halo``'s)."""
+    refuse_process_mesh(mesh, "shard_wellcw_halo")
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     bounds, R = group_partition(m, num_shards, "WELL-CW")

@@ -345,9 +345,10 @@ def test_port_never_imports_jax(matrix_file):
     assert r.stdout.strip().endswith("ok")
 
 
-def _imports_of_the_jax_package(path):
-    """(line, statement) of each import of ``spmv_tpu`` or a module of it
-    in the file, at any depth (inside functions too)."""
+def _imports_of_the_jax_package(path, packages=("spmv_tpu",)):
+    """(line, statement) of each import of ``spmv_tpu`` (or of another of
+    ``packages``) or a module of it in the file, at any depth (inside
+    functions too)."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     found = []
@@ -359,20 +360,34 @@ def _imports_of_the_jax_package(path):
         else:
             continue
         for name in names:
-            if name == "spmv_tpu" or name.startswith("spmv_tpu."):
+            if any(name == p or name.startswith(p + ".") for p in packages):
                 found.append((node.lineno, name))
     return found
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of the port and no line of chip_smoke.py imports
-    ``spmv_tpu``: the port keeps its own copies of what it needs."""
+    """No module of the port, no line of chip_smoke.py and no line of the
+    process-mesh worker imports ``spmv_tpu``: the port keeps its own
+    copies of what it needs."""
     files = glob.glob(os.path.join(REPO, "spmv_tpu_torch", "**", "*.py"),
-                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+                      recursive=True) + [
+        os.path.join(REPO, "chip_smoke.py"),
+        os.path.join(REPO, "tests", "_torch_mp_worker.py")]
     assert len(files) > 30
     bad = {os.path.relpath(f, REPO): hits for f in files
            if (hits := _imports_of_the_jax_package(f))}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("path", ["spmv_tpu_torch/parallel/distributed.py",
+                                  "spmv_tpu_torch/parallel/comm.py",
+                                  "tests/_torch_mp_worker.py"])
+def test_process_mesh_files_import_neither_jax_nor_its_package(path):
+    """The process mesh's bootstrap, its collectives and the ranks'
+    worker run where JAX may be absent: they import neither ``jax`` nor
+    ``spmv_tpu``."""
+    assert _imports_of_the_jax_package(os.path.join(REPO, path),
+                                       ("spmv_tpu", "jax")) == []
 
 
 def test_import_scan_finds_imports_inside_functions(tmp_path):
@@ -382,6 +397,9 @@ def test_import_scan_finds_imports_inside_functions(tmp_path):
                  "    import spmv_tpu.models as m\n")
     assert _imports_of_the_jax_package(str(p)) == [
         (4, "spmv_tpu.io"), (5, "spmv_tpu.models")]
+    p.write_text("def f():\n    import jax.numpy as jnp\n")
+    assert _imports_of_the_jax_package(str(p), ("spmv_tpu", "jax")) == [
+        (2, "jax.numpy")]
 
 
 def test_no_card_and_no_cpu_request_raises(monkeypatch, matrix_file,

@@ -19,7 +19,9 @@ halo), CG within 2 iterations of its CPU run; the WELL, WELL-CW and BSR
 sharded products and the block-Jacobi IC(0) apply (launches exactly the
 container's ``launches_a_product`` / ``launches_an_apply``, twice
 bitwise), Chebyshev, Jacobi-PCG, block-IC(0) PCG and masked LOBPCG over
-sharded operators against their CPU runs, and ``dryrun_multichip(4)``.
+sharded operators against their CPU runs, and ``dryrun_multichip(4)``;
+and a one-rank NCCL process mesh (``parallel.global_mesh``) whose DIA
+and CSR products are bitwise the virtual shards'.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -2873,3 +2875,56 @@ def test_dryrun_multichip_on_the_card(cuda):
     out = dryrun_multichip(4, device=cuda)
     assert len(out) == 11
     assert all(r["rel_err"] < 1e-3 for r in out.values())
+
+
+def test_one_rank_nccl_process_mesh_keeps_the_virtual_shards_bits(
+        cuda, tmp_path):
+    """A one-rank NCCL job over a file store: on its process mesh of 4
+    shards, whose collectives (the gathers of x and of the unstacked
+    vectors, the solvers' dots) go through NCCL, the DIA halo SpMV and
+    SpMM, the all-gather CSR and the halo CSR SpMV (neighbor and
+    all2all) are bitwise the virtual shards' products, and CG over the
+    DIA halo stops at their count."""
+    import torch.distributed as dist
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.ops import conjugate_gradient
+
+    mm = poisson2d(48, 40)
+    m, d = CsrMatrix.from_matrix_market(mm), DiaMatrix.from_matrix_market(mm)
+    x = np.random.default_rng(9).standard_normal(m.num_rows)
+    X = np.random.default_rng(10).standard_normal((m.num_rows, 3))
+    assert not dist.is_initialized()
+    assert par.initialize_distributed(f"file://{tmp_path}/store", 1,
+                                      0) is False
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = par.global_mesh(4)
+        assert (mesh.world_size, mesh.local_shards) == (1, range(0, 4))
+        virtual = par.make_mesh(4, devices=[mesh.device] * 4)
+        out = {}
+        for name, on in (("process", mesh), ("virtual", virtual)):
+            D = par.shard_dia(d, 4, dtype=torch.float64, mesh=on)
+            y = par.sharded_dia_spmv(D, par.stack_dia_vector(x, D), on)
+            Y = par.sharded_dia_spmm(D, par.stack_dia_matrix(X, D), on)
+            res = {"dia": y, "dia_spmm": Y,
+                   "dia_full": par.unstack_dia_vector(y, D)}
+            for kind in ("all_gather", "neighbor", "all2all"):
+                A = (par.shard_csr(m, 4, dtype=torch.float64, mesh=on)
+                     if kind == "all_gather" else par.shard_csr_halo(
+                         m, 4, dtype=torch.float64, mesh=on, exchange=kind))
+                product = (par.sharded_spmv if kind == "all_gather"
+                           else par.sharded_halo_spmv)
+                res[kind] = product(A, par.stack_vector(x, A, on), on)
+            b = par.stack_dia_vector(d.spmv(np.ones(d.num_rows)), D)
+            res["cg"] = conjugate_gradient(
+                par.make_sharded_dia_matvec(D, on), b, tol=1e-10,
+                max_iterations=2000, mesh=on).iterations
+            out[name] = res
+    finally:
+        dist.destroy_process_group()
+    for key in ("dia", "dia_spmm", "all_gather", "neighbor", "all2all"):
+        assert torch.equal(out["process"][key], out["virtual"][key]), key
+    assert np.array_equal(out["process"]["dia_full"],
+                          out["virtual"]["dia_full"])
+    assert out["process"]["cg"] == out["virtual"]["cg"] < 2000

@@ -1,0 +1,397 @@
+"""The port's process mesh (``parallel.distributed``, ``parallel.comm``)
+against the JAX package's sharded functions and the port's own
+single-process mesh.
+
+A module fixture starts three Gloo jobs on the CPU at once, of 1, 2 and
+4 ranks, each over a mesh of P = 8 shards (the JAX mp worker's 2 x 4
+and 4 x 2, and one rank holding all 8 through the group's collectives),
+each rank a process of ``tests/_torch_mp_worker.py`` with a ``file://``
+store, float64 and ``SPMV_TPU_TORCH_DEVICE=cpu``.  A rank that exits
+with an error, or a job that outlasts ``WALL_S``, fails the tests: no
+case skips.  Every rank computes the worker's cases (the DIA halo SpMV
+and SpMM at poisson2d(16, 16) and (32, 32); the all-gather CSR SpMV;
+the halo CSR SpMV and SpMM with ``neighbor`` and ``all2all`` forced on
+banded_random(256, 80, 6), whose strips come from up to 3 shards away;
+CG over the three paths, Jacobi-PCG and batched CG at k = 2 over DIA
+and the halo CSR at poisson2d(16, 16)) and writes its shards' rows.
+Stacked in rank order, the rows are held:
+
+- against JAX's sharded functions on its 8 virtual CPU devices, as
+  ``tests/test_torch_shard.py`` holds the single-process mesh: products
+  at rtol 1e-12, solvers at JAX's iteration counts with x at rtol 1e-10;
+- against ``run_case`` on the port's single-process mesh of 8 virtual
+  shards: products and the halo receive buffers bitwise, every rank's
+  unstacked vector too; solvers at equal counts, x at rtol 1e-10 (a
+  rank's dots are all-reduced, so they sum in another order).
+
+In one process: ``initialize_distributed`` without an address,
+``host_local_info``'s keys, the meshes that raise ``MeshError``, and the
+paths not carried across ranks yet, which refuse a mesh that claims two
+ranks (a fake group: nothing is spawned).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import _torch_mp_worker as worker
+
+from spmv_tpu import ops as jops
+from spmv_tpu import parallel as jpar
+from spmv_tpu.io import generate as jgen
+from spmv_tpu.models import CsrMatrix as JCsr
+from spmv_tpu.models import DiaMatrix as JDia
+from spmv_tpu_torch import ops as tops
+from spmv_tpu_torch import parallel as tpar
+from spmv_tpu_torch.io import generate as tgen
+from spmv_tpu_torch.models import CsrMatrix
+from spmv_tpu_torch.models.bsr import BsrMatrix
+from spmv_tpu_torch.models.device import DEVICE_ENV
+from spmv_tpu_torch.parallel import Mesh, MeshError, distributed
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(REPO, "tests", "_torch_mp_worker.py")
+CPU = torch.device("cpu")
+WORLDS = (1, 2, 4)
+WALL_S = 120
+P = worker.P
+
+
+@pytest.fixture(autouse=True)
+def _cpu_fp64(monkeypatch):
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(old)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """{world size: (out dir, [meta of each rank])} of the three jobs."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    env[DEVICE_ENV] = "cpu"
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "LOCAL_RANK"):
+        env.pop(name, None)
+    jobs, procs = {}, []
+    for world in WORLDS:
+        out = tmp_path_factory.mktemp(f"world{world}")
+        jobs[world] = str(out)
+        for rank in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, WORKER, str(out / "store"), str(world),
+                 str(rank), str(out)], env=env, cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + WALL_S
+    try:
+        outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))
+                for p in procs]
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"a rank outlasted {WALL_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, f"rank {p.args[3:5]} failed:\n{err[-3000:]}"
+    result = {}
+    for world, out in jobs.items():
+        metas = []
+        for rank in range(world):
+            with open(os.path.join(out, f"meta.r{rank}.json")) as f:
+                metas.append(json.load(f))
+        result[world] = (out, metas)
+    return result
+
+
+def _rows(ranks, world, name, full=False):
+    """Every rank's rows of a case stacked in rank order, or each rank's
+    unstacked whole vector (``full``)."""
+    out, _ = ranks[world]
+    tag = ".full" if full else ""
+    got = [np.load(os.path.join(out, f"{name}{tag}.r{r}.npy"))
+           for r in range(world)]
+    return got if full else np.concatenate(got)
+
+
+def _close(got, want, rtol):
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+_SINGLE, _JAX = {}, {}
+
+
+def _single(case):
+    """``run_case`` on the port's single-process mesh of P virtual
+    shards."""
+    if case not in _SINGLE:
+        _SINGLE[case] = worker.run_case(
+            case, tpar.make_mesh(P, devices=[CPU] * P))
+    return _SINGLE[case]
+
+
+def _np_stack(v, JA):
+    """Rows of v in JAX's stacked (P, R, ...) layout of a CSR container."""
+    v = np.asarray(v)
+    out = np.zeros((P, JA.rows_per_shard) + v.shape[1:])
+    for p in range(P):
+        out[p, : JA.bounds[p + 1] - JA.bounds[p]] = \
+            v[JA.bounds[p]: JA.bounds[p + 1]]
+    return jnp.asarray(out)
+
+
+def _jax(case):
+    """(stacked rows, iterations) of JAX's sharded function of a case on
+    P of its virtual CPU devices."""
+    if case in _JAX:
+        return _JAX[case]
+    kind, mat, exchange = case
+    gen, args, kw = worker.MATS[mat]
+    mm = getattr(jgen, gen)(*args, **kw)
+    jm, jd = JCsr.from_matrix_market(mm), JDia.from_matrix_market(mm)
+    host = CsrMatrix.from_matrix_market(getattr(tgen, gen)(*args, **kw))
+    got = worker.inputs(kind, host)
+    jmesh = jpar.make_mesh(P)
+    path = kind.split("_")[-1] if kind[:3] in ("cg_", "pcg", "bcg") \
+        else kind.split("_")[0]
+    if path == "dia":
+        JA = jpar.shard_dia(jd, P)
+        stack = lambda v: jpar.stack_dia_vector(jnp.asarray(v), JA)  # noqa
+        mv, product = jpar.make_sharded_dia_matvec(JA, jmesh), None
+        if kind == "dia_spmm":
+            product = jpar.sharded_dia_spmm
+            stacked = jpar.stack_dia_matrix(jnp.asarray(got["X"]), JA)
+    elif path == "csr":
+        JA = jpar.shard_csr(jm, P, mesh=jmesh)
+        stack = lambda v: _np_stack(v, JA)       # noqa: E731
+        mv = jpar.make_sharded_matvec(JA, jmesh)
+    else:
+        JA = jpar.shard_csr_halo(jm, P, mesh=jmesh,
+                                 exchange=exchange or "auto")
+        stack = lambda v: _np_stack(v, JA)       # noqa: E731
+        mv = jpar.make_sharded_halo_matvec(JA, jmesh)
+        if kind == "halo_spmm":
+            product = jpar.sharded_halo_spmm
+            stacked = _np_stack(got["X"], JA)
+    if kind.endswith("spmv"):
+        res = (np.asarray(jax.jit(mv)(stack(got["x"]))), None)
+    elif kind.endswith("spmm"):
+        res = (np.asarray(jax.jit(lambda V: product(JA, V, jmesh))(stacked)),
+               None)
+    elif kind.startswith("bcg"):
+        if path == "dia":
+            mm_ = jpar.make_sharded_dia_matmat(JA, jmesh)
+            Bs = jpar.stack_dia_matrix(jnp.asarray(got["B"]), JA)
+        else:
+            hm = jpar.make_sharded_halo_matmat(JA, jmesh)
+
+            def mm_(V):
+                return jnp.swapaxes(hm(jnp.swapaxes(V, 1, 2)), 1, 2)
+
+            Bs = jnp.swapaxes(_np_stack(got["B"], JA), 1, 2)
+        r = jax.jit(lambda V: jops.batched_conjugate_gradient(
+            mm_, V, tol=worker.TOL,
+            max_iterations=worker.MAX_ITERATIONS))(Bs)
+        res = (np.asarray(r.x), [int(i) for i in r.iterations])
+    else:
+        bs = stack(got["b"])
+        if kind.startswith("pcg"):
+            pre = jops.jacobi_preconditioner(
+                stack(tops.extract_diagonal(host)))
+            r = jax.jit(lambda v: jops.preconditioned_conjugate_gradient(
+                mv, v, pre, tol=worker.TOL,
+                max_iterations=worker.MAX_ITERATIONS))(bs)
+        else:
+            r = jax.jit(lambda v: jops.conjugate_gradient(
+                mv, v, tol=worker.TOL,
+                max_iterations=worker.MAX_ITERATIONS))(bs)
+        res = (np.asarray(r.x), int(r.iterations))
+    _JAX[case] = res
+    return res
+
+
+NAMES = {worker.case_name(c): c for c in worker.CASES}
+AGAINST_JAX = [worker.case_name(c) for c in worker.PRODUCTS + worker.SOLVERS]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", AGAINST_JAX)
+def test_ranks_match_jax(ranks, world, name):
+    case = NAMES[name]
+    want, iterations = _jax(case)
+    got = _rows(ranks, world, name)
+    if iterations is None:
+        _close(got, want, 1e-12)
+        return
+    assert ranks[world][1][0]["iterations"][name] == iterations
+    assert max(np.max(iterations), 0) < worker.MAX_ITERATIONS
+    _close(got, want, 1e-10)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", list(NAMES))
+def test_ranks_match_the_single_process_mesh(ranks, world, name):
+    case = NAMES[name]
+    want = _single(case)
+    got = _rows(ranks, world, name)
+    metas = ranks[world][1]
+    if want["iterations"] is None:
+        assert got.dtype == want["rows"].dtype
+        assert np.array_equal(got, want["rows"])        # bitwise
+    else:
+        assert all(m["iterations"][name] == want["iterations"]
+                   for m in metas)
+        _close(got, want["rows"], 1e-10)
+    if want["full"] is not None:
+        for full in _rows(ranks, world, name, full=True):
+            if want["iterations"] is None:
+                assert np.array_equal(full, want["full"])
+            else:
+                _close(full, want["full"], 1e-10)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ranks_know_their_place(ranks, world):
+    """Each rank holds its contiguous block of P / world_size shards, rank
+    0's first, and reports JAX's keys of ``host_local_info``."""
+    spr = P // world
+    for rank, meta in enumerate(ranks[world][1]):
+        assert meta["local_shards"] == [rank * spr, (rank + 1) * spr]
+        assert meta["info"] == {"process_index": rank,
+                                "process_count": world,
+                                "local_device_count": 1,
+                                "global_device_count": world}
+        assert meta["mesh_info"]["num_processes"] == world
+        assert meta["mesh_info"]["shape"] == {"shards": P}
+
+
+def test_initialize_without_an_address_is_a_noop(monkeypatch):
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    assert tpar.initialize_distributed() is False
+    assert tpar.initialize_distributed() is False       # idempotent
+    assert not torch.distributed.is_initialized()
+    assert not tpar.is_multi_host()
+    mesh = tpar.global_mesh(4)
+    assert (mesh.size, mesh.world_size, mesh.group) == (4, 1, None)
+
+
+def test_initialize_needs_rank_and_world_size(monkeypatch):
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="world size"):
+        tpar.initialize_distributed("file:///nowhere", world_size=2)
+    assert not torch.distributed.is_initialized()
+
+
+def test_a_local_rank_without_a_card_raises(monkeypatch):
+    """Rank r runs on cuda:LOCAL_RANK: past the visible cards it raises
+    rather than share one or fall back to the CPU."""
+    monkeypatch.delenv(DEVICE_ENV)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="no card of its own"):
+        distributed._rank_device(None, 1)
+    assert distributed._rank_device("cuda:0", 1) == torch.device("cuda", 0)
+
+
+def test_host_local_info_has_jax_keys():
+    assert set(tpar.host_local_info()) == set(jpar.host_local_info())
+    assert tpar.host_local_info()["process_count"] == 1
+
+
+def test_make_mesh_over_distinct_devices_still_raises():
+    with pytest.raises(MeshError, match="global_mesh"):
+        tpar.make_mesh(2, devices=[CPU, torch.device("meta")])
+
+
+@pytest.mark.parametrize("world,shards", [(4, 6), (3, 8), (2, 1)])
+def test_a_process_mesh_must_split_evenly(world, shards):
+    with pytest.raises(MeshError, match="split evenly"):
+        Mesh((CPU,) * shards, world_size=world, rank=0, group=object())
+
+
+def _fake(world=2, shards=4):
+    return Mesh((CPU,) * shards, world_size=world, rank=0, group=object())
+
+
+def test_local_rows_keep_the_ranks_shards():
+    arr = np.arange(24.0).reshape(8, 3)
+    mesh = Mesh((CPU,) * 8, world_size=4, rank=2, group=object())
+    assert mesh.local_shards == range(4, 6)
+    np.testing.assert_array_equal(tpar.local_rows(arr, mesh).numpy(),
+                                  arr[4:6])
+    np.testing.assert_array_equal(
+        tpar.local_rows(arr, tpar.make_mesh(8, devices=[CPU] * 8)).numpy(),
+        arr)
+
+
+def _not_carried():
+    m = CsrMatrix.from_matrix_market(tgen.poisson2d(16, 16))
+    matvec = (lambda v: v)               # noqa: E731
+    matvec.mesh = _fake()
+    b = torch.ones(4, 64)
+    return {
+        "shard_well": lambda: tpar.shard_well(m, 4, mesh=_fake()),
+        "shard_well_halo": lambda: tpar.shard_well_halo(m, 4, mesh=_fake()),
+        "shard_wellcw_halo": lambda: tpar.shard_wellcw_halo(
+            m, 4, mesh=_fake()),
+        "shard_bsr_halo": lambda: tpar.shard_bsr_halo(
+            BsrMatrix.from_matrix_market(tgen.poisson2d(16, 16),
+                                         block_rows=8), 4, mesh=_fake()),
+        "block_jacobi_ic0": lambda: tpar.block_jacobi_ic0(
+            m, np.array([0, 64, 128, 192, 256]), 72, mesh=_fake()),
+        "gmres": lambda: tops.gmres(matvec, b),
+        "chebyshev": lambda: tops.chebyshev(matvec, b, 1.0, 2.0),
+        "lanczos_bounds": lambda: tops.lanczos_bounds(matvec, 256),
+        "bicgstab": lambda: tops.bicgstab(matvec, b),
+        "lobpcg": lambda: tops.lobpcg(matvec, torch.ones(256, 2)),
+        "sharded_well_spmv_given_a_process_mesh": lambda: (
+            tpar.sharded_well_spmv(
+                tpar.shard_well(m, 4, mesh=tpar.make_mesh(
+                    4, devices=[CPU] * 4)), torch.zeros(4, 128), _fake())),
+    }
+
+
+@pytest.mark.parametrize("path", list(_not_carried()) + ["dryrun"])
+def test_paths_not_carried_across_ranks_refuse_a_process_mesh(
+        path, monkeypatch):
+    if path == "dryrun":
+        from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
+
+        monkeypatch.setattr(distributed, "is_multi_host", lambda: True)
+        run = lambda: dryrun_multichip(2)        # noqa: E731
+    else:
+        run = _not_carried()[path]
+    with pytest.raises(MeshError, match="ROADMAP.md"):
+        run()
+
+
+@pytest.mark.parametrize("solver", ["cg", "pcg", "batched_cg"])
+def test_solvers_refuse_a_process_closure_without_its_mesh(solver):
+    """A solver handed a closure over a process mesh, but not the mesh,
+    would reduce its dots over one rank's rows: it raises."""
+    matvec = (lambda v: v)               # noqa: E731
+    matvec.mesh = _fake()
+    b = torch.ones(4, 64)
+    run = {"cg": lambda: tops.conjugate_gradient(matvec, b),
+           "pcg": lambda: tops.preconditioned_conjugate_gradient(
+               matvec, b, lambda r: r),
+           "batched_cg": lambda: tops.batched_conjugate_gradient(
+               matvec, b)}[solver]
+    with pytest.raises(MeshError, match="mesh="):
+        run()
