@@ -421,6 +421,35 @@ Phases (each prints readable lines; any failure exits non-zero):
    batched CG float64 to 1e-8 over the DIA matmat (k = 4) at
    poisson2d(256, 256) at it.  A rank that fails or outlasts 420 s
    fails the run.
+33. The second half across ranks (the K5, K3, K4, K7, CSR and
+   tri_solve launches of the process-mesh runs make the path's counts).
+   Phase 18's block_random goes to files every rank maps.  Four jobs
+   start first, each rank a child process on the card: a one-rank NCCL
+   job and a two-rank Gloo job (Gloo asked for by name) of the
+   products, which build their host matrices and containers (each rank
+   only its own shards') while this process, on the same inputs, makes
+   every product and solver on 4 virtual shards; a second two-rank Gloo
+   job of the solvers, which runs at once; and
+   examples/03_multichip_torch.py as a one-rank NCCL job (it must print
+   the JAX example's two lines).  The NCCL rank, and after it the Gloo
+   products ranks (beside the solvers job), make, float32: the WELL
+   all-gather and halo SpMV at poisson2d(2048, 2048), the WELL-CW halo
+   SpMV and SpMM (k = 8) at phase 7's banded_random(2^20, 2048, 8), the
+   BSR halo SpMM at phase 18's block_random, k = 128, in float32 and
+   bf16, and the block-IC(0) apply at poisson2d(1024, 1024): each rank's
+   rows bitwise the virtual shards' rows of its shards (sha256), its
+   launches its containers' count, its envelope and exchange numbers the
+   virtual containers', ms a product and the exchange alone (host clock,
+   10 back to back; host-staged Gloo on one card, not NVLink); then
+   block-IC(0) PCG float32 to 1e-5 at poisson2d(1024, 1024), within 2%
+   of the virtual count.  The solvers job: Chebyshev on 300-step
+   lanczos_bounds, GMRES(32) with the block-IC(0) apply as its
+   preconditioner and BiCGSTAB, float64 to 1e-8 at poisson2d(256, 256)
+   (Chebyshev and GMRES at the virtual counts, BiCGSTAB within 2%),
+   masked LOBPCG float64 at k = 4 to 1e-6 with the block-IC(0) apply a
+   column (the analytic eigenvalues within 1e-6), and
+   dryrun_multichip(4) over its two ranks (the same dict on both).  A
+   child that fails or outlasts 420 s fails the run.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -465,11 +494,12 @@ the CSR SpMV's its whole-matrix times; the CSR kernels' and the ELL
 SpMV's their times at the hybrid's shape, beside torch.sparse of that
 part's own entries; the K1, K2, K3a-c, K4a-c, K5a/b, K7, CSR and
 tri_solve rows their launches on the sharded paths (phases 30 and 31),
-the K1, K2 and CSR SpMV rows theirs on the distributed path (phase 32);
+the K1, K2, K3a-c, K4a-c, K5a/b, K7, CSR and tri_solve rows theirs on
+the distributed path (phases 32 and 33);
 and summaries of each path,
 `formats`, `amg`, `traffic_split`, `simulate`, `solvers`, `eigs`,
 `sharded`, with phase 31's under ``formats``, and `distributed` the
-last)
+last, with phase 33's under ``formats``)
 and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
@@ -7224,11 +7254,7 @@ def distributed_rank(store: str, world: int, rank: int, device: str,
     mesh = par.global_mesh(DIST_P)
     hosts = _dist_hosts(grids)
     setup = time.perf_counter() - t0
-    deadline = time.monotonic() + DIST_CHILD_S
-    while not os.path.exists(store + ".go"):
-        if time.monotonic() > deadline:
-            raise TimeoutError("no go from the parent")
-        time.sleep(0.05)
+    _await(store + ".go")
     path = _ShardPath(DIST_WRAPPERS)
     products = _dist_products(hosts, mesh, path, time_it=True)
     for case, res in products.items():
@@ -7244,46 +7270,58 @@ def distributed_rank(store: str, world: int, rank: int, device: str,
             "launches": path.launches}
 
 
-def _start_dist_children(store: str, device) -> list:
-    """The Gloo job's ranks, each writing its output to files beside the
-    store (a pipe left unread could stall a rank, and its peer with
-    it)."""
-    repo = os.path.dirname(os.path.abspath(__file__))
+def _rank_env() -> dict:
+    """This process's environment less torchrun's variables: a child rank
+    joins the job its arguments name, not one they point at."""
     env = dict(os.environ)
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
                  "LOCAL_RANK"):
         env.pop(name, None)
-    procs = []
-    for rank in range(DIST_WORLD):
-        with open(f"{store}.out{rank}", "w") as out, \
-                open(f"{store}.err{rank}", "w") as err:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", _DIST_CHILD, store, str(DIST_WORLD),
-                 str(rank), str(device), json.dumps(_dist_grids())],
-                cwd=repo, env=env, stdout=out, stderr=err))
-    return procs
+    return env
 
 
-def _wait_dist_children(procs, store, tag) -> list:
-    """Each rank's JSON; a rank that fails or outlasts DIST_CHILD_S fails
-    the run."""
+def _await(go: str) -> None:
+    """Wait for the parent's file ``go``; past DIST_CHILD_S, raise."""
     deadline = time.monotonic() + DIST_CHILD_S
-    got = []
-    for rank, proc in enumerate(procs):
-        try:
-            proc.wait(timeout=max(deadline - time.monotonic(), 1))
-        except subprocess.TimeoutExpired:
-            _fail(f"[{tag}] rank {rank} of the Gloo job outlasted "
-                  f"{DIST_CHILD_S} s")
-        with open(f"{store}.out{rank}") as f:
-            out = f.read()
-        if proc.returncode != 0:
-            with open(f"{store}.err{rank}") as f:
-                err = f.read()
-            _fail(f"[{tag}] rank {rank} of the Gloo job exited "
-                  f"{proc.returncode}: {err[-3000:]}")
-        got.append(json.loads(out.strip().splitlines()[-1]))
-    return got
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError("no go from the parent")
+        time.sleep(0.05)
+
+
+def _start_rank(child: str, store: str, rank: int, args):
+    """A rank of a job: the script ``child`` on ``args``, its output to
+    files beside the job's store (a pipe left unread could stall a rank,
+    and its peer with it)."""
+    repo, env = os.path.dirname(os.path.abspath(__file__)), _rank_env()
+    with open(f"{store}.out{rank}", "w") as out, \
+            open(f"{store}.err{rank}", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", child, *map(str, args)],
+            cwd=repo, env=env, stdout=out, stderr=err)
+
+
+def _wait_child(proc, out, err, what, tag) -> str:
+    """A child's standard output; one that fails or outlasts DIST_CHILD_S
+    fails the run."""
+    try:
+        proc.wait(timeout=DIST_CHILD_S)
+    except subprocess.TimeoutExpired:
+        _fail(f"[{tag}] {what} outlasted {DIST_CHILD_S} s")
+    if proc.returncode != 0:
+        with open(err) as f:
+            _fail(f"[{tag}] {what} exited {proc.returncode}: "
+                  f"{f.read()[-3000:]}")
+    with open(out) as f:
+        return f.read()
+
+
+def _wait_job(procs, store, what, tag) -> list:
+    """Each rank's JSON (its last line) of a job started by
+    ``_start_rank``."""
+    return [json.loads(_wait_child(
+        proc, f"{store}.out{r}", f"{store}.err{r}", f"rank {r} of {what}",
+        tag).strip().splitlines()[-1]) for r, proc in enumerate(procs)]
 
 
 @_walled
@@ -7308,7 +7346,10 @@ def phase_distributed(device, smi_line, dia_full=None):
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="spmv-dist-")
     store = os.path.join(tmp, "gloo")
-    procs = _start_dist_children(store, device)
+    procs = [_start_rank(_DIST_CHILD, store, r,
+                         (store, DIST_WORLD, r, device,
+                          json.dumps(_dist_grids())))
+             for r in range(DIST_WORLD)]
     try:
         hosts = _dist_hosts(_dist_grids(), dia_full)
         del dia_full
@@ -7358,7 +7399,7 @@ def phase_distributed(device, smi_line, dia_full=None):
 
         with open(store + ".go", "w"):
             pass
-        ranks = _wait_dist_children(procs, store, tag)
+        ranks = _wait_job(procs, store, "the Gloo job", tag)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -7426,6 +7467,704 @@ def phase_distributed(device, smi_line, dia_full=None):
     return {"launches": launches, "nccl_one_rank": nccl, "gloo": gloo,
             "virtual": vsolve, "shards": DIST_P, "seconds": secs,
             "card": smi_line, "note": DIST_GLOO_NOTE}
+
+
+# phase 33: the second half across ranks (WELL, WELL-CW, BSR and
+# block-Jacobi IC(0); Chebyshev, GMRES, BiCGSTAB and LOBPCG with the group
+# reduction; dryrun_multichip): a one-rank NCCL job and two Gloo jobs of
+# two child processes sharing the card
+DIST2_WELL_GRID = 2048        # poisson2d(2048²): the WELL all-gather and halo
+DIST2_IC0_GRID = CG_GRID      # poisson2d(1024²): block-IC(0) apply, PCG f32
+DIST2_SOLVER_GRID = 256       # poisson2d(256²): the float64 solvers
+DIST2_RESTART = 32            # GMRES(32)
+# LOBPCG's tol: 608 iterations on the CPU, the eigenvalues within 2.1e-8
+# of the analytic ones (to 1e-8: 769, 37.6 host s on an H100 beside the
+# other jobs)
+DIST2_EIG_TOL = 1e-6
+DIST2_WRAPPERS = FORMAT_WRAPPERS
+DIST2_CASES = ("well_all_gather", "well_halo", "wellcw_halo",
+               f"wellcw_halo_spmm_k{SHARD_CW_K}", "bsr_halo_float32",
+               "bsr_halo_bfloat16", "block_ic0_apply")
+# the solvers whose every reduction is ops.solvers._vdot, held at the
+# count of the virtual shards whose dots sum in the ranks' order
+# (``_in_rank_order``), x bitwise: an all-reduced dot sums in another
+# order than the whole stacked dot, and PCG's and BiCGSTAB's counts move
+# with that order (BiCGSTAB with block-IC(0) 146 against the virtual
+# shards' 130 on an H100); Chebyshev (tested every 10) and GMRES are
+# held at the virtual count
+DIST2_RANK_ORDER = ("block_ic0_pcg", "bicgstab", "bicgstab_ic0")
+# where the solvers jobs run: the products are timed after they end
+DIST2_BESIDE = ("beside the virtual reference, the products jobs' set-up, "
+                "the example and each other")
+DIST2_ENVELOPE = ("rows_per_shard", "chunks_per_shard", "spill_per_shard",
+                  "exchange", "max_distance", "halo_slots",
+                  "comm_elements_exact", "comm_elements_padded",
+                  "interior_per_shard", "boundary_per_shard",
+                  "comm_blocks_exact", "num_levels", "width", "max_deps",
+                  "shift_used")
+
+# one rank of phase 33's jobs (its role, store, world size, rank, device,
+# backend or "", the go file, the directory of the BSR host arrays, the
+# grids as JSON): its JSON on the last line
+_DIST2_CHILD = """
+import json, sys
+import chip_smoke as c
+print(json.dumps(c.distributed_formats_rank(
+    sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+    sys.argv[5], sys.argv[6] or None, sys.argv[7], sys.argv[8],
+    json.loads(sys.argv[9]))), flush=True)
+"""
+
+
+def _dist2_grids() -> dict:
+    return {"well": DIST2_WELL_GRID, "ic0": DIST2_IC0_GRID,
+            "small": DIST2_SOLVER_GRID, "cw_rows": CW_FULL_ROWS,
+            "cw_half_bw": CW_FULL_HALF_BW}
+
+
+def _save_bsr(host, where: str) -> None:
+    """The host BSR's arrays as .npy files in ``where``, which every rank
+    maps (``_load_bsr``): one build of block_random's 134M entries, not
+    one a process."""
+    os.makedirs(where, exist_ok=True)
+    for name in ("blocks", "block_col", "block_rowptr"):
+        np.save(os.path.join(where, f"{name}.npy"), getattr(host, name))
+    with open(os.path.join(where, "meta.json"), "w") as f:
+        json.dump({k: int(getattr(host, k)) for k in (
+            "num_rows", "num_columns", "num_entries", "block_rows")}, f)
+
+
+def _load_bsr(where: str):
+    """``_save_bsr``'s matrix, its blocks mapped from the file (copy on
+    write): a rank reads only its own shards' blocks."""
+    from spmv_tpu_torch.models import BsrMatrix
+
+    with open(os.path.join(where, "meta.json")) as f:
+        meta = json.load(f)
+    arrays = {name: np.load(os.path.join(where, f"{name}.npy"),
+                            mmap_mode="c" if name == "blocks" else None)
+              for name in ("blocks", "block_col", "block_rowptr")}
+    return BsrMatrix(**meta, **arrays)
+
+
+def _poisson_csr(grid: int):
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import DiaMatrix
+
+    return _csr_of_dia(DiaMatrix.from_matrix_market(poisson2d(grid, grid)))
+
+
+def _dist2_hosts(grids, bsr_dir) -> dict:
+    """The products' host matrices: ``well`` and ``ic0`` poisson2d CSRs
+    (each from its DIA, ``_csr_of_dia``), ``cw`` the bench's banded_random
+    CSR, ``bsr`` the mapped block_random BSR: every process builds the
+    same entries in the same order."""
+    from spmv_tpu_torch.io.generate import banded_random
+    from spmv_tpu_torch.models import CsrMatrix
+
+    return {"well": _poisson_csr(grids["well"]),
+            "ic0": _poisson_csr(grids["ic0"]),
+            "cw": CsrMatrix.from_matrix_market(banded_random(
+                grids["cw_rows"], half_bandwidth=grids["cw_half_bw"],
+                nnz_per_row=8, seed=1)),
+            "bsr": _load_bsr(bsr_dir)}
+
+
+def _dist2_build(hosts, mesh) -> dict:
+    """Every container of phase 33's products on ``mesh`` (a rank builds
+    its own shards), with its build seconds."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+
+    f32 = torch.float32
+    builds = {
+        "well_all_gather": lambda: par.shard_well(
+            hosts["well"], DIST_P, window_rows=SHARD_WELL_WINDOW, dtype=f32,
+            mesh=mesh),
+        "well_halo": lambda: par.shard_well_halo(
+            hosts["well"], DIST_P, window_rows=SHARD_WELL_WINDOW, dtype=f32,
+            mesh=mesh),
+        "wellcw_halo": lambda: par.shard_wellcw_halo(
+            hosts["cw"], DIST_P, dtype=f32, mesh=mesh),
+        "bsr_halo_float32": lambda: par.shard_bsr_halo(
+            hosts["bsr"], DIST_P, dtype=f32, mesh=mesh),
+        "bsr_halo_bfloat16": lambda: par.shard_bsr_halo(
+            hosts["bsr"], DIST_P, dtype=torch.bfloat16, mesh=mesh),
+        "block_ic0": lambda: _dist2_ic0(hosts["ic0"], mesh),
+    }
+    out, secs = {}, {}
+    for name, build in builds.items():
+        t0 = time.perf_counter()
+        out[name] = build()
+        secs[name] = time.perf_counter() - t0
+    out.update(out.pop("block_ic0"))
+    out["build_s"] = secs
+    return out
+
+
+def _dist2_ic0(ic0, mesh) -> dict:
+    """Block-IC(0) PCG's containers at poisson2d(DIST2_IC0_GRID²) ``ic0``
+    in float32: "ic0_halo", the halo CSR, and "block_ic0" over its
+    bounds."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+
+    f32 = torch.float32
+    H = par.shard_csr_halo(ic0, DIST_P, dtype=f32, mesh=mesh)
+    return {"ic0_halo": H,
+            "block_ic0": par.block_jacobi_ic0(ic0, H.bounds, H.rows_per_shard,
+                                              dtype=f32, mesh=mesh)}
+
+
+def _envelope(A) -> dict:
+    return {f: getattr(A, f) for f in DIST2_ENVELOPE if hasattr(A, f)}
+
+
+def _dist2_products(built, mesh, path, time_it=False) -> dict:
+    """Phase 33's products on ``mesh`` (their launches counted by
+    ``path``): {case: {"rows": this process's stacked rows, "launches"
+    (checked against the container's own count), "envelope", and with
+    ``time_it`` "ms" a product and "exchange_ms" the exchange alone on
+    the host clock}}; each input drawn whole on the device from a seed
+    a case, so every process draws the same."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.parallel import bsr_shard, halo_shard
+
+    device, f32 = mesh.device, torch.float32
+    out = {}
+    for i, case in enumerate(DIST2_CASES):
+        g = torch.Generator(device=device).manual_seed(330 + i)
+        exchange = None
+        if case.startswith("well_"):
+            A = built[case]
+            xs = par.stack_vector(torch.randn(
+                A.num_rows, generator=g, device=device, dtype=f32), A, mesh)
+            fn = (par.sharded_well_spmv if case == "well_all_gather"
+                  else par.sharded_well_halo_spmv)
+
+            def product():
+                return fn(A, xs, mesh)
+
+            if case == "well_all_gather":
+                def exchange():
+                    return par.all_gather_rows(xs, mesh)
+            else:
+                def exchange():
+                    return halo_shard.halo_of(A, xs)
+            want = A.launches_a_product()
+        elif case.startswith("wellcw"):
+            A = built["wellcw_halo"]
+            spmm = case != "wellcw_halo"
+            shape = (A.num_rows, SHARD_CW_K) if spmm else (A.num_rows,)
+            xs = (par.stack_block if spmm else par.stack_vector)(torch.randn(
+                shape, generator=g, device=device, dtype=f32), A, mesh)
+            fn = (par.sharded_wellcw_halo_spmm if spmm
+                  else par.sharded_wellcw_halo_spmv)
+
+            def product():
+                return fn(A, xs, mesh)
+
+            def exchange():
+                return halo_shard.halo_of(A, xs)
+
+            want = A.launches_a_product(spmm=spmm)
+        elif case.startswith("bsr"):
+            A = built[case]
+            xs = bsr_shard.stack_columns(torch.randn(
+                A.num_columns, BSR_K, generator=g, device=device,
+                dtype=f32), A, mesh)
+
+            def product():
+                return par.sharded_bsr_spmm(A, xs, mesh)
+
+            def exchange():
+                return bsr_shard.extend_columns(A, xs)
+
+            want = A.launches_a_product()
+        else:
+            A, H = built["block_ic0"], built["ic0_halo"]
+            xs = par.stack_vector(torch.randn(
+                H.num_rows, generator=g, device=device, dtype=f32), H, mesh)
+
+            def product():
+                return par.sharded_block_ic0_apply(A, xs, mesh)
+
+            want = A.launches_an_apply()
+        rows, delta = path.run(product)
+        moved = {k: v for k, v in delta.items() if v}
+        res = {"rows": rows, "launches": moved,
+               "launches_as_counted": moved == want,
+               "envelope": _envelope(A)}
+        if time_it:
+            res["ms"] = _host_ms(product, DIST_REPS, device)
+            if exchange is not None:
+                res["exchange_ms"] = _host_ms(exchange, DIST_REPS, device)
+        out[case] = res
+    return out
+
+
+def _in_rank_order(a, b, mesh=None):
+    """``ops.solvers._vdot`` on the virtual shards summed as DIST_WORLD
+    ranks of a process mesh sum it: each rank's rows of the stacked
+    layout, then the ranks' sums (of two, a + b either way)."""
+    import torch
+
+    a, b = a.reshape(DIST_WORLD, -1), b.reshape(DIST_WORLD, -1)
+    return sum((torch.dot(a[r], b[r]) for r in range(1, DIST_WORLD)),
+               torch.dot(a[0], b[0]))
+
+
+def _solved(out, name, path, fn, unstack, device) -> None:
+    """Run the solve ``fn`` (its launches counted by ``path``) into
+    ``out[name]``: iterations, max|x - 1| of the unstacked x, host
+    seconds, and "x" the stacked rows."""
+    _dsync(device)
+    t0 = time.perf_counter()
+    r, _ = path.run(fn)
+    _dsync(device)
+    out[name] = {"iterations": int(r.iterations),
+                 "max_abs_err_vs_ones": float(np.abs(unstack(r.x)
+                                                     - 1.0).max()),
+                 "host_s": time.perf_counter() - t0, "x": r.x}
+
+
+def _dist2_pcg(built, ic0, mesh, path, out) -> None:
+    """Block-IC(0) PCG float32 to 1e-5 at poisson2d(DIST2_IC0_GRID²) on
+    the products' containers, b = A ones from the fp64 host product."""
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.ops import preconditioned_conjugate_gradient
+
+    H, M = built["ic0_halo"], built["block_ic0"]
+    mv = par.make_sharded_halo_matvec(H, mesh)
+    bs = par.stack_vector(ic0.spmv(np.ones(H.num_rows)), H, mesh)
+    _solved(out, "block_ic0_pcg", path,
+            lambda: preconditioned_conjugate_gradient(
+                mv, bs, par.make_sharded_block_ic0_preconditioner(M, mesh),
+                tol=SHARD_CG_TOL["float32"], max_iterations=SHARD_CG_MAX,
+                mesh=mesh),
+            lambda x: par.unstack_vector(x, H), mesh.device)
+
+
+def _dist2_small_solvers(m, mesh, path, out,
+                         which=("chebyshev", "gmres", "bicgstab",
+                                "bicgstab_ic0")) -> None:
+    """At poisson2d(DIST2_SOLVER_GRID²) ``m`` in float64 to 1e-8, b = A
+    ones from the fp64 host product, the solvers of ``which``: Chebyshev
+    on SHARD_LANCZOS_STEPS-step ``lanczos_bounds`` (from a global draw),
+    GMRES(DIST2_RESTART) with the block-IC(0) apply as its
+    preconditioner (without one it took 5,223 iterations), BiCGSTAB
+    plain and with the block-IC(0) apply."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.ops import bicgstab, chebyshev, gmres, lanczos_bounds
+
+    f64 = torch.float64
+    H = par.shard_csr_halo(m, DIST_P, dtype=f64, mesh=mesh)
+    M = par.block_jacobi_ic0(m, H.bounds, H.rows_per_shard, dtype=f64,
+                             mesh=mesh)
+    mv = par.make_sharded_halo_matvec(H, mesh)
+    pre = par.make_sharded_block_ic0_preconditioner(M, mesh)
+    bs = par.stack_vector(m.spmv(np.ones(m.num_rows)), H, mesh)
+    tol = SHARD_CG_TOL["float64"]
+
+    def unstack(x):
+        return par.unstack_vector(x, H)
+
+    if "chebyshev" in which:
+        v0 = par.stack_vector(np.random.default_rng(33).standard_normal(
+            m.num_rows), H, mesh)
+        (lo, hi), _ = path.run(lambda: lanczos_bounds(
+            mv, (DIST_P, H.rows_per_shard), num_steps=SHARD_LANCZOS_STEPS,
+            dtype=f64, v0=v0, mesh=mesh))
+        _solved(out, "chebyshev", path, lambda: chebyshev(
+            mv, bs, lo, hi, tol=tol, max_iterations=SHARD_CHEB_MAX,
+            check_every=SHARD_CHEB_CHECK, mesh=mesh), unstack, mesh.device)
+        out["chebyshev"]["bounds"] = [lo, hi]
+    if "gmres" in which:
+        _solved(out, "gmres", path, lambda: gmres(
+            mv, bs, pre, tol=tol, restart=DIST2_RESTART,
+            max_iterations=SHARD_CG_MAX, mesh=mesh), unstack, mesh.device)
+    for name, apply in (("bicgstab", None), ("bicgstab_ic0", pre)):
+        if name in which:
+            _solved(out, name, path, lambda: bicgstab(
+                mv, bs, apply, tol=tol, max_iterations=SHARD_CG_MAX,
+                mesh=mesh), unstack, mesh.device)
+
+
+def _dist2_lobpcg(m, grid, mesh, path) -> dict:
+    """LOBPCG float64 at poisson2d(grid²) ``m``, k = SHARD_EIG_K, tol
+    DIST2_EIG_TOL, on ``mesh`` with ``mesh=``: the padding rows masked,
+    the block-IC(0) apply a column, X0 and P the rank's rows of global
+    draws; eigenvalues against the analytic ones."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.ops import lobpcg
+    from spmv_tpu_torch.parallel import halo_shard
+
+    f64, k = torch.float64, SHARD_EIG_K
+    H = par.shard_csr_halo(m, DIST_P, dtype=f64, mesh=mesh)
+    R, local = H.rows_per_shard, len(mesh.local_shards)
+    M = par.block_jacobi_ic0(m, H.bounds, R, dtype=f64, mesh=mesh)
+    apply = par.make_sharded_block_ic0_preconditioner(M, mesh)
+    X0 = par.stack_block(np.random.default_rng(34).standard_normal(
+        (m.num_rows, k)), H, mesh)
+    _dsync(mesh.device)
+    t0 = time.perf_counter()
+    r, _ = path.run(lambda: lobpcg(
+        halo_shard.make_sharded_halo_flat_matmat(H, mesh), X0.reshape(-1, k),
+        preconditioner=lambda W: torch.stack(
+            [apply(W[:, j].reshape(local, R)).reshape(-1)
+             for j in range(k)], 1),
+        tol=DIST2_EIG_TOL, max_iterations=SHARD_EIG_MAX,
+        mask=halo_shard.stacked_row_mask(H, mesh), mesh=mesh))
+    _dsync(mesh.device)
+    c = np.cos(np.arange(1, grid + 1) * np.pi / (grid + 1))
+    want = np.sort((4.0 - 2.0 * c[:, None] - 2.0 * c[None]).ravel())[:k]
+    got = r.eigenvalues.double().cpu().numpy()
+    return {"iterations": int(r.iterations), "k": k,
+            "eigenvalues": got.tolist(),
+            "max_rel_err_vs_analytic": float(np.max(np.abs(got - want)
+                                                    / want)),
+            "host_s": time.perf_counter() - t0}
+
+
+def distributed_formats_rank(role: str, store: str, world: int, rank: int,
+                             device: str, backend, go: str, bsr_dir: str,
+                             grids: dict) -> dict:
+    """One rank of a phase 33 job through the ``file://`` store ``store``
+    on ``device`` (``backend`` None: NCCL on a card).  ``role``
+    "products": builds the host matrices and this rank's containers,
+    waits for the file ``go`` (the card and the host are then free of
+    every other job), makes the products (their rows' hashes, ms and
+    exchange ms on the host clock).  ``role`` "krylov", at once:
+    block-IC(0) PCG float32 at poisson2d(DIST2_IC0_GRID²), then
+    Chebyshev and GMRES at poisson2d(DIST2_SOLVER_GRID²).  ``role``
+    "eigen", at once: BiCGSTAB plain and with block-IC(0) and LOBPCG
+    there, then ``dryrun_multichip``."""
+    import torch
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    par.initialize_distributed(f"file://{store}", world, rank,
+                               backend=backend, device=device)
+    mesh = par.global_mesh(DIST_P)
+    path = _ShardPath(DIST2_WRAPPERS)
+    out = {"rank": rank, "role": role,
+           "backend": torch.distributed.get_backend(), "world": world,
+           "device": str(mesh.device),
+           "local_shards": [mesh.local_shards.start, mesh.local_shards.stop],
+           "solvers": {}}
+    if role == "krylov":
+        ic0 = _poisson_csr(grids["ic0"])
+        _dist2_pcg(_dist2_ic0(ic0, mesh), ic0, mesh, path, out["solvers"])
+        _dist2_small_solvers(_poisson_csr(grids["small"]), mesh, path,
+                             out["solvers"], ("chebyshev", "gmres"))
+    elif role == "eigen":
+        m = _poisson_csr(grids["small"])
+        _dist2_small_solvers(m, mesh, path, out["solvers"],
+                             ("bicgstab", "bicgstab_ic0"))
+        out["lobpcg"] = _dist2_lobpcg(m, grids["small"], mesh, path)
+        out["dryrun"], _ = path.run(lambda: dryrun_multichip(DIST_P))
+    else:
+        hosts = _dist2_hosts(grids, bsr_dir)
+        out["host_s"] = time.perf_counter() - t0
+        built = _dist2_build(hosts, mesh)
+        out["build_s"] = built.pop("build_s")
+        out["setup_s"] = time.perf_counter() - t0
+        _await(go)
+        out["products"] = _dist2_products(built, mesh, path, time_it=True)
+        for res in out["products"].values():
+            rows = res.pop("rows")
+            res["sha256"] = _rows_hash(rows)
+            res["finite"] = bool(torch.isfinite(rows).all())
+    out["seconds"] = time.perf_counter() - t0
+    for res in out["solvers"].values():
+        res["sha256"] = _rows_hash(res.pop("x"))
+    torch.distributed.destroy_process_group()
+    out["launches"] = path.launches
+    return out
+
+
+def _dist2_job(role, store, world, device, backend, go, bsr_dir) -> list:
+    """The ranks of a phase 33 job (``distributed_formats_rank``)."""
+    return [_start_rank(_DIST2_CHILD, store, r,
+                        (role, store, world, r, device, backend or "", go,
+                         bsr_dir, json.dumps(_dist2_grids())))
+            for r in range(world)]
+
+
+def _start_example(tmp):
+    """``examples/03_multichip_torch.py`` as a one-rank job over the
+    environment torchrun would give it (NCCL on the card)."""
+    import socket
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    with open(os.path.join(tmp, "example.out"), "w") as out, \
+            open(os.path.join(tmp, "example.err"), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, os.path.join(repo, "examples",
+                                          "03_multichip_torch.py")],
+            cwd=repo, env=env, stdout=out, stderr=err)
+
+
+def _check_rows(tag, job, ranks, vrows, venv) -> dict:
+    """Every rank's rows of every product bitwise the virtual shards' rows
+    of its shards, its launches its containers' count, its envelope the
+    virtual containers'; printed with ms a product and the exchange
+    alone."""
+    got = {}
+    for case in DIST2_CASES:
+        per = []
+        for r in ranks:
+            lo, hi = r["local_shards"]
+            res = r["products"][case]
+            same = res["sha256"] == _rows_hash(vrows[case][lo:hi])
+            per.append({"bitwise_equal_to_virtual": same,
+                        **{k: res.get(k) for k in (
+                            "ms", "exchange_ms", "launches")}})
+            if not (same and res["finite"]):
+                _fail(f"[{tag}] {job} rank {r['rank']} {case}: its rows are "
+                      "not the virtual shards' rows")
+            if not res["launches_as_counted"]:
+                _fail(f"[{tag}] {job} rank {r['rank']} {case}: launches "
+                      f"{res['launches']}, not its containers' count")
+            if res["envelope"] != venv[case]:
+                _fail(f"[{tag}] {job} rank {r['rank']} {case}: envelope "
+                      f"{res['envelope']}, the virtual shards' "
+                      f"{venv[case]}")
+        got[case] = per
+        _say(f"[{tag}] {job}, {case}: every rank's rows bitwise the virtual "
+             "shards', envelope equal; ms a product "
+             + " / ".join(f"{p['ms']:.3f}" for p in per)
+             + ("" if per[0]["exchange_ms"] is None else
+                ", the exchange alone " + " / ".join(
+                    f"{p['exchange_ms']:.3f}" for p in per))
+             + f" (rank 0{' / 1' if len(per) > 1 else ''}; host clock)")
+    return got
+
+
+def _check_solvers(tag, ranks, vsolve, vorder, smi_line) -> dict:
+    """Every rank's solver counts equal; those of DIST2_RANK_ORDER at the
+    count of ``vorder`` (the virtual shards' dots in the ranks' order)
+    with each rank's x bitwise its rows there, the others at the virtual
+    count; printed with max|x - 1| and host ms an iteration."""
+    got = {}
+    for case in vsolve:
+        per = [r["solvers"][case] for r in ranks]
+        its = [p["iterations"] for p in per]
+        want = (vorder if case in vorder else vsolve)[case]
+        got[case] = {"iterations": its[0],
+                     "virtual_iterations": vsolve[case]["iterations"],
+                     **{k: [p[k] for p in per]
+                        for k in ("max_abs_err_vs_ones", "host_s")}}
+        if any(i != its[0] for i in its):
+            _fail(f"[{tag}] the ranks' {case} counts differ: {its}")
+        same = ""
+        if case in vorder:
+            got[case]["rank_order_iterations"] = want["iterations"]
+            bits = [p["sha256"] == _rows_hash(
+                want["x"][r["local_shards"][0]: r["local_shards"][1]])
+                for p, r in zip(per, ranks)]
+            got[case]["bitwise_equal_to_rank_order"] = all(bits)
+            same = (f", summed in the ranks' order {want['iterations']}, "
+                    f"x bitwise that run's {all(bits)}")
+            if not all(bits):
+                _fail(f"[{tag}] Gloo {case}: x is not the virtual shards' "
+                      "summed in the ranks' order")
+        _say(f"[{tag}] Gloo, {DIST_WORLD} ranks, {case}: {its[0]} iterations "
+             f"(virtual {vsolve[case]['iterations']}{same}), max|x - 1| "
+             + " / ".join(f"{p['max_abs_err_vs_ones']:.2e}" for p in per)
+             + ", host ms an iteration "
+             + " / ".join(f"{p['host_s'] / max(its[0], 1) * 1e3:.2f}"
+                          for p in per)
+             + f" ({DIST_GLOO_NOTE}; {DIST2_BESIDE}; {smi_line})")
+        if its[0] != want["iterations"]:
+            _fail(f"[{tag}] Gloo {case}: {its[0]} iterations against "
+                  f"{want['iterations']} on virtual shards")
+    return got
+
+
+@_walled
+def phase_distributed_formats(device, smi_line, bsr_host=None):
+    """The second half across ranks (phase 33).  The host BSR's arrays go
+    to files every rank maps.  Five jobs start first: two two-rank Gloo
+    jobs (Gloo asked for by name on the card) that run at once, "krylov"
+    (block-IC(0) PCG, Chebyshev, GMRES) and "eigen" (BiCGSTAB, LOBPCG,
+    ``dryrun_multichip``); the port's multichip example as a one-rank
+    NCCL job; a one-rank NCCL job and a two-rank Gloo job ("products"),
+    which build their host matrices and containers and wait.  Meanwhile
+    this process, on the same inputs, makes every product on DIST_P
+    virtual shards (the rows every rank's must equal, bitwise) and every
+    solver there (the counts), and DIST2_RANK_ORDER's solvers again with
+    their dots summed in the ranks' order.  Once the solvers jobs and the
+    example have ended, the NCCL rank, and after it the products job's
+    ranks, make the products with nothing else running (rows bitwise,
+    launches and envelopes as the virtual ones', ms a product and an
+    exchange on the host clock).  The launches of the process-mesh runs
+    make the path's counts."""
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.io.generate import block_random
+    from spmv_tpu_torch.models import BsrMatrix
+    from spmv_tpu_torch.ops import solvers as ops_solvers
+
+    tag = "33 distributed formats"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spmv-dist2-")
+    bsr_dir = os.path.join(tmp, "bsr")
+    if bsr_host is None:
+        bsr_host = BsrMatrix.from_matrix_market(
+            block_random(BSR_ROWS, BSR_ROWS, 8, seed=2), block_rows=128)
+    _save_bsr(bsr_host, bsr_dir)
+    del bsr_host
+    stores = {job: os.path.join(tmp, job)
+              for job in ("nccl", "products", "krylov", "eigen")}
+    jobs = {}
+    try:
+        for job in ("krylov", "eigen"):
+            jobs[job] = _dist2_job(job, stores[job], DIST_WORLD, device,
+                                   "gloo", "", bsr_dir)
+        jobs["example"] = [_start_example(tmp)]
+        jobs["nccl"] = _dist2_job("products", stores["nccl"], 1, device,
+                                  None, stores["nccl"] + ".go", bsr_dir)
+        jobs["products"] = _dist2_job(
+            "products", stores["products"], DIST_WORLD, device, "gloo",
+            stores["products"] + ".go", bsr_dir)
+        t0 = time.perf_counter()
+        grids = _dist2_grids()
+        hosts = _dist2_hosts(grids, bsr_dir)
+        host_s = time.perf_counter() - t0
+        virtual = par.make_mesh(DIST_P, devices=[device] * DIST_P)
+        vpath = _ShardPath(DIST2_WRAPPERS)    # not the path's launches
+        vbuilt = _dist2_build(hosts, virtual)
+        vprod = _dist2_products(vbuilt, virtual, vpath)
+        vrows = {k: v["rows"] for k, v in vprod.items()}
+        venv = {k: v["envelope"] for k, v in vprod.items()}
+        vsolve, vorder = {}, {}
+        small = _poisson_csr(grids["small"])
+        _dist2_pcg(vbuilt, hosts["ic0"], virtual, vpath, vsolve)
+        _dist2_small_solvers(small, virtual, vpath, vsolve)
+        with _patched(ops_solvers, "_vdot", _in_rank_order):
+            _dist2_pcg(vbuilt, hosts["ic0"], virtual, vpath, vorder)
+            _dist2_small_solvers(small, virtual, vpath, vorder,
+                                 DIST2_RANK_ORDER)
+        _say(f"[{tag}] on {DIST_P} virtual shards, done "
+             f"{time.perf_counter() - t_phase:.1f} s into the phase: host "
+             f"matrices {host_s:.1f} s, builds "
+             + ", ".join(f"{k} {v:.1f} s" for k, v in
+                         vbuilt.pop("build_s").items())
+             + "; " + ", ".join(f"{k} {v['iterations']}"
+                                for k, v in vsolve.items())
+             + " iterations; summed in the ranks' order "
+             + ", ".join(f"{k} {v['iterations']}" for k, v in vorder.items()))
+        del vbuilt, hosts
+        _sync(device)
+
+        solvers = {job: _wait_job(jobs[job], stores[job],
+                                  f"the Gloo {job} job", tag)
+                   for job in ("krylov", "eigen")}
+        lines = _wait_child(jobs["example"][0],
+                            os.path.join(tmp, "example.out"),
+                            os.path.join(tmp, "example.err"),
+                            "examples/03_multichip_torch.py",
+                            tag).strip().splitlines()
+        t_go = time.perf_counter() - t_phase
+        with open(stores["nccl"] + ".go", "w"):
+            pass
+        one = _wait_job(jobs["nccl"], stores["nccl"], "the one-rank NCCL job",
+                        tag)[0]
+        if one["backend"] != "nccl" and device.type == "cuda":
+            _fail(f"[{tag}] the one-rank job ran on {one['backend']}")
+        with open(stores["products"] + ".go", "w"):
+            pass
+        ranks = _wait_job(jobs["products"], stores["products"],
+                          "the Gloo products job", tag)
+        t_done = time.perf_counter() - t_phase
+        _say(f"[{tag}] the krylov and eigen jobs took "
+             + ", ".join(" / ".join(f"{r['seconds']:.1f}" for r in rs)
+                         for rs in solvers.values())
+             + f" s {DIST2_BESIDE}; the products went at {t_go:.1f} s into "
+             "the phase, the NCCL rank's and then the Gloo ranks' each with "
+             f"nothing else running, and were done at {t_done:.1f} s")
+    finally:
+        for proc in (p for procs in jobs.values() for p in procs):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    nccl = _check_rows(tag, "NCCL, one rank", [one], vrows, venv)
+    gloo = {"ranks": DIST_WORLD, "note": DIST_GLOO_NOTE,
+            "host_s": [r["host_s"] for r in ranks],
+            "setup_s": [r["setup_s"] for r in ranks],
+            "build_s": [r["build_s"] for r in ranks],
+            "products": _check_rows(tag, f"Gloo, {DIST_WORLD} ranks", ranks,
+                                    vrows, venv)}
+    _say(f"[{tag}] the Gloo ranks' times above are {DIST_GLOO_NOTE} "
+         f"({smi_line}); their host set-up "
+         + " / ".join(f"{s:.1f}" for s in gloo["setup_s"]) + " s")
+    for v in vsolve.values():
+        v.pop("x")
+    both = [{"local_shards": k["local_shards"],
+             "solvers": {**k["solvers"], **e["solvers"]}}
+            for k, e in zip(solvers["krylov"], solvers["eigen"])]
+    gloo["solvers"] = _check_solvers(tag, both, vsolve, vorder, smi_line)
+    eig = [r["lobpcg"] for r in solvers["eigen"]]
+    if any(e["eigenvalues"] != eig[0]["eigenvalues"] for e in eig):
+        _fail(f"[{tag}] the ranks' LOBPCG eigenvalues differ")
+    gloo["lobpcg"] = eig[0]
+    _say(f"[{tag}] Gloo, {DIST_WORLD} ranks, LOBPCG float64 k={SHARD_EIG_K}"
+         f" tol {DIST2_EIG_TOL:g}: {eig[0]['iterations']} iterations, "
+         f"eigenvalues {eig[0]['eigenvalues']}, max rel err "
+         f"{eig[0]['max_rel_err_vs_analytic']:.2e} against the analytic "
+         f"ones, {eig[0]['host_s']:.1f} host s ({DIST_GLOO_NOTE}; "
+         f"{DIST2_BESIDE})")
+    if (eig[0]["iterations"] >= SHARD_EIG_MAX
+            or not eig[0]["max_rel_err_vs_analytic"] <= SHARD_EIG_RTOL):
+        _fail(f"[{tag}] LOBPCG across ranks: {eig[0]}")
+    dry = [r["dryrun"] for r in solvers["eigen"]]
+    if any(d != dry[0] for d in dry) or len(dry[0]) != 11:
+        _fail(f"[{tag}] the ranks' dryrun_multichip dicts differ")
+    gloo["dryrun"] = dry[0]
+    _say(f"[{tag}] Gloo, {DIST_WORLD} ranks, dryrun_multichip({DIST_P}): "
+         "eleven strategies, the same dict on both ranks")
+    if len(lines) != 2 or not lines[0].startswith("sharded CG over ") \
+            or not lines[1].startswith("block-Jacobi-IC(0) PCG: iters "):
+        _fail(f"[{tag}] the example printed {lines}")
+    _say(f"[{tag}] examples/03_multichip_torch.py, one NCCL rank: "
+         + " | ".join(lines))
+    launches = {k.removesuffix("_core"): sum(
+        r["launches"][k]
+        for r in [one] + ranks + solvers["krylov"] + solvers["eigen"])
+        for k in DIST2_WRAPPERS}
+    _say(f"[{tag}] launches on the distributed path (the one-rank job's "
+         f"and the three Gloo jobs'): {launches}")
+    # K4b is the fallback level's SpMM: the full-width WELL-CW interiors
+    # are merged grids (K4a), and the dryrun takes no WELL-CW SpMM
+    for name, n in launches.items():
+        if n <= 0 and name != "wellcw_level_spmm":
+            _fail(f"[{tag}] {name} was never launched on the distributed "
+                  "path")
+    secs = time.perf_counter() - t_phase
+    _say(f"[{tag}] phase took {secs:.1f} s")
+    for v in vorder.values():
+        v.pop("x")
+    return {"launches": launches, "nccl_one_rank": nccl, "gloo": gloo,
+            "virtual": vsolve, "rank_order": vorder, "example": lines,
+            "shards": DIST_P, "seconds": secs, "card": smi_line,
+            "note": DIST_GLOO_NOTE}
 
 
 def _tri_row(solvers) -> dict:
@@ -7749,13 +8488,21 @@ def main() -> int:
     _sync(device)
     formats = phase_sharded_formats(
         device, smi_line, full, well_seg_full, cw_mm, cw, bsr_host)
-    del well_seg_full, cw_mm, cw, bsr_host
+    del well_seg_full, cw_mm, cw
     for name, n in formats["launches"].items():
         sharded["launches"][name] = sharded["launches"].get(name, 0) + n
     sharded["formats"] = formats
     _sync(device)
     distributed = phase_distributed(device, smi_line, full)
     del full
+    _sync(device)
+    # phase 33 maps phase 18's block_random from files, one host build
+    dist_formats = phase_distributed_formats(device, smi_line, bsr_host)
+    del bsr_host
+    for name, n in dist_formats["launches"].items():
+        distributed["launches"][name] = \
+            distributed["launches"].get(name, 0) + n
+    distributed["formats"] = dist_formats
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "

@@ -32,6 +32,13 @@ Where it differs from the JAX function:
   ``torch.Generator`` seeded 0 when None) on X0's device, or from
   ``P0``, which lets the tests pass JAX's own draw.
 
+Over a process mesh (``mesh=``, as the CG solvers take it) a rank holds
+its shards' rows of every (n, k) block.  The Gram products and every
+per-column dot are summed over the ranks (``ops.solvers._reduce``), so
+the Rayleigh-Ritz step, the dropped Gram directions and the stopping
+rule read the same numbers on every rank and no rank branches alone;
+the random P is the rank's rows of the global (n, k) draw.
+
 The solver's own contractions run in true float32 for float32 operands:
 ``_mmh`` sets PyTorch's float32 matmul precision to ``"ieee"`` (no TF32
 on CUDA, no bfloat16 passes in oneDNN) around each product and restores
@@ -50,7 +57,7 @@ import torch
 
 from spmv_tpu_torch.models.device import default_device
 from spmv_tpu_torch.ops.dispatch import spmm
-from spmv_tpu_torch.ops.solvers import refuse_process_closure
+from spmv_tpu_torch.ops.solvers import _reduce, _solver_mesh
 
 __all__ = ["lobpcg", "dia_eigsh", "EigResult"]
 
@@ -75,10 +82,10 @@ def _mmh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a @ b
 
 
-def _coldot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _coldot(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-column <a_j, b_j>: elementwise products and a column sum, no
-    matmul."""
-    return (a * b).sum(0)
+    matmul; summed over the ranks of a process ``mesh``."""
+    return _reduce((a * b).sum(0), mesh)
 
 
 class EigResult(NamedTuple):
@@ -153,6 +160,7 @@ def lobpcg(
     mask=None,
     P0=None,
     generator: torch.Generator = None,
+    mesh=None,
 ) -> EigResult:
     """k extreme eigenpairs of the SPD operator behind ``matmat``.
 
@@ -169,12 +177,17 @@ def lobpcg(
     None).  ``gram_eps`` (default ``1e3 * eps(dtype)``) is the relative
     Gram eigenvalue below which a basis direction is dropped: a fixed
     small value would keep numerically degenerate directions in
-    float32.
+    float32.  ``mesh``: the process mesh a sharded ``matmat`` runs on;
+    ``X0``, ``mask`` and ``P0`` are then the rank's rows (every rank as
+    many), n is the global row count and the eigenvectors come back as
+    the rank's rows.
     """
-    refuse_process_closure(matmat, "lobpcg")
+    mesh = _solver_mesh(matmat, mesh, "LOBPCG")
     dev = X0.device if isinstance(X0, torch.Tensor) else default_device()
     X0 = torch.as_tensor(X0, device=dev)
-    n, k = X0.shape
+    n_local, k = X0.shape
+    ranks = 1 if mesh is None or mesh.group is None else mesh.world_size
+    n = n_local * ranks
     dtype = X0.dtype
     # the (n, 3k) trial basis has full column rank only when 3k <= n;
     # below that the masking drops the degenerate directions
@@ -196,16 +209,18 @@ def lobpcg(
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         P = torch.randn((n, k), generator=generator, dtype=dtype, device=dev)
+        if ranks > 1:
+            P = P[mesh.rank * n_local: (mesh.rank + 1) * n_local]
     else:
         P = torch.as_tensor(P0, dtype=dtype, device=dev)
     if row_mask is not None:
         P = P * row_mask
 
-    cX, _ = _ortho_coeffs(_mmh(X0.T, X0).cpu(), gram_eps)
+    cX, _ = _ortho_coeffs(_reduce(_mmh(X0.T, X0), mesh).cpu(), gram_eps)
     X = _mmh(X0, cX.to(dev))
     AX = matmat(X)
     AP = matmat(P)
-    theta = _coldot(X, AX)
+    theta = _coldot(X, AX, mesh)
     R = AX - X * theta[None, :]
     res = None                      # the JAX res0 = inf: one step runs
     it = 0
@@ -216,12 +231,13 @@ def lobpcg(
             W = W * row_mask
         # per-column normalisation of W and P conditions the Gram matrix
         # (their scales shrink toward zero as the iteration converges)
-        W = W / torch.clamp(torch.sqrt(_coldot(W, W)), min=1e-30)[None, :]
+        W = W / torch.clamp(torch.sqrt(_coldot(W, W, mesh)),
+                            min=1e-30)[None, :]
         AW = matmat(W)
-        Ps = torch.clamp(torch.sqrt(_coldot(P, P)), min=1e-30)[None, :]
+        Ps = torch.clamp(torch.sqrt(_coldot(P, P, mesh)), min=1e-30)[None, :]
         B = torch.cat([X, W, P / Ps, AX, AW, AP / Ps], dim=1)  # [S, AS]
         S, AS = B[:, :3 * k], B[:, 3 * k:]
-        GS = _mmh(S.T, B).cpu()           # [G, S^T AS], one host copy
+        GS = _reduce(_mmh(S.T, B), mesh).cpu()  # [G, S^T AS], one copy
         coeff = _rayleigh_ritz(GS[:, :3 * k], GS[:, 3 * k:], k, sign,
                                gram_eps)
         # P spans only the W / P part of the update (the three-term
@@ -233,13 +249,13 @@ def lobpcg(
         AXP = _mmh(AS, Cc)
         X, P = XP[:, :k], XP[:, k:]
         AX, AP = AXP[:, :k], AXP[:, k:]
-        theta = _coldot(X, AX)
+        theta = _coldot(X, AX, mesh)
         R = AX - X * theta[None, :]
-        res = torch.sqrt(_coldot(R, R))
+        res = torch.sqrt(_coldot(R, R, mesh))
         it += 1
     # theta and R are the returned block's Rayleigh quotients and
     # residual (JAX's final pass recomputes the same values)
-    res = torch.sqrt(_coldot(R, R))
+    res = torch.sqrt(_coldot(R, R, mesh))
     order = torch.argsort(-theta if largest else theta, stable=True)
     return EigResult(
         eigenvalues=theta[order],

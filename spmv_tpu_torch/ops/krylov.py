@@ -30,7 +30,11 @@ iteration counts compare one to one:
 Every dot runs over every element (``ops.solvers._vdot``, JAX's
 ``vdot``) and the basis products over the flattened vectors, so the
 sharded paths' stacked (P, R) vectors go through as 1-D ones do, whose
-results keep their bits.
+results keep their bits.  Over a process mesh (``mesh=``, as the CG
+solvers take it) a rank holds its shards' rows: every dot and every
+basis product is summed over the ranks (``ops.solvers._reduce``), so
+the small host algebra (Hessenberg, rotations, tridiagonal) runs on the
+same numbers, and takes the same branches, on every rank.
 """
 
 from __future__ import annotations
@@ -45,9 +49,10 @@ from spmv_tpu_torch.ops.solvers import (
     CgResult,
     _eps,
     _np_type,
+    _reduce,
+    _solver_mesh,
     _tol2,
     _vdot,
-    refuse_process_closure,
 )
 
 __all__ = ["gmres", "chebyshev", "lanczos_bounds"]
@@ -61,6 +66,7 @@ def gmres(
     tol: float = 1e-8,
     restart: int = 32,
     max_iterations: int = 1000,
+    mesh=None,
 ) -> CgResult:
     """Right-preconditioned restarted GMRES for general systems.
 
@@ -72,9 +78,11 @@ def gmres(
     inner steps have run; a restart cycle stops at the step whose
     residual estimate ``|g[j+1]|`` reaches ``sqrt(tol2)``, and takes no
     step when its starting residual is at most ``eps``.  The basis costs
-    ``(restart + 1) * n`` values.
+    ``(restart + 1) * n`` values.  ``mesh``: the process mesh a sharded
+    ``matvec`` runs on, across whose ranks the dots and basis products
+    are summed.
     """
-    refuse_process_closure(matvec, "gmres")
+    mesh = _solver_mesh(matvec, mesh, "GMRES")
     if preconditioner is None:
         def preconditioner(v):
             return v
@@ -84,16 +92,16 @@ def gmres(
     dtype, dev = b.dtype, b.device
     nd = _np_type(dtype)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    tol2 = _tol2(b, tol)
+    tol2 = _tol2(b, tol, mesh=mesh)
     tol_abs = nd(np.sqrt(tol2.cpu().numpy()))
     eps = _eps(dtype)
     V = torch.zeros((m + 1,) + tuple(b.shape), dtype=dtype, device=dev)
 
     r = b - matvec(x)
-    rr = _vdot(r, r)
+    rr = _vdot(r, r, mesh)
     k = 0
     while bool(rr > tol2) and k < max_iterations:
-        beta_t = torch.sqrt(_vdot(r, r))
+        beta_t = torch.sqrt(_vdot(r, r, mesh))
         beta = nd(beta_t.item())
         V.zero_()
         V[0] = r / (beta_t if beta > eps else 1.0)
@@ -112,11 +120,11 @@ def gmres(
             w = matvec(preconditioner(V[j]))
             # CGS2 against rows 0..j (the rows past j are zero)
             Vj = V[: j + 1].reshape(j + 1, -1)
-            h1 = Vj @ w.reshape(-1)
+            h1 = _reduce(Vj @ w.reshape(-1), mesh)
             w = w - (h1 @ Vj).reshape(w.shape)
-            h2 = Vj @ w.reshape(-1)
+            h2 = _reduce(Vj @ w.reshape(-1), mesh)
             w = w - (h2 @ Vj).reshape(w.shape)
-            hn_t = torch.sqrt(_vdot(w, w))
+            hn_t = torch.sqrt(_vdot(w, w, mesh))
             hv = torch.cat([h1 + h2, hn_t.reshape(1)]).cpu().numpy()
             h = np.zeros(m + 1, dtype=nd)
             h[: j + 1] = hv[: j + 1]
@@ -155,7 +163,7 @@ def gmres(
         x = x + preconditioner((y.to(dev) @ V[:m].reshape(m, -1))
                                .reshape(b.shape))
         r = b - matvec(x)
-        rr = _vdot(r, r)
+        rr = _vdot(r, r, mesh)
         k += steps
     return CgResult(x=x, residual_norm=torch.sqrt(rr), iterations=k)
 
@@ -169,6 +177,7 @@ def chebyshev(
     tol: float = 1e-8,
     max_iterations: int = 1000,
     check_every: int = 20,
+    mesh=None,
 ) -> CgResult:
     """Chebyshev iteration for SPD systems with known spectral bounds.
 
@@ -177,9 +186,10 @@ def chebyshev(
     lambda_max`` must enclose A's spectrum (``lanczos_bounds``); bounds
     that clip it diverge.  With ``lambda_min == lambda_max`` it is
     Richardson with the exact step 1/theta.  Convergence is tested on the
-    true residual once every ``check_every`` iterations.
+    true residual once every ``check_every`` iterations.  ``mesh``: as
+    ``gmres``'s (only that test's dot is reduced).
     """
-    refuse_process_closure(matvec, "chebyshev")
+    mesh = _solver_mesh(matvec, mesh, "Chebyshev")
     lo = float(lambda_min)
     hi = float(lambda_max)
     if not (0 < lo <= hi):
@@ -189,7 +199,7 @@ def chebyshev(
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     theta = nd((hi + lo) / 2.0)
     delta = nd((hi - lo) / 2.0)
-    tol2 = _tol2(b, tol)
+    tol2 = _tol2(b, tol, mesh=mesh)
     # sigma in Saad 12.1; delta = 0 (one eigenvalue) degenerates to
     # Richardson with the exact step 1/theta
     richardson = not delta > 0
@@ -199,7 +209,7 @@ def chebyshev(
     r = b - matvec(x)
     p = r / float(theta)
     rho = nd(0) if richardson else nd(1) / sigma1
-    rr = _vdot(r, r)
+    rr = _vdot(r, r, mesh)
     k = 0
     while bool(rr > tol2) and k < max_iterations:
         for _ in range(check):
@@ -210,28 +220,29 @@ def chebyshev(
                      else nd(2) * rho_new / delta)
             p = float(rho_new * rho) * p + float(scale) * r
             rho = rho_new
-        rr = _vdot(r, r)
+        rr = _vdot(r, r, mesh)
         k += check
     return CgResult(x=x, residual_norm=torch.sqrt(rr), iterations=k)
 
 
-def _lanczos_tridiag(matvec, v0: torch.Tensor, num_steps: int):
+def _lanczos_tridiag(matvec, v0: torch.Tensor, num_steps: int, mesh=None):
     """num_steps of Lanczos with full reorthogonalisation (CGS2 against
     the whole basis, as in ``gmres``): the (alpha, beta) of the
-    tridiagonal, beta of length num_steps - 1."""
+    tridiagonal, beta of length num_steps - 1; dots and basis products
+    summed over the ranks of a process ``mesh``."""
     m = num_steps
     V = torch.zeros((m + 1,) + tuple(v0.shape), dtype=v0.dtype,
                     device=v0.device)
-    V[0] = v0 / torch.sqrt(_vdot(v0, v0))
+    V[0] = v0 / torch.sqrt(_vdot(v0, v0, mesh))
     alpha = torch.zeros(m, dtype=v0.dtype, device=v0.device)
     beta = torch.zeros(m, dtype=v0.dtype, device=v0.device)
     for j in range(m):
         w = matvec(V[j])
-        alpha[j] = _vdot(V[j], w)
+        alpha[j] = _vdot(V[j], w, mesh)
         Vj = V[: j + 1].reshape(j + 1, -1)
-        w = w - ((Vj @ w.reshape(-1)) @ Vj).reshape(w.shape)
-        w = w - ((Vj @ w.reshape(-1)) @ Vj).reshape(w.shape)
-        bnew = torch.sqrt(_vdot(w, w))
+        w = w - (_reduce(Vj @ w.reshape(-1), mesh) @ Vj).reshape(w.shape)
+        w = w - (_reduce(Vj @ w.reshape(-1), mesh) @ Vj).reshape(w.shape)
+        bnew = torch.sqrt(_vdot(w, w, mesh))
         V[j + 1] = torch.where(bnew > 0, w / torch.where(bnew > 0, bnew, 1.0),
                                0.0)
         beta[j] = bnew
@@ -247,6 +258,7 @@ def lanczos_bounds(
     safety: float = 0.05,
     v0: torch.Tensor = None,
     device=None,
+    mesh=None,
 ) -> tuple[float, float]:
     """Estimate ``(lambda_min, lambda_max)`` bounds for an SPD operator.
 
@@ -256,13 +268,26 @@ def lanczos_bounds(
     (``default_device()`` when None), takes the Ritz extremes of the tridiagonal on the host and
     widens them multiplicatively by ``safety`` (Ritz values lie inside
     the spectrum, and ``chebyshev`` diverges on bounds that clip it).
-    The returned floor is clamped positive.
+    The returned floor is clamped positive.  Over a process ``mesh`` (as
+    ``gmres``'s) ``n`` is the global stacked shape (P, R, ...): every
+    rank draws the whole start and keeps its own shards' rows, and a
+    ``v0`` passed in is the rank's rows; the bounds are the same on
+    every rank.
     """
-    refuse_process_closure(matvec, "lanczos_bounds")
+    mesh = _solver_mesh(matvec, mesh, "lanczos_bounds")
+    if mesh is not None and device is None:
+        device = mesh.device
     if v0 is None:
-        v0 = torch.from_numpy(np.random.default_rng(seed).standard_normal(n))
+        v0 = np.random.default_rng(seed).standard_normal(n)
+        if mesh is not None and mesh.group is not None:
+            if v0.ndim < 2 or v0.shape[0] != mesh.size:
+                raise ValueError(
+                    f"lanczos_bounds over a process mesh of {mesh.size} "
+                    f"shards draws the global stacked shape; got n={n}")
+            v0 = v0[mesh.local_shards.start: mesh.local_shards.stop]
+        v0 = torch.from_numpy(v0)
     v0 = torch.as_tensor(v0).to(device=resolve_device(device), dtype=dtype)
-    alpha, beta = _lanczos_tridiag(matvec, v0, int(num_steps))
+    alpha, beta = _lanczos_tridiag(matvec, v0, int(num_steps), mesh)
     a = alpha.cpu().double().numpy()
     bb = beta.cpu().double().numpy()
     T = np.diag(a) + np.diag(bb, 1) + np.diag(bb, -1)

@@ -11,11 +11,13 @@ checked with one host sync per iteration, so iteration counts compare
 one to one with the JAX solvers.  As there, the dots run over every
 element (``jnp.vdot``), so a matvec over the sharded paths' stacked
 (P, R) vectors (``parallel``) runs unchanged.  Over a process mesh
-(``parallel.global_mesh``) a rank holds only its shards' rows: CG, PCG
-and batched CG then take ``mesh=``, reduce each dot locally and sum it
-over the ranks (``parallel.comm.all_reduce_sum``), where JAX gets its
+(``parallel.global_mesh``) a rank holds only its shards' rows: every
+solver then takes ``mesh=``, reduces each dot locally and sums it over
+the ranks (``parallel.comm.all_reduce_sum``), where JAX gets its
 ``psum`` from global arrays; without it, or on a single-process mesh,
-every call keeps its bits.  A sharded closure over a process mesh
+every call keeps its bits.  The all-reduce leaves the same value on
+every rank, so every branch on a dot (the stopping rule, a breakdown)
+goes the same way on every rank.  A sharded closure over a process mesh
 carries it (``matvec.mesh``), and a solver refuses one that it is not
 given.
 """
@@ -79,16 +81,6 @@ def _solver_mesh(fn, mesh, what: str):
             f"{what} over a closure on a process mesh reduces its dots "
             "across the ranks: pass the closure's mesh as mesh=")
     return mesh
-
-
-def refuse_process_closure(fn, what: str) -> None:
-    """Raise ``MeshError`` where ``fn`` is a sharded closure over a mesh
-    of several ranks: ``what`` does not reduce across processes yet."""
-    held = getattr(fn, "mesh", None)
-    if held is not None and held.world_size > 1:
-        from spmv_tpu_torch.parallel.mesh import refuse_process_mesh
-
-        refuse_process_mesh(held, what)
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -192,6 +184,7 @@ def bicgstab(
     x0: torch.Tensor = None,
     tol: float = 1e-8,
     max_iterations: int = 1000,
+    mesh=None,
 ) -> CgResult:
     """BiCGSTAB for general (non-symmetric) systems (van der Vorst 1992).
 
@@ -201,39 +194,39 @@ def bicgstab(
     A x = b.  The loop runs while ``r.r > tol2``, the last iteration saw
     no breakdown (``|rho|`` and ``|omega|`` at least ``eps =
     finfo(dtype).tiny * 1e4``) and ``k < max_iterations``; a breakdown
-    keeps the iterate.
+    keeps the iterate.  ``mesh``: as ``conjugate_gradient``'s.
     """
-    refuse_process_closure(matvec, "bicgstab")
+    mesh = _solver_mesh(matvec, mesh, "BiCGSTAB")
     if preconditioner is None:
         def preconditioner(v):
             return v
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - matvec(x)
     rhat = r
-    tol2 = _tol2(b, tol)
+    tol2 = _tol2(b, tol, mesh=mesh)
     eps = torch.tensor(_eps(b.dtype), device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rho_prev = alpha_prev = omega_prev = one
     p = torch.zeros_like(b)
     v = torch.zeros_like(b)
-    rr = _vdot(r, r)
+    rr = _vdot(r, r, mesh)
     go = rr > tol2
     k = 0
     while k < max_iterations and bool(go):
-        rho = _vdot(rhat, r)
+        rho = _vdot(rhat, r, mesh)
         beta = (rho / _safe(rho_prev, eps)) * (alpha_prev /
                                                _safe(omega_prev, eps))
         p = r + beta * (p - omega_prev * v)
         ph = preconditioner(p)
         v = matvec(ph)
-        alpha = rho / _safe(_vdot(rhat, v), eps)
+        alpha = rho / _safe(_vdot(rhat, v, mesh), eps)
         s = r - alpha * v
         sh = preconditioner(s)
         t = matvec(sh)
-        omega = _vdot(t, s) / _safe(_vdot(t, t), eps)
+        omega = _vdot(t, s, mesh) / _safe(_vdot(t, t, mesh), eps)
         x = x + alpha * ph + omega * sh
         r = s - omega * t
-        rr = _vdot(r, r)
+        rr = _vdot(r, r, mesh)
         # breakdown (rho or omega ~ 0): stop iterating, keep the iterate
         go = (rr > tol2) & (rho.abs() >= eps) & (omega.abs() >= eps)
         rho_prev, alpha_prev, omega_prev = rho, alpha, omega

@@ -37,15 +37,18 @@ its format.
 - ``distributed``: the ``torch.distributed`` bootstrap and the process
   mesh; ``comm``: its collectives.
 
-Across ranks run the all-gather CSR, DIA halo and ragged-halo CSR paths
-and CG, PCG and batched CG over them (``mesh=``).  The WELL, WELL-CW
-and BSR paths, block-Jacobi IC(0), the Krylov solvers and LOBPCG over
-sharded operators, and ``dryrun`` raise ``MeshError`` on a mesh of
-several ranks (ROADMAP.md, Queue 1).
+Every path runs across ranks: each container is built with only the
+rank's own shards (the schedules and the envelope numbers are the whole
+job's on every rank), every product's rows are bitwise the single-process
+mesh's, and every solver (CG, PCG, batched CG, BiCGSTAB, GMRES,
+Chebyshev, ``lanczos_bounds``, LOBPCG) sums its dots over the ranks
+given ``mesh=``; ``dryrun`` runs its eleven strategies over the ranks of
+a job.
 """
 
 from spmv_tpu_torch.parallel.comm import (
     all_gather_rows,
+    all_reduce_max,
     all_reduce_sum,
     all_to_all_strips,
     exchange_strips,
@@ -146,6 +149,7 @@ __all__ = [
     "exchange_strips",
     "all_to_all_strips",
     "all_reduce_sum",
+    "all_reduce_max",
     "ShardedCsr",
     "shard_csr",
     "stack_vector",

@@ -27,6 +27,15 @@ block row's blocks in the host matrix's order.  The JAX package sums
 the interior and the boundary as two segment sums and adds them, so
 the two agree within rounding.
 
+On a process mesh a rank builds only its own shards' ``DeviceBsr``s and
+holds its own rows of X.  Its extended X is the same table's rows for
+its shards: the tiles it holds itself are one local gather, those of
+other ranks arrive by the plan ``comm.exchange_plan`` makes over tile
+positions (``halo_shard.receive_halos``: ``comm.exchange_strips`` or
+``comm.all_to_all_strips`` with a trailing (128, k)), so each K7 launch
+reads the extended X it reads on one device and each rank's rows of Y
+are bitwise the single-process product's.
+
 Storage is unpadded (JAX pads every shard to a common count of interior
 and boundary blocks; ``interior_per_shard`` / ``boundary_per_shard``
 keep those numbers).  bfloat16 blocks give float32 Y, K7's contract,
@@ -50,14 +59,21 @@ from spmv_tpu_torch.models.device import (
 )
 from spmv_tpu_torch.ops.bsr_kernels import bsr_spmm_core
 from spmv_tpu_torch.ops.spmv import accumulate_dtype
+from spmv_tpu_torch.parallel.comm import ExchangePlan, all_gather_rows
 from spmv_tpu_torch.parallel.halo_shard import (
     SLOT_PAD,
     build_exchange_schedule,
-    exchange_halos,
+    receive_halos,
     receive_index,
+    receiving_side,
 )
-from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
-from spmv_tpu_torch.parallel.shard import _device, check_mesh
+from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.shard import (
+    _device,
+    check_mesh,
+    local_shards,
+    mesh_shards,
+)
 
 __all__ = [
     "ShardedBsrHalo",
@@ -75,10 +91,12 @@ __all__ = [
 class ShardedBsrHalo:
     """BSR split into P block-row bands with a static tile-halo plan.
 
-    ``blocks[p]`` is shard p's ``DeviceBsr``: S rows, ``(CB + slots) *
-    128`` columns of its extended X.  ``ext_index`` (P, CB + slots) is
-    the tile of the flat (P * CB, 128, k) X each extended tile takes,
-    ``ext_missing`` where no shard sends (or None).
+    ``blocks[i]`` is the ``DeviceBsr`` of the i-th shard this process
+    holds (all P on a single-process mesh): S rows, ``(CB + slots) *
+    128`` columns of its extended X.  ``ext_index`` (P_local, CB +
+    slots) is the tile of the process's flat (P_local * CB, 128, k) X
+    each extended tile takes (0 for a tile another rank sends, which
+    ``plan`` fills), ``ext_missing`` where no shard sends (or None).
     """
 
     num_rows: int
@@ -100,7 +118,9 @@ class ShardedBsrHalo:
     send_idx: np.ndarray       # (P, strips, H) int32, tile units
     ext_index: torch.Tensor
     ext_missing: torch.Tensor
-    blocks: tuple              # P DeviceBsr
+    blocks: tuple              # P_local DeviceBsr
+    mesh: Mesh = None
+    plan: ExchangePlan = None
 
     @property
     def bounds(self):
@@ -117,7 +137,7 @@ class ShardedBsrHalo:
 
     def launches_a_product(self) -> dict:
         """The kernel launches of one product, by wrapper name."""
-        return {"bsr_spmm_core": self.num_shards}
+        return {"bsr_spmm_core": len(self.blocks)}
 
 
 def shard_bsr_halo(
@@ -130,8 +150,8 @@ def shard_bsr_halo(
 ) -> ShardedBsrHalo:
     """Build the tile-halo sharding of a square host BSR matrix
     (``exchange`` as ``shard_csr_halo``'s).  The blocks go to ``mesh``'s
-    device, or to ``default_device()`` without a mesh."""
-    refuse_process_mesh(mesh, "shard_bsr_halo")
+    device, or to ``default_device()`` without a mesh; on a process mesh
+    a rank builds only its own shards'."""
     if m.num_rows != m.num_columns:
         raise MatrixError(
             "halo-sharded BSR requires a square matrix (x and y share "
@@ -139,6 +159,7 @@ def shard_bsr_halo(
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     p = int(num_shards)
+    shards = mesh_shards(mesh, p)
     bh = int(m.block_rows)
     nbr = int(m.num_block_rows)
     g = math.lcm(bh, BLOCK) // bh
@@ -163,13 +184,14 @@ def shard_bsr_halo(
     slots = sched.num_strips * sched.halo_slots
     width = (CB + slots) * BLOCK
 
-    shards = []
-    for q, (lo, hi, local) in enumerate(spans):
+    blocks = []
+    for q in shards:
+        lo, hi, local = spans[q]
         col = bcol_all[lo:hi] - q * CB
         if not local.all():
             col[~local] = CB + sched.remap(q, bcol_all[lo:hi][~local])
         host = np.asarray(m.blocks[lo:hi])
-        shards.append(DeviceBsr(
+        blocks.append(DeviceBsr(
             S, width, int(np.count_nonzero(host)), RB, 1,
             torch.from_numpy(host).to(device=device, dtype=dtype),
             col, brow_all[lo:hi] - q * RB, device=device))
@@ -177,8 +199,8 @@ def shard_bsr_halo(
     halo = receive_index(sched.send_idx, CB, sched.exchange,
                          sched.max_distance)
     own = np.arange(p * CB, dtype=np.int64).reshape(p, CB)
-    ext = np.concatenate([own, halo], axis=1)
-    missing = ext < 0
+    ext_index, ext_missing, plan = receiving_side(
+        np.concatenate([own, halo], axis=1), CB, mesh, device)
     NI = max(round_up(max(int(s[2].sum()) for s in spans), SLOT_PAD),
              SLOT_PAD)
     NB = max(round_up(max(int((~s[2]).sum()) for s in spans), SLOT_PAD),
@@ -201,42 +223,48 @@ def shard_bsr_halo(
         comm_elements_exact=sched.comm_elements_exact * BLOCK,
         comm_elements_padded=sched.comm_elements_padded * BLOCK,
         send_idx=sched.send_idx,
-        ext_index=torch.from_numpy(np.maximum(ext, 0)).to(device),
-        ext_missing=(torch.from_numpy(missing).to(device)
-                     if missing.any() else None),
-        blocks=tuple(shards),
+        ext_index=ext_index,
+        ext_missing=ext_missing,
+        blocks=tuple(blocks),
+        mesh=mesh,
+        plan=plan,
     )
 
 
 def stack_columns(X, A: ShardedBsrHalo, mesh: Mesh = None) -> torch.Tensor:
     """(num_columns, k) or (num_columns,), numpy or torch -> stacked
-    (P, S, k) on the shards' device, in the blocks' dtype."""
+    (P, S, k) on the shards' device, in the blocks' dtype: the rows of
+    the shards this process holds."""
     check_mesh(A, mesh)
     X = torch.as_tensor(X)
     if X.dim() == 1:
         X = X[:, None]
-    out = torch.zeros(A.num_shards * A.rows_per_shard, X.shape[1],
-                      dtype=A.dtype, device=A.device)
-    n = min(A.num_columns, out.shape[0])
-    out[:n] = X[:n].to(device=A.device, dtype=A.dtype)
-    return out.reshape(A.num_shards, A.rows_per_shard, X.shape[1])
+    shards, S = local_shards(A), A.rows_per_shard
+    lo = shards.start * S
+    out = torch.zeros(len(shards) * S, X.shape[1], dtype=A.dtype,
+                      device=A.device)
+    n = max(min(A.num_columns - lo, out.shape[0]), 0)
+    out[:n] = X[lo: lo + n].to(device=A.device, dtype=A.dtype)
+    return out.reshape(len(shards), S, X.shape[1])
 
 
 def unstack_rows(stacked, A: ShardedBsrHalo) -> np.ndarray:
-    """Stacked (P, S, k) -> host (num_rows, k)."""
-    s = torch.as_tensor(stacked)
-    return s.reshape(-1, s.shape[-1])[: A.num_rows].cpu().numpy()
+    """Stacked (P, S, k) -> host (num_rows, k), on every rank of a
+    process mesh."""
+    return all_gather_rows(torch.as_tensor(stacked), A.mesh)[
+        : A.num_rows].cpu().numpy()
 
 
 def extend_columns(A: ShardedBsrHalo, X_stacked: torch.Tensor
                    ) -> torch.Tensor:
-    """The exchange: every shard's extended X, (P, (CB + slots) * 128,
-    k), its own tiles and then its received halo tiles."""
+    """The exchange: every local shard's extended X, (P_local, (CB +
+    slots) * 128, k), its own tiles and then its received halo tiles."""
     P, S, k = X_stacked.shape
-    tiles = X_stacked.reshape(P * A.col_blocks_per_shard, BLOCK, k)
-    ext = exchange_halos(tiles[None], A.ext_index.reshape(1, -1),
-                         None if A.ext_missing is None
-                         else A.ext_missing.reshape(1, -1))
+    tiles = X_stacked.reshape(1, P * A.col_blocks_per_shard, BLOCK, k)
+    ext = receive_halos(tiles, A.ext_index.reshape(1, -1),
+                        None if A.ext_missing is None
+                        else A.ext_missing.reshape(1, -1), A.plan,
+                        A.exchange, A.mesh)
     return ext.reshape(P, -1, k)
 
 
@@ -268,4 +296,5 @@ def make_sharded_bsr_matvec(A: ShardedBsrHalo, mesh: Mesh = None):
     def matvec(x_stacked):
         return sharded_bsr_spmv(A, x_stacked, mesh)
 
+    matvec.mesh = A.mesh
     return matvec

@@ -1,6 +1,6 @@
 """The collectives of a mesh: the port's stand-in for ``shard_map``'s.
 
-The sharded paths call four operations, each the counterpart of one
+The sharded paths call five operations, each the counterpart of one
 JAX collective:
 
 - ``all_gather_rows``: ``lax.all_gather`` of x (the all-gather CSR);
@@ -10,7 +10,11 @@ JAX collective:
 - ``all_to_all_strips``: the ``lax.all_to_all`` of the ragged halo's
   ``all2all`` schedule, one ``all_to_all_single`` with the schedule's
   padded equal slots a pair of shards;
-- ``all_reduce_sum``: the ``psum`` of a solver's dots.
+- ``all_reduce_sum``: the ``psum`` of a solver's dots;
+- ``all_reduce_max``: what the ranks agree on while building a
+  container (JAX's one controller sees every shard): the envelope
+  numbers over every rank's shards, and the flags of block-Jacobi
+  IC(0)'s shift ladder.
 
 On a single-process mesh (``mesh.group`` None) each is today's view,
 gather or nothing: every shard lies in the one stacked tensor.  On a
@@ -37,7 +41,8 @@ import torch.distributed as dist
 from spmv_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["ExchangePlan", "exchange_plan", "all_gather_rows",
-           "exchange_strips", "all_to_all_strips", "all_reduce_sum"]
+           "exchange_strips", "all_to_all_strips", "all_reduce_sum",
+           "all_reduce_max", "max_over_ranks"]
 
 
 def _staged(t: torch.Tensor, mesh: Mesh) -> bool:
@@ -70,17 +75,37 @@ def all_gather_rows(x_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out.to(x_local.device).reshape((-1,) + trailing)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``t`` over the mesh's ranks, in place; ``t`` as it is on
-    a single-process mesh."""
+def _all_reduce(t: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
     if mesh is None or mesh.group is None:
         return t
     if _staged(t, mesh):
         h = _to_host(t)
-        dist.all_reduce(h, group=mesh.group)
+        dist.all_reduce(h, op=op, group=mesh.group)
         return t.copy_(h)
-    dist.all_reduce(t, group=mesh.group)
+    dist.all_reduce(t, op=op, group=mesh.group)
     return t
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``t`` over the mesh's ranks, in place; ``t`` as it is on
+    a single-process mesh."""
+    return _all_reduce(t, mesh, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the mesh's ranks, in place;
+    ``t`` as it is on a single-process mesh."""
+    return _all_reduce(t, mesh, dist.ReduceOp.MAX)
+
+
+def max_over_ranks(values, mesh: Mesh) -> tuple:
+    """Host ints, each the largest any rank of ``mesh`` passes: one
+    ``all_reduce_max`` on the mesh's device (every rank must call it)."""
+    if mesh is None or mesh.group is None:
+        return tuple(int(v) for v in values)
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                     device=mesh.device)
+    return tuple(int(v) for v in all_reduce_max(t, mesh).tolist())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -3,7 +3,9 @@
 The port's counterpart of ``dryrun_multichip`` in ``__graft_entry__.py``:
 its eleven strategies on the same fixtures, inputs drawn from one
 ``default_rng(0)`` in the same order, and the same tolerances, on a mesh
-of ``n_shards`` virtual shards of one device:
+of ``n_shards`` virtual shards of one device, or, in a job of several
+``torch.distributed`` ranks (``initialize_distributed``), on
+``global_mesh(n_shards)``:
 
 - CG over the all-gather CSR matvec (``parallel.shard``), on
   poisson2d(8, 2 P);
@@ -28,9 +30,14 @@ of ``n_shards`` virtual shards of one device:
 Each solve and product must reach a relative error below 1e-3 (float32
 too); it prints one line of the JAX function's form and returns the
 numbers.  The LOBPCG's random start of P is the port's own draw (JAX
-draws it from ``PRNGKey(0)``).
+draws it from ``PRNGKey(0)``).  Across ranks every draw is the whole
+vector's, each rank stacks its own shards' rows, the solvers sum their
+dots over the ranks, and every error is taken on the gathered whole
+vector: every rank returns the same numbers, and rank 0 alone prints
+the line.
 
     python -m spmv_tpu_torch.parallel.dryrun [N_SHARDS]
+    torchrun --nproc-per-node 2 -m spmv_tpu_torch.parallel.dryrun [N_SHARDS]
 """
 
 from __future__ import annotations
@@ -38,7 +45,6 @@ from __future__ import annotations
 import sys
 
 import numpy as np
-import torch
 
 from spmv_tpu_torch.errors import SpmvError
 
@@ -74,8 +80,10 @@ def _poisson_eigs(nx: int, ny: int, k: int) -> np.ndarray:
 
 def dryrun_multichip(n_shards: int, device=None) -> dict:
     """Run the eleven strategies on ``n_shards`` virtual shards of
-    ``device`` (default: ``default_device()``), print one line and
-    return {strategy: {"iterations", "rel_err", ...}}."""
+    ``device`` (default: ``default_device()``), or over the ranks of the
+    job where one runs (``device`` is then the rank's own), print one
+    line (rank 0) and return {strategy: {"iterations", "rel_err",
+    ...}}."""
     from spmv_tpu_torch.io.generate import poisson2d, random_sparse
     from spmv_tpu_torch.models import CsrMatrix, DiaMatrix
     from spmv_tpu_torch.models.bsr import BsrMatrix
@@ -96,7 +104,6 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
         make_sharded_block_ic0_preconditioner,
         make_sharded_dia_matmat,
         make_sharded_dia_matvec,
-        make_sharded_halo_matmat,
         make_sharded_halo_matvec,
         make_sharded_matvec,
         shard_bsr_halo,
@@ -117,15 +124,18 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
         unstack_vector,
     )
     from spmv_tpu_torch.parallel.bsr_shard import stack_columns, unstack_rows
-    from spmv_tpu_torch.parallel.distributed import is_multi_host
-    from spmv_tpu_torch.parallel.mesh import MeshError
+    from spmv_tpu_torch.parallel.distributed import global_mesh, is_multi_host
+    from spmv_tpu_torch.parallel.halo_shard import (
+        make_sharded_halo_flat_matmat,
+        stacked_row_mask,
+    )
 
     if is_multi_host():
-        raise MeshError(
-            "dryrun_multichip runs on virtual shards of one process, not "
-            "across the ranks of a job yet; see ROADMAP.md, Queue 1 item 5")
-    dev = resolve_device(device)
-    mesh = make_mesh(n_shards, devices=[dev] * n_shards)
+        mesh = global_mesh(n_shards)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+        mesh = make_mesh(n_shards, devices=[dev] * n_shards)
     mm = poisson2d(8, 2 * n_shards)  # tiny, but rows > shards
     host = CsrMatrix.from_matrix_market(mm)
     rng = np.random.default_rng(0)
@@ -144,7 +154,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     y_err = _check("CSR SpMV", _rel(unstack_vector(matvec(bs), A),
                                     host.spmv(b)))
     res = conjugate_gradient(matvec, bs, tol=TOL,
-                             max_iterations=MAX_ITERATIONS)
+                             max_iterations=MAX_ITERATIONS, mesh=mesh)
     out["csr_all_gather"] = {**solved("CG", res, unstack_vector(res.x, A)),
                              "spmv_rel_err": y_err}
 
@@ -153,14 +163,14 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     Ad = shard_dia(dia, n_shards, mesh=mesh)
     res = conjugate_gradient(make_sharded_dia_matvec(Ad, mesh),
                              stack_dia_vector(b, Ad), tol=TOL,
-                             max_iterations=MAX_ITERATIONS)
+                             max_iterations=MAX_ITERATIONS, mesh=mesh)
     out["dia_halo"] = solved("DIA CG", res, unstack_dia_vector(res.x, Ad))
 
     # 3: CSR, ragged halo exchange
     Ah = shard_csr_halo(host, n_shards, partition="nnz", mesh=mesh)
     matvec_h = make_sharded_halo_matvec(Ah, mesh)
     res = conjugate_gradient(matvec_h, bs, tol=TOL,
-                             max_iterations=MAX_ITERATIONS)
+                             max_iterations=MAX_ITERATIONS, mesh=mesh)
     out["csr_halo"] = {**solved("halo-CSR CG", res,
                                 unstack_vector(res.x, Ah)),
                        "exchange": Ah.exchange,
@@ -206,10 +216,11 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
 
     # 7: Chebyshev over the halo CSR matvec, no reduction in its loop
     v0 = stack_vector(rng.standard_normal(mm.num_rows), A, mesh=mesh)
-    lo, hi = lanczos_bounds(matvec_h, tuple(bs.shape), num_steps=30,
-                            dtype=bs.dtype, v0=v0, device=dev)
+    lo, hi = lanczos_bounds(matvec_h, (n_shards,) + tuple(bs.shape[1:]),
+                            num_steps=30, dtype=bs.dtype, v0=v0, device=dev,
+                            mesh=mesh)
     res = chebyshev(matvec_h, bs, lo, hi, tol=TOL, max_iterations=2000,
-                    check_every=10)
+                    check_every=10, mesh=mesh)
     out["chebyshev"] = solved("Chebyshev", res, unstack_vector(res.x, A))
 
     # 8: Jacobi-PCG over the halo CSR matvec; the stacked diagonal's
@@ -217,7 +228,8 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     diag_s = stack_vector(extract_diagonal(host), A, mesh=mesh)
     res = preconditioned_conjugate_gradient(
         matvec_h, bs, jacobi_preconditioner(diag_s), tol=TOL,
-        max_iterations=MAX_ITERATIONS, recompute_every=RECOMPUTE_EVERY)
+        max_iterations=MAX_ITERATIONS, recompute_every=RECOMPUTE_EVERY,
+        mesh=mesh)
     out["jacobi_pcg"] = solved("Jacobi-PCG", res, unstack_vector(res.x, A))
 
     # 9: batched CG over the DIA matmat, k = 2
@@ -225,7 +237,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     B = np.stack([dia.spmv(X[:, j]) for j in range(K_RHS)], axis=1)
     res = batched_conjugate_gradient(make_sharded_dia_matmat(Ad, mesh),
                                      stack_dia_matrix(B, Ad), tol=TOL,
-                                     max_iterations=MAX_ITERATIONS)
+                                     max_iterations=MAX_ITERATIONS, mesh=mesh)
     out["batched_dia_halo"] = {
         "iterations": [int(i) for i in res.iterations], "k": K_RHS,
         "rel_err": _check("batched CG", _rel(unstack_dia_matrix(res.x, Ad),
@@ -236,24 +248,18 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     res = preconditioned_conjugate_gradient(
         matvec_h, bs, make_sharded_block_ic0_preconditioner(Mb, mesh),
         tol=TOL, max_iterations=MAX_ITERATIONS,
-        recompute_every=RECOMPUTE_EVERY)
+        recompute_every=RECOMPUTE_EVERY, mesh=mesh)
     out["block_ic0_pcg"] = {**solved("block-Jacobi-IC0 PCG", res,
                                      unstack_vector(res.x, Ah)),
                             "shift_used": Mb.shift_used}
 
     # 11: LOBPCG over the halo CSR SpMM; the padding rows masked out of
     # the basis, or they alias the operator's null space
-    matmat = make_sharded_halo_matmat(Ah, mesh)
-    P, R = Ah.num_shards, Ah.rows_per_shard
-    msk = np.zeros((P, R))
-    for q in range(P):
-        msk[q, : Ah.bounds[q + 1] - Ah.bounds[q]] = 1.0
-    msk[:, R - 1] = 0.0
     X0 = stack_block(rng.standard_normal((mm.num_rows, K_EIG)), Ah,
                      mesh=mesh)
-    res = lobpcg(lambda V: matmat(V.reshape(P, R, K_EIG)).reshape(
-        P * R, K_EIG), X0.reshape(P * R, K_EIG), tol=TOL, max_iterations=300,
-        mask=torch.from_numpy(msk.reshape(-1)).to(dev, X0.dtype))
+    res = lobpcg(make_sharded_halo_flat_matmat(Ah, mesh),
+                 X0.reshape(-1, K_EIG), tol=TOL, max_iterations=300,
+                 mask=stacked_row_mask(Ah, mesh), mesh=mesh)
     want = _poisson_eigs(8, 2 * n_shards, K_EIG)
     got = res.eigenvalues.double().cpu().numpy()
     out["lobpcg"] = {
@@ -263,6 +269,8 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
             np.abs(got - want) / want)), MAX_EIG_REL_ERR)}
 
     o = out
+    if mesh.rank != 0:
+        return out
     print(
         f"dryrun_multichip({n_shards}): ok — "
         f"{mm.num_rows} rows, {mm.num_entries} nnz, "
@@ -299,4 +307,9 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
 
 
 if __name__ == "__main__":
+    from spmv_tpu_torch.parallel.distributed import initialize_distributed
+
+    initialize_distributed()       # torchrun's ranks; alone, a no-op
     dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 8)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -69,8 +69,10 @@ from spmv_tpu_torch.parallel.shard import (
     _unstack,
     check_mesh,
     local_csr,
+    mesh_shards,
     partition_rows,
     rows_per_shard,
+    stack_vector,
 )
 
 __all__ = [
@@ -80,12 +82,16 @@ __all__ = [
     "make_sharded_halo_matvec",
     "sharded_halo_spmm",
     "make_sharded_halo_matmat",
+    "make_sharded_halo_flat_matmat",
+    "stacked_row_mask",
     "stack_block",
     "unstack_block",
     "ExchangeSchedule",
     "build_exchange_schedule",
     "receive_index",
     "exchange_halos",
+    "receiving_side",
+    "receive_halos",
     "halo_of",
 ]
 
@@ -347,9 +353,7 @@ def shard_csr_halo(
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     p = int(num_shards)
-    if mesh is not None and mesh.size != p:
-        raise ValueError(f"{p} shards on a mesh of {mesh.size}")
-    shards = mesh.local_shards if mesh is not None else range(p)
+    shards = mesh_shards(mesh, p)
     bounds = np.asarray(partition_rows(m, p, partition), dtype=np.int64)
     R = rows_per_shard(bounds)
     row_ptr = np.asarray(m.row_ptr, dtype=np.int64)
@@ -395,17 +399,9 @@ def shard_csr_halo(
         boundary.append(local_csr(b_ptr, slot_of[cols_q[~local]],
                                   vals_q[~local], R, slots, dtype, device))
 
-    recv = receive_index(sched.send_idx, R, sched.exchange,
-                         sched.max_distance)
-    plan = None
-    if mesh is not None and mesh.world_size > 1 and recv.size:
-        per_rank = mesh.shards_per_rank
-        index, missing, plan = exchange_plan(
-            [recv[r * per_rank:(r + 1) * per_rank].reshape(-1)
-             for r in range(mesh.world_size)], per_rank * R, mesh)
-        index, missing = (a.reshape(per_rank, -1) for a in (index, missing))
-    else:
-        index, missing = np.maximum(recv, 0), recv < 0
+    recv_index, recv_missing, plan = receiving_side(
+        receive_index(sched.send_idx, R, sched.exchange, sched.max_distance),
+        R, mesh, device)
     return ShardedCsrHalo(
         num_rows=m.num_rows,
         num_columns=m.num_columns,
@@ -419,14 +415,55 @@ def shard_csr_halo(
         comm_elements_exact=sched.comm_elements_exact,
         comm_elements_padded=sched.comm_elements_padded,
         send_idx=sched.send_idx,
-        recv_index=torch.from_numpy(index).to(device),
-        recv_missing=(torch.from_numpy(missing).to(device)
-                      if missing.any() else None),
+        recv_index=recv_index,
+        recv_missing=recv_missing,
         interior=tuple(interior),
         boundary=tuple(boundary),
         mesh=mesh,
         plan=plan,
     )
+
+
+def receiving_side(recv: np.ndarray, rows_per_shard: int, mesh: Mesh,
+                   device):
+    """The receiving side of the table ``recv`` (P, slots) of flat stacked
+    positions (``rows_per_shard`` rows a shard, -1 where no shard sends)
+    for the shards this process holds: ``(recv_index, recv_missing,
+    plan)``, the positions of its local flat x each slot gathers, the
+    mask of the slots that receive 0 (None where every slot has a
+    sender) and, on a mesh of several ranks, the ``ExchangePlan`` of the
+    slots other ranks send (else None)."""
+    plan = None
+    if mesh is not None and mesh.world_size > 1 and recv.size:
+        per_rank = mesh.shards_per_rank
+        index, missing, plan = exchange_plan(
+            [recv[r * per_rank:(r + 1) * per_rank].reshape(-1)
+             for r in range(mesh.world_size)], per_rank * rows_per_shard,
+            mesh)
+        index, missing = (a.reshape(per_rank, -1) for a in (index, missing))
+    else:
+        if mesh is not None:
+            recv = recv[mesh.local_shards.start: mesh.local_shards.stop]
+        index, missing = np.maximum(recv, 0), recv < 0
+    return (torch.from_numpy(index).to(device),
+            torch.from_numpy(missing).to(device) if missing.any() else None,
+            plan)
+
+
+def receive_halos(x_stacked: torch.Tensor, index: torch.Tensor,
+                  missing: torch.Tensor, plan: ExchangePlan, exchange: str,
+                  mesh: Mesh) -> torch.Tensor:
+    """The local shards' receive buffers (P_local, slots, *trailing) of
+    the stacked x: the slots this process holds gathered from its x
+    (``exchange_halos``), those of other ranks received by ``plan``
+    (``all2all``: one ``all_to_all_single``; else point to point)."""
+    recv = exchange_halos(x_stacked, index, missing)
+    if plan is not None:
+        trailing = tuple(x_stacked.shape[2:])
+        move = all_to_all_strips if exchange == "all2all" else exchange_strips
+        move(x_stacked.reshape((-1,) + trailing),
+             recv.view((-1,) + trailing), plan, mesh)
+    return recv
 
 
 def halo_of(A, x_stacked: torch.Tensor):
@@ -435,15 +472,8 @@ def halo_of(A, x_stacked: torch.Tensor):
     process holds gathered from its x, those of other ranks received."""
     if A.exchange == "none":
         return None
-    recv = exchange_halos(x_stacked, A.recv_index, A.recv_missing)
-    plan = getattr(A, "plan", None)
-    if plan is not None:
-        trailing = tuple(x_stacked.shape[2:])
-        move = (all_to_all_strips if A.exchange == "all2all"
-                else exchange_strips)
-        move(x_stacked.reshape((-1,) + trailing),
-             recv.view((-1,) + trailing), plan, A.mesh)
-    return recv
+    return receive_halos(x_stacked, A.recv_index, A.recv_missing, A.plan,
+                         A.exchange, A.mesh)
 
 
 def sharded_halo_spmv(A: ShardedCsrHalo, x_stacked: torch.Tensor,
@@ -500,6 +530,29 @@ def make_sharded_halo_matmat(A: ShardedCsrHalo, mesh: Mesh = None):
 
     matmat.mesh = A.mesh
     return matmat
+
+
+def make_sharded_halo_flat_matmat(A: ShardedCsrHalo, mesh: Mesh = None):
+    """Matmat closure over the stacked block flattened, (P_local * R, k)
+    -> (P_local * R, k), as ``ops.lobpcg`` holds its basis; it carries
+    ``.mesh``."""
+    mm = make_sharded_halo_matmat(A, mesh)
+
+    def matmat(V):
+        n, k = V.shape
+        return mm(V.reshape(-1, A.rows_per_shard, k)).reshape(n, k)
+
+    matmat.mesh = A.mesh
+    return matmat
+
+
+def stacked_row_mask(sharded, mesh: Mesh = None) -> torch.Tensor:
+    """The flat (P_local * R,) mask of the stacked layout over the shards
+    this process holds: 1 on a row of the matrix, 0 on a padding row or
+    an overflow slot.  ``ops.lobpcg``'s ``mask=`` over a sharded matmat:
+    a padding row left in the basis aliases the operator's null space."""
+    return stack_vector(np.ones(sharded.bounds[-1]), sharded,
+                        mesh).reshape(-1)
 
 
 def stack_block(V, sharded, mesh: Mesh = None) -> torch.Tensor:

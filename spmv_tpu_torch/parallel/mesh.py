@@ -32,8 +32,7 @@ import torch
 
 from spmv_tpu_torch.errors import SpmvError
 
-__all__ = ["Mesh", "MeshError", "make_mesh", "mesh_info", "AXIS_SHARDS",
-           "refuse_process_mesh"]
+__all__ = ["Mesh", "MeshError", "make_mesh", "mesh_info", "AXIS_SHARDS"]
 
 AXIS_SHARDS = "shards"
 
@@ -81,16 +80,6 @@ class Mesh:
     def device(self) -> torch.device:
         """The device this process's shards lie on."""
         return self.devices[self.local_shards.start]
-
-
-def refuse_process_mesh(mesh: Optional[Mesh], what: str) -> None:
-    """Raise ``MeshError`` where ``mesh`` spans more than one process:
-    ``what`` is not carried across ranks yet."""
-    if mesh is not None and mesh.world_size > 1:
-        raise MeshError(
-            f"{what} does not run across processes yet (a mesh of "
-            f"{mesh.world_size} ranks); it runs on a single-process mesh, "
-            "see ROADMAP.md, Queue 1 item 5")
 
 
 def _indexed(d: torch.device) -> torch.device:

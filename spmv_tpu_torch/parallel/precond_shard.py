@@ -19,6 +19,15 @@ both solves as one ``lax.scan`` inside ``shard_map`` with every shard
 padded to the common (levels, width, deps) envelope; the port pads no
 shard (each runs its own levels), and keeps the envelope's numbers
 (``num_levels``, ``width``, ``max_deps``) for reports.
+
+On a process mesh a rank factors and solves only its own shards'
+blocks; the apply still moves nothing.  The shift ladder stays one
+decision for the whole job: each rank tries a shift on its own blocks,
+the ranks agree on which of them failed (``comm.all_reduce_max`` of a
+flag a rank), and all of them move to the next shift together, or all
+raise the same ``MatrixError``, so that no rank waits in a collective
+for a peer that raised.  The envelope is JAX's over every shard on every
+rank (``comm.max_over_ranks``).
 """
 
 from __future__ import annotations
@@ -37,8 +46,9 @@ from spmv_tpu_torch.ops.incomplete import (
     ic0_factor,
 )
 from spmv_tpu_torch.ops.tri_kernels import tri_solve_core, tri_solve_plan
-from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
-from spmv_tpu_torch.parallel.shard import _device, check_mesh
+from spmv_tpu_torch.parallel import comm
+from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.shard import _device, check_mesh, mesh_shards
 
 __all__ = [
     "ShardedBlockJacobiIC0",
@@ -50,10 +60,11 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedBlockJacobiIC0:
-    """Each shard's IC(0) triangular solves: ``lower[p]`` (L) and
-    ``upper[p]`` (L^T), ``DeviceTriSolve``s of R rows.  ``num_levels``,
-    ``width`` and ``max_deps`` are the JAX container's common envelope
-    (the most over every shard's two triangles)."""
+    """Each shard's IC(0) triangular solves: ``lower[i]`` (L) and
+    ``upper[i]`` (L^T) of the i-th shard this process holds (all P on a
+    single-process mesh), ``DeviceTriSolve``s of R rows.
+    ``num_levels``, ``width`` and ``max_deps`` are the JAX container's
+    common envelope (the most over every shard's two triangles)."""
 
     num_shards: int
     rows_per_shard: int     # R: matches the stacked vector layout
@@ -61,8 +72,9 @@ class ShardedBlockJacobiIC0:
     width: int              # W
     max_deps: int           # E
     shift_used: float       # the Manteuffel shift that factored every block
-    lower: tuple            # P DeviceTriSolve
-    upper: tuple            # P DeviceTriSolve
+    lower: tuple            # P_local DeviceTriSolve
+    upper: tuple            # P_local DeviceTriSolve
+    mesh: Mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -128,40 +140,62 @@ def block_jacobi_ic0(
     (``ShardedCsrHalo.bounds`` / ``.rows_per_shard``, say) so that the
     apply lines up with the stacked layout.  A block that is not SPD
     enough escalates through ``shifts``; the same shift factors every
-    block (a preconditioner is one fixed operator).  The solves go to
-    ``mesh``'s device, or to ``default_device()`` without a mesh.
+    block (a preconditioner is one fixed operator), on every rank of a
+    process mesh.  The solves go to ``mesh``'s device, or to
+    ``default_device()`` without a mesh; on a process mesh a rank
+    factors only its own shards' blocks.
     """
-    refuse_process_mesh(mesh, "block_jacobi_ic0")
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     bounds = np.asarray(bounds, dtype=np.int64)
     R = int(rows_per_shard)
     blocks = [_diag_block(m, int(bounds[p]), int(bounds[p + 1]), R)
-              for p in range(bounds.size - 1)]
-    factors, shift_used, last_err = None, 0.0, None
+              for p in mesh_shards(mesh, bounds.size - 1)]
+    factors, shift_used, last_err, failed = None, 0.0, None, ()
     for shift in shifts:
         try:
             factors = [ic0_factor(blk, shift=shift) for blk in blocks]
+        except MatrixError as e:
+            factors, last_err = None, e
+        failed = _failed_ranks(factors is None, mesh)
+        if not failed:
             shift_used = shift
             break
-        except MatrixError as e:
-            last_err = e
+        factors = None
     if factors is None:
+        if mesh is None or mesh.group is None:
+            raise MatrixError(
+                f"block_jacobi_ic0: no shift in {shifts} factored every "
+                f"diagonal block ({last_err})")
         raise MatrixError(
             f"block_jacobi_ic0: no shift in {shifts} factored every "
-            f"diagonal block ({last_err})")
+            f"diagonal block (at shift {shifts[-1]} a block of rank(s) "
+            f"{list(failed)} broke down)")
     lower = tuple(DeviceTriSolve.from_host(L, lower=True, dtype=dtype,
                                            device=device) for L in factors)
     upper = tuple(DeviceTriSolve.from_host(_transpose_csr(L), lower=False,
                                            dtype=dtype, device=device)
                   for L in factors)
     both = lower + upper
+    levels, width, deps = comm.max_over_ranks(
+        (max(t.num_levels for t in both), max(t.width for t in both),
+         max(t.max_deps for t in both)), mesh)
     return ShardedBlockJacobiIC0(
-        num_shards=len(factors), rows_per_shard=R,
-        num_levels=max(t.num_levels for t in both),
-        width=max(t.width for t in both),
-        max_deps=max(t.max_deps for t in both),
-        shift_used=shift_used, lower=lower, upper=upper)
+        num_shards=bounds.size - 1, rows_per_shard=R, num_levels=levels,
+        width=width, max_deps=deps, shift_used=shift_used, lower=lower,
+        upper=upper, mesh=mesh)
+
+
+def _failed_ranks(failed: bool, mesh: Mesh) -> tuple:
+    """The ranks whose blocks failed the shift just tried, the same on
+    every rank: each sets its own entry of a flag a rank, and the ranks
+    take the maximum."""
+    if mesh is None or mesh.group is None:
+        return (0,) if failed else ()
+    flags = [0] * mesh.world_size
+    flags[mesh.rank] = int(failed)
+    got = comm.max_over_ranks(flags, mesh)
+    return tuple(r for r, f in enumerate(got) if f)
 
 
 def sharded_block_ic0_apply(M: ShardedBlockJacobiIC0,
@@ -173,7 +207,7 @@ def sharded_block_ic0_apply(M: ShardedBlockJacobiIC0,
     r = r_stacked.to(M.dtype)
     z = torch.empty_like(r)
     w = torch.empty_like(r[0])
-    for q in range(M.num_shards):
+    for q in range(len(M.lower)):
         tri_solve_core(M.lower[q], r[q].contiguous(), out=w)
         tri_solve_core(M.upper[q], w, out=z[q])
     return z.to(r_stacked.dtype)

@@ -59,7 +59,7 @@ from spmv_tpu_torch.models.partition import (
 )
 from spmv_tpu_torch.ops.csr_kernels import csr_spmv_core
 from spmv_tpu_torch.parallel.comm import all_gather_rows
-from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
+from spmv_tpu_torch.parallel.mesh import Mesh
 
 __all__ = [
     "ShardedCsr",
@@ -144,6 +144,17 @@ def _device(mesh: Mesh):
     return mesh.device if mesh is not None else default_device()
 
 
+def mesh_shards(mesh: Mesh, num_shards: int) -> range:
+    """The shards of ``num_shards`` a container built on ``mesh`` holds:
+    its rank's on a process mesh, every one without a mesh or on one
+    process."""
+    if mesh is None:
+        return range(num_shards)
+    if mesh.size != num_shards:
+        raise ValueError(f"{num_shards} shards on a mesh of {mesh.size}")
+    return mesh.local_shards
+
+
 def local_shards(sharded) -> range:
     """The shards of ``sharded`` this process holds."""
     mesh = getattr(sharded, "mesh", None)
@@ -154,13 +165,10 @@ def local_shards(sharded) -> range:
 def check_mesh(sharded, mesh: Mesh) -> None:
     """Raise unless ``mesh`` (where given) is the one ``sharded`` was
     built on: one entry a shard, on the shards' device, in the same
-    process group.  A container of a path not carried across processes
-    (no ``mesh`` field) refuses a mesh of several ranks."""
+    process group."""
     if mesh is None:
         return
-    if not hasattr(sharded, "mesh"):
-        refuse_process_mesh(mesh, type(sharded).__name__)
-    held = getattr(sharded, "mesh", mesh)
+    held = sharded.mesh
     if (mesh.size != sharded.num_shards or mesh.device != sharded.device
             or (held.group if held is not None else None) is not mesh.group):
         raise ValueError(
@@ -185,9 +193,7 @@ def shard_csr(
     """
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
-    if mesh is not None and mesh.size != num_shards:
-        raise ValueError(f"{num_shards} shards on a mesh of {mesh.size}")
-    shards = mesh.local_shards if mesh is not None else range(num_shards)
+    shards = mesh_shards(mesh, num_shards)
     bounds = partition_rows(m, num_shards, partition)
     R = rows_per_shard(bounds)
     row_ptr = np.asarray(m.row_ptr, dtype=np.int64)

@@ -16,7 +16,15 @@ common chunk count and spill length, a TPU layout the kernel does not
 need.  ``DeviceWell.from_host`` picks whole-x or segmented mode from
 the stacked x's size, as it does for any matrix, so a product is one K5
 launch a shard (K5a or K5b, ``ops.well_kernels.well_spmv_core``) on the
-flat stacked x, the spill folded in.
+flat stacked x, the spill folded in.  On a process mesh a rank packs
+only its own shards, and the flat stacked x is ``comm.all_gather_rows``
+of every rank's rows (JAX's ``all_gather``): each launch reads the
+values it reads on one device, so each rank's rows of y are bitwise the
+single-process product's.  The envelope (``chunks_per_shard``,
+``spill_per_shard``) is JAX's over every shard on every rank: each rank
+takes its own shards' maxima and the ranks agree on the largest
+(``comm.max_over_ranks``); packing every shard on every rank only to
+count them would repeat the build's main cost.
 
 Halo (``ShardedWellHalo``)
 --------------------------
@@ -43,7 +51,12 @@ a row in one WELL of stacked columns), so the two agree within
 rounding.
 
 The exchange is ``halo_shard``'s: one ``index_select`` of the stacked x
-by a host-built receive table.
+by a host-built receive table.  On a process mesh every rank finds every
+shard's needs (the schedule is one for the job), packs only its own
+shards, and receives the slots other ranks hold by the plan
+``comm.exchange_plan`` makes (``halo_shard.receiving_side``), so its
+receive buffers, and its rows of y, are bitwise the single-process
+ones.
 """
 
 from __future__ import annotations
@@ -66,13 +79,24 @@ from spmv_tpu_torch.models.well import GROUP_ROWS, LANE, WellMatrix
 from spmv_tpu_torch.ops.csr_kernels import csr_spmv_core
 from spmv_tpu_torch.ops.solvers import _np_type
 from spmv_tpu_torch.ops.well_kernels import well_spmv_core
+from spmv_tpu_torch.parallel.comm import (
+    ExchangePlan,
+    all_gather_rows,
+    max_over_ranks,
+)
 from spmv_tpu_torch.parallel.halo_shard import (
     build_exchange_schedule,
     halo_of,
     receive_index,
+    receiving_side,
 )
-from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
-from spmv_tpu_torch.parallel.shard import _device, check_mesh, local_csr
+from spmv_tpu_torch.parallel.mesh import Mesh
+from spmv_tpu_torch.parallel.shard import (
+    _device,
+    check_mesh,
+    local_csr,
+    mesh_shards,
+)
 
 __all__ = [
     "ShardedWell",
@@ -134,11 +158,13 @@ def _local_row_ptr(m: CsrMatrix, bounds, q: int, num_rows: int, keep=None):
 class ShardedWell:
     """WELL split into P 128-aligned row blocks, x all-gathered.
 
-    ``blocks[p]`` is shard p's ``DeviceWell``: R rows, P*R columns in
-    the stacked x index space.  ``chunks_per_shard`` and
-    ``spill_per_shard`` are the JAX container's uniform envelope (the
-    most chunks a shard's WELL holds; the longest spill rounded up to
-    128), kept as numbers: the port stores each shard unpadded.
+    ``blocks[i]`` is the ``DeviceWell`` of the i-th shard this process
+    holds (all P on a single-process mesh): R rows, P*R columns in the
+    stacked x index space.  ``chunks_per_shard`` and ``spill_per_shard``
+    are the JAX container's uniform envelope over every shard (the most
+    chunks a shard's WELL holds; the longest spill rounded up to 128),
+    kept as numbers: the port stores each shard unpadded.  ``mesh`` is
+    the mesh it was built on.
     """
 
     num_rows: int
@@ -150,7 +176,8 @@ class ShardedWell:
     spill_per_shard: int       # E (JAX's envelope)
     window_rows: int
     bounds: tuple              # (P+1,) python ints, 128-aligned
-    blocks: tuple              # P DeviceWell
+    blocks: tuple              # the local shards' DeviceWell
+    mesh: Mesh = None
 
     @property
     def stacked_size(self) -> int:
@@ -169,10 +196,11 @@ class ShardedWell:
         return dict(collections.Counter(k5_name(b) for b in self.blocks))
 
 
-def _envelope(wells) -> tuple:
-    """JAX's (C, E) over the shards' host WELLs."""
-    c = max(w.num_chunks for w in wells)
-    e = max(w.num_spilled for w in wells)
+def _envelope(wells, mesh: Mesh) -> tuple:
+    """JAX's (C, E) over every shard: the largest over this process's
+    host WELLs and the other ranks'."""
+    c, e = max_over_ranks((max(w.num_chunks for w in wells),
+                           max(w.num_spilled for w in wells)), mesh)
     return c, max(round_up(e, LANE), LANE)
 
 
@@ -184,11 +212,12 @@ def shard_well(
     mesh: Mesh = None,
 ) -> ShardedWell:
     """Build a ``ShardedWell`` from a square host CSR matrix.  The blocks
-    go to ``mesh``'s device, or to ``default_device()`` without a mesh."""
-    refuse_process_mesh(mesh, "shard_well")
+    go to ``mesh``'s device, or to ``default_device()`` without a mesh;
+    on a process mesh a rank packs only its own shards."""
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     p = int(num_shards)
+    shards = mesh_shards(mesh, p)
     bounds, R = group_partition(m, p, "WELL")
     scols = stacked_columns(m, bounds, R)
     rp = np.asarray(m.row_ptr, np.int64)
@@ -197,8 +226,8 @@ def shard_well(
         R, p * R, _local_row_ptr(m, bounds, q, R),
         scols[rp[bounds[q]]: rp[bounds[q + 1]]],
         vals[rp[bounds[q]]: rp[bounds[q + 1]]], window_rows)
-        for q in range(p)]
-    c, e = _envelope(wells)
+        for q in shards]
+    c, e = _envelope(wells, mesh)
     return ShardedWell(
         num_rows=m.num_rows,
         num_columns=m.num_columns,
@@ -211,16 +240,17 @@ def shard_well(
         bounds=tuple(int(b) for b in bounds),
         blocks=tuple(DeviceWell.from_host(w, dtype=dtype, device=device)
                      for w in wells),
+        mesh=mesh,
     )
 
 
 def sharded_well_spmv(A: ShardedWell, x_stacked: torch.Tensor,
                       mesh: Mesh = None) -> torch.Tensor:
-    """y = A @ x; vectors in stacked (P, R) layout.  One K5 launch a
-    shard on the flat stacked x (the all-gather).  ``mesh`` (optional)
-    must be the shards' mesh."""
+    """y = A @ x; vectors in stacked (P, R) layout (the local shards' rows
+    on a process mesh).  One K5 launch a shard on the flat stacked x
+    (the all-gather).  ``mesh`` (optional) must be the shards' mesh."""
     check_mesh(A, mesh)
-    x = x_stacked.reshape(-1)
+    x = all_gather_rows(x_stacked, A.mesh)
     y = torch.empty_like(x_stacked)
     for q, block in enumerate(A.blocks):
         well_spmv_core(block, x, out=y[q])
@@ -233,18 +263,22 @@ def make_sharded_well_matvec(A: ShardedWell, mesh: Mesh = None):
     def matvec(x_stacked):
         return sharded_well_spmv(A, x_stacked, mesh)
 
+    matvec.mesh = A.mesh
     return matvec
 
 
-def halo_split(m: CsrMatrix, bounds, R: int, live, dtype, device,
+def halo_split(m: CsrMatrix, bounds, R: int, live, dtype, mesh: Mesh,
                exchange: str, neighbor_max_distance: int) -> tuple:
     """Split ``m``'s entries for a halo path over ``bounds`` / R: an
     entry of another shard's columns creates a need where ``live`` (over
     the entries, or None for every entry) is set, and goes to the
     shard's boundary CSR; a remote entry that is not live is dropped.
-    Returns the fields a halo container shares (geometry, exchange
-    metadata, the receiving side, ``boundary``) and each shard's
-    interior entries: (row_ptr over R rows, local columns, values)."""
+    Every shard's needs make the schedule; only the shards this process
+    holds (``mesh``'s) are split.  Returns the fields a halo container
+    shares (geometry, exchange metadata, the receiving side and its
+    plan, ``boundary``, ``mesh``) and each local shard's interior
+    entries: (row_ptr over R rows, local columns, values)."""
+    device = _device(mesh)
     p = len(bounds) - 1
     scols = stacked_columns(m, bounds, R)
     rp = np.asarray(m.row_ptr, np.int64)
@@ -263,7 +297,7 @@ def halo_split(m: CsrMatrix, bounds, R: int, live, dtype, device,
     slots = sched.num_strips * sched.halo_slots
     slot_of = np.zeros(p * R, dtype=np.int64)
     interior, boundary = [], []
-    for q in range(p):
+    for q in mesh_shards(mesh, p):
         lo, hi = int(rp[bounds[q]]), int(rp[bounds[q + 1]])
         c, v, far = scols[lo:hi], vals[lo:hi], remote[q]
         interior.append((_local_row_ptr(m, bounds, q, R, ~far),
@@ -276,9 +310,9 @@ def halo_split(m: CsrMatrix, bounds, R: int, live, dtype, device,
         boundary.append(local_csr(_local_row_ptr(m, bounds, q, R, take),
                                   slot_of[c[take]], v[take], R, slots,
                                   dtype, device))
-    recv = receive_index(sched.send_idx, R, sched.exchange,
-                         sched.max_distance)
-    missing = recv < 0
+    recv_index, recv_missing, plan = receiving_side(
+        receive_index(sched.send_idx, R, sched.exchange, sched.max_distance),
+        R, mesh, device)
     fields = dict(
         num_rows=m.num_rows, num_columns=m.num_columns,
         num_entries=m.num_entries, num_shards=p, rows_per_shard=R,
@@ -286,11 +320,9 @@ def halo_split(m: CsrMatrix, bounds, R: int, live, dtype, device,
         max_distance=sched.max_distance, halo_slots=sched.halo_slots,
         comm_elements_exact=sched.comm_elements_exact,
         comm_elements_padded=sched.comm_elements_padded,
-        send_idx=sched.send_idx,
-        recv_index=torch.from_numpy(np.maximum(recv, 0)).to(device),
-        recv_missing=(torch.from_numpy(missing).to(device)
-                      if missing.any() else None),
-        boundary=tuple(boundary))
+        send_idx=sched.send_idx, recv_index=recv_index,
+        recv_missing=recv_missing, boundary=tuple(boundary), mesh=mesh,
+        plan=plan)
     return fields, interior
 
 
@@ -298,10 +330,11 @@ def halo_split(m: CsrMatrix, bounds, R: int, live, dtype, device,
 class ShardedWellHalo:
     """WELL split into P 128-aligned row blocks with a halo-exchange plan.
 
-    ``interior[p]`` is shard p's ``DeviceWell`` over its own x (R rows,
-    R columns); ``boundary[p]`` the ``DeviceCsr`` over its received halo
-    (R rows, ``strips * H`` columns), or None.  ``send_idx``,
-    ``recv_index`` and ``recv_missing`` as in ``ShardedCsrHalo``.
+    ``interior[i]`` is the ``DeviceWell`` of the i-th shard this process
+    holds over its own x (R rows, R columns); ``boundary[i]`` the
+    ``DeviceCsr`` over its received halo (R rows, ``strips * H``
+    columns), or None.  ``send_idx``, ``recv_index``, ``recv_missing``,
+    ``mesh`` and ``plan`` as in ``ShardedCsrHalo``.
     """
 
     num_rows: int
@@ -319,8 +352,10 @@ class ShardedWellHalo:
     send_idx: np.ndarray
     recv_index: torch.Tensor
     recv_missing: torch.Tensor
-    interior: tuple            # P DeviceWell
-    boundary: tuple            # P DeviceCsr or None
+    interior: tuple            # P_local DeviceWell
+    boundary: tuple            # P_local DeviceCsr or None
+    mesh: Mesh = None
+    plan: ExchangePlan = None
 
     @property
     def stacked_size(self) -> int:
@@ -357,13 +392,13 @@ def shard_well_halo(
 ) -> ShardedWellHalo:
     """Halo-exchange sharding of a square host CSR matrix as local WELLs
     (``exchange``: "auto", or "neighbor" / "all2all" forced, as
-    ``shard_csr_halo``)."""
-    refuse_process_mesh(mesh, "shard_well_halo")
+    ``shard_csr_halo``); on a process mesh a rank packs only its own
+    shards."""
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     bounds, R = group_partition(m, num_shards, "WELL")
     live = np.asarray(m.value[: m.num_entries]).astype(_np_type(dtype)) != 0
-    fields, entries = halo_split(m, bounds, R, live, dtype, device,
+    fields, entries = halo_split(m, bounds, R, live, dtype, mesh,
                                  exchange, neighbor_max_distance)
     interior = tuple(
         DeviceWell.from_host(WellMatrix._build(R, R, rp, c, v, window_rows),
@@ -381,7 +416,7 @@ def sharded_well_halo_spmv(A: ShardedWellHalo, x_stacked: torch.Tensor,
     check_mesh(A, mesh)
     halo = halo_of(A, x_stacked)
     y = torch.empty_like(x_stacked)
-    for q in range(A.num_shards):
+    for q in range(len(A.interior)):
         well_spmv_core(A.interior[q], x_stacked[q], out=y[q])
         if A.boundary[q] is not None:
             csr_spmv_core(A.boundary[q], halo[q], out=y[q], accumulate=True)
@@ -394,4 +429,5 @@ def make_sharded_well_halo_matvec(A: ShardedWellHalo, mesh: Mesh = None):
     def matvec(x_stacked):
         return sharded_well_halo_spmv(A, x_stacked, mesh)
 
+    matvec.mesh = A.mesh
     return matvec

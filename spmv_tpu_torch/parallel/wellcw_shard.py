@@ -20,6 +20,15 @@ SpMV / SpMM launch ``accumulate=True`` into the same row of y (none
 where the shard reads no halo).  The SpMM's one exchange moves all k
 columns.
 
+On a process mesh a rank packs only its own shards' interiors and
+boundaries, and receives the halo slots other ranks hold by
+``halo_shard``'s plan (``well_shard.halo_split``), so its rows of y are
+bitwise the single-process product's.  The exchange metadata are JAX's
+on every rank: every rank derives the schedule from every shard's
+needs.  JAX's padded envelope of the collapsed sets (its
+``chunks_per_shard``, ``pool_chunks_per_shard``, ``rem_per_shard``)
+describes its own layout; the port keeps none, on one process or many.
+
 Every entry creates its need, so ``comm_elements_exact`` equals
 ``parallel.halo.communication_volume``'s halo count on the same bounds,
 which ``shard_wellcw_halo`` checks (JAX asserts it).  The sums run in
@@ -50,8 +59,9 @@ from spmv_tpu_torch.ops.wellcw_kernels import (
     wellcw_spmv_core,
 )
 from spmv_tpu_torch.parallel.halo import communication_volume
+from spmv_tpu_torch.parallel.comm import ExchangePlan
 from spmv_tpu_torch.parallel.halo_shard import halo_of
-from spmv_tpu_torch.parallel.mesh import Mesh, refuse_process_mesh
+from spmv_tpu_torch.parallel.mesh import Mesh
 from spmv_tpu_torch.parallel.shard import _device, check_mesh
 from spmv_tpu_torch.parallel.well_shard import (
     boundary_launches,
@@ -73,11 +83,11 @@ __all__ = [
 class ShardedWellCwHalo:
     """WELL-CW split into P 128-aligned row blocks with a halo plan.
 
-    ``interior[p]`` is shard p's ``DeviceWellCw`` over its own x (R
-    rows, R columns); ``boundary[p]`` the ``DeviceCsr`` over its
-    received halo (R rows, ``strips * H`` columns), or None.
-    ``send_idx``, ``recv_index`` and ``recv_missing`` as in
-    ``ShardedCsrHalo``.
+    ``interior[i]`` is the ``DeviceWellCw`` of the i-th shard this
+    process holds over its own x (R rows, R columns); ``boundary[i]``
+    the ``DeviceCsr`` over its received halo (R rows, ``strips * H``
+    columns), or None.  ``send_idx``, ``recv_index``, ``recv_missing``,
+    ``mesh`` and ``plan`` as in ``ShardedCsrHalo``.
     """
 
     num_rows: int
@@ -94,8 +104,10 @@ class ShardedWellCwHalo:
     send_idx: np.ndarray
     recv_index: torch.Tensor
     recv_missing: torch.Tensor
-    interior: tuple            # P DeviceWellCw
-    boundary: tuple            # P DeviceCsr or None
+    interior: tuple            # P_local DeviceWellCw
+    boundary: tuple            # P_local DeviceCsr or None
+    mesh: Mesh = None
+    plan: ExchangePlan = None
 
     @property
     def stacked_size(self) -> int:
@@ -136,12 +148,12 @@ def shard_wellcw_halo(
     tail_specs=DEFAULT_TAIL_SPECS,
 ) -> ShardedWellCwHalo:
     """Halo-exchange sharding of a square host CSR matrix as local
-    WELL-CW packs (``exchange`` as ``shard_csr_halo``'s)."""
-    refuse_process_mesh(mesh, "shard_wellcw_halo")
+    WELL-CW packs (``exchange`` as ``shard_csr_halo``'s); on a process
+    mesh a rank packs only its own shards."""
     dtype = dtype or default_value_dtype()
     device = _device(mesh)
     bounds, R = group_partition(m, num_shards, "WELL-CW")
-    fields, entries = halo_split(m, bounds, R, None, dtype, device,
+    fields, entries = halo_split(m, bounds, R, None, dtype, mesh,
                                  exchange, neighbor_max_distance)
     halo = communication_volume(m, bounds)["halo_elements"]
     if fields["comm_elements_exact"] != halo:
@@ -165,7 +177,7 @@ def sharded_wellcw_halo_spmv(A: ShardedWellCwHalo, x_stacked: torch.Tensor,
     check_mesh(A, mesh)
     halo = halo_of(A, x_stacked)
     y = torch.empty_like(x_stacked)
-    for q in range(A.num_shards):
+    for q in range(len(A.interior)):
         wellcw_spmv_core(A.interior[q], x_stacked[q], out=y[q])
         if A.boundary[q] is not None:
             csr_spmv_core(A.boundary[q], halo[q], out=y[q], accumulate=True)
@@ -180,7 +192,7 @@ def sharded_wellcw_halo_spmm(A: ShardedWellCwHalo, X_stacked: torch.Tensor,
     check_mesh(A, mesh)
     halo = halo_of(A, X_stacked)
     Y = torch.empty_like(X_stacked)
-    for q in range(A.num_shards):
+    for q in range(len(A.interior)):
         wellcw_spmm_core(A.interior[q], X_stacked[q], out=Y[q])
         if A.boundary[q] is not None:
             csr_spmm_core(A.boundary[q], halo[q], out=Y[q], accumulate=True)
@@ -193,6 +205,7 @@ def make_sharded_wellcw_halo_matvec(A: ShardedWellCwHalo, mesh: Mesh = None):
     def matvec(x_stacked):
         return sharded_wellcw_halo_spmv(A, x_stacked, mesh)
 
+    matvec.mesh = A.mesh
     return matvec
 
 
@@ -202,4 +215,5 @@ def make_sharded_wellcw_halo_matmat(A: ShardedWellCwHalo, mesh: Mesh = None):
     def matmat(X_stacked):
         return sharded_wellcw_halo_spmm(A, X_stacked, mesh)
 
+    matmat.mesh = A.mesh
     return matmat

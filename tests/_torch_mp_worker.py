@@ -1,18 +1,29 @@
-"""One rank of a ``torch.distributed`` job for tests/test_torch_distributed.py.
+"""One rank of a ``torch.distributed`` job for tests/test_torch_distributed.py
+and tests/test_torch_distributed_formats.py.
 
 The port's counterpart of ``tests/_mp_worker.py``, importing no JAX and
 nothing of ``spmv_tpu``.  Every rank of a Gloo job on the CPU (float64)
 joins through a ``file://`` store, builds the process mesh of ``P``
-shards, computes every case of ``CASES`` over it and writes, a case, the
-stacked rows of its own shards and the whole unstacked vector (the
-collective ``unstack``) with ``np.save``, and the iteration counts and
-its place in the job to ``meta.r<rank>.json``:
+shards, computes every case of a case list over it and writes, a case,
+the stacked rows of its own shards and the whole unstacked vector (the
+collective ``unstack``) with ``np.save``, and the iteration counts, the
+containers' envelope numbers and its place in the job to
+``meta.r<rank>.json``:
 
-    python tests/_torch_mp_worker.py <store file> <world size> <rank> <out dir>
+    python tests/_torch_mp_worker.py <store file> <world size> <rank> <out dir> [first|formats]
 
-``run_case`` is the one definition of a case: the test runs it on a
-single-process mesh of ``P`` virtual shards for the rows every rank's
-must equal.
+``first`` (the default) runs ``CASES``: the DIA, all-gather CSR and
+halo CSR paths with CG, PCG and batched CG.  ``formats`` runs
+``FORMAT_CASES``: the WELL, WELL-CW and BSR products, the block-Jacobi
+IC(0) apply, block-IC(0) PCG, Chebyshev, ``lanczos_bounds``, GMRES,
+BiCGSTAB (plain and with block-IC(0)) and LOBPCG, then
+``dryrun_multichip(P)``, whose dict goes to the meta file.  LOBPCG's
+random P is ``lobpcg_p0.npy`` of the out dir where the test wrote one
+(JAX's draw), each rank passing its rows.
+
+``run_case`` and ``run_format_case`` are the one definition of a case:
+the tests run them on a single-process mesh of ``P`` virtual shards for
+the rows every rank's must equal.
 """
 
 import json
@@ -33,6 +44,11 @@ MATS = {
     "poisson32": ("poisson2d", (32, 32), {}),     # every shard holds rows
     "random200": ("random_sparse", (200, 200, 6), {"seed": 7}),
     "banded256": ("banded_random", (256, 80, 6), {"seed": 3}),  # D = 3
+    # tests/test_torch_shard_formats.py's and test_torch_shard_solvers.py's
+    "poisson32x16": ("poisson2d", (32, 16), {}),
+    "random600": ("random_sparse", (600, 600, 5), {"seed": 2}),
+    "banded1000": ("banded_random", (1000, 100, 6), {"seed": 3}),
+    "aniso24": ("anisotropic2d", (24, 24), {"epsilon": 0.01}),
 }
 
 PRODUCTS = (
@@ -51,6 +67,38 @@ SOLVERS = tuple((kind, "poisson16", None) for kind in (
 RECEIVES = (("halo_recv", "banded256", "neighbor"),
             ("halo_recv", "banded256", "all2all"))
 CASES = PRODUCTS + SOLVERS + RECEIVES
+
+WINDOW_ROWS = 2          # the WELL paths' window rows
+BSR_ROWS = 8             # the BSR block height
+SOLVER_TOL = 1e-8        # GMRES, BiCGSTAB, Chebyshev, block-IC(0) PCG
+EIG_K = 4
+EIG_TOL = 1e-5
+EIG_MAX = 400
+LANCZOS_STEPS = 30
+FORMAT_PRODUCTS = (
+    ("well_spmv", "poisson32x16", None), ("well_spmv", "banded1000", None),
+    ("wellhalo_spmv", "banded1000", "neighbor"),
+    ("wellhalo_spmv", "banded1000", "all2all"),
+    ("wellhalo_spmv", "random600", None),
+    ("wellcw_spmv", "banded1000", "neighbor"),
+    ("wellcw_spmm", "banded1000", "neighbor"),
+    ("wellcw_spmv", "banded1000", "all2all"),
+    ("wellcw_spmm", "banded1000", "all2all"),
+    ("wellcw_spmv", "random600", None), ("wellcw_spmm", "random600", None),
+    ("bsr_spmm", "poisson32x16", "neighbor"),
+    ("bsr_spmm", "poisson32x16", "all2all"),
+    ("bsr_spmm", "random600", None),
+    ("ic0_apply", "poisson16", None), ("ic0_apply", "aniso24", None),
+)
+FORMAT_SOLVERS = (
+    ("ic0_pcg", "aniso24", None), ("chebyshev", "poisson16", None),
+    ("lanczos", "poisson16", None), ("gmres", "poisson16", None),
+    ("bicgstab", "poisson16", None), ("bicgstab_ic0", "aniso24", None),
+    ("lobpcg", "poisson16", None),
+    # LOBPCG's own draw of P: each rank's rows of the global one
+    ("lobpcg_draw", "poisson16", None),
+)
+FORMAT_CASES = FORMAT_PRODUCTS + FORMAT_SOLVERS
 
 
 def case_name(case) -> str:
@@ -165,9 +213,138 @@ def run_case(case, mesh) -> dict:
             "iterations": int(res.iterations)}
 
 
+def _format_container(kind, mat, mesh, exchange):
+    """The sharded container of a format case and the envelope numbers
+    it reports (JAX's on every rank)."""
+    import spmv_tpu_torch.parallel as par
+    from spmv_tpu_torch.models.bsr import BsrMatrix
+
+    m, _ = host_matrix(mat)
+    ex = exchange or "auto"
+    halo = ("exchange", "max_distance", "halo_slots", "comm_elements_exact",
+            "comm_elements_padded")
+    if kind == "well":
+        A = par.shard_well(m, P, window_rows=WINDOW_ROWS, mesh=mesh)
+        fields = ("rows_per_shard", "chunks_per_shard", "spill_per_shard")
+    elif kind == "wellhalo":
+        A = par.shard_well_halo(m, P, window_rows=WINDOW_ROWS, mesh=mesh,
+                                exchange=ex)
+        fields = ("rows_per_shard",) + halo
+    elif kind == "wellcw":
+        A = par.shard_wellcw_halo(m, P, mesh=mesh, exchange=ex)
+        fields = ("rows_per_shard",) + halo
+    elif kind == "bsr":
+        gen, args, kw = MATS[mat]
+        from spmv_tpu_torch.io import generate
+
+        A = par.shard_bsr_halo(BsrMatrix.from_matrix_market(
+            getattr(generate, gen)(*args, **kw), block_rows=BSR_ROWS), P,
+            mesh=mesh, exchange=ex)
+        fields = ("rows_per_shard", "interior_per_shard",
+                  "boundary_per_shard", "comm_blocks_exact") + halo
+    else:
+        A = par.shard_csr_halo(m, P, mesh=mesh, exchange=ex)
+        fields = ("rows_per_shard",) + halo
+    return m, A, {f: getattr(A, f) for f in fields}
+
+
+def run_format_case(case, mesh, p0=None) -> dict:
+    """One case of ``FORMAT_CASES`` on ``mesh``: {"rows": this process's
+    stacked rows, "full": the whole unstacked vector or block (LOBPCG:
+    the eigenvalues), "input": the stacked input's rows (b for a
+    solver), "iterations": None or an int, "envelope": the container's
+    numbers}.  ``p0``: LOBPCG's global random P, or None."""
+    import torch
+
+    import spmv_tpu_torch.ops as ops
+    import spmv_tpu_torch.parallel as par
+    from spmv_tpu_torch.parallel import bsr_shard, halo_shard
+
+    kind, mat, exchange = case
+    path = kind.split("_")[0]
+    m, A, env = _format_container(
+        path if kind.endswith(("spmv", "spmm")) else "csr", mat, mesh,
+        exchange)
+    rng = np.random.default_rng(4)
+    n = m.num_rows
+    if path == "bsr":
+        Xs = bsr_shard.stack_columns(rng.standard_normal((n, K)), A, mesh)
+        Y = par.sharded_bsr_spmm(A, Xs, mesh)
+        return {"rows": Y.numpy(), "full": bsr_shard.unstack_rows(Y, A),
+                "input": Xs.numpy(), "iterations": None, "envelope": env}
+    if kind.endswith("spmm"):
+        Xs = par.stack_block(rng.standard_normal((n, K)), A, mesh)
+        Y = par.sharded_wellcw_halo_spmm(A, Xs, mesh)
+        return {"rows": Y.numpy(), "full": par.unstack_block(Y, A),
+                "input": Xs.numpy(), "iterations": None, "envelope": env}
+    if kind.endswith("spmv"):
+        xs = par.stack_vector(rng.standard_normal(n), A, mesh)
+        product = {"well": par.sharded_well_spmv,
+                   "wellhalo": par.sharded_well_halo_spmv,
+                   "wellcw": par.sharded_wellcw_halo_spmv}[path]
+        y = product(A, xs, mesh)
+        return {"rows": y.numpy(), "full": par.unstack_vector(y, A),
+                "input": xs.numpy(), "iterations": None, "envelope": env}
+    if "ic0" in kind:
+        M = par.block_jacobi_ic0(m, A.bounds, A.rows_per_shard, mesh=mesh)
+        env.update(shift_used=M.shift_used, num_levels=M.num_levels,
+                   width=M.width, max_deps=M.max_deps)
+    mv = par.make_sharded_halo_matvec(A, mesh)
+    if kind == "ic0_apply":
+        rs = par.stack_vector(rng.standard_normal(n), A, mesh)
+        z = par.sharded_block_ic0_apply(M, rs, mesh)
+        return {"rows": z.numpy(), "full": par.unstack_vector(z, A),
+                "input": rs.numpy(), "iterations": None, "envelope": env}
+    if kind.startswith("lobpcg"):
+        k, R, here = EIG_K, A.rows_per_shard, mesh.local_shards
+        X0 = par.stack_block(rng.standard_normal((n, k)), A, mesh)
+        pk = None
+        if kind == "lobpcg" and p0 is not None:
+            pk = torch.from_numpy(p0[here.start * R: here.stop * R])
+        res = ops.lobpcg(halo_shard.make_sharded_halo_flat_matmat(A, mesh),
+                         X0.reshape(-1, k), tol=EIG_TOL,
+                         max_iterations=EIG_MAX, mesh=mesh,
+                         mask=halo_shard.stacked_row_mask(A, mesh), P0=pk)
+        return {"rows": res.eigenvectors.numpy(),
+                "full": res.eigenvalues.numpy(), "input": X0.numpy(),
+                "iterations": int(res.iterations), "envelope": env}
+    if kind == "lanczos":
+        lo, hi = ops.lanczos_bounds(mv, (P, A.rows_per_shard),
+                                    num_steps=LANCZOS_STEPS,
+                                    dtype=torch.float64, mesh=mesh)
+        env["bounds"] = [lo, hi]
+        return {"rows": np.zeros(0), "full": np.array([lo, hi]),
+                "input": np.zeros(0), "iterations": None, "envelope": env}
+    bs = par.stack_vector(m.spmv(np.ones(n)), A, mesh)
+    if kind == "ic0_pcg":
+        res = ops.preconditioned_conjugate_gradient(
+            mv, bs, par.make_sharded_block_ic0_preconditioner(M, mesh),
+            tol=SOLVER_TOL, max_iterations=2000, mesh=mesh)
+    elif kind == "chebyshev":
+        v0 = par.stack_vector(rng.standard_normal(n), A, mesh)
+        lo, hi = ops.lanczos_bounds(mv, (P, A.rows_per_shard),
+                                    num_steps=LANCZOS_STEPS,
+                                    dtype=torch.float64, v0=v0, mesh=mesh)
+        env["bounds"] = [lo, hi]
+        res = ops.chebyshev(mv, bs, lo, hi, tol=SOLVER_TOL,
+                            max_iterations=3000, check_every=10, mesh=mesh)
+    elif kind == "gmres":
+        res = ops.gmres(mv, bs, tol=SOLVER_TOL, restart=8,
+                        max_iterations=500, mesh=mesh)
+    else:
+        pre = (par.make_sharded_block_ic0_preconditioner(M, mesh)
+               if kind == "bicgstab_ic0" else None)
+        res = ops.bicgstab(mv, bs, pre, tol=SOLVER_TOL, max_iterations=500,
+                           mesh=mesh)
+    return {"rows": res.x.numpy(), "full": par.unstack_vector(res.x, A),
+            "input": bs.numpy(), "iterations": int(res.iterations),
+            "envelope": env}
+
+
 def main() -> int:
     store, world, rank, out = (sys.argv[1], int(sys.argv[2]),
                                int(sys.argv[3]), sys.argv[4])
+    which = sys.argv[5] if len(sys.argv) > 5 else "first"
     os.environ["SPMV_TPU_TORCH_DEVICE"] = "cpu"
     import torch
 
@@ -185,15 +362,23 @@ def main() -> int:
             "mesh_info": par.mesh_info(mesh),
             "local_shards": [mesh.local_shards.start,
                              mesh.local_shards.stop],
-            "iterations": {}}
-    for case in CASES:
-        got = run_case(case, mesh)
+            "iterations": {}, "envelope": {}}
+    p0 = os.path.join(out, "lobpcg_p0.npy")
+    p0 = np.load(p0) if os.path.exists(p0) else None
+    for case in CASES if which == "first" else FORMAT_CASES:
+        got = (run_case(case, mesh) if which == "first"
+               else run_format_case(case, mesh, p0))
         name = case_name(case)
         np.save(os.path.join(out, f"{name}.r{rank}.npy"), got["rows"])
         if got["full"] is not None:
             np.save(os.path.join(out, f"{name}.full.r{rank}.npy"),
                     got["full"])
         meta["iterations"][name] = got["iterations"]
+        meta["envelope"][name] = got.get("envelope")
+    if which == "formats":
+        from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
+
+        meta["dryrun"] = dryrun_multichip(P)
     with open(os.path.join(out, f"meta.r{rank}.json"), "w") as f:
         json.dump(meta, f)
     torch.distributed.destroy_process_group()

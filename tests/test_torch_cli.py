@@ -366,13 +366,14 @@ def _imports_of_the_jax_package(path, packages=("spmv_tpu",)):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of the port, no line of chip_smoke.py and no line of the
-    process-mesh worker imports ``spmv_tpu``: the port keeps its own
-    copies of what it needs."""
+    """No module of the port, no line of chip_smoke.py, of the
+    process-mesh worker or of the port's multichip example imports
+    ``spmv_tpu``: the port keeps its own copies of what it needs."""
     files = glob.glob(os.path.join(REPO, "spmv_tpu_torch", "**", "*.py"),
                       recursive=True) + [
         os.path.join(REPO, "chip_smoke.py"),
-        os.path.join(REPO, "tests", "_torch_mp_worker.py")]
+        os.path.join(REPO, "tests", "_torch_mp_worker.py"),
+        os.path.join(REPO, "examples", "03_multichip_torch.py")]
     assert len(files) > 30
     bad = {os.path.relpath(f, REPO): hits for f in files
            if (hits := _imports_of_the_jax_package(f))}
@@ -381,11 +382,12 @@ def test_port_imports_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("path", ["spmv_tpu_torch/parallel/distributed.py",
                                   "spmv_tpu_torch/parallel/comm.py",
-                                  "tests/_torch_mp_worker.py"])
+                                  "tests/_torch_mp_worker.py",
+                                  "examples/03_multichip_torch.py"])
 def test_process_mesh_files_import_neither_jax_nor_its_package(path):
-    """The process mesh's bootstrap, its collectives and the ranks'
-    worker run where JAX may be absent: they import neither ``jax`` nor
-    ``spmv_tpu``."""
+    """The process mesh's bootstrap, its collectives, the ranks' worker
+    and the port's multichip example run where JAX may be absent: they
+    import neither ``jax`` nor ``spmv_tpu``."""
     assert _imports_of_the_jax_package(os.path.join(REPO, path),
                                        ("spmv_tpu", "jax")) == []
 

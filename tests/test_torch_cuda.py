@@ -20,8 +20,9 @@ sharded products and the block-Jacobi IC(0) apply (launches exactly the
 container's ``launches_a_product`` / ``launches_an_apply``, twice
 bitwise), Chebyshev, Jacobi-PCG, block-IC(0) PCG and masked LOBPCG over
 sharded operators against their CPU runs, and ``dryrun_multichip(4)``;
-and a one-rank NCCL process mesh (``parallel.global_mesh``) whose DIA
-and CSR products are bitwise the virtual shards'.
+and a one-rank NCCL process mesh (``parallel.global_mesh``) whose DIA,
+CSR, WELL, WELL-CW and BSR products and block-IC(0) apply are bitwise
+the virtual shards'.
 
 Marked ``cuda``: they skip where no CUDA device is present.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -2928,3 +2929,66 @@ def test_one_rank_nccl_process_mesh_keeps_the_virtual_shards_bits(
     assert np.array_equal(out["process"]["dia_full"],
                           out["virtual"]["dia_full"])
     assert out["process"]["cg"] == out["virtual"]["cg"] < 2000
+
+
+def test_one_rank_nccl_process_mesh_keeps_the_formats_bits(cuda, tmp_path):
+    """The second half on a one-rank NCCL job's process mesh of 4 shards:
+    the WELL all-gather and halo SpMV, the WELL-CW halo SpMV and SpMM
+    (neighbor and all2all), the BSR halo SpMM (float32 and bfloat16
+    blocks) and the block-IC(0) apply are bitwise the virtual shards'
+    products; every container reports the same envelope numbers."""
+    import torch.distributed as dist
+
+    from spmv_tpu_torch import parallel as par
+    from spmv_tpu_torch.parallel import bsr_shard
+
+    m = CsrMatrix.from_matrix_market(banded_random(3000, 200, 6, seed=4))
+    spd = CsrMatrix.from_matrix_market(poisson2d(48, 40))
+    bm = BsrMatrix.from_matrix_market(poisson2d(48, 40), block_rows=16)
+    f64 = torch.float64
+    x = np.random.default_rng(11).standard_normal(m.num_rows)
+    X = np.random.default_rng(12).standard_normal((m.num_rows, 3))
+    XB = np.random.default_rng(13).standard_normal((bm.num_rows, 16))
+    assert not dist.is_initialized()
+    assert par.initialize_distributed(f"file://{tmp_path}/store", 1,
+                                      0) is False
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = par.global_mesh(4)
+        virtual = par.make_mesh(4, devices=[mesh.device] * 4)
+        out = {}
+        for name, on in (("process", mesh), ("virtual", virtual)):
+            W = par.shard_well(m, 4, dtype=f64, mesh=on)
+            H = par.shard_well_halo(m, 4, dtype=f64, mesh=on)
+            res = {"well": par.sharded_well_spmv(
+                       W, par.stack_vector(x, W, on), on),
+                   "well_halo": par.sharded_well_halo_spmv(
+                       H, par.stack_vector(x, H, on), on),
+                   "envelope": (W.chunks_per_shard, W.spill_per_shard)}
+            for ex in ("neighbor", "all2all"):
+                C = par.shard_wellcw_halo(m, 4, dtype=f64, mesh=on,
+                                          exchange=ex)
+                res[f"wellcw_{ex}"] = par.sharded_wellcw_halo_spmv(
+                    C, par.stack_vector(x, C, on), on)
+                res[f"wellcw_spmm_{ex}"] = par.sharded_wellcw_halo_spmm(
+                    C, par.stack_block(X, C, on), on)
+            for dt in (torch.float32, torch.bfloat16):
+                B = par.shard_bsr_halo(bm, 4, dtype=dt, mesh=on)
+                res[f"bsr_{dt}"] = par.sharded_bsr_spmm(
+                    B, bsr_shard.stack_columns(XB, B, on), on)
+            A = par.shard_csr_halo(spd, 4, dtype=f64, mesh=on)
+            M = par.block_jacobi_ic0(spd, A.bounds, A.rows_per_shard,
+                                     dtype=f64, mesh=on)
+            res["ic0"] = par.sharded_block_ic0_apply(
+                M, par.stack_vector(x[: spd.num_rows], A, on), on)
+            res["ic0_envelope"] = (M.num_levels, M.width, M.max_deps,
+                                   M.shift_used)
+            out[name] = res
+    finally:
+        dist.destroy_process_group()
+    for key, got in out["process"].items():
+        want = out["virtual"][key]
+        if isinstance(got, tuple):
+            assert got == want, key
+        else:
+            assert torch.equal(got, want), key

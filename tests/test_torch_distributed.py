@@ -25,9 +25,11 @@ Stacked in rank order, the rows are held:
   rank's dots are all-reduced, so they sum in another order).
 
 In one process: ``initialize_distributed`` without an address,
-``host_local_info``'s keys, the meshes that raise ``MeshError``, and the
-paths not carried across ranks yet, which refuse a mesh that claims two
-ranks (a fake group: nothing is spawned).
+``host_local_info``'s keys, the meshes that raise ``MeshError``, a
+container built on one process and handed a mesh that claims two ranks,
+the solvers that refuse a closure over a process mesh without its mesh,
+and block-Jacobi IC(0)'s shift ladder agreed across ranks (a fake group
+whose all-reduce a test plays: nothing is spawned).
 """
 
 import json
@@ -50,9 +52,9 @@ from spmv_tpu.models import CsrMatrix as JCsr
 from spmv_tpu.models import DiaMatrix as JDia
 from spmv_tpu_torch import ops as tops
 from spmv_tpu_torch import parallel as tpar
+from spmv_tpu_torch.errors import MatrixError
 from spmv_tpu_torch.io import generate as tgen
 from spmv_tpu_torch.models import CsrMatrix
-from spmv_tpu_torch.models.bsr import BsrMatrix
 from spmv_tpu_torch.models.device import DEVICE_ENV
 from spmv_tpu_torch.parallel import Mesh, MeshError, distributed
 
@@ -340,48 +342,20 @@ def test_local_rows_keep_the_ranks_shards():
         arr)
 
 
-def _not_carried():
+@pytest.mark.parametrize("path", ["sharded_well_spmv_given_a_process_mesh"])
+def test_paths_not_carried_across_ranks_refuse_a_process_mesh(path):
+    """Every path runs across ranks, but a container keeps the mesh it was
+    built on: one built on a single-process mesh and handed a mesh that
+    claims two ranks raises."""
     m = CsrMatrix.from_matrix_market(tgen.poisson2d(16, 16))
-    matvec = (lambda v: v)               # noqa: E731
-    matvec.mesh = _fake()
-    b = torch.ones(4, 64)
-    return {
-        "shard_well": lambda: tpar.shard_well(m, 4, mesh=_fake()),
-        "shard_well_halo": lambda: tpar.shard_well_halo(m, 4, mesh=_fake()),
-        "shard_wellcw_halo": lambda: tpar.shard_wellcw_halo(
-            m, 4, mesh=_fake()),
-        "shard_bsr_halo": lambda: tpar.shard_bsr_halo(
-            BsrMatrix.from_matrix_market(tgen.poisson2d(16, 16),
-                                         block_rows=8), 4, mesh=_fake()),
-        "block_jacobi_ic0": lambda: tpar.block_jacobi_ic0(
-            m, np.array([0, 64, 128, 192, 256]), 72, mesh=_fake()),
-        "gmres": lambda: tops.gmres(matvec, b),
-        "chebyshev": lambda: tops.chebyshev(matvec, b, 1.0, 2.0),
-        "lanczos_bounds": lambda: tops.lanczos_bounds(matvec, 256),
-        "bicgstab": lambda: tops.bicgstab(matvec, b),
-        "lobpcg": lambda: tops.lobpcg(matvec, torch.ones(256, 2)),
-        "sharded_well_spmv_given_a_process_mesh": lambda: (
-            tpar.sharded_well_spmv(
-                tpar.shard_well(m, 4, mesh=tpar.make_mesh(
-                    4, devices=[CPU] * 4)), torch.zeros(4, 128), _fake())),
-    }
+    A = tpar.shard_well(m, 4, mesh=tpar.make_mesh(4, devices=[CPU] * 4))
+    with pytest.raises(ValueError, match="does not hold"):
+        tpar.sharded_well_spmv(A, torch.zeros(4, 128), _fake())
 
 
-@pytest.mark.parametrize("path", list(_not_carried()) + ["dryrun"])
-def test_paths_not_carried_across_ranks_refuse_a_process_mesh(
-        path, monkeypatch):
-    if path == "dryrun":
-        from spmv_tpu_torch.parallel.dryrun import dryrun_multichip
-
-        monkeypatch.setattr(distributed, "is_multi_host", lambda: True)
-        run = lambda: dryrun_multichip(2)        # noqa: E731
-    else:
-        run = _not_carried()[path]
-    with pytest.raises(MeshError, match="ROADMAP.md"):
-        run()
-
-
-@pytest.mark.parametrize("solver", ["cg", "pcg", "batched_cg"])
+@pytest.mark.parametrize("solver", ["cg", "pcg", "batched_cg", "gmres",
+                                    "chebyshev", "lanczos_bounds",
+                                    "bicgstab", "lobpcg"])
 def test_solvers_refuse_a_process_closure_without_its_mesh(solver):
     """A solver handed a closure over a process mesh, but not the mesh,
     would reduce its dots over one rank's rows: it raises."""
@@ -392,6 +366,116 @@ def test_solvers_refuse_a_process_closure_without_its_mesh(solver):
            "pcg": lambda: tops.preconditioned_conjugate_gradient(
                matvec, b, lambda r: r),
            "batched_cg": lambda: tops.batched_conjugate_gradient(
-               matvec, b)}[solver]
+               matvec, b),
+           "gmres": lambda: tops.gmres(matvec, b),
+           "chebyshev": lambda: tops.chebyshev(matvec, b, 1.0, 2.0),
+           "lanczos_bounds": lambda: tops.lanczos_bounds(matvec, (4, 64)),
+           "bicgstab": lambda: tops.bicgstab(matvec, b),
+           "lobpcg": lambda: tops.lobpcg(matvec, torch.ones(256, 2))}[solver]
     with pytest.raises(MeshError, match="mesh="):
         run()
+
+
+def _ladder_matrix():
+    """A 32-row SPD matrix whose diagonal blocks break down at shift 0
+    (``tests/test_torch_shard_solvers.py``'s ladder case)."""
+    n = 32
+    a = np.eye(n)
+    for i in range(n - 1):
+        a[i, i + 1] = a[i + 1, i] = -0.49
+    for i in range(n - 2):
+        a[i, i + 2] = a[i + 2, i] = -0.49
+    r, c = np.nonzero(a)
+    return CsrMatrix.from_matrix_market(tgen.from_coo_arrays(n, n, r, c,
+                                                             a[r, c]))
+
+
+@pytest.mark.parametrize("peer_fails", ["one_shift", "every_shift"])
+def test_shift_ladder_is_one_decision_for_the_job(peer_fails, monkeypatch):
+    """Rank 0 of a fake two-rank job factors its own blocks at shift 0;
+    its peer's blocks fail there (the played all-reduce says so), so
+    rank 0 climbs to the next shift with it, and where the peer fails
+    every shift rank 0 raises the same error it does, not waiting in a
+    collective the peer never reaches.  The envelope is the largest of
+    the two ranks'."""
+    from spmv_tpu_torch.parallel import comm, precond_shard
+
+    m = CsrMatrix.from_matrix_market(tgen.poisson2d(8, 8))
+    mesh = _fake(world=2, shards=2)
+    peer_envelope = (1000, 7, 3)
+    calls = []
+
+    def played(values, got_mesh):
+        assert got_mesh is mesh
+        values = [int(v) for v in values]
+        calls.append(values)
+        if len(values) == 3:                       # the envelope
+            return tuple(max(a, b) for a, b in zip(values, peer_envelope))
+        assert values[mesh.rank] == 0              # rank 0 factors
+        fails = peer_fails == "every_shift" or len(calls) == 1
+        return (0, int(fails))
+
+    monkeypatch.setattr(comm, "max_over_ranks", played)
+    shifts = (0.0, 0.01, 0.1)
+    if peer_fails == "every_shift":
+        with pytest.raises(MatrixError, match=r"rank\(s\) \[1\] broke down"):
+            precond_shard.block_jacobi_ic0(m, np.array([0, 32, 64]), 40,
+                                           shifts=shifts, mesh=mesh)
+        assert len(calls) == len(shifts)
+        return
+    M = precond_shard.block_jacobi_ic0(m, np.array([0, 32, 64]), 40,
+                                       shifts=shifts, mesh=mesh)
+    assert M.shift_used == 0.01
+    assert len(M.lower) == 1 and M.num_shards == 2
+    assert M.num_levels == 1000 and M.width >= 7 and M.max_deps >= 3
+    assert calls[:2] == [[0, 0], [0, 0]]
+
+
+EXAMPLE = os.path.join(REPO, "examples", "03_multichip_torch.py")
+EXAMPLE_S = 60
+# the JAX example's two lines
+EXAMPLE_LINES = (r"sharded CG over (\d+) devices: iters (\d+) rel_err \S+ "
+                 r"\(halo \d+ elems/step\)",
+                 r"block-Jacobi-IC\(0\) PCG: iters (\d+)")
+
+
+def _example(argv, env):
+    """The example's two lines' (P, CG, PCG) counts, run by ``argv``
+    within EXAMPLE_S (past it, the test fails)."""
+    import re
+
+    try:
+        r = subprocess.run(argv, cwd=REPO, env=env, capture_output=True,
+                           text=True, timeout=EXAMPLE_S)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"{argv} outlasted {EXAMPLE_S} s")
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 2, r.stdout
+    m0 = re.fullmatch(EXAMPLE_LINES[0], lines[0])
+    m1 = re.fullmatch(EXAMPLE_LINES[1], lines[1])
+    assert m0 and m1, lines
+    return int(m0[1]), int(m0[2]), int(m1[1])
+
+
+def test_example_runs_under_torchrun_as_in_one_process():
+    """``examples/03_multichip_torch.py`` under ``torchrun
+    --nproc-per-node 2`` on the CPU (Gloo): rank 0 prints the JAX
+    example's two lines, at the single-process run's iteration counts."""
+    import socket
+
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    env[DEVICE_ENV] = "cpu"
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "LOCAL_RANK"):
+        env.pop(name, None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    two = _example([sys.executable, "-m", "torch.distributed.run",
+                    "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+                    "--master-port", str(port), EXAMPLE], env)
+    one = _example([sys.executable, EXAMPLE], env)
+    assert two == one
+    assert one[0] == 4 and 0 < one[2] < one[1] < 500
