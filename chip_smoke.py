@@ -450,6 +450,29 @@ Phases (each prints readable lines; any failure exits non-zero):
    column (the analytic eigenvalues within 1e-6), and
    dryrun_multichip(4) over its two ranks (the same dict on both).  A
    child that fails or outlasts 420 s fails the run.
+34. The profiler capture, through the CLI's main in a child process
+   whose first captures they are, started before phase 31 (its
+   ``--matrix`` paths stand for host matrices: phase 3's
+   poisson2d(4096, 4096) DIA and phase 7's WELL-CW, pickled for it, and
+   poisson2d(1024, 1024) DIA, which it makes while phases 31-33 run;
+   it takes its captures when phase 34 starts): ``-s dia --profile 10
+   --jax-profile DIR --flush-caches`` at poisson2d(4096, 4096), and at poisson2d(1024, 1024) with and
+   without the flush (the runs' median wall and the timed runs' own K1
+   events printed), ``-s wellcw --profile 5 --jax-profile`` at phase
+   7's banded_random: each report's profiling_events without error, the
+   /device:GPU:0 plane's busy time between its longest event and the
+   sum of its events, no launch record without its device record
+   (``events_lost`` 0), K1's (and K3c's, K3b's and the CSR remainder's)
+   events exactly the launches the window made (its wrappers' counts),
+   the flush kernel once a timed run; K1's median event beside phase
+   5's time; ``--list-profile-events`` from a probe and from a capture
+   (a stream line whose events carry stats); K1's y bitwise equal with
+   and without a capture, and the chained K1 with and without one.
+   Then examples/01-02 on the card (and 02 on the CPU): 01's formats
+   and rel_err, 02's CG and IC(0)-PCG counts within 2 of the CPU run's,
+   its eigenvalues within 1e-5 of the analytic ones.  The examples start
+   after the captures, so the captured times have the card and the host
+   to themselves.
 
 ``python3 chip_smoke.py --wellcw-kernels-beside DIR`` runs phase 10
 alone (with phases 1-2 and the matrix) for the checkout at DIR, say a
@@ -498,8 +521,9 @@ the K1, K2, K3a-c, K4a-c, K5a/b, K7, CSR and tri_solve rows theirs on
 the distributed path (phases 32 and 33);
 and summaries of each path,
 `formats`, `amg`, `traffic_split`, `simulate`, `solvers`, `eigs`,
-`sharded`, with phase 31's under ``formats``, and `distributed` the
-last, with phase 33's under ``formats``)
+`sharded`, with phase 31's under ``formats``, `distributed`, with
+phase 33's under ``formats``, and `profile_capture` the last, phase
+34's)
 and nvidia-smi's
 ``name, power.limit``; the last line is the run's result.  Imports no JAX and nothing of the JAX
 package: the machine with the card need not have it.  Bounds take the
@@ -509,11 +533,13 @@ data sheet's 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bfloat16
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import io
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -7189,8 +7215,7 @@ def _dist_solvers(hosts, mesh, path, cases=("dia_halo", "csr_halo",
 
             def solve():
                 return batched_conjugate_gradient(
-                    mv, bs, tol=DIST_BCG_TOL, max_iterations=SHARD_CG_MAX,
-                    mesh=mesh)
+                    mv, bs, tol=DIST_BCG_TOL, max_iterations=SHARD_CG_MAX)
 
             def unstack(v):
                 return par.unstack_dia_matrix(v, A) - np.arange(
@@ -7214,8 +7239,7 @@ def _dist_solvers(hosts, mesh, path, cases=("dia_halo", "csr_halo",
 
             def solve():
                 return conjugate_gradient(mv, bs, tol=DIST_CG_TOL,
-                                          max_iterations=SHARD_CG_MAX,
-                                          mesh=mesh)
+                                          max_iterations=SHARD_CG_MAX)
         _dsync(mesh.device)
         t0 = time.perf_counter()
         r, _ = path.run(solve)
@@ -7280,34 +7304,50 @@ def _rank_env() -> dict:
     return env
 
 
-def _await(go: str) -> None:
-    """Wait for the parent's file ``go``; past DIST_CHILD_S, raise."""
-    deadline = time.monotonic() + DIST_CHILD_S
+def _await(go: str, limit: float = DIST_CHILD_S) -> None:
+    """Wait for the parent's file ``go``; past ``limit`` seconds, or once
+    the parent is gone, raise."""
+    deadline, parent = time.monotonic() + limit, os.getppid()
     while not os.path.exists(go):
-        if time.monotonic() > deadline:
+        if time.monotonic() > deadline or os.getppid() != parent:
             raise TimeoutError("no go from the parent")
         time.sleep(0.05)
 
 
+def _start_child(argv, out: str, err: str, env=None):
+    """``python argv`` from the repo's root over ``env`` (by default this
+    environment less torchrun's variables), its output to the files
+    ``out`` and ``err`` (a pipe left unread could stall it, and a peer
+    rank with it)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(out, "w") as o, open(err, "w") as e:
+        return subprocess.Popen([sys.executable, *argv], cwd=repo,
+                                env=_rank_env() if env is None else env,
+                                stdout=o, stderr=e)
+
+
+def _stop(proc) -> None:
+    """Kill ``proc`` if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 def _start_rank(child: str, store: str, rank: int, args):
     """A rank of a job: the script ``child`` on ``args``, its output to
-    files beside the job's store (a pipe left unread could stall a rank,
-    and its peer with it)."""
-    repo, env = os.path.dirname(os.path.abspath(__file__)), _rank_env()
-    with open(f"{store}.out{rank}", "w") as out, \
-            open(f"{store}.err{rank}", "w") as err:
-        return subprocess.Popen(
-            [sys.executable, "-c", child, *map(str, args)],
-            cwd=repo, env=env, stdout=out, stderr=err)
+    files beside the job's store."""
+    return _start_child(["-c", child, *map(str, args)],
+                        f"{store}.out{rank}", f"{store}.err{rank}")
 
 
-def _wait_child(proc, out, err, what, tag) -> str:
-    """A child's standard output; one that fails or outlasts DIST_CHILD_S
-    fails the run."""
+def _wait_child(proc, out, err, what, tag, limit=DIST_CHILD_S) -> str:
+    """A child's standard output; one that fails, or outlasts ``limit``
+    seconds (it is killed then), fails the run."""
     try:
-        proc.wait(timeout=DIST_CHILD_S)
+        proc.wait(timeout=limit)
     except subprocess.TimeoutExpired:
-        _fail(f"[{tag}] {what} outlasted {DIST_CHILD_S} s")
+        _stop(proc)
+        _fail(f"[{tag}] {what} outlasted {limit} s")
     if proc.returncode != 0:
         with open(err) as f:
             _fail(f"[{tag}] {what} exited {proc.returncode}: "
@@ -7744,8 +7784,7 @@ def _dist2_pcg(built, ic0, mesh, path, out) -> None:
     _solved(out, "block_ic0_pcg", path,
             lambda: preconditioned_conjugate_gradient(
                 mv, bs, par.make_sharded_block_ic0_preconditioner(M, mesh),
-                tol=SHARD_CG_TOL["float32"], max_iterations=SHARD_CG_MAX,
-                mesh=mesh),
+                tol=SHARD_CG_TOL["float32"], max_iterations=SHARD_CG_MAX),
             lambda x: par.unstack_vector(x, H), mesh.device)
 
 
@@ -7780,25 +7819,25 @@ def _dist2_small_solvers(m, mesh, path, out,
             m.num_rows), H, mesh)
         (lo, hi), _ = path.run(lambda: lanczos_bounds(
             mv, (DIST_P, H.rows_per_shard), num_steps=SHARD_LANCZOS_STEPS,
-            dtype=f64, v0=v0, mesh=mesh))
+            dtype=f64, v0=v0))
         _solved(out, "chebyshev", path, lambda: chebyshev(
             mv, bs, lo, hi, tol=tol, max_iterations=SHARD_CHEB_MAX,
-            check_every=SHARD_CHEB_CHECK, mesh=mesh), unstack, mesh.device)
+            check_every=SHARD_CHEB_CHECK), unstack, mesh.device)
         out["chebyshev"]["bounds"] = [lo, hi]
     if "gmres" in which:
         _solved(out, "gmres", path, lambda: gmres(
             mv, bs, pre, tol=tol, restart=DIST2_RESTART,
-            max_iterations=SHARD_CG_MAX, mesh=mesh), unstack, mesh.device)
+            max_iterations=SHARD_CG_MAX), unstack, mesh.device)
     for name, apply in (("bicgstab", None), ("bicgstab_ic0", pre)):
         if name in which:
             _solved(out, name, path, lambda: bicgstab(
-                mv, bs, apply, tol=tol, max_iterations=SHARD_CG_MAX,
-                mesh=mesh), unstack, mesh.device)
+                mv, bs, apply, tol=tol, max_iterations=SHARD_CG_MAX),
+                unstack, mesh.device)
 
 
 def _dist2_lobpcg(m, grid, mesh, path) -> dict:
     """LOBPCG float64 at poisson2d(grid²) ``m``, k = SHARD_EIG_K, tol
-    DIST2_EIG_TOL, on ``mesh`` with ``mesh=``: the padding rows masked,
+    DIST2_EIG_TOL, on ``mesh`` (the closure's): the padding rows masked,
     the block-IC(0) apply a column, X0 and P the rank's rows of global
     draws; eigenvalues against the analytic ones."""
     import torch
@@ -7822,7 +7861,7 @@ def _dist2_lobpcg(m, grid, mesh, path) -> dict:
             [apply(W[:, j].reshape(local, R)).reshape(-1)
              for j in range(k)], 1),
         tol=DIST2_EIG_TOL, max_iterations=SHARD_EIG_MAX,
-        mask=halo_shard.stacked_row_mask(H, mesh), mesh=mesh))
+        mask=halo_shard.stacked_row_mask(H, mesh)))
     _dsync(mesh.device)
     c = np.cos(np.arange(1, grid + 1) * np.pi / (grid + 1))
     want = np.sort((4.0 - 2.0 * c[:, None] - 2.0 * c[None]).ravel())[:k]
@@ -7901,24 +7940,32 @@ def _dist2_job(role, store, world, device, backend, go, bsr_dir) -> list:
             for r in range(world)]
 
 
-def _start_example(tmp):
+def _start_example(tmp, script, where="gpu", **env):
+    """``examples/<script>`` as a child (``_start_child``) with the repo on
+    its path and ``env`` over this environment less torchrun's
+    variables; ``where`` names the run.  Returns ``_wait_child``'s first
+    four arguments."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**_rank_env(), **env}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    stem = os.path.join(tmp, f"{script}.{where}")
+    proc = _start_child([os.path.join(repo, "examples", script)],
+                        stem + ".out", stem + ".err", env)
+    return proc, stem + ".out", stem + ".err", \
+        f"examples/{script} on the {where}"
+
+
+def _torchrun_example(tmp):
     """``examples/03_multichip_torch.py`` as a one-rank job over the
     environment torchrun would give it (NCCL on the card)."""
     import socket
 
-    repo = os.path.dirname(os.path.abspath(__file__))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    with open(os.path.join(tmp, "example.out"), "w") as out, \
-            open(os.path.join(tmp, "example.err"), "w") as err:
-        return subprocess.Popen(
-            [sys.executable, os.path.join(repo, "examples",
-                                          "03_multichip_torch.py")],
-            cwd=repo, env=env, stdout=out, stderr=err)
+    return _start_example(tmp, "03_multichip_torch.py", RANK="0",
+                          WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
 
 
 def _check_rows(tag, job, ranks, vrows, venv) -> dict:
@@ -8037,7 +8084,8 @@ def phase_distributed_formats(device, smi_line, bsr_host=None):
         for job in ("krylov", "eigen"):
             jobs[job] = _dist2_job(job, stores[job], DIST_WORLD, device,
                                    "gloo", "", bsr_dir)
-        jobs["example"] = [_start_example(tmp)]
+        example = _torchrun_example(tmp)
+        jobs["example"] = [example[0]]
         jobs["nccl"] = _dist2_job("products", stores["nccl"], 1, device,
                                   None, stores["nccl"] + ".go", bsr_dir)
         jobs["products"] = _dist2_job(
@@ -8076,11 +8124,7 @@ def phase_distributed_formats(device, smi_line, bsr_host=None):
         solvers = {job: _wait_job(jobs[job], stores[job],
                                   f"the Gloo {job} job", tag)
                    for job in ("krylov", "eigen")}
-        lines = _wait_child(jobs["example"][0],
-                            os.path.join(tmp, "example.out"),
-                            os.path.join(tmp, "example.err"),
-                            "examples/03_multichip_torch.py",
-                            tag).strip().splitlines()
+        lines = _wait_child(*example, tag).strip().splitlines()
         t_go = time.perf_counter() - t_phase
         with open(stores["nccl"] + ".go", "w"):
             pass
@@ -8165,6 +8209,426 @@ def phase_distributed_formats(device, smi_line, bsr_host=None):
             "virtual": vsolve, "rank_order": vorder, "example": lines,
             "shards": DIST_P, "seconds": secs, "card": smi_line,
             "note": DIST_GLOO_NOTE}
+
+
+# --------------------------------------------------------------- phase 34
+CAPTURE_RUNS = 10             # --profile N of the captured DIA runs
+CAPTURE_CW_RUNS = 5           # --profile N of the captured WELL-CW run
+CAPTURE_SMALL_GRID = CG_GRID  # poisson2d(1024²): K1's 21 MB fit the L2
+CAPTURE_CHAIN = (8, 136)      # time_kernel's chains, with and without
+CAPTURE_PLANE = "/device:GPU:0"
+CAPTURE_LINE = "stream "      # the device plane's lines: one a stream
+# substrings of the demangled kernel names in a capture
+CAPTURE_NAMES = {"dia_spmv": "dia_spmv_kernel",
+                 "wellcw_merged": "cw_merged_kernel",
+                 "wellcw_pool": "cw_pool_kernel",
+                 "csr_spmv": "csr_spmv_kernel"}
+FLUSH_NAMES = ("reduce_kernel", "sum_functor")   # the flusher's torch.sum
+EXAMPLE_WALL_S = 300          # each example's wall limit
+CAPTURE_CHILD_S = 300         # the captures' process's wall from its go
+CAPTURE_WAIT_S = 900          # its wait for the go, phases 31-33's walls
+EXAMPLE_RE = {
+    "01": r"(poisson 5-point|scattered banded)\s+-> (\S+)\s+(\S+) Gnnz/s"
+          r"  rel_err (\S+)",
+    "02": (r"CG        iters (\d+) rel_x (\S+)",
+           r"IC\(0\)-PCG iters (\d+) method (\S+)",
+           r"smallest eigenvalues \[([^\]]*)\]"),
+}
+EXAMPLE_FORMATS = {"poisson 5-point": "dia", "scattered banded": "well"}
+EXAMPLE_EIG_TOL = 1e-5        # against the analytic poisson2d(64²) spectrum
+EXAMPLE_REL_ERR = 1e-5        # example 01's float32 product vs fp64 host
+
+
+@contextlib.contextmanager
+def _premade(matrices):
+    """The CLI's ``--matrix`` paths named in ``matrices`` stand for those
+    host matrices: make_kernel is handed the matrix itself (a Matrix
+    Market file of poisson2d(4096²) would take minutes to write and
+    parse), as phase 28 hands its reader the generated matrix."""
+    from spmv_tpu_torch import kernels
+
+    make = kernels.make_kernel
+
+    def premade(name, matrix_path=None, **kw):
+        if matrix_path in matrices:
+            return make(name, matrix=matrices[matrix_path], **kw)
+        return make(name, matrix_path=matrix_path, **kw)
+
+    with _patched(kernels, "make_kernel", premade):
+        yield
+
+
+def _captured(tag, argv, wrappers):
+    """The CLI's report for ``argv`` (run in process) and each wrapper's
+    launches during it."""
+    from spmv_tpu_torch.cli import main
+
+    before = {k: w.launches for k, w in wrappers.items()}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    rc = main(argv, out=buf)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        _fail(f"[{tag}] CLI {' '.join(argv)} exited {rc}")
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    return json.loads(buf.getvalue()), launched, wall
+
+
+def _gpu_plane(tag, doc, directory, flush):
+    """The report's device plane, checked: no error, the flags as asked,
+    every event kind listed, busy time between the longest event and the
+    sum of the events."""
+    if doc["jax_profile_dir"] != directory or doc["flush_caches"] != flush:
+        _fail(f"[{tag}] jax_profile_dir {doc['jax_profile_dir']!r}, "
+              f"flush_caches {doc['flush_caches']}: asked {directory!r}, "
+              f"{flush}")
+    pe = doc["profiling_events"]
+    if not isinstance(pe, dict) or "error" in pe:
+        _fail(f"[{tag}] profiling_events: {pe}")
+    planes = {p["name"]: p for p in pe["planes"]}
+    if CAPTURE_PLANE not in planes:
+        _fail(f"[{tag}] no {CAPTURE_PLANE} plane in the capture: "
+              f"{sorted(planes)}")
+    gpu = planes[CAPTURE_PLANE]
+    if gpu["events_lost"]:
+        _fail(f"[{tag}] the capture lost {gpu['events_lost']} device "
+              "records (launch records without theirs)")
+    if gpu["events_dropped_below_top_k"]:
+        _fail(f"[{tag}] {gpu['events_dropped_below_top_k']} event kinds "
+              "past the report's top 25 on the device plane")
+    longest = max(e["duration_ns"]["max"] for e in gpu["events"])
+    total = sum(e["total_ns"] for e in gpu["events"])
+    if not longest * (1 - 1e-9) <= gpu["busy_ns"] <= total * (1 + 1e-9):
+        _fail(f"[{tag}] busy_ns {gpu['busy_ns']} outside [{longest}, "
+              f"{total}]")
+    return gpu
+
+
+def _named(gpu, *parts):
+    """The device plane's events whose names hold every one of parts."""
+    return [e for e in gpu["events"] if all(p in e["name"] for p in parts)]
+
+
+def _count(gpu, *parts) -> int:
+    return sum(e["count"] for e in _named(gpu, *parts))
+
+
+def _k1_capture(tag, path, d, flush, runs):
+    """``-s dia --profile runs --jax-profile d [--flush-caches]`` on the
+    premade ``path``: K1's events as many as its launches in the window,
+    the flush kernel once a timed run (none without the flag).  Returns
+    K1's event median (ns), the median of the timed runs' own K1 events
+    (ns: the flush precedes only those, not the warm-up nor
+    ``time_kernel``'s chains) and the runs' median wall (ns)."""
+    from spmv_tpu_torch.ops import dia_spmv_core
+    from spmv_tpu_torch.profile.capture import find_capture_file
+
+    argv = (["--matrix", path, "-s", "dia", "--profile", str(runs),
+             "--jax-profile", d] + (["--flush-caches"] if flush else []))
+    doc, launched, wall = _captured(tag, argv, {"dia_spmv": dia_spmv_core})
+    gpu = _gpu_plane(tag, doc, d, flush)
+    k1 = _named(gpu, CAPTURE_NAMES["dia_spmv"])
+    n_k1, n_flush = _count(gpu, CAPTURE_NAMES["dia_spmv"]), \
+        _count(gpu, *FLUSH_NAMES)
+    if len(k1) != 1 or n_k1 != launched["dia_spmv"]:
+        _fail(f"[{tag}] K1 in the capture: {n_k1} events "
+              f"({[e['name'][:60] for e in k1]}), launches in the window "
+              f"{launched['dia_spmv']}")
+    if n_flush != (runs if flush else 0):
+        _fail(f"[{tag}] the flush kernel ran {n_flush} times, not "
+              f"{runs if flush else 0}")
+    median = k1[0]["duration_ns"]["median"]
+    run_ns = doc["execution_time"]["median"]
+    with open(find_capture_file(d)) as f:
+        ordered = sorted((e for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel"
+                          and CAPTURE_NAMES["dia_spmv"] in e["name"]),
+                         key=lambda e: e["ts"])
+    timed = float(np.median([e["dur"] * 1e3 for e in ordered[1:1 + runs]]))
+    _say(f"[{tag}] -s dia --profile {runs}"
+         f"{' --flush-caches' if flush else ''} on {path}: "
+         f"{len(gpu['events'])} event "
+         f"kinds on {CAPTURE_PLANE}, busy {gpu['busy_ns'] / 1e6:.3f} ms; K1 "
+         f"{n_k1} events = {launched['dia_spmv']} launches, median "
+         f"{median / 1e3:.2f} us ({k1[0]['fraction_of_plane']:.3f} of the "
+         f"plane), the timed runs' {timed / 1e3:.2f} us; flush kernel "
+         f"{n_flush} events; median run {run_ns / 1e3:.2f} us wall; "
+         f"{wall:.1f} s")
+    return median, timed, run_ns
+
+
+def _example_lines(started, tag) -> list:
+    """The lines an example started by ``_start_example`` printed."""
+    lines = _wait_child(*started, tag, EXAMPLE_WALL_S).strip().splitlines()
+    for line in lines:
+        _say(f"[{tag}]   {started[3]}: {line}")
+    return lines
+
+
+def _check_examples(started, tag) -> dict:
+    """Example 01 on the card picks the JAX example's formats and its
+    product agrees with the fp64 host product; example 02 on the card
+    takes the CPU run's CG and IC(0)-PCG iterations within 2, and its
+    eigenvalues lie within EXAMPLE_EIG_TOL of the analytic ones."""
+    import re
+
+    lines = _example_lines(started["01"], tag)
+    one = [re.fullmatch(EXAMPLE_RE["01"], line) for line in lines]
+    if len(one) != 2 or not all(one):
+        _fail(f"[{tag}] example 01 printed {lines}")
+    res = {"01": {}}
+    for m in one:
+        name, fmt, rate, rel = m[1], m[2], float(m[3]), float(m[4])
+        if fmt != EXAMPLE_FORMATS[name] or not rel < EXAMPLE_REL_ERR:
+            _fail(f"[{tag}] example 01, {name}: format {fmt}, rel_err {rel}")
+        res["01"][name] = {"format": fmt, "gnnz_per_s": rate, "rel_err": rel}
+    two = {}
+    for where in ("gpu", "cpu"):
+        lines = _example_lines(started[f"02_{where}"], tag)
+        ms = [re.fullmatch(p, line)
+              for p, line in zip(EXAMPLE_RE["02"], lines)]
+        if len(lines) != 3 or not all(ms):
+            _fail(f"[{tag}] example 02 on the {where} printed {lines}")
+        two[where] = {"cg": int(ms[0][1]), "rel_x": float(ms[0][2]),
+                      "pcg": int(ms[1][1]), "method": ms[1][2],
+                      "eigenvalues": [float(v) for v in ms[2][1].split()]}
+    gpu, cpu = two["gpu"], two["cpu"]
+    want = _poisson_eigs(64, 4)
+    err = float(np.max(np.abs(np.array(gpu["eigenvalues"]) - want)))
+    if abs(gpu["cg"] - cpu["cg"]) > 2 or abs(gpu["pcg"] - cpu["pcg"]) > 2 \
+            or not err < EXAMPLE_EIG_TOL:
+        _fail(f"[{tag}] example 02: card {gpu}, CPU {cpu}, eigenvalues "
+              f"{err} from the analytic ones")
+    _say(f"[{tag}] example 02: CG {gpu['cg']} / IC(0)-PCG {gpu['pcg']} "
+         f"iterations on the card, {cpu['cg']} / {cpu['pcg']} on the CPU; "
+         f"eigenvalues within {err:.2e} of the analytic ones")
+    res["02"] = {**two, "eigenvalue_err": err}
+    return res
+
+
+# phase 34's captures in a process of their own: argv is its staging
+# directory, phase 5's K1 seconds and nvidia-smi's line
+_CAPTURE_CHILD = """
+import sys
+import chip_smoke as c
+sys.exit(c.capture_child(sys.argv[1], float(sys.argv[2]), sys.argv[3]))
+"""
+
+
+def stage_captures(full, cw, t_k1, smi_line):
+    """Start phase 34's captures' process ahead of phase 31, so that it
+    loads its host matrices while phases 31-33 run: phase 3's
+    poisson2d(4096²) DIA and phase 7's WELL-CW matrix, pickled into a
+    staging directory.  It takes its captures when phase 34 writes the
+    directory's go file.  Returns (directory, process)."""
+    stage = tempfile.mkdtemp(prefix="phase34_")
+    with open(os.path.join(stage, "matrices.pkl"), "wb") as f:
+        pickle.dump((full, cw), f, protocol=pickle.HIGHEST_PROTOCOL)
+    proc = _start_child(["-c", _CAPTURE_CHILD, stage, repr(t_k1), smi_line],
+                        os.path.join(stage, "out"),
+                        os.path.join(stage, "err"))
+    atexit.register(_stop, proc)
+    return stage, proc
+
+
+@_walled
+def phase_profile_capture(smi_line, staged):
+    """Phase 34: the profiler capture through the CLI (``--jax-profile``,
+    ``--flush-caches``, ``--list-profile-events``) in the process
+    ``stage_captures`` started, then examples 01-02 on the card.  Those
+    are its process's first captures: in this one, 13 minutes after its
+    first capture, a capture lost 40 of 83 K1 records (PERF.md §6)."""
+    from spmv_tpu_torch.models.device import DEVICE_ENV
+
+    tag = "34 capture"
+    t_phase = time.perf_counter()
+    stage, child = staged
+    tmp = tempfile.mkdtemp(prefix="phase34_examples_")
+    # the examples start once the captures are taken, so the captured
+    # times have the card and the host to themselves
+    started = {}
+    res = {"card": smi_line}
+    try:
+        with open(os.path.join(stage, "go"), "w"):
+            pass
+        for line in _wait_child(child, os.path.join(stage, "out"),
+                                os.path.join(stage, "err"),
+                                "the captures' process", tag,
+                                CAPTURE_CHILD_S).splitlines():
+            _say(line)
+        with open(os.path.join(stage, "capture.json")) as f:
+            res.update(json.load(f))
+        started.update({
+            "01": _start_example(tmp, "01_formats_and_spmv_torch.py"),
+            "02_gpu": _start_example(tmp, "02_solvers_torch.py"),
+            "02_cpu": _start_example(
+                tmp, "02_solvers_torch.py", "cpu",
+                **{DEVICE_ENV: "cpu", "CUDA_VISIBLE_DEVICES": ""})})
+        res["examples"] = _check_examples(started, tag)
+    finally:
+        for proc, *_ in started.values():
+            _stop(proc)
+    shutil.rmtree(tmp)
+    shutil.rmtree(stage)
+    res["seconds"] = time.perf_counter() - t_phase
+    _say(f"[{tag}] phase took {res['seconds']:.1f} s")
+    return res
+
+
+def capture_child(stage: str, t_k1: float, smi_line: str) -> int:
+    """Phase 34's legs in this process: its host matrices from the
+    staging directory, then at its go file the captures, their result as
+    JSON in the directory's ``capture.json``."""
+    from spmv_tpu_torch.io.generate import poisson2d
+    from spmv_tpu_torch.models import DiaMatrix
+    from spmv_tpu_torch.models.device import default_device
+
+    tag = "34 capture"
+    t0 = time.perf_counter()
+    with open(os.path.join(stage, "matrices.pkl"), "rb") as f:
+        full, cw = pickle.load(f)
+    small = DiaMatrix.from_matrix_market(
+        poisson2d(CAPTURE_SMALL_GRID, CAPTURE_SMALL_GRID))
+    _say(f"[{tag}] host matrices (phase 3's poisson2d({FULL_GRID}²) DIA "
+         f"and phase 7's WELL-CW loaded, poisson2d({CAPTURE_SMALL_GRID}²) "
+         f"DIA built) in {time.perf_counter() - t0:.1f} s, ahead of the go")
+    _await(os.path.join(stage, "go"), CAPTURE_WAIT_S)
+    tmp = tempfile.mkdtemp(prefix="phase34_legs_")
+    dirs = {k: os.path.join(tmp, k) for k in ("full", "warm", "flushed",
+                                              "wellcw", "y")}
+    res = _capture_legs(default_device(), smi_line, full, small, cw, t_k1,
+                        dirs, tag)
+    shutil.rmtree(tmp)
+    with open(os.path.join(stage, "capture.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _capture_legs(device, smi_line, full, small, cw, t_k1, dirs, tag):
+    """Phase 34's legs (a)-(e) on the card."""
+    import torch
+
+    from spmv_tpu_torch.cli import main
+    from spmv_tpu_torch.kernels import make_kernel
+    from spmv_tpu_torch.ops import (
+        csr_spmv_core,
+        dia_spmv,
+        wellcw_merged_core,
+        wellcw_pool_core,
+    )
+    from spmv_tpu_torch.profile import time_kernel
+    from spmv_tpu_torch.profile.capture import trace
+
+    big = f"poisson2d_{FULL_GRID}.mtx"
+    little = f"poisson2d_{CAPTURE_SMALL_GRID}.mtx"
+    bench = f"banded_random_{CW_FULL_ROWS}.mtx"
+    res = {}
+    with _premade({big: full, little: small, bench: cw}):
+        # (a) the full-size DIA profile, flushed and captured
+        median, timed, run_ns = _k1_capture(f"{tag} a", big, dirs["full"],
+                                            True, CAPTURE_RUNS)
+        _say(f"[{tag} a] K1 at poisson2d({FULL_GRID},{FULL_GRID}): median "
+             f"event {median / 1e6:.4f} ms in the capture, the timed runs' "
+             f"(L2 flushed before each) {timed / 1e6:.4f} ms, phase 5's "
+             f"chained {t_k1 * 1e3:.4f} ms, on {smi_line}")
+        res["full"] = {"k1_event_median_ms": median / 1e6,
+                       "k1_timed_runs_median_ms": timed / 1e6,
+                       "phase5_k1_ms": t_k1 * 1e3,
+                       "run_median_us": run_ns / 1e3}
+        # (b) where K1's 21 MB fit the L2: with and without the flush
+        res["small"] = {}
+        for key, flush in (("warm", False), ("flushed", True)):
+            median, timed, run_ns = _k1_capture(
+                f"{tag} b", little, dirs[key], flush, CAPTURE_RUNS)
+            res["small"][key] = {
+                "k1_event_median_ms": median / 1e6,
+                "k1_timed_runs_median_ms": timed / 1e6,
+                "run_median_us": run_ns / 1e3}
+        s = res["small"]
+        _say(f"[{tag} b] poisson2d({CAPTURE_SMALL_GRID},{CAPTURE_SMALL_GRID})"
+             f": median run {s['warm']['run_median_us']:.2f} us wall without "
+             f"--flush-caches, {s['flushed']['run_median_us']:.2f} us with; "
+             f"the timed runs' K1 events "
+             f"{s['warm']['k1_timed_runs_median_ms'] * 1e3:.2f} us and "
+             f"{s['flushed']['k1_timed_runs_median_ms'] * 1e3:.2f} us, on "
+             f"{smi_line}")
+        # (c) the WELL-CW step at the bench matrix: three launches a SpMV
+        cw_wrappers = {"wellcw_merged": wellcw_merged_core,
+                       "wellcw_pool": wellcw_pool_core,
+                       "csr_spmv": csr_spmv_core}
+        doc, launched, wall = _captured(
+            f"{tag} c", ["--matrix", bench, "-s", "wellcw", "--profile",
+                         str(CAPTURE_CW_RUNS), "--jax-profile",
+                         dirs["wellcw"]], cw_wrappers)
+        gpu = _gpu_plane(f"{tag} c", doc, dirs["wellcw"], False)
+        shares = {}
+        for name in cw_wrappers:
+            evs = _named(gpu, CAPTURE_NAMES[name])
+            n = sum(e["count"] for e in evs)
+            if len(evs) != 1 or n != launched[name]:
+                _fail(f"[{tag} c] {name}: {n} events "
+                      f"({[e['name'][:60] for e in evs]}), {launched[name]} "
+                      "launches in the window")
+            shares[name] = {"events": n,
+                            "fraction_of_plane": evs[0]["fraction_of_plane"],
+                            "median_ms": evs[0]["duration_ns"]["median"]
+                            / 1e6}
+        if len({v["events"] for v in shares.values()}) != 1:
+            _fail(f"[{tag} c] the three kernels' counts differ: {shares}")
+        _say(f"[{tag} c] -s wellcw --profile {CAPTURE_CW_RUNS} at "
+             f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8): "
+             + ", ".join(f"{k} {v['events']} events, median "
+                         f"{v['median_ms'] * 1e3:.2f} us, "
+                         f"{v['fraction_of_plane']:.3f} of the plane"
+                         for k, v in shares.items())
+             + f"; {wall:.1f} s, on {smi_line}")
+        res["wellcw"] = shares
+    # (d) the namespace, from a probe and from (a)'s capture
+    for label, argv in (("probe", ["--list-profile-events"]),
+                        ("capture", ["--list-profile-events", dirs["full"]])):
+        buf = io.StringIO()
+        if main(argv, out=buf) != 0:
+            _fail(f"[{tag} d] {' '.join(argv)} failed")
+        doc = json.loads(buf.getvalue())
+        planes = {p["plane"]: p for p in doc["planes"]}
+        lines = [ln for ln in planes.get(CAPTURE_PLANE, {}).get("lines", [])
+                 if ln["line"].startswith(CAPTURE_LINE) and ln["event_stats"]]
+        if set(doc) != {"capture", "planes", "derived_event_fields"} \
+                or not lines:
+            _fail(f"[{tag} d] {label}: keys {sorted(doc)}, planes "
+                  f"{sorted(planes)}, no stream line with stats")
+        _say(f"[{tag} d] --list-profile-events ({label}): planes "
+             f"{sorted(planes)}; {lines[0]['line']}: "
+             f"{lines[0]['num_events']} events, stats "
+             f"{[s['name'] for s in lines[0]['event_stats']]}")
+    # (e) K1's y with and without the capture; the capture's overhead
+    kernel = make_kernel("dia", matrix=full, device=device,
+                         dtype=torch.float32)
+    kernel.init()
+    step, args = kernel.run_fn()
+    A = args[1]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        A.num_columns).astype(np.float32)).to(device)
+    y0 = dia_spmv(A, x)
+    k_small, k_large = CAPTURE_CHAIN
+    plain = time_kernel(step, args, k_small=k_small, k_large=k_large,
+                        runs=6).seconds_per_iteration
+    with trace(dirs["y"], device):
+        y1 = dia_spmv(A, x)
+        traced = time_kernel(step, args, k_small=k_small, k_large=k_large,
+                             runs=6).seconds_per_iteration
+    same = bool(torch.equal(y0, y1))
+    _say(f"[{tag} e] K1's y with and without the capture bitwise equal: "
+         f"{'yes' if same else 'no'}; chained {plain * 1e3:.4f} ms a SpMV "
+         f"without the capture, {traced * 1e3:.4f} ms inside it "
+         f"({traced / plain:.3f}x), on {smi_line}")
+    if not same:
+        _fail(f"[{tag} e] K1's y differs under the capture")
+    res["overhead"] = {"chained_ms": plain * 1e3,
+                       "chained_ms_captured": traced * 1e3}
+    del kernel, step, args, A, x, y0, y1
+    _sync(device)
+    return res
 
 
 def _tri_row(solvers) -> dict:
@@ -8486,6 +8950,8 @@ def main() -> int:
     sharded = phase_sharded(device, smi_line, full, hybrid_mm)
     del hybrid_mm
     _sync(device)
+    staged = stage_captures(full, cw, times[("spmv", "float32")][0],
+                            smi_line)
     formats = phase_sharded_formats(
         device, smi_line, full, well_seg_full, cw_mm, cw, bsr_host)
     del well_seg_full, cw_mm, cw
@@ -8503,6 +8969,8 @@ def main() -> int:
         distributed["launches"][name] = \
             distributed["launches"].get(name, 0) + n
     distributed["formats"] = dist_formats
+    _sync(device)
+    capture = phase_profile_capture(smi_line, staged)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cw_shape = (f"banded_random({CW_FULL_ROWS}, {CW_FULL_HALF_BW}, 8) "
@@ -8656,7 +9124,8 @@ def main() -> int:
             "plan_line", "seconds")},
         "eigs": eigs,
         "sharded": sharded,
-        "distributed": distributed}
+        "distributed": distributed,
+        "profile_capture": capture}
     for row in summary["kernels"]:
         # K7a and K7b are one kernel on the card (bsr_spmm_core): its rows
         # both carry the wrapper's count

@@ -21,7 +21,10 @@ runs the modes ported so far, printing the same JSON documents:
         [--which smallest|largest] [--eigs-tol 1e-6] [--eigs-maxiter 200] \
         [--precondition none|jacobi|amg]
     python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --scaling 4
+    python -m spmv_tpu_torch --matrix A.mtx --spmv-format FMT --profile 10 \
+        [--flush-caches] [--jax-profile DIR]
     python -m spmv_tpu_torch --triad 100000000 --profile 5
+    python -m spmv_tpu_torch --list-profile-events [DIR]
     python -m spmv_tpu_torch --list-devices
 
 with FMT any of ``-s``'s values: the reference tool's formats ``csr``
@@ -35,11 +38,9 @@ rows numbered color by color, which collapses an incomplete factor's
 triangular-solve levels to the colors); ``-s auto`` picks the format as
 the JAX CLI does (``auto_format``, the ``spmm`` workload when ``--spmm``
 is given, which lets a block-structured matrix pick BSR) and refuses
-``--reorder``.  Every other mode or flag (``--jax-profile``,
-``--list-profile-events``, ``--flush-caches``) prints
-``spmv-tpu-torch: ... not yet ported`` and exits 1.  The
-device is the first CUDA device; without one the CLI exits 1, unless
-``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as the tests do).
+``--reorder``.  The device is the first CUDA device; without one the
+CLI exits 1, unless ``SPMV_TPU_TORCH_DEVICE=cpu`` asks for the CPU (as
+the tests do).
 ``--list-devices`` lists the CPU when there is no card.
 
 ``--profile N --traffic-split`` also times the stream-only and
@@ -51,6 +52,16 @@ each leg priced at the port's measured triad rate.  As in the JAX CLI it
 refuses ``--spmm`` and a kernel with no matrix (``--triad``), and ``-s
 dia``, ``wellcw`` and ``bsr`` (also as ``-s auto``'s choice) exit 1 with
 the variants' ``KernelError``.
+
+In profile mode ``--flush-caches`` sweeps 64 MB through the caches
+before every timed run (``profile.harness.cache_flusher``, a read past
+the H100's 50 MB L2), and ``--jax-profile DIR`` captures the runs with
+``torch.profiler`` into ``DIR/*.pt.trace.json`` (``profile.capture``),
+whose kernels, memcpys and memsets fill the report's
+``"profiling_events"``; the flag keeps the JAX CLI's name, and both are
+ignored in the other modes, as there.  ``--list-profile-events [DIR]``
+lists a capture's planes, lines and event args, or those of a DIA SpMV
+it profiles first on the device when DIR is omitted.
 
 ``--profile 0`` (the default) is the simulation mode, as in the JAX CLI:
 the kernel's per-thread memory reference strings (the format's
@@ -134,6 +145,7 @@ iteration first keeps the kernel builds out of ``seconds``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -295,25 +307,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(what: str):
-    raise KernelError(f"{what} is not yet ported to spmv_tpu_torch; see "
-                      "ROADMAP.md")
-
-
-def _check_ported(args) -> None:
-    """Refuse, by name, every flag of the shared parser whose mode the
-    port does not have yet."""
-    if args.list_devices:
-        return
-    for flag, on in (
-        ("--list-profile-events", args.list_profile_events is not None),
-        ("--jax-profile", args.jax_profile is not None),
-        ("--flush-caches", args.flush_caches),
-    ):
-        if on:
-            _not_ported(flag)
-
-
 def _make_kernel(args, device, dtype):
     """The kernel of the flags, and with ``-s auto`` the Matrix Market
     entries its matrix was chosen and converted from (else None; with
@@ -393,8 +386,10 @@ def _list_devices(out) -> None:
         "nvcc_version": nvcc,
         "default_backend": "gpu" if dev.type == "cuda" else "cpu",
         "profiler_capabilities": {
-            "trace_capture": False,
-            "xplane_parsing": False,
+            # torch.profiler's capture, read by profile.capture (the key
+            # keeps the JAX CLI's name)
+            "trace_capture": True,
+            "xplane_parsing": True,
             "per_kernel_device_time": dev.type == "cuda",  # CUDA events
             "hardware_counters": False,
         },
@@ -472,10 +467,12 @@ def _profile(args, out, device, dtype) -> None:
     from spmv_tpu_torch.utils.jsonio import dump_json
     from spmv_tpu_torch.perfmodel import measured_machine
     from spmv_tpu_torch.profile import (
+        cache_flusher,
         profile_kernel_fn,
         profiling_report,
         time_kernel,
     )
+    from spmv_tpu_torch.profile.capture import trace
 
     kernel, _ = _make_kernel(args, device, dtype)
     kernel.init(verbose=args.verbose)
@@ -496,11 +493,15 @@ def _profile(args, out, device, dtype) -> None:
         mode = f"spmm k={args.spmm}" if args.spmm > 0 else "spmv"
         print(f"profiling {kernel.name} ({mode}) for {args.profile} runs "
               f"on {device}", file=sys.stderr)
+    flusher = cache_flusher(device) if args.flush_caches else None
+    trace_ctx = (trace(args.jax_profile, device) if args.jax_profile
+                 else contextlib.nullcontext())
     warmup = (args.warmup if args.warmup is not None
               else args.profile > 1)
-    runs = profile_kernel_fn(step, fargs, runs=args.profile,
-                             warmup=warmup)
-    chained = time_kernel(step, fargs)
+    with trace_ctx:
+        runs = profile_kernel_fn(step, fargs, runs=args.profile,
+                                 warmup=warmup, between_runs=flusher)
+        chained = time_kernel(step, fargs)
     config = None
     if args.trace_config:
         from spmv_tpu_torch.perfmodel.trace_config import read_trace_config
@@ -523,7 +524,9 @@ def _profile(args, out, device, dtype) -> None:
         warmup=warmup,
         machine=measured_machine(device),
         device=device,
+        flush_caches=args.flush_caches,
         trace_config=config,
+        jax_profile_dir=args.jax_profile,
         op_info=op_info,
         flops_per_run=flops_override,
         bytes_per_run=bytes_override,
@@ -954,7 +957,6 @@ def main(argv=None, out=None) -> int:
     args = build_parser().parse_args(argv)
     out = out or sys.stdout
     try:
-        _check_ported(args)
         from spmv_tpu_torch.models.device import (
             default_device,
             default_value_dtype,
@@ -962,6 +964,13 @@ def main(argv=None, out=None) -> int:
 
         if args.list_devices:
             _list_devices(out)
+            return 0
+        if args.list_profile_events is not None:
+            from spmv_tpu_torch.profile import list_profile_events
+            from spmv_tpu_torch.utils.jsonio import dump_json
+
+            dump_json(list_profile_events(args.list_profile_events or None),
+                      out)
             return 0
         device = default_device()
         dtype = default_value_dtype()

@@ -32,7 +32,7 @@ Where it differs from the JAX function:
   ``torch.Generator`` seeded 0 when None) on X0's device, or from
   ``P0``, which lets the tests pass JAX's own draw.
 
-Over a process mesh (``mesh=``, as the CG solvers take it) a rank holds
+Over a process mesh (the closure's, as the CG solvers take it) a rank holds
 its shards' rows of every (n, k) block.  The Gram products and every
 per-column dot are summed over the ranks (``ops.solvers._reduce``), so
 the Rayleigh-Ritz step, the dropped Gram directions and the stopping

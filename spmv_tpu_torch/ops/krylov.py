@@ -30,7 +30,7 @@ iteration counts compare one to one:
 Every dot runs over every element (``ops.solvers._vdot``, JAX's
 ``vdot``) and the basis products over the flattened vectors, so the
 sharded paths' stacked (P, R) vectors go through as 1-D ones do, whose
-results keep their bits.  Over a process mesh (``mesh=``, as the CG
+results keep their bits.  Over a process mesh (the closure's, as the CG
 solvers take it) a rank holds its shards' rows: every dot and every
 basis product is summed over the ranks (``ops.solvers._reduce``), so
 the small host algebra (Hessenberg, rotations, tridiagonal) runs on the

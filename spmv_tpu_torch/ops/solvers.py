@@ -12,14 +12,14 @@ one to one with the JAX solvers.  As there, the dots run over every
 element (``jnp.vdot``), so a matvec over the sharded paths' stacked
 (P, R) vectors (``parallel``) runs unchanged.  Over a process mesh
 (``parallel.global_mesh``) a rank holds only its shards' rows: every
-solver then takes ``mesh=``, reduces each dot locally and sums it over
-the ranks (``parallel.comm.all_reduce_sum``), where JAX gets its
-``psum`` from global arrays; without it, or on a single-process mesh,
-every call keeps its bits.  The all-reduce leaves the same value on
-every rank, so every branch on a dot (the stopping rule, a breakdown)
-goes the same way on every rank.  A sharded closure over a process mesh
-carries it (``matvec.mesh``), and a solver refuses one that it is not
-given.
+solver then reduces each dot locally and sums it over the ranks
+(``parallel.comm.all_reduce_sum``), where JAX gets its ``psum`` from
+global arrays; without a process mesh every call keeps its bits.  The
+mesh is the one the sharded closure carries (``matvec.mesh``), or
+``mesh=`` for a closure that carries none; a ``mesh=`` that differs from
+the closure's raises.  The all-reduce leaves the same value on every
+rank, so every branch on a dot (the stopping rule, a breakdown) goes the
+same way on every rank.
 """
 
 from __future__ import annotations
@@ -70,17 +70,19 @@ def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _solver_mesh(fn, mesh, what: str):
-    """The mesh ``what`` reduces its dots over: ``mesh``, which must be
-    the process mesh a sharded closure ``fn`` runs on, if it runs on
-    one."""
+    """The mesh ``what`` reduces its dots over: the one the sharded
+    closure ``fn`` carries (``fn.mesh``), else ``mesh``.  A ``mesh``
+    passed beside a closure that carries another raises."""
     held = getattr(fn, "mesh", None)
-    if held is not None and held.group is not None and mesh != held:
+    if held is None:
+        return mesh
+    if mesh is not None and mesh != held:
         from spmv_tpu_torch.parallel.mesh import MeshError
 
         raise MeshError(
-            f"{what} over a closure on a process mesh reduces its dots "
-            "across the ranks: pass the closure's mesh as mesh=")
-    return mesh
+            f"{what} was passed mesh= other than the mesh its closure runs "
+            "on; drop mesh=, the closure's is the one its dots reduce over")
+    return held
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:

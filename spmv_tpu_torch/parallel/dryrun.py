@@ -154,7 +154,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     y_err = _check("CSR SpMV", _rel(unstack_vector(matvec(bs), A),
                                     host.spmv(b)))
     res = conjugate_gradient(matvec, bs, tol=TOL,
-                             max_iterations=MAX_ITERATIONS, mesh=mesh)
+                             max_iterations=MAX_ITERATIONS)
     out["csr_all_gather"] = {**solved("CG", res, unstack_vector(res.x, A)),
                              "spmv_rel_err": y_err}
 
@@ -163,14 +163,14 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     Ad = shard_dia(dia, n_shards, mesh=mesh)
     res = conjugate_gradient(make_sharded_dia_matvec(Ad, mesh),
                              stack_dia_vector(b, Ad), tol=TOL,
-                             max_iterations=MAX_ITERATIONS, mesh=mesh)
+                             max_iterations=MAX_ITERATIONS)
     out["dia_halo"] = solved("DIA CG", res, unstack_dia_vector(res.x, Ad))
 
     # 3: CSR, ragged halo exchange
     Ah = shard_csr_halo(host, n_shards, partition="nnz", mesh=mesh)
     matvec_h = make_sharded_halo_matvec(Ah, mesh)
     res = conjugate_gradient(matvec_h, bs, tol=TOL,
-                             max_iterations=MAX_ITERATIONS, mesh=mesh)
+                             max_iterations=MAX_ITERATIONS)
     out["csr_halo"] = {**solved("halo-CSR CG", res,
                                 unstack_vector(res.x, Ah)),
                        "exchange": Ah.exchange,
@@ -217,10 +217,9 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     # 7: Chebyshev over the halo CSR matvec, no reduction in its loop
     v0 = stack_vector(rng.standard_normal(mm.num_rows), A, mesh=mesh)
     lo, hi = lanczos_bounds(matvec_h, (n_shards,) + tuple(bs.shape[1:]),
-                            num_steps=30, dtype=bs.dtype, v0=v0, device=dev,
-                            mesh=mesh)
+                            num_steps=30, dtype=bs.dtype, v0=v0, device=dev)
     res = chebyshev(matvec_h, bs, lo, hi, tol=TOL, max_iterations=2000,
-                    check_every=10, mesh=mesh)
+                    check_every=10)
     out["chebyshev"] = solved("Chebyshev", res, unstack_vector(res.x, A))
 
     # 8: Jacobi-PCG over the halo CSR matvec; the stacked diagonal's
@@ -228,8 +227,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     diag_s = stack_vector(extract_diagonal(host), A, mesh=mesh)
     res = preconditioned_conjugate_gradient(
         matvec_h, bs, jacobi_preconditioner(diag_s), tol=TOL,
-        max_iterations=MAX_ITERATIONS, recompute_every=RECOMPUTE_EVERY,
-        mesh=mesh)
+        max_iterations=MAX_ITERATIONS, recompute_every=RECOMPUTE_EVERY)
     out["jacobi_pcg"] = solved("Jacobi-PCG", res, unstack_vector(res.x, A))
 
     # 9: batched CG over the DIA matmat, k = 2
@@ -237,7 +235,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     B = np.stack([dia.spmv(X[:, j]) for j in range(K_RHS)], axis=1)
     res = batched_conjugate_gradient(make_sharded_dia_matmat(Ad, mesh),
                                      stack_dia_matrix(B, Ad), tol=TOL,
-                                     max_iterations=MAX_ITERATIONS, mesh=mesh)
+                                     max_iterations=MAX_ITERATIONS)
     out["batched_dia_halo"] = {
         "iterations": [int(i) for i in res.iterations], "k": K_RHS,
         "rel_err": _check("batched CG", _rel(unstack_dia_matrix(res.x, Ad),
@@ -248,7 +246,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
     res = preconditioned_conjugate_gradient(
         matvec_h, bs, make_sharded_block_ic0_preconditioner(Mb, mesh),
         tol=TOL, max_iterations=MAX_ITERATIONS,
-        recompute_every=RECOMPUTE_EVERY, mesh=mesh)
+        recompute_every=RECOMPUTE_EVERY)
     out["block_ic0_pcg"] = {**solved("block-Jacobi-IC0 PCG", res,
                                      unstack_vector(res.x, Ah)),
                             "shift_used": Mb.shift_used}
@@ -259,7 +257,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
                      mesh=mesh)
     res = lobpcg(make_sharded_halo_flat_matmat(Ah, mesh),
                  X0.reshape(-1, K_EIG), tol=TOL, max_iterations=300,
-                 mask=stacked_row_mask(Ah, mesh), mesh=mesh)
+                 mask=stacked_row_mask(Ah, mesh))
     want = _poisson_eigs(8, 2 * n_shards, K_EIG)
     got = res.eigenvalues.double().cpu().numpy()
     out["lobpcg"] = {

@@ -13,13 +13,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from spmv_tpu_torch.utils.sample import Sample, compute_sample
 
-__all__ = ["time_kernel", "profile_kernel_fn", "KernelTiming"]
+__all__ = ["time_kernel", "profile_kernel_fn", "KernelTiming",
+           "cache_flusher"]
 
 
 @dataclasses.dataclass
@@ -107,9 +108,13 @@ def profile_kernel_fn(
     args: tuple,
     runs: int = 10,
     warmup: bool = True,
+    between_runs: Optional[Callable[[], object]] = None,
 ) -> Sample:
     """Wall time of ``runs`` whole calls ``fn(*args)``, each synchronised
-    (the reference tool's one-timed-run-per-sample profile)."""
+    (the reference tool's one-timed-run-per-sample profile).
+    ``between_runs()``, when given, runs before every timed call and
+    outside its time: the reference's cache flushing between profiled
+    runs (profile-kernel.cpp:181-192)."""
     device = args[0].device
 
     def once():
@@ -121,5 +126,24 @@ def profile_kernel_fn(
 
     if warmup:
         once()
-    times = [once() for _ in range(runs)]
+    times = []
+    for _ in range(runs):
+        if between_runs is not None:
+            between_runs()
+        times.append(once())
     return compute_sample(times, unit="s")
+
+
+def cache_flusher(device, nbytes: int = 64 << 20) -> Callable[[], None]:
+    """A callable that sweeps ``nbytes`` through the device's caches: a
+    ``torch.sum`` over a buffer allocated once, as the JAX CLI's scrub
+    reads its sweep (spmv_tpu/cli.py:890-897).  It only reads, so it
+    leaves no dirty line for the timed run to write back.  The default
+    64 MB exceeds the H100's 50 MB L2."""
+    sweep = torch.ones(nbytes // 4, dtype=torch.float32,
+                       device=torch.device(device))
+
+    def flush() -> None:
+        torch.sum(sweep)
+
+    return flush

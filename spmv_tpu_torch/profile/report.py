@@ -1,8 +1,5 @@
 """Profiling report: the same JSON document as
 ``spmv_tpu/profile/report.py``, priced on the port's machine model.
-
-``profiling_events`` is None: the JAX package fills it from a TPU xplane
-capture, which has no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -12,6 +9,7 @@ from typing import Optional
 import torch
 
 from spmv_tpu_torch.perfmodel.tiling import roofline_time
+from spmv_tpu_torch.profile.capture import profiling_events_section
 from spmv_tpu_torch.utils.sample import Sample, compute_sample
 
 __all__ = ["profiling_report", "device_info"]
@@ -34,7 +32,9 @@ def profiling_report(
     warmup: bool,
     machine,
     device,
+    flush_caches: bool = False,
     trace_config=None,
+    jax_profile_dir: Optional[str] = None,
     op_info: Optional[dict] = None,
     flops_per_run: Optional[int] = None,
     bytes_per_run: Optional[int] = None,
@@ -43,7 +43,9 @@ def profiling_report(
 
     ``kernel`` is a ``spmv_tpu_torch.kernels`` kernel; ``machine`` the
     port's machine model (``spmv_tpu_torch.perfmodel.measured_machine``)
-    and is required: no TPU model stands in for it.
+    and is required: no TPU model stands in for it.  ``jax_profile_dir``
+    is the directory of a ``profile.capture.trace`` of the runs, whose
+    summary fills ``profiling_events``.
     """
     flops = (flops_per_run if flops_per_run is not None
              else kernel.flops_per_run())
@@ -65,13 +67,14 @@ def profiling_report(
         ),
         "kernel": kernel.describe(),
         "warmup": bool(warmup),
-        # cache flushing between runs is not ported (the CLI refuses
-        # --flush-caches); the key stays so the document matches the JAX CLI's
-        "flush_caches": False,
+        "flush_caches": bool(flush_caches),
         "runs": num_runs,
         "device": device_info(device),
-        "jax_profile_dir": None,
-        "profiling_events": None,
+        "jax_profile_dir": jax_profile_dir,
+        # the device's events from the capture: the reference's
+        # profiling_events section (profile-kernel.cpp:376-391) with
+        # kernels in place of perf counter groups; None without one
+        "profiling_events": profiling_events_section(jax_profile_dir),
         # wall times of the N whole runs in nanoseconds, the reference
         # tool's unit; the chained estimate below is the device time
         "execution_time": compute_sample(

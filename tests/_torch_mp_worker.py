@@ -194,7 +194,7 @@ def run_case(case, mesh) -> dict:
         Bs = (par.stack_dia_matrix(B, A) if path == "dia"
               else stack(B).transpose(1, 2).contiguous())
         res = ops.batched_conjugate_gradient(
-            matmat, Bs, tol=TOL, max_iterations=MAX_ITERATIONS, mesh=mesh)
+            matmat, Bs, tol=TOL, max_iterations=MAX_ITERATIONS)
         full = (par.unstack_dia_matrix(res.x, A) if path == "dia"
                 else unstack(res.x.transpose(1, 2)))
         return {"rows": res.x.numpy(), "full": full,
@@ -204,11 +204,10 @@ def run_case(case, mesh) -> dict:
         diag = stack(ops.extract_diagonal(m))
         res = ops.preconditioned_conjugate_gradient(
             matvec, bs, ops.jacobi_preconditioner(diag), tol=TOL,
-            max_iterations=MAX_ITERATIONS, mesh=mesh)
+            max_iterations=MAX_ITERATIONS)
     else:
         res = ops.conjugate_gradient(matvec, bs, tol=TOL,
-                                     max_iterations=MAX_ITERATIONS,
-                                     mesh=mesh)
+                                     max_iterations=MAX_ITERATIONS)
     return {"rows": res.x.numpy(), "full": unstack(res.x),
             "iterations": int(res.iterations)}
 
@@ -303,7 +302,7 @@ def run_format_case(case, mesh, p0=None) -> dict:
             pk = torch.from_numpy(p0[here.start * R: here.stop * R])
         res = ops.lobpcg(halo_shard.make_sharded_halo_flat_matmat(A, mesh),
                          X0.reshape(-1, k), tol=EIG_TOL,
-                         max_iterations=EIG_MAX, mesh=mesh,
+                         max_iterations=EIG_MAX,
                          mask=halo_shard.stacked_row_mask(A, mesh), P0=pk)
         return {"rows": res.eigenvectors.numpy(),
                 "full": res.eigenvalues.numpy(), "input": X0.numpy(),
@@ -311,7 +310,7 @@ def run_format_case(case, mesh, p0=None) -> dict:
     if kind == "lanczos":
         lo, hi = ops.lanczos_bounds(mv, (P, A.rows_per_shard),
                                     num_steps=LANCZOS_STEPS,
-                                    dtype=torch.float64, mesh=mesh)
+                                    dtype=torch.float64)
         env["bounds"] = [lo, hi]
         return {"rows": np.zeros(0), "full": np.array([lo, hi]),
                 "input": np.zeros(0), "iterations": None, "envelope": env}
@@ -319,23 +318,22 @@ def run_format_case(case, mesh, p0=None) -> dict:
     if kind == "ic0_pcg":
         res = ops.preconditioned_conjugate_gradient(
             mv, bs, par.make_sharded_block_ic0_preconditioner(M, mesh),
-            tol=SOLVER_TOL, max_iterations=2000, mesh=mesh)
+            tol=SOLVER_TOL, max_iterations=2000)
     elif kind == "chebyshev":
         v0 = par.stack_vector(rng.standard_normal(n), A, mesh)
         lo, hi = ops.lanczos_bounds(mv, (P, A.rows_per_shard),
                                     num_steps=LANCZOS_STEPS,
-                                    dtype=torch.float64, v0=v0, mesh=mesh)
+                                    dtype=torch.float64, v0=v0)
         env["bounds"] = [lo, hi]
         res = ops.chebyshev(mv, bs, lo, hi, tol=SOLVER_TOL,
-                            max_iterations=3000, check_every=10, mesh=mesh)
+                            max_iterations=3000, check_every=10)
     elif kind == "gmres":
         res = ops.gmres(mv, bs, tol=SOLVER_TOL, restart=8,
-                        max_iterations=500, mesh=mesh)
+                        max_iterations=500)
     else:
         pre = (par.make_sharded_block_ic0_preconditioner(M, mesh)
                if kind == "bicgstab_ic0" else None)
-        res = ops.bicgstab(mv, bs, pre, tol=SOLVER_TOL, max_iterations=500,
-                           mesh=mesh)
+        res = ops.bicgstab(mv, bs, pre, tol=SOLVER_TOL, max_iterations=500)
     return {"rows": res.x.numpy(), "full": par.unstack_vector(res.x, A),
             "input": bs.numpy(), "iterations": int(res.iterations),
             "envelope": env}

@@ -3,7 +3,8 @@
 Each ported mode prints a document with the JAX CLI's top-level keys
 for the same flags; simulation mode and ``--traffic-split`` exit as the
 JAX CLI does (``--scaling`` too, with its ICI-named keys renamed);
-every unported mode exits 1 with "not yet ported";
+``--flush-caches``, ``--jax-profile`` and ``--list-profile-events`` run
+beside the JAX CLI with its report's keys and values;
 importing the port and running its CPU paths never loads JAX nor any
 module of the JAX package (checked in a subprocess, since this test
 process already imported both, and by a scan of the port's imports);
@@ -101,6 +102,9 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
         assert set(doc) - {"torch_version", "nvcc_version"} == \
             set(want) - {"jax_version"}
         assert doc["machine_models"][0]["hbm_gbps"] > 0
+        caps = doc["profiler_capabilities"]
+        assert set(caps) == set(want["profiler_capabilities"])
+        assert caps["trace_capture"] is caps["xplane_parsing"] is True
         return
     assert set(doc) == set(want)
     for sub in ("cg", "achieved", "roofline", "device"):
@@ -117,7 +121,12 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
         assert doc["kernel"] == want["kernel"]
 
 
-@pytest.mark.parametrize("argv", [
+# --jax-profile, --flush-caches and --list-profile-events are ported:
+# these cases stood in test_unported_modes_exit_1 and keep their argv and
+# ids here, each run beside the JAX CLI in a directory of its own (the
+# captures go to its "d").  In --cg mode both CLIs ignore --flush-caches;
+# --list-profile-events takes precedence over --cg in both.
+PROFILE_CASES = [
     ["--spmv-format", "ell", "--profile", "2", "--flush-caches"],
     ["--spmv-format", "coo-atomic", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--cg", "10", "--list-profile-events"],
@@ -125,11 +134,58 @@ def test_report_keys_match_jax_cli(mode, matrix_file):
      "--flush-caches"],
     ["--spmv-format", "dia", "--profile", "2", "--jax-profile", "d"],
     ["--spmv-format", "dia", "--profile", "2", "--flush-caches"],
-], ids=lambda a: "_".join(a).replace("-", "") or "simulate")
-def test_unported_modes_exit_1(argv, matrix_file, capsys):
-    rc, text = _run(main, ["--matrix", matrix_file] + argv)
-    assert rc == 1 and text == ""
-    assert "not yet ported" in capsys.readouterr().err
+]
+
+
+def _event_keys(section) -> set:
+    """The keys every event of the profiling_events block carries."""
+    keys = {frozenset(e) - {"bytes_accessed", "total_bytes",
+                            "achieved_gb_per_s", "counter_stats"}
+            for p in section["planes"] for e in p["events"]}
+    assert len(keys) == 1, keys
+    return set(keys.pop())
+
+
+@pytest.mark.parametrize("argv", PROFILE_CASES,
+                         ids=lambda a: "_".join(a).replace("-", "") or
+                         "simulate")
+def test_profile_flags_run_as_jax_cli(argv, matrix_file, tmp_path,
+                                      monkeypatch, capsys):
+    argv = ["--matrix", matrix_file] + argv
+    docs = {}
+    for name, fn in (("torch", main), ("jax", jax_main)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        rc, text = _run(fn, argv)
+        assert rc == 0, name
+        docs[name] = json.loads(text)
+    assert "not yet ported" not in capsys.readouterr().err
+    doc, want = docs["torch"], docs["jax"]
+    assert set(doc) == set(want)
+    if "--list-profile-events" in argv:
+        assert set(doc) == {"capture", "planes", "derived_event_fields"}
+        assert doc["planes"] and os.path.isfile(doc["capture"])
+        for p in doc["planes"]:
+            assert set(p) == {"plane", "lines"}
+        return
+    if "--cg" in argv:
+        assert set(doc) == {"kernel", "cg"} and set(doc["cg"]) == \
+            set(want["cg"])
+        return
+    for key in ("flush_caches", "jax_profile_dir", "runs"):
+        assert doc[key] == want[key], key
+    assert doc["flush_caches"] == ("--flush-caches" in argv)
+    if "--jax-profile" not in argv:
+        assert doc["profiling_events"] is want["profiling_events"] is None
+        return
+    got, ref = doc["profiling_events"], want["profiling_events"]
+    assert "error" not in got and "error" not in ref
+    assert got["capture"].startswith(os.path.join("d", ""))
+    assert set(got) == set(ref)
+    assert {frozenset(p) for p in got["planes"]} == \
+        {frozenset(p) for p in ref["planes"]}
+    assert _event_keys(got) == _event_keys(ref)
+    assert [p["name"] for p in got["planes"]] == ["/host:CPU"]
 
 
 # --scaling is ported: these cases stood in test_unported_modes_exit_1 and

@@ -27,9 +27,10 @@ Stacked in rank order, the rows are held:
 In one process: ``initialize_distributed`` without an address,
 ``host_local_info``'s keys, the meshes that raise ``MeshError``, a
 container built on one process and handed a mesh that claims two ranks,
-the solvers that refuse a closure over a process mesh without its mesh,
-and block-Jacobi IC(0)'s shift ladder agreed across ranks (a fake group
-whose all-reduce a test plays: nothing is spawned).
+the solvers that reduce over the process mesh their closure carries (and
+refuse another ``mesh=``), and block-Jacobi IC(0)'s shift ladder agreed
+across ranks (a fake group whose all-reduce a test plays: nothing is
+spawned).
 """
 
 import json
@@ -353,25 +354,59 @@ def test_paths_not_carried_across_ranks_refuse_a_process_mesh(path):
         tpar.sharded_well_spmv(A, torch.zeros(4, 128), _fake())
 
 
-@pytest.mark.parametrize("solver", ["cg", "pcg", "batched_cg", "gmres",
-                                    "chebyshev", "lanczos_bounds",
-                                    "bicgstab", "lobpcg"])
-def test_solvers_refuse_a_process_closure_without_its_mesh(solver):
-    """A solver handed a closure over a process mesh, but not the mesh,
-    would reduce its dots over one rank's rows: it raises."""
-    matvec = (lambda v: v)               # noqa: E731
-    matvec.mesh = _fake()
-    b = torch.ones(4, 64)
-    run = {"cg": lambda: tops.conjugate_gradient(matvec, b),
+SOLVERS = ["cg", "pcg", "batched_cg", "gmres", "chebyshev",
+           "lanczos_bounds", "bicgstab", "lobpcg"]
+
+
+def _solve_on_closure(solver, **kw):
+    """Run ``solver`` over a diagonal SPD closure that carries a fake
+    two-rank mesh of 4 shards (rank 0's rows: 2 shards of 64)."""
+    mesh = _fake()
+    d = torch.linspace(1.0, 2.0, 128)
+    matvec = (lambda v: v * d.reshape(v.shape))          # noqa: E731
+    matvec.mesh = mesh
+    matmat = (lambda V: V * d[:, None])                  # noqa: E731
+    matmat.mesh = mesh
+    b = torch.ones(2, 64)
+    run = {"cg": lambda: tops.conjugate_gradient(matvec, b, **kw),
            "pcg": lambda: tops.preconditioned_conjugate_gradient(
-               matvec, b, lambda r: r),
+               matvec, b, lambda r: r, **kw),
            "batched_cg": lambda: tops.batched_conjugate_gradient(
-               matvec, b),
-           "gmres": lambda: tops.gmres(matvec, b),
-           "chebyshev": lambda: tops.chebyshev(matvec, b, 1.0, 2.0),
-           "lanczos_bounds": lambda: tops.lanczos_bounds(matvec, (4, 64)),
-           "bicgstab": lambda: tops.bicgstab(matvec, b),
-           "lobpcg": lambda: tops.lobpcg(matvec, torch.ones(256, 2))}[solver]
+               matmat, torch.ones(128, 2), **kw),
+           "gmres": lambda: tops.gmres(matvec, b, **kw),
+           "chebyshev": lambda: tops.chebyshev(matvec, b, 0.9, 2.1, **kw),
+           "lanczos_bounds": lambda: tops.lanczos_bounds(
+               matvec, (4, 64), num_steps=5, dtype=d.dtype, **kw),
+           "bicgstab": lambda: tops.bicgstab(matvec, b, **kw),
+           "lobpcg": lambda: tops.lobpcg(
+               matmat, torch.linspace(0.0, 1.0, 256).reshape(128, 2) ** 2,
+               max_iterations=3, **kw)}[solver]
+    return mesh, run
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_solvers_reduce_over_the_closures_mesh(solver, monkeypatch):
+    """A solver handed a closure over a process mesh, and no mesh=, sums
+    its dots over the closure's mesh: every all-reduce it makes goes to
+    that mesh (a fake group whose all-reduce is recorded and keeps this
+    rank's values)."""
+    from spmv_tpu_torch.parallel import comm
+
+    seen = []
+
+    def recorded(t, got_mesh):
+        seen.append(got_mesh)
+        return t
+
+    monkeypatch.setattr(comm, "all_reduce_sum", recorded)
+    mesh, run = _solve_on_closure(solver)
+    run()
+    assert seen and all(m is mesh for m in seen), seen[:3]
+
+
+def test_solver_refuses_a_mesh_other_than_its_closures():
+    """A mesh= that differs from the closure's raises before any dot."""
+    _, run = _solve_on_closure("cg", mesh=_fake(world=4))
     with pytest.raises(MeshError, match="mesh="):
         run()
 
