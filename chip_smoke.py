@@ -16,7 +16,9 @@ Phases (each prints readable lines; any failure exits non-zero):
    and K2 (k = 4) in float64, float32 and bfloat16 storage on
    poisson2d(512, 512), a banded matrix with offsets beyond +-128 and a
    4 x 5 rectangular matrix, then K1 / K2 in float32 and bfloat16 at
-   the main path's shape, poisson2d(4096, 4096).
+   the main path's shape, poisson2d(4096, 4096); each K2 on the path
+   dia_spmm_plan picks, its columns bitwise K1's SpMVs and a second
+   launch bitwise the first.
    Then the WELL-CW kernels K3a (fallback level), K3b (pool), K3c
    (merged grid) and the CSR kernel in float64 and float32 on
    banded_random(16384, 512, 6) (merged, 64- and 128-group tails),
@@ -501,6 +503,12 @@ bit.  ``--well-kernels-beside DIR`` does the same for K5a and K5b: the
 WELL SpMV at phase 13's poisson2d(1024, 1024) and poisson2d(4096, 4096)
 in float32 and float64, and at poisson2d(1000, 1000) in float64 (K5a,
 whose float64 x still fits whole), each output compared bit for bit.
+``--dia-kernels-beside DIR`` does the same for K2: the DIA SpMM alone at
+poisson2d(4096, 4096) with k = 4 and poisson2d(1024, 1024) with k = 8,
+in float32 and float64, and at the CLI's poisson2d(1024, 1024) with k =
+3 in float32, on the checkout's default path and on each path its
+dia_spmm_plan offers (slab, row), each beside its bound, every Y
+compared bit for bit across the paths and with the other checkout's.
 ``--tri-kernels-beside DIR`` does the same for the triangular solve:
 phase 28's natural-order IC(0) L and L^T of poisson2d(1024, 1024) and
 the colored ILU(0) unit L and U of poisson2d(2048, 2048) (the first run
@@ -901,13 +909,15 @@ def _rect_dia():
 def _compare(name, dia, dtype, device, k=SPMM_K):
     """K1 (plain and fused dot) and K2 (``k`` columns) against the plain
     versions on the same CUDA tensors; float32 also against the fp64 host
-    product.
-    Returns the max abs errors of K1 and K2 against the plain versions."""
+    product; K2's columns against K1 bit for bit, and K2 twice.
+    Returns the max abs errors of K1 and K2 against the plain versions and
+    whether K2 was bitwise K1's and its own."""
     import torch
 
     from spmv_tpu_torch.models import DeviceDia
     from spmv_tpu_torch.ops import (
         dia_spmm_core,
+        dia_spmm_plan,
         dia_spmm_reference,
         dia_spmv_core,
         dia_spmv_reference,
@@ -930,9 +940,19 @@ def _compare(name, dia, dtype, device, k=SPMM_K):
     tol = {"float64": TOL_F64, "float32": TOL_F32,
            "bfloat16": TOL_BF16}[dtn]
     e1, e2 = _rel(y, y_plain), _rel(Y, Y_plain)
-    line = f"[3 compare] {name} {dtn}: K1 {e1:.3e}, K2(k={k}) {e2:.3e}"
+    path = dia_spmm_plan(k, dtype, A.offsets, X.data_ptr() % 16 == 0,
+                         Y.data_ptr() % 16 == 0)["path"]
+    line = (f"[3 compare] {name} {dtn}: K1 {e1:.3e}, K2(k={k}, {path}) "
+            f"{e2:.3e}")
     if e1 > tol or e2 > tol:
         _fail(f"{line} > {tol}")
+    # K2's columns are K1's SpMVs bit for bit, and it repeats bitwise
+    bitwise = (torch.equal(Y, dia_spmm_core(A, X)) and all(
+        torch.equal(Y[:, c], dia_spmv_core(A, X[:, c].contiguous()))
+        for c in range(k)))
+    line += f", K2 columns and repeat bitwise {'yes' if bitwise else 'no'}"
+    if not bitwise:
+        _fail(f"{line}: K2 differs from K1 or from itself")
     if dtype == torch.float32:
         host = torch.from_numpy(dia.spmv(x.double().cpu().numpy()))
         eh = _rel(y.cpu(), host)
@@ -955,7 +975,7 @@ def _compare(name, dia, dtype, device, k=SPMM_K):
         _fail(f"{line} > {TOL_DOT[dtn]}")
     _say(line)
     return (float((y.double() - y_plain.double()).abs().max()),
-            float((Y.double() - Y_plain.double()).abs().max()))
+            float((Y.double() - Y_plain.double()).abs().max()), bitwise)
 
 
 @_walled
@@ -1263,7 +1283,11 @@ def phase_profile(device, full, full_mm, smi_line):
     import torch
 
     from spmv_tpu_torch.kernels import make_kernel
-    from spmv_tpu_torch.ops import dia_spmm_reference, dia_spmv_reference
+    from spmv_tpu_torch.ops import (
+        dia_spmm_plan,
+        dia_spmm_reference,
+        dia_spmv_reference,
+    )
     from spmv_tpu_torch.perfmodel import measured_machine
     from spmv_tpu_torch.profile import (
         profile_kernel_fn,
@@ -1319,8 +1343,12 @@ def phase_profile(device, full, full_mm, smi_line):
                               args, k_small=2, k_large=8,
                               runs=3).seconds_per_iteration
         times[("spmm", dtn)] = (t, t_plain)
-        _say(f"[5 profile] K2 {dtn} k={SPMM_K}: kernel {t * 1e3:.4f} ms, "
-             f"plain {t_plain * 1e3:.4f} ms, on {smi_line}")
+        V = args[0]
+        path = dia_spmm_plan(SPMM_K, dtype, A.offsets,
+                             V.data_ptr() % 16 == 0, True)["path"]
+        _say(f"[5 profile] K2 {dtn} k={SPMM_K} ({path} path): kernel "
+             f"{t * 1e3:.4f} ms, plain {t_plain * 1e3:.4f} ms, on "
+             f"{smi_line}")
         if dtype == torch.float32:
             # the yardstick: the card's CSR product of the same matrix,
             # and each kernel's bound at this shape
@@ -5843,7 +5871,11 @@ def _eigs_k2(device, mm, smi_line, triad_gbps, tag) -> dict:
     import torch
 
     from spmv_tpu_torch.models import DeviceDia, DiaMatrix
-    from spmv_tpu_torch.ops import dia_spmm_core, dia_spmm_reference
+    from spmv_tpu_torch.ops import (
+        dia_spmm_core,
+        dia_spmm_plan,
+        dia_spmm_reference,
+    )
 
     f32 = torch.float32
     A = DeviceDia.from_host(DiaMatrix.from_matrix_market(mm), dtype=f32,
@@ -5861,8 +5893,11 @@ def _eigs_k2(device, mm, smi_line, triad_gbps, tag) -> dict:
     lib = _yardstick(lambda: S @ X, flush)
     b = _bound(_nbytes(A.data, A.offsets_dev, X, Y),
                2 * mm.num_entries * EIGS_K, triad_gbps)
+    path = dia_spmm_plan(EIGS_K, f32, A.offsets, X.data_ptr() % 16 == 0,
+                         Y.data_ptr() % 16 == 0)["path"]
     _say(f"[{tag}] K2 alone at poisson2d({EIGS_GRID},{EIGS_GRID}) float32, "
-         f"k={EIGS_K} (CUDA graph, L2 flushed): {ms:.4f} ms, plain "
+         f"k={EIGS_K}, {path} path (CUDA graph, L2 flushed): {ms:.4f} ms "
+         f"({b['bound_ms'] / ms:.2f} of its bound), plain "
          f"{plain_ms:.4f} ms, torch.sparse CSR {lib['library_ms']:.4f} ms, "
          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), relative error "
          f"{err:.2e}, on {smi_line}")
@@ -5870,6 +5905,7 @@ def _eigs_k2(device, mm, smi_line, triad_gbps, tag) -> dict:
         _fail(f"K2 at the eigensolver's shape: relative error {err}")
     del A, X, Y, scratch, S
     return {"ms": ms, "plain_ms": plain_ms, "max_rel_err": err, **lib, **b,
+            "path": path,
             "shape": f"poisson2d({EIGS_GRID},{EIGS_GRID}) float32, "
                      f"k={EIGS_K}"}
 
@@ -9025,6 +9061,7 @@ def main() -> int:
             "max_abs_err_bf16": errs[bf16][1],
             "ms_bf16": times[("spmm", "bfloat16")][0] * 1e3,
             "plain_ms_bf16": times[("spmm", "bfloat16")][1] * 1e3,
+            "columns_bitwise_equal_to_spmv_kernel": errs[f32][2],
             **dia_extra["spmm"],
             "shape": f"poisson2d({FULL_GRID},{FULL_GRID}) float32, "
                      f"k={SPMM_K}",
@@ -9606,6 +9643,71 @@ print(json.dumps(found, default=str))
 """
 
 
+# K2 alone, in the checkout it runs from (this one or another commit's):
+# the DIA SpMM at the batched-CG shape, poisson2d(4096²) with k = 4, at the
+# eigensolver's, poisson2d(1024²) with k = 8, each in float32 and float64,
+# and at the CLI's --nrhs shape, poisson2d(1024²) with k = 3 in float32;
+# each timed as phase 29 times it (a CUDA graph of 20, the L2 flushed),
+# on every path the checkout's dia_spmm_plan offers for it (the default
+# pick first), with its bound; Y kept as a digest for a bitwise comparison
+# across checkouts and across paths; the JSON of its kernels on the last
+# line
+_PHASE_DIA = """
+import hashlib
+import json
+import sys
+import torch
+import chip_smoke as c
+from spmv_tpu_torch import ops
+from spmv_tpu_torch.io.generate import poisson2d
+from spmv_tpu_torch.models import DeviceDia, DiaMatrix
+device, smi = c.phase_device()
+c.phase_build()
+scratch = torch.empty(16 << 20, dtype=torch.float32, device=device)
+flush = lambda: scratch.fill_(0.0)
+# the parent's K2 has one path; this checkout's plan names its own
+plan = getattr(ops, "dia_spmm_plan", None)
+found, outs = {}, {}
+f32, f64 = torch.float32, torch.float64
+for grid, k, dtypes in ((c.FULL_GRID, c.SPMM_K, (f32, f64)),
+                        (c.EIGS_GRID, c.EIGS_K, (f32, f64)),
+                        (c.CLI_GRID, c.CLI_NRHS, (f32,))):
+    host = DiaMatrix.from_matrix_market(poisson2d(grid, grid))
+    for dt in dtypes:
+        A = DeviceDia.from_host(host, dtype=dt, device=device)
+        g = torch.Generator(device=device).manual_seed(26)
+        X = torch.randn(A.num_columns, k, generator=g, device=device,
+                        dtype=dt)
+        Y = torch.empty(A.num_rows, k, device=device, dtype=dt)
+        b = c._bound(c._nbytes(A.data, A.offsets_dev, X, Y),
+                     2 * host.num_entries * k, 1.0)
+        paths = [None]
+        if plan is not None:
+            paths += ["slab"] + (["row"] if plan(k, dt)["row_ok"] else [])
+        for path in paths:
+            kw = {} if path is None else {"path": path}
+            name = (f"dia_spmm_poisson2d({grid},{grid})_k{k}_{str(dt)[6:]}"
+                    + ("" if path is None else f"_{path}"))
+            ms = c._cold_graph_ms(lambda: ops.dia_spmm_core(A, X, out=Y, **kw),
+                                  flush, 20)
+            found[name] = {"ms": ms, "library_ms": None,
+                           "bound_ms": b["bound_ms"],
+                           "of_bound": b["bound_ms"] / ms}
+            Y.fill_(float("nan"))
+            ops.dia_spmm_core(A, X, out=Y, **kw)
+            outs[name] = torch.tensor(list(hashlib.sha256(
+                Y.cpu().numpy().tobytes()).digest()))
+            if path is not None:
+                same = torch.equal(outs[name], outs[name[:-len(path) - 1]])
+                print(f"{name}: bitwise the default path's: {same}")
+                if not same:
+                    c._fail(f"{name} differs from the default path's Y")
+        del A, X, Y
+torch.save(outs, sys.argv[1])
+print(json.dumps(found, default=str))
+"""
+
+
 def _phase_csr_script() -> str:
     from spmv_tpu_torch.models.device import LONG_ROW
 
@@ -9678,7 +9780,8 @@ BESIDE = {"--wellcw-kernels-beside": (_PHASE10, 10),
           "--csr-kernels-beside": (_phase_csr_script, 25),
           "--ell-kernels-beside": (_PHASE_ELL, 24),
           "--well-kernels-beside": (_PHASE_WELL, 13),
-          "--tri-kernels-beside": (_PHASE_TRI, 28)}
+          "--tri-kernels-beside": (_PHASE_TRI, 28),
+          "--dia-kernels-beside": (_PHASE_DIA, 5)}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 // Shared-memory mbarriers and bulk asynchronous copies (Hopper, sm_90a),
-// shared by bsr_spmm_tc.cu (TMA tensor loads) and wellcw_spmv.cu (1-D
-// bulk copies of the WELL-CW chunk stream and x window, L2 prefetches).
+// shared by bsr_spmm_tc.cu (TMA tensor loads), wellcw_spmv.cu (1-D bulk
+// copies of the WELL-CW chunk stream and x window, L2 prefetches) and
+// dia_spmm.cu (K2's slabs of X and of the diagonals).
 //
 // A producer thread arms a stage's "full" barrier with the bytes it
 // expects (mbar_expect_tx), issues the copies, and the copies complete
@@ -69,6 +70,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ uint64_t l2_evict_first() {
   uint64_t p;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_normal() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
                : "=l"(p));
   return p;
 }

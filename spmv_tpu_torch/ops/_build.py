@@ -168,7 +168,7 @@ def load_library() -> ctypes.CDLL:
     lib.dia_spmv_launch.restype = _I32
     lib.dia_spmm_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _I32, _I64, _I64, _I32, _PTR, _PTR,
-        _I32, _PTR]
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _PTR]
     lib.dia_spmm_launch.restype = _I32
     lib.wellcw_level_launch.argtypes = [
         _I32, _I32, _PTR, _PTR, _I32, _PTR, _PTR, _I32, _I64, _I64, _I64,

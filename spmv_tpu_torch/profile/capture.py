@@ -152,14 +152,16 @@ def _sync(device: torch.device) -> None:
 
 
 # Kernels launched in ``trace``'s warm-up step, before the window opens.
-# On an H100 (torch 2.11, CUDA 12.8) a capture loses the device records
-# of the first kernels it could record: one more for every 15 s since the
-# process's first capture, while their launch records stay (what
-# ``events_lost`` counts).  Sleeping at either end of the window changes
-# nothing; launches in the warm-up step take the loss in the window's
-# place, so 1024 of them cover about four hours.  Some captures lose more
-# all the same (python -m spmv_tpu_torch.profile.capture_study; PERF.md
-# §6).
+# On an H100 (torch 2.11, CUDA 12.8) CUPTI hands Kineto every device
+# record, and Kineto drops as outside its capture window the records of
+# the first K kernels it could record: one more for every 15 s since the
+# process's first capture, whatever the sleep at either end of the window
+# or in the warm-up step, while their launch records stay (what
+# ``events_lost`` counts).  Launches in the warm-up step take the loss in
+# the window's place, so 1024 of them cover about four hours.  Now and
+# then the device records stand milliseconds before their launches, and
+# the window's first records fall out all the same (python -m
+# spmv_tpu_torch.profile.capture_study; PERF.md §6).
 WARMUP_LAUNCHES = 1024
 
 

@@ -111,6 +111,7 @@ from spmv_tpu_torch.ops import (
     cw_merged_reference,
     cw_pool_reference,
     dia_spmm_core,
+    dia_spmm_plan,
     dia_spmm_reference,
     dia_spmv_core,
     dia_spmv_reference,
@@ -208,18 +209,91 @@ def test_k1_matches_plain(case, dtype, cuda):
     assert abs(float(dot) - float(want_dot)) / scale <= DOT_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", list(TOL), ids=str)
-@pytest.mark.parametrize("k", [1, 4, 11])
-def test_k2_matches_plain(k, dtype, cuda):
-    A = DeviceDia.from_host(_matrix("large_offsets"), dtype=dtype,
-                            device=cuda)
-    g = torch.Generator(device=cuda).manual_seed(2)
-    X = torch.randn(A.num_columns, k, generator=g, device=cuda).to(dtype)
+def _odd_view(rows, k, dtype, device, fill=None):
+    """A contiguous (rows, k) tensor whose first element lies one element
+    past its storage's start: 16-byte aligned only where 16 divides the
+    element size, so never here."""
+    flat = torch.empty(rows * k + 1, dtype=dtype, device=device)
+    view = flat[1:].view(rows, k)
+    if fill is not None:
+        view.copy_(fill)
+    return view
+
+
+def _k2_checked(A, X, out=None, path=None):
+    """K2 once more on the same X: one launch a product, the two Y
+    bitwise equal; returns Y."""
     before = dia_spmm_core.launches
-    Y = dia_spmm_core(A, X)
+    Y = dia_spmm_core(A, X, out=out, path=path)
+    Y2 = dia_spmm_core(A, X, path=path)
     torch.cuda.synchronize()
-    assert dia_spmm_core.launches == before + 1
+    assert dia_spmm_core.launches == before + 2
+    assert torch.equal(Y, Y2)
+    return Y
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "odd_offset"])
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("k", list(range(1, 18)))
+def test_k2_matches_plain(k, dtype, layout, cuda):
+    """K2 at k = 1-17 on the offsets -300..300 and the 4 x 5 rectangle:
+    the plain version within TOL, every column bitwise K1's SpMV of that
+    column, two launches bitwise equal, one launch a product; with X and
+    Y views one element past their storage's start (never 16-byte
+    aligned) as well as contiguous; on every path ``dia_spmm_plan`` can
+    take for them (the row path where k is one or two 16-byte groups and
+    X and Y are aligned), bitwise equal to each other."""
+    for case in ("large_offsets", "rectangular"):
+        A = DeviceDia.from_host(_matrix(case), dtype=dtype, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(2)
+        X = torch.randn(A.num_columns, k, generator=g, device=cuda).to(dtype)
+        out = None
+        if layout == "odd_offset":
+            X = _odd_view(A.num_columns, k, dtype, cuda, X)
+            out = _odd_view(A.num_rows, k, dtype, cuda)
+        Y = _k2_checked(A, X, out)
+        assert out is None or Y is out
+        assert _rel(Y, dia_spmm_reference(A, X)) <= TOL[dtype]
+        for c in range(k):
+            assert torch.equal(Y[:, c], dia_spmv_core(A, X[:, c].contiguous()))
+        plan = dia_spmm_plan(k, dtype, A.offsets, X.data_ptr() % 16 == 0,
+                             Y.data_ptr() % 16 == 0)
+        paths = ["slab"] + (["row"] if plan["row_ok"] else [])
+        assert plan["row_ok"] == (layout == "contiguous" and
+                                  k in (plan["width"], 2 * plan["width"]))
+        for path in paths:
+            assert torch.equal(_k2_checked(A, X, path=path), Y)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+@pytest.mark.parametrize("k", [1030, 2051])
+def test_k2_wide_k_takes_column_chunks(k, dtype, cuda):
+    """Past 256 groups of 16 bytes a row, a slab unit is one row and a
+    chunk of 256 groups: still the plain version, columns K1's bits, one
+    launch a product."""
+    A = DeviceDia.from_host(_matrix("poisson"), dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    X = torch.randn(A.num_columns, k, generator=g, device=cuda).to(dtype)
+    plan = dia_spmm_plan(k, dtype, A.offsets)
+    chunked = plan["groups"] > 256
+    assert (plan["chunks"] > 1, plan["passes"]) == (chunked,
+                                                    1 if chunked else 4)
+    Y = _k2_checked(A, X)
     assert _rel(Y, dia_spmm_reference(A, X)) <= TOL[dtype]
+    for c in (0, k // 2, k - 1):
+        assert torch.equal(Y[:, c], dia_spmv_core(A, X[:, c].contiguous()))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=str)
+def test_k2_without_diagonals_writes_zeros(dtype, cuda):
+    """A matrix with no stored diagonal: one launch, Y all zeros."""
+    A = DeviceDia.from_host(DiaMatrix.from_matrix_market(from_coo_arrays(
+        6, 7, np.array([], int), np.array([], int), np.array([]))),
+        dtype=dtype, device=cuda)
+    X = torch.ones(7, 5, dtype=dtype, device=cuda)
+    Y = _k2_checked(A, X, out=torch.full((6, 5), 7.0, dtype=dtype,
+                                         device=cuda))
+    assert torch.equal(Y, torch.zeros_like(Y))
 
 
 # name -> (matrix, host packing options, device options)

@@ -493,24 +493,80 @@ def _example(argv, env):
     return int(m0[1]), int(m0[2]), int(m1[1])
 
 
-def test_example_runs_under_torchrun_as_in_one_process():
-    """``examples/03_multichip_torch.py`` under ``torchrun
-    --nproc-per-node 2`` on the CPU (Gloo): rank 0 prints the JAX
-    example's two lines, at the single-process run's iteration counts."""
-    import socket
-
+def _torchrun_env():
+    """The CPU's environment for a ``torchrun`` job of the port: no
+    inherited rank, address or port, and torchrun's shared store left on
+    (``TORCH_DISABLE_SHARE_RDZV_TCP_STORE`` unset)."""
     env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     env[DEVICE_ENV] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
-                 "LOCAL_RANK"):
+                 "LOCAL_RANK", "TORCH_DISABLE_SHARE_RDZV_TCP_STORE"):
         env.pop(name, None)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    two = _example([sys.executable, "-m", "torch.distributed.run",
-                    "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
-                    "--master-port", str(port), EXAMPLE], env)
+    return env
+
+
+def _torchrun(nproc: int) -> list:
+    """``torchrun --standalone``: its agent binds the rendezvous store on
+    a port the kernel picks (``localhost:0``) and hands that store to the
+    ranks, so no port is chosen, released and claimed again, which
+    another process could take in between."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(nproc)]
+
+
+def test_example_runs_under_torchrun_as_in_one_process():
+    """``examples/03_multichip_torch.py`` under ``torchrun
+    --nproc-per-node 2`` on the CPU (Gloo): rank 0 prints the JAX
+    example's two lines, at the single-process run's iteration counts."""
+    env = _torchrun_env()
+    two = _example(_torchrun(2) + [EXAMPLE], env)
     one = _example([sys.executable, EXAMPLE], env)
     assert two == one
     assert one[0] == 4 and 0 < one[2] < one[1] < 500
+
+
+# one rank of ``torchrun --standalone``: initialize_distributed from
+# torchrun's environment, one all-reduce over the group, then the rank's
+# view of the job as JSON, in <argv[1]>/<rank>.json
+_RENDEZVOUS_RANK = """
+import json, os, sys
+import torch
+import torch.distributed as dist
+from spmv_tpu_torch.parallel import initialize_distributed
+assert initialize_distributed()
+t = torch.tensor([float(dist.get_rank() + 1)])
+dist.all_reduce(t)
+doc = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+       "backend": dist.get_backend(), "sum": float(t),
+       "port": int(os.environ["MASTER_PORT"]),
+       "agent_store": os.environ.get("TORCHELASTIC_USE_AGENT_STORE")}
+with open(os.path.join(sys.argv[1], f"{dist.get_rank()}.json"), "w") as f:
+    json.dump(doc, f)
+dist.destroy_process_group()
+"""
+
+
+def test_torchrun_standalone_rendezvous_on_the_cpu(tmp_path):
+    """The rendezvous the example's test runs under: two ranks of
+    ``torchrun --standalone`` meet on the store its agent bound, through
+    ``initialize_distributed`` (Gloo on the CPU), and agree on its
+    port."""
+    script = tmp_path / "rank.py"
+    script.write_text(_RENDEZVOUS_RANK)
+    try:
+        r = subprocess.run(_torchrun(2) + [str(script), str(tmp_path)],
+                           cwd=REPO, env=_torchrun_env(),
+                           capture_output=True, text=True,
+                           timeout=EXAMPLE_S)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"torchrun --standalone outlasted {EXAMPLE_S} s")
+    assert r.returncode == 0, r.stderr[-3000:]
+    docs = [json.loads((tmp_path / f"{rank}.json").read_text())
+            for rank in (0, 1)]
+    assert [d["rank"] for d in docs] == [0, 1]
+    assert {d["world"] for d in docs} == {2}
+    assert {d["backend"] for d in docs} == {"gloo"}
+    assert {d["sum"] for d in docs} == {3.0}
+    assert len({d["port"] for d in docs}) == 1 and docs[0]["port"] > 0
+    assert {d["agent_store"] for d in docs} == {"True"}

@@ -311,6 +311,64 @@ def test_card_capture_counts_the_records_it_lost(tmp_path, lost):
     assert section["planes"][0]["events_lost"] == len(lost)
 
 
+def _window_trace(path, launches, lost_first):
+    """A card's capture of one window as ``trace`` takes it: the
+    profiler's span, the window's step, ``launches`` K1 launches 20 us
+    apart, the first ``lost_first`` of them without their device record
+    (the loss a long-lived process's captures showed, PERF.md §6)."""
+    events = [
+        {"ph": "X", "cat": "Trace", "name": "PyTorch Profiler (0)",
+         "pid": "Spans", "tid": "PyTorch Profiler", "ts": 0.0,
+         "dur": 5000.0},
+        {"ph": "X", "cat": "user_annotation", "name": "ProfilerStep#1",
+         "pid": 11, "tid": 11, "ts": 1000.0, "dur": 3500.0},
+    ]
+    for i in range(launches):
+        ts = 1010.0 + 20.0 * i
+        events.append({"ph": "X", "cat": "cuda_runtime",
+                       "name": "cudaLaunchKernel", "pid": 11, "tid": 11,
+                       "ts": ts, "dur": 4.0, "args": {"correlation": i}})
+        if i >= lost_first:
+            events.append({
+                "ph": "X", "cat": "kernel",
+                "name": "void spmv_tpu_torch::(anonymous namespace)::"
+                        "dia_spmv_kernel<float, float, false>(...)",
+                "pid": 0, "tid": 7, "ts": ts + 6.0, "dur": 8.0,
+                "args": {"device": 0, "stream": 7, "correlation": i}})
+    with open(path, "w") as f:
+        json.dump({"deviceProperties": [{"id": 0, "name": "GPU"}],
+                   "traceEvents": events}, f)
+
+
+@pytest.mark.parametrize("lost_first", [0, 1, 20, 40])
+def test_window_that_loses_its_first_records(tmp_path, lost_first):
+    """A window of 83 K1 launches whose first K device records are gone
+    (K = 20 at 315 s and 40 after 13 minutes in a long-lived process on
+    an H100): ``events_lost`` is K on the card's plane, the kernel
+    counts the rest, and the capture study reads the losses as the
+    window's first K launches, at their places after the window's start."""
+    from spmv_tpu_torch.profile import capture_study
+
+    path = str(tmp_path / "window.pt.trace.json")
+    _window_trace(path, 83, lost_first)
+    with open(path) as f:
+        assert tc._events_lost(json.load(f)) == {"/device:GPU:0": lost_first}
+    gpu = tc.summarize_capture(path)["planes"][0]
+    assert gpu["events_lost"] == lost_first
+    assert [e["count"] for e in gpu["events"]] == [83 - lost_first]
+    r = capture_study.reading(path, 83)
+    assert (r["launch_records"], r["exported"]) == (83, 83 - lost_first)
+    assert r["lost_at"] == list(range(lost_first))
+    assert r["window_minus_profiler_us"] == 1000.0
+    if lost_first:
+        assert r["lost_minus_window_us"] == [10.0,
+                                             10.0 + 20.0 * (lost_first - 1)]
+        assert r["first_record_minus_window_us"][0] == (
+            16.0 + 20.0 * lost_first)
+    else:
+        assert r["lost_minus_window_us"] is None
+
+
 def test_profile_kernel_fn_between_runs():
     """The counterpart of tests/test_profile.py's: the flush hook runs
     before every timed run, not before the warm-up."""
